@@ -5,12 +5,15 @@ with hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``).  The JAX
 package stays the reference; this package imports ``torch`` and never
 ``jax``, and keeps the reference's module paths and names.
 
-This first slice covers the main path: the binary bit-packed CA step
-(``ops.ca_step``, kernel ``csrc/ca_step.cu``) and the fast renderer's fused
-frame kernel K1 (``render.render_fast``, kernel ``csrc/render_fast.cu``),
-driven by :class:`Engine` (``step``, ``render``, ``tick``, ``run``,
-``run_fused``).  On a CPU device the same calls run the kernels' plain
-torch versions.
+It covers the binary bit-packed CA step (``ops.ca_step``, kernel
+``csrc/ca_step.cu``), the fast renderer's fused frame kernel K1
+(``render.render_fast``, kernel ``csrc/render_fast.cu``) and its extended
+lighting at ≤ 256³ -- soft shadows, one- and multi-bounce GI, the
+temporally amortized mode (``render.render_slab`` with the occlusion kernel
+K2, ``csrc/shadow_sweep.cu``, and the cell-state kernel K3,
+``csrc/cell_state.cu``) -- driven by :class:`Engine` (``step``, ``render``,
+``tick``, ``run``, ``run_fused``).  On a CPU device the same calls run the
+kernels' plain torch versions.
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode

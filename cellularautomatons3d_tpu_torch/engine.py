@@ -7,14 +7,18 @@ frame, step when the accumulated frame time crosses
 production loop, on an explicit torch ``device``.
 
 On a CUDA device every CA step and every frame goes through the hand
-kernels (``csrc/ca_step.cu``, ``csrc/render_fast.cu``); on the CPU through
-their plain torch versions.  ``device="cuda"`` without a usable card
-raises: nothing moves silently to the CPU.
+kernels (``csrc/ca_step.cu``, ``csrc/render_fast.cu``, and with soft
+shadows or GI ``csrc/shadow_sweep.cu`` and ``csrc/cell_state.cu``); on the
+CPU through their plain torch versions.  ``device="cuda"`` without a usable
+card raises: nothing moves silently to the CPU.  With ``gi_temporal`` each
+:meth:`Engine.render` passes its frame count as the sample index, so the
+soft-shadow sample and the GI slot rotate and the EMA converges to the
+full lighting.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue-1 item: soft shadows, GI and ``gi_temporal`` (6); grids above 256³
-(7); a moving camera once history exists (8); checkpoints (9); the
-reference pipeline (11); ``mesh_devices`` (12); multi-state rules (14).
+queue-1 item: grids above 256³ (7); a moving camera once history exists
+(8); checkpoints (9); the reference pipeline (11); ``mesh_devices`` (12);
+multi-state rules (14).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ def _render_static(cfg: EngineConfig) -> RenderStatic:
         grid_size=cfg.grid_size,
         indirect_lighting=bool(cfg.indirect_lighting),
         soft_shadow_samples=int(cfg.soft_shadow_samples),
+        indirect_bounces=int(cfg.indirect_bounces),
         gi_temporal=bool(cfg.gi_temporal),
     )
     check_supported(s)
@@ -103,6 +108,7 @@ class Engine:
         self.render_static = _render_static(cfg)
         self.simulation_step = 0
         self._frame_duration = 0.0
+        self._render_count = 0
         self.history = init_fast_history(cfg.width, cfg.height, self.device)
         self._seed_state()
 
@@ -185,9 +191,12 @@ class Engine:
                 "a moving camera (history reprojection) is not ported yet "
                 "(ROADMAP.md queue 1, item 8)"
             )
+        sample_idx = self._render_count if self.config.gi_temporal else None
         frame, _, self.history = render_frame_fast(
-            self.render_static, self.state, params, self.history, True
+            self.render_static, self.state, params, self.history, True,
+            sample_idx,
         )
+        self._render_count += 1
         self.camera.end_frame()
         return frame
 

@@ -1,16 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``csrc/ca_step.cu`` and ``csrc/render_fast.cu``.  At first
-use they are compiled with ``nvcc`` into one shared library with a plain C
-interface and loaded with :mod:`ctypes`; no PyTorch headers are involved,
-so a build takes seconds.  The library goes to
-``build/cellularautomatons3d_tpu_torch/`` beside the package, named by a
-hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused.
+The sources are ``csrc/ca_step.cu`` (the CA step), ``csrc/render_fast.cu``
+(K1), ``csrc/shadow_sweep.cu`` (K2) and ``csrc/cell_state.cu`` (K3); K1 and
+K2 share the traversal in ``csrc/sweep.cuh``.  At first use each source is
+compiled by its own ``nvcc``, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+:mod:`ctypes`; no PyTorch headers are involved, so a build takes seconds.
+The library goes to ``build/cellularautomatons3d_tpu_torch/`` beside the
+package, named by a hash of the sources, the header and the flags, so an
+edited source builds anew and an unchanged one is reused.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 --fmad=false`` and the
 default IEEE division and square root (no ``--use_fast_math``).  The render
-kernel must keep the reference's float rounding: an FMA in ``ox + tm*dx``
+kernels must keep the reference's float rounding: an FMA in ``ox + tm*dx``
 can move a probe across a cell boundary and change a hit.
 
 Nothing here runs at import: :func:`library` builds and loads on its first
@@ -29,7 +31,7 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "NVCC_FLAGS", "BUILD_DIR", "SOURCES",
+    "NVCC_FLAGS", "BUILD_DIR", "SOURCES", "HEADERS",
     "build", "library", "require", "stream_of", "check",
 ]
 
@@ -37,13 +39,16 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = (
     PACKAGE_DIR / "csrc" / "ca_step.cu",
     PACKAGE_DIR / "csrc" / "render_fast.cu",
+    PACKAGE_DIR / "csrc" / "shadow_sweep.cu",
+    PACKAGE_DIR / "csrc" / "cell_state.cu",
 )
+HEADERS = (PACKAGE_DIR / "csrc" / "sweep.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -65,26 +70,42 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels (if this source set is not built yet); return
-    the library path.  The compiler's output, with ``-Xptxas -v``'s
-    register and spill counts, is kept beside it as ``.log``."""
+    the library path.  One ``nvcc -c`` per source runs in parallel, then
+    one link.  The compilers' output, with ``-Xptxas -v``'s register and
+    spill counts, is kept beside the library as ``.log``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libca3d_kernels_{h.hexdigest()[:16]}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            for src, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{Path(cmd[-1]).name} (exit code {proc.returncode}):\n{stderr[-4000:]}")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit code {proc.returncode}):\n{proc.stderr[-4000:]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -102,6 +123,12 @@ def library() -> ctypes.CDLL:
             _I, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
         ]
         lib.ca3d_render_fast.restype = _I
+        lib.ca3d_shadow_sweep.argtypes = [
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.ca3d_shadow_sweep.restype = _I
+        lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+        lib.ca3d_cell_state.restype = _I
         _lib = lib
     return _lib
 

@@ -1,0 +1,536 @@
+"""Extended lighting of the fast path at ≤ 256³: soft shadows and GI.
+
+Port of the single-slab semantics of
+``cellularautomatons3d_tpu.render.render_slab``: the hit geometry of a
+traced frame, the soft-shadow jitter, batched cell-exact occlusion (kernel
+K2), batched cell-state lookups (kernel K3), the direct-light occlusion
+quotient, the recursive indirect bounce and the one-launch lighting passes.
+On the card one launch traces the whole ≤ 256³ volume, so the reference's
+z-slab / x-brick machinery (``SlabGroup``, ``prep_slabs`` bricks, the
+tile-blocked layout) does not come across: ``prepped`` is the packed volume
+and its coarse occupancy mip (:func:`prep_volume`), images are ``[H, W]`` /
+``[H, W, 3]`` in image order.
+
+Two kernels, each with a plain torch version of the same contract that runs
+for CPU tensors and is the kernel's reference:
+
+* K2, occlusion (:func:`shadow_sweep` / :func:`shadow_sweep_cuda`,
+  ``csrc/shadow_sweep.cu``): the default sweep backend of the reference's
+  ``shadow_occlusion_batch``;
+* K3, cell state (:func:`cell_state` / :func:`cell_state_cuda`,
+  ``csrc/cell_state.cu``).
+
+:func:`shadow_occlusion_batch` and :func:`cell_state_batch` pick by device.
+
+Float rules: ray directions are normalised with ``1/sqrt`` (the reference
+uses ``lax.rsqrt``, which XLA:CPU does not round as IEEE; see PERF.md),
+every division has a tensor divisor (CUDA torch divides by a Python scalar
+as a multiply by its reciprocal), and the jitter hash evaluates ``sin`` in
+float64 rounded to float32, so the CPU and the card agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.occupancy import coarse_occupancy
+from . import brdf
+from .intersect import (
+    FULL_CUBE_SIZE,
+    HALF_CUBE_SIZE,
+    cube_face_normal,
+    device_vec,
+    ray_cube_intersect,
+)
+from .render_fast import (
+    OCCLUDED,
+    P_CELLMUL,
+    P_EMIS,
+    P_EMISS,
+    P_LIGHT,
+    P_LMAG,
+    P_LRAD,
+    P_MATC,
+    P_O,
+    P_REFL,
+    P_ROUGH,
+    P_ROW0,
+    P_TIME,
+    P_WIN,
+    _normalize3,
+    _pixel_rays,
+    _sweep,
+)
+from .renderer import _INDIRECT_LAYERS, _face_index
+
+__all__ = [
+    "Prepped",
+    "prep_volume",
+    "hit_geometry",
+    "soft_shadow_jitter",
+    "shadow_sweep",
+    "shadow_sweep_cuda",
+    "stack_occlusion_queries",
+    "shadow_occlusion_batch",
+    "cell_state",
+    "cell_state_cuda",
+    "stack_cell_queries",
+    "cell_state_batch",
+    "direct_occlusion",
+    "indirect_bounce",
+    "lighting_queries",
+    "lighting_passes",
+]
+
+
+class Prepped(NamedTuple):
+    """The volume as the occlusion and cell-state passes take it."""
+
+    vol: torch.Tensor     # packed words int32 [n/32, n, n]
+    coarse: torch.Tensor  # coarse occupancy mip int32 [n/8, n/8] (K2's skip)
+
+
+def prep_volume(packed: torch.Tensor, coarse: torch.Tensor | None = None) -> Prepped:
+    """The single-slab counterpart of the reference's ``prep_slabs``."""
+    return Prepped(packed, coarse_occupancy(packed) if coarse is None else coarse)
+
+
+def _cell_half(cam, n: int) -> float:
+    """Visible-cube half size, ``(1/n) * cell_size * 0.5`` in float32."""
+    return float(np.float32(1.0 / n) * np.float32(cam[P_CELLMUL]) * np.float32(0.5))
+
+
+# ------------------------------------------------------------ geometry ---
+
+
+def _hit_geometry(cam, idx_img, t_img, n, width, height):
+    """(q, origin, coords, found, d): hit_geometry's first four outputs and
+    the per-pixel world ray direction d [H, W, 3]."""
+    dev = idx_img.device
+    _, dx, dy, dz = _pixel_rays(cam, width, height, dev)
+    d = torch.stack([dx, dy, dz], dim=-1)
+    q = device_vec(cam[P_O : P_O + 3], dev) + d * t_img[..., None]
+    coords = torch.stack([idx_img % n, (idx_img // n) % n, idx_img // (n * n)], dim=-1)
+    cell = np.float32(FULL_CUBE_SIZE / n)
+    origin = coords.to(torch.float32) * float(cell) + float(cell * np.float32(0.5)) - HALF_CUBE_SIZE
+    return q, origin, coords, idx_img >= 0, d
+
+
+def hit_geometry(cam, idx_img, t_img, *, grid_size, width, height):
+    """(q, origin, coords, found, tf_miss) from a traced hit image: the
+    surface point, its cell's centre and integer coordinates (a miss, id -1,
+    decodes to (n-1, n-1, -1)), the hit mask, and the volume exit depth of
+    the rays that cross the volume (0 elsewhere)."""
+    q, origin, coords, found, d = _hit_geometry(cam, idx_img, t_img, grid_size, width, height)
+    o = np.asarray(cam[P_O : P_O + 3], np.float32)
+    t1 = torch.stack([torch.full_like(d[..., i], float(np.float32(-0.5) - o[i])) / d[..., i]
+                      for i in range(3)], dim=-1)
+    t2 = torch.stack([torch.full_like(d[..., i], float(np.float32(0.5) - o[i])) / d[..., i]
+                      for i in range(3)], dim=-1)
+    tf = torch.amin(torch.maximum(t1, t2), dim=-1)
+    tn = torch.amax(torch.minimum(t1, t2), dim=-1)
+    crossed = (tn <= tf) & (tf >= 0.0)
+    return q, origin, coords, found, torch.where(crossed, tf, 0.0)
+
+
+def _pixel_uv(cam, width, height, device):
+    """Global-window pixel uvs (ux, uy), each [H, W]."""
+    win_w, win_h = float(cam[P_WIN]), float(cam[P_WIN + 1])
+    px = torch.arange(width, dtype=torch.float32, device=device)[None, :].expand(height, width)
+    py = torch.arange(height, dtype=torch.float32, device=device)[:, None].expand(height, width)
+    ux = (px + 0.5) / torch.full_like(px, win_w)
+    uy = 1.0 - (py + float(cam[P_ROW0]) + 0.5) / torch.full_like(py, win_h)
+    return ux, uy
+
+
+def _jitter_constants(k: int):
+    """The hash offsets of soft-shadow sample ``k``, rounded to float32
+    once (a 1-ulp change would decorrelate the sin-fract hash)."""
+    return (np.float32(0.17 * k + 0.05), np.float32(0.29 * k + 0.11),
+            np.float32(0.41 * k + 0.23))
+
+
+def soft_shadow_jitter(cam, kk, width, height, nk=None, device=None):
+    """Jittered area-light offset [H, W, 3] for soft-shadow sample ``kk``:
+    the reference's sin-fract hash over global-window uvs (n1rand,
+    wgsl:171-180; renderer.py:218-222).
+
+    ``kk`` is an int, or an int tensor in [0, nk) (the temporally amortized
+    mode's rotating index): the per-sample constants then come from a table
+    of the same float32 values, so each rotated sample equals the static
+    one bit for bit."""
+    ux, uy = _pixel_uv(cam, width, height, device)
+    t = np.float32(cam[P_TIME])
+    base = float(np.float32(0.07) * (t - np.floor(t)))
+    if isinstance(kk, (int, np.integer)):
+        consts = [float(c) for c in _jitter_constants(int(kk))]
+    else:
+        if nk is None:
+            raise ValueError("a tensor sample index requires nk")
+        table = device_vec(
+            np.concatenate([_jitter_constants(k) for k in range(nk)]), ux.device
+        ).view(nk, 3)[kk]
+        consts = [table[0], table[1], table[2]]
+
+    def j1(cst):
+        ax = (ux + base) + cst
+        ay = (uy + base) + cst
+        arg = ax * 12.9898 + ay * 78.233
+        v = torch.sin(arg.to(torch.float64)).to(torch.float32) * 43758.5453
+        return (v - torch.floor(v)) - 0.5
+
+    rad2 = float(np.float32(2.0) * np.float32(cam[P_LRAD]))
+    return torch.stack([j1(c) for c in consts], dim=-1) * rad2
+
+
+# ------------------------------------------------------ K2: occlusion ---
+
+
+def _exit_t(s, d):
+    return torch.maximum((-0.5 - s) / d, (0.5 - s) / d)
+
+
+def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
+    """Plain torch K2: occluded flags int32 [nq, H, W] of the shadow rays
+    from ``start`` toward ``target`` (f32 [nq, 3, H, W]) over t in [0,
+    volume exit], skipping the cell ``excl`` (int32 [nq, 3, H, W]) component
+    by component; inactive lanes (``active`` bool [nq, H, W]) give 0."""
+    sx, sy, sz = start.unbind(1)
+    tx, ty, tz = target.unbind(1)
+    dx, dy, dz = _normalize3(tx - sx, ty - sy, tz - sz)
+    t1 = torch.minimum(torch.minimum(_exit_t(sx, dx), _exit_t(sy, dy)), _exit_t(sz, dz))
+    occluded = _sweep(
+        vol.reshape(-1), grid_size, cell_half, (sx, sy, sz), (dx, dy, dz),
+        torch.zeros_like(t1), t1, active, exclude=tuple(excl.unbind(1)),
+    )[0]
+    return occluded.to(torch.int32)
+
+
+def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
+                      cell_half):
+    """K2 on the card (``csrc/shadow_sweep.cu``): same contract as
+    :func:`shadow_sweep`; every tensor must be a contiguous CUDA tensor."""
+    n = grid_size
+    nq, _, h, w = start.shape
+    kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
+    kernels.require(coarse, "coarse", torch.int32, (n // 8, n // 8))
+    kernels.require(start, "start", torch.float32, (nq, 3, h, w))
+    kernels.require(target, "target", torch.float32, (nq, 3, h, w))
+    kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
+    kernels.require(active, "active", torch.bool, (nq, h, w))
+    out = torch.empty((nq, h, w), dtype=torch.int32, device=start.device)
+    err = kernels.library().ca3d_shadow_sweep(
+        start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
+        float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
+        excl.data_ptr(), active.data_ptr(), out.data_ptr(),
+        kernels.stream_of(start),
+    )
+    kernels.check(err, "shadow_sweep")
+    shadow_sweep_cuda.launches += 1
+    return out
+
+
+shadow_sweep_cuda.launches = 0
+
+
+def _stack3(vectors, shape):
+    """[H, W, 3] (or broadcastable) tensors → contiguous [nq, 3, H, W]."""
+    return torch.stack([torch.broadcast_to(v, shape).movedim(-1, 0) for v in vectors])
+
+
+def stack_occlusion_queries(queries, width, height):
+    """(start, target, excl, active) operands of K2 from a list of
+    (start [H,W,3], target [H,W,3] or [3], excl [H,W,3] int, active [H,W]
+    bool) queries."""
+    shape = (height, width, 3)
+    return (
+        _stack3([q[0] for q in queries], shape),
+        _stack3([q[1] for q in queries], shape),
+        _stack3([q[2] for q in queries], shape).to(torch.int32),
+        torch.stack([q[3] for q in queries]),
+    )
+
+
+def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
+                           height):
+    """Cell-exact occlusion for a batch of per-pixel ray queries (e.g. the
+    k jittered soft-shadow samples and the 4 GI slots), all in one launch.
+    Returns one bool [H, W] occlusion mask per query."""
+    ops = stack_occlusion_queries(queries, width, height)
+    kw = dict(grid_size=grid_size, cell_half=_cell_half(cam, grid_size))
+    if ops[0].device.type == "cpu":
+        occ = shadow_sweep(prepped.vol, *ops, **kw)
+    else:
+        occ = shadow_sweep_cuda(prepped.vol, prepped.coarse, *ops, **kw)
+    return list(occ == 1)
+
+
+# ----------------------------------------------------- K3: cell state ---
+
+
+def cell_state(vol, coords, active, *, grid_size):
+    """Plain torch K3: int32 [nq, H, W] cell states ``state(max(c, 0) mod
+    n)`` at ``coords`` (int32 [nq, 3, H, W]); inactive lanes give 0."""
+    n = grid_size
+    x, y, z = (torch.clamp(coords, min=0) % n).unbind(1)
+    word = vol.reshape(-1)[(((x >> 5) * n + z) * n + y).long()]
+    return torch.where(active, (word >> (x & 31)) & 1, 0).to(torch.int32)
+
+
+def cell_state_cuda(vol, coords, active, *, grid_size):
+    """K3 on the card (``csrc/cell_state.cu``): same contract as
+    :func:`cell_state`; every tensor must be a contiguous CUDA tensor."""
+    n = grid_size
+    nq, _, h, w = coords.shape
+    kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
+    kernels.require(coords, "coords", torch.int32, (nq, 3, h, w))
+    kernels.require(active, "active", torch.bool, (nq, h, w))
+    out = torch.empty((nq, h, w), dtype=torch.int32, device=coords.device)
+    err = kernels.library().ca3d_cell_state(
+        coords.device.index or 0, vol.data_ptr(), n, w, h, nq,
+        coords.data_ptr(), active.data_ptr(), out.data_ptr(),
+        kernels.stream_of(coords),
+    )
+    kernels.check(err, "cell_state")
+    cell_state_cuda.launches += 1
+    return out
+
+
+cell_state_cuda.launches = 0
+
+
+def stack_cell_queries(queries, width, height):
+    """(coords, active) operands of K3 from a list of (coords [H, W, 3]
+    int, active [H, W] bool) queries."""
+    coords = _stack3([c for c, _ in queries], (height, width, 3)).to(torch.int32)
+    return coords, torch.stack([a for _, a in queries])
+
+
+def cell_state_batch(queries, prepped: Prepped, *, grid_size, width, height):
+    """Cell states for a batch of per-pixel coordinate queries, in one
+    launch.  ``queries``: list of (coords [H, W, 3] int, active [H, W]
+    bool).  Returns one int32 [H, W] state image per query."""
+    coords, active = stack_cell_queries(queries, width, height)
+    fn = cell_state if coords.device.type == "cpu" else cell_state_cuda
+    return list(fn(prepped.vol, coords, active, grid_size=grid_size))
+
+
+# ------------------------------------------------------------ lighting ---
+
+
+@functools.lru_cache(maxsize=8)
+def _layers(device) -> torch.Tensor:
+    return torch.from_numpy(_INDIRECT_LAYERS).to(device)
+
+
+def _occlusion_quotient(occluded):
+    return torch.where(occluded, OCCLUDED, 1.0)
+
+
+def _shader(cam, n):
+    """calculate_lighting_at with this frame's material."""
+    return functools.partial(
+        brdf.calculate_lighting_at, grid_size=n, roughness=cam[P_ROUGH],
+        material_color=cam[P_MATC : P_MATC + 3],
+        base_reflectivity=cam[P_REFL : P_REFL + 3],
+    )
+
+
+def _slot_geometry(cam, n, point, pcoords, off, active):
+    """(n_cl, n_origin, n_point, ok) of one GI neighbour slot: the clamped
+    neighbour coordinates, its cell centre, where the ray along the
+    (unnormalised) offset enters its visible cube, and whether it does."""
+    cell = np.float32(FULL_CUBE_SIZE / n)
+    n_coords = pcoords + off
+    n_cl = torch.clamp(n_coords, min=0)
+    n_origin = (
+        n_coords.to(torch.float32) * float(cell) + float(cell * np.float32(0.5))
+        - HALF_CUBE_SIZE
+    )
+    n_dir = off.to(torch.float32)
+    t_near, t_far = ray_cube_intersect(point, n_dir, n_origin, _cell_half(cam, n))
+    ok = active & (t_near <= t_far) & (t_far >= 0.0)
+    n_point = point + n_dir * t_near[..., None]
+    return n_cl, n_origin, n_point, ok
+
+
+def direct_occlusion(cam, q, coords, found, prepped, *, grid_size, width,
+                     height, soft_k=1, jitter_k=None):
+    """Direct-light occlusion quotient [H, W]: hard (one ray per pixel) or
+    soft (``soft_k`` jittered area-light samples averaged,
+    renderer.py:212-224), all samples in one launch.  ``jitter_k``: the
+    temporally amortized mode's sample index in [0, soft_k), one jittered
+    sample per frame.  The direct-shadow half of :func:`lighting_passes`."""
+    return lighting_passes(
+        cam, q, None, coords, found, prepped, grid_size=grid_size,
+        width=width, height=height, soft_k=soft_k, jitter_k=jitter_k,
+    )[0]
+
+
+def indirect_bounce(vol, cam, q, origin, coords, found, prepped, *, grid_size,
+                    width, height, bounces=1, slot=None):
+    """Indirect GI (wgsl:307-377; renderer._indirect_lighting with the
+    stochastic shadow march replaced by cell-exact occlusion), each level's
+    4 neighbour slots batched into one K3 and one K2 launch.  ``bounces``
+    > 1 recursively adds each neighbour's own indirect term (4^b occlusion
+    queries).  ``slot``: the temporally amortized mode's single slot (int
+    or int tensor), scaled ×4, an unbiased estimate of the 4-slot sum;
+    requires ``bounces == 1``.  Returns rgb [H, W, 3].  (``vol`` is unused,
+    as in the reference.)"""
+    n = grid_size
+    dev = q.device
+    light = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
+    o = device_vec(cam[P_O : P_O + 3], dev)
+    lmag3 = torch.full_like(q, float(cam[P_LMAG]))
+    emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], dev)
+    layers = _layers(dev)
+    shade = _shader(cam, n)
+
+    def indirect_from(point, porigin, pcoords, viewer, active, depth_left):
+        face = _face_index(cube_face_normal(point, porigin))
+        if slot is None:
+            offs = [layers[:, i, :][face] for i in range(4)]
+        else:
+            offs = [layers[:, slot, :][face]]
+        slot_cl = [torch.clamp(pcoords + off, min=0) for off in offs]
+        slot_states = cell_state_batch(
+            [(cl, active) for cl in slot_cl], prepped, grid_size=n,
+            width=width, height=height,
+        )
+        slots = []
+        queries = []
+        for off, n_state in zip(offs, slot_states):
+            n_cl, n_origin, n_point, ok = _slot_geometry(
+                cam, n, point, pcoords, off, active & (n_state == 1)
+            )
+            slots.append((n_cl, n_origin, n_point, ok))
+            queries.append((n_point, light, n_cl, ok))
+        occs = shadow_occlusion_batch(
+            cam, queries, prepped, grid_size=n, width=width, height=height
+        )
+        total = torch.zeros_like(point)
+        for (n_cl, n_origin, n_point, ok), occluded in zip(slots, occs):
+            reflected = _occlusion_quotient(occluded)[..., None] * shade(
+                n_point, n_origin, n_cl, point, lmag3, light
+            )
+            reflected = reflected + emis
+            if depth_left > 1:
+                reflected = reflected + indirect_from(
+                    n_point, n_origin, n_cl, point, ok, depth_left - 1
+                )
+            bounce = shade(point, porigin, pcoords, viewer, reflected, n_point)
+            total = total + torch.where(ok[..., None], bounce, 0.0)
+        if slot is not None:
+            total = total * 4.0  # unbiased 1-of-4 estimator
+        return total
+
+    if slot is not None and int(bounces) > 1:
+        raise ValueError("temporal slot sampling requires bounces == 1")
+    return indirect_from(q, origin, coords, o, found, max(1, int(bounces)))
+
+
+def lighting_queries(cam, q, origin, coords, found, *, grid_size, width,
+                     height, soft_k=1, jitter_k=None, gi=False, gi_slot=None):
+    """The occlusion queries of :func:`lighting_passes`: (queries, slots,
+    n_soft) -- the ``n_soft`` direct-shadow queries (soft-shadow samples,
+    or the hard shadow) followed by one per GI slot, and each slot's
+    (n_cl, n_origin, n_point, ok_geo)."""
+    n = grid_size
+    dev = q.device
+    light = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
+    queries = []
+
+    n_soft = 0
+    if soft_k is not None:
+        if jitter_k is not None:
+            target = light + soft_shadow_jitter(
+                cam, jitter_k, width, height, nk=max(1, soft_k), device=dev
+            )
+            queries.append((q, target, coords, found))
+            n_soft = 1
+        else:
+            for kk in range(max(1, soft_k)):
+                if soft_k > 1:
+                    target = light + soft_shadow_jitter(cam, kk, width, height, device=dev)
+                else:
+                    target = light
+                queries.append((q, target, coords, found))
+            n_soft = max(1, soft_k)
+
+    slots = []
+    if gi:
+        layers = _layers(dev)
+        face = _face_index(cube_face_normal(q, origin))
+        if gi_slot is None:
+            offs = [layers[:, i, :][face] for i in range(4)]
+        else:
+            offs = [layers[:, gi_slot, :][face]]
+        for off in offs:
+            slot = _slot_geometry(cam, n, q, coords, off, found)
+            slots.append(slot)
+            queries.append((slot[2], light, slot[0], slot[3]))
+    return queries, slots, n_soft
+
+
+def lighting_passes(cam, q, origin, coords, found, prepped, *, grid_size,
+                    width, height, soft_k=1, jitter_k=None, gi=False,
+                    gi_slot=None):
+    """Soft-shadow occlusion and one-bounce GI with every occlusion query of
+    the frame in one K2 launch and the GI slots' states in one K3 launch.
+
+    The GI slots' occlusion rays depend only on the hit geometry, not on the
+    neighbour's state, which only gates whether a slot contributes, so the
+    ``soft_k`` jittered samples and the 4 slots (1 with ``gi_slot``) share
+    the launch.  Covers ``bounces == 1`` and the temporally amortized mode;
+    deeper recursion is :func:`indirect_bounce`.  ``soft_k=None``: no
+    direct-shadow queries.  Returns (occl [H, W] or None, gi_rgb [H, W, 3]
+    or None)."""
+    n = grid_size
+    dev = q.device
+    kw = dict(grid_size=n, width=width, height=height)
+    queries, slots, n_soft = lighting_queries(
+        cam, q, origin, coords, found, soft_k=soft_k, jitter_k=jitter_k,
+        gi=gi, gi_slot=gi_slot, **kw,
+    )
+    if not queries:
+        return None, None
+    occs = shadow_occlusion_batch(cam, queries, prepped, **kw)
+
+    occl = None
+    if n_soft:
+        occ_sum = torch.zeros_like(q[..., 0])
+        for occluded in occs[:n_soft]:
+            occ_sum = occ_sum + _occlusion_quotient(occluded)
+        div = 1 if jitter_k is not None else max(1, soft_k)
+        occl = occ_sum / torch.full_like(occ_sum, float(div))
+
+    gi_rgb = None
+    if gi:
+        light = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
+        o = device_vec(cam[P_O : P_O + 3], dev)
+        lmag3 = torch.full_like(q, float(cam[P_LMAG]))
+        emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], dev)
+        shade = _shader(cam, n)
+        slot_states = cell_state_batch(
+            [(n_cl, ok_geo) for n_cl, _, _, ok_geo in slots], prepped, **kw
+        )
+        total = torch.zeros_like(q)
+        for (n_cl, n_origin, n_point, ok_geo), st, occluded in zip(
+            slots, slot_states, occs[n_soft:]
+        ):
+            ok = ok_geo & (st == 1)
+            reflected = _occlusion_quotient(occluded)[..., None] * shade(
+                n_point, n_origin, n_cl, q, lmag3, light
+            ) + emis
+            bounce = shade(q, origin, coords, o, reflected, n_point)
+            total = total + torch.where(ok[..., None], bounce, 0.0)
+        if gi_slot is not None:
+            total = total * 4.0  # unbiased 1-of-4 estimator
+        gi_rgb = total
+
+    return occl, gi_rgb

@@ -1,7 +1,8 @@
-"""Render constants and per-frame parameters.
+"""Render constants, per-frame parameters and the GI neighbour layers.
 
-Port of ``RenderStatic`` and ``RenderParams`` from
-``cellularautomatons3d_tpu.render.renderer``.  The exact reference pipeline
+Port of ``RenderStatic``, ``RenderParams``, ``_INDIRECT_LAYERS`` and
+``_face_index`` from ``cellularautomatons3d_tpu.render.renderer``.  The exact
+reference pipeline
 (``render_frame``: stochastic march, reprojection) is not ported yet
 (ROADMAP.md queue 1, item 11).
 
@@ -17,16 +18,16 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 __all__ = ["RenderStatic", "RenderParams"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderStatic:
-    """Render constants fixed between rebuilds.  The port renders only the
-    hard-shadow fast path; the lighting extensions are kept so that asking
-    for them raises (``renderer_fast.check_supported``) instead of being
-    ignored.  The JAX package's reference-pipeline sample counts and
+    """Render constants fixed between rebuilds: the fast path's lighting
+    model (hard or soft shadows, one- or multi-bounce GI, the temporally
+    amortized mode).  The JAX package's reference-pipeline sample counts and
     sliced-path controls come with their ROADMAP items."""
 
     width: int
@@ -34,6 +35,13 @@ class RenderStatic:
     grid_size: int
     indirect_lighting: bool = False
     soft_shadow_samples: int = 1
+    # Recursion depth of the indirect term: 1 = the reference's single
+    # bounce (wgsl:307-377); b > 1 feeds each neighbour's own indirect
+    # radiance into the next level (4^b neighbour evaluations).
+    indirect_bounces: int = 1
+    # One rotating soft-shadow sample and GI slot per frame, converged by
+    # the temporal EMA; needs a frame counter (``sample_idx``) from the
+    # caller and ignores ``indirect_bounces``.
     gi_temporal: bool = False
 
 
@@ -55,3 +63,29 @@ class RenderParams(NamedTuple):
     light_radius: np.float32 = np.float32(0.0)
     emissive_color: np.ndarray = np.zeros(3, np.float32)
     emissive_strength: np.float32 = np.float32(0.0)
+
+
+# Neighbour-offset layers for indirect lighting, by face (wgsl:110-169):
+# order -x, +x, -y, +y, -z, +z; 4 edge-diagonal slots per face.
+_INDIRECT_LAYERS = np.array(
+    [
+        [[-1, 1, 0], [-1, -1, 0], [-1, 0, 1], [-1, 0, -1]],
+        [[1, 1, 0], [1, -1, 0], [1, 0, 1], [1, 0, -1]],
+        [[-1, -1, 0], [1, -1, 0], [0, -1, 1], [0, -1, -1]],
+        [[-1, 1, 0], [1, 1, 0], [0, 1, 1], [0, 1, -1]],
+        [[0, 1, -1], [0, -1, -1], [-1, 0, -1], [1, 0, -1]],
+        [[0, 1, 1], [0, -1, 1], [-1, 0, 1], [1, 0, 1]],
+    ],
+    dtype=np.int32,
+)
+
+
+def _face_index(normal: torch.Tensor) -> torch.Tensor:
+    """Face id (int64) from an axis-aligned normal: order -x,+x,-y,+y,-z,+z
+    (the wgsl layer selection, wgsl:110-169)."""
+    nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
+    return torch.where(
+        nx.abs() > 0.5,
+        torch.where(nx < 0, 0, 1),
+        torch.where(ny.abs() > 0.5, torch.where(ny < 0, 2, 3), torch.where(nz < 0, 4, 5)),
+    )

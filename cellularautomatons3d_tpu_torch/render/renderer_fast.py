@@ -1,15 +1,22 @@
-"""Fast render pipeline: the K1 kernel plus frame composition.
+"""Fast render pipeline: the K1 kernel, the extended lighting, and frame
+composition.
 
-Port of ``cellularautomatons3d_tpu.render.renderer_fast`` for the
-configurations this port covers: hard shadows, no GI, grid ≤ 256, a static
-camera, binary states.
+Port of ``cellularautomatons3d_tpu.render.renderer_fast`` for grids ≤ 256³,
+a static camera and binary states:
 
-* :func:`render_frame_fast` -- one frame: K1 in its non-compose mode, then
-  the temporal EMA (validated by the stored hit-cell id), the light cube,
-  f16 history, the depth overlay and gamma in torch.
-* :func:`make_fused_loop` -- the production loop (step + composed frame per
-  iteration, K1 in compose mode), with ``reset_every`` as a runtime
-  argument.  History is f32 inside the loop and f16 at its exit.
+* :func:`trace_shaded` -- the traced and shaded scene: K1 with the hard
+  shadow, or K1 unshadowed followed by the extended lighting of
+  ``render_slab`` (soft shadows through K2, one- or multi-bounce GI through
+  K2 and K3, the temporally amortized mode), then emissive light.
+* :func:`render_frame_fast` -- one frame: trace_shaded, then the temporal
+  EMA (validated by the stored hit-cell id), the light cube, f16 history,
+  the depth overlay and gamma in torch.
+* :func:`make_fused_loop` -- the production loop (CA steps + one composed
+  frame per iteration) with ``reset_every`` as a runtime argument: K1 in
+  compose mode for hard shadows without GI, the extended frame in image
+  layout for soft shadows, one-bounce and temporal GI, and
+  render_frame_fast per iteration for multi-bounce GI.  History is f32
+  inside the first two and f16 at their exit.
 """
 
 from __future__ import annotations
@@ -22,8 +29,19 @@ import torch
 from ..ops.ca_step import step_packed
 from ..ops.occupancy import coarse_occupancy
 from .camera import get_ray, pixel_uvs
-from .intersect import ray_cube_intersect
-from .render_fast import P_EMIS, P_EMISS, P_LEN, raytrace_tiles
+from .intersect import device_vec, ray_cube_intersect
+from .render_fast import (
+    P_ALPHA, P_EMIS, P_EMISS, P_GAMMA, P_LEN, P_LIGHT, P_O, P_OVERLAY,
+    raytrace_tiles,
+)
+from .render_slab import (
+    _hit_geometry,
+    _pixel_uv,
+    direct_occlusion,
+    indirect_bounce,
+    lighting_passes,
+    prep_volume,
+)
 from .renderer import RenderParams, RenderStatic
 
 __all__ = [
@@ -50,11 +68,6 @@ def init_fast_history(width: int, height: int, device) -> FastHistory:
 
 def check_supported(s: RenderStatic) -> None:
     """Raise NotImplementedError for render settings not ported yet."""
-    if s.soft_shadow_samples > 1 or s.indirect_lighting or s.gi_temporal:
-        raise NotImplementedError(
-            "soft shadows, GI and gi_temporal are not ported yet "
-            "(ROADMAP.md queue 1, item 6)"
-        )
     if s.grid_size > 256:
         raise NotImplementedError(
             "grids above 256³ (the sliced path) are not ported yet "
@@ -90,26 +103,84 @@ def _cam_vec(params: RenderParams, w, h) -> np.ndarray:
     return cam
 
 
-def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray):
+def _extended_lighting(s: RenderStatic, packed, coarse, cam, rgb, depth, idx,
+                       sample_idx):
+    """Soft shadows and GI on top of K1's frame (renderer_fast.py:121-178):
+    returns (rgb with occlusion and indirect light, the world ray
+    direction d [H, W, 3])."""
+    n, w, h = s.grid_size, s.width, s.height
+    soft = s.soft_shadow_samples > 1
+    gi = s.indirect_lighting
+    temporal = s.gi_temporal and sample_idx is not None
+    prepped = prep_volume(packed, coarse)
+    q, origin, coords, found, d = _hit_geometry(cam, idx, depth, n, w, h)
+    jitter_k = sample_idx % s.soft_shadow_samples if soft and temporal else None
+    kw = dict(grid_size=n, width=w, height=h)
+    if not gi or temporal or s.indirect_bounces == 1:
+        # Every occlusion query of the frame (soft samples and GI slots)
+        # rides one K2 launch.
+        occl, gi_rgb = lighting_passes(
+            cam, q, origin, coords, found, prepped,
+            soft_k=s.soft_shadow_samples if soft else None, jitter_k=jitter_k,
+            gi=gi, gi_slot=sample_idx % 4 if gi and temporal else None, **kw,
+        )
+    else:
+        # Multi-bounce recursion: per-level passes.
+        occl = (
+            direct_occlusion(cam, q, coords, found, prepped,
+                             soft_k=s.soft_shadow_samples, **kw)
+            if soft else None
+        )
+        gi_rgb = indirect_bounce(
+            packed, cam, q, origin, coords, found, prepped,
+            bounces=s.indirect_bounces, **kw,
+        )
+    if occl is not None:
+        # K1's rgb is unshadowed direct light when soft; occl multiplies it.
+        rgb = rgb * occl[..., None]
+    if gi_rgb is not None:
+        rgb = rgb + torch.where(found[..., None], gi_rgb, 0.0)
+    return rgb, d
+
+
+def _shaded(s: RenderStatic, packed, cam, sample_idx):
+    """trace_shaded's (rgb, depth, idx) and, with the extended lighting,
+    the world ray direction d [H, W, 3] (else None)."""
+    coarse = coarse_occupancy(packed)
+    rgb, depth, idx = raytrace_tiles(
+        packed, coarse, cam, grid_size=s.grid_size, width=s.width,
+        height=s.height, shadow=s.soft_shadow_samples <= 1,
+    )
+    d = None
+    if s.soft_shadow_samples > 1 or s.indirect_lighting:
+        rgb, d = _extended_lighting(s, packed, coarse, cam, rgb, depth, idx,
+                                    sample_idx)
+    emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], rgb.device)
+    rgb = torch.where((idx >= 0)[..., None], rgb + emis, rgb)
+    return rgb, depth, idx, d
+
+
+def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
+                 sample_idx=None):
     """Traced + shaded scene: (rgb [H,W,3] linear light, depth, hit_idx).
 
-    K1 with the hard shadow, then emissive radiance on every hit
-    (renderer.py:263-264)."""
+    K1 with the hard shadow (unshadowed when soft shadows replace it), the
+    extended lighting of ``render_slab`` when soft shadows or GI are on,
+    then emissive radiance on every hit (renderer.py:263-264).
+    ``sample_idx``: the frame counter of the temporally amortized mode
+    (``s.gi_temporal``), an int or an int tensor; it rotates the
+    soft-shadow sample and the GI slot."""
     check_supported(s)
-    rgb, depth, idx = raytrace_tiles(
-        packed, coarse_occupancy(packed), cam,
-        grid_size=s.grid_size, width=s.width, height=s.height, shadow=True,
-    )
-    emis = torch.from_numpy(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS]).to(rgb.device)
-    rgb = torch.where((idx >= 0)[..., None], rgb + emis, rgb)
-    return rgb, depth, idx
+    return _shaded(s, packed, cam, sample_idx)[:3]
 
 
 def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
                       params: RenderParams, history: FastHistory,
-                      camera_static: bool = True):
+                      camera_static: bool = True, sample_idx=None):
     """One fast-path frame.  Returns (presentation [H,W,3] f32, depth
-    [H,W] f32, new FastHistory).  Static camera only: the reprojection of a
+    [H,W] f32, new FastHistory).  ``sample_idx``: the frame counter of the
+    temporally amortized lighting mode; the EMA converges to the full
+    multi-sample lighting.  Static camera only: the reprojection of a
     moving camera is not ported yet."""
     if not camera_static:
         raise NotImplementedError(
@@ -118,7 +189,7 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
         )
     h, w = s.height, s.width
     cam = _cam_vec(params, w, h)
-    rgb, depth, idx = trace_shaded(s, packed, cam)
+    rgb, depth, idx = trace_shaded(s, packed, cam, sample_idx)
     dev = rgb.device
 
     uv = pixel_uvs(w, h, device=dev)
@@ -157,37 +228,100 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
     return presentation, depth, new_history
 
 
+def _ext_frame(s: RenderStatic, vis, cam, hist, sample_idx):
+    """One extended-lighting frame (soft shadows, one-bounce or temporal
+    GI) of the fused loop, composed in torch: trace_shaded (K1, one K2 and
+    one K3 launch, emissive light), the id-checked EMA against the f32 history,
+    the light cube, the depth overlay and gamma (_ext_frame_blocked,
+    renderer_fast.py:318-407, in image layout).  Returns (presentation,
+    new history (color f32, ids))."""
+    rgb, depth, idx, d = _shaded(s, vis, cam, sample_idx)
+    dev = rgb.device
+    found = idx >= 0
+    prev, prev_idx = hist
+    same = (idx == prev_idx) & found
+    mixed = torch.clamp(prev + (rgb - prev) * float(cam[P_ALPHA]), 0.0, 1.0)
+    out = torch.where(same[..., None], mixed, rgb)
+    lt_near, lt_far = ray_cube_intersect(
+        device_vec(cam[P_O : P_O + 3], dev), d,
+        device_vec(cam[P_LIGHT : P_LIGHT + 3], dev), float(np.float32(0.005)),
+    )
+    light_hit = (lt_near <= lt_far) & (lt_far >= 0.0)
+    black = (out == 0.0).all(dim=-1)
+    out = torch.where((light_hit & black)[..., None], 1.0, out)
+    new_hist = (out, idx)
+
+    # Depth overlay before gamma, as render_frame_fast.
+    ux, _ = _pixel_uv(cam, s.width, s.height, dev)
+    overlay = (ux < 0.5) & bool(cam[P_OVERLAY] == 1.0)
+    overlay_rgb = torch.stack([depth, torch.zeros_like(depth), torch.zeros_like(depth)], dim=-1)
+    out = torch.where(overlay[..., None], overlay_rgb, out)
+    pres = torch.pow(out, float(np.float32(1.0) / cam[P_GAMMA]))
+    return pres, new_hist
+
+
 def make_fused_loop(s: RenderStatic, spec, frames: int,
                     steps_per_frame: int = 1, reset_every: int = 0):
     """The production loop: ``frames`` iterations of (CA steps + one
-    composed frame), K1 in compose mode.
+    composed frame).
 
     Returns ``run(state, params, history) -> (state, history, last_frame)``.
     ``reset_every > 0`` restores the input state after every that many
     frames (the benchmark's pinned scene: every frame still steps and
-    renders).  Static camera.  The input ``state`` is not modified."""
+    renders).  Static camera.  The input ``state`` is not modified.  With
+    ``s.gi_temporal`` the sample index is the loop counter, from 0 on each
+    call.
+
+    Three branches, as in the reference: hard shadows without GI compose
+    in K1; soft shadows, one-bounce and temporal GI run :func:`_ext_frame`
+    with an f32 history; multi-bounce GI runs :func:`render_frame_fast`
+    per iteration, whose history is f16 between frames."""
     check_supported(s)
     if spec.total_states != 2:
         raise NotImplementedError(
             "multi-state rules are not ported yet (ROADMAP.md queue 1, item 14)"
         )
     h, w, n = s.height, s.width, s.grid_size
+    use_compose = s.soft_shadow_samples <= 1 and not s.indirect_lighting
+    use_ext = not use_compose and (
+        not s.indirect_lighting or s.gi_temporal or s.indirect_bounces == 1
+    )
+
+    def steps(st):
+        for _ in range(steps_per_frame):
+            st = step_packed(st, spec)
+        return st
+
+    def reset(i, st, state):
+        return state if reset_every > 0 and (i + 1) % reset_every == 0 else st
 
     def run(state, params: RenderParams, history: FastHistory):
         cam = _cam_vec(params, w, h)
-        hist = (history.color.to(torch.float32), history.hit_idx)
-        st = state
         frame = torch.zeros((h, w, 3), dtype=torch.float32, device=state.device)
+        st = state
+        if not use_compose and not use_ext:
+            hist = history
+            for i in range(frames):
+                st = steps(st)
+                frame, _, hist = render_frame_fast(
+                    s, st, params, hist, True, i if s.gi_temporal else None
+                )
+                st = reset(i, st, state)
+            return st, hist, frame
+        hist = (history.color.to(torch.float32), history.hit_idx)
         for i in range(frames):
-            for _ in range(steps_per_frame):
-                st = step_packed(st, spec)
-            frame, _, idx, color = raytrace_tiles(
-                st, coarse_occupancy(st), cam, hist,
-                grid_size=n, width=w, height=h, shadow=True,
-            )
-            hist = (color, idx)
-            if reset_every > 0 and (i + 1) % reset_every == 0:
-                st = state
+            st = steps(st)
+            if use_compose:
+                frame, _, idx, color = raytrace_tiles(
+                    st, coarse_occupancy(st), cam, hist,
+                    grid_size=n, width=w, height=h, shadow=True,
+                )
+                hist = (color, idx)
+            else:
+                frame, hist = _ext_frame(
+                    s, st, cam, hist, i if s.gi_temporal else None
+                )
+            st = reset(i, st, state)
         new_history = FastHistory(color=hist[0].to(torch.float16), hit_idx=hist[1])
         return st, new_history, frame
 

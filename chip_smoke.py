@@ -19,7 +19,18 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       device="cuda"): step(80), render() twice, run_fused(150,
       reset_every=10), with both kernels' launch counters read around it.
   (d) timings with CUDA events (kernel vs plain, CA step, step + composed
-      frame), beside the card's name and power limit.
+      frame; K2 and K3 vs plain, the lighting passes, and step + frame of
+      the three lighting configurations), beside the card's name and power
+      limit.  It runs last, after (e).
+  (e) the extended-lighting path: K2 (occlusion sweep) and K3 (cell
+      state) vs their plain versions, equal on every (query, pixel), on
+      the 8 occlusion queries (4 soft-shadow samples, 4 GI slots) and 4
+      GI lookups of a full-quality frame at 64³ / 128×64 and 256³ /
+      1920×1080 on the scene after 80 steps; the Engine on the card vs on
+      the CPU at 64³ for full quality, gi_temporal and two-bounce GI; then
+      each of the three at real size, Engine(256, 1920×1080, soft shadows
+      ×4, GI, light_radius 0.08): step(80), render(), run_fused(50,
+      reset_every=10), with every kernel's launch counter read around it.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -40,6 +51,12 @@ HERE = Path(__file__).resolve().parent
 sys.modules["jax"] = None  # the port must not import JAX (ImportError if it tries)
 
 GRID, WIDTH, HEIGHT = 256, 1920, 1080   # the main path's full size
+LIGHTING = dict(soft_shadow_samples=4, indirect_lighting=True, light_radius=0.08)
+LIGHTING_VARIANTS = {
+    "full_quality": {},
+    "gi_temporal": dict(gi_temporal=True),
+    "two_bounces": dict(indirect_bounces=2),
+}
 ID_MISMATCH_LIMIT = 1e-4   # fraction of pixels; see CHANGES.md
 DEPTH_ATOL = 3e-5
 RGB_RTOL, RGB_ATOL = 3e-3, 3e-4
@@ -101,6 +118,7 @@ def main() -> dict:
     from cellularautomatons3d_tpu_torch.ops import ca_step
     from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
     from cellularautomatons3d_tpu_torch.render import render_fast as rf
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
     from cellularautomatons3d_tpu_torch.utils import mat4
 
     dev = torch.device("cuda", 0)
@@ -154,12 +172,12 @@ def main() -> dict:
     # ------------------------------------------ (b) K1 kernel vs plain ---
     defaults = ct.EngineConfig()
 
-    def scene_cam(view, w, h):
+    def scene_cam(view, w, h, **kw):
         return rf.pack_cam(
             view, w, h, defaults.light.position, defaults.light.magnitude,
             defaults.cell_size, defaults.roughness, defaults.base_reflectivity,
             defaults.material_color, temporal_alpha=defaults.temporal_alpha,
-            gamma=defaults.gamma,
+            gamma=defaults.gamma, **kw,
         )
 
     def grown(size, steps=80):
@@ -294,6 +312,89 @@ def main() -> dict:
         f"in {main_s:.2f} s; launches {launches}; hit fraction {hits:.3f}")
     report["launches"] = launches
 
+    # --------------------------------- (e) extended lighting: K2 and K3 ---
+    def lighting_operands(size, w, h):
+        """K2's and K3's operands of a full-quality frame, as the port
+        builds them: 4 soft-shadow samples + 4 GI slots, 4 GI lookups."""
+        vol = grown(size)
+        coarse = coarse_occupancy(vol)
+        cam = scene_cam(views["front"], w, h, light_radius=LIGHTING["light_radius"],
+                        elapsed_time=0.37)
+        _, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=size,
+                                         width=w, height=h, shadow=False)
+        q, origin, coords, found, _ = rs.hit_geometry(
+            cam, idx, depth, grid_size=size, width=w, height=h)
+        queries, slots, _ = rs.lighting_queries(
+            cam, q, origin, coords, found, grid_size=size, width=w, height=h,
+            soft_k=LIGHTING["soft_shadow_samples"], gi=True)
+        k2 = rs.stack_occlusion_queries(queries, w, h)
+        k3 = rs.stack_cell_queries([(sl[0], sl[3]) for sl in slots], w, h)
+        return vol, coarse, cam, (q, origin, coords, found), k2, k3
+
+    for size, w, h in ((64, 128, 64), (GRID, WIDTH, HEIGHT)):
+        vol, coarse, cam, geo, k2, k3 = lighting_operands(size, w, h)
+        kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        got = rs.shadow_sweep_cuda(vol, coarse, *k2, **kw)
+        want = rs.shadow_sweep(vol, *k2, **kw)
+        got3 = rs.cell_state_cuda(vol, *k3, grid_size=size)
+        want3 = rs.cell_state(vol, *k3, grid_size=size)
+        torch.cuda.synchronize()
+        k2_bad, k3_bad = int((got != want).sum()), int((got3 != want3).sum())
+        log(f"  {size}^3 {w}x{h}: K2 {k2[0].shape[0]} queries, "
+            f"{int(k2[3].sum())} active, {int(want.sum())} occluded, {k2_bad} differ; "
+            f"K3 {k3[0].shape[0]} queries, {int(k3[1].sum())} active, "
+            f"{int(want3.sum())} live, {k3_bad} differ")
+        need(k2_bad == 0, f"K2 kernel != plain at {size}^3: {k2_bad} flags differ")
+        need(k3_bad == 0, f"K3 kernel != plain at {size}^3: {k3_bad} states differ")
+        need(int(want.sum()) > 0 and int(want3.sum()) > 0,
+             f"{size}^3: the lighting queries never occlude or find a live cell")
+    timed_k23 = (vol, coarse, cam, geo, k2, k3, kw)
+
+    # The Engine on the card against the Engine on the CPU.
+    small = dict(grid_size=64, width=128, height=64, **LIGHTING)
+    engine_frames = {"full_quality": 2, "gi_temporal": 4, "two_bounces": 2}
+    for name, variant in LIGHTING_VARIANTS.items():
+        t0 = time.perf_counter()
+        out = []
+        for d in ("cuda", "cpu"):
+            e_small = ct.Engine(device=d, **small, **variant)
+            e_small.step(30)
+            fr = [e_small.render() for _ in range(engine_frames[name])]
+            fr.append(e_small.run_fused(2, reset_every=1))
+            out.append(([f.cpu() for f in fr], e_small.history.hit_idx.cpu()))
+        (gpu, gidx), (cpu, cidx) = out
+        need(torch.equal(gidx, cidx), f"{name}: Engine ids cuda != cpu")
+        for a, b in zip(gpu, cpu):
+            need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+                 f"{name}: Engine frame cuda vs cpu: max err {float((a - b).abs().max())}")
+        log(f"  Engine {name} cuda == cpu at 64^3 ({len(gpu)} frames, "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+    # The three lighting configurations at real size.
+    counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.shadow_sweep_cuda,
+               rs.cell_state_cuda)
+    lighting_launches, lighting_engines = {}, {}
+    for name, variant in LIGHTING_VARIANTS.items():
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng_l = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda",
+                          **LIGHTING, **variant)
+        eng_l.step(80)
+        fr = [eng_l.render(), eng_l.run_fused(50, reset_every=10)]
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counted}
+        for i, f in enumerate(fr):
+            need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
+            need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
+            need(float(f.max()) > 0.0, f"{name} frame {i} is black")
+        need(all(v > 0 for v in counts.values()), f"{name} missed a kernel: {counts}")
+        log(f"(e) {name}: step(80), render(), run_fused(50, reset_every=10) in "
+            f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+        lighting_launches[name] = counts
+        lighting_engines[name] = eng_l
+    report["lighting_launches"] = lighting_launches
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
@@ -307,11 +408,27 @@ def main() -> dict:
     eng.run_fused(10, reset_every=10)
     fused_ms = cuda_ms(torch, lambda: eng.run_fused(100, reset_every=10), 1, warmup=0) / 100
     render_ms = cuda_ms(torch, eng.render, 20, warmup=2)
+    vol, coarse, cam, geo, k2, k3, kw = timed_k23
+    k2_ms = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **kw), 20, warmup=2)
+    k2_plain_ms = cuda_ms(torch, lambda: rs.shadow_sweep(vol, *k2, **kw), 1, warmup=0)
+    k3_ms = cuda_ms(torch, lambda: rs.cell_state_cuda(vol, *k3, grid_size=GRID), 50, warmup=2)
+    k3_plain_ms = cuda_ms(torch, lambda: rs.cell_state(vol, *k3, grid_size=GRID), 10, warmup=1)
+    passes_ms = cuda_ms(torch, lambda: rs.lighting_passes(
+        cam, *geo, rs.prep_volume(vol, coarse), grid_size=GRID, width=WIDTH,
+        height=HEIGHT, soft_k=LIGHTING["soft_shadow_samples"], gi=True), 5, warmup=1)
+    lighting_ms = {
+        f"{name}_step_plus_frame_ms": cuda_ms(
+            torch, lambda e=e: e.run_fused(20, reset_every=10), 1, warmup=0) / 20
+        for name, e in lighting_engines.items()
+    }
     timings = {
         "ca_step_ms": ca_ms, "ca_step_plain_ms": ca_plain_ms,
         "k1_compose_ms": k1_ms, "k1_noncompose_ms": k1_nc_ms,
         "k1_plain_compose_ms": k1_plain_ms, "coarse_occupancy_ms": occ_ms,
         "pinned_step_plus_frame_ms": fused_ms, "render_call_ms": render_ms,
+        "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
+        "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
+        "lighting_passes_ms": passes_ms, **lighting_ms,
     }
     report["timings"] = timings
     report["card"] = card
@@ -330,6 +447,16 @@ def main() -> dict:
          "replaces": "cellularautomatons3d_tpu/render/render_fast.py:1018",
          "launches": launches["render_fast"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "shadow_sweep", "route": "cuda",
+         "source": "cellularautomatons3d_tpu_torch/csrc/shadow_sweep.cu",
+         "replaces": "cellularautomatons3d_tpu/render/render_slab.py:354",
+         "launches": sum(c["shadow_sweep_cuda"] for c in lighting_launches.values()),
+         "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "cell_state", "route": "cuda",
+         "source": "cellularautomatons3d_tpu_torch/csrc/cell_state.cu",
+         "replaces": "cellularautomatons3d_tpu/render/render_slab.py:687",
+         "launches": sum(c["cell_state_cuda"] for c in lighting_launches.values()),
+         "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]
     need("jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None},
          "JAX was imported")

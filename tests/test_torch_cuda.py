@@ -75,3 +75,83 @@ def test_k1_kernel_matches_plain(cuda, shadow, compose):
     torch.testing.assert_close(got[0], want[0], atol=3e-4, rtol=3e-3)
     if compose:
         torch.testing.assert_close(got[3], want[3], atol=3e-4, rtol=3e-3)
+
+
+def _lighting_operands(device):
+    """A full-quality frame's 8 occlusion queries (4 jittered samples, 4 GI
+    slots) and its 4 GI slot lookups at 64³, built as the port builds
+    them, plus random rays and coordinates."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol = random_volume(device, 5, 0.05)
+    coarse = coarse_occupancy(vol)
+    cam = rf.pack_cam(
+        mat4.initial_view_matrix(), W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+        (0.17,) * 3, (0.0,) * 3, light_radius=0.08, elapsed_time=0.37,
+    )
+    _, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=N, width=W,
+                                     height=H, shadow=False)
+    q, origin, coords, found, _ = rs.hit_geometry(cam, idx, depth, grid_size=N,
+                                                  width=W, height=H)
+    queries, slots, _ = rs.lighting_queries(
+        cam, q, origin, coords, found, grid_size=N, width=W, height=H,
+        soft_k=4, gi=True)
+    k2_ops = rs.stack_occlusion_queries(queries, W, H)
+    k3_ops = rs.stack_cell_queries([(s[0], s[3]) for s in slots], W, H)
+    assert k2_ops[0].shape[0] == 8 and k3_ops[0].shape[0] == 4
+    g = torch.Generator(device).manual_seed(3)
+    rnd = lambda *s: torch.rand(*s, device=device, generator=g)  # noqa: E731
+    start = torch.cat([k2_ops[0], rnd(2, 3, H, W) * 1.4 - 0.7])
+    target = torch.cat([k2_ops[1], rnd(2, 3, H, W) * 2.0 - 1.0])
+    flat = rnd(H, W) < 0.5  # rays with dz == 0, which never hit
+    target[-1, 2] = torch.where(flat, start[-1, 2], target[-1, 2])
+    excl = torch.cat([k2_ops[2], torch.floor((start[8:] + 0.5) * N).to(torch.int32)])
+    active = torch.cat([k2_ops[3], rnd(2, H, W) < 0.5])
+    coords3 = torch.cat([k3_ops[0], (rnd(2, 3, H, W) * (2 * N + 3) - 3).to(torch.int32)])
+    active3 = torch.cat([k3_ops[1], rnd(2, H, W) < 0.7])
+    cell_half = float(np.float32(1.0 / N) * np.float32(0.85) * np.float32(0.5))
+    return vol, coarse, (start, target, excl, active), (coords3, active3), cell_half
+
+
+def test_k2_kernel_matches_plain(cuda):
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol, coarse, ops, _, cell_half = _lighting_operands(cuda)
+    got = rs.shadow_sweep_cuda(vol, coarse, *ops, grid_size=N, cell_half=cell_half)
+    want = rs.shadow_sweep(vol, *ops, grid_size=N, cell_half=cell_half)
+    assert torch.equal(got, want)
+    assert int(want[:8].sum()) > 0 and int(want[8:].sum()) > 0
+    start, target = ops[0][-1, 2], ops[1][-1, 2]
+    assert not want[-1][target == start].any()
+
+
+def test_k3_kernel_matches_plain(cuda):
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol, _, _, (coords, active), _ = _lighting_operands(cuda)
+    got = rs.cell_state_cuda(vol, coords, active, grid_size=N)
+    want = rs.cell_state(vol, coords, active, grid_size=N)
+    assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize(
+    "lighting",
+    [dict(), dict(gi_temporal=True), dict(indirect_bounces=2)],
+    ids=["full_quality", "gi_temporal", "two_bounces"],
+)
+def test_lighting_engine_matches_cpu(cuda, lighting):
+    """The Engine on the card against the Engine on the CPU: ids equal,
+    frames within rtol 3e-3 / atol 3e-4."""
+    cfg = dict(grid_size=N, width=W, height=H, soft_shadow_samples=4,
+               indirect_lighting=True, light_radius=0.08, **lighting)
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = ct.Engine(device=dev, **cfg)
+        eng.step(20)
+        frames = [eng.render() for _ in range(3)] + [eng.run_fused(2, reset_every=1)]
+        out.append(([f.cpu() for f in frames], eng.history.hit_idx.cpu()))
+    (gpu, gidx), (cpu, cidx) = out
+    assert torch.equal(gidx, cidx)
+    for a, b in zip(gpu, cpu):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)

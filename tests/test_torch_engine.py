@@ -19,7 +19,7 @@ from cellularautomatons3d_tpu.render.renderer_fast import FastHistory as JaxHist
 
 import cellularautomatons3d_tpu_torch as ct
 from cellularautomatons3d_tpu_torch.ops import ca_step
-from cellularautomatons3d_tpu_torch.render import render_fast
+from cellularautomatons3d_tpu_torch.render import render_fast, render_slab
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(grid_size=32, width=128, height=64)
@@ -99,11 +99,29 @@ def test_tick_cadence_and_restart():
 
 
 @pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(soft_shadow_samples=4),
+        dict(indirect_lighting=True),
+        dict(gi_temporal=True),
+    ],
+)
+def test_lighting_configs_build_and_render(overrides):
+    """Soft shadows, GI and gi_temporal (once refused) build and render."""
+    eng = ct.Engine(ct.EngineConfig(**{**CFG, **overrides}), device="cpu")
+    for key, value in overrides.items():
+        assert getattr(eng.render_static, key) == value
+    eng.step(4)
+    frames = [eng.render(), eng.render(), eng.run_fused(2)]
+    for f in frames:
+        assert tuple(f.shape) == (CFG["height"], CFG["width"], 3)
+        assert bool(torch.isfinite(f).all()) and float(f.max()) > 0.0
+    assert (eng.history.hit_idx >= 0).any()
+
+
+@pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(soft_shadow_samples=4), "item 6"),
-        (dict(indirect_lighting=True), "item 6"),
-        (dict(gi_temporal=True), "item 6"),
         (dict(grid_size=288), "item 7"),
         (dict(pipeline="reference"), "item 11"),
         (dict(mesh_devices=2, height=64), "item 12"),
@@ -117,9 +135,25 @@ def test_unported_configs_raise(overrides, item):
 
 def test_live_set_of_unported_setting_raises_and_changes_nothing():
     eng = ct.Engine(ct.EngineConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.set("soft_shadow_samples", 4)
-    assert eng.config.soft_shadow_samples == 1
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.set("pipeline", "reference")
+    assert eng.config.pipeline == "fast"
+
+
+def test_live_set_of_lighting_fields_rebuilds_render_static():
+    """As in the JAX Engine: a live set of a lighting field rebuilds the
+    render constants, keeps the simulation state and renders with them."""
+    eng = ct.Engine(ct.EngineConfig(**CFG), device="cpu")
+    eng.step(4)
+    state = eng.state.clone()
+    hard = eng.render()
+    for name, value in (("soft_shadow_samples", 4), ("indirect_lighting", True),
+                        ("indirect_bounces", 2), ("gi_temporal", True)):
+        eng.set(name, value)
+        assert getattr(eng.render_static, name) == value
+    assert not eng.restart_required and torch.equal(eng.state, state)
+    lit = eng.render()
+    assert bool(torch.isfinite(lit).all()) and not torch.equal(lit, hard)
 
 
 def test_moving_camera_over_history_raises():
@@ -148,6 +182,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_do_not_fall_back():
         ca_step.step_packed(packed.to("meta"), spec)
     assert ca_step.fires_plane_cuda.launches == 0
     assert render_fast.raytrace_cuda.launches == 0
+    assert render_slab.shadow_sweep_cuda.launches == 0
+    assert render_slab.cell_state_cuda.launches == 0
 
 
 def test_port_imports_without_jax():
