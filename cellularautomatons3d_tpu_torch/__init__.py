@@ -6,11 +6,14 @@ package stays the reference; this package imports ``torch`` and never
 ``jax``, and keeps the reference's module paths and names.
 
 It covers the binary bit-packed CA step (``ops.ca_step``, kernel
-``csrc/ca_step.cu``), the fast renderer's fused frame kernel K1
-(``render.render_fast``, kernel ``csrc/render_fast.cu``) and its extended
-lighting at ≤ 256³ -- soft shadows, one- and multi-bounce GI, the
-temporally amortized mode (``render.render_slab`` with the occlusion kernel
-K2, ``csrc/shadow_sweep.cu``, and the cell-state kernel K3,
+``csrc/ca_step.cu``) and the fast renderer at every grid from 32³ to
+1024³: up to 256³ the fused frame kernel K1 (``render.render_fast``,
+kernel ``csrc/render_fast.cu``), above it the sliced path
+(``render.render_slab.raytrace_sliced``) with the primary-hit kernel K4
+(``csrc/primary_sweep.cu``); and the extended lighting -- soft shadows,
+one- and multi-bounce GI, the temporally amortized mode
+(``render.render_slab`` with the occlusion kernel K2,
+``csrc/shadow_sweep.cu``, and the cell-state kernel K3,
 ``csrc/cell_state.cu``) -- driven by :class:`Engine` (``step``, ``render``,
 ``tick``, ``run``, ``run_fused``).  On a CPU device the same calls run the
 kernels' plain torch versions.

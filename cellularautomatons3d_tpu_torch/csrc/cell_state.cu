@@ -2,9 +2,10 @@
 // thread per (query, pixel).
 //
 // Replaces: cellularautomatons3d_tpu/render/render_slab.py,
-// _make_cellstate_kernel (launched by cell_state_batch), for one slab
-// holding the whole <= 256^3 volume.  Each output is the reference's
-// clamp-then-wrap lookup state(max(c, 0) mod n)
+// _make_cellstate_kernel (launched by cell_state_batch), for the whole
+// volume of any grid up to 1024^3 in one launch (the reference runs one
+// launch per z-slab / x-brick and ORs them).  Each output is the
+// reference's clamp-then-wrap lookup state(max(c, 0) mod n)
 // (pathtraced_fragment_clustered.wgsl:268-304, intersect.py
 // get_cell_state): bit x & 31 of packed word [x / 32, z, y].  Inactive
 // lanes return 0.  The GI neighbour slots of one frame level come in one
@@ -13,11 +14,13 @@
 // Operands: coords i32 [nq, 3, H, W], active u8 [nq, H, W] -> i32
 // [nq, H, W].
 //
-// Bound on the H100: one scattered 4-byte L2 load per lookup (the 2 MiB
-// volume is L2-resident) beside 17 bytes of coalesced operand traffic, so
-// it is bound by device-memory bandwidth on the operands.  The TPU
-// kernel's z-group bitmask gate and finer strips exist to avoid its plane
-// sweep; a gather needs neither.
+// Bound on the H100: one scattered 4-byte load per lookup beside 17 bytes
+// of coalesced operand traffic, so it is bound by device-memory bandwidth
+// on the operands.  The volume is L2-resident up to 512^3 (16 MiB); at
+// 1024^3 (128 MiB) a lookup may go to HBM, one 32-byte sector each
+// (neighbouring pixels look up neighbouring cells, which may share one).
+// The TPU kernel's z-group bitmask gate and finer strips
+// exist to avoid its plane sweep; a gather needs neither.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,13 +53,14 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// vol: uint32[n/32, n, n]; coords: i32 [nq, 3, H, W]; active: u8
+// vol: uint32[n/32, n, n], n <= 1024; coords: i32 [nq, 3, H, W]; active: u8
 // [nq, H, W]; out: i32 [nq, H, W] (0/1).  Returns the launch's
 // cudaError_t.
 int ca3d_cell_state(int device, const void* vol, int n, int width, int height,
                     int nq, const void* coords, const void* active, void* out,
                     void* stream) {
-  if (n < 32 || n % 32 != 0 || width < 1 || height < 1 || nq < 1) {
+  if (n < 32 || n > 1024 || n % 32 != 0 || width < 1 || height < 1 ||
+      nq < 1) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);

@@ -1,0 +1,105 @@
+// K4: the primary hit of every pixel of a frame, over the whole volume of
+// any grid up to 1024^3, one thread per pixel, one launch.
+//
+// Replaces: cellularautomatons3d_tpu/render/render_slab.py,
+// _make_primary_kernel (launched by raytrace_sliced), which traces one
+// z-slab / x-brick per launch and leaves the frame's first hit to a min-t
+// composite over bricks.  Here one sweep crosses every plane, so the
+// composite, its cross-brick best-t carry and the view-dependent brick
+// order have nothing to do.  Per pixel: the camera ray
+// (_pixel_rays_kernel), the volume entry and exit, and the primary sweep
+// of sweep.cuh from t_start = max(entry, 0) to the exit.  Out: t f32 (the
+// hit's visible-cube entry, 0 for a miss) and id i32 (x + y*n + z*n*n,
+// -1 for a miss), [H, W].  Shading, shadows and GI stay in torch and K2/K3,
+// as in the reference.
+//
+// Bound on the H100: like K1's primary sweep, per pixel up to n/8 column
+// tests and 8 dependent loads of packed words per occupied column; the
+// volume is L2-resident up to 512^3 (16 MiB) and not at 1024^3 (128 MiB),
+// where the probes of occupied columns go to HBM.  The coarse mip is
+// staged in shared memory up to 256^3 and read through the read-only path
+// from L2 above (see sweep.cuh).  Rays are coherent within a 16x8 block.
+// Left for later PRs: the age planes of multi-state rules (an age output,
+// with K1's).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "sweep.cuh"
+
+namespace {
+
+using namespace ca3d;
+
+constexpr int kBlockX = 16;
+constexpr int kBlockY = 8;
+
+template <bool STAGED>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    primary_sweep_kernel(const uint32_t* __restrict__ vol,
+                         const uint32_t* __restrict__ coarse, int n,
+                         float inv_n, int width, int height,
+                         const __grid_constant__ Cam cam,
+                         float* __restrict__ out_t, int* __restrict__ out_idx) {
+  __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
+  if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= width || py >= height) return;
+  const float* P = cam.p;
+
+  float ux;
+  const Ray ray = camera_ray(P, px, py, ux);
+  float nx, fx, ny, fy, nz, fz;
+  vol_slab(ray.ox, ray.dx, nx, fx);
+  vol_slab(ray.oy, ray.dy, ny, fy);
+  vol_slab(ray.oz, ray.dz, nz, fz);
+  const float tn = maxp(maxp(nx, ny), nz);
+  const float tf = minp(minp(fx, fy), fz);
+  const bool active = (tn <= tf) && (tf >= 0.0f);
+  const float t_start = maxp(tn, 0.0f);
+  const float cell_half = inv_n * P[P_CELLMUL] * 0.5f;
+
+  float t_hit = 0.0f;
+  int hx = 0, hy = 0, hz = 0;
+  const bool found =
+      active && sweep<true>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
+                            cell_half, ray, t_start, tf, -1, -1, -1, t_hit, hx,
+                            hy, hz);
+  const size_t pix = (size_t)py * width + px;
+  out_t[pix] = found ? t_hit : 0.0f;
+  out_idx[pix] = found ? hx + hy * n + hz * n * n : -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// vol: uint32[n/32, n, n], n <= 1024; coarse: uint32[n/8, XG*n/8]
+// (ops/occupancy.py, XG = ceil(n/256)); cam: host float[40]
+// (render_fast.py pack_cam); out_t: f32 [H, W]; out_idx: i32 [H, W].
+// Returns the launch's cudaError_t.
+int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
+                       int width, int height, const float* cam, void* out_t,
+                       void* out_idx, void* stream) {
+  if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Cam c;
+  for (int i = 0; i < P_LEN; ++i) c.p[i] = cam[i];
+  const float inv_n = (float)(1.0 / (double)n);
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((width + kBlockX - 1) / kBlockX,
+                  (height + kBlockY - 1) / kBlockY);
+  auto kernel = n <= kMaxStagedGrid ? primary_sweep_kernel<true>
+                                    : primary_sweep_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
+      n, inv_n, width, height, c, static_cast<float*>(out_t),
+      static_cast<int*>(out_idx));
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -9,7 +9,8 @@
 // light cube, the new history, the depth overlay and gamma.
 //
 // The traversal (the reference's DDA semantics, float rounding rules and
-// the exact coarse-mip column skip) is sweep.cuh, shared with K2.
+// the exact coarse-mip column skip) and the camera ray are sweep.cuh,
+// shared with K2 and K4.  Grids above 256^3 go through K4 and K2 instead.
 //
 // Bound on the H100: per pixel up to 2 x 32 column tests and 8 dependent
 // L2 loads of packed words (the 2 MiB volume is L2-resident) per occupied
@@ -28,33 +29,23 @@ namespace {
 
 using namespace ca3d;
 
-// Camera/params vector layout: render_fast.py P_* constants.
-constexpr int P_O = 9;
-constexpr int P_WIN = 12;
+// Camera/params vector layout: render_fast.py P_* constants (the ray's
+// are in sweep.cuh).
 constexpr int P_LIGHT = 14;
 constexpr int P_LMAG = 17;
-constexpr int P_CELLMUL = 18;
 constexpr int P_ROUGH = 19;
 constexpr int P_REFL = 20;
 constexpr int P_MATC = 23;
 constexpr int P_EMIS = 27;
 constexpr int P_EMISS = 30;
-constexpr int P_ROW0 = 32;
 constexpr int P_ALPHA = 33;
 constexpr int P_GAMMA = 34;
 constexpr int P_OVERLAY = 35;
-constexpr int P_LEN = 40;
 
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-// -0.5 * COT_HALF_FOV (1/tan(37.5 deg) = 1.3032254), rounded to f32 once.
-constexpr float kRayZ = (float)(-0.5 * 1.3032254);
 constexpr float kPi = 3.14159265359f;
-
-struct Cam {
-  float p[P_LEN];
-};
 
 __device__ __forceinline__ float sgn(float a) {
   return a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : a);
@@ -123,28 +114,16 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                   const int* __restrict__ hist_idx, float* __restrict__ out_rgb,
                   float* __restrict__ out_depth, int* __restrict__ out_idx,
                   float* __restrict__ out_hist) {
-  __shared__ uint32_t coarse_s[kMaxBlocks];
+  __shared__ uint32_t coarse_s[kMaxStagedWords];
   stage_coarse(coarse, coarse_s, n);
+  const SharedMip mip{coarse_s};
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
   const float* P = cam.p;
 
-  // Camera ray (render_fast.py pixel_rays).
-  const float win_w = P[P_WIN], win_h = P[P_WIN + 1];
-  const float ux = ((float)px + 0.5f) / win_w;
-  const float uy = 1.0f - ((float)py + P[P_ROW0] + 0.5f) / win_h;
-  float rx = (ux - 0.5f) * (win_w / win_h);
-  float ry = uy - 0.5f;
-  float rz = kRayZ;
-  normalize3(rx, ry, rz);
-  Ray ray;
-  ray.dx = P[0] * rx + P[1] * ry + P[2] * rz;
-  ray.dy = P[3] * rx + P[4] * ry + P[5] * rz;
-  ray.dz = P[6] * rx + P[7] * ry + P[8] * rz;
-  ray.ox = P[P_O];
-  ray.oy = P[P_O + 1];
-  ray.oz = P[P_O + 2];
+  float ux;
+  const Ray ray = camera_ray(P, px, py, ux);
 
   float nx, fx, ny, fy, nz, fz;
   vol_slab(ray.ox, ray.dx, nx, fx);
@@ -159,7 +138,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   float t_hit = 0.0f;
   int hx = 0, hy = 0, hz = 0;
   const bool found =
-      active && sweep<true>(vol, coarse_s, n, inv_n, cell_half, ray, t_start,
+      active && sweep<true>(vol, mip, n, inv_n, cell_half, ray, t_start,
                             tf, -1, -1, -1, t_hit, hx, hy, hz);
   const float depth = found ? t_hit : (active ? tf : 0.0f);
   const int idx = found ? hx + hy * n + hz * n * n : -1;
@@ -188,7 +167,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
       const float sh_tf = minp(minp(sfx, sfy), sfz);
       float t2;
       int x2, y2, z2;
-      if (sweep<false>(vol, coarse_s, n, inv_n, cell_half, sr, 0.0f, sh_tf,
+      if (sweep<false>(vol, mip, n, inv_n, cell_half, sr, 0.0f, sh_tf,
                        hx, hy, hz, t2, x2, y2, z2)) {
         occl = 0.0095f;
       }
@@ -280,7 +259,7 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
                      int compose, const void* hist_rgb, const void* hist_idx,
                      void* out_rgb, void* out_depth, void* out_idx,
                      void* out_hist, void* stream) {
-  if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1) {
+  if (n < 32 || n > kMaxStagedGrid || n % 32 != 0 || width < 1 || height < 1) {
     return cudaErrorInvalidValue;
   }
   if (compose && (hist_rgb == nullptr || hist_idx == nullptr ||

@@ -3,25 +3,30 @@
 //
 // Replaces: cellularautomatons3d_tpu/render/render_slab.py,
 // _make_shadow_kernel_sweep (launched by _shadow_occlusion_sweep, the
-// default backend of shadow_occlusion_batch), for one slab holding the
-// whole <= 256^3 volume.  Per (query, pixel): the ray from the start point
-// toward the target, normalised with 1/sqrtf; its exit from the unit
-// volume (the reference's occlusion prep, with divisions); then the sweep
-// of sweep.cuh over t in [0, exit] with the shadow accept rule tN >= 0,
-// skipping the excluded cell component by component.  Inactive lanes
-// return 0.  The soft-shadow samples and the GI slots of a frame come in
-// one launch, one grid z-slice per query.
+// default backend of shadow_occlusion_batch), for the whole volume of any
+// grid up to 1024^3 in one launch (the reference runs one launch per
+// z-slab / x-brick and ORs them).  Per (query, pixel): the ray from the
+// start point toward the target, normalised with 1/sqrtf; its exit from
+// the unit volume (the reference's occlusion prep, with divisions); then
+// the sweep of sweep.cuh over t in [0, exit] with the shadow accept rule
+// tN >= 0, skipping the excluded cell component by component.  Inactive
+// lanes return 0.  The soft-shadow samples and the GI slots of a frame
+// come in one launch, one grid z-slice per query; above 256^3 the frame's
+// hard shadow comes this way too.
 //
 // Operands are structure-of-arrays: start/target f32 [nq, 3, H, W], excl
 // i32 [nq, 3, H, W], active u8 [nq, H, W] -> i32 [nq, H, W] (~41 B per
 // query-pixel).
 //
-// Bound on the H100: like K1's shadow sweep, dependent L2 loads of packed
-// words (the 2 MiB volume is L2-resident) on occupied columns, plus the
-// 4 KiB coarse mip that every 128-thread block stages in shared memory.
-// Rays of neighbouring pixels of one query are coherent in a 16x8 block.
-// Left for later PRs: the queries of one pixel sharing a traversal (the
-// TPU's K5), and the reference's start-column gate.
+// Bound on the H100: dependent loads of packed words on occupied columns
+// (from L2 up to 256^3, where the 2 MiB volume is resident; from HBM for
+// the probes that miss L2 at 1024^3, whose volume is 128 MiB), plus the
+// coarse mip: staged in shared memory by every 128-thread block up to
+// 256^3 (4 KiB), read through the read-only path from L2 above (32 KiB at
+// 512^3, 256 KiB at 1024^3).  Rays of neighbouring pixels of one query are
+// coherent in a 16x8 block.  Left for later PRs: the queries of one pixel
+// sharing a traversal (the TPU's K5), and the reference's start-column
+// gate.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +40,7 @@ using namespace ca3d;
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
+template <bool STAGED>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     shadow_sweep_kernel(const uint32_t* __restrict__ vol,
                         const uint32_t* __restrict__ coarse, int n,
@@ -44,8 +50,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                         const int* __restrict__ excl,
                         const uint8_t* __restrict__ active,
                         int* __restrict__ out) {
-  __shared__ uint32_t coarse_s[kMaxBlocks];
-  stage_coarse(coarse, coarse_s, n);
+  __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
+  if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
@@ -71,9 +77,10 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
     const float t1 = minp(minp(ex, ey), ez);
     float t_hit;
     int hx, hy, hz;
-    occluded = sweep<false>(vol, coarse_s, n, inv_n, cell_half, r, 0.0f, t1,
-                            excl[i3], excl[i3 + npix], excl[i3 + 2 * npix],
-                            t_hit, hx, hy, hz)
+    occluded = sweep<false>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
+                            cell_half, r, 0.0f, t1, excl[i3],
+                            excl[i3 + npix], excl[i3 + 2 * npix], t_hit, hx,
+                            hy, hz)
                    ? 1
                    : 0;
   }
@@ -84,9 +91,10 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
 extern "C" {
 
-// vol: uint32[n/32, n, n]; coarse: uint32[n/8, n/8] (ops/occupancy.py);
-// start, target: f32 [nq, 3, H, W]; excl: i32 [nq, 3, H, W]; active:
-// u8 [nq, H, W]; out: i32 [nq, H, W] (1 = occluded).  cell_half is the
+// vol: uint32[n/32, n, n], n <= 1024; coarse: uint32[n/8, XG*n/8]
+// (ops/occupancy.py, XG = ceil(n/256)); start, target: f32 [nq, 3, H, W];
+// excl: i32 [nq, 3, H, W]; active: u8 [nq, H, W]; out: i32 [nq, H, W]
+// (1 = occluded).  cell_half is the
 // visible cube's half size, (1/n) * cell_size * 0.5 in f32.  Returns the
 // launch's cudaError_t.
 int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
@@ -103,7 +111,9 @@ int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY, nq);
-  shadow_sweep_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = n <= kMaxStagedGrid ? shadow_sweep_kernel<true>
+                                    : shadow_sweep_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
       n, inv_n, cell_half, width, height, static_cast<const float*>(start),
       static_cast<const float*>(target), static_cast<const int*>(excl),

@@ -1,10 +1,12 @@
-// The plane-midpoint DDA sweep shared by K1 (render_fast.cu) and K2
-// (shadow_sweep.cu), with its float helpers.
+// The plane-midpoint DDA sweep shared by K1 (render_fast.cu), K2
+// (shadow_sweep.cu) and K4 (primary_sweep.cu), with its float helpers and
+// the camera ray.
 //
 // Replaces: the sweep / fetch closures of
 // cellularautomatons3d_tpu/render/render_fast.py _make_traversal, which
-// both the TPU frame kernel and the TPU occlusion kernel
-// (render_slab.py _make_shadow_kernel_sweep) run.
+// the TPU frame kernel, the TPU occlusion kernel
+// (render_slab.py _make_shadow_kernel_sweep) and the TPU brick primary
+// kernel (render_slab.py _make_primary_kernel) all run.
 //
 // Semantics are the reference kernel's, not a textbook voxel DDA (the
 // written spec is tests/test_render_fast.py oracle_dda): a +z pass for
@@ -15,12 +17,21 @@
 // boundary) and IEEE division/sqrt, rsqrt is 1/sqrtf, and min/max
 // propagate NaN like jnp.minimum/maximum (fminf/fmaxf would drop it).
 //
-// Skip structure: the caller stages the 8^3 coarse occupancy mip
-// (ops/occupancy.py) in shared memory.  For each 8-plane column the sweep
+// Skip structure: the 8^3 coarse occupancy mip (ops/occupancy.py), one bit
+// per block, [Zc, XG*Yc] words, group-major: bit xb & 31 of
+// coarse[zc, (xb >> 5)*Yc + yc].  For each 8-plane column the sweep
 // computes the exact cell range its probes can reach -- the probe geometry
 // is monotone in t, so the cells at the column's clipped t-range ends
 // bound every probe -- and skips the column when no coarse block in that
-// range is occupied.  It never changes a hit.
+// range is occupied, across as many x-groups as the range spans.  It never
+// changes a hit.  Up to 256^3 (XG = 1) the mip is 4 KiB and each block
+// stages it in shared memory (SharedMip: one group, one mask per y-block
+// word); above, it is up to 256 KiB (at 1024^3),
+// more than a block's shared memory, and the sweep reads it from global
+// memory through the read-only path (GlobalMip): it is L2-resident.
+// The packed volume itself is read from global memory at every size: 2 MiB
+// at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
+// probes of occupied columns go to HBM.
 
 #pragma once
 
@@ -29,8 +40,24 @@
 
 namespace ca3d {
 
-constexpr int kMaxGrid = 256;
-constexpr int kMaxBlocks = (kMaxGrid / 8) * (kMaxGrid / 8);
+constexpr int kMaxGrid = 1024;        // the reference UI's ceiling
+constexpr int kMaxStagedGrid = 256;   // largest grid whose mip is staged
+constexpr int kMaxStagedWords = (kMaxStagedGrid / 8) * (kMaxStagedGrid / 8);
+
+// Camera/params vector layout (render_fast.py P_* constants) used by the
+// kernels that cast camera rays.
+constexpr int P_O = 9;
+constexpr int P_WIN = 12;
+constexpr int P_CELLMUL = 18;
+constexpr int P_ROW0 = 32;
+constexpr int P_LEN = 40;
+
+struct Cam {
+  float p[P_LEN];
+};
+
+// -0.5 * COT_HALF_FOV (1/tan(37.5 deg) = 1.3032254), rounded to f32 once.
+constexpr float kRayZ = (float)(-0.5 * 1.3032254);
 
 // NaN-propagating min/max (jnp.minimum / jnp.maximum semantics).
 __device__ __forceinline__ float minp(float a, float b) {
@@ -64,8 +91,72 @@ __device__ __forceinline__ int cell_of(float p, float fn, int n) {
   return (int)c;
 }
 
-// Copy the coarse occupancy mip (uint32[n/8, n/8]) to shared memory; every
-// thread of the block calls it, before any returns.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// The camera ray of pixel (px, py) (render_fast.py pixel_rays,
+// render_slab.py _pixel_rays_kernel); ux is the pixel's window u.
+__device__ __forceinline__ Ray camera_ray(const float* P, int px, int py,
+                                          float& ux) {
+  const float win_w = P[P_WIN], win_h = P[P_WIN + 1];
+  ux = ((float)px + 0.5f) / win_w;
+  const float uy = 1.0f - ((float)py + P[P_ROW0] + 0.5f) / win_h;
+  float rx = (ux - 0.5f) * (win_w / win_h);
+  float ry = uy - 0.5f;
+  float rz = kRayZ;
+  normalize3(rx, ry, rz);
+  Ray ray;
+  ray.dx = P[0] * rx + P[1] * ry + P[2] * rz;
+  ray.dy = P[3] * rx + P[4] * ry + P[5] * rz;
+  ray.dz = P[6] * rx + P[7] * ry + P[8] * rz;
+  ray.ox = P[P_O];
+  ray.oy = P[P_O + 1];
+  ray.oz = P[P_O + 2];
+  return ray;
+}
+
+// Whether any 8^3 block in x-blocks [bx0, bx1] x y-blocks [by0, by1] of
+// coarse z-row c is occupied, for the two places the mip can live.
+
+// The mip staged in shared memory (n <= 256: one x-group, [n/8, n/8]).
+struct SharedMip {
+  const uint32_t* words;
+  __device__ __forceinline__ bool occupied(int c, int nb, int bx0, int bx1,
+                                           int by0, int by1) const {
+    const uint32_t xmask = ((bx1 == 31) ? 0xFFFFFFFFu : ((1u << (bx1 + 1)) - 1u)) &
+                           ~((1u << bx0) - 1u);
+    bool any = false;
+    for (int by = by0; by <= by1 && !any; ++by) {
+      any = (words[c * nb + by] & xmask) != 0u;
+    }
+    return any;
+  }
+};
+
+// The mip in global memory, read through the read-only path (any n:
+// XG = ceil(n/256) groups of nb words per z-row; the x range may span
+// several groups).
+struct GlobalMip {
+  const uint32_t* __restrict__ words;
+  __device__ __forceinline__ bool occupied(int c, int nb, int bx0, int bx1,
+                                           int by0, int by1) const {
+    const int row = c * ((nb + 31) >> 5) * nb;
+    for (int g = bx0 >> 5; g <= (bx1 >> 5); ++g) {
+      const int lo = max(bx0 - 32 * g, 0);
+      const int hi = min(bx1 - 32 * g, 31);
+      const uint32_t xmask = ((hi == 31) ? 0xFFFFFFFFu : ((1u << (hi + 1)) - 1u)) &
+                             ~((1u << lo) - 1u);
+      for (int by = by0; by <= by1; ++by) {
+        if ((__ldg(words + row + g * nb + by) & xmask) != 0u) return true;
+      }
+    }
+    return false;
+  }
+};
+
+// Copy the coarse occupancy mip (uint32[n/8, n/8], n <= 256) to shared
+// memory; every thread of the block calls it, before any returns.
 __device__ __forceinline__ void stage_coarse(const uint32_t* __restrict__ coarse,
                                              uint32_t* coarse_s, int n) {
   const int nb = n >> 3;
@@ -76,17 +167,24 @@ __device__ __forceinline__ void stage_coarse(const uint32_t* __restrict__ coarse
   __syncthreads();
 }
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
+// The mip a kernel reads: the staged copy coarse_s when it is instantiated
+// for n <= 256 (STAGED), else the global coarse.
+template <bool STAGED>
+__device__ __forceinline__ auto mip_of(const uint32_t* coarse,
+                                       const uint32_t* coarse_s) {
+  if constexpr (STAGED) {
+    return SharedMip{coarse_s};
+  } else {
+    return GlobalMip{coarse};
+  }
+}
 
 // One sweep: first cell hit in plane order.  PRIMARY selects the accept
 // rule (tN <= tF and tF >= t_start) over the shadow rule (tN <= tF and
 // tN >= 0), and the shadow sweep skips the excluded cell, component by
 // component (an out-of-range excluded coordinate never matches a probe).
-template <bool PRIMARY>
-__device__ bool sweep(const uint32_t* __restrict__ vol,
-                      const uint32_t* __restrict__ coarse_s, int n,
+template <bool PRIMARY, class Mip>
+__device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
                       float inv_n, float cell_half, const Ray& r,
                       float t_start, float t_end, int ex_x, int ex_y,
                       int ex_z, float& t_hit, int& hx, int& hy, int& hz) {
@@ -116,15 +214,10 @@ __device__ bool sweep(const uint32_t* __restrict__ vol,
     const int xb = cell_of(r.ox + c_hi * r.dx, fn, n);
     const int ya = cell_of(r.oy + c_lo * r.dy, fn, n);
     const int yb = cell_of(r.oy + c_hi * r.dy, fn, n);
-    const int bx0 = min(xa, xb) >> 3, bx1 = max(xa, xb) >> 3;
-    const int by0 = min(ya, yb) >> 3, by1 = max(ya, yb) >> 3;
-    const uint32_t xmask = ((bx1 == 31) ? 0xFFFFFFFFu : ((1u << (bx1 + 1)) - 1u)) &
-                           ~((1u << bx0) - 1u);
-    bool occupied = false;
-    for (int by = by0; by <= by1 && !occupied; ++by) {
-      occupied = (coarse_s[c * nb + by] & xmask) != 0u;
+    if (!mip.occupied(c, nb, min(xa, xb) >> 3, max(xa, xb) >> 3,
+                      min(ya, yb) >> 3, max(ya, yb) >> 3)) {
+      continue;
     }
-    if (!occupied) continue;
     for (int f = 0; f < 8; ++f) {
       const int k = up ? c * 8 + f : c * 8 + 7 - f;
       const float gz = (float)k;

@@ -6,19 +6,22 @@ frame, step when the accumulated frame time crosses
 ``compute_step_duration_ms``, main_pathtraced.js:1838-1847) and fused
 production loop, on an explicit torch ``device``.
 
-On a CUDA device every CA step and every frame goes through the hand
-kernels (``csrc/ca_step.cu``, ``csrc/render_fast.cu``, and with soft
-shadows or GI ``csrc/shadow_sweep.cu`` and ``csrc/cell_state.cu``); on the
-CPU through their plain torch versions.  ``device="cuda"`` without a usable
-card raises: nothing moves silently to the CPU.  With ``gi_temporal`` each
+Every grid the reference takes, 32³ to 1024³, renders.  On a CUDA device
+every CA step and every frame goes through the hand kernels: the step
+``csrc/ca_step.cu``; up to 256³ the frame kernel ``csrc/render_fast.cu``,
+with soft shadows or GI also ``csrc/shadow_sweep.cu`` and
+``csrc/cell_state.cu``; above 256³ the primary-hit kernel
+``csrc/primary_sweep.cu`` and ``csrc/shadow_sweep.cu`` for every frame,
+with GI also ``csrc/cell_state.cu``.  On the CPU the same calls run their
+plain torch versions.  ``device="cuda"`` without a usable card raises:
+nothing moves silently to the CPU.  With ``gi_temporal`` each
 :meth:`Engine.render` passes its frame count as the sample index, so the
 soft-shadow sample and the GI slot rotate and the EMA converges to the
 full lighting.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue-1 item: grids above 256³ (7); a moving camera once history exists
-(8); checkpoints (9); the reference pipeline (11); ``mesh_devices`` (12);
-multi-state rules (14).
+queue-1 item: a moving camera once history exists (8); checkpoints (9);
+the reference pipeline (11); ``mesh_devices`` (12); multi-state rules (14).
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from .render.camera import CameraRig
 from .render.renderer import RenderParams, RenderStatic
 from .render.renderer_fast import (
     FastHistory,
-    check_supported,
     init_fast_history,
     make_fused_loop,
     render_frame_fast,
@@ -61,7 +63,7 @@ def _check_config(cfg: EngineConfig) -> None:
 
 
 def _render_static(cfg: EngineConfig) -> RenderStatic:
-    s = RenderStatic(
+    return RenderStatic(
         width=cfg.width,
         height=cfg.height,
         grid_size=cfg.grid_size,
@@ -70,8 +72,6 @@ def _render_static(cfg: EngineConfig) -> RenderStatic:
         indirect_bounces=int(cfg.indirect_bounces),
         gi_temporal=bool(cfg.gi_temporal),
     )
-    check_supported(s)
-    return s
 
 
 class Engine:

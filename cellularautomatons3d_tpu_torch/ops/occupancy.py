@@ -8,7 +8,8 @@ Output: ``[Zc, XG·Yc]`` words with Zc = Z/8, Yc = Y/8 and XG = ⌈W/8⌉
 x-block groups laid out group-major along the minor axis: bit ``xc & 31``
 of ``coarse[zc, (xc >> 5)·Yc + yc]`` = any live cell in block (xc, yc, zc).
 For N ≤ 256 (XG = 1) this is the plain ``[Zc, Yc]`` bitmap that the render
-kernel (``csrc/render_fast.cu``) keeps in shared memory.
+kernels (``csrc/sweep.cuh``) stage in shared memory; above, they read it
+from global memory (32 KiB at 512³, 256 KiB at 1024³).
 
 Each byte of a packed word is one 8-cell x-block (bit b of word w is cell
 32w + b, and the words are little-endian), so the mip is an ``any`` over
@@ -20,9 +21,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["coarse_occupancy", "BLOCK"]
+__all__ = ["coarse_occupancy", "coarse_shape", "BLOCK"]
 
 BLOCK = 8  # downsample factor per axis
+
+
+def coarse_shape(n: int) -> tuple[int, int]:
+    """Shape of the mip of an n³ grid: [n/8, XG·n/8], XG = ⌈n/256⌉."""
+    return n // BLOCK, -(-n // 256) * (n // BLOCK)
 
 
 def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:

@@ -54,23 +54,20 @@ def pack_grid(dense: np.ndarray) -> np.ndarray:
     z, y, x = dense.shape
     if x % 32 != 0:
         raise ValueError(f"X extent must be a multiple of 32, got {x}")
-    bits = (dense != 0).astype(np.uint32)
-    # [Z, Y, W, 32] — bit b is cell x = 32w + b (LSB-first, masks[] order:
-    # compute_clustered.wgsl:21-54).
-    bits = bits.reshape(z, y, x // 32, 32)
-    weights = (np.uint32(1) << np.arange(32, dtype=np.uint32)).reshape(1, 1, 1, 32)
-    words = (bits * weights).sum(axis=-1, dtype=np.uint64).astype(np.uint32)
+    # Bit b of word w is cell x = 32w + b (LSB-first, masks[] order:
+    # compute_clustered.wgsl:21-54): little-endian bytes of LSB-first bits,
+    # one byte per 8 cells, so a 1024³ grid packs without a 4-byte-per-cell
+    # temporary.
+    octets = np.packbits(dense != 0, axis=-1, bitorder="little")
+    words = octets.view("<u4").astype(np.uint32, copy=False)  # [Z, Y, W]
     return np.ascontiguousarray(words.transpose(2, 0, 1))  # [W, Z, Y]
 
 
 def unpack_grid(packed: np.ndarray) -> np.ndarray:
     """Packed ``uint32[W, Z, Y]`` → dense ``uint8[Z, Y, X]`` of 0/1."""
     packed = np.asarray(packed, dtype=np.uint32)
-    w, z, y = packed.shape
-    words = packed.transpose(1, 2, 0)  # [Z, Y, W]
-    shifts = np.arange(32, dtype=np.uint32).reshape(1, 1, 1, 32)
-    bits = (words[..., None] >> shifts) & np.uint32(1)
-    return bits.reshape(z, y, w * 32).astype(np.uint8)
+    words = np.ascontiguousarray(packed.transpose(1, 2, 0), dtype="<u4")  # [Z, Y, W]
+    return np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
 
 
 def to_reference_order(packed: np.ndarray) -> np.ndarray:

@@ -1,7 +1,9 @@
 """Fast path: the fused frame kernel K1 (plane-midpoint DDA + shading).
 
-Port of ``cellularautomatons3d_tpu.render.render_fast`` for grids ≤ 256³.
-Per pixel: camera ray, volume slab entry/exit, the primary sweep, the
+Port of ``cellularautomatons3d_tpu.render.render_fast`` for grids ≤ 256³
+(larger grids render through ``render_slab.raytrace_sliced``, whose
+primary pass K4 reuses this module's plain sweep).  Per pixel: camera
+ray, volume slab entry/exit, the primary sweep, the
 hard-shadow sweep toward the light (start cell excluded), Cook-Torrance
 shading with position albedo; in compose mode also emissive light, the
 cell-id-checked temporal EMA, the light cube, the new history, the depth
@@ -97,10 +99,13 @@ def pack_cam(view_mat, width, height, light_pos, light_magnitude, cell_size,
 
 def _check_args(grid_size, width, height, cam):
     if grid_size > MAX_GRID:
-        raise NotImplementedError(
-            f"grid_size {grid_size} > {MAX_GRID} is not ported yet "
-            "(ROADMAP.md queue 1, item 7)"
-        )
+        raise ValueError(f"grid_size {grid_size} > {MAX_GRID}; larger grids "
+                         "render through render_slab.raytrace_sliced")
+    return _check_window(grid_size, width, height, cam)
+
+
+def _check_window(grid_size, width, height, cam):
+    """The checks K1 shares with the sliced path: grid shape, window, cam."""
     if grid_size < 32 or grid_size % 32:
         raise ValueError(f"grid_size must be a multiple of 32, got {grid_size}")
     if width < 1 or height < 1:
@@ -256,6 +261,25 @@ def _shade(cam, q, co, albedo, view_pos):
     return out
 
 
+def _primary(vol, cam, n, width, height):
+    """Camera rays, volume entry and exit, and the primary sweep of every
+    pixel: ((ux, o, d, active, tf), (found, t, hx, hy, hz)), each [H, W]
+    (o and d are xyz triples)."""
+    dev = vol.device
+    f = lambda i: float(cam[i])  # noqa: E731
+    cell_half = float(np.float32(1.0 / n) * cam[P_CELLMUL] * np.float32(0.5))
+    ux, dx, dy, dz = _pixel_rays(cam, width, height, dev)
+    o = tuple(torch.full_like(dx, f(P_O + i)) for i in range(3))
+    d = (dx, dy, dz)
+    slabs = [_vol_slab(oi, di) for oi, di in zip(o, d)]
+    tn = torch.maximum(torch.maximum(slabs[0][0], slabs[1][0]), slabs[2][0])
+    tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
+    active = (tn <= tf) & (tf >= 0.0)
+    t_start = torch.clamp(tn, min=0.0)
+    hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active)
+    return (ux, o, d, active, tf), hits
+
+
 def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
              shadow=True):
     """Plain torch K1 (the kernel's reference; ``coarse`` is unused).
@@ -266,25 +290,13 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
     [H,W,3], depth, idx, new history color [H,W,3] f32)."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
-    dev = vol.device
     f = lambda i: float(cam[i])  # noqa: E731
     vol_flat = vol.reshape(-1)
     inv_n = float(np.float32(1.0 / n))
     cell_half = float(np.float32(inv_n) * cam[P_CELLMUL] * np.float32(0.5))
 
-    ux, dx, dy, dz = _pixel_rays(cam, width, height, dev)
-    ox = torch.full_like(dx, f(P_O))
-    oy = torch.full_like(dx, f(P_O + 1))
-    oz = torch.full_like(dx, f(P_O + 2))
-    nx_, fx_ = _vol_slab(ox, dx)
-    ny_, fy_ = _vol_slab(oy, dy)
-    nz_, fz_ = _vol_slab(oz, dz)
-    tn = torch.maximum(torch.maximum(nx_, ny_), nz_)
-    tf = torch.minimum(torch.minimum(fx_, fy_), fz_)
-    active = (tn <= tf) & (tf >= 0.0)
-    t_start = torch.clamp(tn, min=0.0)
-    found, t_hit, hx, hy, hz = _sweep(
-        vol_flat, n, cell_half, (ox, oy, oz), (dx, dy, dz), t_start, tf, active
+    (ux, (ox, oy, oz), (dx, dy, dz), active, tf), (found, t_hit, hx, hy, hz) = (
+        _primary(vol, cam, n, width, height)
     )
     depth = torch.where(found, t_hit, torch.where(active, tf, 0.0))
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)

@@ -1,26 +1,39 @@
-"""Extended lighting of the fast path at ≤ 256³: soft shadows and GI.
+"""The sliced fast path (grids above 256³, up to 1024³) and the extended
+lighting at every grid size: soft shadows and GI.
 
-Port of the single-slab semantics of
-``cellularautomatons3d_tpu.render.render_slab``: the hit geometry of a
-traced frame, the soft-shadow jitter, batched cell-exact occlusion (kernel
-K2), batched cell-state lookups (kernel K3), the direct-light occlusion
-quotient, the recursive indirect bounce and the one-launch lighting passes.
-On the card one launch traces the whole ≤ 256³ volume, so the reference's
-z-slab / x-brick machinery (``SlabGroup``, ``prep_slabs`` bricks, the
-tile-blocked layout) does not come across: ``prepped`` is the packed volume
-and its coarse occupancy mip (:func:`prep_volume`), images are ``[H, W]`` /
-``[H, W, 3]`` in image order.
+Port of ``cellularautomatons3d_tpu.render.render_slab``: the primary pass
+of a frame (kernel K4), the hit geometry of a traced frame, the
+soft-shadow jitter, batched cell-exact occlusion (kernel K2), batched
+cell-state lookups (kernel K3), the direct-light occlusion quotient, the
+recursive indirect bounce, the one-launch lighting passes, and
+:func:`raytrace_sliced`, the whole frame of a grid that K1 does not take.
 
-Two kernels, each with a plain torch version of the same contract that runs
-for CPU tensors and is the kernel's reference:
+On the card one launch traces the whole volume of any grid up to 1024³
+(128 MiB of packed words at 1024³), so the reference's z-slab / x-brick
+machinery does not come across: ``slab_extent``, ``brick_layout`` and its
+test overrides (``slab_planes``, ``x_chunk_cells``), ``SlabGroup``,
+``prep_slabs``, ``_scan_bricks``, the brick skip and visibility conds, the
+min-t composite over bricks with its cross-brick best-t carry, and the
+view-dependent brick-order flip are TPU VMEM layout, not kernels.
+``prepped`` is the packed volume and its coarse occupancy mip
+(:func:`prep_volume`); images are ``[H, W]`` / ``[H, W, 3]`` in image
+order.  Exact-t ties between distinct cells, where the reference keeps
+the first brick processed, keep the first cell in plane order here.
 
+Three kernels, each with a plain torch version of the same contract that
+runs for CPU tensors and is the kernel's reference:
+
+* K4, primary hits (:func:`primary_sweep` / :func:`primary_sweep_cuda`,
+  ``csrc/primary_sweep.cu``): the reference's per-brick primary kernel,
+  over the whole volume;
 * K2, occlusion (:func:`shadow_sweep` / :func:`shadow_sweep_cuda`,
   ``csrc/shadow_sweep.cu``): the default sweep backend of the reference's
   ``shadow_occlusion_batch``;
 * K3, cell state (:func:`cell_state` / :func:`cell_state_cuda`,
   ``csrc/cell_state.cu``).
 
-:func:`shadow_occlusion_batch` and :func:`cell_state_batch` pick by device.
+:func:`primary_hits`, :func:`shadow_occlusion_batch` and
+:func:`cell_state_batch` pick by device.
 
 Float rules: ray directions are normalised with ``1/sqrt`` (the reference
 uses ``lax.rsqrt``, which XLA:CPU does not round as IEEE; see PERF.md),
@@ -38,7 +51,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import coarse_occupancy
+from ..ops.occupancy import coarse_occupancy, coarse_shape
 from . import brdf
 from .intersect import (
     FULL_CUBE_SIZE,
@@ -62,15 +75,22 @@ from .render_fast import (
     P_ROW0,
     P_TIME,
     P_WIN,
+    _check_window,
     _normalize3,
     _pixel_rays,
+    _primary,
     _sweep,
 )
 from .renderer import _INDIRECT_LAYERS, _face_index
 
 __all__ = [
+    "MAX_SLICED_GRID",
     "Prepped",
     "prep_volume",
+    "primary_sweep",
+    "primary_sweep_cuda",
+    "primary_hits",
+    "raytrace_sliced",
     "hit_geometry",
     "soft_shadow_jitter",
     "shadow_sweep",
@@ -88,21 +108,76 @@ __all__ = [
 ]
 
 
+MAX_SLICED_GRID = 1024  # reference UI ceiling (main_pathtraced.js:274-277)
+
+
 class Prepped(NamedTuple):
-    """The volume as the occlusion and cell-state passes take it."""
+    """The volume as the traced passes take it."""
 
     vol: torch.Tensor     # packed words int32 [n/32, n, n]
-    coarse: torch.Tensor  # coarse occupancy mip int32 [n/8, n/8] (K2's skip)
+    coarse: torch.Tensor  # coarse occupancy mip int32 [n/8, XG·n/8] (the skip)
 
 
 def prep_volume(packed: torch.Tensor, coarse: torch.Tensor | None = None) -> Prepped:
-    """The single-slab counterpart of the reference's ``prep_slabs``."""
+    """The whole-volume counterpart of the reference's ``prep_slabs``."""
     return Prepped(packed, coarse_occupancy(packed) if coarse is None else coarse)
+
+
+def _check_sliced(grid_size, width, height, cam):
+    if grid_size > MAX_SLICED_GRID:
+        raise ValueError(f"grid_size {grid_size} > {MAX_SLICED_GRID}")
+    return _check_window(grid_size, width, height, cam)
 
 
 def _cell_half(cam, n: int) -> float:
     """Visible-cube half size, ``(1/n) * cell_size * 0.5`` in float32."""
     return float(np.float32(1.0 / n) * np.float32(cam[P_CELLMUL]) * np.float32(0.5))
+
+
+# ------------------------------------------------------ K4: primary ---
+
+
+def primary_sweep(vol, cam, *, grid_size, width, height):
+    """Plain torch K4: the primary hit of every pixel over the whole volume,
+    (t f32 [H, W], id int32 [H, W]): t is the hit's visible-cube entry and
+    the id x + y·n + z·n²; a miss gives t = 0 and id −1."""
+    cam = _check_sliced(grid_size, width, height, cam)
+    n = grid_size
+    _, (found, t_hit, hx, hy, hz) = _primary(vol, cam, n, width, height)
+    idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
+    return t_hit, idx  # the sweep leaves t = 0 where nothing was hit
+
+
+def primary_sweep_cuda(vol, coarse, cam, *, grid_size, width, height):
+    """K4 on the card (``csrc/primary_sweep.cu``): same contract as
+    :func:`primary_sweep`; ``vol`` and ``coarse`` must be contiguous CUDA
+    tensors."""
+    cam = _check_sliced(grid_size, width, height, cam)
+    n = grid_size
+    kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
+    t = torch.empty((height, width), dtype=torch.float32, device=vol.device)
+    idx = torch.empty((height, width), dtype=torch.int32, device=vol.device)
+    err = kernels.library().ca3d_primary_sweep(
+        vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width,
+        height, cam.ctypes.data, t.data_ptr(), idx.data_ptr(),
+        kernels.stream_of(vol),
+    )
+    kernels.check(err, "primary_sweep")
+    primary_sweep_cuda.launches += 1
+    return t, idx
+
+
+primary_sweep_cuda.launches = 0
+
+
+def primary_hits(cam, prepped: Prepped, *, grid_size, width, height):
+    """(t, id) of every pixel's primary hit: the plain version for a CPU
+    volume, K4 for any other."""
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    if prepped.vol.device.type == "cpu":
+        return primary_sweep(prepped.vol, cam, **kw)
+    return primary_sweep_cuda(prepped.vol, prepped.coarse, cam, **kw)
 
 
 # ------------------------------------------------------------ geometry ---
@@ -218,7 +293,7 @@ def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
     n = grid_size
     nq, _, h, w = start.shape
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
-    kernels.require(coarse, "coarse", torch.int32, (n // 8, n // 8))
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
     kernels.require(start, "start", torch.float32, (nq, 3, h, w))
     kernels.require(target, "target", torch.float32, (nq, 3, h, w))
     kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
@@ -534,3 +609,64 @@ def lighting_passes(cam, q, origin, coords, found, prepped, *, grid_size,
         gi_rgb = total
 
     return occl, gi_rgb
+
+
+# ------------------------------------------------------- sliced frame ---
+
+
+def raytrace_sliced(vol, cam, *, grid_size, width, height, shadow=True,
+                    soft_shadow_samples=1, indirect=False, indirect_bounces=1,
+                    sample_idx=None):
+    """One frame of any grid up to 1024³ (render_slab.raytrace_sliced):
+    (light_rgb [H, W, 3], depth [H, W], hit_idx [H, W] int32; −1 = miss),
+    without emissive light (the caller adds it).
+
+    K4 finds the primary hits; the hard shadow (``soft_shadow_samples`` ≤
+    1), the soft-shadow samples and the GI slots ride one K2 launch and the
+    GI lookups one K3 launch (:func:`lighting_passes`), or, for
+    ``indirect_bounces`` > 1, :func:`direct_occlusion` and
+    :func:`indirect_bounce`; the direct light is the reference's
+    Cook-Torrance BRDF in torch.  ``sample_idx``: the frame counter of the
+    temporally amortized mode, which evaluates one rotating soft-shadow
+    sample and one GI slot per frame (one bounce)."""
+    n = grid_size
+    cam = _check_sliced(n, width, height, cam)
+    kw = dict(grid_size=n, width=width, height=height)
+    prepped = prep_volume(vol)
+    t_img, idx = primary_hits(cam, prepped, **kw)
+    q, origin, coords, found, tf_miss = hit_geometry(cam, idx, t_img, **kw)
+    depth = torch.where(found, t_img, tf_miss)
+
+    gi_slot, gi_bounces, jitter_k = None, indirect_bounces, None
+    if indirect and sample_idx is not None:
+        gi_slot, gi_bounces = sample_idx % 4, 1
+    if shadow and sample_idx is not None and soft_shadow_samples > 1:
+        jitter_k = sample_idx % soft_shadow_samples
+
+    gi_rgb = None
+    if not indirect or gi_bounces == 1:
+        # Single-bounce configurations: every occlusion query in one launch.
+        occl, gi_rgb = lighting_passes(
+            cam, q, origin, coords, found, prepped,
+            soft_k=soft_shadow_samples if shadow else None, jitter_k=jitter_k,
+            gi=indirect, gi_slot=gi_slot, **kw,
+        )
+    else:
+        occl = (
+            direct_occlusion(cam, q, coords, found, prepped,
+                             soft_k=soft_shadow_samples, jitter_k=jitter_k, **kw)
+            if shadow else None
+        )
+        gi_rgb = indirect_bounce(vol, cam, q, origin, coords, found, prepped,
+                                 bounces=gi_bounces, slot=gi_slot, **kw)
+
+    light = device_vec(cam[P_LIGHT : P_LIGHT + 3], q.device)
+    o = device_vec(cam[P_O : P_O + 3], q.device)
+    color = _shader(cam, n)(q, origin, coords, o,
+                            torch.full_like(q, float(cam[P_LMAG])), light)
+    out = torch.clamp(color, min=0.0)
+    if occl is not None:
+        out = out * occl[..., None]
+    if gi_rgb is not None:
+        out = out + gi_rgb
+    return torch.where(found[..., None], out, 0.0), depth, idx

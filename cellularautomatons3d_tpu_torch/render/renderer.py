@@ -27,8 +27,10 @@ __all__ = ["RenderStatic", "RenderParams"]
 class RenderStatic:
     """Render constants fixed between rebuilds: the fast path's lighting
     model (hard or soft shadows, one- or multi-bounce GI, the temporally
-    amortized mode).  The JAX package's reference-pipeline sample counts and
-    sliced-path controls come with their ROADMAP items."""
+    amortized mode) and the choice of the sliced path.  The JAX package's
+    reference-pipeline sample counts come with ROADMAP item 11; its
+    ``slab_planes`` and ``x_chunk_cells`` are TPU brick layout and do not
+    come across."""
 
     width: int
     height: int
@@ -43,6 +45,11 @@ class RenderStatic:
     # the temporal EMA; needs a frame counter (``sample_idx``) from the
     # caller and ignores ``indirect_bounces``.
     gi_temporal: bool = False
+    # Render a grid of at most 256³ through the sliced path (K4 + K2 in a
+    # frame, render_slab.raytrace_sliced) instead of K1, as grids above
+    # 256³ always are.  Set only by the CPU parity tests against JAX at
+    # small grids; EngineConfig does not expose it.
+    force_sliced: bool = False
 
 
 class RenderParams(NamedTuple):

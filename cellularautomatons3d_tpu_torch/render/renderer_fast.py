@@ -1,22 +1,26 @@
-"""Fast render pipeline: the K1 kernel, the extended lighting, and frame
-composition.
+"""Fast render pipeline: the traced frame (K1 up to 256³, the sliced path
+above), the extended lighting, and frame composition.
 
-Port of ``cellularautomatons3d_tpu.render.renderer_fast`` for grids ≤ 256³,
-a static camera and binary states:
+Port of ``cellularautomatons3d_tpu.render.renderer_fast`` for grids up to
+1024³, a static camera and binary states:
 
-* :func:`trace_shaded` -- the traced and shaded scene: K1 with the hard
-  shadow, or K1 unshadowed followed by the extended lighting of
-  ``render_slab`` (soft shadows through K2, one- or multi-bounce GI through
-  K2 and K3, the temporally amortized mode), then emissive light.
+* :func:`trace_shaded` -- the traced and shaded scene.  Up to 256³: K1
+  with the hard shadow, or K1 unshadowed followed by the extended lighting
+  of ``render_slab`` (soft shadows through K2, one- or multi-bounce GI
+  through K2 and K3, the temporally amortized mode).  Above 256³, or with
+  ``RenderStatic.force_sliced``: ``render_slab.raytrace_sliced`` (K4's
+  primary hits, every shadow through K2, GI through K2 and K3, the BRDF in
+  torch).  Then emissive light.
 * :func:`render_frame_fast` -- one frame: trace_shaded, then the temporal
   EMA (validated by the stored hit-cell id), the light cube, f16 history,
   the depth overlay and gamma in torch.
 * :func:`make_fused_loop` -- the production loop (CA steps + one composed
-  frame per iteration) with ``reset_every`` as a runtime argument: K1 in
-  compose mode for hard shadows without GI, the extended frame in image
-  layout for soft shadows, one-bounce and temporal GI, and
-  render_frame_fast per iteration for multi-bounce GI.  History is f32
-  inside the first two and f16 at their exit.
+  frame per iteration) with ``reset_every`` as a runtime argument.  Up to
+  256³: K1 in compose mode for hard shadows without GI, the extended frame
+  in image layout for soft shadows, one-bounce and temporal GI (history f32
+  inside, f16 at the exit), and render_frame_fast per iteration for
+  multi-bounce GI.  The sliced path always takes render_frame_fast per
+  iteration, as in the reference, so its history is f16 between frames.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from ..ops.occupancy import coarse_occupancy
 from .camera import get_ray, pixel_uvs
 from .intersect import device_vec, ray_cube_intersect
 from .render_fast import (
-    P_ALPHA, P_EMIS, P_EMISS, P_GAMMA, P_LEN, P_LIGHT, P_O, P_OVERLAY,
-    raytrace_tiles,
+    MAX_GRID, P_ALPHA, P_EMIS, P_EMISS, P_GAMMA, P_LEN, P_LIGHT, P_O,
+    P_OVERLAY, raytrace_tiles,
 )
 from .render_slab import (
     _hit_geometry,
@@ -41,6 +45,7 @@ from .render_slab import (
     indirect_bounce,
     lighting_passes,
     prep_volume,
+    raytrace_sliced,
 )
 from .renderer import RenderParams, RenderStatic
 
@@ -50,7 +55,6 @@ __all__ = [
     "trace_shaded",
     "render_frame_fast",
     "make_fused_loop",
-    "check_supported",
 ]
 
 
@@ -66,13 +70,10 @@ def init_fast_history(width: int, height: int, device) -> FastHistory:
     )
 
 
-def check_supported(s: RenderStatic) -> None:
-    """Raise NotImplementedError for render settings not ported yet."""
-    if s.grid_size > 256:
-        raise NotImplementedError(
-            "grids above 256³ (the sliced path) are not ported yet "
-            "(ROADMAP.md queue 1, item 7)"
-        )
+def _sliced(s: RenderStatic) -> bool:
+    """Whether the frame goes through the sliced path (K4 + K2) instead of
+    K1."""
+    return s.grid_size > MAX_GRID or s.force_sliced
 
 
 def _cam_vec(params: RenderParams, w, h) -> np.ndarray:
@@ -144,17 +145,25 @@ def _extended_lighting(s: RenderStatic, packed, coarse, cam, rgb, depth, idx,
 
 
 def _shaded(s: RenderStatic, packed, cam, sample_idx):
-    """trace_shaded's (rgb, depth, idx) and, with the extended lighting,
+    """trace_shaded's (rgb, depth, idx) and, with K1's extended lighting,
     the world ray direction d [H, W, 3] (else None)."""
-    coarse = coarse_occupancy(packed)
-    rgb, depth, idx = raytrace_tiles(
-        packed, coarse, cam, grid_size=s.grid_size, width=s.width,
-        height=s.height, shadow=s.soft_shadow_samples <= 1,
-    )
     d = None
-    if s.soft_shadow_samples > 1 or s.indirect_lighting:
-        rgb, d = _extended_lighting(s, packed, coarse, cam, rgb, depth, idx,
-                                    sample_idx)
+    if _sliced(s):
+        rgb, depth, idx = raytrace_sliced(
+            packed, cam, grid_size=s.grid_size, width=s.width, height=s.height,
+            soft_shadow_samples=s.soft_shadow_samples,
+            indirect=s.indirect_lighting, indirect_bounces=s.indirect_bounces,
+            sample_idx=sample_idx if s.gi_temporal else None,
+        )
+    else:
+        coarse = coarse_occupancy(packed)
+        rgb, depth, idx = raytrace_tiles(
+            packed, coarse, cam, grid_size=s.grid_size, width=s.width,
+            height=s.height, shadow=s.soft_shadow_samples <= 1,
+        )
+        if s.soft_shadow_samples > 1 or s.indirect_lighting:
+            rgb, d = _extended_lighting(s, packed, coarse, cam, rgb, depth, idx,
+                                        sample_idx)
     emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], rgb.device)
     rgb = torch.where((idx >= 0)[..., None], rgb + emis, rgb)
     return rgb, depth, idx, d
@@ -164,13 +173,13 @@ def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
                  sample_idx=None):
     """Traced + shaded scene: (rgb [H,W,3] linear light, depth, hit_idx).
 
-    K1 with the hard shadow (unshadowed when soft shadows replace it), the
-    extended lighting of ``render_slab`` when soft shadows or GI are on,
-    then emissive radiance on every hit (renderer.py:263-264).
-    ``sample_idx``: the frame counter of the temporally amortized mode
-    (``s.gi_temporal``), an int or an int tensor; it rotates the
-    soft-shadow sample and the GI slot."""
-    check_supported(s)
+    Up to 256³: K1 with the hard shadow (unshadowed when soft shadows
+    replace it) and the extended lighting of ``render_slab`` when soft
+    shadows or GI are on.  Above 256³ or with ``s.force_sliced``:
+    ``render_slab.raytrace_sliced``.  Then emissive radiance on every hit
+    (renderer.py:263-264).  ``sample_idx``: the frame counter of the
+    temporally amortized mode (``s.gi_temporal``), an int or an int tensor;
+    it rotates the soft-shadow sample and the GI slot."""
     return _shaded(s, packed, cam, sample_idx)[:3]
 
 
@@ -272,18 +281,19 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
     ``s.gi_temporal`` the sample index is the loop counter, from 0 on each
     call.
 
-    Three branches, as in the reference: hard shadows without GI compose
-    in K1; soft shadows, one-bounce and temporal GI run :func:`_ext_frame`
-    with an f32 history; multi-bounce GI runs :func:`render_frame_fast`
-    per iteration, whose history is f16 between frames."""
-    check_supported(s)
+    Three branches, as in the reference: up to 256³, hard shadows without
+    GI compose in K1 and soft shadows, one-bounce and temporal GI run
+    :func:`_ext_frame` with an f32 history; multi-bounce GI and the sliced
+    path run :func:`render_frame_fast` per iteration, whose history is f16
+    between frames."""
     if spec.total_states != 2:
         raise NotImplementedError(
             "multi-state rules are not ported yet (ROADMAP.md queue 1, item 14)"
         )
     h, w, n = s.height, s.width, s.grid_size
-    use_compose = s.soft_shadow_samples <= 1 and not s.indirect_lighting
-    use_ext = not use_compose and (
+    use_compose = (not _sliced(s) and s.soft_shadow_samples <= 1
+                   and not s.indirect_lighting)
+    use_ext = not _sliced(s) and not use_compose and (
         not s.indirect_lighting or s.gi_temporal or s.indirect_bounces == 1
     )
 

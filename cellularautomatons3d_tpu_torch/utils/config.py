@@ -83,9 +83,9 @@ class EngineConfig:
     width: int = 1920
     height: int = 1080
     # Render pipeline: "reference" = exact replication of the WGSL renderer
-    # (stochastic march + reprojection, renderer.py); "fast" = the fused
-    # Pallas DDA kernel (render_fast.py) — deterministic exact traversal,
-    # grid_size ≤ 256.
+    # (stochastic march + reprojection, renderer.py); "fast" = the
+    # deterministic exact DDA traversal (render_fast.py up to 256³,
+    # render_slab.py above).
     pipeline: str = "fast"
     # Reference-pipeline shader variant: "clustered" (the active
     # pathtraced_fragment_clustered.wgsl, Cook-Torrance PBR) or "simple"
@@ -133,9 +133,9 @@ class EngineConfig:
         if self.render_variant == "simple":
             self.pipeline = "reference"  # only the exact path has it
         # Fast pipeline covers the full reference grid range (≤ 1024,
-        # main_pathtraced.js:274-277): ≤ 256 the fused VMEM-resident
-        # kernel; 257-512 the z-slab sliced path; 513-1024 the
-        # (z-slab × x-chunk) brick path (render_slab.py).
+        # main_pathtraced.js:274-277): ≤ 256 the fused frame kernel K1;
+        # 257-1024 the sliced path (render_slab.py), one launch of K4 over
+        # the whole volume.
         if isinstance(self.light, dict):
             self.light = LightConfig(**self.light)
         if self.mesh_shape is not None:

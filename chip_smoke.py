@@ -20,8 +20,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       reset_every=10), with both kernels' launch counters read around it.
   (d) timings with CUDA events (kernel vs plain, CA step, step + composed
       frame; K2 and K3 vs plain, the lighting passes, and step + frame of
-      the three lighting configurations), beside the card's name and power
-      limit.  It runs last, after (e).
+      the three lighting configurations; K4 and K2's hard-shadow query vs
+      plain and step + frame at 512³ and 1024³), beside the card's name and
+      power limit.  It runs last, after (e) and (f).
   (e) the extended-lighting path: K2 (occlusion sweep) and K3 (cell
       state) vs their plain versions, equal on every (query, pixel), on
       the 8 occlusion queries (4 soft-shadow samples, 4 GI slots) and 4
@@ -31,6 +32,21 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       each of the three at real size, Engine(256, 1920×1080, soft shadows
       ×4, GI, light_radius 0.08): step(80), render(), run_fused(50,
       reset_every=10), with every kernel's launch counter read around it.
+  (f) the >256³ path (render_slab.raytrace_sliced): K4 (primary-hit
+      sweep) vs its plain version, ids equal and depth within atol 3e-5,
+      at 320³ / 480×270 on a sparse random volume (two coarse x-groups,
+      the last one partial) from three views, 512³ / 1920×1080 on the
+      gen-160 scene and 1024³ / 1920×1080 on the gen-200 scene (the
+      centre seed under the default rule); K2 vs plain on those frames'
+      hard-shadow query and on a full-quality frame's 8 queries at 512³,
+      K3 on its 4 GI lookups, and the CA step at 512³ (gen-160) and 1024³
+      (gen-200) and on random words at both, over 5 generations, all
+      equal; the Engine on the card vs on the CPU at 320³ / 64×32 for
+      hard shadows and gi_temporal; then Engine(512, 1920×1080): step(160),
+      render(), run_fused(20, reset_every=10), Engine(1024, 1920×1080):
+      step(200), render(), run_fused(5), and Engine(512) with soft shadows
+      ×4, GI, light_radius 0.08 and gi_temporal, with every kernel's launch
+      counter read around each.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -97,6 +113,171 @@ def cuda_ms(torch, fn, iters, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(torch, fn):
+    """(fn(), its device ms): one call between CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+SLICED_SMALL = dict(grid_size=320, width=64, height=32)
+SLICED_ENGINES = {
+    # name: (Engine overrides, warm-up steps, run_fused kwargs, timed frames)
+    "sliced_512": (dict(grid_size=512), 160, dict(frames=20, reset_every=10), 10),
+    "sliced_1024": (dict(grid_size=1024), 200, dict(frames=5), 5),
+    "sliced_512_gi_temporal": (dict(grid_size=512, **LIGHTING, gi_temporal=True), 160,
+                               dict(frames=20, reset_every=10), 10),
+}
+
+
+def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy,
+                 to_dev, grown, scene_cam, views, lighting_operands) -> dict:
+    """Phase (f): K4, K2, K3 and the CA step against their plain versions
+    above 256³, the Engine on the card against the Engine on the CPU at
+    320³, and the Engine at 512³ and 1024³ / 1080p with its launch
+    counters.  Returns what (d) times and reports."""
+    dev = torch.device("cuda", 0)
+    k4_err = 0.0
+    plain_ms = {}
+
+    def k4_check(tag, vol, coarse, cam, size, w, h):
+        nonlocal k4_err
+        kw = dict(grid_size=size, width=w, height=h)
+        t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+        (t_p, i_p), ms = timed(torch, lambda: rs.primary_sweep(vol, cam, **kw))
+        bad = int((i_k != i_p).sum())
+        err = float((t_k - t_p).abs().max())
+        hits = int((i_p >= 0).sum())
+        log(f"  K4 {tag}: {hits} hits, {bad} ids differ, max |t| err {err:.3g}, "
+            f"plain {ms:.1f} ms")
+        need(bad == 0, f"K4 {tag}: {bad} ids differ from the plain version")
+        need(err <= DEPTH_ATOL, f"K4 {tag}: t error {err} > {DEPTH_ATOL}")
+        need(hits > 0, f"K4 {tag}: no pixel hits")
+        k4_err = max(k4_err, err)
+        return t_k, i_k, ms
+
+    def k2_check(tag, vol, coarse, cam, size, ops):
+        kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        got = rs.shadow_sweep_cuda(vol, coarse, *ops, **kw)
+        want, ms = timed(torch, lambda: rs.shadow_sweep(vol, *ops, **kw))
+        bad = int((got != want).sum())
+        log(f"  K2 {tag}: {ops[0].shape[0]} queries, {int(ops[3].sum())} active, "
+            f"{int(want.sum())} occluded, {bad} differ, plain {ms:.1f} ms")
+        need(bad == 0, f"K2 {tag}: {bad} flags differ from the plain version")
+        need(int(want.sum()) > 0, f"K2 {tag}: nothing is occluded")
+        return ms
+
+    # K4 at 320³ (XG = 2, the last coarse group partial) on a sparse random
+    # volume, from three views.
+    vol = to_dev(ct.pack_grid(
+        (np.random.default_rng(5).random((320,) * 3) < 0.01).astype(np.uint8)))
+    coarse = coarse_occupancy(vol)
+    for name, view in views.items():
+        k4_check(f"320^3 480x270 random {name}", vol, coarse, scene_cam(view, 480, 270),
+                 320, 480, 270)
+
+    # K4 and the hard-shadow K2 query at 512³ and 1024³ / 1080p.
+    timed_ops = {}
+    for size, steps in ((512, 160), (1024, 200)):
+        vol = grown(size, steps)
+        coarse = coarse_occupancy(vol)
+        cam = scene_cam(views["front"], WIDTH, HEIGHT)
+        tag = f"{size}^3 {WIDTH}x{HEIGHT} gen-{steps}"
+        t_k, i_k, plain_ms[f"k4_{size}_plain_ms"] = k4_check(
+            tag, vol, coarse, cam, size, WIDTH, HEIGHT)
+        kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        q, origin, coords, found, _ = rs.hit_geometry(cam, i_k, t_k, **kw)
+        queries, _, _ = rs.lighting_queries(cam, q, origin, coords, found, soft_k=1, **kw)
+        k2 = rs.stack_occlusion_queries(queries, WIDTH, HEIGHT)
+        plain_ms[f"k2_hard_{size}_plain_ms"] = k2_check(
+            f"{tag} hard shadow", vol, coarse, cam, size, k2)
+        timed_ops[size] = (vol, coarse, cam, k2)
+        del q, origin, coords, found, queries
+
+    # K2 and K3 on a full-quality frame at 512³, the CA step at 512³.
+    vol, coarse, cam, _, k2, k3 = lighting_operands(512, WIDTH, HEIGHT, steps=160)
+    k2_check("512^3 full quality", vol, coarse, cam, 512, k2)
+    got3 = rs.cell_state_cuda(vol, *k3, grid_size=512)
+    want3 = rs.cell_state(vol, *k3, grid_size=512)
+    k3_bad = int((got3 != want3).sum())
+    log(f"  K3 512^3 full quality: {k3[0].shape[0]} queries, {int(k3[1].sum())} active, "
+        f"{int(want3.sum())} live, {k3_bad} differ")
+    need(k3_bad == 0, f"K3 512^3: {k3_bad} states differ from the plain version")
+    need(int(want3.sum()) > 0, "K3 512^3: no live neighbour found")
+    del k2, k3, got3, want3
+    # The CA step at both sizes the Engines below run it at: the grown
+    # scenes, and random words whose cells reach the boundary.
+    g = torch.Generator(dev).manual_seed(11)
+    ca_volumes = [(512, "gen-160", vol), (1024, "gen-200", timed_ops[1024][0])]
+    ca_volumes += [(size, "random words", torch.randint(
+        -2**31, 2**31 - 1, (size // 32, size, size), dtype=torch.int32, device=dev,
+        generator=g)) for size in (512, 1024)]
+    for size, tag, a in ca_volumes:
+        spec = AutomatonSpec.from_rule_strings(size)
+        b = a.clone()
+        for gen in range(5):
+            a = ca_step.fires_plane_cuda(a, spec)
+            b = ca_step.fires_plane(b, spec)
+            need(torch.equal(a, b), f"CA kernel != plain at {size}^3: {tag} generation {gen + 1}")
+        log(f"  CA kernel == plain at {size}^3 on {tag}: 5 generations")
+    del ca_volumes, a, b
+
+    # The Engine on the card against the Engine on the CPU at 320³.
+    for name, variant in (("hard", {}), ("gi_temporal", dict(**LIGHTING, gi_temporal=True))):
+        rs.primary_sweep_cuda.launches = 0
+        out = []
+        for d in ("cuda", "cpu"):
+            e = ct.Engine(device=d, **SLICED_SMALL, **variant)
+            e.step(100)
+            fr = [e.render() for _ in range(2)] + [e.run_fused(2, reset_every=1)]
+            out.append(([f.cpu() for f in fr], e.history.hit_idx.cpu()))
+        (gpu, gidx), (cpu, cidx) = out
+        need(rs.primary_sweep_cuda.launches > 0, f"Engine 320^3 {name} did not launch K4")
+        need(torch.equal(gidx, cidx), f"Engine 320^3 {name}: ids cuda != cpu")
+        need(int((cidx >= 0).sum()) > 0, f"Engine 320^3 {name}: no pixel hits")
+        for a, b in zip(gpu, cpu):
+            need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+                 f"Engine 320^3 {name}: frame cuda vs cpu max err "
+                 f"{float((a - b).abs().max())}")
+        log(f"  Engine 320^3 {name} cuda == cpu ({len(gpu)} frames, "
+            f"{int((cidx >= 0).sum())} hit pixels)")
+
+    # The Engine at full size.
+    counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
+               rs.shadow_sweep_cuda, rs.cell_state_cuda)
+    launches, engines = {}, {}
+    for name, (cfg, steps, fused, frames) in SLICED_ENGINES.items():
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng = ct.Engine(width=WIDTH, height=HEIGHT, device="cuda", **cfg)
+        eng.step(steps)
+        fr = [eng.render(), eng.run_fused(**fused)]
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counted}
+        for i, f in enumerate(fr):
+            need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
+            need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
+            need(float(f.max()) > 0.0, f"{name} frame {i} is black")
+        needed = ["fires_plane_cuda", "primary_sweep_cuda", "shadow_sweep_cuda"]
+        if cfg.get("indirect_lighting"):
+            needed.append("cell_state_cuda")
+        need(all(counts[k] > 0 for k in needed), f"{name} missed a kernel: {counts}")
+        need(counts["raytrace_cuda"] == 0, f"{name} launched K1: {counts}")
+        hits = float((eng.history.hit_idx >= 0).float().mean())
+        log(f"(f) {name}: step({steps}), render(), run_fused({fused}) in "
+            f"{time.perf_counter() - t0:.2f} s; launches {counts}; hit fraction {hits:.3f}")
+        launches[name] = counts
+        engines[name] = (eng, frames)
+    return dict(k4_max_abs_err=k4_err, plain_ms=plain_ms, launches=launches,
+                engines=engines, timed=timed_ops)
 
 
 def main() -> dict:
@@ -313,15 +494,19 @@ def main() -> dict:
     report["launches"] = launches
 
     # --------------------------------- (e) extended lighting: K2 and K3 ---
-    def lighting_operands(size, w, h):
+    def lighting_operands(size, w, h, steps=80):
         """K2's and K3's operands of a full-quality frame, as the port
         builds them: 4 soft-shadow samples + 4 GI slots, 4 GI lookups."""
-        vol = grown(size)
+        vol = grown(size, steps)
         coarse = coarse_occupancy(vol)
         cam = scene_cam(views["front"], w, h, light_radius=LIGHTING["light_radius"],
                         elapsed_time=0.37)
-        _, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=size,
-                                         width=w, height=h, shadow=False)
+        if size <= GRID:
+            _, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=size,
+                                             width=w, height=h, shadow=False)
+        else:
+            depth, idx = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=size,
+                                               width=w, height=h)
         q, origin, coords, found, _ = rs.hit_geometry(
             cam, idx, depth, grid_size=size, width=w, height=h)
         queries, slots, _ = rs.lighting_queries(
@@ -395,6 +580,12 @@ def main() -> dict:
         lighting_engines[name] = eng_l
     report["lighting_launches"] = lighting_launches
 
+    # ------------------------------------------- (f) the >256³ path ---
+    sliced = sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec,
+                          coarse_occupancy, to_dev, grown, scene_cam, views,
+                          lighting_operands)
+    report["sliced"] = {k: sliced[k] for k in ("k4_max_abs_err", "plain_ms", "launches")}
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
@@ -421,6 +612,19 @@ def main() -> dict:
             torch, lambda e=e: e.run_fused(20, reset_every=10), 1, warmup=0) / 20
         for name, e in lighting_engines.items()
     }
+    sliced_ms = {
+        f"{name}_step_plus_frame_ms": cuda_ms(
+            torch, lambda e=e, fr=fr: e.run_fused(fr, reset_every=fr), 1, warmup=0) / fr
+        for name, (e, fr) in sliced["engines"].items()
+    }
+    for size, (vol, coarse, cam, k2) in sliced["timed"].items():
+        kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        sliced_ms[f"k4_{size}_ms"] = cuda_ms(
+            torch, lambda: rs.primary_sweep_cuda(vol, coarse, cam, **kw), 20, warmup=2)
+        sliced_ms[f"k2_hard_{size}_ms"] = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(
+            vol, coarse, *k2, grid_size=size, cell_half=rs._cell_half(cam, size)),
+            20, warmup=2)
+    sliced_ms.update(sliced["plain_ms"])
     timings = {
         "ca_step_ms": ca_ms, "ca_step_plain_ms": ca_plain_ms,
         "k1_compose_ms": k1_ms, "k1_noncompose_ms": k1_nc_ms,
@@ -428,19 +632,25 @@ def main() -> dict:
         "pinned_step_plus_frame_ms": fused_ms, "render_call_ms": render_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
-        "lighting_passes_ms": passes_ms, **lighting_ms,
+        "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms,
     }
     report["timings"] = timings
     report["card"] = card
-    log(f"(d) timings on {card} (CUDA events, {GRID}^3, {WIDTH}x{HEIGHT}):")
+    log(f"(d) timings on {card} (CUDA events, {WIDTH}x{HEIGHT}; {GRID}^3 unless named):")
     for k, v in timings.items():
         log(f"  {k}: {v:.4f}")
+
+    sliced_launches = sliced["launches"]
+
+    def total(fn_name, *runs):
+        return sum(r[fn_name] for r in runs)
 
     report["kernels"] = [
         {"name": "ca_step", "route": "cuda",
          "source": "cellularautomatons3d_tpu_torch/csrc/ca_step.cu",
          "replaces": "cellularautomatons3d_tpu/ops/ca_step.py:118",
-         "launches": launches["ca_step"], "max_abs_err": 0.0,
+         "launches": launches["ca_step"] + total(
+             "fires_plane_cuda", *sliced_launches.values()), "max_abs_err": 0.0,
          "ms": ca_ms, "plain_ms": ca_plain_ms},
         {"name": "render_fast", "route": "cuda",
          "source": "cellularautomatons3d_tpu_torch/csrc/render_fast.cu",
@@ -450,13 +660,21 @@ def main() -> dict:
         {"name": "shadow_sweep", "route": "cuda",
          "source": "cellularautomatons3d_tpu_torch/csrc/shadow_sweep.cu",
          "replaces": "cellularautomatons3d_tpu/render/render_slab.py:354",
-         "launches": sum(c["shadow_sweep_cuda"] for c in lighting_launches.values()),
+         "launches": total("shadow_sweep_cuda", *lighting_launches.values(),
+                           *sliced_launches.values()),
          "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "cell_state", "route": "cuda",
          "source": "cellularautomatons3d_tpu_torch/csrc/cell_state.cu",
          "replaces": "cellularautomatons3d_tpu/render/render_slab.py:687",
-         "launches": sum(c["cell_state_cuda"] for c in lighting_launches.values()),
+         "launches": total("cell_state_cuda", *lighting_launches.values(),
+                           *sliced_launches.values()),
          "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "primary_sweep", "route": "cuda",
+         "source": "cellularautomatons3d_tpu_torch/csrc/primary_sweep.cu",
+         "replaces": "cellularautomatons3d_tpu/render/render_slab.py:279",
+         "launches": total("primary_sweep_cuda", *sliced_launches.values()),
+         "max_abs_err": sliced["k4_max_abs_err"], "ms": sliced_ms["k4_512_ms"],
+         "plain_ms": sliced_ms["k4_512_plain_ms"]},
     ]
     need("jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None},
          "JAX was imported")

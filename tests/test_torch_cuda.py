@@ -6,7 +6,7 @@ JAX, so on such a machine skip it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-``chip_smoke.py`` holds the same comparisons at the main path's full size.
+``chip_smoke.py`` holds the same comparisons at the main paths' full sizes.
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ pytestmark = pytest.mark.cuda
 
 N = 64
 W, H = 128, 64
+LIGHTING_320 = dict(soft_shadow_samples=4, indirect_lighting=True, light_radius=0.08)
 
 
 @pytest.fixture
@@ -135,6 +136,75 @@ def test_k3_kernel_matches_plain(cuda):
     assert int(want.sum()) > 0
 
 
+VIEWS = {
+    "front": mat4.initial_view_matrix(),
+    "reversed": mat4.translate(
+        mat4.rotate(mat4.initial_view_matrix(), (0, 1, 0), np.pi), (0, 0, 1.6)),
+    "oblique": mat4.translate(
+        mat4.rotate(mat4.initial_view_matrix(), (0, 1, 0), 1.1), (0, 0, 0.2)),
+}
+
+
+def sparse_volume(device, n, p, seed):
+    """Packed words of an n³ volume with about p·n³ random live cells, made
+    without a dense host array."""
+    rng = np.random.default_rng(seed)
+    words = np.zeros((n // 32) * n * n, np.uint32)
+    k = int(p * n**3)
+    np.bitwise_or.at(words, rng.integers(0, words.size, k),
+                     np.uint32(1) << rng.integers(0, 32, k).astype(np.uint32))
+    return ct.from_reference(words.reshape(n // 32, n, n), device)
+
+
+@pytest.mark.parametrize("density", [0.01, 0.0005])
+@pytest.mark.parametrize("view", list(VIEWS))
+@pytest.mark.parametrize("n", [320, 512])
+def test_k4_kernel_matches_plain(cuda, n, view, density):
+    """K4 over the whole volume at 320³ (two coarse x-groups, the last one
+    partial) and 512³ (two full groups): ids equal, t within 3e-5."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol = sparse_volume(cuda, n, density, n)
+    coarse = coarse_occupancy(vol)
+    w, h = 256, 128
+    cam = rf.pack_cam(VIEWS[view], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                      (0.17,) * 3, (0.0,) * 3)
+    kw = dict(grid_size=n, width=w, height=h)
+    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    t_p, i_p = rs.primary_sweep(vol, cam, **kw)
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
+    assert int((i_p >= 0).sum()) > 0
+
+
+def test_k2_kernel_matches_plain_512(cuda):
+    """K2 at 512³ on random rays: starts inside and outside the volume,
+    excluded cells at the start, random or out of range, and rays with
+    dz == 0 in the last query."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    n, w, h, nq = 512, 256, 128, 3
+    vol = sparse_volume(cuda, n, 0.002, 7)
+    coarse = coarse_occupancy(vol)
+    g = torch.Generator(cuda).manual_seed(5)
+    rnd = lambda *s: torch.rand(*s, device=cuda, generator=g)  # noqa: E731
+    start = rnd(nq, 3, h, w) * 1.4 - 0.7
+    target = rnd(nq, 3, h, w) * 2.0 - 1.0
+    flat = rnd(h, w) < 0.5
+    target[-1, 2] = torch.where(flat, start[-1, 2], target[-1, 2])
+    cell = torch.floor((start + 0.5) * n).to(torch.int32)
+    other = (rnd(nq, 3, h, w) * (n + 2) - 1).to(torch.int32)
+    excl = torch.where(rnd(nq, 1, h, w) < 0.5, cell, other).contiguous()
+    active = rnd(nq, h, w) < 0.7
+    cell_half = float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5))
+    kw = dict(grid_size=n, cell_half=cell_half)
+    got = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    want = rs.shadow_sweep(vol, start, target, excl, active, **kw)
+    assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+    assert not want[-1][target[-1, 2] == start[-1, 2]].any()
+
+
 @pytest.mark.parametrize(
     "lighting",
     [dict(), dict(gi_temporal=True), dict(indirect_bounces=2)],
@@ -155,3 +225,25 @@ def test_lighting_engine_matches_cpu(cuda, lighting):
     assert torch.equal(gidx, cidx)
     for a, b in zip(gpu, cpu):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
+
+
+@pytest.mark.parametrize(
+    "lighting", [dict(), dict(LIGHTING_320, gi_temporal=True)],
+    ids=["hard", "gi_temporal"],
+)
+def test_sliced_engine_matches_cpu(cuda, lighting):
+    """The 320³ Engine (the sliced path: K4, K2, K3) on the card against
+    the Engine on the CPU: ids equal, frames within rtol 3e-3 / atol
+    3e-4."""
+    cfg = dict(grid_size=320, width=64, height=32, **lighting)
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = ct.Engine(device=dev, **cfg)
+        eng.step(100)
+        frames = [eng.render() for _ in range(2)] + [eng.run_fused(2, reset_every=1)]
+        out.append(([f.cpu() for f in frames], eng.history.hit_idx.cpu()))
+    (gpu, gidx), (cpu, cidx) = out
+    assert torch.equal(gidx, cidx) and int((cidx >= 0).sum()) > 0
+    for a, b in zip(gpu, cpu):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
+

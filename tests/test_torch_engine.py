@@ -122,7 +122,7 @@ def test_lighting_configs_build_and_render(overrides):
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(grid_size=288), "item 7"),
+        (dict(mesh_shape=(2, 1)), "item 12"),
         (dict(pipeline="reference"), "item 11"),
         (dict(mesh_devices=2, height=64), "item 12"),
         (dict(total_states=5), "item 14"),
