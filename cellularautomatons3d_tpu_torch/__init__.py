@@ -15,8 +15,12 @@ one- and multi-bounce GI, the temporally amortized mode
 (``render.render_slab`` with the occlusion kernel K2,
 ``csrc/shadow_sweep.cu``, and the cell-state kernel K3,
 ``csrc/cell_state.cu``) -- driven by :class:`Engine` (``step``, ``render``,
-``tick``, ``run``, ``run_fused``).  On a CPU device the same calls run the
-kernels' plain torch versions.
+``tick``, ``run``, ``run_fused``).  Two opt-in paths, off by default as in
+the reference: the multi-query occlusion kernel K5
+(``csrc/shadow_multi.cu``, ``CA3D_OCC_SWEEP=0``) and the patch prepass K6
+(``csrc/prepass.cu``) with K1's column-mask gate
+(``render_fast.raytrace_tiles(use_prepass=True)``).  On a CPU device the
+same calls run the kernels' plain torch versions.
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode

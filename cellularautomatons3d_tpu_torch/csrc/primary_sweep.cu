@@ -64,8 +64,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   int hx = 0, hy = 0, hz = 0;
   const bool found =
       active && sweep<true>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
-                            cell_half, ray, t_start, tf, -1, -1, -1, t_hit, hx,
-                            hy, hz);
+                            cell_half, ray, t_start, tf, NoExclusion{}, t_hit,
+                            hx, hy, hz);
   const size_t pix = (size_t)py * width + px;
   out_t[pix] = found ? t_hit : 0.0f;
   out_idx[pix] = found ? hx + hy * n + hz * n * n : -1;

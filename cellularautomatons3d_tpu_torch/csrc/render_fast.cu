@@ -11,6 +11,11 @@
 // The traversal (the reference's DDA semantics, float rounding rules and
 // the exact coarse-mip column skip) and the camera ray are sweep.cuh,
 // shared with K2 and K4.  Grids above 256^3 go through K4 and K2 instead.
+// With MASK (raytrace_tiles(use_prepass=True)) the primary sweep's column
+// test is the reference's colmask rule instead of the mip: column c
+// descends iff its clipped segment is non-empty and bit c of the pixel's
+// patch mask (K6, prepass.cu) is set or the ray is steep (render_fast.py
+// column_occ); the shadow sweep keeps the mip.
 //
 // Bound on the H100: per pixel up to 2 x 32 column tests and 8 dependent
 // L2 loads of packed words (the 2 MiB volume is L2-resident) per occupied
@@ -18,7 +23,9 @@
 // bound; the float work is small.  Left for later PRs: the TPU kernel's
 // supercolumn mip and z-range gates, shared-memory staging of the volume
 // brick a block touches, packing the shadow rays of a warp, and the age
-// planes of multi-state rules.
+// planes of multi-state rules.  With a mask the kernel reads one more i32
+// per pixel (the patch mask, L1/L2-resident: 130 KB at 1080p) and does one
+// bit test per column in place of the mip's cell-range test.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -104,12 +111,12 @@ __device__ __forceinline__ float clip01(float x) {
   return minp(maxp(x, 0.0f), 1.0f);
 }
 
-template <bool COMPOSE>
+template <bool COMPOSE, bool MASK>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     render_kernel(const uint32_t* __restrict__ vol,
                   const uint32_t* __restrict__ coarse, int n, float inv_n,
                   int width, int height, const __grid_constant__ Cam cam,
-                  int shadow,
+                  int shadow, const int* __restrict__ colmask, int mask_w,
                   const float* __restrict__ hist_rgb,
                   const int* __restrict__ hist_idx, float* __restrict__ out_rgb,
                   float* __restrict__ out_depth, int* __restrict__ out_idx,
@@ -137,9 +144,20 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 
   float t_hit = 0.0f;
   int hx = 0, hy = 0, hz = 0;
-  const bool found =
-      active && sweep<true>(vol, mip, n, inv_n, cell_half, ray, t_start,
-                            tf, -1, -1, -1, t_hit, hx, hy, hz);
+  bool found = false;
+  if (active) {
+    if constexpr (MASK) {
+      // The prepass gate: the mask of the pixel's 8x8 patch, or a steep ray.
+      const float adx = fabsf(ray.dx), ady = fabsf(ray.dy), adz = fabsf(ray.dz);
+      const ColumnMask gate{(uint32_t)colmask[(py >> 3) * mask_w + (px >> 3)],
+                            adx > 2.0f * adz || ady > 2.0f * adz};
+      found = sweep<true>(vol, gate, n, inv_n, cell_half, ray, t_start, tf,
+                          NoExclusion{}, t_hit, hx, hy, hz);
+    } else {
+      found = sweep<true>(vol, mip, n, inv_n, cell_half, ray, t_start, tf,
+                          NoExclusion{}, t_hit, hx, hy, hz);
+    }
+  }
   const float depth = found ? t_hit : (active ? tf : 0.0f);
   const int idx = found ? hx + hy * n + hz * n * n : -1;
 
@@ -168,7 +186,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
       float t2;
       int x2, y2, z2;
       if (sweep<false>(vol, mip, n, inv_n, cell_half, sr, 0.0f, sh_tf,
-                       hx, hy, hz, t2, x2, y2, z2)) {
+                       CellExclusion{hx, hy, hz}, t2, x2, y2, z2)) {
         occl = 0.0095f;
       }
     }
@@ -250,15 +268,17 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 extern "C" {
 
 // vol: uint32[n/32, n, n]; coarse: uint32[n/8, n/8] (ops/occupancy.py);
-// cam: host float[40].  compose = 0: out_rgb is linear rgb [H, W, 3],
-// hist_* and out_hist unused.  compose = 1: hist_rgb f32 [H, W, 3] and
-// hist_idx i32 [H, W] are the previous frame, out_rgb is the presentation
-// and out_hist the new history colour.  Returns the launch's cudaError_t.
+// cam: host float[40].  colmask: null, or the prepass's i32 column masks
+// [ceil(H/8), mask_w = ceil(W/8)] (prepass.cu), which then gate the primary
+// sweep's columns.  compose = 0: out_rgb is linear rgb [H, W, 3], hist_*
+// and out_hist unused.  compose = 1: hist_rgb f32 [H, W, 3] and hist_idx
+// i32 [H, W] are the previous frame, out_rgb is the presentation and
+// out_hist the new history colour.  Returns the launch's cudaError_t.
 int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
                      int width, int height, const float* cam, int shadow,
-                     int compose, const void* hist_rgb, const void* hist_idx,
-                     void* out_rgb, void* out_depth, void* out_idx,
-                     void* out_hist, void* stream) {
+                     const void* colmask, int compose, const void* hist_rgb,
+                     const void* hist_idx, void* out_rgb, void* out_depth,
+                     void* out_idx, void* out_hist, void* stream) {
   if (n < 32 || n > kMaxStagedGrid || n % 32 != 0 || width < 1 || height < 1) {
     return cudaErrorInvalidValue;
   }
@@ -274,21 +294,18 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* v = static_cast<const uint32_t*>(vol);
-  const uint32_t* co = static_cast<const uint32_t*>(coarse);
-  if (compose) {
-    render_kernel<true><<<grid, block, 0, s>>>(
-        v, co, n, inv_n, width, height, c, shadow,
-        static_cast<const float*>(hist_rgb), static_cast<const int*>(hist_idx),
-        static_cast<float*>(out_rgb), static_cast<float*>(out_depth),
-        static_cast<int*>(out_idx), static_cast<float*>(out_hist));
-  } else {
-    render_kernel<false><<<grid, block, 0, s>>>(
-        v, co, n, inv_n, width, height, c, shadow, nullptr, nullptr,
-        static_cast<float*>(out_rgb), static_cast<float*>(out_depth),
-        static_cast<int*>(out_idx), nullptr);
-  }
+  const bool mask = colmask != nullptr;
+  auto kernel = compose ? (mask ? render_kernel<true, true>
+                                : render_kernel<true, false>)
+                        : (mask ? render_kernel<false, true>
+                                : render_kernel<false, false>);
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
+      n, inv_n, width, height, c, shadow, static_cast<const int*>(colmask),
+      (width + 7) / 8, static_cast<const float*>(hist_rgb),
+      static_cast<const int*>(hist_idx), static_cast<float*>(out_rgb),
+      static_cast<float*>(out_depth), static_cast<int*>(out_idx),
+      static_cast<float*>(out_hist));
   return cudaGetLastError();
 }
 

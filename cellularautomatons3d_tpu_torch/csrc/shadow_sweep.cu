@@ -24,9 +24,9 @@
 // coarse mip: staged in shared memory by every 128-thread block up to
 // 256^3 (4 KiB), read through the read-only path from L2 above (32 KiB at
 // 512^3, 256 KiB at 1024^3).  Rays of neighbouring pixels of one query are
-// coherent in a 16x8 block.  Left for later PRs: the queries of one pixel
-// sharing a traversal (the TPU's K5), and the reference's start-column
-// gate.
+// coherent in a 16x8 block.  The queries of one pixel sharing a traversal
+// are K5 (shadow_multi.cu), the opt-in backend.  Left for later PRs: the
+// reference's start-column gate.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,10 +77,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
     const float t1 = minp(minp(ex, ey), ez);
     float t_hit;
     int hx, hy, hz;
+    const CellExclusion skip{excl[i3], excl[i3 + npix], excl[i3 + 2 * npix]};
     occluded = sweep<false>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
-                            cell_half, r, 0.0f, t1, excl[i3],
-                            excl[i3 + npix], excl[i3 + 2 * npix], t_hit, hx,
-                            hy, hz)
+                            cell_half, r, 0.0f, t1, skip, t_hit, hx, hy, hz)
                    ? 1
                    : 0;
   }

@@ -1,6 +1,7 @@
 // The plane-midpoint DDA sweep shared by K1 (render_fast.cu), K2
-// (shadow_sweep.cu) and K4 (primary_sweep.cu), with its float helpers and
-// the camera ray.
+// (shadow_sweep.cu) and K4 (primary_sweep.cu), its column and plane steps,
+// which K5 (shadow_multi.cu) runs for several queries at once, its float
+// helpers and the camera ray.
 //
 // Replaces: the sweep / fetch closures of
 // cellularautomatons3d_tpu/render/render_fast.py _make_traversal, which
@@ -28,7 +29,9 @@
 // stages it in shared memory (SharedMip: one group, one mask per y-block
 // word); above, it is up to 256 KiB (at 1024^3),
 // more than a block's shared memory, and the sweep reads it from global
-// memory through the read-only path (GlobalMip): it is L2-resident.
+// memory through the read-only path (GlobalMip): it is L2-resident.  K1
+// with a prepass mask gates its primary sweep's columns by the mask
+// instead (ColumnMask).
 // The packed volume itself is read from global memory at every size: 2 MiB
 // at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
 // probes of occupied columns go to HBM.
@@ -179,15 +182,125 @@ __device__ __forceinline__ auto mip_of(const uint32_t* coarse,
   }
 }
 
-// One sweep: first cell hit in plane order.  PRIMARY selects the accept
-// rule (tN <= tF and tF >= t_start) over the shadow rule (tN <= tF and
-// tN >= 0), and the shadow sweep skips the excluded cell, component by
-// component (an out-of-range excluded coordinate never matches a probe).
-template <bool PRIMARY, class Mip>
+// The column gate of K1 with a prepass mask (render_fast.py column_occ with
+// colmask): column c descends iff bit c of the pixel's patch mask is set
+// or the ray is steep (|dx| > 2|dz| or |dy| > 2|dz|); the block range is
+// not looked at.
+struct ColumnMask {
+  uint32_t bits;
+  bool steep;
+  __device__ __forceinline__ bool occupied(int c, int, int, int, int,
+                                           int) const {
+    return steep || ((bits >> c) & 1u);
+  }
+};
+
+// Which probed cell a sweep skips.  The primary sweep skips none; the
+// shadow sweeps skip their start cell, K1 and K2 component by component
+// (an out-of-range coordinate never matches a probe), K5 by packed id
+// x + y*n + z*n*n with -1 for an out-of-range cell (render_slab.py
+// shadow_occlusion_batch's exid), which matches the same probes.
+struct NoExclusion {
+  __device__ __forceinline__ bool operator()(int, int, int) const {
+    return false;
+  }
+};
+struct CellExclusion {
+  int x, y, z;
+  __device__ __forceinline__ bool operator()(int cx, int cy, int k) const {
+    return cx == x && cy == y && k == z;
+  }
+};
+struct IdExclusion {
+  int id, n;
+  __device__ __forceinline__ bool operator()(int cx, int cy, int k) const {
+    return cx + cy * n + k * n * n == id;
+  }
+};
+
+// The t-range of 8-plane column c: cmin, where it starts along the ray
+// (the pass's break test), and [lo, hi], clipped to [t_start, t_end].  The
+// same expressions as the column's first and last plane, so every plane's
+// range lies inside [lo, hi].
+__device__ __forceinline__ void column_span(const Ray& r, float inv_n,
+                                            float inv_dz, int c,
+                                            float t_start, float t_end,
+                                            float& cmin, float& lo,
+                                            float& hi) {
+  const float ga = (float)(c * 8);
+  const float gb = (float)(c * 8 + 8);
+  const float ta = (ga * inv_n - 0.5f - r.oz) * inv_dz;
+  const float tb = (gb * inv_n - 0.5f - r.oz) * inv_dz;
+  cmin = minp(ta, tb);
+  lo = maxp(cmin, t_start);
+  hi = minp(maxp(ta, tb), t_end);
+}
+
+// Whether the column's probes over [lo, hi] can reach an occupied block:
+// the cells at the range's ends bound every probe (the probe geometry is
+// monotone in t), then the mip's blocks over that cell range.
+template <class Mip>
+__device__ __forceinline__ bool column_occupied(const Mip& mip, const Ray& r,
+                                                float fn, int n, int c,
+                                                float lo, float hi) {
+  const int xa = cell_of(r.ox + lo * r.dx, fn, n);
+  const int xb = cell_of(r.ox + hi * r.dx, fn, n);
+  const int ya = cell_of(r.oy + lo * r.dy, fn, n);
+  const int yb = cell_of(r.oy + hi * r.dy, fn, n);
+  return mip.occupied(c, n >> 3, min(xa, xb) >> 3, max(xa, xb) >> 3,
+                      min(ya, yb) >> 3, max(ya, yb) >> 3);
+}
+
+// The midpoint probe of z-plane k: whether it hits, and the hit's t and
+// (x, y) cell.  PRIMARY selects the accept rule (tN <= tF and tF >=
+// t_start) over the shadow rule (tN <= tF and tN >= 0).
+template <bool PRIMARY, class Excl>
+__device__ __forceinline__ bool probe_plane(
+    const uint32_t* __restrict__ vol, int n, float fn, float inv_n,
+    float cell_half, const Ray& r, float inv_dx, float inv_dy, float inv_dz,
+    int k, float t_start, float t_end, const Excl& excluded, float& t_hit,
+    int& hx, int& hy) {
+  const float gz = (float)k;
+  const float pa = (gz * inv_n - 0.5f - r.oz) * inv_dz;
+  const float pb = ((gz + 1.0f) * inv_n - 0.5f - r.oz) * inv_dz;
+  const float lo = maxp(minp(pa, pb), t_start);
+  const float hi = minp(maxp(pa, pb), t_end);
+  if (!(lo < hi)) return false;
+  const float tm = 0.5f * (lo + hi);
+  const int cx = cell_of(r.ox + tm * r.dx, fn, n);
+  const int cy = cell_of(r.oy + tm * r.dy, fn, n);
+  const uint32_t word = __ldg(vol + (size_t)(cx >> 5) * ((size_t)n * n) +
+                              (size_t)k * n + cy);
+  if (!((word >> (cx & 31)) & 1u)) return false;
+  if (excluded(cx, cy, k)) return false;
+  // Visible-cube intersection (wgsl:712-729).
+  const float ccx = ((float)cx + 0.5f) * inv_n - 0.5f;
+  const float ccy = ((float)cy + 0.5f) * inv_n - 0.5f;
+  const float ccz = (gz + 0.5f) * inv_n - 0.5f;
+  const float t1x = (ccx - cell_half - r.ox) * inv_dx;
+  const float t2x = (ccx + cell_half - r.ox) * inv_dx;
+  const float t1y = (ccy - cell_half - r.oy) * inv_dy;
+  const float t2y = (ccy + cell_half - r.oy) * inv_dy;
+  const float t1z = (ccz - cell_half - r.oz) * inv_dz;
+  const float t2z = (ccz + cell_half - r.oz) * inv_dz;
+  const float tn = maxp(maxp(minp(t1x, t2x), minp(t1y, t2y)), minp(t1z, t2z));
+  const float tf = minp(minp(maxp(t1x, t2x), maxp(t1y, t2y)), maxp(t1z, t2z));
+  const bool ok = PRIMARY ? (tn <= tf && tf >= t_start)
+                          : (tn <= tf && tn >= 0.0f);
+  if (!ok) return false;
+  t_hit = tn;
+  hx = cx;
+  hy = cy;
+  return true;
+}
+
+// One sweep: first cell hit in plane order, with the column gate of Mip
+// and the exclusion of Excl.
+template <bool PRIMARY, class Mip, class Excl>
 __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
                       float inv_n, float cell_half, const Ray& r,
-                      float t_start, float t_end, int ex_x, int ex_y,
-                      int ex_z, float& t_hit, int& hx, int& hy, int& hz) {
+                      float t_start, float t_end, Excl excluded,
+                      float& t_hit, int& hx, int& hy, int& hz) {
   if (!(r.dz > 0.0f) && !(r.dz < 0.0f)) return false;
   const bool up = r.dz > 0.0f;
   const float inv_dx = 1.0f / r.dx;
@@ -195,62 +308,18 @@ __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
   const float inv_dz = 1.0f / r.dz;
   const float fn = (float)n;
   const int nb = n >> 3;
-  const size_t plane = (size_t)n * (size_t)n;
   for (int ci = 0; ci < nb; ++ci) {
     const int c = up ? ci : nb - 1 - ci;
-    // The column's t-range uses the same expressions as its first and
-    // last plane, so every plane's [lo, hi] lies inside [c_lo, c_hi].
-    const float ga = (float)(c * 8);
-    const float gb = (float)(c * 8 + 8);
-    const float ta = (ga * inv_n - 0.5f - r.oz) * inv_dz;
-    const float tb = (gb * inv_n - 0.5f - r.oz) * inv_dz;
-    const float cmin = minp(ta, tb);
+    float cmin, c_lo, c_hi;
+    column_span(r, inv_n, inv_dz, c, t_start, t_end, cmin, c_lo, c_hi);
     if (cmin >= t_end) break;  // this column and all later ones are past exit
-    const float c_lo = maxp(cmin, t_start);
-    const float c_hi = minp(maxp(ta, tb), t_end);
     if (!(c_lo < c_hi)) continue;
-    // Cells the column's probes can reach, then its coarse blocks.
-    const int xa = cell_of(r.ox + c_lo * r.dx, fn, n);
-    const int xb = cell_of(r.ox + c_hi * r.dx, fn, n);
-    const int ya = cell_of(r.oy + c_lo * r.dy, fn, n);
-    const int yb = cell_of(r.oy + c_hi * r.dy, fn, n);
-    if (!mip.occupied(c, nb, min(xa, xb) >> 3, max(xa, xb) >> 3,
-                      min(ya, yb) >> 3, max(ya, yb) >> 3)) {
-      continue;
-    }
+    if (!column_occupied(mip, r, fn, n, c, c_lo, c_hi)) continue;
     for (int f = 0; f < 8; ++f) {
       const int k = up ? c * 8 + f : c * 8 + 7 - f;
-      const float gz = (float)k;
-      const float pa = (gz * inv_n - 0.5f - r.oz) * inv_dz;
-      const float pb = ((gz + 1.0f) * inv_n - 0.5f - r.oz) * inv_dz;
-      const float lo = maxp(minp(pa, pb), t_start);
-      const float hi = minp(maxp(pa, pb), t_end);
-      if (!(lo < hi)) continue;
-      const float tm = 0.5f * (lo + hi);
-      const int cx = cell_of(r.ox + tm * r.dx, fn, n);
-      const int cy = cell_of(r.oy + tm * r.dy, fn, n);
-      const uint32_t word =
-          __ldg(vol + (size_t)(cx >> 5) * plane + (size_t)k * n + cy);
-      if (!((word >> (cx & 31)) & 1u)) continue;
-      if (!PRIMARY && cx == ex_x && cy == ex_y && k == ex_z) continue;
-      // Visible-cube intersection (wgsl:712-729).
-      const float ccx = ((float)cx + 0.5f) * inv_n - 0.5f;
-      const float ccy = ((float)cy + 0.5f) * inv_n - 0.5f;
-      const float ccz = (gz + 0.5f) * inv_n - 0.5f;
-      const float t1x = (ccx - cell_half - r.ox) * inv_dx;
-      const float t2x = (ccx + cell_half - r.ox) * inv_dx;
-      const float t1y = (ccy - cell_half - r.oy) * inv_dy;
-      const float t2y = (ccy + cell_half - r.oy) * inv_dy;
-      const float t1z = (ccz - cell_half - r.oz) * inv_dz;
-      const float t2z = (ccz + cell_half - r.oz) * inv_dz;
-      const float tn = maxp(maxp(minp(t1x, t2x), minp(t1y, t2y)), minp(t1z, t2z));
-      const float tf = minp(minp(maxp(t1x, t2x), maxp(t1y, t2y)), maxp(t1z, t2z));
-      const bool ok = PRIMARY ? (tn <= tf && tf >= t_start)
-                              : (tn <= tf && tn >= 0.0f);
-      if (ok) {
-        t_hit = tn;
-        hx = cx;
-        hy = cy;
+      if (probe_plane<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx,
+                               inv_dy, inv_dz, k, t_start, t_end, excluded,
+                               t_hit, hx, hy)) {
         hz = k;
         return true;
       }

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources are ``csrc/ca_step.cu`` (the CA step), ``csrc/render_fast.cu``
-(K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3) and
-``csrc/primary_sweep.cu`` (K4); K1, K2 and K4 share the traversal in
-``csrc/sweep.cuh``.  At first use each source is
+(K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
+``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5) and
+``csrc/prepass.cu`` (K6); K1, K2, K4, K5 and K6 share the traversal and
+float helpers in ``csrc/sweep.cuh``.  At first use each source is
 compiled by its own ``nvcc``, all started together, and the objects are
 linked into one shared library with a plain C interface, loaded with
 :mod:`ctypes`; no PyTorch headers are involved, so a build takes seconds.
@@ -43,6 +44,8 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "shadow_sweep.cu",
     PACKAGE_DIR / "csrc" / "cell_state.cu",
     PACKAGE_DIR / "csrc" / "primary_sweep.cu",
+    PACKAGE_DIR / "csrc" / "shadow_multi.cu",
+    PACKAGE_DIR / "csrc" / "prepass.cu",
 )
 HEADERS = (PACKAGE_DIR / "csrc" / "sweep.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
@@ -122,7 +125,7 @@ def library() -> ctypes.CDLL:
         lib.ca3d_ca_step.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.ca3d_ca_step.restype = _I
         lib.ca3d_render_fast.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+            _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
         ]
         lib.ca3d_render_fast.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
@@ -133,6 +136,12 @@ def library() -> ctypes.CDLL:
         lib.ca3d_cell_state.restype = _I
         lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P]
         lib.ca3d_primary_sweep.restype = _I
+        lib.ca3d_shadow_multi.argtypes = [
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.ca3d_shadow_multi.restype = _I
+        lib.ca3d_prepass.argtypes = [_I, _P, _I, _I, _I, _P, _P, _P]
+        lib.ca3d_prepass.restype = _I
         _lib = lib
     return _lib
 

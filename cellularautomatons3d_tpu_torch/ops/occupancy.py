@@ -1,7 +1,8 @@
 """Coarse occupancy mip for empty-space skipping, in plain torch.
 
 Port of ``cellularautomatons3d_tpu.ops.occupancy.coarse_occupancy``: one
-bit per 8³-cell block, 32 blocks per word along x.
+bit per 8³-cell block, 32 blocks per word along x; and of its
+``dilate_occupancy``, which the patch prepass (K6) takes its mip from.
 
 Input:  packed ``[W, Z, Y]`` words (int32 holding uint32 bits).
 Output: ``[Zc, XG·Yc]`` words with Zc = Z/8, Yc = Y/8 and XG = ⌈W/8⌉
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["coarse_occupancy", "coarse_shape", "BLOCK"]
+__all__ = ["coarse_occupancy", "coarse_shape", "dilate_occupancy", "BLOCK"]
 
 BLOCK = 8  # downsample factor per axis
 
@@ -49,3 +50,32 @@ def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:
     # uint32 bits → int32 (two's complement), groups laid out group-major.
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
     return words.permute(0, 2, 1).reshape(zc, xg * yc).contiguous()
+
+
+def dilate_occupancy(coarse: torch.Tensor, dilate_z: bool = True,
+                     yc: int | None = None, dilate_y: bool = True) -> torch.Tensor:
+    """OR each block with its neighbours one block away, as the reference's
+    ``dilate_occupancy``: in x within each word and across the x-group
+    boundary (block 31 of group g touches block 0 of group g+1), then in y
+    within each group (``dilate_y``) and in z (``dilate_z``), both wrapping
+    at the edges like ``jnp.roll``, which only adds occupancy.  ``yc``
+    (blocks along y) must be given when ``coarse`` has several x-groups
+    (n > 256).  Words are int32 holding uint32 bits, as in and out of
+    :func:`coarse_occupancy`."""
+    zc, ytot = coarse.shape
+    yc = ytot if yc is None else yc
+    xg = ytot // yc
+    # The uint32 bits in int64, so shifts neither overflow nor sign-extend.
+    d = (coarse.to(torch.int64) & 0xFFFFFFFF).reshape(zc, xg, yc)
+    x = d | ((d << 1) & 0xFFFFFFFF) | (d >> 1)
+    if xg > 1:
+        carry = torch.zeros_like(d)
+        carry[:, :-1] |= (d[:, 1:] & 1) << 31
+        carry[:, 1:] |= d[:, :-1] >> 31
+        x = x | carry
+    d = x
+    axes = ([0] if dilate_z else []) + ([2] if dilate_y else [])
+    for axis in axes:
+        d = d | torch.roll(d, 1, axis) | torch.roll(d, -1, axis)
+    d = torch.where(d >= 2**31, d - 2**32, d)  # uint32 bits → int32
+    return d.to(torch.int32).reshape(zc, ytot)

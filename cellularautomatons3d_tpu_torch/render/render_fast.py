@@ -21,6 +21,15 @@ Two implementations with one contract:
 of the same name; the TPU's tile-blocked pixel layout does not come across,
 so images are ``[H, W]`` / ``[H, W, 3]`` in image order.
 
+The opt-in patch prepass (``raytrace_tiles(use_prepass=True)``, kernel K6:
+:func:`prepass` / :func:`prepass_cuda`, ``csrc/prepass.cu``) gives each
+8×8-pixel patch a mask of the 8-plane columns its rays may hit, from the
+coarse mip dilated twice (``ops.occupancy.dilate_occupancy``); K1 then
+gates its primary sweep's columns by the mask of the pixel's patch
+(``colmask``) instead of the mip.  The Engine never sets it, as in the
+reference.  Pixel (px, py) reads its mask at ``[py // 8, px // 8]``: the
+reference's upsampling to a tile-blocked image does not come across.
+
 Traversal semantics (the written spec is ``oracle_dda`` in
 tests/test_render_fast.py): a +z pass for dz > 0 and a −z pass for dz < 0
 (rays with dz == 0 never hit), one probe per z-plane at the midpoint of the
@@ -35,11 +44,16 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.occupancy import dilate_occupancy
 
 __all__ = [
     "raytrace_tiles",
     "raytrace",
     "raytrace_cuda",
+    "prepass",
+    "prepass_cuda",
+    "prepass_mask",
+    "PATCH",
     "P_LEN",
     "pack_cam",
 ]
@@ -68,6 +82,9 @@ COT_HALF_FOV = 1.3032254  # 1/tan(37.5°), wgsl:69
 PI = 3.14159265359
 OCCLUDED = 0.0095         # blocked-shadow quotient (wgsl:635-680)
 MAX_GRID = 256
+PATCH = 8            # prepass patch edge (pixels)
+_PRE_DEV = 0.0075    # per-unit-t bound on a patch bundle's ray deviation
+_PRE_MARGIN = 0.035  # grown-box margin of the prepass ray
 
 
 def pack_cam(view_mat, width, height, light_pos, light_magnitude, cell_size,
@@ -159,13 +176,18 @@ def _pixel_rays(cam, width, height, device):
     return ux, dx, dy, dz
 
 
-def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None):
+def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
+           colmask=None):
     """One plane-midpoint sweep over every z-plane, all pixels at once.
 
     ``exclude`` is None for the primary sweep (accept tN ≤ tF ∧ tF ≥
-    t_start); for the shadow sweep it is the start cell (hx, hy, hz),
-    skipped component-wise, and the accept rule is tN ≤ tF ∧ tN ≥ 0.
-    Returns (found, t, hx, hy, hz)."""
+    t_start); for a shadow sweep it is the start cell (hx, hy, hz), skipped
+    component-wise, or (K5) its packed id x + y·n + z·n² with −1 for none,
+    and the accept rule is tN ≤ tF ∧ tN ≥ 0.  ``colmask``: the per-pixel
+    prepass mask [H, W] int32; plane k is then probed only if its 8-plane
+    column c = k // 8 passes K1's mask gate (a non-empty clipped column
+    segment, and bit c set or a steep ray).  Returns (found, t, hx, hy,
+    hz)."""
     ox, oy, oz = o
     dx, dy, dz = d
     inv_n = float(np.float32(1.0 / n))
@@ -176,6 +198,9 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None):
     t_hit = torch.zeros_like(dx)
     hx = torch.zeros(dx.shape, dtype=torch.int32, device=dx.device)
     hy, hz = hx.clone(), hx.clone()
+    if colmask is not None:
+        adz2 = 2.0 * dz.abs()
+        steep = (dx.abs() > adz2) | (dy.abs() > adz2)
     for k in range(n):
         kk = torch.where(up, k, n - 1 - k).to(torch.int32)
         gzf = kk.to(torch.float32)
@@ -184,6 +209,15 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None):
         lo = torch.maximum(torch.minimum(ta, tb), t_start)
         hi = torch.minimum(torch.maximum(ta, tb), t_end)
         seg_ok = (lo < hi) & ~found & pass_active
+        if colmask is not None:
+            c = kk >> 3
+            ga = (c * 8).to(torch.float32)
+            ca = (ga * inv_n - 0.5 - oz) * inv_dz
+            cb = ((ga + 8.0) * inv_n - 0.5 - oz) * inv_dz
+            c_lo = torch.maximum(torch.minimum(ca, cb), t_start)
+            c_hi = torch.minimum(torch.maximum(ca, cb), t_end)
+            bit = ((colmask >> c) & 1) == 1
+            seg_ok = seg_ok & (c_lo < c_hi) & (bit | steep)
         tm = 0.5 * (lo + hi)
         cxf = torch.clamp(torch.floor((ox + tm * dx + 0.5) * n), 0, n - 1)
         cyf = torch.clamp(torch.floor((oy + tm * dy + 0.5) * n), 0, n - 1)
@@ -192,7 +226,9 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None):
         cy = torch.where(seg_ok, cyf, 0.0).to(torch.int32)
         word = vol_flat[((cx >> 5) * (n * n) + kk * n + cy).long()]
         cand = seg_ok & (((word >> (cx & 31)) & 1) == 1)
-        if exclude is not None:
+        if isinstance(exclude, torch.Tensor):
+            cand = cand & ((cx + cy * n + kk * (n * n)) != exclude)
+        elif exclude is not None:
             cand = cand & ~(
                 (cx == exclude[0]) & (cy == exclude[1]) & (kk == exclude[2])
             )
@@ -261,10 +297,11 @@ def _shade(cam, q, co, albedo, view_pos):
     return out
 
 
-def _primary(vol, cam, n, width, height):
+def _primary(vol, cam, n, width, height, colmask=None):
     """Camera rays, volume entry and exit, and the primary sweep of every
     pixel: ((ux, o, d, active, tf), (found, t, hx, hy, hz)), each [H, W]
-    (o and d are xyz triples)."""
+    (o and d are xyz triples).  ``colmask``: the prepass's patch masks
+    [⌈H/8⌉, ⌈W/8⌉], which then gate the sweep's columns."""
     dev = vol.device
     f = lambda i: float(cam[i])  # noqa: E731
     cell_half = float(np.float32(1.0 / n) * cam[P_CELLMUL] * np.float32(0.5))
@@ -276,18 +313,24 @@ def _primary(vol, cam, n, width, height):
     tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
     active = (tn <= tf) & (tf >= 0.0)
     t_start = torch.clamp(tn, min=0.0)
-    hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active)
+    if colmask is not None:
+        colmask = colmask.repeat_interleave(PATCH, 0).repeat_interleave(PATCH, 1)
+        colmask = colmask[:height, :width]
+    hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active,
+                  colmask=colmask)
     return (ux, o, d, active, tf), hits
 
 
 def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
-             shadow=True):
+             shadow=True, colmask=None):
     """Plain torch K1 (the kernel's reference; ``coarse`` is unused).
 
     Without ``history``: returns (rgb [H,W,3] linear light, depth [H,W],
     idx [H,W] int32; -1 = miss).  With ``history = (color [H,W,3] f32,
     hit_idx [H,W] int32)``: composes the frame and returns (presentation
-    [H,W,3], depth, idx, new history color [H,W,3] f32)."""
+    [H,W,3], depth, idx, new history color [H,W,3] f32).  ``colmask``: the
+    prepass's int32 patch masks [⌈H/8⌉, ⌈W/8⌉] (:func:`prepass`), which
+    then gate the primary sweep's columns."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
     f = lambda i: float(cam[i])  # noqa: E731
@@ -296,7 +339,7 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
     cell_half = float(np.float32(inv_n) * cam[P_CELLMUL] * np.float32(0.5))
 
     (ux, (ox, oy, oz), (dx, dy, dz), active, tf), (found, t_hit, hx, hy, hz) = (
-        _primary(vol, cam, n, width, height)
+        _primary(vol, cam, n, width, height, colmask)
     )
     depth = torch.where(found, t_hit, torch.where(active, tf, 0.0))
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
@@ -368,13 +411,15 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
 
 
 def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
-                  shadow=True):
+                  shadow=True, colmask=None):
     """K1 on the card (``csrc/render_fast.cu``): same contract as
     :func:`raytrace`; every tensor must be a contiguous CUDA tensor."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, (n // 8, n // 8))
+    if colmask is not None:
+        kernels.require(colmask, "colmask", torch.int32, _patch_grid(width, height))
     lib = kernels.library()
     dev = vol.device
     out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -390,7 +435,8 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
         ptrs = (None, None, None)
     err = lib.ca3d_render_fast(
         dev.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width, height,
-        cam.ctypes.data, int(shadow), int(history is not None),
+        cam.ctypes.data, int(shadow),
+        None if colmask is None else colmask.data_ptr(), int(history is not None),
         ptrs[0], ptrs[1], out_rgb.data_ptr(), depth.data_ptr(),
         idx.data_ptr(), ptrs[2], kernels.stream_of(vol),
     )
@@ -404,10 +450,120 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
 raytrace_cuda.launches = 0
 
 
+# ------------------------------------------------------- K6: prepass ---
+
+
+def _patch_grid(width, height):
+    """Shape of the prepass's mask image: [⌈H/8⌉, ⌈W/8⌉] patches."""
+    return -(-height // PATCH), -(-width // PATCH)
+
+
+def _f32(x) -> float:
+    """A host value rounded to float32 once (the reference's weak-typed
+    Python scalars enter its f32 arithmetic this way)."""
+    return float(np.float32(x))
+
+
+def prepass(coarse_pre, cam, *, grid_size, width, height):
+    """Plain torch K6 (render_fast.py ``_make_prepass``): the int32 column
+    mask of every 8×8 patch, [⌈H/8⌉, ⌈W/8⌉].  The ray of the patch's
+    centre pixel (``(p mod pw)·8 + 4``, no +0.5) over the volume box grown
+    by 0.035 sets bit c when one of three probes of its segment in 8-plane
+    column c lands in an occupied block of ``coarse_pre`` (the coarse mip
+    dilated ±2 blocks in x and ±1 in y, int32 [n/8, n/8]); steep, far or
+    degenerate patches get −1 (every column), patches whose ray misses the
+    box 0."""
+    cam = _check_args(grid_size, width, height, cam)
+    n = grid_size
+    nbk = n // 8
+    ph, pw = _patch_grid(width, height)
+    dev = coarse_pre.device
+    win_w, win_h = cam[P_WIN], cam[P_WIN + 1]
+    py = (torch.arange(ph, dtype=torch.float32, device=dev) * PATCH + PATCH // 2)
+    px = (torch.arange(pw, dtype=torch.float32, device=dev) * PATCH + PATCH // 2)
+    py, px = py[:, None].expand(ph, pw), px[None, :].expand(ph, pw)
+    ux = px / torch.full_like(px, float(win_w))
+    uy = 1.0 - (py + float(cam[P_ROW0])) / torch.full_like(py, float(win_h))
+    rx = (ux - 0.5) * float(win_w / win_h)
+    ry = uy - 0.5
+    rz = torch.full_like(rx, -0.5 * COT_HALF_FOV)
+    rx, ry, rz = _normalize3(rx, ry, rz)
+    f = lambda i: float(cam[i])  # noqa: E731
+    d = (f(0) * rx + f(1) * ry + f(2) * rz,
+         f(3) * rx + f(4) * ry + f(5) * rz,
+         f(6) * rx + f(7) * ry + f(8) * rz)
+    o = [np.float32(cam[P_O + i]) for i in range(3)]
+    hm = np.float32(0.5 + _PRE_MARGIN)
+    inv = [1.0 / di for di in d]
+    # The box grown by the margin: per axis (min, max) of its two faces' t.
+    slabs = [(torch.minimum(float(-hm - oi) * ii, float(hm - oi) * ii),
+              torch.maximum(float(-hm - oi) * ii, float(hm - oi) * ii))
+             for oi, ii in zip(o, inv)]
+    tn = torch.maximum(torch.maximum(slabs[0][0], slabs[1][0]), slabs[2][0])
+    tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
+    active = (tn <= tf) & (tf >= 0.0)
+    t0 = torch.clamp(tn, min=0.0)
+    adx, ady, adz = (di.abs() for di in d)
+    steep = (adx > 2.0 * adz - _f32(0.03)) | (ady > 2.0 * adz - _f32(0.03))
+    far = tf * _f32(_PRE_DEV * n) > 7.0
+    words = coarse_pre.reshape(-1).to(torch.int64)
+    mask = torch.zeros((ph, pw), dtype=torch.int64, device=dev)
+    for c in range(nbk):
+        za = np.float32(c * 8 * (1.0 / n) - 0.5)
+        zb = np.float32((c * 8 + 8) * (1.0 / n) - 0.5)
+        ta = float(za - o[2]) * inv[2]
+        tb = float(zb - o[2]) * inv[2]
+        lo = torch.maximum(torch.minimum(ta, tb), t0)
+        hi = torch.minimum(torch.maximum(ta, tb), tf)
+        seg = (lo < hi) & active
+        occ = torch.zeros_like(seg)
+        for tp in (lo, 0.5 * (lo + hi), hi):
+            b = [torch.clamp(torch.floor((tp * di + float(oi) + 0.5) * nbk), 0, nbk - 1)
+                 for di, oi in zip(d[:2], o[:2])]
+            bx, by = (torch.where(seg, bi, 0.0).to(torch.int64) for bi in b)
+            occ = occ | (seg & (((words[c * nbk + by] >> bx) & 1) == 1))
+        mask = mask | (occ.to(torch.int64) << c)
+    mask = torch.where((steep | far) & active, -1, torch.where(active, mask, 0))
+    return torch.where(mask >= 2**31, mask - 2**32, mask).to(torch.int32)
+
+
+def prepass_cuda(coarse_pre, cam, *, grid_size, width, height):
+    """K6 on the card (``csrc/prepass.cu``): same contract as
+    :func:`prepass`; ``coarse_pre`` must be a contiguous CUDA tensor."""
+    cam = _check_args(grid_size, width, height, cam)
+    n = grid_size
+    kernels.require(coarse_pre, "coarse_pre", torch.int32, (n // 8, n // 8))
+    out = torch.empty(_patch_grid(width, height), dtype=torch.int32,
+                      device=coarse_pre.device)
+    err = kernels.library().ca3d_prepass(
+        coarse_pre.device.index or 0, coarse_pre.data_ptr(), n, width, height,
+        cam.ctypes.data, out.data_ptr(), kernels.stream_of(coarse_pre),
+    )
+    kernels.check(err, "prepass")
+    prepass_cuda.launches += 1
+    return out
+
+
+prepass_cuda.launches = 0
+
+
+def prepass_mask(coarse, cam, *, grid_size, width, height):
+    """The patch masks of a frame (render_fast.py ``_prepass_mask``): the
+    coarse mip ``coarse`` dilated ±1 block in x and y, then ±1 more in x,
+    through the plain K6 for a CPU mip and K6 for any other."""
+    coarse_pre = dilate_occupancy(coarse, dilate_z=False, dilate_y=True)
+    coarse_pre = dilate_occupancy(coarse_pre, dilate_z=False, dilate_y=False)
+    fn = prepass if coarse.device.type == "cpu" else prepass_cuda
+    return fn(coarse_pre, cam, grid_size=grid_size, width=width, height=height)
+
+
 def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
-                   height, shadow=True):
+                   height, shadow=True, use_prepass=False):
     """Trace (and with ``history``, compose) one frame: the plain version
-    for a CPU volume, the CUDA kernel for any other."""
+    for a CPU volume, the CUDA kernel for any other.  ``use_prepass``: gate
+    the primary sweep by the patch prepass's column masks
+    (:func:`prepass_mask`); opt-in, as in the reference."""
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    colmask = prepass_mask(coarse, cam, **kw) if use_prepass else None
     fn = raytrace if vol.device.type == "cpu" else raytrace_cuda
-    return fn(vol, coarse, cam, history, grid_size=grid_size, width=width,
-              height=height, shadow=shadow)
+    return fn(vol, coarse, cam, history, shadow=shadow, colmask=colmask, **kw)

@@ -20,7 +20,7 @@ view-dependent brick-order flip are TPU VMEM layout, not kernels.
 order.  Exact-t ties between distinct cells, where the reference keeps
 the first brick processed, keep the first cell in plane order here.
 
-Three kernels, each with a plain torch version of the same contract that
+Four kernels, each with a plain torch version of the same contract that
 runs for CPU tensors and is the kernel's reference:
 
 * K4, primary hits (:func:`primary_sweep` / :func:`primary_sweep_cuda`,
@@ -29,6 +29,11 @@ runs for CPU tensors and is the kernel's reference:
 * K2, occlusion (:func:`shadow_sweep` / :func:`shadow_sweep_cuda`,
   ``csrc/shadow_sweep.cu``): the default sweep backend of the reference's
   ``shadow_occlusion_batch``;
+* K5, multi-query occlusion (:func:`shadow_sweep_multi` /
+  :func:`shadow_sweep_multi_cuda`, ``csrc/shadow_multi.cu``): the opt-in
+  backend of ``shadow_occlusion_batch`` (``CA3D_OCC_SWEEP=0``), one
+  traversal per pixel serving up to ``CA3D_OCC_NQ`` queries; its flags equal
+  K2's;
 * K3, cell state (:func:`cell_state` / :func:`cell_state_cuda`,
   ``csrc/cell_state.cu``).
 
@@ -45,6 +50,7 @@ float64 rounded to float32, so the CPU and the card agree bit for bit.
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -95,6 +101,9 @@ __all__ = [
     "soft_shadow_jitter",
     "shadow_sweep",
     "shadow_sweep_cuda",
+    "shadow_sweep_multi",
+    "shadow_sweep_multi_cuda",
+    "pack_exclusion",
     "stack_occlusion_queries",
     "shadow_occlusion_batch",
     "cell_state",
@@ -270,20 +279,27 @@ def _exit_t(s, d):
     return torch.maximum((-0.5 - s) / d, (0.5 - s) / d)
 
 
-def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
-    """Plain torch K2: occluded flags int32 [nq, H, W] of the shadow rays
-    from ``start`` toward ``target`` (f32 [nq, 3, H, W]) over t in [0,
-    volume exit], skipping the cell ``excl`` (int32 [nq, 3, H, W]) component
-    by component; inactive lanes (``active`` bool [nq, H, W]) give 0."""
+def _occlusion(vol, start, target, active, exclude, grid_size, cell_half):
+    """The occluded flags of K2 and K5: each ray from ``start`` toward
+    ``target``, normalised, over t in [0, volume exit]."""
     sx, sy, sz = start.unbind(1)
     tx, ty, tz = target.unbind(1)
     dx, dy, dz = _normalize3(tx - sx, ty - sy, tz - sz)
     t1 = torch.minimum(torch.minimum(_exit_t(sx, dx), _exit_t(sy, dy)), _exit_t(sz, dz))
     occluded = _sweep(
         vol.reshape(-1), grid_size, cell_half, (sx, sy, sz), (dx, dy, dz),
-        torch.zeros_like(t1), t1, active, exclude=tuple(excl.unbind(1)),
+        torch.zeros_like(t1), t1, active, exclude=exclude,
     )[0]
     return occluded.to(torch.int32)
+
+
+def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
+    """Plain torch K2: occluded flags int32 [nq, H, W] of the shadow rays
+    from ``start`` toward ``target`` (f32 [nq, 3, H, W]) over t in [0,
+    volume exit], skipping the cell ``excl`` (int32 [nq, 3, H, W]) component
+    by component; inactive lanes (``active`` bool [nq, H, W]) give 0."""
+    return _occlusion(vol, start, target, active, tuple(excl.unbind(1)),
+                      grid_size, cell_half)
 
 
 def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
@@ -313,6 +329,59 @@ def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
 shadow_sweep_cuda.launches = 0
 
 
+# -------------------------------------------- K5: multi-query occlusion ---
+
+MAX_MULTI_QUERIES = 8  # K5's largest batch (csrc/shadow_multi.cu)
+
+
+def pack_exclusion(excl, n):
+    """K5's excluded-cell ids int32 [nq, H, W] from K2's cells int32 [nq,
+    3, H, W]: x + y·n + z·n², and −1 where a coordinate is outside [0, n)
+    (render_slab.py shadow_occlusion_batch: a plain packing would alias,
+    e.g. x == n to the real cell (0, y+1, z)).  Probe ids are ≥ 0, so −1
+    never matches, as an out-of-range coordinate never matches in K2."""
+    x, y, z = excl.unbind(1)
+    in_range = ((excl >= 0) & (excl < n)).all(dim=1)
+    return torch.where(in_range, x + y * n + z * (n * n), -1).to(torch.int32)
+
+
+def shadow_sweep_multi(vol, start, target, exid, active, *, grid_size,
+                       cell_half):
+    """Plain torch K5: :func:`shadow_sweep`'s flags with the excluded cell
+    given by its packed id ``exid`` (int32 [nq, H, W], :func:`pack_exclusion`)."""
+    return _occlusion(vol, start, target, active, exid, grid_size, cell_half)
+
+
+def shadow_sweep_multi_cuda(vol, coarse, start, target, exid, active, *,
+                            grid_size, cell_half):
+    """K5 on the card (``csrc/shadow_multi.cu``): same contract as
+    :func:`shadow_sweep_multi`, one thread per pixel serving its ≤ 8
+    queries; every tensor must be a contiguous CUDA tensor."""
+    n = grid_size
+    nq, _, h, w = start.shape
+    if not 1 <= nq <= MAX_MULTI_QUERIES:
+        raise ValueError(f"K5 takes 1 to {MAX_MULTI_QUERIES} queries, got {nq}")
+    kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
+    kernels.require(start, "start", torch.float32, (nq, 3, h, w))
+    kernels.require(target, "target", torch.float32, (nq, 3, h, w))
+    kernels.require(exid, "exid", torch.int32, (nq, h, w))
+    kernels.require(active, "active", torch.bool, (nq, h, w))
+    out = torch.empty((nq, h, w), dtype=torch.int32, device=start.device)
+    err = kernels.library().ca3d_shadow_multi(
+        start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
+        float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
+        exid.data_ptr(), active.data_ptr(), out.data_ptr(),
+        kernels.stream_of(start),
+    )
+    kernels.check(err, "shadow_multi")
+    shadow_sweep_multi_cuda.launches += 1
+    return out
+
+
+shadow_sweep_multi_cuda.launches = 0
+
+
 def _stack3(vectors, shape):
     """[H, W, 3] (or broadcastable) tensors → contiguous [nq, 3, H, W]."""
     return torch.stack([torch.broadcast_to(v, shape).movedim(-1, 0) for v in vectors])
@@ -331,18 +400,46 @@ def stack_occlusion_queries(queries, width, height):
     )
 
 
+def _occlusion_k2(prepped, ops, kw):
+    if ops[0].device.type == "cpu":
+        return shadow_sweep(prepped.vol, *ops, **kw)
+    return shadow_sweep_cuda(prepped.vol, prepped.coarse, *ops, **kw)
+
+
+def _occlusion_k5(prepped, ops, kw):
+    start, target, excl, active = ops
+    ops = (start, target, pack_exclusion(excl, kw["grid_size"]), active)
+    if start.device.type == "cpu":
+        return shadow_sweep_multi(prepped.vol, *ops, **kw)
+    return shadow_sweep_multi_cuda(prepped.vol, prepped.coarse, *ops, **kw)
+
+
 def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
                            height):
     """Cell-exact occlusion for a batch of per-pixel ray queries (e.g. the
-    k jittered soft-shadow samples and the 4 GI slots), all in one launch.
-    Returns one bool [H, W] occlusion mask per query."""
+    k jittered soft-shadow samples and the 4 GI slots).  Returns one bool
+    [H, W] occlusion mask per query.
+
+    Backends, chosen as the reference chooses them, from environment
+    variables read on every call: by default every query goes to K2, here
+    in one launch.  With ``CA3D_OCC_SWEEP`` other than ``1`` the batch is
+    cut into chunks of ``CA3D_OCC_NQ`` (default 4) queries, and a chunk
+    goes to K5 (one traversal per pixel for the chunk's queries) unless it
+    holds one query and ``CA3D_OCC_NQ1_SWEEP`` is ``1`` (the default), when
+    it goes to K2.  Both give the same flags."""
     ops = stack_occlusion_queries(queries, width, height)
     kw = dict(grid_size=grid_size, cell_half=_cell_half(cam, grid_size))
-    if ops[0].device.type == "cpu":
-        occ = shadow_sweep(prepped.vol, *ops, **kw)
-    else:
-        occ = shadow_sweep_cuda(prepped.vol, prepped.coarse, *ops, **kw)
-    return list(occ == 1)
+    if os.environ.get("CA3D_OCC_SWEEP", "1") == "1":
+        return list(_occlusion_k2(prepped, ops, kw) == 1)
+    nq_max = int(os.environ.get("CA3D_OCC_NQ", "4"))
+    nq1_sweep = os.environ.get("CA3D_OCC_NQ1_SWEEP", "1") == "1"
+    out = []
+    for i in range(0, len(queries), nq_max):
+        chunk = [o[i : i + nq_max] for o in ops]
+        k2 = chunk[0].shape[0] == 1 and nq1_sweep
+        occ = (_occlusion_k2 if k2 else _occlusion_k5)(prepped, chunk, kw)
+        out += list(occ == 1)
+    return out
 
 
 # ----------------------------------------------------- K3: cell state ---

@@ -21,8 +21,12 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
   (d) timings with CUDA events (kernel vs plain, CA step, step + composed
       frame; K2 and K3 vs plain, the lighting passes, and step + frame of
       the three lighting configurations; K4 and K2's hard-shadow query vs
-      plain and step + frame at 512³ and 1024³), beside the card's name and
-      power limit.  It runs last, after (e) and (f).
+      plain and step + frame at 512³ and 1024³; K5 against K2 on a
+      full-quality frame's 8 queries at 256³ and 512³, K6, K1 with and
+      without the prepass mask on gen-80 and gen-230, and full-quality step
+      + frame with K5 against K2, each pair alternated), beside the card's
+      name and power limit, and each kernel's bound from this run's inputs.
+      It runs last, after (e), (f) and (g).
   (e) the extended-lighting path: K2 (occlusion sweep) and K3 (cell
       state) vs their plain versions, equal on every (query, pixel), on
       the 8 occlusion queries (4 soft-shadow samples, 4 GI slots) and 4
@@ -47,6 +51,18 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       step(200), render(), run_fused(5), and Engine(512) with soft shadows
       ×4, GI, light_radius 0.08 and gi_temporal, with every kernel's launch
       counter read around each.
+  (g) the opt-in paths: K5 (multi-query occlusion, CA3D_OCC_SWEEP=0) vs its
+      plain version and vs K2, bit for bit, on a full-quality frame's 8
+      queries (chunks of 4 and one launch of 8) at 64³ / 128×64, 256³ and
+      512³ / 1920×1080 and on random rays at 64³ and 512³; K6 (the patch
+      prepass) vs its plain version and K1 with its mask vs K1 without it
+      (ids equal, depth and rgb within the contract, both modes) at 256³ /
+      1080p on the gen-80 and the dense gen-230 scene from three views; 20
+      composed frames through raytrace_tiles(use_prepass=True) with K6's
+      and K1's launch counters; the Engine with CA3D_OCC_SWEEP=0 on the card
+      vs on the CPU at 64³ (full quality, two bounces), then Engine(256,
+      1080p) full quality and two bounces and Engine(512) gi_temporal with
+      it, K5 launched and K2 not.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -57,7 +73,9 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -80,6 +98,20 @@ RGB_RTOL, RGB_ATOL = 3e-3, 3e-4
 
 class SmokeFailure(Exception):
     pass
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """Set an environment variable for a block, then restore it."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
 
 
 def need(cond, msg):
@@ -280,6 +312,236 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
                 engines=engines, timed=timed_ops)
 
 
+# ---------------------------------------------------------------- bounds ---
+# The least time the card could take for a kernel's work: the larger of its
+# bytes over the H100's memory rate (each input read once, each output
+# written once; an input a lane does not need, such as the operands of an
+# inactive lane, is not counted) and its operations over the card's
+# peak rate (67 TFLOP/s float32 outside the tensor cores; int32 operations
+# are counted at that rate too, a lower bound).  Operations are counted from
+# the kernels' code, per lane and per 8-plane column that this run's rays
+# cross (from each ray's z extent); plane probes are not counted.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+OPS_RAY = 40          # camera or occlusion ray set-up: normalise, slab exits
+OPS_COLUMN = 50       # column span, cell range, mip test (sweep.cuh)
+OPS_SHADE = 150       # Cook-Torrance shading and composition of a hit
+OPS_CA_NEIGHBOUR = 24  # boundary sources, funnel shift, 5-plane carry add
+OPS_CA_RULE_VALUE = 6  # rule_hit per member count of born / survive
+OPS_PATCH = 60        # K6 patch ray and box
+OPS_PATCH_COLUMN = 40  # K6 column span and 3 probes
+
+
+def bound(nbytes, ops):
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations",
+            "bytes": float(nbytes), "ops": float(ops)}
+
+
+def columns_crossed(torch, dz, t0, t1, n, active):
+    """8-plane columns crossed by rays over [t0, t1], summed over active ones."""
+    span = (t1 - t0).clamp(min=0.0) * dz.abs() * (n / 8.0)
+    ok = active & torch.isfinite(span)
+    return float(torch.where(ok, torch.floor(span) + 1.0, 0.0).sum())
+
+
+def occlusion_work(torch, start, target, active, n, bytes_per_lane):
+    """(bytes, ops) of K2 or K5 on stacked queries: active lanes read their
+    operands, every lane its active flag and its output; the volume and the
+    mip once."""
+    d = target - start
+    d = d / torch.sqrt((d * d).sum(dim=1, keepdim=True))
+    exits = torch.maximum((-0.5 - start) / d, (0.5 - start) / d)
+    t1 = exits.amin(dim=1)
+    lanes, act = active.numel(), int(active.sum())
+    cols = columns_crossed(torch, d[:, 2], torch.zeros_like(t1), t1, n, active)
+    nbytes = act * bytes_per_lane + lanes * 5 + n**3 / 8 + (n // 8) ** 2 * 4 * -(-n // 256)
+    return nbytes, act * OPS_RAY + cols * OPS_COLUMN
+
+
+def primary_work(torch, rf, cam, n, w, h, t_hit, idx, dev):
+    """(active rays, columns crossed to the hit or the exit) of K1's or K4's
+    primary sweep."""
+    _, dx, dy, dz = rf._pixel_rays(cam, w, h, dev)
+    o = [float(cam[rf.P_O + i]) for i in range(3)]
+    slabs = [rf._vol_slab(torch.full_like(di, oi), di) for oi, di in zip(o, (dx, dy, dz))]
+    tn = torch.maximum(torch.maximum(slabs[0][0], slabs[1][0]), slabs[2][0])
+    tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
+    active = (tn <= tf) & (tf >= 0.0)
+    t_end = torch.where(idx >= 0, t_hit, tf)
+    return int(active.sum()), columns_crossed(torch, dz, tn.clamp(min=0.0), t_end, n, active)
+
+
+def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown,
+                scene_cam, views, lighting_operands, compare, to_dev) -> dict:
+    """Phase (g): K5 against plain K5 and K2, K6 against plain K6, K1 with
+    the prepass mask against K1 without it, the prepass frame path and the
+    Engine with CA3D_OCC_SWEEP=0 with their launch counters.  Returns what
+    (d) times and reports."""
+    dev = torch.device("cuda", 0)
+    out = {"k5_timed": {}, "k1_timed": {}}
+
+    def k5_check(tag, vol, coarse, size, ops, cell_half):
+        start, target, excl, active = ops
+        exid = rs.pack_exclusion(excl, size)
+        kw = dict(grid_size=size, cell_half=cell_half)
+        nq = start.shape[0]
+        chunks = [rs.shadow_sweep_multi_cuda(vol, coarse, start[i:i + 4], target[i:i + 4],
+                                             exid[i:i + 4], active[i:i + 4], **kw)
+                  for i in range(0, nq, 4)]
+        got = torch.cat(chunks)
+        one = rs.shadow_sweep_multi_cuda(vol, coarse, start, target, exid, active, **kw)
+        k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+        want, ms = timed(torch, lambda: rs.shadow_sweep_multi(vol, start, target, exid,
+                                                              active, **kw))
+        bad = int((got != want).sum()) + int((one != want).sum())
+        bad_k2 = int((got != k2).sum())
+        log(f"  K5 {tag}: {nq} queries, {int(active.sum())} active, {int(want.sum())} "
+            f"occluded, {bad} differ from plain, {bad_k2} from K2, plain {ms:.1f} ms")
+        need(bad == 0, f"K5 {tag}: {bad} flags differ from the plain version")
+        need(bad_k2 == 0, f"K5 {tag}: {bad_k2} flags differ from K2")
+        need(int(want.sum()) > 0, f"K5 {tag}: nothing is occluded")
+        return exid, ms
+
+    # K5 on a full-quality frame's 8 queries (in chunks of 4, as the
+    # dispatch runs them, and in one launch of 8), and on random rays.
+    for size, w, h, steps in ((64, 128, 64, 80), (256, WIDTH, HEIGHT, 80),
+                              (512, WIDTH, HEIGHT, 160)):
+        vol, coarse, cam, _, k2, _ = lighting_operands(size, w, h, steps=steps)
+        tag = f"{size}^3 {w}x{h} gen-{steps} full quality"
+        exid, ms = k5_check(tag, vol, coarse, size, k2, rs._cell_half(cam, size))
+        if w == WIDTH:
+            out["k5_timed"][size] = (vol, coarse, cam, k2, exid, ms)
+    g = torch.Generator(dev).manual_seed(17)
+    for size in (64, 512):
+        rng = np.random.default_rng(size)
+        words = np.zeros((size // 32) * size * size, np.uint32)
+        k = int(0.002 * size**3)
+        np.bitwise_or.at(words, rng.integers(0, words.size, k),
+                         np.uint32(1) << rng.integers(0, 32, k).astype(np.uint32))
+        vol = to_dev(words.reshape(size // 32, size, size))
+        nq, w, h = 3, 256, 128
+        rnd = lambda *s: torch.rand(*s, device=dev, generator=g)  # noqa: E731
+        start = rnd(nq, 3, h, w) * 1.4 - 0.7
+        target = rnd(nq, 3, h, w) * 2.0 - 1.0
+        target[-1, 2] = torch.where(rnd(h, w) < 0.5, start[-1, 2], target[-1, 2])
+        cell = torch.floor((start + 0.5) * size).to(torch.int32)
+        other = (rnd(nq, 3, h, w) * (size + 2) - 1).to(torch.int32)
+        excl = torch.where(rnd(nq, 1, h, w) < 0.5, cell, other).contiguous()
+        active = rnd(nq, h, w) < 0.7
+        half = float(np.float32(1.0 / size) * np.float32(0.85) * np.float32(0.5))
+        k5_check(f"{size}^3 random rays", vol, coarse_occupancy(vol), size,
+                 (start, target, excl, active), half)
+
+    # K6 against plain K6, and K1 with the prepass mask against K1 without
+    # it, at 256³ / 1080p on the main path's gen-80 scene and the dense
+    # gen-230 scene (tools/bench_dense.py), from three views.
+    mask_frac = 0.0
+    for steps in (80, 230):
+        vol = grown(GRID, steps)
+        coarse = coarse_occupancy(vol)
+        pre = dilate_occupancy(dilate_occupancy(coarse, dilate_z=False),
+                               dilate_z=False, dilate_y=False)
+        for name, view in views.items():
+            cam = scene_cam(view, WIDTH, HEIGHT)
+            kw = dict(grid_size=GRID, width=WIDTH, height=HEIGHT)
+            m_k = rf.prepass_cuda(pre, cam, **kw)
+            m_p, k6_plain_ms = timed(torch, lambda: rf.prepass(pre, cam, **kw))
+            bad = int((m_k != m_p).sum())
+            tag = f"{GRID}^3 {WIDTH}x{HEIGHT} gen-{steps} {name}"
+            log(f"  K6 {tag}: {m_k.numel()} patches, {int((m_p == -1).sum())} forced, "
+                f"{int((m_p == 0).sum())} empty, {bad} differ, plain {k6_plain_ms:.1f} ms")
+            need(bad == 0, f"K6 {tag}: {bad} masks differ from the plain version")
+            kw = dict(kw, shadow=True)
+            got = rf.raytrace_cuda(vol, coarse, cam, colmask=m_k, **kw)
+            want = rf.raytrace_cuda(vol, coarse, cam, **kw)
+            torch.cuda.synchronize()
+            _, f = compare(f"K1 mask vs no mask {tag} non-compose", got, want)
+            mask_frac = max(mask_frac, f)
+            hist = (torch.clamp(want[0] * 1.5 + 0.02, 0.0, 1.0).contiguous(),
+                    torch.where(torch.rand(want[2].shape, device=dev, generator=g) < 0.7,
+                                want[2], want[2] + 1).contiguous())
+            got = rf.raytrace_cuda(vol, coarse, cam, hist, colmask=m_k, **kw)
+            want = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
+            torch.cuda.synchronize()
+            _, f = compare(f"K1 mask vs no mask {tag} compose", got, want)
+            mask_frac = max(mask_frac, f)
+            if name == "front":
+                out["k1_timed"][steps] = (vol, coarse, pre, cam, hist, m_k, kw, k6_plain_ms)
+    out["k1_mask_id_mismatch"] = mask_frac
+
+    # The prepass frame path (tools/bench_dense.py's loop with
+    # CA3D_PREPASS=1): composed frames of the gen-230 scene through
+    # raytrace_tiles(use_prepass=True).
+    vol, coarse, _, cam, hist, _, kw, _ = out["k1_timed"][230]
+    rf.prepass_cuda.launches = 0
+    rf.raytrace_cuda.launches = 0
+    h = hist
+    for _ in range(20):
+        pres, _, idx, color = rf.raytrace_tiles(vol, coarse_occupancy(vol), cam, h,
+                                                use_prepass=True, **kw)
+        h = (color, idx)
+    torch.cuda.synchronize()
+    counts = {"prepass_cuda": rf.prepass_cuda.launches,
+              "raytrace_cuda": rf.raytrace_cuda.launches}
+    need(all(v > 0 for v in counts.values()), f"prepass path missed a kernel: {counts}")
+    need(bool(torch.isfinite(pres).all()) and float(pres.max()) > 0.0,
+         "prepass frame is not finite or is black")
+    log(f"(g) prepass path: 20 composed frames of gen-230; launches {counts}")
+    out["prepass_launches"] = counts
+
+    # The Engine with CA3D_OCC_SWEEP=0: on the card against the CPU at 64³,
+    # then at real size, with every kernel's launch counter read around it.
+    with env_var("CA3D_OCC_SWEEP", "0"):
+        small = dict(grid_size=64, width=128, height=64, **LIGHTING)
+        for name in ("full_quality", "two_bounces"):
+            variant = LIGHTING_VARIANTS[name]
+            rs.shadow_sweep_multi_cuda.launches = 0
+            res = []
+            for d in ("cuda", "cpu"):
+                e = ct.Engine(device=d, **small, **variant)
+                e.step(30)
+                fr = [e.render(), e.render(), e.run_fused(2, reset_every=1)]
+                res.append(([f.cpu() for f in fr], e.history.hit_idx.cpu()))
+            (gpu, gidx), (cpu, cidx) = res
+            need(rs.shadow_sweep_multi_cuda.launches > 0, f"K5 64^3 {name}: K5 never ran")
+            need(torch.equal(gidx, cidx), f"K5 64^3 {name}: Engine ids cuda != cpu")
+            for a, b in zip(gpu, cpu):
+                need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+                     f"K5 64^3 {name}: frame cuda vs cpu max err {float((a - b).abs().max())}")
+            log(f"  Engine {name} with CA3D_OCC_SWEEP=0 cuda == cpu at 64^3")
+        counted = (rf.raytrace_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
+                   rs.shadow_sweep_multi_cuda, rs.cell_state_cuda)
+        out["launches"], out["engines"] = {}, {}
+        for name, cfg, steps, fused in (
+            ("k5_full_quality", dict(grid_size=GRID, **LIGHTING), 80, 10),
+            ("k5_two_bounces", dict(grid_size=GRID, **LIGHTING, indirect_bounces=2), 80, 3),
+            ("k5_sliced_512_gi_temporal", dict(grid_size=512, **LIGHTING, gi_temporal=True),
+             160, 10),
+        ):
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            eng = ct.Engine(width=WIDTH, height=HEIGHT, device="cuda", **cfg)
+            eng.step(steps)
+            fr = [eng.render(), eng.run_fused(fused, reset_every=fused)]
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in counted}
+            for i, f in enumerate(fr):
+                need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape")
+                need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
+                need(float(f.max()) > 0.0, f"{name} frame {i} is black")
+            need(counts["shadow_sweep_multi_cuda"] > 0, f"{name}: K5 never ran: {counts}")
+            need(counts["shadow_sweep_cuda"] == 0, f"{name}: K2 ran: {counts}")
+            need(counts["cell_state_cuda"] > 0, f"{name}: K3 never ran: {counts}")
+            log(f"(g) {name}: step({steps}), render(), run_fused({fused}) in "
+                f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+            out["launches"][name] = counts
+            out["engines"][name] = eng
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -297,7 +559,7 @@ def main() -> dict:
     from cellularautomatons3d_tpu_torch import kernels
     from cellularautomatons3d_tpu_torch.models.automaton import AutomatonSpec
     from cellularautomatons3d_tpu_torch.ops import ca_step
-    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
+    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy, dilate_occupancy
     from cellularautomatons3d_tpu_torch.render import render_fast as rf
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
     from cellularautomatons3d_tpu_torch.utils import mat4
@@ -586,6 +848,12 @@ def main() -> dict:
                           lighting_operands)
     report["sliced"] = {k: sliced[k] for k in ("k4_max_abs_err", "plain_ms", "launches")}
 
+    # ------------------------------- (g) K5, K6 and K1's column-mask gate ---
+    multi = multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown,
+                        scene_cam, views, lighting_operands, compare, to_dev)
+    report["multi"] = {k: multi[k] for k in ("k1_mask_id_mismatch", "prepass_launches",
+                                             "launches")}
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
@@ -625,6 +893,66 @@ def main() -> dict:
             vol, coarse, *k2, grid_size=size, cell_half=rs._cell_half(cam, size)),
             20, warmup=2)
     sliced_ms.update(sliced["plain_ms"])
+    for size in (512, 1024):
+        st_big = sliced["timed"][size][0]
+        spec_big = AutomatonSpec.from_rule_strings(size)
+        sliced_ms[f"ca_step_{size}_ms"] = cuda_ms(
+            torch, lambda: ca_step.fires_plane_cuda(st_big, spec_big), 50, warmup=3)
+
+    # K5 against K2 on a full-quality frame's 8 queries, alternated K2, K5,
+    # K5, K2 (K5 as the dispatch runs it: two launches of 4 queries).
+    multi_ms = {}
+    for size, (vol, coarse, cam, k2, exid, plain_ms) in multi["k5_timed"].items():
+        kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        start, target, excl, active = k2
+
+        def run_k2():
+            rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+
+        def run_k5():
+            for i in (0, 4):
+                rs.shadow_sweep_multi_cuda(vol, coarse, start[i:i + 4], target[i:i + 4],
+                                           exid[i:i + 4], active[i:i + 4], **kw)
+
+        reads = [cuda_ms(torch, fn, 20, warmup=2) for fn in (run_k2, run_k5, run_k5, run_k2)]
+        multi_ms[f"k2_{size}_ms"] = (reads[0] + reads[3]) / 2
+        multi_ms[f"k5_{size}_ms"] = (reads[1] + reads[2]) / 2
+        multi_ms[f"k2_k5_k5_k2_{size}_ms"] = reads
+        multi_ms[f"k5_{size}_plain_ms"] = plain_ms
+    # K6 and K1 with and without the prepass mask, alternated, on gen-80
+    # and gen-230: K1 alone with a given mask, and the whole prepass frame
+    # (two dilations, K6, K1).
+    for steps, (vol, coarse, pre, cam, hist, mask, kw, k6_plain_ms) in multi["k1_timed"].items():
+        if steps == 80:
+            multi_ms["k6_ms"] = cuda_ms(torch, lambda: rf.prepass_cuda(
+                pre, cam, grid_size=GRID, width=WIDTH, height=HEIGHT), 200, warmup=5)
+            multi_ms["k6_plain_ms"] = k6_plain_ms
+        runs = {
+            "k1_compose": lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw),
+            "k1_compose_masked": lambda: rf.raytrace_cuda(vol, coarse, cam, hist,
+                                                          colmask=mask, **kw),
+            "k1_compose_prepass_frame": lambda: rf.raytrace_tiles(
+                vol, coarse, cam, hist, use_prepass=True, **kw),
+        }
+        order = ["k1_compose", "k1_compose_masked", "k1_compose_prepass_frame",
+                 "k1_compose_prepass_frame", "k1_compose_masked", "k1_compose"]
+        reads = {k: [] for k in runs}
+        for k in order:
+            reads[k].append(cuda_ms(torch, runs[k], 50, warmup=3))
+        for k, v in reads.items():
+            multi_ms[f"{k}_gen{steps}_ms"] = sum(v) / len(v)
+            multi_ms[f"{k}_gen{steps}_reads_ms"] = v
+    # Full-quality step + frame with K5 against K2 (the same Engine; the
+    # variable is read per call), alternated K2, K5, K5, K2.
+    eng_fq = lighting_engines["full_quality"]
+    reads = []
+    for k5 in (False, True, True, False):
+        with env_var("CA3D_OCC_SWEEP", "0" if k5 else "1"):
+            reads.append(cuda_ms(torch, lambda: eng_fq.run_fused(10, reset_every=10),
+                                 1, warmup=0) / 10)
+    multi_ms["full_quality_step_plus_frame_k2_ms"] = (reads[0] + reads[3]) / 2
+    multi_ms["full_quality_step_plus_frame_k5_ms"] = (reads[1] + reads[2]) / 2
+    multi_ms["full_quality_step_plus_frame_k2_k5_k5_k2_ms"] = reads
     timings = {
         "ca_step_ms": ca_ms, "ca_step_plain_ms": ca_plain_ms,
         "k1_compose_ms": k1_ms, "k1_noncompose_ms": k1_nc_ms,
@@ -632,49 +960,101 @@ def main() -> dict:
         "pinned_step_plus_frame_ms": fused_ms, "render_call_ms": render_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
-        "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms,
+        "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms, **multi_ms,
     }
     report["timings"] = timings
     report["card"] = card
     log(f"(d) timings on {card} (CUDA events, {WIDTH}x{HEIGHT}; {GRID}^3 unless named):")
     for k, v in timings.items():
-        log(f"  {k}: {v:.4f}")
+        log(f"  {k}: {v}")
 
     sliced_launches = sliced["launches"]
 
     def total(fn_name, *runs):
         return sum(r[fn_name] for r in runs)
 
+    # Each kernel's bound from this run's inputs at the shapes it was timed.
+    dev = torch.device("cuda", 0)
+    nw = GRID**3 // 32
+    n_groups, lens, _, born, survive = ca_step._rule_arrays(spec)
+    rule_values = sum(bin(int(m)).count("1") for m in (*born[:n_groups], *survive[:n_groups]))
+    bounds = {"ca_step": bound(8 * nw, nw * (int(lens[:n_groups].sum()) * OPS_CA_NEIGHBOUR
+                                             + rule_values * OPS_CA_RULE_VALUE))}
+    vol, coarse, cam, hist, kw = timed_k1
+    _, depth, idx, _ = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
+    act, cols = primary_work(torch, rf, cam, GRID, WIDTH, HEIGHT, depth, idx, dev)
+    _, dx, dy, dz = rf._pixel_rays(cam, WIDTH, HEIGHT, dev)
+    q = torch.stack([dx, dy, dz]) * depth + torch.tensor(
+        cam[rf.P_O:rf.P_O + 3], device=dev)[:, None, None]
+    light = torch.tensor(cam[rf.P_LIGHT:rf.P_LIGHT + 3], device=dev)[:, None, None]
+    _, shadow_ops = occlusion_work(torch, q[None], light.expand_as(q)[None],
+                                   (idx >= 0)[None], GRID, 0)
+    hits, px = int((idx >= 0).sum()), WIDTH * HEIGHT
+    bounds["render_fast"] = bound(
+        GRID**3 / 8 + (GRID // 8) ** 2 * 4 + px * 48,
+        act * OPS_RAY + cols * OPS_COLUMN + hits * OPS_SHADE + shadow_ops)
+    vol, coarse, cam, geo, k2, k3, kw = timed_k23
+    bounds["shadow_sweep"] = bound(*occlusion_work(torch, k2[0], k2[1], k2[3], GRID, 36))
+    act3 = int(k3[1].sum())
+    bounds["cell_state"] = bound(act3 * 16 + k3[1].numel() * 5, act3 * 12)
+    vol, coarse, cam, _ = sliced["timed"][512]
+    t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=512, width=WIDTH, height=HEIGHT)
+    act, cols = primary_work(torch, rf, cam, 512, WIDTH, HEIGHT, t4, i4, dev)
+    bounds["primary_sweep"] = bound(512**3 / 8 + (512 // 8) ** 2 * 8 + px * 8,
+                                    act * OPS_RAY + cols * OPS_COLUMN)
+    _, _, _, k2_256, _, _ = multi["k5_timed"][GRID]
+    bounds["shadow_multi"] = bound(*occlusion_work(torch, k2_256[0], k2_256[1], k2_256[3],
+                                                   GRID, 28))
+    _, _, pre, cam, _, mask, _, _ = multi["k1_timed"][80]
+    live = int(((mask != 0) & (mask != -1)).sum())
+    bounds["prepass"] = bound((GRID // 8) ** 2 * 4 + mask.numel() * 4,
+                              mask.numel() * OPS_PATCH + live * (GRID // 8) * OPS_PATCH_COLUMN)
+    # The same counts at the other sizes PERF.md's kernel table names.
+    for size in (512, 1024):
+        words = size**3 // 32
+        bounds[f"ca_step_{size}"] = bound(8 * words, words / nw * bounds["ca_step"]["ops"])
+    vol, coarse, cam, k2_512, _, _ = multi["k5_timed"][512]
+    bounds["shadow_sweep_512"] = bound(*occlusion_work(torch, k2_512[0], k2_512[1],
+                                                       k2_512[3], 512, 36))
+    bounds["shadow_multi_512"] = bound(*occlusion_work(torch, k2_512[0], k2_512[1],
+                                                       k2_512[3], 512, 28))
+    vol, coarse, cam, _ = sliced["timed"][1024]
+    t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=1024, width=WIDTH, height=HEIGHT)
+    act, cols = primary_work(torch, rf, cam, 1024, WIDTH, HEIGHT, t4, i4, dev)
+    bounds["primary_sweep_1024"] = bound(1024**3 / 8 + (1024 // 8) ** 2 * 16 + px * 8,
+                                         act * OPS_RAY + cols * OPS_COLUMN)
+    report["bounds"] = bounds
+
+    def entry(name, source, replaces, launches, err, ms, plain):
+        b = bounds[name]
+        return {"name": name, "route": "cuda",
+                "source": f"cellularautomatons3d_tpu_torch/csrc/{source}",
+                "replaces": f"cellularautomatons3d_tpu/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None}  # no single PyTorch call computes any of them
+
+    k5_launches = total("shadow_sweep_multi_cuda", *multi["launches"].values())
     report["kernels"] = [
-        {"name": "ca_step", "route": "cuda",
-         "source": "cellularautomatons3d_tpu_torch/csrc/ca_step.cu",
-         "replaces": "cellularautomatons3d_tpu/ops/ca_step.py:118",
-         "launches": launches["ca_step"] + total(
-             "fires_plane_cuda", *sliced_launches.values()), "max_abs_err": 0.0,
-         "ms": ca_ms, "plain_ms": ca_plain_ms},
-        {"name": "render_fast", "route": "cuda",
-         "source": "cellularautomatons3d_tpu_torch/csrc/render_fast.cu",
-         "replaces": "cellularautomatons3d_tpu/render/render_fast.py:1018",
-         "launches": launches["render_fast"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "shadow_sweep", "route": "cuda",
-         "source": "cellularautomatons3d_tpu_torch/csrc/shadow_sweep.cu",
-         "replaces": "cellularautomatons3d_tpu/render/render_slab.py:354",
-         "launches": total("shadow_sweep_cuda", *lighting_launches.values(),
-                           *sliced_launches.values()),
-         "max_abs_err": 0.0, "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "cell_state", "route": "cuda",
-         "source": "cellularautomatons3d_tpu_torch/csrc/cell_state.cu",
-         "replaces": "cellularautomatons3d_tpu/render/render_slab.py:687",
-         "launches": total("cell_state_cuda", *lighting_launches.values(),
-                           *sliced_launches.values()),
-         "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "primary_sweep", "route": "cuda",
-         "source": "cellularautomatons3d_tpu_torch/csrc/primary_sweep.cu",
-         "replaces": "cellularautomatons3d_tpu/render/render_slab.py:279",
-         "launches": total("primary_sweep_cuda", *sliced_launches.values()),
-         "max_abs_err": sliced["k4_max_abs_err"], "ms": sliced_ms["k4_512_ms"],
-         "plain_ms": sliced_ms["k4_512_plain_ms"]},
+        entry("ca_step", "ca_step.cu", "ops/ca_step.py:118",
+              launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values()),
+              0.0, ca_ms, ca_plain_ms),
+        entry("render_fast", "render_fast.cu", "render/render_fast.py:1018",
+              launches["render_fast"], k1_err, k1_ms, k1_plain_ms),
+        entry("shadow_sweep", "shadow_sweep.cu", "render/render_slab.py:354",
+              total("shadow_sweep_cuda", *lighting_launches.values(), *sliced_launches.values()),
+              0.0, k2_ms, k2_plain_ms),
+        entry("cell_state", "cell_state.cu", "render/render_slab.py:687",
+              total("cell_state_cuda", *lighting_launches.values(), *sliced_launches.values()),
+              0.0, k3_ms, k3_plain_ms),
+        entry("primary_sweep", "primary_sweep.cu", "render/render_slab.py:279",
+              total("primary_sweep_cuda", *sliced_launches.values()),
+              sliced["k4_max_abs_err"], sliced_ms["k4_512_ms"], sliced_ms["k4_512_plain_ms"]),
+        entry("shadow_multi", "shadow_multi.cu", "render/render_slab.py:402", k5_launches,
+              0.0, multi_ms[f"k5_{GRID}_ms"], multi_ms[f"k5_{GRID}_plain_ms"]),
+        entry("prepass", "prepass.cu", "render/render_fast.py:889",
+              multi["prepass_launches"]["prepass_cuda"], 0.0, multi_ms["k6_ms"],
+              multi_ms["k6_plain_ms"]),
     ]
     need("jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None},
          "JAX was imported")

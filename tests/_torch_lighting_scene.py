@@ -1,12 +1,15 @@
 """The scene of tests/test_gi_temporal.py (N=32, 64×32, a 30 %-dense 10³
 blob, light_radius 0.08), made with numpy for the JAX package and the
-port's extended-lighting tests (tests/test_torch_lighting*.py)."""
+port's extended-lighting and occlusion tests (tests/test_torch_lighting*.py,
+tests/test_torch_occlusion_multi.py)."""
 
 import numpy as np
 
 N = 32
 W, H = 64, 32
 LIGHTING = dict(indirect_lighting=True, soft_shadow_samples=4)
+N_RANDOM = 4  # random occlusion rays beside a frame's 8 queries
+P_LIGHT, P_CELLMUL = 14, 18
 
 
 def scene_words() -> np.ndarray:
@@ -89,3 +92,71 @@ def assert_frame_close(got, want):
         f"{flipped.sum()} of {hit.sum()} hit pixels outside the rgb tolerance"
     )
     assert not (flipped & ~hit).any()  # misses are black in both
+
+
+def random_rays(rng):
+    """Shadow-ray queries from random starts (inside and outside the
+    volume) to random targets; the excluded cell is the start cell, a
+    random cell or out of range; a random half of the lanes is active.  In
+    the last query half the rays have dz == 0, which never hit."""
+    out = []
+    for i in range(N_RANDOM):
+        start = rng.uniform(-0.7, 0.7, (H, W, 3)).astype(np.float32)
+        target = rng.uniform(-1.0, 1.0, (H, W, 3)).astype(np.float32)
+        if i == N_RANDOM - 1:
+            flat = rng.random((H, W)) < 0.5
+            target[..., 2] = np.where(flat, start[..., 2], target[..., 2])
+        cell = np.floor((start + 0.5) * N).astype(np.int32)
+        excl = np.where(rng.random((H, W, 1)) < 0.5, cell,
+                        rng.integers(-1, N + 1, (H, W, 3))).astype(np.int32)
+        out.append((start, target, excl, rng.random((H, W)) < 0.5))
+    return out
+
+
+def jax_frame_queries():
+    """A full-quality frame's occlusion queries (4 jittered samples, 4 GI
+    slots, built from the JAX package's hit geometry) plus N_RANDOM random
+    rays, and its 4 GI slot lookups plus 2 of random coords: a dict of numpy
+    arrays (words, cam, depth, idx, geo, queries, slot_coords)."""
+    import jax.numpy as jnp
+
+    from cellularautomatons3d_tpu.ops.occupancy import coarse_occupancy as jax_coarse
+    from cellularautomatons3d_tpu.render import intersect as jint
+    from cellularautomatons3d_tpu.render import render_slab as jrs
+    from cellularautomatons3d_tpu.render import renderer as jren
+    from cellularautomatons3d_tpu.render.render_fast import raytrace_tiles as jax_raytrace
+
+    words, cam = scene_words(), scene_cam()
+    vol, jcam = jnp.asarray(words), jnp.asarray(cam)
+    _, depth, idx = jax_raytrace(vol, jax_coarse(vol), jcam, grid_size=N,
+                                 width=W, height=H, shadow=False, interpret=True)
+    geo = [np.asarray(a) for a in jrs.hit_geometry(
+        jcam, idx, depth, grid_size=N, width=W, height=H)]
+    q, origin, coords, found, _ = geo
+    light = cam[P_LIGHT : P_LIGHT + 3]
+    queries = []
+    for k in range(4):
+        jit = np.asarray(jrs.soft_shadow_jitter(jcam, k, W, H))
+        queries.append((q, (light + jit).astype(np.float32), coords, found))
+    face = np.asarray(jren._face_index(jint.cube_face_normal(jnp.asarray(q), jnp.asarray(origin))))
+    cell = np.float32(1.0 / N)
+    slot_coords = []
+    for i in range(4):
+        off = jren._INDIRECT_LAYERS[:, i, :][face]
+        n_origin = (coords + off).astype(np.float32) * cell + cell * np.float32(0.5) - np.float32(0.5)
+        tn, tf = (np.asarray(a) for a in jint.ray_cube_intersect(
+            jnp.asarray(q), jnp.asarray(off.astype(np.float32)), jnp.asarray(n_origin),
+            cell * np.float32(cam[P_CELLMUL]) * np.float32(0.5)))
+        ok = found & (tn <= tf) & (tf >= 0.0)
+        with np.errstate(invalid="ignore"):  # inf * 0 on lanes that are not ok
+            n_point = (q + off.astype(np.float32) * tn[..., None]).astype(np.float32)
+        n_cl = np.maximum(coords + off, 0).astype(np.int32)
+        queries.append((n_point, np.broadcast_to(light, q.shape).astype(np.float32), n_cl, ok))
+        slot_coords.append((n_cl, ok))
+    rng = np.random.default_rng(7)
+    queries += random_rays(rng)
+    for _ in range(2):
+        slot_coords.append((rng.integers(-3, 2 * N, (H, W, 3)).astype(np.int32),
+                            rng.random((H, W)) < 0.7))
+    return dict(words=words, cam=cam, depth=np.asarray(depth), idx=np.asarray(idx),
+                geo=geo, queries=queries, slot_coords=slot_coords)

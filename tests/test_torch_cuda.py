@@ -247,3 +247,152 @@ def test_sliced_engine_matches_cpu(cuda, lighting):
     for a, b in zip(gpu, cpu):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
 
+
+
+def _k5_operands(device, n, nq, seed):
+    """nq random shadow-ray queries at n³ (starts inside and outside the
+    volume, exclusions at the start cell, random, or with a coordinate of
+    -1 or n, rays with dz == 0 in the last query) as K2's and K5's
+    operands."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    w, h = 128, 64
+    g = torch.Generator(device).manual_seed(seed)
+    rnd = lambda *s: torch.rand(*s, device=device, generator=g)  # noqa: E731
+    start = rnd(nq, 3, h, w) * 1.4 - 0.7
+    target = rnd(nq, 3, h, w) * 2.0 - 1.0
+    flat = rnd(h, w) < 0.5
+    target[-1, 2] = torch.where(flat, start[-1, 2], target[-1, 2])
+    cell = torch.floor((start + 0.5) * n).to(torch.int32)
+    other = (rnd(nq, 3, h, w) * (n + 2) - 1).to(torch.int32)
+    excl = torch.where(rnd(nq, 1, h, w) < 0.5, cell, other).contiguous()
+    active = rnd(nq, h, w) < 0.7
+    return start, target, excl, rs.pack_exclusion(excl, n), active
+
+
+@pytest.mark.parametrize("nq", range(1, 9))
+def test_k5_kernel_matches_plain_and_k2(cuda, nq):
+    """K5 on a full-quality frame's 8 queries and 2 of random rays at 64³,
+    in chunks of nq (every template of the kernel): flags equal the plain
+    K5's and K2's."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol, coarse, (start, target, excl, active), _, cell_half = _lighting_operands(cuda)
+    exid = rs.pack_exclusion(excl, N)
+    kw = dict(grid_size=N, cell_half=cell_half)
+    got = torch.cat([
+        rs.shadow_sweep_multi_cuda(vol, coarse, start[i:i + nq], target[i:i + nq],
+                                   exid[i:i + nq], active[i:i + nq], **kw)
+        for i in range(0, start.shape[0], nq)])
+    want = rs.shadow_sweep_multi(vol, start, target, exid, active, **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    assert torch.equal(got, want) and torch.equal(got, k2)
+    assert int(want[:8].sum()) > 0 and int(want[8:].sum()) > 0
+
+
+@pytest.mark.parametrize("n", [320, 512])
+def test_k5_kernel_matches_plain_above_256(cuda, n):
+    """K5 with the coarse mip read from global memory (two x-groups, at
+    320³ the last one partial), on random rays: equal to plain K5 and K2."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol = sparse_volume(cuda, n, 0.002, 7)
+    coarse = coarse_occupancy(vol)
+    start, target, excl, exid, active = _k5_operands(cuda, n, 3, n)
+    kw = dict(grid_size=n, cell_half=float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5)))
+    got = rs.shadow_sweep_multi_cuda(vol, coarse, start, target, exid, active, **kw)
+    want = rs.shadow_sweep_multi(vol, start, target, exid, active, **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    assert torch.equal(got, want) and torch.equal(got, k2)
+    assert int(want.sum()) > 0
+
+
+BAND = dict(width=1920, height=64, row0=480)  # rows 480-543 of a 1080p window
+
+
+def _band_cam(view):
+    return rf.pack_cam(VIEWS[view], 1920, 1080, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                       (0.17,) * 3, (0.0,) * 3, row0=BAND["row0"])
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+@pytest.mark.parametrize("n", [64, 256])
+def test_k6_kernel_matches_plain(cuda, n, view):
+    from cellularautomatons3d_tpu_torch.ops.occupancy import dilate_occupancy
+
+    vol = sparse_volume(cuda, n, 0.002, 3)
+    pre = dilate_occupancy(dilate_occupancy(coarse_occupancy(vol), dilate_z=False),
+                           dilate_z=False, dilate_y=False)
+    for cam, w, h in ((_band_cam(view), BAND["width"], BAND["height"]),
+                      (rf.pack_cam(VIEWS[view], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                                   (0.17,) * 3, (0.0,) * 3), W, H)):
+        kw = dict(grid_size=n, width=w, height=h)
+        got = rf.prepass_cuda(pre, cam, **kw)
+        want = rf.prepass(pre, cam, **kw)
+        assert torch.equal(got, want)
+        assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("compose", [False, True])
+@pytest.mark.parametrize("mask", ["prepass", "random"])
+def test_k1_mask_kernel_matches_plain(cuda, mask, compose):
+    """K1 with a column mask (the prepass's, or random bits) against the
+    plain K1 with the same mask, at 64³ / 128×64."""
+    vol = random_volume(cuda, 5, 0.05)
+    coarse = coarse_occupancy(vol)
+    cam = rf.pack_cam(VIEWS["oblique"], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                      (0.17,) * 3, (0.0,) * 3)
+    kw = dict(grid_size=N, width=W, height=H, shadow=True)
+    if mask == "prepass":
+        colmask = rf.prepass_mask(coarse, cam, grid_size=N, width=W, height=H)
+    else:
+        colmask = torch.randint(-2**31, 2**31 - 1, (H // 8, W // 8), dtype=torch.int32,
+                                device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    hist = None
+    if compose:
+        rgb, _, idx = rf.raytrace(vol, coarse, cam, **kw)
+        hist = (torch.clamp(rgb * 1.5, 0, 1).contiguous(), idx.contiguous())
+    got = rf.raytrace_cuda(vol, coarse, cam, hist, colmask=colmask, **kw)
+    want = rf.raytrace(vol, coarse, cam, hist, colmask=colmask, **kw)
+    assert torch.equal(got[2], want[2]) and int((want[2] >= 0).sum()) > 0
+    torch.testing.assert_close(got[1], want[1], atol=3e-5, rtol=0)
+    torch.testing.assert_close(got[0], want[0], atol=3e-4, rtol=3e-3)
+    if compose:
+        torch.testing.assert_close(got[3], want[3], atol=3e-4, rtol=3e-3)
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_k1_prepass_equals_no_mask_at_1080p(cuda, view):
+    """At the reference's window the prepass mask is conservative: K1 with
+    it renders K1's frame without it (a 1920×64 band of 1080p, 64³)."""
+    vol = random_volume(cuda, 5, 0.05)
+    coarse = coarse_occupancy(vol)
+    cam = _band_cam(view)
+    kw = dict(grid_size=N, width=BAND["width"], height=BAND["height"])
+    got = rf.raytrace_tiles(vol, coarse, cam, use_prepass=True, **kw)
+    want = rf.raytrace_tiles(vol, coarse, cam, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((want[2] >= 0).sum()) > 0
+
+
+def test_k5_engine_matches_cpu(cuda, monkeypatch):
+    """The full-quality Engine with CA3D_OCC_SWEEP=0 (K5) on the card
+    against the Engine on the CPU (plain K5)."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    monkeypatch.setenv("CA3D_OCC_SWEEP", "0")
+    rs.shadow_sweep_multi_cuda.launches = 0
+    cfg = dict(grid_size=N, width=W, height=H, soft_shadow_samples=4,
+               indirect_lighting=True, light_radius=0.08)
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = ct.Engine(device=dev, **cfg)
+        eng.step(20)
+        frames = [eng.render() for _ in range(2)] + [eng.run_fused(2, reset_every=1)]
+        out.append(([f.cpu() for f in frames], eng.history.hit_idx.cpu()))
+    (gpu, gidx), (cpu, cidx) = out
+    assert rs.shadow_sweep_multi_cuda.launches > 0
+    assert torch.equal(gidx, cidx)
+    for a, b in zip(gpu, cpu):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
