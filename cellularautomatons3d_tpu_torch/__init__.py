@@ -5,8 +5,10 @@ with hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``).  The JAX
 package stays the reference; this package imports ``torch`` and never
 ``jax``, and keeps the reference's module paths and names.
 
-It covers the binary bit-packed CA step (``ops.ca_step``, kernel
-``csrc/ca_step.cu``) and the fast renderer at every grid from 32³ to
+It covers the bit-packed CA step for binary and multi-state (Generations)
+rules (``ops.ca_step``, kernels ``csrc/ca_step.cu``; a multi-state state is
+``spec.age_bits`` age bit-planes, and K1 and K4 fetch the hit cell's age
+from them to fade dying cells) and the fast renderer at every grid from 32³ to
 1024³: up to 256³ the fused frame kernel K1 (``render.render_fast``,
 kernel ``csrc/render_fast.cu``), above it the sliced path
 (``render.render_slab.raytrace_sliced``) with the primary-hit kernel K4
@@ -39,7 +41,9 @@ from .ops import (
     unpack_grid,
     seed_center,
     seed_random_block,
+    step_dense,
     step_packed,
+    step_packed_multistate,
     make_step_fn,
 )
 
@@ -62,7 +66,9 @@ __all__ = [
     "unpack_grid",
     "seed_center",
     "seed_random_block",
+    "step_dense",
     "step_packed",
+    "step_packed_multistate",
     "make_step_fn",
     "__version__",
 ]

@@ -10,8 +10,11 @@
 // (_pixel_rays_kernel), the volume entry and exit, and the primary sweep
 // of sweep.cuh from t_start = max(entry, 0) to the exit.  Out: t f32 (the
 // hit's visible-cube entry, 0 for a miss) and id i32 (x + y*n + z*n*n,
-// -1 for a miss), [H, W].  Shading, shadows and GI stay in torch and K2/K3,
-// as in the reference.
+// -1 for a miss), [H, W]; with age planes (multi-state rules) also age i32,
+// the hit cell's age fetched from them, 1 for a miss.  Shading, the age
+// fade, shadows and GI stay in torch and K2/K3, as in the reference; its
+// per-brick age layouts and the age merge across bricks are brick machinery
+// and have no counterpart.
 //
 // Bound on the H100: like K1's primary sweep, per pixel up to n/8 column
 // tests and 8 dependent loads of packed words per occupied column; the
@@ -19,8 +22,7 @@
 // where the probes of occupied columns go to HBM.  The coarse mip is
 // staged in shared memory up to 256^3 and read through the read-only path
 // from L2 above (see sweep.cuh).  Rays are coherent within a 16x8 block.
-// Left for later PRs: the age planes of multi-state rules (an age output,
-// with K1's).
+// The age fetch adds age_bits <= 4 word loads per hit pixel, after the sweep.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,7 +42,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                          const uint32_t* __restrict__ coarse, int n,
                          float inv_n, int width, int height,
                          const __grid_constant__ Cam cam,
-                         float* __restrict__ out_t, int* __restrict__ out_idx) {
+                         float* __restrict__ out_t, int* __restrict__ out_idx,
+                         const uint32_t* __restrict__ ages, int age_bits,
+                         int* __restrict__ out_age) {
   __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
   if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
@@ -69,6 +73,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const size_t pix = (size_t)py * width + px;
   out_t[pix] = found ? t_hit : 0.0f;
   out_idx[pix] = found ? hx + hy * n + hz * n * n : -1;
+  if (ages != nullptr) {
+    out_age[pix] = found ? fetch_age(ages, age_bits, n, hx, hy, hz) : 1;
+  }
 }
 
 }  // namespace
@@ -78,11 +85,17 @@ extern "C" {
 // vol: uint32[n/32, n, n], n <= 1024; coarse: uint32[n/8, XG*n/8]
 // (ops/occupancy.py, XG = ceil(n/256)); cam: host float[40]
 // (render_fast.py pack_cam); out_t: f32 [H, W]; out_idx: i32 [H, W].
-// Returns the launch's cudaError_t.
-int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
-                       int width, int height, const float* cam, void* out_t,
-                       void* out_idx, void* stream) {
+// ages: null, or the age bit-planes uint32[age_bits, n/32, n, n] of which
+// vol is the visibility plane, and out_age: i32 [H, W] then takes each
+// hit's age.  Returns the launch's cudaError_t.
+int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
+                            int n, int width, int height, const float* cam,
+                            void* out_t, void* out_idx, const void* ages,
+                            int age_bits, void* out_age, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (ages != nullptr && (age_bits < 1 || age_bits > 4 || out_age == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -98,8 +111,17 @@ int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
       n, inv_n, width, height, c, static_cast<float*>(out_t),
-      static_cast<int*>(out_idx));
+      static_cast<int*>(out_idx), static_cast<const uint32_t*>(ages), age_bits,
+      static_cast<int*>(out_age));
   return cudaGetLastError();
+}
+
+// The binary frame: ca3d_primary_sweep_ages without age planes.
+int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
+                       int width, int height, const float* cam, void* out_t,
+                       void* out_idx, void* stream) {
+  return ca3d_primary_sweep_ages(device, vol, coarse, n, width, height, cam,
+                                 out_t, out_idx, nullptr, 0, nullptr, stream);
 }
 
 }  // extern "C"

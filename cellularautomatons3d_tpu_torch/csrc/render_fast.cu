@@ -6,7 +6,10 @@
 // primary plane-midpoint DDA sweep, the hard-shadow sweep toward the light
 // with start-cell exclusion, Cook-Torrance shading with position albedo;
 // with COMPOSE also emissive light, the cell-id-checked temporal EMA, the
-// light cube, the new history, the depth overlay and gamma.
+// light cube, the new history, the depth overlay and gamma.  With age
+// planes (multi-state rules) the hit cell's age is fetched from them and
+// the age fade multiplies the direct term only: occl * fade, then shaded *
+// occl; the emissive term of COMPOSE is neither shadowed nor faded.
 //
 // The traversal (the reference's DDA semantics, float rounding rules and
 // the exact coarse-mip column skip) and the camera ray are sweep.cuh,
@@ -22,10 +25,11 @@
 // column; rays are coherent within a 16x8 block.  The loads are latency
 // bound; the float work is small.  Left for later PRs: the TPU kernel's
 // supercolumn mip and z-range gates, shared-memory staging of the volume
-// brick a block touches, packing the shadow rays of a warp, and the age
-// planes of multi-state rules.  With a mask the kernel reads one more i32
-// per pixel (the patch mask, L1/L2-resident: 130 KB at 1080p) and does one
-// bit test per column in place of the mip's cell-range test.
+// brick a block touches, and packing the shadow rays of a warp.  With a
+// mask the kernel reads one more i32 per pixel (the patch mask, L1/L2-
+// resident: 130 KB at 1080p) and does one bit test per column in place of
+// the mip's cell-range test.  With age planes it reads age_bits <= 4 more
+// words per hit pixel, once, after the sweep.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -120,7 +124,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                   const float* __restrict__ hist_rgb,
                   const int* __restrict__ hist_idx, float* __restrict__ out_rgb,
                   float* __restrict__ out_depth, int* __restrict__ out_idx,
-                  float* __restrict__ out_hist) {
+                  float* __restrict__ out_hist,
+                  const uint32_t* __restrict__ ages, int age_bits,
+                  int total_states) {
   __shared__ uint32_t coarse_s[kMaxStagedWords];
   stage_coarse(coarse, coarse_s, n);
   const SharedMip mip{coarse_s};
@@ -202,6 +208,10 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
     const float alb = use_mat ? P[P_MATC + 2] : 1.0f - cxn;
     shade(P, qx, qy, qz, cox, coy, coz, alr, alg, alb, ray.ox, ray.oy, ray.oz,
           r, g, b);
+    if (ages != nullptr) {
+      occl = occl * age_fade(total_states,
+                             fetch_age(ages, age_bits, n, hx, hy, hz));
+    }
     r = r * occl;
     g = g * occl;
     b = b * occl;
@@ -273,13 +283,21 @@ extern "C" {
 // sweep's columns.  compose = 0: out_rgb is linear rgb [H, W, 3], hist_*
 // and out_hist unused.  compose = 1: hist_rgb f32 [H, W, 3] and hist_idx
 // i32 [H, W] are the previous frame, out_rgb is the presentation and
-// out_hist the new history colour.  Returns the launch's cudaError_t.
-int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
-                     int width, int height, const float* cam, int shadow,
-                     const void* colmask, int compose, const void* hist_rgb,
-                     const void* hist_idx, void* out_rgb, void* out_depth,
-                     void* out_idx, void* out_hist, void* stream) {
+// out_hist the new history colour.  ages: null (binary states), or the age
+// bit-planes uint32[age_bits, n/32, n, n] of a rule with total_states > 2,
+// of which vol is the visibility plane; the hit's age then fades the direct
+// term.  Returns the launch's cudaError_t.
+int ca3d_render_fast_ages(int device, const void* vol, const void* coarse,
+                          int n, int width, int height, const float* cam,
+                          int shadow, const void* colmask, int compose,
+                          const void* hist_rgb, const void* hist_idx,
+                          void* out_rgb, void* out_depth, void* out_idx,
+                          void* out_hist, const void* ages, int age_bits,
+                          int total_states, void* stream) {
   if (n < 32 || n > kMaxStagedGrid || n % 32 != 0 || width < 1 || height < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (ages != nullptr && (age_bits < 1 || age_bits > 4 || total_states < 2)) {
     return cudaErrorInvalidValue;
   }
   if (compose && (hist_rgb == nullptr || hist_idx == nullptr ||
@@ -305,8 +323,21 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
       (width + 7) / 8, static_cast<const float*>(hist_rgb),
       static_cast<const int*>(hist_idx), static_cast<float*>(out_rgb),
       static_cast<float*>(out_depth), static_cast<int*>(out_idx),
-      static_cast<float*>(out_hist));
+      static_cast<float*>(out_hist), static_cast<const uint32_t*>(ages),
+      age_bits, total_states);
   return cudaGetLastError();
+}
+
+// The binary frame: ca3d_render_fast_ages without age planes.
+int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
+                     int width, int height, const float* cam, int shadow,
+                     const void* colmask, int compose, const void* hist_rgb,
+                     const void* hist_idx, void* out_rgb, void* out_depth,
+                     void* out_idx, void* out_hist, void* stream) {
+  return ca3d_render_fast_ages(device, vol, coarse, n, width, height, cam,
+                               shadow, colmask, compose, hist_rgb, hist_idx,
+                               out_rgb, out_depth, out_idx, out_hist, nullptr,
+                               0, 2, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // The plane-midpoint DDA sweep shared by K1 (render_fast.cu), K2
 // (shadow_sweep.cu) and K4 (primary_sweep.cu), its column and plane steps,
 // which K5 (shadow_multi.cu) runs for several queries at once, its float
-// helpers and the camera ray.
+// helpers, the camera ray, and the age fetch of a primary hit (K1, K4).
 //
 // Replaces: the sweep / fetch closures of
 // cellularautomatons3d_tpu/render/render_fast.py _make_traversal, which
@@ -326,6 +326,30 @@ __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
     }
   }
   return false;
+}
+
+// The age of the primary hit (hx, hy, hz) of a multi-state rule, from the
+// age bit-planes uint32[age_bits, n/32, n, n]: bit hx & 31 of word
+// [b, hx >> 5, hz, hy] of each plane b (render_fast.py _make_traversal's
+// in-sweep fetch, made once, at the accepted hit).  The sweep itself runs on
+// the visibility plane, so a dying cell is hit like a live one.
+__device__ __forceinline__ int fetch_age(const uint32_t* __restrict__ ages,
+                                         int age_bits, int n, int hx, int hy,
+                                         int hz) {
+  const size_t plane = (size_t)(n >> 5) * n * n;
+  const size_t word = (size_t)(hx >> 5) * ((size_t)n * n) + (size_t)hz * n + hy;
+  int age = 0;
+  for (int b = 0; b < age_bits; ++b) {
+    age |= (int)((__ldg(ages + (size_t)b * plane + word) >> (hx & 31)) & 1u) << b;
+  }
+  return age;
+}
+
+// The age fade of the direct term (render_fast.py:1272-1282): dying cells
+// dim linearly with age, clip((S - age) / (S - 1), 0, 1); one IEEE division.
+__device__ __forceinline__ float age_fade(int total_states, int age) {
+  const float f = (float)(total_states - age) / (float)(total_states - 1);
+  return minp(maxp(f, 0.0f), 1.0f);
 }
 
 }  // namespace ca3d

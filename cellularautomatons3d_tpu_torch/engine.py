@@ -6,9 +6,12 @@ frame, step when the accumulated frame time crosses
 ``compute_step_duration_ms``, main_pathtraced.js:1838-1847) and fused
 production loop, on an explicit torch ``device``.
 
-Every grid the reference takes, 32³ to 1024³, renders.  On a CUDA device
-every CA step and every frame goes through the hand kernels: the step
-``csrc/ca_step.cu``; up to 256³ the frame kernel ``csrc/render_fast.cu``,
+Every grid the reference takes, 32³ to 1024³, renders, for binary rules
+and for multi-state (Generations) rules, ``total_states`` 3 to 10, whose
+state is ``spec.age_bits`` age bit-planes and whose dying cells fade with
+age.  On a CUDA device every CA step and every frame goes through the hand
+kernels: the step ``csrc/ca_step.cu`` (binary, or the alive-plane pass and
+the multi-state step); up to 256³ the frame kernel ``csrc/render_fast.cu``,
 with soft shadows or GI also ``csrc/shadow_sweep.cu`` and
 ``csrc/cell_state.cu``; above 256³ the primary-hit kernel
 ``csrc/primary_sweep.cu`` and ``csrc/shadow_sweep.cu`` for every frame,
@@ -21,7 +24,7 @@ full lighting.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
 queue-1 item: a moving camera once history exists (8); checkpoints (9);
-the reference pipeline (11); ``mesh_devices`` (12); multi-state rules (14).
+the reference pipeline (11); ``mesh_devices`` (12).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from .models.automaton import AutomatonSpec
 from .ops import packing
-from .ops.ca_step import step_packed
+from .ops.ca_step import step_packed, visibility_plane
 from .render.camera import CameraRig
 from .render.renderer import RenderParams, RenderStatic
 from .render.renderer_fast import (
@@ -55,10 +58,6 @@ def _check_config(cfg: EngineConfig) -> None:
     if cfg.mesh_devices:
         raise NotImplementedError(
             "mesh_devices is not ported yet (ROADMAP.md queue 1, item 12)"
-        )
-    if cfg.total_states > 2:
-        raise NotImplementedError(
-            "multi-state rules are not ported yet (ROADMAP.md queue 1, item 14)"
         )
 
 
@@ -124,14 +123,27 @@ class Engine:
     # state accessors
     # ------------------------------------------------------------------ #
     def set_state_dense(self, dense: np.ndarray):
-        """Load a dense ``uint8[Z, Y, X]`` 0/1 grid as the current state."""
-        words = packing.pack_grid(dense).view(np.int32)
-        self.state = torch.from_numpy(words).to(self.device)
+        """Load a dense ``uint8[Z, Y, X]`` age grid as the current state
+        (0/1 cells for a binary rule): packed words ``[W, Z, Y]``, or for a
+        multi-state rule the age bit-planes ``[B, W, Z, Y]``."""
+        if self.spec.total_states == 2:
+            words = packing.pack_grid(dense)
+        else:
+            words = np.stack([packing.pack_grid((dense >> i) & 1)
+                              for i in range(self.spec.age_bits)])
+        self.state = torch.from_numpy(words.view(np.int32)).to(self.device)
 
     def state_dense(self) -> np.ndarray:
-        """Current state as dense ``uint8[Z, Y, X]`` 0/1 cells."""
+        """Current state as dense ``uint8[Z, Y, X]`` ages."""
         words = self.state.cpu().numpy().view(np.uint32)
-        return packing.unpack_grid(words)
+        if self.spec.total_states == 2:
+            return packing.unpack_grid(words)
+        return sum(packing.unpack_grid(words[i]).astype(np.uint8) << i
+                   for i in range(words.shape[0]))
+
+    def _visibility_plane(self) -> torch.Tensor:
+        """Packed occupancy for the renderer: any cell with age ≥ 1."""
+        return visibility_plane(self.state, self.spec)
 
     # ------------------------------------------------------------------ #
     # simulation
@@ -192,9 +204,12 @@ class Engine:
                 "(ROADMAP.md queue 1, item 8)"
             )
         sample_idx = self._render_count if self.config.gi_temporal else None
+        ages = {}
+        if self.spec.total_states > 2:
+            ages = dict(ages=self.state, total_states=self.spec.total_states)
         frame, _, self.history = render_frame_fast(
-            self.render_static, self.state, params, self.history, True,
-            sample_idx,
+            self.render_static, self._visibility_plane(), params, self.history,
+            True, sample_idx, **ages,
         )
         self._render_count += 1
         self.camera.end_frame()

@@ -1,8 +1,10 @@
 """Carry state between the JAX package and the port.
 
-The JAX package keeps packed words as ``uint32[W, Z, Y]`` and its fast
+The JAX package keeps packed words as ``uint32[W, Z, Y]`` (for a
+multi-state rule the age bit-planes ``uint32[B, W, Z, Y]``) and its fast
 history as ``FastHistory(color f16 [H, W, 3], hit_idx i32 [H, W])``; the
-port keeps the words as ``torch.int32`` with the same bits.  Both functions
+port keeps the words as ``torch.int32`` with the same bits, in the same
+shape.  Both functions
 work on numpy values (``np.asarray`` of a JAX array is one), so this module
 needs no JAX.
 """
@@ -20,7 +22,9 @@ __all__ = ["from_reference", "to_reference"]
 def from_reference(value, device="cpu"):
     """The JAX package's value → the port's, on ``device``.
 
-    * packed ``uint32[W, Z, Y]`` words → ``torch.int32`` tensor, same bits;
+    * packed ``uint32`` words of any shape (a binary state ``[W, Z, Y]``,
+      age planes ``[B, W, Z, Y]``) → ``torch.int32`` tensor, same bits and
+      shape;
     * anything with ``color`` and ``hit_idx`` (its ``FastHistory``) → the
       port's :class:`FastHistory` (f16 color, int32 ids).
     """
@@ -42,8 +46,8 @@ def from_reference(value, device="cpu"):
 
 
 def to_reference(value):
-    """The port's value → the JAX package's numpy form: a packed tensor to
-    ``uint32`` words, a :class:`FastHistory` to a ``(color, hit_idx)`` pair
+    """The port's value → the JAX package's numpy form: a packed tensor
+    (binary state or age planes) to ``uint32`` words of the same shape, a :class:`FastHistory` to a ``(color, hit_idx)`` pair
     of numpy arrays (``FastHistory(*pair)`` in the JAX package)."""
     if isinstance(value, FastHistory):
         return (

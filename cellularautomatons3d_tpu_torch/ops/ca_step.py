@@ -1,20 +1,29 @@
 """Bit-packed CA step: one generation on packed word planes.
 
-Port of ``cellularautomatons3d_tpu.ops.ca_step`` (binary rules).  Two
-implementations of one generation:
+Port of ``cellularautomatons3d_tpu.ops.ca_step``, binary and multi-state
+(Generations) rules.  Two implementations of one generation:
 
-* :func:`fires_plane` -- plain torch: every neighbour offset becomes one
+* plain torch -- :func:`fires_plane` (every neighbour offset becomes one
   funnel-shifted word plane and the count is the ``bitplane`` adder tree,
-  exactly the JAX package's formulation.  It runs for CPU tensors.
-* :func:`fires_plane_cuda` -- the hand-written kernel ``csrc/ca_step.cu``,
-  one launch per generation.  It runs for CUDA tensors.
+  exactly the JAX package's formulation) and, for multi-state rules,
+  :func:`step_packed_multistate` (fires_plane on the alive plane, then the
+  bit-sliced :func:`decay_update`).  They run for CPU tensors.
+* the hand-written kernels of ``csrc/ca_step.cu`` -- :func:`fires_plane_cuda`,
+  one launch per generation, and :func:`step_packed_multistate_cuda`, two:
+  :func:`age_masks_cuda` writes the alive plane, then the step kernel runs
+  the binary neighbour loop on it with a decay epilogue.  They run for CUDA
+  tensors.
 
-:func:`step_packed` picks by the tensor's device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.
+:func:`step_packed` picks by ``spec.total_states`` and the tensor's device:
+a CPU tensor takes the plain version, a CUDA tensor launches the kernels or
+raises.  :func:`visibility_plane` is the packed occupancy the renderer takes
+(any cell with age ≥ 1), by the same rule.
 
-State layout: packed ``[W, Z, Y]`` words (see ``packing.py``) held as
-``torch.int32`` with the reference's ``uint32`` bits.  Right shifts of the
-words are logical (masked), as on ``uint32``.
+State layout: packed ``[W, Z, Y]`` words (see ``packing.py``), or for
+multi-state rules ``[B, W, Z, Y]`` age bit-planes (``B = spec.age_bits``;
+ages 0 = dead, 1 = alive, 2..S-1 dying), held as ``torch.int32`` with the
+reference's ``uint32`` bits.  Right shifts of the words are logical
+(masked), as on ``uint32``.
 """
 
 from __future__ import annotations
@@ -31,10 +40,16 @@ from . import bitplane
 
 __all__ = [
     "step_packed",
+    "step_packed_multistate",
+    "step_packed_multistate_cuda",
     "shift_packed",
     "make_step_fn",
     "fires_plane",
     "fires_plane_cuda",
+    "decay_update",
+    "age_masks",
+    "age_masks_cuda",
+    "visibility_plane",
 ]
 
 _BOUNDARY_CODE = {b: i for i, b in enumerate(BoundaryMode.ALL)}
@@ -158,23 +173,142 @@ def fires_plane_cuda(alive_plane: torch.Tensor, spec: AutomatonSpec) -> torch.Te
 fires_plane_cuda.launches = 0
 
 
-def step_packed(packed: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:
-    """One generation, binary states, packed ``[W, Z, Y]``: the plain
-    version for a CPU tensor, the CUDA kernel for any other."""
-    if spec.total_states != 2:
-        raise NotImplementedError(
-            "multi-state rules are not ported yet (ROADMAP.md queue 1, item 14)"
+def decay_update(planes, alive, dead, fires, total_states: int):
+    """Pointwise Generations age update from the fires plane (bit-sliced).
+
+    planes: list of age bit-planes; alive/dead: membership planes;
+    fires: born-or-survive plane.  Returns the next age planes.
+    """
+    if total_states == 2:
+        return [fires]
+    nbits = len(planes)
+    zero = torch.zeros_like(planes[0])
+    ones = ~zero
+    one_planes = [ones] + [zero] * (nbits - 1)
+    zero_planes = [zero] * nbits
+    start_dying = [zero, ones] + [zero] * (nbits - 2)
+    aged = bitplane.increment_planes(planes)
+    is_last = bitplane.eq_const(planes, total_states - 1, nbits)
+    aged = bitplane.select_planes(is_last, zero_planes, aged)
+    from_alive = bitplane.select_planes(fires, one_planes, start_dying)
+    from_dead = bitplane.select_planes(fires, one_planes, zero_planes)
+    return bitplane.select_planes(
+        dead, from_dead, bitplane.select_planes(alive, from_alive, aged)
+    )
+
+
+def _check_planes(age_planes, spec: AutomatonSpec):
+    _check_shape(age_planes, spec)
+    if age_planes.ndim != 4 or age_planes.shape[0] != spec.age_bits:
+        raise ValueError(
+            f"age planes shape {tuple(age_planes.shape)} does not hold "
+            f"{spec.age_bits} planes for total_states={spec.total_states}"
         )
+
+
+def age_masks(age_planes: torch.Tensor):
+    """Plain torch: the (alive, vis) membership planes ``[W, Z, Y]`` of age
+    bit-planes ``[B, W, Z, Y]``: age == 1 and age ≥ 1."""
+    planes = list(age_planes.unbind(0))
+    alive = bitplane.eq_const(planes, 1, len(planes))
+    vis = planes[0]
+    for p in planes[1:]:
+        vis = vis | p
+    return alive, vis
+
+
+def age_masks_cuda(age_planes: torch.Tensor, alive: bool = True, vis: bool = True):
+    """:func:`age_masks` by the elementwise kernel of ``csrc/ca_step.cu``,
+    one launch; a plane not asked for is not written and comes back None.
+    Takes a contiguous int32 CUDA tensor [B, W, Z, Y]; raises otherwise."""
+    if age_planes.ndim != 4 or not 1 <= age_planes.shape[0] <= 4:
+        raise ValueError(f"age planes must be [B ≤ 4, W, Z, Y], got "
+                         f"{tuple(age_planes.shape)}")
+    if not (alive or vis):
+        raise ValueError("ask for the alive plane, the visibility plane or both")
+    kernels.require(age_planes, "age planes", torch.int32, age_planes.shape)
+    lib = kernels.library()
+    out = [torch.empty_like(age_planes[0]) if want else None for want in (alive, vis)]
+    err = lib.ca3d_age_masks(
+        age_planes.device.index or 0, age_planes.data_ptr(),
+        age_planes.shape[0], age_planes[0].numel(),
+        *(None if o is None else o.data_ptr() for o in out),
+        kernels.stream_of(age_planes),
+    )
+    kernels.check(err, "age_masks")
+    age_masks_cuda.launches += 1
+    return tuple(out)
+
+
+age_masks_cuda.launches = 0
+
+
+def visibility_plane(state: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:
+    """Packed occupancy ``[W, Z, Y]`` for the renderer: any cell with age
+    ≥ 1.  A binary state is its own; age planes are ORed, in plain torch
+    for a CPU tensor and by :func:`age_masks_cuda` for any other."""
+    if spec.total_states == 2:
+        return state
+    if state.device.type == "cpu":
+        return age_masks(state)[1]
+    return age_masks_cuda(state, alive=False)[1]
+
+
+def step_packed_multistate(age_planes: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:
+    """Plain torch: one generation, Generations-style ages, ``[B, W, Z,
+    Y]``.  The CUDA kernel's twin."""
+    _check_planes(age_planes, spec)
+    nbits = spec.age_bits
+    planes = list(age_planes.unbind(0))
+    alive = bitplane.eq_const(planes, 1, nbits)
+    dead = bitplane.eq_const(planes, 0, nbits)
+    fires = fires_plane(alive, spec)
+    return torch.stack(decay_update(planes, alive, dead, fires, spec.total_states))
+
+
+def step_packed_multistate_cuda(age_planes: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:
+    """One multi-state generation by the CUDA kernels (``csrc/ca_step.cu``):
+    :func:`age_masks_cuda` writes the alive plane, then the step kernel
+    counts neighbours on it and applies the decay update to the thread's own
+    age words.  Takes a contiguous int32 CUDA tensor [B, W, Z, Y] and
+    returns a new one; raises for anything else.
+    ``total_states == 2`` is the binary kernel on the one plane."""
+    _check_planes(age_planes, spec)
+    n = spec.grid_size
+    kernels.require(age_planes, "age planes", torch.int32,
+                    (spec.age_bits, n // 32, n, n))
+    if spec.total_states == 2:
+        return fires_plane_cuda(age_planes[0], spec)[None]
+    lib = kernels.library()
+    alive, _ = age_masks_cuda(age_planes, vis=False)
+    out = torch.empty_like(age_planes)
+    n_groups, lens, offs, born, survive = _rule_arrays(spec)
+    err = lib.ca3d_ca_step_multistate(
+        age_planes.device.index or 0, age_planes.data_ptr(),
+        alive.data_ptr(), out.data_ptr(), n,
+        spec.age_bits, spec.total_states, _BOUNDARY_CODE[spec.boundary],
+        n_groups, lens.ctypes.data, offs.ctypes.data, born.ctypes.data,
+        survive.ctypes.data, kernels.stream_of(age_planes),
+    )
+    kernels.check(err, "ca_step_multistate")
+    step_packed_multistate_cuda.launches += 1
+    return out
+
+
+step_packed_multistate_cuda.launches = 0
+
+
+def step_packed(packed: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:
+    """One generation of ``spec``'s automaton: packed ``[W, Z, Y]`` words for
+    binary states, ``[B, W, Z, Y]`` age planes for multi-state rules; the
+    plain version for a CPU tensor, the CUDA kernels for any other."""
+    cpu = packed.device.type == "cpu"
+    if spec.total_states != 2:
+        return (step_packed_multistate if cpu else step_packed_multistate_cuda)(packed, spec)
     _check_shape(packed, spec)
-    if packed.device.type == "cpu":
-        return fires_plane(packed, spec)
-    return fires_plane_cuda(packed, spec)
+    return (fires_plane if cpu else fires_plane_cuda)(packed, spec)
 
 
 def make_step_fn(spec: AutomatonSpec):
-    """Step callable for this spec: packed plane in, packed plane out."""
-    if spec.total_states != 2:
-        raise NotImplementedError(
-            "multi-state rules are not ported yet (ROADMAP.md queue 1, item 14)"
-        )
+    """Step callable for this spec: packed state in, packed state out."""
     return functools.partial(step_packed, spec=spec)

@@ -7,7 +7,10 @@ ray, volume slab entry/exit, the primary sweep, the
 hard-shadow sweep toward the light (start cell excluded), Cook-Torrance
 shading with position albedo; in compose mode also emissive light, the
 cell-id-checked temporal EMA, the light cube, the new history, the depth
-overlay and gamma.
+overlay and gamma.  For a multi-state rule ``vol`` is the visibility plane
+(age ≥ 1) and ``ages`` the age bit-planes: the hit cell's age is fetched
+from them and dims the direct term by ``clip((S − age)/(S − 1), 0, 1)``;
+the emissive term is neither shadowed nor faded.
 
 Two implementations with one contract:
 
@@ -297,11 +300,40 @@ def _shade(cam, q, co, albedo, view_pos):
     return out
 
 
-def _primary(vol, cam, n, width, height, colmask=None):
+def _hit_ages(ages, n, found, hx, hy, hz):
+    """The age int32 [H, W] of each pixel's hit cell from the age bit-planes
+    ``ages`` [B, n/32, n, n]: bit ``hx & 31`` of word ``[b, hx >> 5, hz,
+    hy]`` of each plane b; 1 where nothing was hit."""
+    planes = ages.reshape(ages.shape[0], -1)
+    word = ((hx >> 5) * (n * n) + hz * n + hy).long()
+    age = torch.zeros_like(hx)
+    for b in range(planes.shape[0]):
+        age = age | (((planes[b][word] >> (hx & 31)) & 1) << b)
+    return torch.where(found, age, 1).to(torch.int32)
+
+
+def _age_fade(age, total_states):
+    """The direct term's age fade ``clip((S − age)/(S − 1), 0, 1)`` (f32;
+    the divisor is a tensor so the division is IEEE on the card too)."""
+    num = (total_states - age).to(torch.float32)
+    return torch.clamp(num / torch.full_like(num, float(total_states - 1)), 0.0, 1.0)
+
+
+def _check_ages(ages, vol, total_states=2):
+    if ages.ndim != 4 or tuple(ages.shape[1:]) != tuple(vol.shape) or total_states < 2:
+        raise ValueError(
+            f"ages must be [B, {', '.join(map(str, vol.shape))}] age planes of a "
+            f"rule with total_states >= 2, got {tuple(ages.shape)} / {total_states}"
+        )
+
+
+def _primary(vol, cam, n, width, height, colmask=None, ages=None):
     """Camera rays, volume entry and exit, and the primary sweep of every
-    pixel: ((ux, o, d, active, tf), (found, t, hx, hy, hz)), each [H, W]
-    (o and d are xyz triples).  ``colmask``: the prepass's patch masks
-    [⌈H/8⌉, ⌈W/8⌉], which then gate the sweep's columns."""
+    pixel: ((ux, o, d, active, tf), (found, t, hx, hy, hz), age), each [H,
+    W] (o and d are xyz triples).  ``colmask``: the prepass's patch masks
+    [⌈H/8⌉, ⌈W/8⌉], which then gate the sweep's columns.  ``ages``: the age
+    bit-planes; ``age`` is then each hit's age (:func:`_hit_ages`), else
+    None."""
     dev = vol.device
     f = lambda i: float(cam[i])  # noqa: E731
     cell_half = float(np.float32(1.0 / n) * cam[P_CELLMUL] * np.float32(0.5))
@@ -318,11 +350,12 @@ def _primary(vol, cam, n, width, height, colmask=None):
         colmask = colmask[:height, :width]
     hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active,
                   colmask=colmask)
-    return (ux, o, d, active, tf), hits
+    age = None if ages is None else _hit_ages(ages, n, hits[0], *hits[2:])
+    return (ux, o, d, active, tf), hits, age
 
 
 def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
-             shadow=True, colmask=None):
+             shadow=True, colmask=None, ages=None, total_states=2):
     """Plain torch K1 (the kernel's reference; ``coarse`` is unused).
 
     Without ``history``: returns (rgb [H,W,3] linear light, depth [H,W],
@@ -330,16 +363,21 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
     hit_idx [H,W] int32)``: composes the frame and returns (presentation
     [H,W,3], depth, idx, new history color [H,W,3] f32).  ``colmask``: the
     prepass's int32 patch masks [⌈H/8⌉, ⌈W/8⌉] (:func:`prepass`), which
-    then gate the primary sweep's columns."""
+    then gate the primary sweep's columns.  ``ages``: the age bit-planes
+    int32 [B, n/32, n, n] of a rule with ``total_states`` > 2, of which
+    ``vol`` is the visibility plane; the hit's age then fades the direct
+    term (with ``shadow=False``: the unshadowed but faded direct term)."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
+    if ages is not None:
+        _check_ages(ages, vol, total_states)
     f = lambda i: float(cam[i])  # noqa: E731
     vol_flat = vol.reshape(-1)
     inv_n = float(np.float32(1.0 / n))
     cell_half = float(np.float32(inv_n) * cam[P_CELLMUL] * np.float32(0.5))
 
-    (ux, (ox, oy, oz), (dx, dy, dz), active, tf), (found, t_hit, hx, hy, hz) = (
-        _primary(vol, cam, n, width, height, colmask)
+    (ux, (ox, oy, oz), (dx, dy, dz), active, tf), (found, t_hit, hx, hy, hz), age = (
+        _primary(vol, cam, n, width, height, colmask, ages)
     )
     depth = torch.where(found, t_hit, torch.where(active, tf, 0.0))
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
@@ -364,6 +402,8 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
         cxn = hx.to(torch.float32) * inv_n
         albedo = [cxn, hy.to(torch.float32) * inv_n, 1.0 - cxn]
     lit = _shade(cam, (qx, qy, qz), co, albedo, (ox, oy, oz))
+    if age is not None:
+        occl = occl * _age_fade(age, total_states)
     rgb = [torch.where(found, c * occl, 0.0) for c in lit]
     if history is None:
         return torch.stack(rgb, dim=-1), depth, idx
@@ -411,12 +451,17 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
 
 
 def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
-                  shadow=True, colmask=None):
+                  shadow=True, colmask=None, ages=None, total_states=2):
     """K1 on the card (``csrc/render_fast.cu``): same contract as
     :func:`raytrace`; every tensor must be a contiguous CUDA tensor."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
+    age_bits = 0
+    if ages is not None:
+        _check_ages(ages, vol, total_states)
+        age_bits = ages.shape[0]
+        kernels.require(ages, "ages", torch.int32, (age_bits, n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, (n // 8, n // 8))
     if colmask is not None:
         kernels.require(colmask, "colmask", torch.int32, _patch_grid(width, height))
@@ -433,12 +478,14 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
         ptrs = (prev.data_ptr(), prev_idx.data_ptr(), new_hist.data_ptr())
     else:
         ptrs = (None, None, None)
-    err = lib.ca3d_render_fast(
+    err = lib.ca3d_render_fast_ages(
         dev.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width, height,
         cam.ctypes.data, int(shadow),
         None if colmask is None else colmask.data_ptr(), int(history is not None),
         ptrs[0], ptrs[1], out_rgb.data_ptr(), depth.data_ptr(),
-        idx.data_ptr(), ptrs[2], kernels.stream_of(vol),
+        idx.data_ptr(), ptrs[2],
+        None if ages is None else ages.data_ptr(), age_bits, total_states,
+        kernels.stream_of(vol),
     )
     kernels.check(err, "render_fast")
     raytrace_cuda.launches += 1
@@ -558,12 +605,16 @@ def prepass_mask(coarse, cam, *, grid_size, width, height):
 
 
 def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
-                   height, shadow=True, use_prepass=False):
+                   height, shadow=True, use_prepass=False, ages=None,
+                   total_states=2):
     """Trace (and with ``history``, compose) one frame: the plain version
     for a CPU volume, the CUDA kernel for any other.  ``use_prepass``: gate
     the primary sweep by the patch prepass's column masks
-    (:func:`prepass_mask`); opt-in, as in the reference."""
+    (:func:`prepass_mask`); opt-in, as in the reference.  ``ages`` /
+    ``total_states``: the age bit-planes of a multi-state rule (``vol`` is
+    then its visibility plane), whose hit ages fade the direct term."""
     kw = dict(grid_size=grid_size, width=width, height=height)
     colmask = prepass_mask(coarse, cam, **kw) if use_prepass else None
     fn = raytrace if vol.device.type == "cpu" else raytrace_cuda
-    return fn(vol, coarse, cam, history, shadow=shadow, colmask=colmask, **kw)
+    return fn(vol, coarse, cam, history, shadow=shadow, colmask=colmask,
+              ages=ages, total_states=total_states, **kw)

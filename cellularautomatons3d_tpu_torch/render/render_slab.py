@@ -15,8 +15,9 @@ test overrides (``slab_planes``, ``x_chunk_cells``), ``SlabGroup``,
 ``prep_slabs``, ``_scan_bricks``, the brick skip and visibility conds, the
 min-t composite over bricks with its cross-brick best-t carry, and the
 view-dependent brick-order flip are TPU VMEM layout, not kernels.
-``prepped`` is the packed volume and its coarse occupancy mip
-(:func:`prep_volume`); images are ``[H, W]`` / ``[H, W, 3]`` in image
+``prepped`` is the packed volume (for a multi-state rule its visibility
+plane, age ≥ 1; the age bit-planes go to K4 and nowhere else) and its
+coarse occupancy mip (:func:`prep_volume`); images are ``[H, W]`` / ``[H, W, 3]`` in image
 order.  Exact-t ties between distinct cells, where the reference keeps
 the first brick processed, keep the first cell in plane order here.
 
@@ -25,7 +26,7 @@ runs for CPU tensors and is the kernel's reference:
 
 * K4, primary hits (:func:`primary_sweep` / :func:`primary_sweep_cuda`,
   ``csrc/primary_sweep.cu``): the reference's per-brick primary kernel,
-  over the whole volume;
+  over the whole volume, with its age output for multi-state rules;
 * K2, occlusion (:func:`shadow_sweep` / :func:`shadow_sweep_cuda`,
   ``csrc/shadow_sweep.cu``): the default sweep backend of the reference's
   ``shadow_occlusion_batch``;
@@ -81,6 +82,8 @@ from .render_fast import (
     P_ROW0,
     P_TIME,
     P_WIN,
+    _age_fade,
+    _check_ages,
     _check_window,
     _normalize3,
     _pixel_rays,
@@ -146,47 +149,60 @@ def _cell_half(cam, n: int) -> float:
 # ------------------------------------------------------ K4: primary ---
 
 
-def primary_sweep(vol, cam, *, grid_size, width, height):
+def primary_sweep(vol, cam, ages=None, *, grid_size, width, height):
     """Plain torch K4: the primary hit of every pixel over the whole volume,
     (t f32 [H, W], id int32 [H, W]): t is the hit's visible-cube entry and
-    the id x + y·n + z·n²; a miss gives t = 0 and id −1."""
+    the id x + y·n + z·n²; a miss gives t = 0 and id −1.  With ``ages`` (the
+    age bit-planes int32 [B, n/32, n, n] of which ``vol`` is the visibility
+    plane) a third output, the hit cell's age int32 [H, W], 1 for a miss."""
     cam = _check_sliced(grid_size, width, height, cam)
     n = grid_size
-    _, (found, t_hit, hx, hy, hz) = _primary(vol, cam, n, width, height)
+    if ages is not None:
+        _check_ages(ages, vol)
+    _, (found, t_hit, hx, hy, hz), age = _primary(vol, cam, n, width, height,
+                                                  ages=ages)
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
-    return t_hit, idx  # the sweep leaves t = 0 where nothing was hit
+    # The sweep leaves t = 0 where nothing was hit.
+    return (t_hit, idx) if ages is None else (t_hit, idx, age)
 
 
-def primary_sweep_cuda(vol, coarse, cam, *, grid_size, width, height):
+def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height):
     """K4 on the card (``csrc/primary_sweep.cu``): same contract as
-    :func:`primary_sweep`; ``vol`` and ``coarse`` must be contiguous CUDA
-    tensors."""
+    :func:`primary_sweep`; ``vol``, ``coarse`` and ``ages`` must be
+    contiguous CUDA tensors."""
     cam = _check_sliced(grid_size, width, height, cam)
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
     t = torch.empty((height, width), dtype=torch.float32, device=vol.device)
     idx = torch.empty((height, width), dtype=torch.int32, device=vol.device)
-    err = kernels.library().ca3d_primary_sweep(
+    age, age_bits = None, 0
+    if ages is not None:
+        _check_ages(ages, vol)
+        age_bits = ages.shape[0]
+        kernels.require(ages, "ages", torch.int32, (age_bits, n // 32, n, n))
+        age = torch.empty((height, width), dtype=torch.int32, device=vol.device)
+    err = kernels.library().ca3d_primary_sweep_ages(
         vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width,
         height, cam.ctypes.data, t.data_ptr(), idx.data_ptr(),
-        kernels.stream_of(vol),
+        None if ages is None else ages.data_ptr(), age_bits,
+        None if age is None else age.data_ptr(), kernels.stream_of(vol),
     )
     kernels.check(err, "primary_sweep")
     primary_sweep_cuda.launches += 1
-    return t, idx
+    return (t, idx) if ages is None else (t, idx, age)
 
 
 primary_sweep_cuda.launches = 0
 
 
-def primary_hits(cam, prepped: Prepped, *, grid_size, width, height):
-    """(t, id) of every pixel's primary hit: the plain version for a CPU
-    volume, K4 for any other."""
+def primary_hits(cam, prepped: Prepped, ages=None, *, grid_size, width, height):
+    """(t, id) of every pixel's primary hit, and with ``ages`` its age: the
+    plain version for a CPU volume, K4 for any other."""
     kw = dict(grid_size=grid_size, width=width, height=height)
     if prepped.vol.device.type == "cpu":
-        return primary_sweep(prepped.vol, cam, **kw)
-    return primary_sweep_cuda(prepped.vol, prepped.coarse, cam, **kw)
+        return primary_sweep(prepped.vol, cam, ages, **kw)
+    return primary_sweep_cuda(prepped.vol, prepped.coarse, cam, ages, **kw)
 
 
 # ------------------------------------------------------------ geometry ---
@@ -711,12 +727,16 @@ def lighting_passes(cam, q, origin, coords, found, prepped, *, grid_size,
 # ------------------------------------------------------- sliced frame ---
 
 
-def raytrace_sliced(vol, cam, *, grid_size, width, height, shadow=True,
-                    soft_shadow_samples=1, indirect=False, indirect_bounces=1,
-                    sample_idx=None):
+def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
+                    shadow=True, total_states=2, soft_shadow_samples=1,
+                    indirect=False, indirect_bounces=1, sample_idx=None):
     """One frame of any grid up to 1024³ (render_slab.raytrace_sliced):
     (light_rgb [H, W, 3], depth [H, W], hit_idx [H, W] int32; −1 = miss),
-    without emissive light (the caller adds it).
+    without emissive light (the caller adds it).  ``ages`` /
+    ``total_states``: the age bit-planes of a multi-state rule, of which
+    ``vol`` is the visibility plane; K4 then also returns each hit's age,
+    whose fade ``clip((S − age)/(S − 1), 0, 1)`` multiplies the direct term
+    (the occlusion quotient) and not the GI added after it.
 
     K4 finds the primary hits; the hard shadow (``soft_shadow_samples`` ≤
     1), the soft-shadow samples and the GI slots ride one K2 launch and the
@@ -730,7 +750,9 @@ def raytrace_sliced(vol, cam, *, grid_size, width, height, shadow=True,
     cam = _check_sliced(n, width, height, cam)
     kw = dict(grid_size=n, width=width, height=height)
     prepped = prep_volume(vol)
-    t_img, idx = primary_hits(cam, prepped, **kw)
+    if ages is not None:
+        _check_ages(ages, vol, total_states)
+    t_img, idx, *age_img = primary_hits(cam, prepped, ages, **kw)
     q, origin, coords, found, tf_miss = hit_geometry(cam, idx, t_img, **kw)
     depth = torch.where(found, t_img, tf_miss)
 
@@ -762,6 +784,9 @@ def raytrace_sliced(vol, cam, *, grid_size, width, height, shadow=True,
     color = _shader(cam, n)(q, origin, coords, o,
                             torch.full_like(q, float(cam[P_LMAG])), light)
     out = torch.clamp(color, min=0.0)
+    if age_img:
+        fade = _age_fade(age_img[0], total_states)
+        occl = fade if occl is None else occl * fade
     if occl is not None:
         out = out * occl[..., None]
     if gi_rgb is not None:

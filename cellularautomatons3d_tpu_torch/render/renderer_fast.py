@@ -2,7 +2,12 @@
 above), the extended lighting, and frame composition.
 
 Port of ``cellularautomatons3d_tpu.render.renderer_fast`` for grids up to
-1024³, a static camera and binary states:
+1024³ and a static camera, binary and multi-state rules.  For a multi-state
+rule ``packed`` is the visibility plane (any cell with age ≥ 1) and
+``ages`` / ``total_states`` carry the age bit-planes, whose hit ages fade
+the direct term in K1 and in the sliced path; shadows, GI lookups and the
+occupancy mip take the visibility plane, so a dying cell is hit, occludes
+and counts as a GI neighbour like a live one:
 
 * :func:`trace_shaded` -- the traced and shaded scene.  Up to 256³: K1
   with the hard shadow, or K1 unshadowed followed by the extended lighting
@@ -30,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.ca_step import step_packed
+from ..ops.ca_step import step_packed, visibility_plane
 from ..ops.occupancy import coarse_occupancy
 from .camera import get_ray, pixel_uvs
 from .intersect import device_vec, ray_cube_intersect
@@ -137,20 +142,22 @@ def _extended_lighting(s: RenderStatic, packed, coarse, cam, rgb, depth, idx,
             bounces=s.indirect_bounces, **kw,
         )
     if occl is not None:
-        # K1's rgb is unshadowed direct light when soft; occl multiplies it.
+        # K1's rgb is unshadowed (but age-faded) direct light when soft;
+        # occl multiplies it.
         rgb = rgb * occl[..., None]
     if gi_rgb is not None:
         rgb = rgb + torch.where(found[..., None], gi_rgb, 0.0)
     return rgb, d
 
 
-def _shaded(s: RenderStatic, packed, cam, sample_idx):
+def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2):
     """trace_shaded's (rgb, depth, idx) and, with K1's extended lighting,
     the world ray direction d [H, W, 3] (else None)."""
     d = None
     if _sliced(s):
         rgb, depth, idx = raytrace_sliced(
-            packed, cam, grid_size=s.grid_size, width=s.width, height=s.height,
+            packed, cam, ages, grid_size=s.grid_size, width=s.width,
+            height=s.height, total_states=total_states,
             soft_shadow_samples=s.soft_shadow_samples,
             indirect=s.indirect_lighting, indirect_bounces=s.indirect_bounces,
             sample_idx=sample_idx if s.gi_temporal else None,
@@ -159,7 +166,8 @@ def _shaded(s: RenderStatic, packed, cam, sample_idx):
         coarse = coarse_occupancy(packed)
         rgb, depth, idx = raytrace_tiles(
             packed, coarse, cam, grid_size=s.grid_size, width=s.width,
-            height=s.height, shadow=s.soft_shadow_samples <= 1,
+            height=s.height, shadow=s.soft_shadow_samples <= 1, ages=ages,
+            total_states=total_states,
         )
         if s.soft_shadow_samples > 1 or s.indirect_lighting:
             rgb, d = _extended_lighting(s, packed, coarse, cam, rgb, depth, idx,
@@ -170,24 +178,30 @@ def _shaded(s: RenderStatic, packed, cam, sample_idx):
 
 
 def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
-                 sample_idx=None):
+                 sample_idx=None, *, ages: torch.Tensor | None = None,
+                 total_states: int = 2):
     """Traced + shaded scene: (rgb [H,W,3] linear light, depth, hit_idx).
 
     Up to 256³: K1 with the hard shadow (unshadowed when soft shadows
     replace it) and the extended lighting of ``render_slab`` when soft
     shadows or GI are on.  Above 256³ or with ``s.force_sliced``:
-    ``render_slab.raytrace_sliced``.  Then emissive radiance on every hit
-    (renderer.py:263-264).  ``sample_idx``: the frame counter of the
-    temporally amortized mode (``s.gi_temporal``), an int or an int tensor;
-    it rotates the soft-shadow sample and the GI slot."""
-    return _shaded(s, packed, cam, sample_idx)[:3]
+    ``render_slab.raytrace_sliced``.  Then emissive radiance on every hit,
+    neither shadowed nor age-faded (renderer.py:263-264).  ``ages`` /
+    ``total_states``: the age bit-planes of a multi-state rule (``packed``
+    is then its visibility plane).  ``sample_idx``: the frame counter of
+    the temporally amortized mode (``s.gi_temporal``), an int or an int
+    tensor; it rotates the soft-shadow sample and the GI slot."""
+    return _shaded(s, packed, cam, sample_idx, ages, total_states)[:3]
 
 
 def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
                       params: RenderParams, history: FastHistory,
-                      camera_static: bool = True, sample_idx=None):
+                      camera_static: bool = True, sample_idx=None, *,
+                      ages: torch.Tensor | None = None, total_states: int = 2):
     """One fast-path frame.  Returns (presentation [H,W,3] f32, depth
-    [H,W] f32, new FastHistory).  ``sample_idx``: the frame counter of the
+    [H,W] f32, new FastHistory).  ``ages`` / ``total_states``: the age
+    bit-planes of a multi-state rule (``packed`` is then its visibility
+    plane).  ``sample_idx``: the frame counter of the
     temporally amortized lighting mode; the EMA converges to the full
     multi-sample lighting.  Static camera only: the reprojection of a
     moving camera is not ported yet."""
@@ -198,7 +212,8 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
         )
     h, w = s.height, s.width
     cam = _cam_vec(params, w, h)
-    rgb, depth, idx = trace_shaded(s, packed, cam, sample_idx)
+    rgb, depth, idx = trace_shaded(s, packed, cam, sample_idx, ages=ages,
+                                   total_states=total_states)
     dev = rgb.device
 
     uv = pixel_uvs(w, h, device=dev)
@@ -237,14 +252,14 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
     return presentation, depth, new_history
 
 
-def _ext_frame(s: RenderStatic, vis, cam, hist, sample_idx):
+def _ext_frame(s: RenderStatic, vis, cam, hist, ages, total_states, sample_idx):
     """One extended-lighting frame (soft shadows, one-bounce or temporal
     GI) of the fused loop, composed in torch: trace_shaded (K1, one K2 and
     one K3 launch, emissive light), the id-checked EMA against the f32 history,
     the light cube, the depth overlay and gamma (_ext_frame_blocked,
     renderer_fast.py:318-407, in image layout).  Returns (presentation,
     new history (color f32, ids))."""
-    rgb, depth, idx, d = _shaded(s, vis, cam, sample_idx)
+    rgb, depth, idx, d = _shaded(s, vis, cam, sample_idx, ages, total_states)
     dev = rgb.device
     found = idx >= 0
     prev, prev_idx = hist
@@ -279,18 +294,19 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
     frames (the benchmark's pinned scene: every frame still steps and
     renders).  Static camera.  The input ``state`` is not modified.  With
     ``s.gi_temporal`` the sample index is the loop counter, from 0 on each
-    call.
+    call.  Binary and multi-state automata: a multi-state ``state`` is the
+    age bit-planes ``[B, W, Z, Y]``, stepped by the multi-state step, and
+    every frame renders its visibility plane with the ages handed to K1 or
+    the sliced path (the reference's ``one_step`` and ``visibility``).
 
     Three branches, as in the reference: up to 256³, hard shadows without
     GI compose in K1 and soft shadows, one-bounce and temporal GI run
     :func:`_ext_frame` with an f32 history; multi-bounce GI and the sliced
     path run :func:`render_frame_fast` per iteration, whose history is f16
     between frames."""
-    if spec.total_states != 2:
-        raise NotImplementedError(
-            "multi-state rules are not ported yet (ROADMAP.md queue 1, item 14)"
-        )
     h, w, n = s.height, s.width, s.grid_size
+    multistate = spec.total_states > 2
+    total_states = spec.total_states
     use_compose = (not _sliced(s) and s.soft_shadow_samples <= 1
                    and not s.indirect_lighting)
     use_ext = not _sliced(s) and not use_compose and (
@@ -314,22 +330,28 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
             for i in range(frames):
                 st = steps(st)
                 frame, _, hist = render_frame_fast(
-                    s, st, params, hist, True, i if s.gi_temporal else None
+                    s, visibility_plane(st, spec), params, hist, True,
+                    i if s.gi_temporal else None,
+                    ages=st if multistate else None, total_states=total_states,
                 )
                 st = reset(i, st, state)
             return st, hist, frame
         hist = (history.color.to(torch.float32), history.hit_idx)
         for i in range(frames):
             st = steps(st)
+            vis = visibility_plane(st, spec)
+            ages = st if multistate else None
             if use_compose:
                 frame, _, idx, color = raytrace_tiles(
-                    st, coarse_occupancy(st), cam, hist,
-                    grid_size=n, width=w, height=h, shadow=True,
+                    vis, coarse_occupancy(vis), cam, hist,
+                    grid_size=n, width=w, height=h, shadow=True, ages=ages,
+                    total_states=total_states,
                 )
                 hist = (color, idx)
             else:
                 frame, hist = _ext_frame(
-                    s, st, cam, hist, i if s.gi_temporal else None
+                    s, vis, cam, hist, ages, total_states,
+                    i if s.gi_temporal else None,
                 )
             st = reset(i, st, state)
         new_history = FastHistory(color=hist[0].to(torch.float16), hit_idx=hist[1])

@@ -15,9 +15,10 @@ In the port the same split holds:
   (main_pathtraced.js:624-637).
 
 Copied from ``cellularautomatons3d_tpu.utils.config`` with the same fields
-and defaults (main_pathtraced.js:100-153, SURVEY.md §2.1); the port's
-Engine raises ``NotImplementedError`` for the settings it does not cover
-yet.
+and defaults (main_pathtraced.js:100-153, SURVEY.md §2.1).  The port's
+Engine takes every rule (``total_states`` 2 to 10), grid and lighting
+setting; it raises ``NotImplementedError`` for ``pipeline="reference"`` and
+``mesh_devices``, which it does not cover yet.
 """
 
 from __future__ import annotations

@@ -24,9 +24,13 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       plain and step + frame at 512³ and 1024³; K5 against K2 on a
       full-quality frame's 8 queries at 256³ and 512³, K6, K1 with and
       without the prepass mask on gen-80 and gen-230, and full-quality step
-      + frame with K5 against K2, each pair alternated), beside the card's
-      name and power limit, and each kernel's bound from this run's inputs.
-      It runs last, after (e), (f) and (g).
+      + frame with K5 against K2, each pair alternated; the multi-state step
+      at 256³ / 512³ / 1024³ beside its plain version and beside the binary
+      kernel on the same rule, K1 compose and K4 with and
+      without ages on the same visibility plane, and step + frame of the
+      multi-state paths), beside the card's name and power limit, and each
+      kernel's bound from this run's inputs.  It runs last, after (e), (f),
+      (g) and (h).
   (e) the extended-lighting path: K2 (occlusion sweep) and K3 (cell
       state) vs their plain versions, equal on every (query, pixel), on
       the 8 occlusion queries (4 soft-shadow samples, 4 GI slots) and 4
@@ -63,6 +67,26 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       vs on the CPU at 64³ (full quality, two bounces), then Engine(256,
       1080p) full quality and two bounces and Engine(512) gi_temporal with
       it, K5 launched and K2 not.
+
+  (h) the multi-state (Generations) path, on the `pyroclastic` preset (Moore
+      B6-8/S4-7, 10 states = 4 age planes) grown from the random 5³ seed: the
+      multi-state step kernel vs its plain version and vs the dense oracle ``ops.ca_reference.step_dense``, bit-exact, at 256³
+      for 20 generations over 3, 5, 8 and 10 states × every neighbourhood ×
+      boundary mode on random volumes of valid ages, and at 512³ and 1024³
+      for 5 generations; the alive / visibility pass vs plain on random
+      words and on every scene (64³ to 1024³); K1 with ages
+      vs its plain version in both modes at 64³ / 128×64 and 256³ /
+      1920×1080, K4 with ages (ids and ages equal) at 320³ / 480×270, 512³
+      and 1024³ / 1920×1080, K2 and K3 vs plain on a full-quality frame's
+      queries of the multi-state scene; the Engine on the card vs on the CPU
+      at 64³ (hard shadows, full quality, gi_temporal) and 320³; then the
+      path at full width, Engine(256, 1920×1080, total_states=10): step(160),
+      render() twice, run_fused(150, reset_every=10), the same with full
+      quality and gi_temporal lighting (50 frames), Engine(512) (gen-320, 20
+      frames) and Engine(1024) (gen-560, 5 frames), with every kernel's
+      launch counter read around each (one multi-state step per generation,
+      the binary step never), and on each scene a population above zero,
+      every age 1..9 among the hit pixels and a hit share of 2 to 25 %.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -328,6 +352,8 @@ OPS_COLUMN = 50       # column span, cell range, mip test (sweep.cuh)
 OPS_SHADE = 150       # Cook-Torrance shading and composition of a hit
 OPS_CA_NEIGHBOUR = 24  # boundary sources, funnel shift, 5-plane carry add
 OPS_CA_RULE_VALUE = 6  # rule_hit per member count of born / survive
+OPS_CA_DECAY = 12     # decay epilogue per age plane: increment, three selects
+OPS_AGE = 20          # age fetch (shift, mask, or per plane) and the fade
 OPS_PATCH = 60        # K6 patch ray and box
 OPS_PATCH_COLUMN = 40  # K6 column span and 3 probes
 
@@ -540,6 +566,402 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
             out["launches"][name] = counts
             out["engines"][name] = eng
     return out
+
+
+# ------------------------------------------------- (h) multi-state path ---
+MS_PRESET = "pyroclastic"               # Moore B6-8/S4-7, 10 states, 4 age planes
+MS_GENERATIONS = {64: 60, 256: 160, 512: 320, 1024: 560}  # from the random 5³ seed
+MS_HIT_SHARE = (0.02, 0.25)
+MS_SLICED = (512, 1024)   # the sliced path's grids
+MS_K4_SMALL = 320         # two coarse x-groups, the last one partial
+MS_ENGINES = {
+    # name: (Engine overrides, run_fused kwargs, timed frames)
+    "ms_256": (dict(grid_size=GRID), dict(frames=150, reset_every=10), 100),
+    "ms_256_full_quality": (dict(grid_size=GRID, **LIGHTING),
+                            dict(frames=50, reset_every=10), 20),
+    "ms_256_gi_temporal": (dict(grid_size=GRID, **LIGHTING, gi_temporal=True),
+                           dict(frames=50, reset_every=10), 20),
+    "ms_sliced_512": (dict(grid_size=512), dict(frames=20, reset_every=10), 10),
+    "ms_sliced_1024": (dict(grid_size=1024), dict(frames=5), 5),
+}
+MS_SCENE_ENGINES = ("ms_256", "ms_sliced_512", "ms_sliced_1024")  # hard shadows: scene checked
+
+
+def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy,
+                     scene_cam, views, lighting_operands, compare) -> dict:
+    """Phase (h): the multi-state step, K1 and K4 with ages against their
+    plain versions and the dense oracle, K2 and K3 on a multi-state scene,
+    the Engine on the card against the Engine on the CPU, and the Engine at
+    256³, 512³ and 1024³ / 1080p with its launch counters and the checks that
+    the scene exercises the ages.  Returns what (d) times and reports."""
+    from cellularautomatons3d_tpu_torch.ops import ca_reference
+
+    dev = torch.device("cuda", 0)
+    preset = ct.PRESETS[MS_PRESET]
+    states = preset["total_states"]
+    out = {"plain_ms": {}}
+
+    def random_ages(n, total_states, seed, p_dead=0.6):
+        """Age planes and dense ages of a random volume of valid ages, with
+        cells on every face."""
+        g = torch.Generator(dev).manual_seed(seed)
+        dense = torch.randint(1, total_states, (n, n, n), dtype=torch.uint8, device=dev,
+                              generator=g)
+        dense[torch.rand((n, n, n), device=dev, generator=g) < p_dead] = 0
+        nbits = max(1, (total_states - 1).bit_length())
+        return ca_reference.dense_to_planes(dense, nbits), dense
+
+    def step_check(tag, planes, dense, spec, generations):
+        a, b = planes, planes.clone()
+        for gen in range(generations):
+            a = ca_step.step_packed_multistate_cuda(a, spec)
+            b = ca_step.step_packed_multistate(b, spec)
+            dense = ca_reference.step_dense(dense, spec)
+            where = f"{tag} generation {gen + 1}"
+            need(torch.equal(a, b), f"multi-state step kernel != plain: {where}")
+            need(torch.equal(ca_reference.planes_to_dense(a), dense),
+                 f"multi-state step kernel != step_dense: {where}")
+        return a, dense
+
+    # The step kernel at 256³: every state count x neighbourhood x boundary.
+    cases = 0
+    for total_states in (3, 5, 8, 10):
+        for i, neigh in enumerate(ct.NEIGHBOURHOOD_MAP):
+            for boundary in ct.BoundaryMode.ALL:
+                spec = AutomatonSpec.from_rule_strings(
+                    GRID, neighbourhood=neigh, born="2,4", survive="1-4",
+                    total_states=total_states, boundary=boundary)
+                planes, dense = random_ages(GRID, total_states, 100 * total_states + i)
+                _, dense = step_check(f"{total_states} states {neigh} {boundary}", planes,
+                                      dense, spec, 20)
+                need(int((dense > 0).sum()) > 0, f"{total_states} states {neigh}: died out")
+                cases += 1
+    mixed = AutomatonSpec.from_rule_strings(
+        GRID, born="2", survive="1-3", born_edges="2,5", survive_edges="3-6",
+        born_corners="1", survive_corners="2-4", total_states=6)
+    step_check("mixed groups", *random_ages(GRID, 6, 7, p_dead=0.7), mixed, 20)
+    log(f"(h) multi-state step kernel == plain == step_dense, bit-exact: "
+        f"{cases + 1} cases x 20 generations at {GRID}^3")
+    out["ms_cases"] = cases + 1
+    for size in MS_SLICED:
+        spec = AutomatonSpec.from_rule_strings(size, **preset)
+        step_check(f"{size}^3 random ages", *random_ages(size, states, size), spec, 5)
+        log(f"  multi-state step kernel == plain == step_dense at {size}^3: 5 generations")
+    # Invalid encodings (ages >= S): the kernel follows the bit-sliced update.
+    g = torch.Generator(dev).manual_seed(3)
+    for total_states in (3, 5, 6, 10):
+        spec = AutomatonSpec.from_rule_strings(GRID, neighbourhood="moore", born="4-9",
+                                               survive="3-12", total_states=total_states)
+        a = torch.randint(-2**31, 2**31 - 1, (spec.age_bits, GRID // 32, GRID, GRID),
+                          dtype=torch.int32, device=dev, generator=g)
+        want = ca_step.step_packed_multistate(a, spec)
+        need(torch.equal(ca_step.step_packed_multistate_cuda(a, spec), want),
+             f"multi-state step on random words, {total_states} states")
+        alive, vis = ca_step.age_masks_cuda(a)
+        want_alive, want_vis = ca_step.age_masks(a)
+        need(torch.equal(alive, want_alive) and torch.equal(vis, want_vis),
+             f"age masks kernel != plain, {a.shape[0]} planes")
+    log("  multi-state step and age-masks kernels == plain on random words")
+
+    # The scenes: the preset grown from the Engine's random 5³ seed.
+    def scene(size):
+        eng = ct.Engine(grid_size=size, width=WIDTH, height=HEIGHT, device="cuda",
+                        random_initial_state=True, **preset)
+        eng.step(MS_GENERATIONS[size])
+        alive, vis = ca_step.age_masks_cuda(eng.state)
+        want_alive, want_vis = ca_step.age_masks(eng.state)
+        need(torch.equal(alive, want_alive) and torch.equal(vis, want_vis),
+             f"age masks kernel != plain on the {size}^3 scene")
+        return eng.state, vis, eng.spec
+
+    def hit_ages(planes, idx):
+        dense = ca_reference.planes_to_dense(planes).reshape(-1)
+        return dense[idx.clamp(min=0).long()][idx >= 0]
+
+    def scene_checks(tag, planes, idx):
+        """The scene exercises the ages: it lives, every age is on screen,
+        and as many pixels hit as in the binary scenes."""
+        pop = int((ca_step.age_masks_cuda(planes, alive=False)[1] != 0).sum())
+        ages = torch.bincount(hit_ages(planes, idx).long(), minlength=states).tolist()
+        share = float((idx >= 0).float().mean())
+        log(f"  scene {tag}: {pop} non-empty words, hit share {share:.4f}, hit ages {ages}")
+        need(pop > 0, f"{tag}: the scene died out")
+        need(ages[0] == 0 and all(a > 0 for a in ages[1:]), f"{tag}: hit ages {ages}")
+        need(MS_HIT_SHARE[0] <= share <= MS_HIT_SHARE[1], f"{tag}: hit share {share}")
+
+    # K1 with ages against its plain version, both modes.
+    k1_err = k1_frac = 0.0
+    for size, w, h in ((64, 128, 64), (GRID, WIDTH, HEIGHT)):
+        planes, vis, spec = scene(size)
+        coarse = coarse_occupancy(vis)
+        cam = scene_cam(views["front"], w, h)
+        kw = dict(grid_size=size, width=w, height=h, shadow=True, ages=planes,
+                  total_states=states)
+        tag = f"K1 with ages {size}^3 {w}x{h} gen-{MS_GENERATIONS[size]}"
+        got = rf.raytrace_cuda(vis, coarse, cam, **kw)
+        want = rf.raytrace(vis, coarse, cam, **kw)
+        e, f = compare(f"{tag} non-compose", got, want)
+        k1_err, k1_frac = max(k1_err, e), max(k1_frac, f)
+        keep = torch.rand(want[2].shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(7)) < 0.7
+        hist = (torch.clamp(want[0] * 1.5 + 0.02, 0.0, 1.0).contiguous(),
+                torch.where(keep, want[2], want[2] + 1).contiguous())
+        got = rf.raytrace_cuda(vis, coarse, cam, hist, **kw)
+        want = rf.raytrace(vis, coarse, cam, hist, **kw)
+        e, f = compare(f"{tag} compose", got, want)
+        k1_err, k1_frac = max(k1_err, e), max(k1_frac, f)
+        binary = rf.raytrace_cuda(vis, coarse, cam, grid_size=size, width=w, height=h,
+                                  shadow=True)
+        need(torch.equal(binary[2], got[2]), f"{tag}: ids differ from the binary frame")
+        need(float(got[0].sum()) > 0, f"{tag}: black")
+    scene_checks(f"{GRID}^3", planes, got[2])
+    need(float(rf.raytrace_cuda(vis, coarse, cam, **kw)[0].sum()) < float(binary[0].sum()),
+         "K1 with ages is not dimmer than the binary frame")
+    out["k1_timed"] = (planes, vis, coarse, cam, hist, kw)
+    out["k1_max_abs_err"], out["k1_id_mismatch"] = k1_err, k1_frac
+
+    # K2 and K3 on a full-quality frame's queries of the multi-state scene.
+    vol, coarse, cam, _, k2, k3 = lighting_operands(GRID, WIDTH, HEIGHT, vol=vis)
+    kw23 = dict(grid_size=GRID, cell_half=rs._cell_half(cam, GRID))
+    k2_bad = int((rs.shadow_sweep_cuda(vol, coarse, *k2, **kw23)
+                  != rs.shadow_sweep(vol, *k2, **kw23)).sum())
+    want3 = rs.cell_state(vol, *k3, grid_size=GRID)
+    k3_bad = int((rs.cell_state_cuda(vol, *k3, grid_size=GRID) != want3).sum())
+    log(f"  multi-state scene {GRID}^3: K2 {k2[0].shape[0]} queries, {int(k2[3].sum())} "
+        f"active, {k2_bad} differ; K3 {int(k3[1].sum())} active, {int(want3.sum())} live, "
+        f"{k3_bad} differ")
+    need(k2_bad == 0 and k3_bad == 0, "K2 or K3 != plain on the multi-state scene")
+    need(int(want3.sum()) > 0, "K3 on the multi-state scene: no neighbour found")
+    del vol, k2, k3, want3
+
+    # K4 with ages: ids and ages equal, t within tolerance.
+    k4_err = 0.0
+
+    def k4_check(tag, planes, vis, size, cam, w, h):
+        nonlocal k4_err
+        coarse = coarse_occupancy(vis)
+        kw = dict(grid_size=size, width=w, height=h)
+        t_k, i_k, a_k = rs.primary_sweep_cuda(vis, coarse, cam, planes, **kw)
+        (t_p, i_p, a_p), ms = timed(torch, lambda: rs.primary_sweep(vis, cam, planes, **kw))
+        bad, bad_age = int((i_k != i_p).sum()), int((a_k != a_p).sum())
+        err = float((t_k - t_p).abs().max())
+        log(f"  K4 with ages {tag}: {int((i_p >= 0).sum())} hits, {bad} ids and {bad_age} "
+            f"ages differ, max |t| err {err:.3g}, plain {ms:.1f} ms")
+        need(bad == 0 and bad_age == 0, f"K4 with ages {tag}: ids or ages differ")
+        need(err <= DEPTH_ATOL, f"K4 with ages {tag}: t error {err}")
+        need(torch.equal(hit_ages(planes, i_k).to(torch.int32), a_k[i_k >= 0]),
+             f"K4 with ages {tag}: the age image is not the hit cells' age")
+        need(bool((a_k[i_k < 0] == 1).all()), f"K4 with ages {tag}: a miss's age is not 1")
+        t_b, i_b = rs.primary_sweep_cuda(vis, coarse, cam, **kw)
+        need(torch.equal(i_b, i_k) and torch.equal(t_b, t_k),
+             f"K4 {tag}: the outputs change with the ages")
+        k4_err = max(k4_err, err)
+        return coarse, i_k, ms
+
+    planes, _ = random_ages(MS_K4_SMALL, states, 5, p_dead=0.99)
+    vis = ca_step.age_masks_cuda(planes, alive=False)[1]
+    for name, view in views.items():
+        k4_check(f"{MS_K4_SMALL}^3 480x270 random {name}", planes, vis, MS_K4_SMALL,
+                 scene_cam(view, 480, 270), 480, 270)
+    out["k4_timed"] = {}
+    for size in MS_SLICED:
+        planes, vis, spec = scene(size)
+        cam = scene_cam(views["front"], WIDTH, HEIGHT)
+        tag = f"{size}^3 {WIDTH}x{HEIGHT} gen-{MS_GENERATIONS[size]}"
+        coarse, idx, out["plain_ms"][f"k4_ages_{size}_plain_ms"] = k4_check(
+            tag, planes, vis, size, cam, WIDTH, HEIGHT)
+        scene_checks(f"{size}^3", planes, idx)
+        out["k4_timed"][size] = (planes, vis, coarse, cam, spec)
+    out["k4_max_abs_err"] = k4_err
+    del planes, vis, coarse, idx
+
+    # The Engine on the card against the Engine on the CPU.
+    block = np.random.default_rng(1)
+    lo = MS_K4_SMALL // 2 - 32  # a 64³ block of random ages at the centre
+    ages_small = np.zeros((MS_K4_SMALL,) * 3, np.uint8)
+    ages_small[lo:lo + 64, lo:lo + 64, lo:lo + 64] = np.where(
+        block.random((64,) * 3) < 0.2, 1,
+        np.where(block.random((64,) * 3) < 0.3, block.integers(1, states, (64,) * 3), 0))
+    for name, cfg in (("64^3 hard", dict(grid_size=64)),
+                      ("64^3 full quality", dict(grid_size=64, **LIGHTING)),
+                      ("64^3 gi_temporal", dict(grid_size=64, **LIGHTING, gi_temporal=True)),
+                      (f"{MS_K4_SMALL}^3 hard", dict(grid_size=MS_K4_SMALL))):
+        res = []
+        for d in ("cuda", "cpu"):
+            e = ct.Engine(device=d, width=128, height=64, random_initial_state=True,
+                          **preset, **cfg)
+            if cfg["grid_size"] == MS_K4_SMALL:
+                e.set_state_dense(ages_small)
+                e.step(3)
+            else:
+                e.step(40)
+            fr = [e.render(), e.render(), e.run_fused(2, reset_every=1)]
+            res.append(([f.cpu() for f in fr], e.history.hit_idx.cpu(), e.state.cpu()))
+        (gpu, gidx, gstate), (cpu, cidx, cstate) = res
+        need(torch.equal(gstate, cstate), f"multi-state Engine {name}: state cuda != cpu")
+        need(torch.equal(gidx, cidx), f"multi-state Engine {name}: ids cuda != cpu")
+        need(int((cidx >= 0).sum()) > 0, f"multi-state Engine {name}: no pixel hits")
+        for a, b in zip(gpu, cpu):
+            need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+                 f"multi-state Engine {name}: frame cuda vs cpu max err "
+                 f"{float((a - b).abs().max())}")
+        log(f"  multi-state Engine {name} cuda == cpu ({len(gpu)} frames, "
+            f"{int((cidx >= 0).sum())} hit pixels)")
+
+    # The path at full width.
+    counted = (ca_step.step_packed_multistate_cuda, ca_step.age_masks_cuda,
+               ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
+               rs.shadow_sweep_cuda, rs.cell_state_cuda)
+    out["launches"], out["engines"] = {}, {}
+    for name, (cfg, fused, frames) in MS_ENGINES.items():
+        for fn in counted:
+            fn.launches = 0
+        size = cfg["grid_size"]
+        steps = MS_GENERATIONS[size]
+        t0 = time.perf_counter()
+        eng = ct.Engine(width=WIDTH, height=HEIGHT, device="cuda",
+                        random_initial_state=True, **preset, **cfg)
+        if cfg.get("indirect_lighting"):
+            # Off the screen's exact diagonal: there a ray meets the vertical
+            # edge of a cell on the grid's diagonal, the GI slot's viewer then
+            # lies in its neighbour's face plane (n·v = 0) and the specular
+            # term is 0/0, in the reference as in the port (ROADMAP.md queue
+            # 3): 3 pixels of this scene from the default camera.
+            eng.camera.translate((1, 0, 0), 0.01)
+        eng.step(steps)
+        fr = [eng.render(), eng.render()]
+        if name in MS_SCENE_ENGINES:
+            scene_checks(name, eng.state, eng.history.hit_idx)
+        fr.append(eng.run_fused(**fused))
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counted}
+        for i, f in enumerate(fr):
+            need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
+            need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
+            need(float(f.max()) > 0.0, f"{name} frame {i} is black")
+        generations = steps + fused["frames"]
+        # One alive pass per generation, one visibility pass per frame, and
+        # one more of the latter for scene_checks' population.
+        passes = generations + 2 + fused["frames"] + (name in MS_SCENE_ENGINES)
+        need(counts["step_packed_multistate_cuda"] == generations,
+             f"{name}: {generations} generations, launches {counts}")
+        need(counts["age_masks_cuda"] == passes, f"{name}: {passes} mask passes, {counts}")
+        need(counts["fires_plane_cuda"] == 0, f"{name} launched the binary step: {counts}")
+        needed = ["primary_sweep_cuda", "shadow_sweep_cuda"] if size > GRID else ["raytrace_cuda"]
+        unused = ["raytrace_cuda"] if size > GRID else ["primary_sweep_cuda"]
+        if cfg.get("indirect_lighting"):
+            needed += ["shadow_sweep_cuda", "cell_state_cuda"]
+        need(all(counts[k] > 0 for k in needed), f"{name} missed a kernel: {counts}")
+        need(all(counts[k] == 0 for k in unused), f"{name} launched {unused}: {counts}")
+        log(f"(h) {name}: step({steps}), render() x2, run_fused({fused}) in "
+            f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+        out["launches"][name] = counts
+        out["engines"][name] = (eng, frames)
+    return out
+
+
+def multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms):
+    """Phase (d) for the multi-state path, from phase (h)'s scenes: the step
+    (both launches), its plain version, the masks pass alone and the binary
+    kernel on the same rule and the same alive plane; K1 compose and
+    K4 with and without ages on the same visibility plane (alternated); step
+    + frame of each Engine of (h).  Returns (timings, specs by size, states
+    by size)."""
+    ms_ms = dict(ms["plain_ms"])
+    ms_specs = {GRID: ms["engines"]["ms_256"][0].spec,
+                **{size: v[4] for size, v in ms["k4_timed"].items()}}
+    ms_states = {GRID: ms["k1_timed"][0], **{size: v[0] for size, v in ms["k4_timed"].items()}}
+    for size, planes in ms_states.items():
+        spec_ms = ms_specs[size]
+        binary_spec = AutomatonSpec.from_rule_strings(
+            size, **{k: v for k, v in ct.PRESETS[MS_PRESET].items() if k != "total_states"})
+        alive = ca_step.age_masks_cuda(planes, vis=False)[0]
+        iters = 500 if size == GRID else 50 if size == MS_SLICED[0] else 20
+        ms_ms[f"ms_step_{size}_ms"] = cuda_ms(
+            torch, lambda: ca_step.step_packed_multistate_cuda(planes, spec_ms), iters,
+            warmup=3)
+        ms_ms[f"age_masks_{size}_ms"] = cuda_ms(
+            torch, lambda: ca_step.age_masks_cuda(planes, vis=False), iters, warmup=3)
+        ms_ms[f"ca_step_same_rule_{size}_ms"] = cuda_ms(
+            torch, lambda: ca_step.fires_plane_cuda(alive, binary_spec), iters, warmup=3)
+        if size == GRID:
+            ms_ms["ms_step_plain_ms"] = cuda_ms(
+                torch, lambda: ca_step.step_packed_multistate(planes, spec_ms), 10, warmup=2)
+            ms_ms["age_masks_plain_ms"] = cuda_ms(
+                torch, lambda: ca_step.age_masks(planes), 20, warmup=2)
+    planes, vis, coarse, cam, hist, kw = ms["k1_timed"]
+    kw_binary = {k: v for k, v in kw.items() if k not in ("ages", "total_states")}
+    with_ages = lambda: rf.raytrace_cuda(vis, coarse, cam, hist, **kw)  # noqa: E731
+    without = lambda: rf.raytrace_cuda(vis, coarse, cam, hist, **kw_binary)  # noqa: E731
+    reads = [cuda_ms(torch, fn, 50, warmup=3) for fn in (without, with_ages, with_ages, without)]
+    ms_ms["k1_compose_ms_scene_ms"] = (reads[0] + reads[3]) / 2
+    ms_ms["k1_compose_ages_ms"] = (reads[1] + reads[2]) / 2
+    ms_ms["k1_compose_without_with_with_without_ms"] = reads
+    ms_ms["k1_ages_plain_compose_ms"] = cuda_ms(
+        torch, lambda: rf.raytrace(vis, coarse, cam, hist, **kw), 2, warmup=1)
+    for size, (planes, vis, coarse, cam, _) in ms["k4_timed"].items():
+        kw4 = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        with_ages = lambda: rs.primary_sweep_cuda(vis, coarse, cam, planes, **kw4)  # noqa: E731
+        without = lambda: rs.primary_sweep_cuda(vis, coarse, cam, **kw4)  # noqa: E731
+        reads = [cuda_ms(torch, fn, 20, warmup=2)
+                 for fn in (without, with_ages, with_ages, without)]
+        ms_ms[f"k4_{size}_ms_scene_ms"] = (reads[0] + reads[3]) / 2
+        ms_ms[f"k4_ages_{size}_ms"] = (reads[1] + reads[2]) / 2
+        ms_ms[f"k4_without_with_with_without_{size}_ms"] = reads
+    for name, (e, fr) in ms["engines"].items():
+        ms_ms[f"{name}_step_plus_frame_ms"] = cuda_ms(
+            torch, lambda e=e, fr=fr: e.run_fused(fr, reset_every=min(fr, 10)), 1,
+            warmup=0) / fr
+    return ms_ms, ms_specs, ms_states
+
+
+def multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states) -> dict:
+    """The bounds of the multi-state kernels from phase (h)'s inputs."""
+    dev = torch.device("cuda", 0)
+    px = WIDTH * HEIGHT
+    bounds = {}
+    # The multi-state step is timed as its wrapper runs it, both launches, so
+    # its bound counts both: the masks pass reads B planes and writes the
+    # alive plane, the step kernel reads the B planes and the alive plane and
+    # writes B.  The masks pass also stands alone, as the renderer calls it.
+    ms_rule = ca_step._rule_arrays(ms_specs[GRID])
+    ms_values = sum(bin(int(m)).count("1")
+                    for m in (*ms_rule[3][:ms_rule[0]], *ms_rule[4][:ms_rule[0]]))
+    age_bits = ms_specs[GRID].age_bits
+    for size in ms_states:
+        words = size**3 // 32
+        key = "" if size == GRID else f"_{size}"
+        bounds[f"age_masks{key}"] = bound(4 * words * (age_bits + 1), words * 2 * age_bits)
+        bounds[f"ca_step_multistate{key}"] = bound(
+            4 * words * (2 * age_bits + 1) + bounds[f"age_masks{key}"]["bytes"],
+            words * (int(ms_rule[1][:ms_rule[0]].sum()) * OPS_CA_NEIGHBOUR
+                     + ms_values * OPS_CA_RULE_VALUE + age_bits * OPS_CA_DECAY)
+            + bounds[f"age_masks{key}"]["ops"])
+    # K1 and K4 with ages on the multi-state scenes: the binary kernels' work
+    # plus the age words of each hit pixel (a 32-byte sector per plane).
+    planes, vis, coarse, cam, hist, kw = ms["k1_timed"]
+    _, depth, idx, _ = rf.raytrace_cuda(vis, coarse, cam, hist, **kw)
+    act, cols = primary_work(torch, rf, cam, GRID, WIDTH, HEIGHT, depth, idx, dev)
+    _, dx, dy, dz = rf._pixel_rays(cam, WIDTH, HEIGHT, dev)
+    q = torch.stack([dx, dy, dz]) * depth + torch.tensor(
+        cam[rf.P_O:rf.P_O + 3], device=dev)[:, None, None]
+    light = torch.tensor(cam[rf.P_LIGHT:rf.P_LIGHT + 3], device=dev)[:, None, None]
+    _, shadow_ops = occlusion_work(torch, q[None], light.expand_as(q)[None],
+                                   (idx >= 0)[None], GRID, 0)
+    hits = int((idx >= 0).sum())
+    bounds["render_fast_ages"] = bound(
+        GRID**3 / 8 + (GRID // 8) ** 2 * 4 + px * 48 + hits * age_bits * 32,
+        act * OPS_RAY + cols * OPS_COLUMN + hits * (OPS_SHADE + OPS_AGE) + shadow_ops)
+    for size, (planes, vis, coarse, cam, _) in ms["k4_timed"].items():
+        t4, i4, _ = rs.primary_sweep_cuda(vis, coarse, cam, planes, grid_size=size,
+                                          width=WIDTH, height=HEIGHT)
+        act, cols = primary_work(torch, rf, cam, size, WIDTH, HEIGHT, t4, i4, dev)
+        hits = int((i4 >= 0).sum())
+        bounds[f"primary_sweep_ages_{size}"] = bound(
+            size**3 / 8 + (size // 8) ** 2 * 4 * -(-size // 256) + px * 12
+            + hits * age_bits * 32,
+            act * OPS_RAY + cols * OPS_COLUMN + hits * OPS_AGE)
+    return bounds
 
 
 def main() -> dict:
@@ -756,10 +1178,11 @@ def main() -> dict:
     report["launches"] = launches
 
     # --------------------------------- (e) extended lighting: K2 and K3 ---
-    def lighting_operands(size, w, h, steps=80):
+    def lighting_operands(size, w, h, steps=80, vol=None):
         """K2's and K3's operands of a full-quality frame, as the port
-        builds them: 4 soft-shadow samples + 4 GI slots, 4 GI lookups."""
-        vol = grown(size, steps)
+        builds them: 4 soft-shadow samples + 4 GI slots, 4 GI lookups; of
+        the centre seed after ``steps`` generations, or of ``vol``."""
+        vol = grown(size, steps) if vol is None else vol
         coarse = coarse_occupancy(vol)
         cam = scene_cam(views["front"], w, h, light_radius=LIGHTING["light_radius"],
                         elapsed_time=0.37)
@@ -853,6 +1276,12 @@ def main() -> dict:
                         scene_cam, views, lighting_operands, compare, to_dev)
     report["multi"] = {k: multi[k] for k in ("k1_mask_id_mismatch", "prepass_launches",
                                              "launches")}
+
+    # ---------------------------------------- (h) the multi-state path ---
+    ms = multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy,
+                          scene_cam, views, lighting_operands, compare)
+    report["multistate"] = {k: ms[k] for k in ("ms_cases", "k1_max_abs_err", "k1_id_mismatch",
+                                               "k4_max_abs_err", "plain_ms", "launches")}
 
     # -------------------------------------------------- (d) timings ---
     card = card_line()
@@ -953,6 +1382,7 @@ def main() -> dict:
     multi_ms["full_quality_step_plus_frame_k2_ms"] = (reads[0] + reads[3]) / 2
     multi_ms["full_quality_step_plus_frame_k5_ms"] = (reads[1] + reads[2]) / 2
     multi_ms["full_quality_step_plus_frame_k2_k5_k5_k2_ms"] = reads
+    ms_ms, ms_specs, ms_states = multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms)
     timings = {
         "ca_step_ms": ca_ms, "ca_step_plain_ms": ca_plain_ms,
         "k1_compose_ms": k1_ms, "k1_noncompose_ms": k1_nc_ms,
@@ -960,7 +1390,7 @@ def main() -> dict:
         "pinned_step_plus_frame_ms": fused_ms, "render_call_ms": render_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
-        "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms, **multi_ms,
+        "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms, **multi_ms, **ms_ms,
     }
     report["timings"] = timings
     report["card"] = card
@@ -1023,6 +1453,7 @@ def main() -> dict:
     act, cols = primary_work(torch, rf, cam, 1024, WIDTH, HEIGHT, t4, i4, dev)
     bounds["primary_sweep_1024"] = bound(1024**3 / 8 + (1024 // 8) ** 2 * 16 + px * 8,
                                          act * OPS_RAY + cols * OPS_COLUMN)
+    bounds.update(multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states))
     report["bounds"] = bounds
 
     def entry(name, source, replaces, launches, err, ms, plain):
@@ -1035,21 +1466,32 @@ def main() -> dict:
                 "library_ms": None}  # no single PyTorch call computes any of them
 
     k5_launches = total("shadow_sweep_multi_cuda", *multi["launches"].values())
+    ms_launches = ms["launches"].values()
     report["kernels"] = [
         entry("ca_step", "ca_step.cu", "ops/ca_step.py:118",
               launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values()),
               0.0, ca_ms, ca_plain_ms),
+        entry("ca_step_multistate", "ca_step.cu", "ops/ca_step.py:178",
+              total("step_packed_multistate_cuda", *ms_launches), 0.0,
+              ms_ms[f"ms_step_{GRID}_ms"], ms_ms["ms_step_plain_ms"]),
+        entry("age_masks", "ca_step.cu", "ops/ca_step.py:185",
+              total("age_masks_cuda", *ms_launches), 0.0,
+              ms_ms[f"age_masks_{GRID}_ms"], ms_ms["age_masks_plain_ms"]),
         entry("render_fast", "render_fast.cu", "render/render_fast.py:1018",
-              launches["render_fast"], k1_err, k1_ms, k1_plain_ms),
+              launches["render_fast"] + total("raytrace_cuda", *ms_launches),
+              max(k1_err, ms["k1_max_abs_err"]), k1_ms, k1_plain_ms),
         entry("shadow_sweep", "shadow_sweep.cu", "render/render_slab.py:354",
-              total("shadow_sweep_cuda", *lighting_launches.values(), *sliced_launches.values()),
+              total("shadow_sweep_cuda", *lighting_launches.values(),
+                    *sliced_launches.values(), *ms_launches),
               0.0, k2_ms, k2_plain_ms),
         entry("cell_state", "cell_state.cu", "render/render_slab.py:687",
-              total("cell_state_cuda", *lighting_launches.values(), *sliced_launches.values()),
+              total("cell_state_cuda", *lighting_launches.values(),
+                    *sliced_launches.values(), *ms_launches),
               0.0, k3_ms, k3_plain_ms),
         entry("primary_sweep", "primary_sweep.cu", "render/render_slab.py:279",
-              total("primary_sweep_cuda", *sliced_launches.values()),
-              sliced["k4_max_abs_err"], sliced_ms["k4_512_ms"], sliced_ms["k4_512_plain_ms"]),
+              total("primary_sweep_cuda", *sliced_launches.values(), *ms_launches),
+              max(sliced["k4_max_abs_err"], ms["k4_max_abs_err"]),
+              sliced_ms["k4_512_ms"], sliced_ms["k4_512_plain_ms"]),
         entry("shadow_multi", "shadow_multi.cu", "render/render_slab.py:402", k5_launches,
               0.0, multi_ms[f"k5_{GRID}_ms"], multi_ms[f"k5_{GRID}_plain_ms"]),
         entry("prepass", "prepass.cu", "render/render_fast.py:889",

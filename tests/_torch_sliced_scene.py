@@ -53,8 +53,9 @@ def scene_cam(view_name="front", width=W, height=H, **kw) -> np.ndarray:
     )
 
 
-def jax_sliced(words, cam, **kw):
-    """JAX ``raytrace_sliced`` over 4 bricks: numpy (rgb, depth, idx)."""
+def jax_sliced(words, cam, n=N, bricks=BRICKS, **kw):
+    """JAX ``raytrace_sliced`` over 4 bricks (or ``bricks`` of an ``n``³
+    grid): numpy (rgb, depth, idx)."""
     import jax
     import jax.numpy as jnp
 
@@ -62,18 +63,18 @@ def jax_sliced(words, cam, **kw):
 
     with jax.disable_jit():
         out = raytrace_sliced(
-            jnp.asarray(words), jnp.asarray(cam), grid_size=N, width=W,
-            height=H, interpret=True, **BRICKS, **kw,
+            jnp.asarray(words), jnp.asarray(cam), grid_size=n, width=W,
+            height=H, interpret=True, **bricks, **kw,
         )
         return tuple(np.asarray(a) for a in out)
 
 
-def torch_sliced(words, cam, **kw):
+def torch_sliced(words, cam, n=N, **kw):
     """The port's ``raytrace_sliced`` (CPU): numpy (rgb, depth, idx)."""
     import cellularautomatons3d_tpu_torch as ct
     from cellularautomatons3d_tpu_torch.render.render_slab import raytrace_sliced
 
-    out = raytrace_sliced(ct.from_reference(words), cam, grid_size=N, width=W,
+    out = raytrace_sliced(ct.from_reference(words), cam, grid_size=n, width=W,
                           height=H, **kw)
     return tuple(a.numpy() for a in out)
 

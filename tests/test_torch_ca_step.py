@@ -107,6 +107,11 @@ def test_step_fn_and_multistate_guard():
     step = ct.make_step_fn(tspec)
     packed = ct.from_reference(random_packed(3))
     assert torch.equal(step(packed), ca_step.step_packed(packed, tspec))
+    # A multi-state spec steps age planes [B, W, Z, Y] and refuses a binary
+    # state (tests/test_torch_multistate_step.py holds it against JAX).
     multi = AutomatonSpec.from_rule_strings(grid_size=N, total_states=5)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ct.make_step_fn(multi)
+    planes = torch.stack([packed, torch.zeros_like(packed), torch.zeros_like(packed)])
+    assert torch.equal(ct.make_step_fn(multi)(planes),
+                       ca_step.step_packed_multistate(planes, multi))
+    with pytest.raises(ValueError, match="age planes"):
+        ct.make_step_fn(multi)(packed)

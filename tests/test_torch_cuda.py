@@ -396,3 +396,154 @@ def test_k5_engine_matches_cpu(cuda, monkeypatch):
     assert torch.equal(gidx, cidx)
     for a, b in zip(gpu, cpu):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
+
+
+# ------------------------------------------------- multi-state rules ---
+
+
+def random_ages(device, n, total_states, seed, p_dead=0.6):
+    """Age bit-planes [B, n/32, n, n] of a random volume of valid ages
+    (cells on every face), and the dense ages."""
+    from cellularautomatons3d_tpu_torch.ops import ca_reference
+
+    rng = np.random.default_rng(seed)
+    ages = rng.integers(1, total_states, (n, n, n)).astype(np.uint8)
+    ages[rng.random((n, n, n)) < p_dead] = 0
+    dense = torch.from_numpy(ages).to(device)
+    nbits = max(1, (total_states - 1).bit_length())
+    return ca_reference.dense_to_planes(dense, nbits), dense
+
+
+@pytest.mark.parametrize("boundary", ct.BoundaryMode.ALL)
+@pytest.mark.parametrize("total_states", [3, 5, 8, 10])
+def test_multistate_step_kernel_matches_plain_and_dense(cuda, total_states, boundary):
+    """The multi-state step kernel against the plain step, bit for bit, and against the dense oracle, over every neighbourhood."""
+    from cellularautomatons3d_tpu_torch.ops import ca_reference
+
+    for i, neighbourhood in enumerate(ct.NEIGHBOURHOOD_MAP):
+        spec = ct.AutomatonSpec.from_rule_strings(
+            N, neighbourhood=neighbourhood, born="2,4", survive="1-4",
+            total_states=total_states, boundary=boundary,
+        )
+        a, dense = random_ages(cuda, N, total_states, 10 * total_states + i)
+        b = a.clone()
+        for _ in range(5):
+            a = ca_step.step_packed_multistate_cuda(a, spec)
+            b = ca_step.step_packed_multistate(b, spec)
+            dense = ca_reference.step_dense(dense, spec)
+            assert torch.equal(a, b)
+            assert torch.equal(ca_reference.planes_to_dense(a), dense)
+        assert int((dense > 1).sum()) > 0 and int((dense == 1).sum()) > 0
+
+
+def test_multistate_step_kernel_on_invalid_encodings_and_two_states(cuda):
+    """Ages >= S never arise from valid states; the kernel still equals the
+    bit-sliced plain step on them.  total_states == 2 through the multi-state
+    entry is the binary step."""
+    g = torch.Generator(cuda).manual_seed(3)
+    for total_states in (3, 5, 6, 10):
+        spec = ct.AutomatonSpec.from_rule_strings(
+            N, neighbourhood="moore", born="4-9", survive="3-12",
+            total_states=total_states)
+        a = torch.randint(-2**31, 2**31 - 1, (spec.age_bits, N // 32, N, N),
+                          dtype=torch.int32, device=cuda, generator=g)
+        got = ca_step.step_packed_multistate_cuda(a, spec)
+        assert torch.equal(got, ca_step.step_packed_multistate(a, spec))
+    spec = ct.AutomatonSpec.from_rule_strings(N)
+    vol = random_volume(cuda, 1, 0.2)
+    got = ca_step.step_packed_multistate_cuda(vol[None], spec)
+    assert torch.equal(got[0], ca_step.fires_plane(vol, spec))
+
+
+def test_age_masks_kernel_matches_plain(cuda):
+    for total_states in (3, 5, 10):
+        planes, _ = random_ages(cuda, N, total_states, total_states)
+        alive, vis = ca_step.age_masks_cuda(planes)
+        want_alive, want_vis = ca_step.age_masks(planes)
+        assert torch.equal(alive, want_alive) and torch.equal(vis, want_vis)
+        assert ca_step.age_masks_cuda(planes, alive=False)[0] is None
+        spec = ct.AutomatonSpec.from_rule_strings(N, total_states=total_states)
+        assert torch.equal(ca_step.visibility_plane(planes, spec), want_vis)
+
+
+@pytest.mark.parametrize("compose", [False, True])
+@pytest.mark.parametrize("shadow", [True, False])
+def test_k1_kernel_with_ages_matches_plain(cuda, shadow, compose):
+    total_states = 8
+    ages, dense = random_ages(cuda, N, total_states, 5, p_dead=0.95)
+    vol = ca_step.age_masks_cuda(ages, alive=False)[1]
+    coarse = coarse_occupancy(vol)
+    cam = rf.pack_cam(
+        mat4.initial_view_matrix(), W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+        (0.17,) * 3, (0.0,) * 3, emissive_color=(0.02, 0.03, 0.04),
+        emissive_strength=0.5,
+    )
+    kw = dict(grid_size=N, width=W, height=H, shadow=shadow, ages=ages,
+              total_states=total_states)
+    hist = None
+    if compose:
+        rgb, _, idx = rf.raytrace(vol, coarse, cam, **kw)
+        hist = (torch.clamp(rgb * 1.5, 0, 1).contiguous(), idx.contiguous())
+    got = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
+    want = rf.raytrace(vol, coarse, cam, hist, **kw)
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], atol=3e-5, rtol=0)
+    torch.testing.assert_close(got[0], want[0], atol=3e-4, rtol=3e-3)
+    if compose:
+        torch.testing.assert_close(got[3], want[3], atol=3e-4, rtol=3e-3)
+    # The fade is there: the frame differs from the binary frame of the
+    # same visibility plane wherever a dying cell was hit.
+    binary = rf.raytrace_cuda(vol, coarse, cam, hist, grid_size=N, width=W,
+                              height=H, shadow=shadow)
+    assert torch.equal(binary[2], got[2])
+    hit_age = dense.reshape(-1)[got[2].clamp(min=0).long()]  # id = x + y·n + z·n²
+    dying = (got[2] >= 0) & (hit_age > 1)
+    assert int(dying.sum()) > 0
+    if not compose:
+        assert bool((got[0][dying] <= binary[0][dying]).all())
+        assert bool((got[0][dying] < binary[0][dying]).any())
+        assert torch.equal(got[0][~dying], binary[0][~dying])
+
+
+@pytest.mark.parametrize("n", [64, 320])
+def test_k4_kernel_with_ages_matches_plain(cuda, n):
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    total_states = 10
+    ages, dense = random_ages(cuda, n, total_states, n, p_dead=0.995)
+    vol = ca_step.age_masks_cuda(ages, alive=False)[1]
+    coarse = coarse_occupancy(vol)
+    w, h = 256, 128
+    cam = rf.pack_cam(VIEWS["oblique"], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                      (0.17,) * 3, (0.0,) * 3)
+    kw = dict(grid_size=n, width=w, height=h)
+    t_k, i_k, a_k = rs.primary_sweep_cuda(vol, coarse, cam, ages, **kw)
+    t_p, i_p, a_p = rs.primary_sweep(vol, cam, ages, **kw)
+    assert torch.equal(i_k, i_p) and torch.equal(a_k, a_p)
+    torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
+    hit = i_p >= 0
+    assert int(hit.sum()) > 0 and bool((a_p[~hit] == 1).all())
+    want = dense.reshape(-1)[i_p.clamp(min=0).long()]  # id = x + y·n + z·n²
+    assert torch.equal(a_p[hit], want[hit].to(torch.int32))
+    assert len(torch.unique(a_p[hit])) == total_states - 1
+    # Without ages the binary outputs are unchanged.
+    t_b, i_b = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    assert torch.equal(i_b, i_k) and torch.equal(t_b, t_k)
+
+
+@pytest.mark.parametrize("variant", [{}, dict(**LIGHTING_320, gi_temporal=True)])
+@pytest.mark.parametrize("grid", [64, 320])
+def test_multistate_engine_cuda_matches_cpu(cuda, grid, variant):
+    cfg = dict(grid_size=grid, width=64, height=32, **ct.PRESETS["pyroclastic"],
+               random_initial_state=True, **variant)
+    out = []
+    for device in ("cuda", "cpu"):
+        e = ct.Engine(device=device, **cfg)
+        e.step(12 if grid == 64 else 70)  # the blob must span a few 64×32 pixels
+        frames = [e.render(), e.render(), e.run_fused(2, reset_every=1)]
+        out.append(([f.cpu() for f in frames], e.history.hit_idx.cpu(), e.state.cpu()))
+    (gpu, gidx, gstate), (cpu, cidx, cstate) = out
+    assert torch.equal(gstate, cstate) and torch.equal(gidx, cidx)
+    assert int((cidx >= 0).sum()) > 0
+    for a, b in zip(gpu, cpu):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-3)

@@ -125,7 +125,6 @@ def test_lighting_configs_build_and_render(overrides):
         (dict(mesh_shape=(2, 1)), "item 12"),
         (dict(pipeline="reference"), "item 11"),
         (dict(mesh_devices=2, height=64), "item 12"),
-        (dict(total_states=5), "item 14"),
     ],
 )
 def test_unported_configs_raise(overrides, item):

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Time K1 (``render_fast.raytrace_cuda``, no column mask) of one checkout
-of the PyTorch/CUDA port on the card, for an A/B of two commits in one call.
+"""Time the binary path's kernels -- K1 (``render_fast.raytrace_cuda``, no
+column mask, no ages), K4 (``render_slab.primary_sweep_cuda``) and the binary
+CA step -- of one checkout of the PyTorch/CUDA port on the card, for an A/B
+of two commits in one call.
 
     python3 tools/time_k1.py <repo root> [label]
 
@@ -8,8 +10,9 @@ Imports ``cellularautomatons3d_tpu_torch`` from ``<repo root>`` (which builds
 its own kernels there), steps the centre seed 80 generations at 256³ with
 the default rule, and times K1 at 1920×1080 from the initial view in
 compose mode (against a history that keeps its ids) and in non-compose
-mode, with CUDA events over 100 launches after 5 of warm-up.  Prints one
-JSON line with both times, the label and the card.  Compare two trees by
+mode, with CUDA events over 100 launches after 5 of warm-up; then K4 at 512³
+on the scene after 160 generations and the CA step at 256³, 512³ and 1024³.
+Prints one JSON line with the times, the label and the card.  Compare two trees by
 running them in turns in one call: parent, change, change, parent.
 """
 
@@ -30,6 +33,7 @@ def main():
     from cellularautomatons3d_tpu_torch.ops import ca_step
     from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
     from cellularautomatons3d_tpu_torch.render import render_fast as rf
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
     from cellularautomatons3d_tpu_torch.utils import mat4
 
     if Path(ct.__file__).resolve().parent.parent != root:
@@ -66,12 +70,24 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({
+    out = {
         "label": label,
         "k1_compose_ms": ms(lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw)),
         "k1_noncompose_ms": ms(lambda: rf.raytrace_cuda(vol, coarse, cam, **kw)),
-        "hit_pixels": int((idx >= 0).sum()), "card": card,
-    }), flush=True)
+        "hit_pixels": int((idx >= 0).sum()),
+        "ca_step_256_ms": ms(lambda: ca_step.fires_plane_cuda(vol, spec), 1000, 20),
+    }
+    for size, steps in ((512, 160), (1024, 0)):
+        big_spec = AutomatonSpec.from_rule_strings(size)
+        big = ct.from_reference(ct.pack_grid(ct.seed_center(size)), dev)
+        for _ in range(steps):
+            big = ca_step.fires_plane_cuda(big, big_spec)
+        out[f"ca_step_{size}_ms"] = ms(lambda: ca_step.fires_plane_cuda(big, big_spec), 50)
+        if size == 512:
+            big_coarse = coarse_occupancy(big)
+            out["k4_512_ms"] = ms(lambda: rs.primary_sweep_cuda(
+                big, big_coarse, cam, grid_size=size, width=w, height=h), 50)
+    print(json.dumps({**out, "card": card}), flush=True)
 
 
 if __name__ == "__main__":
