@@ -17,19 +17,28 @@
 // With MASK (raytrace_tiles(use_prepass=True)) the primary sweep's column
 // test is the reference's colmask rule instead of the mip: column c
 // descends iff its clipped segment is non-empty and bit c of the pixel's
-// patch mask (K6, prepass.cu) is set or the ray is steep (render_fast.py
-// column_occ); the shadow sweep keeps the mip.
+// patch mask (K6, prepass.cu) is set, the ray is steep (render_fast.py
+// column_occ), or the window is too small for the masks (mask_forced,
+// render_fast.py mask_gate_forced); the shadow sweep keeps the mip.  With
+// NO_SWEEP neither sweep runs (the frame of an empty volume): the floor of
+// the kernel's timing split, for tools/time_k1.py and chip_smoke.py only.
 //
-// Bound on the H100: per pixel up to 2 x 32 column tests and 8 dependent
-// L2 loads of packed words (the 2 MiB volume is L2-resident) per occupied
-// column; rays are coherent within a 16x8 block.  The loads are latency
-// bound; the float work is small.  Left for later PRs: the TPU kernel's
-// supercolumn mip and z-range gates, shared-memory staging of the volume
-// brick a block touches, and packing the shadow rays of a warp.  With a
-// mask the kernel reads one more i32 per pixel (the patch mask, L1/L2-
-// resident: 130 KB at 1080p) and does one bit test per column in place of
-// the mip's cell-range test.  With age planes it reads age_bits <= 4 more
-// words per hit pixel, once, after the sweep.
+// Design on the H100 (one thread per pixel, one 16x8-pixel tile per
+// block): about 93 % of a main-path frame's rays miss, and the first design
+// walked every 8-plane column of each ray's z-extent, each a span, four
+// cell lookups and a mip test.  Each block now reduces the 4 KiB mip it
+// stages to the box of occupied blocks (stage_coarse_box), and both sweeps
+// visit only the columns and t-range inside it (BoxClip: exact, the probes
+// do not move); where the box is the whole volume the unclipped sweeps run.
+// Tried and dropped (PERF.md §6): blocks walking several tiles, a
+// column's 8 probe loads issued together, a tile's shadow rays packed onto
+// its first lanes.  Bound: the frame's bytes (the 2 MiB volume, the
+// history read and the four images written, ~100 MB at 1080p); the sweeps'
+// probe loads are L2 hits whose latency the resident warps hide.  With a
+// mask the kernel reads one more i32 per pixel (the patch mask,
+// L1/L2-resident: 130 KB at 1080p) and does one bit test per column in
+// place of the mip's cell-range test.  With age planes it reads age_bits
+// <= 4 more words per hit pixel, once, after the sweep.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -115,21 +124,30 @@ __device__ __forceinline__ float clip01(float x) {
   return minp(maxp(x, 0.0f), 1.0f);
 }
 
-template <bool COMPOSE, bool MASK>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// Ten resident blocks per SM: at most 48 registers, as the unclipped
+// kernel takes on its own (the clipped sweep next to the unclipped one
+// would take 85, and half the warps).
+constexpr int kMinBlocks = 10;
+
+template <bool COMPOSE, bool MASK, bool NO_SWEEP>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
     render_kernel(const uint32_t* __restrict__ vol,
                   const uint32_t* __restrict__ coarse, int n, float inv_n,
                   int width, int height, const __grid_constant__ Cam cam,
                   int shadow, const int* __restrict__ colmask, int mask_w,
-                  const float* __restrict__ hist_rgb,
+                  int mask_forced, const float* __restrict__ hist_rgb,
                   const int* __restrict__ hist_idx, float* __restrict__ out_rgb,
                   float* __restrict__ out_depth, int* __restrict__ out_idx,
                   float* __restrict__ out_hist,
                   const uint32_t* __restrict__ ages, int age_bits,
                   int total_states) {
   __shared__ uint32_t coarse_s[kMaxStagedWords];
-  stage_coarse(coarse, coarse_s, n);
+  __shared__ OccBox box;
+  stage_coarse_box<kBlockX * kBlockY / 32>(coarse, coarse_s, n, inv_n, &box);
   const SharedMip mip{coarse_s};
+  // Both sweeps clipped to the occupied box, or, where the box is the whole
+  // volume, the unclipped sweeps (the same probes without the clip's code).
+  const bool clipped = !box.full;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
@@ -151,18 +169,22 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   float t_hit = 0.0f;
   int hx = 0, hy = 0, hz = 0;
   bool found = false;
-  if (active) {
-    if constexpr (MASK) {
-      // The prepass gate: the mask of the pixel's 8x8 patch, or a steep ray.
-      const float adx = fabsf(ray.dx), ady = fabsf(ray.dy), adz = fabsf(ray.dz);
-      const ColumnMask gate{(uint32_t)colmask[(py >> 3) * mask_w + (px >> 3)],
-                            adx > 2.0f * adz || ady > 2.0f * adz};
-      found = sweep<true>(vol, gate, n, inv_n, cell_half, ray, t_start, tf,
-                          NoExclusion{}, t_hit, hx, hy, hz);
-    } else {
-      found = sweep<true>(vol, mip, n, inv_n, cell_half, ray, t_start, tf,
-                          NoExclusion{}, t_hit, hx, hy, hz);
-    }
+  if (active && !NO_SWEEP) {
+    auto primary = [&](const auto& clip) {
+      if constexpr (MASK) {
+        // The prepass gate: the mask of the pixel's 8x8 patch, a steep ray,
+        // or a window too small for the masks (mask_forced).
+        const float adx = fabsf(ray.dx), ady = fabsf(ray.dy), adz = fabsf(ray.dz);
+        const ColumnMask gate{(uint32_t)colmask[(py >> 3) * mask_w + (px >> 3)],
+                              mask_forced || adx > 2.0f * adz || ady > 2.0f * adz};
+        return sweep<true>(vol, gate, n, inv_n, cell_half, ray, t_start, tf,
+                           NoExclusion{}, t_hit, hx, hy, hz, clip);
+      } else {
+        return sweep<true>(vol, mip, n, inv_n, cell_half, ray, t_start, tf,
+                           NoExclusion{}, t_hit, hx, hy, hz, clip);
+      }
+    };
+    found = clipped ? primary(BoxClip{&box}) : primary(NoClip{});
   }
   const float depth = found ? t_hit : (active ? tf : 0.0f);
   const int idx = found ? hx + hy * n + hz * n * n : -1;
@@ -191,8 +213,11 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
       const float sh_tf = minp(minp(sfx, sfy), sfz);
       float t2;
       int x2, y2, z2;
-      if (sweep<false>(vol, mip, n, inv_n, cell_half, sr, 0.0f, sh_tf,
-                       CellExclusion{hx, hy, hz}, t2, x2, y2, z2)) {
+      auto blocked = [&](const auto& clip) {
+        return sweep<false>(vol, mip, n, inv_n, cell_half, sr, 0.0f, sh_tf,
+                            CellExclusion{hx, hy, hz}, t2, x2, y2, z2, clip);
+      };
+      if (clipped ? blocked(BoxClip{&box}) : blocked(NoClip{})) {
         occl = 0.0095f;
       }
     }
@@ -273,6 +298,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   out_rgb[3 * pix + 2] = powf(overlay ? 0.0f : lb, inv_g);
 }
 
+using RenderKernel = decltype(&render_kernel<false, false, false>);
+
 }  // namespace
 
 extern "C" {
@@ -280,20 +307,23 @@ extern "C" {
 // vol: uint32[n/32, n, n]; coarse: uint32[n/8, n/8] (ops/occupancy.py);
 // cam: host float[40].  colmask: null, or the prepass's i32 column masks
 // [ceil(H/8), mask_w = ceil(W/8)] (prepass.cu), which then gate the primary
-// sweep's columns.  compose = 0: out_rgb is linear rgb [H, W, 3], hist_*
-// and out_hist unused.  compose = 1: hist_rgb f32 [H, W, 3] and hist_idx
-// i32 [H, W] are the previous frame, out_rgb is the presentation and
-// out_hist the new history colour.  ages: null (binary states), or the age
-// bit-planes uint32[age_bits, n/32, n, n] of a rule with total_states > 2,
-// of which vol is the visibility plane; the hit's age then fades the direct
-// term.  Returns the launch's cudaError_t.
-int ca3d_render_fast_ages(int device, const void* vol, const void* coarse,
-                          int n, int width, int height, const float* cam,
-                          int shadow, const void* colmask, int compose,
-                          const void* hist_rgb, const void* hist_idx,
-                          void* out_rgb, void* out_depth, void* out_idx,
-                          void* out_hist, const void* ages, int age_bits,
-                          int total_states, void* stream) {
+// sweep's columns; mask_forced = 1 opens that gate on every column (a
+// window too small for the masks: render_fast.py mask_gate_forced).
+// compose = 0: out_rgb is linear rgb [H, W, 3], hist_* and out_hist unused.
+// compose = 1: hist_rgb f32 [H, W, 3] and hist_idx i32 [H, W] are the
+// previous frame, out_rgb is the presentation and out_hist the new history
+// colour.  ages: null (binary states), or the age bit-planes uint32[age_bits,
+// n/32, n, n] of a rule with total_states > 2, of which vol is the
+// visibility plane; the hit's age then fades the direct term.  no_sweep = 1
+// skips both sweeps (the frame of an empty volume; for timing only).
+// Returns the launch's cudaError_t.
+int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
+                     int width, int height, const float* cam, int shadow,
+                     const void* colmask, int mask_forced, int compose,
+                     const void* hist_rgb, const void* hist_idx, void* out_rgb,
+                     void* out_depth, void* out_idx, void* out_hist,
+                     const void* ages, int age_bits, int total_states,
+                     int no_sweep, void* stream) {
   if (n < 32 || n > kMaxStagedGrid || n % 32 != 0 || width < 1 || height < 1) {
     return cudaErrorInvalidValue;
   }
@@ -309,35 +339,24 @@ int ca3d_render_fast_ages(int device, const void* vol, const void* coarse,
   Cam c;
   for (int i = 0; i < P_LEN; ++i) c.p[i] = cam[i];
   const float inv_n = (float)(1.0 / (double)n);
-  const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  const bool mask = colmask != nullptr;
-  auto kernel = compose ? (mask ? render_kernel<true, true>
-                                : render_kernel<true, false>)
-                        : (mask ? render_kernel<false, true>
-                                : render_kernel<false, false>);
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  static const RenderKernel kernels[6] = {
+      render_kernel<false, false, false>, render_kernel<true, false, false>,
+      render_kernel<false, true, false>,  render_kernel<true, true, false>,
+      render_kernel<false, false, true>,  render_kernel<true, false, true>};
+  const int slot = no_sweep ? 4 + (compose != 0)
+                            : (colmask != nullptr) * 2 + (compose != 0);
+  kernels[slot]<<<grid, dim3(kBlockX, kBlockY), 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
       n, inv_n, width, height, c, shadow, static_cast<const int*>(colmask),
-      (width + 7) / 8, static_cast<const float*>(hist_rgb),
+      (width + 7) / 8, mask_forced, static_cast<const float*>(hist_rgb),
       static_cast<const int*>(hist_idx), static_cast<float*>(out_rgb),
       static_cast<float*>(out_depth), static_cast<int*>(out_idx),
       static_cast<float*>(out_hist), static_cast<const uint32_t*>(ages),
       age_bits, total_states);
   return cudaGetLastError();
-}
-
-// The binary frame: ca3d_render_fast_ages without age planes.
-int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
-                     int width, int height, const float* cam, int shadow,
-                     const void* colmask, int compose, const void* hist_rgb,
-                     const void* hist_idx, void* out_rgb, void* out_depth,
-                     void* out_idx, void* out_hist, void* stream) {
-  return ca3d_render_fast_ages(device, vol, coarse, n, width, height, cam,
-                               shadow, colmask, compose, hist_rgb, hist_idx,
-                               out_rgb, out_depth, out_idx, out_hist, nullptr,
-                               0, 2, stream);
 }
 
 }  // extern "C"

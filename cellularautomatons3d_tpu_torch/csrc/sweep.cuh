@@ -31,7 +31,11 @@
 // more than a block's shared memory, and the sweep reads it from global
 // memory through the read-only path (GlobalMip): it is L2-resident.  K1
 // with a prepass mask gates its primary sweep's columns by the mask
-// instead (ColumnMask).
+// instead (ColumnMask).  K1 also clips both of its sweeps to the box of
+// occupied blocks (OccBox, BoxClip) when that box is not the whole volume:
+// only the columns, and the t-range of the box's x / y extent, where a
+// probe could land in an occupied cell; K2, K4 and K5 visit every column
+// (NoClip).
 // The packed volume itself is read from global memory at every size: 2 MiB
 // at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
 // probes of occupied columns go to HBM.
@@ -87,11 +91,12 @@ __device__ __forceinline__ void vol_slab(float o, float d, float& tn,
   tf = maxp(t1, t2);
 }
 
-// clip(floor((p + 0.5) * n), 0, n - 1) for a coordinate p = o + t*d.
+// clip(floor((p + 0.5) * n), 0, n - 1) for a coordinate p = o + t*d, as
+// an integer floor and clamp: the float-to-int conversion saturates and
+// takes NaN to 0, so every input gives the cell of the float floor, float
+// clamp (NaN kept) and conversion that it replaces.
 __device__ __forceinline__ int cell_of(float p, float fn, int n) {
-  float c = floorf((p + 0.5f) * fn);
-  c = minp(maxp(c, 0.0f), (float)(n - 1));
-  return (int)c;
+  return min(max(__float2int_rd((p + 0.5f) * fn), 0), n - 1);
 }
 
 struct Ray {
@@ -170,6 +175,82 @@ __device__ __forceinline__ void stage_coarse(const uint32_t* __restrict__ coarse
   __syncthreads();
 }
 
+// The box of the occupied 8^3 blocks of a staged mip: the 8-plane columns
+// [zc0, zc1], and the x / y extent of its cells in volume coordinates,
+// grown by one cell, open (+-inf) on a side where it reaches the volume's
+// face (a probe beyond the face is clamped onto the face's cells).  empty:
+// no block is occupied; full: the box is the whole volume.
+struct OccBox {
+  int empty, full, zc0, zc1;
+  float x0, x1, y0, y1;
+};
+
+// stage_coarse for a block of WARPS warps, and the box of the staged mip:
+// warp wp stages z-rows wp, wp + WARPS, ... (lane = y), its loads issued
+// before any is used, and folds each row into its x bits, y bits and z
+// range with one ballot; one thread then combines the warps.  Every thread
+// of the block calls it, before any returns.
+template <int WARPS>
+__device__ __forceinline__ void stage_coarse_box(
+    const uint32_t* __restrict__ coarse, uint32_t* coarse_s, int n,
+    float inv_n, OccBox* box) {
+  constexpr int kRows = (kMaxStagedGrid / 8 + WARPS - 1) / WARPS;
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  __shared__ int part[WARPS][4];
+  const int nb = n >> 3;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int wp = tid >> 5, lane = tid & 31;
+  uint32_t w[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int z = wp + k * WARPS;
+    w[k] = z < nb && lane < nb ? coarse[z * nb + lane] : 0u;
+  }
+  uint32_t xs = 0u, ys = 0u;
+  int zmin = nb, zmax = -1;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int z = wp + k * WARPS;
+    if (z < nb && lane < nb) coarse_s[z * nb + lane] = w[k];
+    const uint32_t row_ys = __ballot_sync(kAll, w[k] != 0u);
+    xs |= w[k];
+    ys |= row_ys;
+    if (row_ys != 0u) {
+      zmin = min(zmin, z);
+      zmax = max(zmax, z);
+    }
+  }
+  xs = __reduce_or_sync(kAll, xs);
+  if (lane == 0) {
+    part[wp][0] = (int)xs;
+    part[wp][1] = (int)ys;
+    part[wp][2] = zmin;
+    part[wp][3] = zmax;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 1; i < WARPS; ++i) {
+      xs |= (uint32_t)part[i][0];
+      ys |= (uint32_t)part[i][1];
+      zmin = min(zmin, part[i][2]);
+      zmax = max(zmax, part[i][3]);
+    }
+    const float inf = __int_as_float(0x7f800000);
+    const int xb0 = __ffs(xs) - 1, xb1 = 31 - __clz(xs);
+    const int yb0 = __ffs(ys) - 1, yb1 = 31 - __clz(ys);
+    box->empty = xs == 0u;
+    box->full = xb0 == 0 && xb1 == nb - 1 && yb0 == 0 && yb1 == nb - 1 &&
+                zmin == 0 && zmax == nb - 1;
+    box->zc0 = zmin;
+    box->zc1 = zmax;
+    box->x0 = xb0 == 0 ? -inf : (float)(xb0 * 8 - 1) * inv_n - 0.5f;
+    box->x1 = xb1 == nb - 1 ? inf : (float)(xb1 * 8 + 9) * inv_n - 0.5f;
+    box->y0 = yb0 == 0 ? -inf : (float)(yb0 * 8 - 1) * inv_n - 0.5f;
+    box->y1 = yb1 == nb - 1 ? inf : (float)(yb1 * 8 + 9) * inv_n - 0.5f;
+  }
+  __syncthreads();
+}
+
 // The mip a kernel reads: the staged copy coarse_s when it is instantiated
 // for n <= 256 (STAGED), else the global coarse.
 template <bool STAGED>
@@ -215,6 +296,63 @@ struct IdExclusion {
   int id, n;
   __device__ __forceinline__ bool operator()(int cx, int cy, int k) const {
     return cx + cy * n + k * n * n == id;
+  }
+};
+
+// Which 8-plane columns a sweep visits and over which t-range a probe can
+// find an occupied cell.  NoClip: every column, [t_start, t_end].
+struct NoClip {
+  static constexpr bool kActive = false;
+  __device__ __forceinline__ bool range(const Ray&, float, float, int, float,
+                                        float, float&, float&, int&,
+                                        int&) const {
+    return true;
+  }
+};
+
+// BoxClip: the columns and t-range inside the occupied box (OccBox, in
+// shared memory).  A probe at t lands in an occupied cell only if its x and
+// y lie in the box's (grown) extent, so t lies in the slab interval
+// [T0, T1] of the x and y extents, and its plane in columns [zc0, zc1].
+// The interval bounds the columns visited (one column of slack each way)
+// and the column loop's own span tests; it never moves a probe, which
+// stays the midpoint of the plane's segment in [t_start, t_end].  False:
+// no probe of this ray can hit.  The caller sets t0, t1, c_first, c_last
+// to the whole range first.
+struct BoxClip {
+  static constexpr bool kActive = true;
+  const OccBox* box;
+  __device__ __forceinline__ bool range(const Ray& r, float inv_dx,
+                                        float inv_dy, int n, float t_start,
+                                        float t_end, float& t0, float& t1,
+                                        int& c_first, int& c_last) const {
+    if (box->empty) return false;
+    t0 = t_start;
+    t1 = t_end;
+    slab(box->x0, box->x1, r.ox, inv_dx, t0, t1);
+    slab(box->y0, box->y1, r.oy, inv_dy, t0, t1);
+    if (!(t0 <= t1)) return false;
+    const float cpb = (float)n * 0.125f;  // columns per unit of z
+    const int ca = column_at(r.oz + t0 * r.dz, cpb, n >> 3);
+    const int cb = column_at(r.oz + t1 * r.dz, cpb, n >> 3);
+    c_first = max(box->zc0, min(ca, cb) - 1);
+    c_last = min(box->zc1, max(ca, cb) + 1);
+    return c_first <= c_last;
+  }
+  // Intersect [t0, t1] with the t-range where o + t*d lies in [lo, hi]; a
+  // NaN bound (o on a face of a ray with d == 0) leaves it as it is.
+  __device__ __forceinline__ static void slab(float lo, float hi, float o,
+                                              float inv, float& t0,
+                                              float& t1) {
+    const float ta = (lo - o) * inv;
+    const float tb = (hi - o) * inv;
+    if (ta != ta || tb != tb) return;
+    t0 = fmaxf(t0, fminf(ta, tb));
+    t1 = fminf(t1, fmaxf(ta, tb));
+  }
+  __device__ __forceinline__ static int column_at(float z, float cpb, int nb) {
+    const float c = floorf((z + 0.5f) * cpb);
+    return (int)fminf(fmaxf(c, -1.0f), (float)nb);
   }
 };
 
@@ -294,13 +432,14 @@ __device__ __forceinline__ bool probe_plane(
   return true;
 }
 
-// One sweep: first cell hit in plane order, with the column gate of Mip
-// and the exclusion of Excl.
-template <bool PRIMARY, class Mip, class Excl>
+// One sweep: first cell hit in plane order, with the column gate of Mip,
+// the exclusion of Excl and the column / t-range of Clip.
+template <bool PRIMARY, class Mip, class Excl, class Clip = NoClip>
 __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
                       float inv_n, float cell_half, const Ray& r,
                       float t_start, float t_end, Excl excluded,
-                      float& t_hit, int& hx, int& hy, int& hz) {
+                      float& t_hit, int& hx, int& hy, int& hz,
+                      const Clip& clip = Clip{}) {
   if (!(r.dz > 0.0f) && !(r.dz < 0.0f)) return false;
   const bool up = r.dz > 0.0f;
   const float inv_dx = 1.0f / r.dx;
@@ -308,18 +447,28 @@ __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
   const float inv_dz = 1.0f / r.dz;
   const float fn = (float)n;
   const int nb = n >> 3;
-  for (int ci = 0; ci < nb; ++ci) {
-    const int c = up ? ci : nb - 1 - ci;
+  float t0 = t_start, t1 = t_end;
+  int c_first = 0, c_last = nb - 1;
+  if (!clip.range(r, inv_dx, inv_dy, n, t_start, t_end, t0, t1, c_first,
+                  c_last)) {
+    return false;
+  }
+  for (int ci = c_first; ci <= c_last; ++ci) {
+    const int c = up ? ci : c_last + c_first - ci;
     float cmin, c_lo, c_hi;
     column_span(r, inv_n, inv_dz, c, t_start, t_end, cmin, c_lo, c_hi);
     if (cmin >= t_end) break;  // this column and all later ones are past exit
     if (!(c_lo < c_hi)) continue;
+    if constexpr (Clip::kActive) {
+      if (c_lo > t1) break;  // later columns start later still
+      if (c_hi < t0) continue;
+    }
     if (!column_occupied(mip, r, fn, n, c, c_lo, c_hi)) continue;
     for (int f = 0; f < 8; ++f) {
       const int k = up ? c * 8 + f : c * 8 + 7 - f;
-      if (probe_plane<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx,
-                               inv_dy, inv_dz, k, t_start, t_end, excluded,
-                               t_hit, hx, hy)) {
+      if (probe_plane<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx, inv_dy,
+                               inv_dz, k, t_start, t_end, excluded, t_hit, hx,
+                               hy)) {
         hz = k;
         return true;
       }

@@ -122,23 +122,19 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.ca3d_error_string.argtypes = [_I]
         lib.ca3d_error_string.restype = ctypes.c_char_p
-        lib.ca3d_ca_step.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.ca3d_ca_step.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]
         lib.ca3d_ca_step.restype = _I
         lib.ca3d_age_masks.argtypes = [_I, _P, _I, _I, _P, _P, _P]
         lib.ca3d_age_masks.restype = _I
         lib.ca3d_ca_step_multistate.argtypes = [
-            _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+            _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
         ]
         lib.ca3d_ca_step_multistate.restype = _I
         lib.ca3d_render_fast.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+            _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+            _P, _I, _I, _I, _P,
         ]
         lib.ca3d_render_fast.restype = _I
-        lib.ca3d_render_fast_ages.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-            _P, _I, _I, _P,
-        ]
-        lib.ca3d_render_fast_ages.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
             _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P,
         ]

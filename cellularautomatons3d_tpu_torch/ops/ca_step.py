@@ -149,6 +149,33 @@ def _rule_arrays(spec: AutomatonSpec):
     return len(groups), lens, offs, born, survive
 
 
+# Blocks the step kernel aims to launch: four per SM of an H100 (132 SMs).
+_TARGET_BLOCKS = 4 * 132
+
+
+@functools.lru_cache(maxsize=16)
+def _step_plan(spec: AutomatonSpec) -> tuple[int, int]:
+    """(halo, chunk) of the step kernel (``csrc/ca_step.cu``): each block
+    owns an 8 × 32 (z, y) tile and streams ``chunk`` rows of w, with a halo
+    of ``halo`` words in z and y, the rule's largest |dy| or |dz|.  ``chunk``
+    splits W = n/32 so that about ``_TARGET_BLOCKS`` blocks run: all of W at
+    512³ and above, 3 rows at 256³ (chunks of 3, 3, 2).  Raises for
+    offsets the kernel does not take: |dx| > 31 (one neighbour word each
+    way) or |dy|, |dz| > 31."""
+    n = spec.grid_size
+    _, lens, offs, _, _ = _rule_arrays(spec)
+    offs = offs[: int(lens.sum())]
+    if len(offs) and np.abs(offs).max() > 31:
+        raise ValueError(
+            f"the CUDA step takes offsets within ±31 on every axis, got "
+            f"{[tuple(o) for o in offs[np.abs(offs).max(axis=1) > 31]]}")
+    halo = int(np.abs(offs[:, 1:]).max()) if len(offs) else 0
+    w = n // 32
+    yz_blocks = (n // 32) * (n // 8)
+    chunks = min(w, max(1, -(-_TARGET_BLOCKS // yz_blocks)))
+    return halo, -(-w // chunks)
+
+
 def fires_plane_cuda(alive_plane: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:
     """One generation by the CUDA kernel (``csrc/ca_step.cu``).  Takes a
     contiguous int32 CUDA tensor [W, Z, Y] and returns a new one; raises for
@@ -163,7 +190,7 @@ def fires_plane_cuda(alive_plane: torch.Tensor, spec: AutomatonSpec) -> torch.Te
         alive_plane.data_ptr(), out.data_ptr(), n,
         _BOUNDARY_CODE[spec.boundary], n_groups,
         lens.ctypes.data, offs.ctypes.data, born.ctypes.data,
-        survive.ctypes.data, kernels.stream_of(alive_plane),
+        survive.ctypes.data, *_step_plan(spec), kernels.stream_of(alive_plane),
     )
     kernels.check(err, "ca_step")
     fires_plane_cuda.launches += 1
@@ -288,7 +315,7 @@ def step_packed_multistate_cuda(age_planes: torch.Tensor, spec: AutomatonSpec) -
         alive.data_ptr(), out.data_ptr(), n,
         spec.age_bits, spec.total_states, _BOUNDARY_CODE[spec.boundary],
         n_groups, lens.ctypes.data, offs.ctypes.data, born.ctypes.data,
-        survive.ctypes.data, kernels.stream_of(age_planes),
+        survive.ctypes.data, *_step_plan(spec), kernels.stream_of(age_planes),
     )
     kernels.check(err, "ca_step_multistate")
     step_packed_multistate_cuda.launches += 1

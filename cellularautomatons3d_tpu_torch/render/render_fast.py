@@ -31,7 +31,16 @@ coarse mip dilated twice (``ops.occupancy.dilate_occupancy``); K1 then
 gates its primary sweep's columns by the mask of the pixel's patch
 (``colmask``) instead of the mip.  The Engine never sets it, as in the
 reference.  Pixel (px, py) reads its mask at ``[py // 8, px // 8]``: the
-reference's upsampling to a tile-blocked image does not come across.
+reference's upsampling to a tile-blocked image does not come across.  The
+masks cover a patch only while its rays spread by at most ``_PRE_DEV`` per
+unit t, which holds from ~1014 window rows up (1080p); on a smaller window
+:func:`mask_gate_forced` is true and the gate descends every column (the
+reference's tile-wide descent hides this; a per-pixel gate does not).
+
+``no_sweep`` (both implementations) skips both sweeps -- nothing is hit and
+nothing is shadowed, so the frame is that of an empty volume -- to time the
+ray set-up, composition and stores alone (the reference's
+``_debug_no_sweep``); no caller on the main path sets it.
 
 Traversal semantics (the written spec is ``oracle_dda`` in
 tests/test_render_fast.py): a +z pass for dz > 0 and a −z pass for dz < 0
@@ -56,6 +65,7 @@ __all__ = [
     "prepass",
     "prepass_cuda",
     "prepass_mask",
+    "mask_gate_forced",
     "PATCH",
     "P_LEN",
     "pack_cam",
@@ -115,6 +125,21 @@ def pack_cam(view_mat, width, height, light_pos, light_magnitude, cell_size,
     cam[P_GAMMA] = gamma
     cam[P_OVERLAY] = show_overlay
     return cam
+
+
+def mask_gate_forced(cam) -> bool:
+    """Whether K1's prepass-mask gate must descend every column at this
+    window: the prepass probes a patch's centre ray, and its covering
+    argument bounds the other rays of the 8×8 patch to ``_PRE_DEV`` per unit
+    t.  A pixel lies at most 3.5 pixels from the centre in x and y, a pixel
+    is ``1 / win_h`` of the unnormalised ray (``rz = -0.5·cot``), and
+    normalising a vector at least that long shrinks a difference by
+    ``0.5·cot``: the spread is ``3.5·√2 / (win_h · 0.5·cot)``, 0.00703 at
+    1080 rows, above ``_PRE_DEV`` below ~1014 rows.  Decided once per
+    launch from the window in ``cam``, like the reference's per-patch
+    ``far`` / ``steep`` flags."""
+    spread = 3.5 * np.sqrt(2.0) / (float(cam[P_WIN + 1]) * 0.5 * COT_HALF_FOV)
+    return bool(spread > _PRE_DEV)
 
 
 def _check_args(grid_size, width, height, cam):
@@ -180,7 +205,7 @@ def _pixel_rays(cam, width, height, device):
 
 
 def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
-           colmask=None):
+           colmask=None, forced=False):
     """One plane-midpoint sweep over every z-plane, all pixels at once.
 
     ``exclude`` is None for the primary sweep (accept tN ≤ tF ∧ tF ≥
@@ -189,8 +214,8 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
     and the accept rule is tN ≤ tF ∧ tN ≥ 0.  ``colmask``: the per-pixel
     prepass mask [H, W] int32; plane k is then probed only if its 8-plane
     column c = k // 8 passes K1's mask gate (a non-empty clipped column
-    segment, and bit c set or a steep ray).  Returns (found, t, hx, hy,
-    hz)."""
+    segment, and bit c set, a steep ray or ``forced``: see
+    :func:`mask_gate_forced`).  Returns (found, t, hx, hy, hz)."""
     ox, oy, oz = o
     dx, dy, dz = d
     inv_n = float(np.float32(1.0 / n))
@@ -203,7 +228,7 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
     hy, hz = hx.clone(), hx.clone()
     if colmask is not None:
         adz2 = 2.0 * dz.abs()
-        steep = (dx.abs() > adz2) | (dy.abs() > adz2)
+        steep = (dx.abs() > adz2) | (dy.abs() > adz2) | forced
     for k in range(n):
         kk = torch.where(up, k, n - 1 - k).to(torch.int32)
         gzf = kk.to(torch.float32)
@@ -327,13 +352,13 @@ def _check_ages(ages, vol, total_states=2):
         )
 
 
-def _primary(vol, cam, n, width, height, colmask=None, ages=None):
+def _primary(vol, cam, n, width, height, colmask=None, ages=None, no_sweep=False):
     """Camera rays, volume entry and exit, and the primary sweep of every
     pixel: ((ux, o, d, active, tf), (found, t, hx, hy, hz), age), each [H,
     W] (o and d are xyz triples).  ``colmask``: the prepass's patch masks
     [⌈H/8⌉, ⌈W/8⌉], which then gate the sweep's columns.  ``ages``: the age
     bit-planes; ``age`` is then each hit's age (:func:`_hit_ages`), else
-    None."""
+    None.  ``no_sweep``: no sweep, nothing found."""
     dev = vol.device
     f = lambda i: float(cam[i])  # noqa: E731
     cell_half = float(np.float32(1.0 / n) * cam[P_CELLMUL] * np.float32(0.5))
@@ -348,14 +373,18 @@ def _primary(vol, cam, n, width, height, colmask=None, ages=None):
     if colmask is not None:
         colmask = colmask.repeat_interleave(PATCH, 0).repeat_interleave(PATCH, 1)
         colmask = colmask[:height, :width]
-    hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active,
-                  colmask=colmask)
+    if no_sweep:
+        zero = torch.zeros(dx.shape, dtype=torch.int32, device=dev)
+        hits = (torch.zeros_like(active), torch.zeros_like(dx), zero, zero, zero)
+    else:
+        hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active,
+                      colmask=colmask, forced=colmask is not None and mask_gate_forced(cam))
     age = None if ages is None else _hit_ages(ages, n, hits[0], *hits[2:])
     return (ux, o, d, active, tf), hits, age
 
 
 def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
-             shadow=True, colmask=None, ages=None, total_states=2):
+             shadow=True, colmask=None, ages=None, total_states=2, no_sweep=False):
     """Plain torch K1 (the kernel's reference; ``coarse`` is unused).
 
     Without ``history``: returns (rgb [H,W,3] linear light, depth [H,W],
@@ -363,10 +392,12 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
     hit_idx [H,W] int32)``: composes the frame and returns (presentation
     [H,W,3], depth, idx, new history color [H,W,3] f32).  ``colmask``: the
     prepass's int32 patch masks [⌈H/8⌉, ⌈W/8⌉] (:func:`prepass`), which
-    then gate the primary sweep's columns.  ``ages``: the age bit-planes
+    then gate the primary sweep's columns (every column on a window where
+    :func:`mask_gate_forced`).  ``ages``: the age bit-planes
     int32 [B, n/32, n, n] of a rule with ``total_states`` > 2, of which
     ``vol`` is the visibility plane; the hit's age then fades the direct
-    term (with ``shadow=False``: the unshadowed but faded direct term)."""
+    term (with ``shadow=False``: the unshadowed but faded direct term).
+    ``no_sweep``: skip both sweeps (the frame of an empty volume)."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
     if ages is not None:
@@ -377,14 +408,14 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
     cell_half = float(np.float32(inv_n) * cam[P_CELLMUL] * np.float32(0.5))
 
     (ux, (ox, oy, oz), (dx, dy, dz), active, tf), (found, t_hit, hx, hy, hz), age = (
-        _primary(vol, cam, n, width, height, colmask, ages)
+        _primary(vol, cam, n, width, height, colmask, ages, no_sweep)
     )
     depth = torch.where(found, t_hit, torch.where(active, tf, 0.0))
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
 
     qx, qy, qz = ox + t_hit * dx, oy + t_hit * dy, oz + t_hit * dz
     occl = torch.ones_like(dx)
-    if shadow:
+    if shadow and not no_sweep:
         sdx, sdy, sdz = _normalize3(f(P_LIGHT) - qx, f(P_LIGHT + 1) - qy, f(P_LIGHT + 2) - qz)
         sh_tf = torch.minimum(
             torch.minimum(_vol_slab(qx, sdx)[1], _vol_slab(qy, sdy)[1]),
@@ -451,7 +482,7 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
 
 
 def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
-                  shadow=True, colmask=None, ages=None, total_states=2):
+                  shadow=True, colmask=None, ages=None, total_states=2, no_sweep=False):
     """K1 on the card (``csrc/render_fast.cu``): same contract as
     :func:`raytrace`; every tensor must be a contiguous CUDA tensor."""
     cam = _check_args(grid_size, width, height, cam)
@@ -478,14 +509,15 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
         ptrs = (prev.data_ptr(), prev_idx.data_ptr(), new_hist.data_ptr())
     else:
         ptrs = (None, None, None)
-    err = lib.ca3d_render_fast_ages(
+    err = lib.ca3d_render_fast(
         dev.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width, height,
         cam.ctypes.data, int(shadow),
-        None if colmask is None else colmask.data_ptr(), int(history is not None),
+        None if colmask is None else colmask.data_ptr(),
+        int(colmask is not None and mask_gate_forced(cam)), int(history is not None),
         ptrs[0], ptrs[1], out_rgb.data_ptr(), depth.data_ptr(),
         idx.data_ptr(), ptrs[2],
         None if ages is None else ages.data_ptr(), age_bits, total_states,
-        kernels.stream_of(vol),
+        int(no_sweep), kernels.stream_of(vol),
     )
     kernels.check(err, "render_fast")
     raytrace_cuda.launches += 1
@@ -610,7 +642,8 @@ def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
     """Trace (and with ``history``, compose) one frame: the plain version
     for a CPU volume, the CUDA kernel for any other.  ``use_prepass``: gate
     the primary sweep by the patch prepass's column masks
-    (:func:`prepass_mask`); opt-in, as in the reference.  ``ages`` /
+    (:func:`prepass_mask`; every column where :func:`mask_gate_forced`);
+    opt-in, as in the reference.  ``ages`` /
     ``total_states``: the age bit-planes of a multi-state rule (``vol`` is
     then its visibility plane), whose hit ages fade the direct term."""
     kw = dict(grid_size=grid_size, width=width, height=height)

@@ -10,11 +10,15 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       20 generations: every neighbourhood × boundary mode on a random 5³
       block and on a random volume (whose cells reach the boundary), the
       default rule on the centre seed, a mixed-group rule; the population
-      after one step from the centre seed is 7.
+      after one step from the centre seed is 7; and the step kernel's tile
+      edges, 32³ and 96³, Moore and von Neumann, every boundary mode, binary
+      and 10 states, against the plain step and the dense oracle.
   (b) K1 (render kernel) vs its plain torch version in both modes at
       64³ / 128×64 and 256³ / 1920×1080 on the scene after 80 steps: ids
       equal, depth within atol 3e-5, rgb within rtol 3e-3 / atol 3e-4;
-      then the whole Engine on the card vs on the CPU at 64³.
+      K1 with ``no_sweep`` against K1 on an empty volume (bit for bit) and
+      the plain K1 on it; then the whole Engine on the card vs on the CPU
+      at 64³.
   (c) the main path at real size: Engine(grid_size=256, 1920×1080,
       device="cuda"): step(80), render() twice, run_fused(150,
       reset_every=10), with both kernels' launch counters read around it.
@@ -23,7 +27,8 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       the three lighting configurations; K4 and K2's hard-shadow query vs
       plain and step + frame at 512³ and 1024³; K5 against K2 on a
       full-quality frame's 8 queries at 256³ and 512³, K6, K1 with and
-      without the prepass mask on gen-80 and gen-230, and full-quality step
+      without the prepass mask on gen-80 and gen-230, K1's split (no sweep,
+      primary sweep only, full) on both scenes, and full-quality step
       + frame with K5 against K2, each pair alternated; the multi-state step
       at 256³ / 512³ / 1024³ beside its plain version and beside the binary
       kernel on the same rule, K1 compose and K4 with and
@@ -61,8 +66,10 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       512³ / 1920×1080 and on random rays at 64³ and 512³; K6 (the patch
       prepass) vs its plain version and K1 with its mask vs K1 without it
       (ids equal, depth and rgb within the contract, both modes) at 256³ /
-      1080p on the gen-80 and the dense gen-230 scene from three views; 20
-      composed frames through raytrace_tiles(use_prepass=True) with K6's
+      1080p on the gen-80 and the dense gen-230 scene from three views; the
+      prepass frame against the frame without the prepass, bit for bit, on
+      both scenes at 1080p and at 64³ / 128×64 (where the mask gate is
+      forced open), both modes; 20 composed frames through raytrace_tiles(use_prepass=True) with K6's
       and K1's launch counters; the Engine with CA3D_OCC_SWEEP=0 on the card
       vs on the CPU at 64³ (full quality, two bounces), then Engine(256,
       1080p) full quality and two bounces and Engine(512) gi_temporal with
@@ -496,6 +503,33 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
             if name == "front":
                 out["k1_timed"][steps] = (vol, coarse, pre, cam, hist, m_k, kw, k6_plain_ms)
     out["k1_mask_id_mismatch"] = mask_frac
+    # The prepass frame equals the frame without the prepass, exactly: at
+    # 1080p (the mask gate on) on both scenes, and at 64³ / 128×64, where
+    # the window is too small for the masks and the gate is forced open.
+    exact = 0
+    for vol, coarse, _, cam, hist, _, kw, _ in out["k1_timed"].values():
+        need(not rf.mask_gate_forced(cam), "the mask gate is forced open at 1080p")
+        for h in (None, hist):
+            got = rf.raytrace_tiles(vol, coarse, cam, h, use_prepass=True, **kw)
+            want = rf.raytrace_tiles(vol, coarse, cam, h, **kw)
+            need(all(torch.equal(x, y) for x, y in zip(got, want)),
+                 "the 1080p prepass frame != the frame without the prepass")
+            exact += 1
+    vol = grown(64)
+    coarse = coarse_occupancy(vol)
+    for name, view in views.items():
+        cam = scene_cam(view, 128, 64)
+        need(rf.mask_gate_forced(cam), "the mask gate is not forced open at 128x64")
+        kw = dict(grid_size=64, width=128, height=64, shadow=True)
+        want = rf.raytrace_tiles(vol, coarse, cam, **kw)
+        hist = (torch.clamp(want[0] * 1.5, 0, 1).contiguous(), want[2].contiguous())
+        for h in (None, hist):
+            got = rf.raytrace_tiles(vol, coarse, cam, h, use_prepass=True, **kw)
+            ref = rf.raytrace_tiles(vol, coarse, cam, h, **kw)
+            need(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                 f"the 128x64 prepass frame != the frame without the prepass ({name})")
+            exact += 1
+    log(f"  prepass frame == frame without the prepass: {exact} frames at 1080p and 128x64")
 
     # The prepass frame path (tools/bench_dense.py's loop with
     # CA3D_PREPASS=1): composed frames of the gen-230 scene through
@@ -1033,6 +1067,38 @@ def main() -> dict:
                 need(pop == 7, f"population after one step is {pop}, expected 7")
     log(f"(a) CA kernel == plain, bit-exact: {len(cases)} cases x 20 generations at {n}^3")
     report["ca_cases"] = len(cases)
+    # The step kernel's tile edges: n = 32 (one word along x, which is its
+    # own x-wrap) and n = 96 (three words, three y tiles), Moore and von
+    # Neumann, every boundary mode, binary and 10 states, against the plain
+    # step and the dense oracle over 5 generations.
+    from cellularautomatons3d_tpu_torch.ops import ca_reference
+    tile_cases = 0
+    for size in (32, 96):
+        for neigh in ("moore", "von neumann"):
+            for boundary in ct.BoundaryMode.ALL:
+                for states in (2, 10):
+                    spec_t = AutomatonSpec.from_rule_strings(
+                        size, neighbourhood=neigh, born="2,4", survive="1-4",
+                        total_states=states, boundary=boundary)
+                    g = torch.Generator(dev).manual_seed(size + tile_cases)
+                    dense = torch.randint(1, states, (size,) * 3, dtype=torch.uint8,
+                                          device=dev, generator=g)
+                    dense[torch.rand((size,) * 3, device=dev, generator=g) < 0.6] = 0
+                    a = ca_reference.dense_to_planes(dense, spec_t.age_bits)
+                    if states == 2:
+                        a = a[0]
+                    plain = ca_step.fires_plane if states == 2 else ca_step.step_packed_multistate
+                    b = a.clone()
+                    for gen in range(5):
+                        a, b = ca_step.step_packed(a, spec_t), plain(b, spec_t)
+                        dense = ca_reference.step_dense(dense, spec_t)
+                        got = ca_reference.planes_to_dense(a if states > 2 else a[None])
+                        where = f"{size}^3 {neigh} {boundary} {states} states generation {gen + 1}"
+                        need(torch.equal(a, b), f"CA kernel != plain: {where}")
+                        need(torch.equal(got, dense), f"CA kernel != step_dense: {where}")
+                    tile_cases += 1
+    log(f"  CA kernel == plain == step_dense at 32^3 and 96^3: {tile_cases} cases x 5 generations")
+    report["ca_tile_cases"] = tile_cases
 
     # ------------------------------------------ (b) K1 kernel vs plain ---
     defaults = ct.EngineConfig()
@@ -1124,6 +1190,18 @@ def main() -> dict:
             timed_k1 = (vol, coarse, cam, hist, kw)
     report["k1_max_abs_err"] = k1_err
     report["k1_id_mismatch"] = k1_frac
+    # K1 with no_sweep (the timing split's floor) is the kernel's frame of an
+    # empty volume, bit for bit, and the plain K1's within the contract.
+    vol, coarse, cam, hist, kw = timed_k1
+    empty = torch.zeros_like(vol)
+    got = rf.raytrace_cuda(vol, coarse, cam, hist, no_sweep=True, **kw)
+    same = rf.raytrace_cuda(empty, coarse_occupancy(empty), cam, hist, **kw)
+    need(all(torch.equal(x, y) for x, y in zip(got, same)),
+         "K1 no_sweep != K1 on an empty volume")
+    compare("K1 no_sweep vs plain K1 on an empty volume", got,
+            rf.raytrace(empty, None, cam, hist, **kw))
+    need(bool((got[2] == -1).all()), "K1 no_sweep hit a cell")
+    del empty, got, same
 
     # The whole slice on the card against the plain path on the CPU.
     small = dict(grid_size=64, width=256, height=128)
@@ -1371,6 +1449,17 @@ def main() -> dict:
         for k, v in reads.items():
             multi_ms[f"{k}_gen{steps}_ms"] = sum(v) / len(v)
             multi_ms[f"{k}_gen{steps}_reads_ms"] = v
+        # K1's split in compose mode: no sweep (ray set-up, composition,
+        # stores), then the primary sweep (shadow=False), then both sweeps.
+        kw0 = dict(kw, shadow=False)
+        multi_ms[f"k1_split_gen{steps}_ms"] = {
+            "no_sweep": cuda_ms(torch, lambda: rf.raytrace_cuda(
+                vol, coarse, cam, hist, no_sweep=True, **kw), 50, warmup=3),
+            "primary": cuda_ms(torch, lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw0),
+                               50, warmup=3),
+            "full": cuda_ms(torch, lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw), 50,
+                            warmup=3),
+        }
     # Full-quality step + frame with K5 against K2 (the same Engine; the
     # variable is read per call), alternated K2, K5, K5, K2.
     eng_fq = lighting_engines["full_quality"]

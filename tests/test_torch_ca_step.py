@@ -115,3 +115,34 @@ def test_step_fn_and_multistate_guard():
                        ca_step.step_packed_multistate(planes, multi))
     with pytest.raises(ValueError, match="age planes"):
         ct.make_step_fn(multi)(packed)
+
+
+@pytest.mark.parametrize("n, chunk", [(32, 1), (64, 1), (96, 1), (256, 3), (512, 16), (1024, 32)])
+def test_step_kernel_plan(n, chunk):
+    """The CUDA step's launch plan: a halo of 1 for every neighbourhood and
+    mixed groups, and rows of w per block chosen so that about 4 blocks per
+    SM run; the chunks cover W (at 256³ the last one is partial)."""
+    for neighbourhood in NEIGHBOURHOODS:
+        spec = AutomatonSpec.from_rule_strings(grid_size=n, neighbourhood=neighbourhood, **MIXED)
+        assert ca_step._step_plan(spec) == (1, chunk)
+    w = n // 32
+    blocks = -(-w // chunk) * (n // 32) * (n // 8)
+    assert 1 <= chunk <= w and (chunk == 1 or blocks >= ca_step._TARGET_BLOCKS or chunk == w)
+
+
+def test_step_kernel_plan_halo_and_refusal():
+    """The halo follows the widest |dy| or |dz|; |dx| does not widen it
+    (a funnel shift reaches 31 cells).  Offsets beyond ±31 are refused
+    with a clear error, not sent elsewhere; the plain step takes them."""
+    import dataclasses
+
+    spec = AutomatonSpec.from_rule_strings(grid_size=64)
+    wide = dataclasses.replace(spec, offsets_main=((0, 2, 0), (0, 0, -3), (31, 0, 0), (-5, 1, 1)))
+    assert ca_step._step_plan(wide) == (3, 1)
+    empty = AutomatonSpec.from_rule_strings(grid_size=64, born="", survive="")
+    assert ca_step._step_plan(empty) == (0, 1)
+    too_wide = dataclasses.replace(spec, offsets_main=((0, 0, 1), (0, 40, 0)))
+    with pytest.raises(ValueError, match="±31"):
+        ca_step._step_plan(too_wide)
+    state = ct.from_reference(random_packed(4, n=64))
+    assert ca_step.fires_plane(state, too_wide).shape == state.shape

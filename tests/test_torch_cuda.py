@@ -335,18 +335,26 @@ def test_k6_kernel_matches_plain(cuda, n, view):
 
 @pytest.mark.parametrize("compose", [False, True])
 @pytest.mark.parametrize("mask", ["prepass", "random"])
-def test_k1_mask_kernel_matches_plain(cuda, mask, compose):
+@pytest.mark.parametrize("window", ["small", "band"])
+def test_k1_mask_kernel_matches_plain(cuda, window, mask, compose):
     """K1 with a column mask (the prepass's, or random bits) against the
-    plain K1 with the same mask, at 64³ / 128×64."""
+    plain K1 with the same mask, at 64³ on a 128×64 window (where the gate
+    is forced open) and on a 1920×64 band of 1080p (where it gates)."""
     vol = random_volume(cuda, 5, 0.05)
     coarse = coarse_occupancy(vol)
-    cam = rf.pack_cam(VIEWS["oblique"], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
-                      (0.17,) * 3, (0.0,) * 3)
-    kw = dict(grid_size=N, width=W, height=H, shadow=True)
-    if mask == "prepass":
-        colmask = rf.prepass_mask(coarse, cam, grid_size=N, width=W, height=H)
+    if window == "small":
+        w, h = W, H
+        cam = rf.pack_cam(VIEWS["oblique"], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                          (0.17,) * 3, (0.0,) * 3)
     else:
-        colmask = torch.randint(-2**31, 2**31 - 1, (H // 8, W // 8), dtype=torch.int32,
+        w, h = BAND["width"], BAND["height"]
+        cam = _band_cam("oblique")
+    assert rf.mask_gate_forced(cam) == (window == "small")
+    kw = dict(grid_size=N, width=w, height=h, shadow=True)
+    if mask == "prepass":
+        colmask = rf.prepass_mask(coarse, cam, grid_size=N, width=w, height=h)
+    else:
+        colmask = torch.randint(-2**31, 2**31 - 1, (h // 8, w // 8), dtype=torch.int32,
                                 device=cuda, generator=torch.Generator(cuda).manual_seed(2))
     hist = None
     if compose:
@@ -374,6 +382,50 @@ def test_k1_prepass_equals_no_mask_at_1080p(cuda, view):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int((want[2] >= 0).sum()) > 0
+
+
+def test_k1_prepass_exact_at_small_window(cuda):
+    """At 128×64 the mask gate is forced open: the prepass frame is K1's
+    frame without the prepass, from every view, in both modes."""
+    vol = random_volume(cuda, 5, 0.05)
+    coarse = coarse_occupancy(vol)
+    kw = dict(grid_size=N, width=W, height=H)
+    for view in VIEWS:
+        cam = rf.pack_cam(VIEWS[view], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                          (0.17,) * 3, (0.0,) * 3)
+        want = rf.raytrace_tiles(vol, coarse, cam, **kw)
+        hist = (torch.clamp(want[0] * 1.5, 0, 1).contiguous(), want[2].contiguous())
+        for history in (None, hist):
+            got = rf.raytrace_tiles(vol, coarse, cam, history, use_prepass=True, **kw)
+            ref = rf.raytrace_tiles(vol, coarse, cam, history, **kw)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+        assert int((want[2] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("compose", [False, True])
+def test_k1_no_sweep_kernel_is_the_empty_volume_frame(cuda, compose):
+    """K1 with ``no_sweep`` gives the kernel's frame of an empty volume
+    bit for bit, and the plain K1's within the contract."""
+    vol = random_volume(cuda, 5, 0.05)
+    empty = torch.zeros_like(vol)
+    cam = rf.pack_cam(mat4.initial_view_matrix(), W, H, (0.721, 1.0, 1.0), 5.0, 0.85,
+                      0.29, (0.17,) * 3, (0.0,) * 3, emissive_color=(0.02, 0.03, 0.04),
+                      emissive_strength=0.5)
+    kw = dict(grid_size=N, width=W, height=H, shadow=True)
+    hist = None
+    if compose:
+        rgb, _, idx = rf.raytrace_cuda(vol, coarse_occupancy(vol), cam, **kw)
+        hist = (torch.clamp(rgb * 1.5, 0, 1).contiguous(), idx.contiguous())
+    got = rf.raytrace_cuda(vol, coarse_occupancy(vol), cam, hist, no_sweep=True, **kw)
+    same = rf.raytrace_cuda(empty, coarse_occupancy(empty), cam, hist, **kw)
+    want = rf.raytrace(empty, None, cam, hist, **kw)
+    for a, b in zip(got, same):
+        assert torch.equal(a, b)
+    assert torch.equal(got[2], want[2]) and bool((got[2] == -1).all())
+    torch.testing.assert_close(got[1], want[1], atol=3e-5, rtol=0)
+    for a, b in zip(got[:1] + got[3:], want[:1] + want[3:]):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-3)
 
 
 def test_k5_engine_matches_cpu(cuda, monkeypatch):
@@ -453,6 +505,60 @@ def test_multistate_step_kernel_on_invalid_encodings_and_two_states(cuda):
     vol = random_volume(cuda, 1, 0.2)
     got = ca_step.step_packed_multistate_cuda(vol[None], spec)
     assert torch.equal(got[0], ca_step.fires_plane(vol, spec))
+
+
+@pytest.mark.parametrize("states", [2, 10])
+@pytest.mark.parametrize("boundary", ct.BoundaryMode.ALL)
+@pytest.mark.parametrize("n", [32, 96])
+def test_ca_step_kernel_tiles(cuda, n, boundary, states):
+    """The step kernel's tiling at the sizes that stress it: n = 32 (one
+    word along x, whose x-wrap is itself; one y tile, four z tiles) and
+    n = 96 (three words along x, three y tiles, twelve z tiles), Moore and
+    von Neumann, binary and 10 states, bit-exact against the plain step
+    (and the dense oracle) over 5 generations."""
+    from cellularautomatons3d_tpu_torch.ops import ca_reference
+
+    for i, neighbourhood in enumerate(("moore", "von neumann")):
+        spec = ct.AutomatonSpec.from_rule_strings(
+            n, neighbourhood=neighbourhood, born="2,4", survive="1-4",
+            total_states=states, boundary=boundary)
+        if states == 2:
+            rng = np.random.default_rng(n + i)
+            a = ct.from_reference(ct.pack_grid((rng.random((n,) * 3) < 0.2).astype(np.uint8)),
+                                  cuda)
+        else:
+            a, dense = random_ages(cuda, n, states, n + i)
+        b = a.clone()
+        for _ in range(5):
+            a, b = ca_step.step_packed(a, spec), ca_step.step_packed(b.cpu(), spec).to(cuda)
+            assert torch.equal(a, b)
+            if states > 2:
+                dense = ca_reference.step_dense(dense, spec)
+                assert torch.equal(ca_reference.planes_to_dense(a), dense)
+        assert int((a != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("states", [2, 10])
+def test_ca_step_kernel_wide_halo(cuda, states):
+    """Offsets beyond the six neighbourhoods' radius (|dy|, |dz| up to 3,
+    |dx| up to 31) widen the kernel's halo; every boundary mode, 64³."""
+    import dataclasses
+
+    n = 64
+    for boundary in ct.BoundaryMode.ALL:
+        spec = dataclasses.replace(
+            ct.AutomatonSpec.from_rule_strings(n, born="1,3", survive="1-2",
+                                               total_states=states, boundary=boundary),
+            offsets_main=((0, 2, 0), (0, 0, -3), (5, 0, 0), (-31, 1, 1), (0, -2, 2), (1, 1, 0)))
+        assert ca_step._step_plan(spec) == (3, 1)
+        if states == 2:
+            a = random_volume(cuda, 2, 0.1)
+        else:
+            a, _ = random_ages(cuda, n, states, 2)
+        b = a.clone()
+        for _ in range(3):
+            a, b = ca_step.step_packed(a, spec), ca_step.step_packed(b.cpu(), spec).to(cuda)
+            assert torch.equal(a, b)
 
 
 def test_age_masks_kernel_matches_plain(cuda):

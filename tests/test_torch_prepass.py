@@ -3,14 +3,11 @@
 package's ``_prepass_mask`` (interpret mode) and the prepass frame against
 JAX's prepass frame.
 
-The prepass is conservative only at the reference's window: its covering
-argument assumes an 8×8-pixel patch at 75° FOV and 1080p.  The frames here
-are therefore a 1920×64 row band of a 1920×1080 window (the shard row
-offset ``P_ROW0``, as the mesh render uses it), where the port's prepass
-frame equals its frame without the prepass.  At a 128×64 window a patch
-spans ~17× the angle, and the port's per-pixel gate misses up to 7 of
-8,192 hits that JAX's tile-wide column descent still finds (ROADMAP queue
-3).
+The frames compared with JAX's are a 1920×64 row band of a 1920×1080
+window (the shard row offset ``P_ROW0``, as the mesh render uses it), the
+window the prepass's covering argument is made for.  At the 128×64 window
+the port's prepass frame is held to its frame without the prepass, without
+JAX: there K1's mask gate descends every column (``mask_gate_forced``).
 
 Tolerances: masks differ on at most 2 % of the patches (the port
 normalises with 1/sqrt, XLA:CPU's rsqrt differs by ≤ 2 ulp; 0 seen);
@@ -139,12 +136,43 @@ def test_prepass_frame_matches_jax(compose):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("compose", [False, True], ids=["noncompose", "compose"])
+def test_prepass_frame_exact_at_small_window(compose, monkeypatch):
+    """At 128×64 a patch's rays spread ~17× as far as at 1080p, beyond what
+    the masks cover: with the mask gate as it is at 1080p the prepass frame
+    loses hits (the fault), with the gate forced open it is the frame
+    without the prepass, from the three views."""
+    n, w, h = 32, SMALL["width"], SMALL["height"]
+    vol = ct.from_reference(scene(n))
+    coarse = coarse_occupancy(vol)
+    kw = dict(grid_size=n, width=w, height=h)
+    lost = 0
+    for view in VIEWS:
+        cam = cam_for(view, SMALL, emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5)
+        assert trf.mask_gate_forced(cam) and not trf.mask_gate_forced(cam_for(view, BAND))
+        history = None
+        if compose:
+            rgb, _, idx = trf.raytrace_tiles(vol, coarse, cam, **kw)
+            history = (torch.clamp(rgb * 1.7 + 0.05, 0.0, 1.0), torch.where(idx % 3 == 0, idx + 1, idx))
+        want = trf.raytrace_tiles(vol, coarse, cam, history, **kw)
+        got = trf.raytrace_tiles(vol, coarse, cam, history, use_prepass=True, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int((want[2] >= 0).sum()) > 0.2 * w * h
+        with monkeypatch.context() as m:
+            m.setattr(trf, "mask_gate_forced", lambda cam: False)
+            gated = trf.raytrace_tiles(vol, coarse, cam, history, use_prepass=True, **kw)
+        lost += int(((gated[2] < 0) & (want[2] >= 0)).sum())
+    assert lost > 0
+
+
 def test_full_mask_equals_no_mask():
     """A mask of all ones descends every non-empty column, as the mip
-    does for an occupied one: the same frame."""
-    n, w, h = 32, 128, 64
+    does for an occupied one: the same frame.  A mask of zeros loses hits
+    (on the 1080p band, where the gate is not forced open)."""
+    n, w, h = 32, BAND["width"], BAND["height"]
     vol = ct.from_reference(scene(n))
-    cam = cam_for("oblique", SMALL)
+    cam = cam_for("oblique", BAND)
     kw = dict(grid_size=n, width=w, height=h)
     full = torch.full((h // 8, w // 8), -1, dtype=torch.int32)
     got = trf.raytrace(vol, None, cam, colmask=full, **kw)

@@ -141,3 +141,26 @@ def test_dispatch_never_falls_back():
         trf.raytrace_cuda(vol, coarse_occupancy(vol), cam_for(),
                           grid_size=N, width=W, height=H)
     assert trf.raytrace_cuda.launches == 0
+
+
+@pytest.mark.parametrize("compose", [False, True], ids=["noncompose", "compose"])
+def test_no_sweep_is_the_empty_volume_frame(compose):
+    """``no_sweep`` (the timing split's floor) skips both sweeps: the plain
+    K1 then gives the frame of an empty volume, ids, depth, rgb and
+    history, for a scene that hits."""
+    _, packed = scene()
+    vol = ct.from_reference(packed)
+    empty = torch.zeros_like(vol)
+    cam = cam_for(emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5)
+    kw = dict(grid_size=N, width=W, height=H, shadow=True)
+    history = None
+    if compose:
+        rgb, _, idx = trf.raytrace(vol, None, cam, **kw)
+        history = (torch.clamp(rgb * 1.7 + 0.05, 0.0, 1.0), idx)
+    got = trf.raytrace(vol, None, cam, history, no_sweep=True, **kw)
+    want = trf.raytrace(empty, None, cam, history, **kw)
+    assert len(got) == (4 if compose else 3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((trf.raytrace(vol, None, cam, **kw)[2] >= 0).sum()) > 0
+    assert bool((got[2] == -1).all()) and float(got[1].max()) > 0.0
