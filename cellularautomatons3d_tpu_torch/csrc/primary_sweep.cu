@@ -16,13 +16,28 @@
 // per-brick age layouts and the age merge across bricks are brick machinery
 // and have no counterpart.
 //
-// Bound on the H100: like K1's primary sweep, per pixel up to n/8 column
-// tests and 8 dependent loads of packed words per occupied column; the
+// Design on the H100 (one thread per pixel, 16x8 blocks): about 93 % of
+// the rays of the sparse scenes miss, and each used to walk every 8-plane
+// column of its z extent, up to n/8, with four cell lookups and a mip test
+// per column; above 256^3 the mip (32 KiB at 512^3, 256 KiB at 1024^3) is
+// read from L2 through the read-only path.  Now one launch of
+// occupied_box.cu, enqueued by the entry point just before this kernel,
+// reduces the mip to the box of occupied blocks.  This kernel is launched
+// as its programmatic dependent: its blocks may start while the box kernel
+// runs, set up their rays, and wait for it only to read the box (load_box).
+// An empty box skips the sweep (every pixel misses), a whole-volume
+// box runs the unclipped sweep (the clip alone there cost 3.5 %: camera
+// rays start outside the volume, so it has nothing to cut; PERF.md §6),
+// any other box the sweep clipped to it (BoxClip: only the columns and
+// t-range inside the box, exact).  Up to
+// 256^3 each block stages the 4 KiB mip in shared memory, unless the box
+// is empty.  40 registers, no spill, with or without a cap.  Bound: per
+// pixel the column tests and probes of the columns inside the box; the
 // volume is L2-resident up to 512^3 (16 MiB) and not at 1024^3 (128 MiB),
-// where the probes of occupied columns go to HBM.  The coarse mip is
-// staged in shared memory up to 256^3 and read through the read-only path
-// from L2 above (see sweep.cuh).  Rays are coherent within a 16x8 block.
-// The age fetch adds age_bits <= 4 word loads per hit pixel, after the sweep.
+// where the probes of occupied columns go to HBM.  Inside the box the
+// column walk takes most of the time at 512^3, the probes at 1024^3
+// (PERF.md §6).  The age fetch adds age_bits <= 4 word loads per hit pixel,
+// after the sweep.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,19 +54,20 @@ constexpr int kBlockY = 8;
 template <bool STAGED>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     primary_sweep_kernel(const uint32_t* __restrict__ vol,
-                         const uint32_t* __restrict__ coarse, int n,
-                         float inv_n, int width, int height,
+                         const uint32_t* __restrict__ coarse,
+                         const OccBox* occ, int n, float inv_n,
+                         int width, int height,
                          const __grid_constant__ Cam cam,
                          float* __restrict__ out_t, int* __restrict__ out_idx,
                          const uint32_t* __restrict__ ages, int age_bits,
                          int* __restrict__ out_age) {
   __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
-  if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
+  __shared__ OccBox box;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
   const float* P = cam.p;
 
+  // The ray first, while the box kernel may still run.
   float ux;
   const Ray ray = camera_ray(P, px, py, ux);
   float nx, fx, ny, fy, nz, fz;
@@ -60,16 +76,27 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   vol_slab(ray.oz, ray.dz, nz, fz);
   const float tn = maxp(maxp(nx, ny), nz);
   const float tf = minp(minp(fx, fy), fz);
-  const bool active = (tn <= tf) && (tf >= 0.0f);
+  load_box(occ, &box, threadIdx.y * blockDim.x + threadIdx.x);
+  __syncthreads();
+  if constexpr (STAGED) {
+    if (!box.empty) stage_coarse(coarse, coarse_s, n);
+  }
+  if (px >= width || py >= height) return;
+  const bool active = (tn <= tf) && (tf >= 0.0f) && !box.empty;
   const float t_start = maxp(tn, 0.0f);
   const float cell_half = inv_n * P[P_CELLMUL] * 0.5f;
 
   float t_hit = 0.0f;
   int hx = 0, hy = 0, hz = 0;
-  const bool found =
-      active && sweep<true>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
-                            cell_half, ray, t_start, tf, NoExclusion{}, t_hit,
-                            hx, hy, hz);
+  bool found = false;
+  if (active) {
+    auto primary = [&](const auto& clip) {
+      return sweep<true>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
+                         cell_half, ray, t_start, tf, NoExclusion{}, t_hit,
+                         hx, hy, hz, clip);
+    };
+    found = box.full ? primary(NoClip{}) : primary(BoxClip{&box});
+  }
   const size_t pix = (size_t)py * width + px;
   out_t[pix] = found ? t_hit : 0.0f;
   out_idx[pix] = found ? hx + hy * n + hz * n * n : -1;
@@ -83,16 +110,21 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 extern "C" {
 
 // vol: uint32[n/32, n, n], n <= 1024; coarse: uint32[n/8, XG*n/8]
-// (ops/occupancy.py, XG = ceil(n/256)); cam: host float[40]
-// (render_fast.py pack_cam); out_t: f32 [H, W]; out_idx: i32 [H, W].
-// ages: null, or the age bit-planes uint32[age_bits, n/32, n, n] of which
-// vol is the visibility plane, and out_age: i32 [H, W] then takes each
-// hit's age.  Returns the launch's cudaError_t.
+// (ops/occupancy.py, XG = ceil(n/256)), 16-byte aligned; cam: host
+// float[40] (render_fast.py pack_cam); out_t: f32 [H, W]; out_idx: i32
+// [H, W].  ages: null, or the age bit-planes uint32[age_bits, n/32, n, n]
+// of which vol is the visibility plane, and out_age: i32 [H, W] then takes
+// each hit's age.  box: int32[8], scratch for the launch's OccBox, which
+// the box kernel enqueued here writes first; box_launches: a host int that
+// counts that launch (one added once it is enqueued).  Returns the first
+// launch error (cudaError_t).
 int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
                             int n, int width, int height, const float* cam,
                             void* out_t, void* out_idx, const void* ages,
-                            int age_bits, void* out_age, void* stream) {
-  if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1) {
+                            int age_bits, void* out_age, void* box,
+                            int* box_launches, void* stream) {
+  if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
+      box_launches == nullptr) {
     return cudaErrorInvalidValue;
   }
   if (ages != nullptr && (age_bits < 1 || age_bits > 4 || out_age == nullptr)) {
@@ -100,6 +132,11 @@ int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto occ = static_cast<OccBox*>(box);
+  err = launch_occupied_box(static_cast<const uint32_t*>(coarse), n, occ, s);
+  if (err != cudaSuccess) return err;
+  *box_launches += 1;
   Cam c;
   for (int i = 0; i < P_LEN; ++i) c.p[i] = cam[i];
   const float inv_n = (float)(1.0 / (double)n);
@@ -108,20 +145,21 @@ int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
                   (height + kBlockY - 1) / kBlockY);
   auto kernel = n <= kMaxStagedGrid ? primary_sweep_kernel<true>
                                     : primary_sweep_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
-      n, inv_n, width, height, c, static_cast<float*>(out_t),
-      static_cast<int*>(out_idx), static_cast<const uint32_t*>(ages), age_bits,
-      static_cast<int*>(out_age));
-  return cudaGetLastError();
+  return launch_after_box(
+      kernel, grid, block, s, static_cast<const uint32_t*>(vol),
+      static_cast<const uint32_t*>(coarse), occ, n, inv_n, width, height, c,
+      static_cast<float*>(out_t), static_cast<int*>(out_idx),
+      static_cast<const uint32_t*>(ages), age_bits, static_cast<int*>(out_age));
 }
 
 // The binary frame: ca3d_primary_sweep_ages without age planes.
 int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
                        int width, int height, const float* cam, void* out_t,
-                       void* out_idx, void* stream) {
+                       void* out_idx, void* box, int* box_launches,
+                       void* stream) {
   return ca3d_primary_sweep_ages(device, vol, coarse, n, width, height, cam,
-                                 out_t, out_idx, nullptr, 0, nullptr, stream);
+                                 out_t, out_idx, nullptr, 0, nullptr, box,
+                                 box_launches, stream);
 }
 
 }  // extern "C"

@@ -18,15 +18,32 @@
 // i32 [nq, 3, H, W], active u8 [nq, H, W] -> i32 [nq, H, W] (~41 B per
 // query-pixel).
 //
-// Bound on the H100: dependent loads of packed words on occupied columns
-// (from L2 up to 256^3, where the 2 MiB volume is resident; from HBM for
-// the probes that miss L2 at 1024^3, whose volume is 128 MiB), plus the
-// coarse mip: staged in shared memory by every 128-thread block up to
-// 256^3 (4 KiB), read through the read-only path from L2 above (32 KiB at
-// 512^3, 256 KiB at 1024^3).  Rays of neighbouring pixels of one query are
-// coherent in a 16x8 block.  The queries of one pixel sharing a traversal
-// are K5 (shadow_multi.cu), the opt-in backend.  Left for later PRs: the
-// reference's start-column gate.
+// Design on the H100 (one thread per (query, pixel), 16x8 blocks, one
+// grid z-slice per query): only hit pixels cast shadow and GI rays, so
+// about 93 % of the lanes of the sparse scenes, and most whole blocks, are
+// inactive.  A block first reads its lanes' active flags, and a block with
+// none (or an empty volume) writes its zeros and leaves before it touches
+// the mip.  One launch of occupied_box.cu, enqueued by the entry point just
+// before this kernel, reduces the mip to the box of occupied blocks (this
+// kernel may start while it runs, loads its flags, and waits for it only to
+// read the box: a programmatic dependent launch); the active rays sweep
+// clipped to it (BoxClip: only the columns and t-range inside the box,
+// exact from any start, inside the box or not).  The clip also serves a
+// whole-volume box: its walk starts at the ray's start column, where an
+// unclipped one would step from the volume's face through the columns
+// behind a start inside the volume (PERF.md §6).  Up to 256^3 an active
+// block stages the 4 KiB mip in shared memory; above, the mip is read from
+// L2 (32 KiB at 512^3, 256 KiB at 1024^3).  40 registers, no spill, with
+// or without a cap.  One query per block keeps the sweeps of a query's
+// coherent rays together and lets idle blocks free their slots at once;
+// blocks that walk a tile's queries in turn were slower (PERF.md §6).
+// Bound: the operands of the active lanes, every lane's flag and output
+// (~5 B), and the column tests and probes inside the box; the probes are L2
+// hits up to 512^3 and go to HBM when they miss L2 at 1024^3 (128 MiB).
+// About half of a frame's 8 queries at 256^3 is the floor of its idle
+// blocks, each a flag load and a store.  The queries of one pixel sharing a
+// traversal are K5 (shadow_multi.cu), the opt-in backend.  Left for later
+// PRs: the reference's start-column gate, and compacting the active lanes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,25 +60,36 @@ constexpr int kBlockY = 8;
 template <bool STAGED>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     shadow_sweep_kernel(const uint32_t* __restrict__ vol,
-                        const uint32_t* __restrict__ coarse, int n,
-                        float inv_n, float cell_half, int width, int height,
+                        const uint32_t* __restrict__ coarse,
+                        const OccBox* occ, int n, float inv_n,
+                        float cell_half, int width, int height,
                         const float* __restrict__ start,
                         const float* __restrict__ target,
                         const int* __restrict__ excl,
                         const uint8_t* __restrict__ active,
                         int* __restrict__ out) {
   __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
-  if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
+  __shared__ OccBox box;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
+  const bool inside = px < width && py < height;
   const size_t npix = (size_t)width * height;
   const size_t pix = (size_t)py * width + px;
   const size_t q = blockIdx.z;
   const size_t i1 = q * npix + pix;      // [nq, H, W]
   const size_t i3 = 3 * q * npix + pix;  // [nq, 3, H, W], component 0
+  // The flag first, while the box kernel may still run.
+  const bool lane_active = inside && active[i1] != 0;
+  load_box(occ, &box, threadIdx.y * blockDim.x + threadIdx.x);
+  // The barrier also publishes the box; both tests are block-uniform.
+  if (!__syncthreads_or(lane_active) || box.empty) {
+    if (inside) out[i1] = 0;
+    return;
+  }
+  if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
+  if (!inside) return;
   int occluded = 0;
-  if (active[i1]) {
+  if (lane_active) {
     Ray r;
     r.ox = start[i3];
     r.oy = start[i3 + npix];
@@ -79,9 +107,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
     int hx, hy, hz;
     const CellExclusion skip{excl[i3], excl[i3 + npix], excl[i3 + 2 * npix]};
     occluded = sweep<false>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
-                            cell_half, r, 0.0f, t1, skip, t_hit, hx, hy, hz)
-                   ? 1
-                   : 0;
+                            cell_half, r, 0.0f, t1, skip, t_hit, hx, hy, hz,
+                            BoxClip{&box}) ? 1 : 0;
   }
   out[i1] = occluded;
 }
@@ -91,33 +118,41 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 extern "C" {
 
 // vol: uint32[n/32, n, n], n <= 1024; coarse: uint32[n/8, XG*n/8]
-// (ops/occupancy.py, XG = ceil(n/256)); start, target: f32 [nq, 3, H, W];
-// excl: i32 [nq, 3, H, W]; active: u8 [nq, H, W]; out: i32 [nq, H, W]
-// (1 = occluded).  cell_half is the
-// visible cube's half size, (1/n) * cell_size * 0.5 in f32.  Returns the
-// launch's cudaError_t.
+// (ops/occupancy.py, XG = ceil(n/256)), 16-byte aligned; start, target:
+// f32 [nq, 3, H, W]; excl: i32 [nq, 3, H, W]; active: u8 [nq, H, W]; out:
+// i32 [nq, H, W] (1 = occluded).  cell_half is the visible cube's half
+// size, (1/n) * cell_size * 0.5 in f32.  box: int32[8], scratch for the
+// launch's OccBox, which the box kernel enqueued here writes first;
+// box_launches: a host int that counts that launch (one added once it is
+// enqueued).  Returns the first launch error (cudaError_t).
 int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
                       float cell_half, int width, int height, int nq,
                       const void* start, const void* target, const void* excl,
-                      const void* active, void* out, void* stream) {
+                      const void* active, void* out, void* box,
+                      int* box_launches, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
-      nq < 1 || nq > 65535) {
+      nq < 1 || nq > 65535 || box_launches == nullptr) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto occ = static_cast<OccBox*>(box);
+  err = launch_occupied_box(static_cast<const uint32_t*>(coarse), n, occ, s);
+  if (err != cudaSuccess) return err;
+  *box_launches += 1;
   const float inv_n = (float)(1.0 / (double)n);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY, nq);
   auto kernel = n <= kMaxStagedGrid ? shadow_sweep_kernel<true>
                                     : shadow_sweep_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
-      n, inv_n, cell_half, width, height, static_cast<const float*>(start),
+  return launch_after_box(
+      kernel, grid, block, s, static_cast<const uint32_t*>(vol),
+      static_cast<const uint32_t*>(coarse), occ, n, inv_n, cell_half, width,
+      height, static_cast<const float*>(start),
       static_cast<const float*>(target), static_cast<const int*>(excl),
       static_cast<const uint8_t*>(active), static_cast<int*>(out));
-  return cudaGetLastError();
 }
 
 }  // extern "C"

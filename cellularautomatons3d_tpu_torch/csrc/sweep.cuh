@@ -31,10 +31,14 @@
 // more than a block's shared memory, and the sweep reads it from global
 // memory through the read-only path (GlobalMip): it is L2-resident.  K1
 // with a prepass mask gates its primary sweep's columns by the mask
-// instead (ColumnMask).  K1 also clips both of its sweeps to the box of
-// occupied blocks (OccBox, BoxClip) when that box is not the whole volume:
-// only the columns, and the t-range of the box's x / y extent, where a
-// probe could land in an occupied cell; K2, K4 and K5 visit every column
+// instead (ColumnMask).  K1, K2 and K4 clip their sweeps to the box of
+// occupied blocks (OccBox, BoxClip): only the columns, and the t-range of
+// the box's x / y extent, where a probe could land in an occupied cell.
+// K1 and K4 sweep unclipped (NoClip) when the box is the whole volume, K2
+// clips there too, so its walk starts at its ray's start.  K1 reduces the box
+// in each block from its staged mip (stage_coarse_box); K2 and K4 read it
+// from a small device buffer that one launch of occupied_box.cu writes
+// before each of theirs (launch_occupied_box).  K5 visits every column
 // (NoClip).
 // The packed volume itself is read from global memory at every size: 2 MiB
 // at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
@@ -184,6 +188,67 @@ struct OccBox {
   int empty, full, zc0, zc1;
   float x0, x1, y0, y1;
 };
+static_assert(sizeof(OccBox) == 32, "OccBox is the 8-word box buffer");
+
+// The box of a non-empty mip from its occupied block range: x-blocks
+// [xb0, xb1], y-blocks [yb0, yb1] and 8-plane columns [zmin, zmax] of an
+// n^3 grid (nb = n/8 blocks a side, inv_n = 1/n in f32).  K1's per-block
+// reduction (stage_coarse_box) and the box kernel (occupied_box.cu) both
+// build their box here, so the two agree.
+__device__ __forceinline__ OccBox make_box(int xb0, int xb1, int yb0, int yb1,
+                                           int zmin, int zmax, int nb,
+                                           float inv_n) {
+  const float inf = __int_as_float(0x7f800000);
+  OccBox box;
+  box.empty = 0;
+  box.full = xb0 == 0 && xb1 == nb - 1 && yb0 == 0 && yb1 == nb - 1 &&
+             zmin == 0 && zmax == nb - 1;
+  box.zc0 = zmin;
+  box.zc1 = zmax;
+  box.x0 = xb0 == 0 ? -inf : (float)(xb0 * 8 - 1) * inv_n - 0.5f;
+  box.x1 = xb1 == nb - 1 ? inf : (float)(xb1 * 8 + 9) * inv_n - 0.5f;
+  box.y0 = yb0 == 0 ? -inf : (float)(yb0 * 8 - 1) * inv_n - 0.5f;
+  box.y1 = yb1 == nb - 1 ? inf : (float)(yb1 * 8 + 9) * inv_n - 0.5f;
+  return box;
+}
+
+// Enqueue, on stream, the one-block kernel that reduces the coarse mip of
+// an n^3 grid (any n <= 1024: [n/8, XG*n/8] words, 16-byte aligned) to its
+// OccBox in box (occupied_box.cu; the same box stage_coarse_box gives K1,
+// and all zero but `empty` for an empty mip).  Returns the launch's error.
+cudaError_t launch_occupied_box(const uint32_t* coarse, int n, OccBox* box,
+                                cudaStream_t stream);
+
+// Copy the launch's box into shared memory (threads 0-7, one word each),
+// once the box kernel before this one has finished (programmatic dependent
+// launch: this kernel may start while that one runs, and waits here; a no-op
+// when it was launched the ordinary way).  The caller's next barrier
+// publishes the box.
+__device__ __forceinline__ void load_box(const OccBox* src, OccBox* dst,
+                                         int tid) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (tid < 8) {
+    reinterpret_cast<int*>(dst)[tid] = reinterpret_cast<const int*>(src)[tid];
+  }
+}
+
+// Launch kernel(args...) on stream after the box kernel enqueued just
+// before it, allowed to start while that one still runs (its blocks wait
+// in load_box).  Returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_after_box(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
 
 // stage_coarse for a block of WARPS warps, and the box of the staged mip:
 // warp wp stages z-rows wp, wp + WARPS, ... (lane = y), its loads issued
@@ -235,18 +300,11 @@ __device__ __forceinline__ void stage_coarse_box(
       zmin = min(zmin, part[i][2]);
       zmax = max(zmax, part[i][3]);
     }
-    const float inf = __int_as_float(0x7f800000);
     const int xb0 = __ffs(xs) - 1, xb1 = 31 - __clz(xs);
     const int yb0 = __ffs(ys) - 1, yb1 = 31 - __clz(ys);
-    box->empty = xs == 0u;
-    box->full = xb0 == 0 && xb1 == nb - 1 && yb0 == 0 && yb1 == nb - 1 &&
-                zmin == 0 && zmax == nb - 1;
-    box->zc0 = zmin;
-    box->zc1 = zmax;
-    box->x0 = xb0 == 0 ? -inf : (float)(xb0 * 8 - 1) * inv_n - 0.5f;
-    box->x1 = xb1 == nb - 1 ? inf : (float)(xb1 * 8 + 9) * inv_n - 0.5f;
-    box->y0 = yb0 == 0 ? -inf : (float)(yb0 * 8 - 1) * inv_n - 0.5f;
-    box->y1 = yb1 == nb - 1 ? inf : (float)(yb1 * 8 + 9) * inv_n - 0.5f;
+    OccBox b = make_box(xb0, xb1, yb0, yb1, zmin, zmax, nb, inv_n);
+    b.empty = xs == 0u;
+    *box = b;
   }
   __syncthreads();
 }

@@ -2,12 +2,14 @@
 
 The sources are ``csrc/ca_step.cu`` (the CA step), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
-``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5) and
-``csrc/prepass.cu`` (K6); K1, K2, K4, K5 and K6 share the traversal and
-float helpers in ``csrc/sweep.cuh``.  At first use each source is
-compiled by its own ``nvcc``, all started together, and the objects are
-linked into one shared library with a plain C interface, loaded with
-:mod:`ctypes`; no PyTorch headers are involved, so a build takes seconds.
+``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
+``csrc/prepass.cu`` (K6) and ``csrc/occupied_box.cu`` (the occupied box
+that K2's and K4's entry points enqueue before their kernels); all but the
+CA step and K3 share the traversal and float helpers in ``csrc/sweep.cuh``.
+At first use each source is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with :mod:`ctypes`; no PyTorch headers are involved,
+so a build takes seconds.
 The library goes to ``build/cellularautomatons3d_tpu_torch/`` beside the
 package, named by a hash of the sources, the header and the flags, so an
 edited source builds anew and an unchanged one is reused.
@@ -46,6 +48,7 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "primary_sweep.cu",
     PACKAGE_DIR / "csrc" / "shadow_multi.cu",
     PACKAGE_DIR / "csrc" / "prepass.cu",
+    PACKAGE_DIR / "csrc" / "occupied_box.cu",
 )
 HEADERS = (PACKAGE_DIR / "csrc" / "sweep.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
@@ -60,6 +63,7 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)  # a host int the entry point counts into
 
 
 def _nvcc() -> str:
@@ -136,15 +140,15 @@ def library() -> ctypes.CDLL:
         ]
         lib.ca3d_render_fast.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
-            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _P,
         ]
         lib.ca3d_shadow_sweep.restype = _I
         lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.ca3d_cell_state.restype = _I
-        lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P]
+        lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _IP, _P]
         lib.ca3d_primary_sweep.restype = _I
         lib.ca3d_primary_sweep_ages.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+            _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _IP, _P,
         ]
         lib.ca3d_primary_sweep_ages.restype = _I
         lib.ca3d_shadow_multi.argtypes = [
@@ -153,14 +157,17 @@ def library() -> ctypes.CDLL:
         lib.ca3d_shadow_multi.restype = _I
         lib.ca3d_prepass.argtypes = [_I, _P, _I, _I, _I, _P, _P, _P]
         lib.ca3d_prepass.restype = _I
+        lib.ca3d_occupied_box.argtypes = [_I, _P, _I, _P, _P]
+        lib.ca3d_occupied_box.restype = _I
         _lib = lib
     return _lib
 
 
-def require(t, name: str, dtype, shape) -> None:
+def require(t, name: str, dtype, shape, align: int = 0) -> None:
     """Validate a kernel operand: a contiguous CUDA tensor of the given
-    dtype and shape.  The kernels take nothing else, and a CPU tensor is a
-    caller error here, not a reason to fall back."""
+    dtype and shape (and, with ``align``, an address that is a multiple of
+    it).  The kernels take nothing else, and a CPU tensor is a caller error
+    here, not a reason to fall back."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if t.dtype != dtype:
@@ -169,6 +176,8 @@ def require(t, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def stream_of(t) -> int:

@@ -16,15 +16,26 @@ Each byte of a packed word is one 8-cell x-block (bit b of word w is cell
 32w + b, and the words are little-endian), so the mip is an ``any`` over
 bytes followed by packing the block bits into words: a handful of launches
 per rebuild, which matters because the fused loop rebuilds it every frame.
+
+:func:`occupied_box` reduces a mip to the box of its occupied blocks, which
+K2 and K4 clip their sweeps to; on the card ``csrc/occupied_box.cu`` computes
+it (:func:`occupied_box_cuda`, and inside K2's and K4's entry points).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["coarse_occupancy", "coarse_shape", "dilate_occupancy", "BLOCK"]
+from .. import kernels
+
+__all__ = [
+    "coarse_occupancy", "coarse_shape", "dilate_occupancy", "occupied_box",
+    "occupied_box_cuda", "BLOCK", "BOX_WORDS",
+]
 
 BLOCK = 8  # downsample factor per axis
+BOX_WORDS = 8  # the OccBox of csrc/sweep.cuh: 4 int32, then 4 float32 bits
 
 
 def coarse_shape(n: int) -> tuple[int, int]:
@@ -79,3 +90,63 @@ def dilate_occupancy(coarse: torch.Tensor, dilate_z: bool = True,
         d = d | torch.roll(d, 1, axis) | torch.roll(d, -1, axis)
     d = torch.where(d >= 2**31, d - 2**32, d)  # uint32 bits → int32
     return d.to(torch.int32).reshape(zc, ytot)
+
+
+def occupied_box(coarse: torch.Tensor, n: int) -> torch.Tensor:
+    """The box of the occupied 8³ blocks of the mip of an n³ grid, as the
+    int32 [8] words of ``OccBox`` (``csrc/sweep.cuh``): ``empty``, ``full``,
+    ``zc0``, ``zc1`` (the first and last 8-plane column holding an occupied
+    block), then the float32 bits of ``x0``, ``x1``, ``y0``, ``y1``: the x / y
+    extent of the occupied blocks' cells in volume coordinates, grown by one
+    cell, ``(b·8 − 1)/n − 0.5`` and ``(b·8 + 9)/n − 0.5`` in float32 with
+    1/n rounded once, and ±inf on a side whose block touches the volume's
+    face.  ``full``: the box is the whole volume.  An empty mip gives
+    ``empty`` = 1 and zeros.  Plain twin of ``csrc/occupied_box.cu``; the
+    result lies on the mip's device."""
+    nb = n // BLOCK
+    xg = -(-n // 256)
+    if tuple(coarse.shape) != coarse_shape(n):
+        raise ValueError(f"coarse must have shape {coarse_shape(n)}, got {tuple(coarse.shape)}")
+    box = np.zeros(BOX_WORDS, np.int32)
+    words = coarse.reshape(nb, xg, nb) != 0  # [z, x-group, y]
+    if not bool(words.any()):
+        box[0] = 1
+        return torch.from_numpy(box).to(coarse.device)
+    zs = torch.nonzero(words.any(2).any(1)).flatten()
+    ys = torch.nonzero(words.any(1).any(0)).flatten()
+    # The x-blocks: bit b of group g is block 32g + b.
+    bits = (coarse.to(torch.int64).reshape(nb, xg, nb, 1)
+            >> torch.arange(32, device=coarse.device)) & 1
+    xs = torch.nonzero(bits.amax(dim=(0, 2)).flatten()).flatten()
+    (xb0, xb1), (yb0, yb1) = (int(xs[0]), int(xs[-1])), (int(ys[0]), int(ys[-1]))
+    zmin, zmax = int(zs[0]), int(zs[-1])
+    full = (xb0, xb1, yb0, yb1, zmin, zmax) == (0, nb - 1, 0, nb - 1, 0, nb - 1)
+    inv_n, half, inf = np.float32(1.0 / n), np.float32(0.5), np.float32(np.inf)
+
+    def lo(b):
+        return -inf if b == 0 else np.float32(b * 8 - 1) * inv_n - half
+
+    def hi(b):
+        return inf if b == nb - 1 else np.float32(b * 8 + 9) * inv_n - half
+
+    box[:4] = (0, int(full), zmin, zmax)
+    box[4:] = np.array([lo(xb0), hi(xb1), lo(yb0), hi(yb1)], np.float32).view(np.int32)
+    return torch.from_numpy(box).to(coarse.device)
+
+
+def occupied_box_cuda(coarse: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`occupied_box` on the card (``csrc/occupied_box.cu``, one
+    block); ``coarse`` must be a contiguous, 16-byte aligned CUDA tensor.
+    K2's and K4's wrappers add to its count the launches of it that their
+    entry points report."""
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
+    box = torch.empty(BOX_WORDS, dtype=torch.int32, device=coarse.device)
+    err = kernels.library().ca3d_occupied_box(
+        coarse.device.index or 0, coarse.data_ptr(), n, box.data_ptr(),
+        kernels.stream_of(coarse))
+    kernels.check(err, "occupied_box")
+    occupied_box_cuda.launches += 1
+    return box
+
+
+occupied_box_cuda.launches = 0

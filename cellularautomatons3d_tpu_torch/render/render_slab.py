@@ -30,6 +30,11 @@ runs for CPU tensors and is the kernel's reference:
 * K2, occlusion (:func:`shadow_sweep` / :func:`shadow_sweep_cuda`,
   ``csrc/shadow_sweep.cu``): the default sweep backend of the reference's
   ``shadow_occlusion_batch``;
+
+each of K4 and K2 clipped on the card to the box of occupied blocks that a
+one-block kernel (``csrc/occupied_box.cu``, plain twin
+``ops.occupancy.occupied_box``) reduces from the mip just before it, in the
+same entry point; the plain versions clip nothing;
 * K5, multi-query occlusion (:func:`shadow_sweep_multi` /
   :func:`shadow_sweep_multi_cuda`, ``csrc/shadow_multi.cu``): the opt-in
   backend of ``shadow_occlusion_batch`` (``CA3D_OCC_SWEEP=0``), one
@@ -50,6 +55,7 @@ float64 rounded to float32, so the CPU and the card agree bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import NamedTuple
@@ -58,7 +64,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import coarse_occupancy, coarse_shape
+from ..ops.occupancy import BOX_WORDS, coarse_occupancy, coarse_shape, occupied_box_cuda
 from . import brdf
 from .intersect import (
     FULL_CUBE_SIZE,
@@ -166,14 +172,23 @@ def primary_sweep(vol, cam, ages=None, *, grid_size, width, height):
     return (t_hit, idx) if ages is None else (t_hit, idx, age)
 
 
+def _box_scratch(coarse):
+    """The 8 words K2's and K4's entry points have the box kernel
+    (``csrc/occupied_box.cu``) write before their own kernel reads them, and
+    the host int the entry point adds one to once it has launched it."""
+    return (torch.empty(BOX_WORDS, dtype=torch.int32, device=coarse.device),
+            ctypes.c_int(0))
+
+
 def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height):
     """K4 on the card (``csrc/primary_sweep.cu``): same contract as
     :func:`primary_sweep`; ``vol``, ``coarse`` and ``ages`` must be
-    contiguous CUDA tensors."""
+    contiguous CUDA tensors (``coarse`` 16-byte aligned).  Each call
+    launches the box kernel, then K4."""
     cam = _check_sliced(grid_size, width, height, cam)
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
-    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
     t = torch.empty((height, width), dtype=torch.float32, device=vol.device)
     idx = torch.empty((height, width), dtype=torch.int32, device=vol.device)
     age, age_bits = None, 0
@@ -182,12 +197,15 @@ def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height)
         age_bits = ages.shape[0]
         kernels.require(ages, "ages", torch.int32, (age_bits, n // 32, n, n))
         age = torch.empty((height, width), dtype=torch.int32, device=vol.device)
+    box, box_launches = _box_scratch(coarse)
     err = kernels.library().ca3d_primary_sweep_ages(
         vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width,
         height, cam.ctypes.data, t.data_ptr(), idx.data_ptr(),
         None if ages is None else ages.data_ptr(), age_bits,
-        None if age is None else age.data_ptr(), kernels.stream_of(vol),
+        None if age is None else age.data_ptr(), box.data_ptr(),
+        ctypes.byref(box_launches), kernels.stream_of(vol),
     )
+    occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "primary_sweep")
     primary_sweep_cuda.launches += 1
     return (t, idx) if ages is None else (t, idx, age)
@@ -321,22 +339,26 @@ def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
 def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
                       cell_half):
     """K2 on the card (``csrc/shadow_sweep.cu``): same contract as
-    :func:`shadow_sweep`; every tensor must be a contiguous CUDA tensor."""
+    :func:`shadow_sweep`; every tensor must be a contiguous CUDA tensor
+    (``coarse`` 16-byte aligned).  Each call launches the box kernel, then
+    K2."""
     n = grid_size
     nq, _, h, w = start.shape
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
-    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
     kernels.require(start, "start", torch.float32, (nq, 3, h, w))
     kernels.require(target, "target", torch.float32, (nq, 3, h, w))
     kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
     kernels.require(active, "active", torch.bool, (nq, h, w))
     out = torch.empty((nq, h, w), dtype=torch.int32, device=start.device)
+    box, box_launches = _box_scratch(coarse)
     err = kernels.library().ca3d_shadow_sweep(
         start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
-        excl.data_ptr(), active.data_ptr(), out.data_ptr(),
-        kernels.stream_of(start),
+        excl.data_ptr(), active.data_ptr(), out.data_ptr(), box.data_ptr(),
+        ctypes.byref(box_launches), kernels.stream_of(start),
     )
+    occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "shadow_sweep")
     shadow_sweep_cuda.launches += 1
     return out

@@ -33,9 +33,11 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       at 256³ / 512³ / 1024³ beside its plain version and beside the binary
       kernel on the same rule, K1 compose and K4 with and
       without ages on the same visibility plane, and step + frame of the
-      multi-state paths), beside the card's name and power limit, and each
-      kernel's bound from this run's inputs.  It runs last, after (e), (f),
-      (g) and (h).
+      multi-state paths; the box kernel at 256³, 512³ and 1024³; the floors
+      of K2, every lane inactive, and of K4, an empty volume; K2 and K4 where
+      the box is the whole volume, gen-230 at 256³ and gen-260 at 512³),
+      beside the card's name and power limit, and each kernel's bound from
+      this run's inputs.  It runs last, after (e) to (i).
   (e) the extended-lighting path: K2 (occlusion sweep) and K3 (cell
       state) vs their plain versions, equal on every (query, pixel), on
       the 8 occlusion queries (4 soft-shadow samples, 4 GI slots) and 4
@@ -94,6 +96,15 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       launch counter read around each (one multi-state step per generation,
       the binary step never), and on each scene a population above zero,
       every age 1..9 among the hit pixels and a hit share of 2 to 25 %.
+  (i) the occupied box (``csrc/occupied_box.cu``, launched inside K2's and
+      K4's entry points, which clip their sweeps to it): the box kernel vs
+      its plain twin on every scene of this run and on box-edge volumes at
+      256³, 512³ and 1024³ (an empty volume, a region at a corner touching
+      three faces, a slab on a face, a region at the centre off the block
+      grid, the whole volume), and on those volumes K4 vs plain from three
+      views at 480×270 (ids equal, t within 3e-5) and K2 vs plain on random
+      rays, half of them aimed through the region (flags equal, with every
+      lane inactive all 0).
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -314,7 +325,7 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
 
     # The Engine at full size.
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
-               rs.shadow_sweep_cuda, rs.cell_state_cuda)
+               rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda)
     launches, engines = {}, {}
     for name, (cfg, steps, fused, frames) in SLICED_ENGINES.items():
         for fn in counted:
@@ -329,11 +340,14 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
             need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
             need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
             need(float(f.max()) > 0.0, f"{name} frame {i} is black")
-        needed = ["fires_plane_cuda", "primary_sweep_cuda", "shadow_sweep_cuda"]
+        needed = ["fires_plane_cuda", "primary_sweep_cuda", "shadow_sweep_cuda",
+                  "occupied_box_cuda"]
         if cfg.get("indirect_lighting"):
             needed.append("cell_state_cuda")
         need(all(counts[k] > 0 for k in needed), f"{name} missed a kernel: {counts}")
         need(counts["raytrace_cuda"] == 0, f"{name} launched K1: {counts}")
+        need(counts["occupied_box_cuda"] == counts["primary_sweep_cuda"]
+             + counts["shadow_sweep_cuda"], f"{name}: one box launch per K2 / K4 launch: {counts}")
         hits = float((eng.history.hit_idx >= 0).float().mean())
         log(f"(f) {name}: step({steps}), render(), run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}; hit fraction {hits:.3f}")
@@ -341,6 +355,94 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
         engines[name] = (eng, frames)
     return dict(k4_max_abs_err=k4_err, plain_ms=plain_ms, launches=launches,
                 engines=engines, timed=timed_ops)
+
+
+# ---------------------------------------------- (i) the occupied box ---
+BOX_SIZES = (256, 512, 1024)
+BOX_WINDOW = (480, 270)
+
+
+def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes) -> dict:
+    """Phase (i): the box kernel against its plain twin on ``scenes`` ({tag:
+    (vol, coarse, n)}) and on the box-edge volumes, and K4 and K2 against
+    their plain versions on the box-edge volumes.  Returns the boxes."""
+    sys.path.insert(0, str(HERE / "tests"))
+    from _torch_box_scene import BOX_CASES, box_edge_volume
+
+    dev = torch.device("cuda", 0)
+    boxes = {}
+
+    def box_check(tag, coarse, n):
+        got = occupancy.occupied_box_cuda(coarse, n)
+        want = occupancy.occupied_box(coarse, n)
+        need(torch.equal(got, want), f"box kernel != plain on {tag}: {got.tolist()} "
+             f"!= {want.tolist()}")
+        b = got.tolist()
+        ext = np.array(b[4:], np.int32).view(np.float32).tolist()
+        boxes[tag] = dict(empty=b[0], full=b[1], zc=b[2:4], x=ext[:2], y=ext[2:])
+        return b
+
+    for tag, (vol, coarse, n) in scenes.items():
+        box_check(tag, coarse, n)
+        log(f"  box of {tag}: {boxes[tag]}")
+    k4_cmp = k2_cmp = 0
+    for n in BOX_SIZES:
+        for case in BOX_CASES:
+            words, region = box_edge_volume(n, case, n)
+            vol = to_dev(words)
+            coarse = occupancy.coarse_occupancy(vol)
+            tag = f"{n}^3 {case}"
+            b = box_check(tag, coarse, n)
+            need((b[0], b[1]) == (case == "empty", case == "full"), f"box of {tag}: {b}")
+            w, h = BOX_WINDOW
+            kw = dict(grid_size=n, width=w, height=h)
+            for name, view in views.items():
+                cam = scene_cam(view, w, h)
+                t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+                t_p, i_p = rs.primary_sweep(vol, cam, **kw)
+                bad = int((i_k != i_p).sum())
+                err = float((t_k - t_p).abs().max())
+                hits = int((i_p >= 0).sum())
+                need(bad == 0 and err <= DEPTH_ATOL,
+                     f"K4 {tag} {name}: {bad} ids differ, t error {err}")
+                need((hits > 0) == (case != "empty"), f"K4 {tag} {name}: {hits} hits")
+                k4_cmp += 1
+            # K2 on random rays: starts in [-0.7, 0.7]³ (inside and outside
+            # the box and the volume), half the rays aimed at the region's
+            # centre, the last query's rays half flat (dz == 0).
+            g = torch.Generator(dev).manual_seed(n + len(case))
+            rnd = lambda *s: torch.rand(*s, device=dev, generator=g)  # noqa: E731
+            nq, w, h = 3, 256, 128
+            start = rnd(nq, 3, h, w) * 1.4 - 0.7
+            target = rnd(nq, 3, h, w) * 2.0 - 1.0
+            if region is not None:
+                mid = torch.tensor([(a + c) / 2 / n - 0.5 for a, c in zip(*region)],
+                                   device=dev)[None, :, None, None]
+                target = torch.where(rnd(nq, 1, h, w) < 0.5, mid.expand_as(target), target)
+            target[-1, 2] = torch.where(rnd(h, w) < 0.5, start[-1, 2], target[-1, 2])
+            target = target.contiguous()
+            cell = torch.floor((start + 0.5) * n).to(torch.int32)
+            other = (rnd(nq, 3, h, w) * (n + 2) - 1).to(torch.int32)
+            excl = torch.where(rnd(nq, 1, h, w) < 0.5, cell, other).contiguous()
+            active = rnd(nq, h, w) < 0.7
+            kw2 = dict(grid_size=n, cell_half=float(np.float32(1.0 / n) * np.float32(0.85)
+                                                    * np.float32(0.5)))
+            got = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw2)
+            want = rs.shadow_sweep(vol, start, target, excl, active, **kw2)
+            bad = int((got != want).sum())
+            need(bad == 0, f"K2 {tag}: {bad} flags differ from the plain version")
+            need((int(want.sum()) > 0) == (case != "empty"), f"K2 {tag}: {int(want.sum())} occluded")
+            idle = rs.shadow_sweep_cuda(vol, coarse, start, target, excl,
+                                        torch.zeros_like(active), **kw2)
+            need(int(idle.abs().sum()) == 0, f"K2 {tag}: an inactive lane is not 0")
+            k2_cmp += 1
+            log(f"  box-edge {tag}: box {boxes[tag]}; K4 == plain from {len(views)} views, "
+                f"K2 == plain ({int(active.sum())} active, {int(want.sum())} occluded), "
+                f"idle K2 all 0")
+            del vol, coarse, words
+    log(f"(i) box kernel == plain on {len(boxes)} mips; K4 == plain on {k4_cmp} frames and "
+        f"K2 on {k2_cmp} batches of box-edge volumes at {BOX_SIZES}")
+    return boxes
 
 
 # ---------------------------------------------------------------- bounds ---
@@ -351,7 +453,10 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
 # peak rate (67 TFLOP/s float32 outside the tensor cores; int32 operations
 # are counted at that rate too, a lower bound).  Operations are counted from
 # the kernels' code, per lane and per 8-plane column that this run's rays
-# cross (from each ray's z extent); plane probes are not counted.
+# cross inside the box of occupied 8³ blocks (the box's columns and the
+# t-range of its x / y extent: nowhere else can a probe find a cell); plane
+# probes are not counted.  The sweeps' bytes count the mip once but not the
+# packed volume, of which they read only the words they probe.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 OPS_RAY = 40          # camera or occlusion ray set-up: normalise, slab exits
@@ -372,38 +477,60 @@ def bound(nbytes, ops):
             "bytes": float(nbytes), "ops": float(ops)}
 
 
-def columns_crossed(torch, dz, t0, t1, n, active):
-    """8-plane columns crossed by rays over [t0, t1], summed over active ones."""
-    span = (t1 - t0).clamp(min=0.0) * dz.abs() * (n / 8.0)
-    ok = active & torch.isfinite(span)
-    return float(torch.where(ok, torch.floor(span) + 1.0, 0.0).sum())
+def columns_in_box(torch, o, d, t0, t1, n, active, box):
+    """8-plane columns that the rays o + t·d (``o``, ``d``: (x, y, z)
+    tensors) cross over [t0, t1] inside the mip's occupied box (``box``: the
+    int32 [8] words of ``ops.occupancy.occupied_box``), summed over active
+    rays: the t-range clipped to the box's x / y extent and the columns to
+    [zc0, zc1], the only columns where a probe can find an occupied cell."""
+    b = box.cpu()
+    if int(b[0]):
+        return 0.0
+    ext = b[4:].view(torch.float32).tolist()
+    for (lo, hi), oi, di in zip((ext[:2], ext[2:]), o[:2], d[:2]):
+        ta, tb = (lo - oi) / di, (hi - oi) / di
+        ok = ~(torch.isnan(ta) | torch.isnan(tb))
+        t0 = torch.where(ok, torch.maximum(t0, torch.minimum(ta, tb)), t0)
+        t1 = torch.where(ok, torch.minimum(t1, torch.maximum(ta, tb)), t1)
+    ca = torch.floor((o[2] + t0 * d[2] + 0.5) * (n / 8.0))
+    cb = torch.floor((o[2] + t1 * d[2] + 0.5) * (n / 8.0))
+    cols = (torch.maximum(ca, cb).clamp(max=int(b[3]))
+            - torch.minimum(ca, cb).clamp(min=int(b[2])) + 1.0).clamp(min=0.0)
+    ok = active & (t0 <= t1) & torch.isfinite(cols)
+    return float(torch.where(ok, cols, 0.0).sum())
 
 
-def occlusion_work(torch, start, target, active, n, bytes_per_lane):
+def mip_bytes(n):
+    return (n // 8) ** 2 * 4 * -(-n // 256)
+
+
+def occlusion_work(torch, start, target, active, n, bytes_per_lane, box):
     """(bytes, ops) of K2 or K5 on stacked queries: active lanes read their
-    operands, every lane its active flag and its output; the volume and the
-    mip once."""
+    operands, every lane its active flag and its output, the mip once; the
+    ray set-up of the active lanes and the columns they cross inside the
+    box from their start to the volume's exit."""
     d = target - start
     d = d / torch.sqrt((d * d).sum(dim=1, keepdim=True))
     exits = torch.maximum((-0.5 - start) / d, (0.5 - start) / d)
     t1 = exits.amin(dim=1)
     lanes, act = active.numel(), int(active.sum())
-    cols = columns_crossed(torch, d[:, 2], torch.zeros_like(t1), t1, n, active)
-    nbytes = act * bytes_per_lane + lanes * 5 + n**3 / 8 + (n // 8) ** 2 * 4 * -(-n // 256)
-    return nbytes, act * OPS_RAY + cols * OPS_COLUMN
+    cols = columns_in_box(torch, start.unbind(1), d.unbind(1), torch.zeros_like(t1), t1, n,
+                          active, box)
+    return act * bytes_per_lane + lanes * 5 + mip_bytes(n), act * OPS_RAY + cols * OPS_COLUMN
 
 
-def primary_work(torch, rf, cam, n, w, h, t_hit, idx, dev):
-    """(active rays, columns crossed to the hit or the exit) of K1's or K4's
-    primary sweep."""
+def primary_work(torch, rf, cam, n, w, h, t_hit, idx, dev, box):
+    """(active rays, columns crossed inside the box to the hit or the exit)
+    of K1's or K4's primary sweep."""
     _, dx, dy, dz = rf._pixel_rays(cam, w, h, dev)
-    o = [float(cam[rf.P_O + i]) for i in range(3)]
-    slabs = [rf._vol_slab(torch.full_like(di, oi), di) for oi, di in zip(o, (dx, dy, dz))]
+    o = [torch.full_like(di, float(cam[rf.P_O + i])) for i, di in enumerate((dx, dy, dz))]
+    slabs = [rf._vol_slab(oi, di) for oi, di in zip(o, (dx, dy, dz))]
     tn = torch.maximum(torch.maximum(slabs[0][0], slabs[1][0]), slabs[2][0])
     tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
     active = (tn <= tf) & (tf >= 0.0)
     t_end = torch.where(idx >= 0, t_hit, tf)
-    return int(active.sum()), columns_crossed(torch, dz, tn.clamp(min=0.0), t_end, n, active)
+    return int(active.sum()), columns_in_box(torch, o, (dx, dy, dz), tn.clamp(min=0.0), t_end,
+                                             n, active, box)
 
 
 def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown,
@@ -572,7 +699,7 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
                      f"K5 64^3 {name}: frame cuda vs cpu max err {float((a - b).abs().max())}")
             log(f"  Engine {name} with CA3D_OCC_SWEEP=0 cuda == cpu at 64^3")
         counted = (rf.raytrace_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
-                   rs.shadow_sweep_multi_cuda, rs.cell_state_cuda)
+                   rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, rs.occupied_box_cuda)
         out["launches"], out["engines"] = {}, {}
         for name, cfg, steps, fused in (
             ("k5_full_quality", dict(grid_size=GRID, **LIGHTING), 80, 10),
@@ -845,7 +972,7 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
     # The path at full width.
     counted = (ca_step.step_packed_multistate_cuda, ca_step.age_masks_cuda,
                ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
-               rs.shadow_sweep_cuda, rs.cell_state_cuda)
+               rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda)
     out["launches"], out["engines"] = {}, {}
     for name, (cfg, fused, frames) in MS_ENGINES.items():
         for fn in counted:
@@ -885,7 +1012,11 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
         unused = ["raytrace_cuda"] if size > GRID else ["primary_sweep_cuda"]
         if cfg.get("indirect_lighting"):
             needed += ["shadow_sweep_cuda", "cell_state_cuda"]
+        if "shadow_sweep_cuda" in needed:
+            needed.append("occupied_box_cuda")
         need(all(counts[k] > 0 for k in needed), f"{name} missed a kernel: {counts}")
+        need(counts["occupied_box_cuda"] == counts["primary_sweep_cuda"]
+             + counts["shadow_sweep_cuda"], f"{name}: one box launch per K2 / K4 launch: {counts}")
         need(all(counts[k] == 0 for k in unused), f"{name} launched {unused}: {counts}")
         log(f"(h) {name}: step({steps}), render() x2, run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}")
@@ -951,6 +1082,8 @@ def multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms):
 
 def multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states) -> dict:
     """The bounds of the multi-state kernels from phase (h)'s inputs."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box
+
     dev = torch.device("cuda", 0)
     px = WIDTH * HEIGHT
     bounds = {}
@@ -975,25 +1108,26 @@ def multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states) -> dict:
     # plus the age words of each hit pixel (a 32-byte sector per plane).
     planes, vis, coarse, cam, hist, kw = ms["k1_timed"]
     _, depth, idx, _ = rf.raytrace_cuda(vis, coarse, cam, hist, **kw)
-    act, cols = primary_work(torch, rf, cam, GRID, WIDTH, HEIGHT, depth, idx, dev)
+    box = occupied_box(coarse, GRID)
+    act, cols = primary_work(torch, rf, cam, GRID, WIDTH, HEIGHT, depth, idx, dev, box)
     _, dx, dy, dz = rf._pixel_rays(cam, WIDTH, HEIGHT, dev)
     q = torch.stack([dx, dy, dz]) * depth + torch.tensor(
         cam[rf.P_O:rf.P_O + 3], device=dev)[:, None, None]
     light = torch.tensor(cam[rf.P_LIGHT:rf.P_LIGHT + 3], device=dev)[:, None, None]
     _, shadow_ops = occlusion_work(torch, q[None], light.expand_as(q)[None],
-                                   (idx >= 0)[None], GRID, 0)
+                                   (idx >= 0)[None], GRID, 0, box)
     hits = int((idx >= 0).sum())
     bounds["render_fast_ages"] = bound(
-        GRID**3 / 8 + (GRID // 8) ** 2 * 4 + px * 48 + hits * age_bits * 32,
+        mip_bytes(GRID) + px * 48 + hits * age_bits * 32,
         act * OPS_RAY + cols * OPS_COLUMN + hits * (OPS_SHADE + OPS_AGE) + shadow_ops)
     for size, (planes, vis, coarse, cam, _) in ms["k4_timed"].items():
         t4, i4, _ = rs.primary_sweep_cuda(vis, coarse, cam, planes, grid_size=size,
                                           width=WIDTH, height=HEIGHT)
-        act, cols = primary_work(torch, rf, cam, size, WIDTH, HEIGHT, t4, i4, dev)
+        act, cols = primary_work(torch, rf, cam, size, WIDTH, HEIGHT, t4, i4, dev,
+                                 occupied_box(coarse, size))
         hits = int((i4 >= 0).sum())
         bounds[f"primary_sweep_ages_{size}"] = bound(
-            size**3 / 8 + (size // 8) ** 2 * 4 * -(-size // 256) + px * 12
-            + hits * age_bits * 32,
+            mip_bytes(size) + px * 12 + hits * age_bits * 32,
             act * OPS_RAY + cols * OPS_COLUMN + hits * OPS_AGE)
     return bounds
 
@@ -1014,7 +1148,7 @@ def main() -> dict:
     )
     from cellularautomatons3d_tpu_torch import kernels
     from cellularautomatons3d_tpu_torch.models.automaton import AutomatonSpec
-    from cellularautomatons3d_tpu_torch.ops import ca_step
+    from cellularautomatons3d_tpu_torch.ops import ca_step, occupancy
     from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy, dilate_occupancy
     from cellularautomatons3d_tpu_torch.render import render_fast as rf
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
@@ -1320,7 +1454,7 @@ def main() -> dict:
 
     # The three lighting configurations at real size.
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.shadow_sweep_cuda,
-               rs.cell_state_cuda)
+               rs.cell_state_cuda, occupancy.occupied_box_cuda)
     lighting_launches, lighting_engines = {}, {}
     for name, variant in LIGHTING_VARIANTS.items():
         for fn in counted:
@@ -1337,6 +1471,8 @@ def main() -> dict:
             need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
             need(float(f.max()) > 0.0, f"{name} frame {i} is black")
         need(all(v > 0 for v in counts.values()), f"{name} missed a kernel: {counts}")
+        need(counts["occupied_box_cuda"] == counts["shadow_sweep_cuda"],
+             f"{name}: one box launch per K2 launch: {counts}")
         log(f"(e) {name}: step(80), render(), run_fused(50, reset_every=10) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}")
         lighting_launches[name] = counts
@@ -1360,6 +1496,25 @@ def main() -> dict:
                           scene_cam, views, lighting_operands, compare)
     report["multistate"] = {k: ms[k] for k in ("ms_cases", "k1_max_abs_err", "k1_id_mismatch",
                                                "k4_max_abs_err", "plain_ms", "launches")}
+
+    # ------------------------------------------------ (i) the occupied box ---
+    # The whole-box scenes: gen-230 at 256³ (K2) and gen-260 at 512³ (K4),
+    # where the structure reaches every face of the volume.
+    full_512 = grown(512, 260)
+    scenes = {
+        f"{GRID}^3 gen-80": (timed_k1[0], timed_k1[1], GRID),
+        f"{GRID}^3 gen-230": (multi["k1_timed"][230][0], multi["k1_timed"][230][1], GRID),
+        "512^3 gen-160": (*sliced["timed"][512][:2], 512),
+        "512^3 gen-260": (full_512, coarse_occupancy(full_512), 512),
+        "1024^3 gen-200": (*sliced["timed"][1024][:2], 1024),
+    }
+    boxes = box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes)
+    for tag in (f"{GRID}^3 gen-230", "512^3 gen-260"):
+        need(boxes[tag]["full"] == 1, f"the box of {tag} is not the whole volume: {boxes[tag]}")
+    for tag in (f"{GRID}^3 gen-80", "512^3 gen-160", "1024^3 gen-200"):
+        need(boxes[tag]["full"] == 0 and boxes[tag]["empty"] == 0,
+             f"the box of {tag} clips nothing: {boxes[tag]}")
+    report["boxes"] = boxes
 
     # -------------------------------------------------- (d) timings ---
     card = card_line()
@@ -1400,6 +1555,47 @@ def main() -> dict:
             vol, coarse, *k2, grid_size=size, cell_half=rs._cell_half(cam, size)),
             20, warmup=2)
     sliced_ms.update(sliced["plain_ms"])
+    # The box kernel alone; the floors of K4 (an empty volume: ray set-up and
+    # stores) and of K2 (every lane inactive); K4 and K2 where the box is the
+    # whole volume.
+    box_ms = {}
+    for tag, size in ((f"{GRID}^3 gen-80", GRID), ("512^3 gen-160", 512),
+                      ("1024^3 gen-200", 1024)):
+        c = scenes[tag][1]
+        box_ms[f"occupied_box_{size}_ms"] = cuda_ms(
+            torch, lambda: occupancy.occupied_box_cuda(c, size), 200, warmup=5)
+        box_ms[f"occupied_box_{size}_plain_ms"] = cuda_ms(
+            torch, lambda: occupancy.occupied_box(c, size), 5, warmup=1)
+    for size in (512, 1024):
+        empty = torch.zeros((size // 32, size, size), dtype=torch.int32, device=dev)
+        empty_coarse = coarse_occupancy(empty)
+        cam = sliced["timed"][size][2]
+        box_ms[f"k4_empty_{size}_ms"] = cuda_ms(torch, lambda: rs.primary_sweep_cuda(
+            empty, empty_coarse, cam, grid_size=size, width=WIDTH, height=HEIGHT), 50, warmup=3)
+        del empty
+    vol_f, coarse_f = scenes["512^3 gen-260"][:2]
+    cam = sliced["timed"][512][2]
+    t4f, i4f = rs.primary_sweep_cuda(vol_f, coarse_f, cam, grid_size=512, width=WIDTH,
+                                     height=HEIGHT)
+    t4p, i4p = rs.primary_sweep(vol_f, cam, grid_size=512, width=WIDTH, height=HEIGHT)
+    need(torch.equal(i4f, i4p) and float((t4f - t4p).abs().max()) <= DEPTH_ATOL,
+         "K4 != plain on the 512^3 gen-260 scene")
+    box_ms["k4_full_box_512_ms"] = cuda_ms(torch, lambda: rs.primary_sweep_cuda(
+        vol_f, coarse_f, cam, grid_size=512, width=WIDTH, height=HEIGHT), 20, warmup=2)
+    vol, coarse, cam, geo, k2, k3, kw = timed_k23
+    idle_ops = (*k2[:3], torch.zeros_like(k2[3]))
+    need(int(rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw).abs().sum()) == 0,
+         "K2 with every lane inactive is not all 0")
+    box_ms["k2_idle_ms"] = cuda_ms(
+        torch, lambda: rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw), 50, warmup=2)
+    vol_230, coarse_230 = scenes[f"{GRID}^3 gen-230"][:2]
+    _, _, cam_230, _, k2_230, _ = lighting_operands(GRID, WIDTH, HEIGHT, vol=vol_230)
+    kw_230 = dict(grid_size=GRID, cell_half=rs._cell_half(cam_230, GRID))
+    need(torch.equal(rs.shadow_sweep_cuda(vol_230, coarse_230, *k2_230, **kw_230),
+                     rs.shadow_sweep(vol_230, *k2_230, **kw_230)),
+         "K2 != plain on the gen-230 scene's 8 queries")
+    box_ms["k2_full_box_ms"] = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(
+        vol_230, coarse_230, *k2_230, **kw_230), 20, warmup=2)
     for size in (512, 1024):
         st_big = sliced["timed"][size][0]
         spec_big = AutomatonSpec.from_rule_strings(size)
@@ -1480,6 +1676,7 @@ def main() -> dict:
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
         "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms, **multi_ms, **ms_ms,
+        **box_ms,
     }
     report["timings"] = timings
     report["card"] = card
@@ -1501,29 +1698,31 @@ def main() -> dict:
                                              + rule_values * OPS_CA_RULE_VALUE))}
     vol, coarse, cam, hist, kw = timed_k1
     _, depth, idx, _ = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
-    act, cols = primary_work(torch, rf, cam, GRID, WIDTH, HEIGHT, depth, idx, dev)
+    box = occupancy.occupied_box(coarse, GRID)
+    act, cols = primary_work(torch, rf, cam, GRID, WIDTH, HEIGHT, depth, idx, dev, box)
     _, dx, dy, dz = rf._pixel_rays(cam, WIDTH, HEIGHT, dev)
     q = torch.stack([dx, dy, dz]) * depth + torch.tensor(
         cam[rf.P_O:rf.P_O + 3], device=dev)[:, None, None]
     light = torch.tensor(cam[rf.P_LIGHT:rf.P_LIGHT + 3], device=dev)[:, None, None]
     _, shadow_ops = occlusion_work(torch, q[None], light.expand_as(q)[None],
-                                   (idx >= 0)[None], GRID, 0)
+                                   (idx >= 0)[None], GRID, 0, box)
     hits, px = int((idx >= 0).sum()), WIDTH * HEIGHT
     bounds["render_fast"] = bound(
-        GRID**3 / 8 + (GRID // 8) ** 2 * 4 + px * 48,
+        mip_bytes(GRID) + px * 48,
         act * OPS_RAY + cols * OPS_COLUMN + hits * OPS_SHADE + shadow_ops)
     vol, coarse, cam, geo, k2, k3, kw = timed_k23
-    bounds["shadow_sweep"] = bound(*occlusion_work(torch, k2[0], k2[1], k2[3], GRID, 36))
+    bounds["shadow_sweep"] = bound(*occlusion_work(torch, k2[0], k2[1], k2[3], GRID, 36,
+                                                   occupancy.occupied_box(coarse, GRID)))
     act3 = int(k3[1].sum())
     bounds["cell_state"] = bound(act3 * 16 + k3[1].numel() * 5, act3 * 12)
     vol, coarse, cam, _ = sliced["timed"][512]
     t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=512, width=WIDTH, height=HEIGHT)
-    act, cols = primary_work(torch, rf, cam, 512, WIDTH, HEIGHT, t4, i4, dev)
-    bounds["primary_sweep"] = bound(512**3 / 8 + (512 // 8) ** 2 * 8 + px * 8,
-                                    act * OPS_RAY + cols * OPS_COLUMN)
-    _, _, _, k2_256, _, _ = multi["k5_timed"][GRID]
+    act, cols = primary_work(torch, rf, cam, 512, WIDTH, HEIGHT, t4, i4, dev,
+                             occupancy.occupied_box(coarse, 512))
+    bounds["primary_sweep"] = bound(mip_bytes(512) + px * 8, act * OPS_RAY + cols * OPS_COLUMN)
+    _, coarse, _, k2_256, _, _ = multi["k5_timed"][GRID]
     bounds["shadow_multi"] = bound(*occlusion_work(torch, k2_256[0], k2_256[1], k2_256[3],
-                                                   GRID, 28))
+                                                   GRID, 28, occupancy.occupied_box(coarse, GRID)))
     _, _, pre, cam, _, mask, _, _ = multi["k1_timed"][80]
     live = int(((mask != 0) & (mask != -1)).sum())
     bounds["prepass"] = bound((GRID // 8) ** 2 * 4 + mask.numel() * 4,
@@ -1533,16 +1732,35 @@ def main() -> dict:
         words = size**3 // 32
         bounds[f"ca_step_{size}"] = bound(8 * words, words / nw * bounds["ca_step"]["ops"])
     vol, coarse, cam, k2_512, _, _ = multi["k5_timed"][512]
+    box = occupancy.occupied_box(coarse, 512)
     bounds["shadow_sweep_512"] = bound(*occlusion_work(torch, k2_512[0], k2_512[1],
-                                                       k2_512[3], 512, 36))
+                                                       k2_512[3], 512, 36, box))
     bounds["shadow_multi_512"] = bound(*occlusion_work(torch, k2_512[0], k2_512[1],
-                                                       k2_512[3], 512, 28))
+                                                       k2_512[3], 512, 28, box))
     vol, coarse, cam, _ = sliced["timed"][1024]
     t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=1024, width=WIDTH, height=HEIGHT)
-    act, cols = primary_work(torch, rf, cam, 1024, WIDTH, HEIGHT, t4, i4, dev)
-    bounds["primary_sweep_1024"] = bound(1024**3 / 8 + (1024 // 8) ** 2 * 16 + px * 8,
+    act, cols = primary_work(torch, rf, cam, 1024, WIDTH, HEIGHT, t4, i4, dev,
+                             occupancy.occupied_box(coarse, 1024))
+    bounds["primary_sweep_1024"] = bound(mip_bytes(1024) + px * 8,
                                          act * OPS_RAY + cols * OPS_COLUMN)
     bounds.update(multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states))
+    # K2's hard-shadow query at 512³ and 1024³; the floors; the whole-box
+    # scenes; the box kernel (the mip read once, a few operations a word).
+    for size in (512, 1024):
+        _, coarse, _, hard = sliced["timed"][size]
+        bounds[f"shadow_sweep_hard_{size}"] = bound(*occlusion_work(
+            torch, hard[0], hard[1], hard[3], size, 36, occupancy.occupied_box(coarse, size)))
+        bounds[f"primary_sweep_empty_{size}"] = bound(px * 8, px * OPS_RAY)
+    for size in (GRID, 512, 1024):
+        bounds[f"occupied_box_{size}"] = bound(mip_bytes(size) + 32, mip_bytes(size) * 2)
+    bounds["occupied_box"] = bounds["occupied_box_512"]  # the row of the kernels line
+    bounds["shadow_sweep_idle"] = bound(k2[3].numel() * 5, 0)
+    bounds["shadow_sweep_full_box"] = bound(*occlusion_work(
+        torch, k2_230[0], k2_230[1], k2_230[3], GRID, 36, occupancy.occupied_box(coarse_230, GRID)))
+    act, cols = primary_work(torch, rf, sliced["timed"][512][2], 512, WIDTH, HEIGHT, t4f,
+                             i4f, dev, occupancy.occupied_box(coarse_f, 512))
+    bounds["primary_sweep_full_box_512"] = bound(mip_bytes(512) + px * 8,
+                                                 act * OPS_RAY + cols * OPS_COLUMN)
     report["bounds"] = bounds
 
     def entry(name, source, replaces, launches, err, ms, plain):
@@ -1581,6 +1799,10 @@ def main() -> dict:
               total("primary_sweep_cuda", *sliced_launches.values(), *ms_launches),
               max(sliced["k4_max_abs_err"], ms["k4_max_abs_err"]),
               sliced_ms["k4_512_ms"], sliced_ms["k4_512_plain_ms"]),
+        entry("occupied_box", "occupied_box.cu", "render/render_fast.py:1514",
+              total("occupied_box_cuda", *lighting_launches.values(),
+                    *sliced_launches.values(), *ms_launches),
+              0.0, box_ms["occupied_box_512_ms"], box_ms["occupied_box_512_plain_ms"]),
         entry("shadow_multi", "shadow_multi.cu", "render/render_slab.py:402", k5_launches,
               0.0, multi_ms[f"k5_{GRID}_ms"], multi_ms[f"k5_{GRID}_plain_ms"]),
         entry("prepass", "prepass.cu", "render/render_fast.py:889",

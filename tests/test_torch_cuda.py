@@ -19,6 +19,8 @@ from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
 from cellularautomatons3d_tpu_torch.render import render_fast as rf
 from cellularautomatons3d_tpu_torch.utils import mat4
 
+from _torch_box_scene import BOX_CASES, box_edge_volume
+
 pytestmark = pytest.mark.cuda
 
 N = 64
@@ -203,6 +205,113 @@ def test_k2_kernel_matches_plain_512(cuda):
     assert torch.equal(got, want)
     assert int(want.sum()) > 0
     assert not want[-1][target[-1, 2] == start[-1, 2]].any()
+
+
+def test_occupied_box_kernel_matches_plain(cuda):
+    """The box kernel (csrc/occupied_box.cu) against its plain twin on
+    empty, full and random mips and on mips with one block set, at every
+    x-group count (XG 1 to 4, 320³ and 480³ with a partial last group)."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_shape, occupied_box, occupied_box_cuda)
+
+    g = torch.Generator(cuda).manual_seed(3)
+    for n in (32, 64, 256, 320, 480, 512, 1024):
+        shape = coarse_shape(n)
+        mips = [torch.zeros(shape, dtype=torch.int32, device=cuda),
+                valid_mip_bits(n, cuda)]
+        for _ in range(24):
+            one = torch.zeros(shape, dtype=torch.int32, device=cuda)
+            z, row = (int(v) for v in torch.randint(0, 2**20, (2,), generator=g, device=cuda))
+            bit = int(torch.randint(0, 32, (1,), generator=g, device=cuda))
+            one[z % shape[0], row % shape[1]] = (1 << bit) - (1 << 32 if bit == 31 else 0)
+            mips.append(one & valid_mip_bits(n, cuda))
+        for p in (0.5, 0.01):
+            words = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=cuda,
+                                  generator=g)
+            keep = torch.rand(shape, device=cuda, generator=g) < p
+            mips.append(torch.where(keep, words, 0) & valid_mip_bits(n, cuda))
+        for mip in mips:
+            assert torch.equal(occupied_box_cuda(mip, n), occupied_box(mip, n)), n
+
+
+def valid_mip_bits(n, device):
+    """A mask of the mip bits that name a block of an n³ grid (the last
+    x-group of a grid that is not a multiple of 256 is partial)."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_shape
+
+    nb = n // 8
+    zc, cols = coarse_shape(n)
+    mask = torch.full((zc, cols // nb, nb), -1, dtype=torch.int32, device=device)
+    if nb % 32:
+        mask[:, -1] = (1 << (nb % 32)) - 1
+    return mask.reshape(zc, cols)
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+@pytest.mark.parametrize("case", BOX_CASES)
+@pytest.mark.parametrize("n", [64, 320, 512])
+def test_k4_box_edges_match_plain(cuda, n, case, view):
+    """K4 on volumes whose occupied box is empty, touches faces, sits off
+    the block grid or is the whole volume, from three views: the launch's
+    box equals the plain box, ids equal, t within 3e-5."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box, occupied_box_cuda
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol = ct.from_reference(box_edge_volume(n, case, n)[0], cuda)
+    coarse = coarse_occupancy(vol)
+    box = occupied_box_cuda(coarse, n)
+    assert torch.equal(box, occupied_box(coarse, n))
+    assert (int(box[0]), int(box[1])) == (case == "empty", case == "full")
+    w, h = 256, 128
+    cam = rf.pack_cam(VIEWS[view], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                      (0.17,) * 3, (0.0,) * 3)
+    kw = dict(grid_size=n, width=w, height=h)
+    boxes = occupied_box_cuda.launches
+    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    assert occupied_box_cuda.launches == boxes + 1  # as K4's entry point reports
+    t_p, i_p = rs.primary_sweep(vol, cam, **kw)
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
+    assert (int((i_p >= 0).sum()) > 0) == (case != "empty")
+
+
+@pytest.mark.parametrize("case", BOX_CASES)
+@pytest.mark.parametrize("n", [64, 320, 512])
+def test_k2_box_edges_match_plain(cuda, n, case):
+    """K2 on the same volumes: random starts inside and outside the box and
+    the volume, half the rays aimed through the occupied region, exclusions
+    as in K5's tests; flags equal the plain K2's, some rays that start
+    outside the box are occluded, and with every lane inactive all flags
+    are 0."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box_cuda
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    words, region = box_edge_volume(n, case, n + 1)
+    vol = ct.from_reference(words, cuda)
+    coarse = coarse_occupancy(vol)
+    start, target, excl, _, active = _k5_operands(cuda, n, 3, n)
+    if region is not None:
+        mid = torch.tensor([(a + b) / 2 / n - 0.5 for a, b in zip(*region)], device=cuda)
+        aim = torch.rand(start.shape[0], 1, *start.shape[2:], device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(n)) < 0.5
+        target = torch.where(aim, mid[None, :, None, None].expand_as(target), target)
+        target = target.contiguous()
+    cell_half = float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5))
+    kw = dict(grid_size=n, cell_half=cell_half)
+    boxes = occupied_box_cuda.launches
+    got = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    assert occupied_box_cuda.launches == boxes + 1  # as K2's entry point reports
+    want = rs.shadow_sweep(vol, start, target, excl, active, **kw)
+    assert torch.equal(got, want)
+    if region is not None:
+        lo = torch.tensor(region[0], device=cuda)[None, :, None, None] / n - 0.5
+        hi = torch.tensor(region[1], device=cuda)[None, :, None, None] / n - 0.5
+        outside = ((start < lo - 9 / n) | (start > hi + 9 / n)).any(dim=1)
+        assert int((want.bool() & outside).sum()) > 0
+    else:
+        assert int(want.sum()) == 0
+    idle = torch.zeros_like(active)
+    assert int(rs.shadow_sweep_cuda(vol, coarse, start, target, excl, idle, **kw).sum()) == 0
 
 
 @pytest.mark.parametrize(

@@ -15,8 +15,15 @@ its own kernels there) and times, with CUDA events after a warm-up, at
   ``no_sweep`` flag, also the split of compose mode: no sweep (ray set-up,
   composition, stores), ``shadow=False`` (plus the primary sweep) and full;
 * K2 (``render_slab.shadow_sweep_cuda``) on a full-quality frame's 8
-  occlusion queries at 256³, and K4 (``render_slab.primary_sweep_cuda``) at
-  512³ on the scene after 160 generations;
+  occlusion queries at 256³ on gen-80 and on gen-230 (whose box of occupied
+  blocks is the whole volume), with every lane inactive (its floor), and at
+  512³ on gen-160; its hard-shadow query at 512³ (gen-160) and 1024³
+  (gen-200);
+* K4 (``render_slab.primary_sweep_cuda``) at 512³ on gen-160, at 1024³ on
+  gen-200, at 512³ on gen-260 (whose box is the whole volume) and on an empty
+  volume at 512³ and 1024³ (its floor); where the tree has
+  ``ops.occupancy.occupied_box_cuda``, the box kernel alone at each size
+  (K2's and K4's times include its launch, as their wrappers make it);
 * the binary CA step at 256³, 512³ and 1024³ (default rule), the binary
   step on the ``pyroclastic`` preset's rule (Moore) at 1024³, and the
   multi-state step (both launches) at 1024³ on that preset (10 states) over
@@ -27,10 +34,11 @@ reads the host's enqueue rate there) and, under ``device_ms``, the kernels'
 own device time from a ``torch.profiler`` trace of the same calls.
 
 Before timing it checks that K1's ids equal its plain version's on both
-scenes and that both CA steps equal theirs at 256³, so a broken tree is not
-timed.  Prints one JSON line with the times, the hit counts, the registers
-and spills ``ptxas`` gave K1, K2, K4 and the CA step kernels, the label and
-the card, and appends it to ``--out``.  With ``--sass DIR`` it also writes
+scenes, that both CA steps equal theirs at 256³, and that K2's flags and
+K4's ids equal theirs on each scene they are timed on, so a broken tree is
+not timed.  Prints one JSON line with the times, the hit counts, the
+registers and spills ``ptxas`` gave K1, K2, K4, the box kernel and the CA
+step kernels, the label and the card, and appends it to ``--out``.  With ``--sass DIR`` it also writes
 ``cuobjdump -sass`` of the CA step kernels to ``DIR``.  Compare two trees by
 running them in turns in one call: parent, change, change, parent.
 """
@@ -45,7 +53,10 @@ import sys
 from pathlib import Path
 
 
-TIMED = ("render_kernel", "ca_step_kernel", "shadow_sweep_kernel", "primary_sweep_kernel")
+TIMED = ("render_kernel", "ca_step_kernel", "shadow_sweep_kernel", "primary_sweep_kernel",
+         "occupied_box_kernel")
+K2_KERNELS = ["shadow_sweep_kernel", "occupied_box_kernel"]
+K4_KERNELS = ["primary_sweep_kernel", "occupied_box_kernel"]
 
 
 def ptxas_report(log: str) -> dict:
@@ -159,6 +170,65 @@ def main():
         b.synchronize()
         return a.elapsed_time(b) / iters
 
+    lcam = rf.pack_cam(mat4.initial_view_matrix(), w, h, d.light.position, d.light.magnitude,
+                       d.cell_size, d.roughness, d.base_reflectivity, d.material_color,
+                       light_radius=0.08, elapsed_time=0.37)
+
+    def primary(vol_, coarse_, size, c):
+        if size <= 256:
+            _, depth, idx_ = rf.raytrace_cuda(vol_, coarse_, c, grid_size=size, width=w,
+                                              height=h, shadow=False)
+            return depth, idx_
+        return rs.primary_sweep_cuda(vol_, coarse_, c, grid_size=size, width=w, height=h)
+
+    def k2_operands(vol_, coarse_, size):
+        """K2's operands of a full-quality frame's 8 occlusion queries (4
+        soft-shadow samples, 4 GI slots), built as the port builds them."""
+        depth, idx_ = primary(vol_, coarse_, size, lcam)
+        geo = rs.hit_geometry(lcam, idx_, depth, grid_size=size, width=w, height=h)
+        queries, _, _ = rs.lighting_queries(lcam, *geo[:4], grid_size=size, width=w,
+                                            height=h, soft_k=4, gi=True)
+        return (rs.stack_occlusion_queries(queries, w, h),
+                dict(grid_size=size, cell_half=rs._cell_half(lcam, size)))
+
+    def hard_operands(vol_, coarse_, size):
+        """K2's operands of the sliced frame's hard-shadow query."""
+        depth, idx_ = rs.primary_sweep_cuda(vol_, coarse_, cam, grid_size=size, width=w,
+                                            height=h)
+        geo = rs.hit_geometry(cam, idx_, depth, grid_size=size, width=w, height=h)
+        queries, _, _ = rs.lighting_queries(cam, *geo[:4], grid_size=size, width=w,
+                                            height=h, soft_k=1)
+        return (rs.stack_occlusion_queries(queries, w, h),
+                dict(grid_size=size, cell_half=rs._cell_half(cam, size)))
+
+    def time_k2(tag, vol_, coarse_, ops, k2kw, check=True):
+        run = lambda: rs.shadow_sweep_cuda(vol_, coarse_, *ops, **k2kw)  # noqa: E731
+        if check and not torch.equal(
+                run(), rs.shadow_sweep(vol_, *ops, **k2kw)):
+            raise SystemExit(f"{label}: {tag}: K2 differs from its plain version")
+        out[f"{tag}_ms"] = ms(run, 50)
+        dev_ms[tag] = device_ms(run, K2_KERNELS)
+        out[f"{tag}_active"] = int(ops[3].sum())
+
+    def time_k4(tag, vol_, coarse_, size, check=True):
+        kw4 = dict(grid_size=size, width=w, height=h)
+        run = lambda: rs.primary_sweep_cuda(vol_, coarse_, cam, **kw4)  # noqa: E731
+        if check and not torch.equal(
+                run()[1], rs.primary_sweep(vol_, cam, **kw4)[1]):
+            raise SystemExit(f"{label}: {tag}: K4 differs from its plain version")
+        out[f"{tag}_ms"] = ms(run, 50 if size <= 512 else 20)
+        dev_ms[tag] = device_ms(run, K4_KERNELS)
+        out[f"{tag}_hits"] = int((run()[1] >= 0).sum())
+
+    def time_box(tag, coarse_, size):
+        from cellularautomatons3d_tpu_torch.ops import occupancy
+
+        if hasattr(occupancy, "occupied_box_cuda"):
+            run = lambda: occupancy.occupied_box_cuda(coarse_, size)  # noqa: E731
+            out[f"{tag}_ms"] = ms(run, 200)
+            dev_ms[tag] = device_ms(run, ["occupied_box_kernel"], 100)
+            out[f"{tag}_box"] = run().tolist()
+
     # The CA steps against their plain versions first.
     vol = ct.from_reference(ct.pack_grid(ct.seed_center(n)), dev)
     rng = np.random.default_rng(0)
@@ -209,6 +279,13 @@ def main():
         dev_ms[f"k1_noncompose_{g}"] = device_ms(
             lambda: rf.raytrace_cuda(vol, coarse, cam, **kw), ["render_kernel"])
         out[f"hit_pixels_{g}"] = int((idx >= 0).sum())
+        k2, k2kw = k2_operands(vol, coarse, n)
+        tag = "k2_8q_256" if steps == 80 else f"k2_8q_256_{g}"
+        time_k2(tag, vol, coarse, k2, k2kw)
+        if steps == 80:
+            idle = (*k2[:3], torch.zeros_like(k2[3]))
+            time_k2("k2_8q_256_idle", vol, coarse, idle, k2kw, check=False)
+        del k2
         if no_sweep:
             kw0 = dict(kw, shadow=False)
             out[f"k1_split_{g}_ms"] = {
@@ -228,38 +305,34 @@ def main():
             out["ca_step_256_ms"] = ms(lambda: ca_step.fires_plane_cuda(vol, spec), 1000, 20)
             dev_ms["ca_step_256"] = device_ms(lambda: ca_step.fires_plane_cuda(vol, spec),
                                               ["ca_step_kernel"], 100)
-            # K2 on a full-quality frame's 8 occlusion queries (4 soft-shadow
-            # samples, 4 GI slots), built as the port builds them.
-            lcam = rf.pack_cam(mat4.initial_view_matrix(), w, h, d.light.position,
-                               d.light.magnitude, d.cell_size, d.roughness,
-                               d.base_reflectivity, d.material_color, light_radius=0.08,
-                               elapsed_time=0.37)
-            _, depth, idx = rf.raytrace_cuda(vol, coarse, lcam, grid_size=n, width=w,
-                                             height=h, shadow=False)
-            geo = rs.hit_geometry(lcam, idx, depth, grid_size=n, width=w, height=h)
-            queries, _, _ = rs.lighting_queries(lcam, *geo[:4], grid_size=n, width=w,
-                                                height=h, soft_k=4, gi=True)
-            k2 = rs.stack_occlusion_queries(queries, w, h)
-            k2kw = dict(grid_size=n, cell_half=rs._cell_half(lcam, n))
-            out["k2_8q_256_ms"] = ms(lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **k2kw), 50)
-            dev_ms["k2_8q_256"] = device_ms(lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **k2kw),
-                                            ["shadow_sweep_kernel"])
-            del geo, queries, k2
-    for size, steps in ((512, 160), (1024, 0)):
+            time_box("box_256", coarse, n)
+    # The sliced sizes: K4 (and the hard-shadow K2) on the centre seed grown
+    # 160 generations at 512³, 260 at 512³ (the box is the whole volume) and
+    # 200 at 1024³; K4 on an empty volume; the CA step at 512³ on gen-160
+    # and at 1024³ on the seed.
+    for size, steps in ((512, 160), (512, 260), (1024, 200)):
         big_spec = AutomatonSpec.from_rule_strings(size)
         big = ct.from_reference(ct.pack_grid(ct.seed_center(size)), dev)
-        for _ in range(steps):
-            big = ca_step.fires_plane_cuda(big, big_spec)
-        out[f"ca_step_{size}_ms"] = ms(lambda: ca_step.fires_plane_cuda(big, big_spec), 50)
-        dev_ms[f"ca_step_{size}"] = device_ms(lambda: ca_step.fires_plane_cuda(big, big_spec),
-                                              ["ca_step_kernel"])
-        if size == 512:
-            big_coarse = coarse_occupancy(big)
-            out["k4_512_ms"] = ms(lambda: rs.primary_sweep_cuda(
-                big, big_coarse, cam, grid_size=size, width=w, height=h), 50)
-            dev_ms["k4_512"] = device_ms(lambda: rs.primary_sweep_cuda(
-                big, big_coarse, cam, grid_size=size, width=w, height=h), ["primary_sweep_kernel"])
+        for gen in range(steps + 1):
+            if (size, steps, gen) in ((512, 160, 160), (1024, 200, 0)):
+                out[f"ca_step_{size}_ms"] = ms(lambda: ca_step.fires_plane_cuda(big, big_spec), 50)
+                dev_ms[f"ca_step_{size}"] = device_ms(
+                    lambda: ca_step.fires_plane_cuda(big, big_spec), ["ca_step_kernel"])
+            if gen < steps:
+                big = ca_step.fires_plane_cuda(big, big_spec)
+        big_coarse = coarse_occupancy(big)
+        tag = f"k4_{size}" if steps != 260 else "k4_512_gen260"
+        time_k4(tag, big, big_coarse, size)
+        if steps != 260:
+            time_box(f"box_{size}", big_coarse, size)
+            time_k2(f"k2_hard_{size}", big, big_coarse, *hard_operands(big, big_coarse, size))
+        if size == 512 and steps == 160:
+            time_k2("k2_8q_512", big, big_coarse, *k2_operands(big, big_coarse, size))
         del big
+        if steps == 200 or steps == 160:
+            empty = torch.zeros((size // 32, size, size), dtype=torch.int32, device=dev)
+            time_k4(f"k4_{size}_empty", empty, coarse_occupancy(empty), size, check=False)
+            del empty
     big_spec = AutomatonSpec.from_rule_strings(1024, **pyro)
     planes = random_ages(1024, 2)
     out["ms_step_1024_ms"] = ms(
