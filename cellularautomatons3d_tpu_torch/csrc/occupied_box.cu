@@ -1,4 +1,4 @@
-// The occupied box of a coarse occupancy mip, once per launch of K2 or K4.
+// The occupied box of a coarse occupancy mip, once per launch of K2, K4 or K5.
 //
 // Replaces: the global occupied z-range of the reference's occupancy
 // rebuild (cellularautomatons3d_tpu/render/render_fast.py raytrace_tiles,
@@ -21,7 +21,7 @@
 // at 256^3, 6 us at 1024^3 on the H100.  A cluster of 8 blocks reducing
 // through distributed shared memory took 3.8 us at 1024^3 but 3.3 at 256^3,
 // where K2 runs every lighting frame; dropped (PERF.md §6).  Computed again
-// for each K2 and K4 launch: sharing one box across a sliced frame's K4 and
+// for each K2, K4 and K5 launch: sharing one box across a sliced frame's K4 and
 // K2 would save one such launch a frame.
 
 #include <cstdint>
@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(kThreads)
                         OccBox* __restrict__ out) {
   __shared__ uint32_t part_x[kWarps][kMaxGroups];
   __shared__ int part_r[kWarps][4];
-  // The K2 or K4 launch after this one may start now; it waits for this
+  // The K2, K4 or K5 launch after this one may start now; it waits for this
   // kernel's end before it reads the box (load_box).
   asm volatile("griddepcontrol.launch_dependents;");
   const int nb = n >> 3;

@@ -41,9 +41,10 @@
 // (~5 B), and the column tests and probes inside the box; the probes are L2
 // hits up to 512^3 and go to HBM when they miss L2 at 1024^3 (128 MiB).
 // About half of a frame's 8 queries at 256^3 is the floor of its idle
-// blocks, each a flag load and a store.  The queries of one pixel sharing a
-// traversal are K5 (shadow_multi.cu), the opt-in backend.  Left for later
-// PRs: the reference's start-column gate, and compacting the active lanes.
+// blocks, each a flag load and a store.  K5 (shadow_multi.cu), the opt-in
+// backend, runs the same sweep on operands it reads where the lighting code
+// leaves them.  Left for later PRs: the reference's start-column gate, and
+// compacting the active lanes.
 
 #include <cstdint>
 #include <cuda_runtime.h>

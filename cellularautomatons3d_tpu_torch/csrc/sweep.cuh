@@ -1,7 +1,7 @@
 // The plane-midpoint DDA sweep shared by K1 (render_fast.cu), K2
-// (shadow_sweep.cu) and K4 (primary_sweep.cu), its column and plane steps,
-// which K5 (shadow_multi.cu) runs for several queries at once, its float
-// helpers, the camera ray, and the age fetch of a primary hit (K1, K4).
+// (shadow_sweep.cu), K4 (primary_sweep.cu) and K5 (shadow_multi.cu), its
+// column and plane steps, its float helpers, the camera ray, and the age
+// fetch of a primary hit (K1, K4).
 //
 // Replaces: the sweep / fetch closures of
 // cellularautomatons3d_tpu/render/render_fast.py _make_traversal, which
@@ -31,15 +31,14 @@
 // more than a block's shared memory, and the sweep reads it from global
 // memory through the read-only path (GlobalMip): it is L2-resident.  K1
 // with a prepass mask gates its primary sweep's columns by the mask
-// instead (ColumnMask).  K1, K2 and K4 clip their sweeps to the box of
-// occupied blocks (OccBox, BoxClip): only the columns, and the t-range of
-// the box's x / y extent, where a probe could land in an occupied cell.
-// K1 and K4 sweep unclipped (NoClip) when the box is the whole volume, K2
-// clips there too, so its walk starts at its ray's start.  K1 reduces the box
-// in each block from its staged mip (stage_coarse_box); K2 and K4 read it
-// from a small device buffer that one launch of occupied_box.cu writes
-// before each of theirs (launch_occupied_box).  K5 visits every column
-// (NoClip).
+// instead (ColumnMask).  Every sweep clips to the box of occupied blocks
+// (OccBox, BoxClip): only the columns, and the t-range of the box's x / y
+// extent, where a probe could land in an occupied cell.  K1 and K4 sweep
+// unclipped (NoClip) when the box is the whole volume, K2 and K5 clip there
+// too, so their walk starts at the ray's start.  K1 reduces the box in each
+// block from its staged mip (stage_coarse_box); K2, K4 and K5 read it from
+// a small device buffer that one launch of occupied_box.cu writes before
+// each of theirs (launch_occupied_box).
 // The packed volume itself is read from global memory at every size: 2 MiB
 // at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
 // probes of occupied columns go to HBM.
@@ -335,10 +334,9 @@ struct ColumnMask {
 };
 
 // Which probed cell a sweep skips.  The primary sweep skips none; the
-// shadow sweeps skip their start cell, K1 and K2 component by component
-// (an out-of-range coordinate never matches a probe), K5 by packed id
-// x + y*n + z*n*n with -1 for an out-of-range cell (render_slab.py
-// shadow_occlusion_batch's exid), which matches the same probes.
+// shadow sweeps skip their start cell component by component (an
+// out-of-range coordinate never matches a probe; K5 passes -1 for a cell
+// with one, the reference's exid sentinel).
 struct NoExclusion {
   __device__ __forceinline__ bool operator()(int, int, int) const {
     return false;
@@ -348,12 +346,6 @@ struct CellExclusion {
   int x, y, z;
   __device__ __forceinline__ bool operator()(int cx, int cy, int k) const {
     return cx == x && cy == y && k == z;
-  }
-};
-struct IdExclusion {
-  int id, n;
-  __device__ __forceinline__ bool operator()(int cx, int cy, int k) const {
-    return cx + cy * n + k * n * n == id;
   }
 };
 

@@ -4,8 +4,10 @@ The sources are ``csrc/ca_step.cu`` (the CA step), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
 ``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
 ``csrc/prepass.cu`` (K6) and ``csrc/occupied_box.cu`` (the occupied box
-that K2's and K4's entry points enqueue before their kernels); all but the
-CA step and K3 share the traversal and float helpers in ``csrc/sweep.cuh``.
+that K2's, K4's and K5's entry points enqueue before their kernels); all but
+the CA step and K3 share the traversal and float helpers in
+``csrc/sweep.cuh``, and K5 and K3 read their per-query operands through the
+tables of ``csrc/queries.cuh``.
 At first use each source is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain
 C interface, loaded with :mod:`ctypes`; no PyTorch headers are involved,
@@ -50,7 +52,7 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "prepass.cu",
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
 )
-HEADERS = (PACKAGE_DIR / "csrc" / "sweep.cuh",)
+HEADERS = (PACKAGE_DIR / "csrc" / "sweep.cuh", PACKAGE_DIR / "csrc" / "queries.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -143,7 +145,7 @@ def library() -> ctypes.CDLL:
             _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _P,
         ]
         lib.ca3d_shadow_sweep.restype = _I
-        lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+        lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P]
         lib.ca3d_cell_state.restype = _I
         lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _IP, _P]
         lib.ca3d_primary_sweep.restype = _I
@@ -152,7 +154,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.ca3d_primary_sweep_ages.restype = _I
         lib.ca3d_shadow_multi.argtypes = [
-            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _IP, _P,
         ]
         lib.ca3d_shadow_multi.restype = _I
         lib.ca3d_prepass.argtypes = [_I, _P, _I, _I, _I, _P, _P, _P]

@@ -18,8 +18,9 @@ bytes followed by packing the block bits into words: a handful of launches
 per rebuild, which matters because the fused loop rebuilds it every frame.
 
 :func:`occupied_box` reduces a mip to the box of its occupied blocks, which
-K2 and K4 clip their sweeps to; on the card ``csrc/occupied_box.cu`` computes
-it (:func:`occupied_box_cuda`, and inside K2's and K4's entry points).
+K2, K4 and K5 clip their sweeps to; on the card ``csrc/occupied_box.cu``
+computes it (:func:`occupied_box_cuda`, and inside K2's, K4's and K5's entry
+points).
 """
 
 from __future__ import annotations
@@ -137,8 +138,8 @@ def occupied_box(coarse: torch.Tensor, n: int) -> torch.Tensor:
 def occupied_box_cuda(coarse: torch.Tensor, n: int) -> torch.Tensor:
     """:func:`occupied_box` on the card (``csrc/occupied_box.cu``, one
     block); ``coarse`` must be a contiguous, 16-byte aligned CUDA tensor.
-    K2's and K4's wrappers add to its count the launches of it that their
-    entry points report."""
+    K2's, K4's and K5's wrappers add to its count the launches of it that
+    their entry points report."""
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
     box = torch.empty(BOX_WORDS, dtype=torch.int32, device=coarse.device)
     err = kernels.library().ca3d_occupied_box(

@@ -30,18 +30,22 @@ runs for CPU tensors and is the kernel's reference:
 * K2, occlusion (:func:`shadow_sweep` / :func:`shadow_sweep_cuda`,
   ``csrc/shadow_sweep.cu``): the default sweep backend of the reference's
   ``shadow_occlusion_batch``;
-
-each of K4 and K2 clipped on the card to the box of occupied blocks that a
-one-block kernel (``csrc/occupied_box.cu``, plain twin
-``ops.occupancy.occupied_box``) reduces from the mip just before it, in the
-same entry point; the plain versions clip nothing;
 * K5, multi-query occlusion (:func:`shadow_sweep_multi` /
   :func:`shadow_sweep_multi_cuda`, ``csrc/shadow_multi.cu``): the opt-in
-  backend of ``shadow_occlusion_batch`` (``CA3D_OCC_SWEEP=0``), one
-  traversal per pixel serving up to ``CA3D_OCC_NQ`` queries; its flags equal
-  K2's;
+  backend of ``shadow_occlusion_batch`` (``CA3D_OCC_SWEEP=0``), up to
+  ``CA3D_OCC_NQ`` queries a launch; its flags equal K2's;
 * K3, cell state (:func:`cell_state` / :func:`cell_state_cuda`,
   ``csrc/cell_state.cu``).
+
+K4, K2 and K5 are clipped on the card to the box of occupied blocks that a
+one-block kernel (``csrc/occupied_box.cu``, plain twin
+``ops.occupancy.occupied_box``) reduces from the mip just before each of
+them, in the same entry point; the plain versions clip nothing.  K2 takes
+its queries stacked by :func:`stack_occlusion_queries`; K5 and K3 take each
+query's tensors where the lighting passes leave them (start, cells [H, W,
+3], a target [H, W, 3] or the light's [3], active [H, W]), through a table
+of pointers and strides (``csrc/queries.cuh``), and their plain versions
+take the same queries stacked.
 
 :func:`primary_hits`, :func:`shadow_occlusion_batch` and
 :func:`cell_state_batch` pick by device.
@@ -173,7 +177,7 @@ def primary_sweep(vol, cam, ages=None, *, grid_size, width, height):
 
 
 def _box_scratch(coarse):
-    """The 8 words K2's and K4's entry points have the box kernel
+    """The 8 words K2's, K4's and K5's entry points have the box kernel
     (``csrc/occupied_box.cu``) write before their own kernel reads them, and
     the host int the entry point adds one to once it has launched it."""
     return (torch.empty(BOX_WORDS, dtype=torch.int32, device=coarse.device),
@@ -369,7 +373,7 @@ shadow_sweep_cuda.launches = 0
 
 # -------------------------------------------- K5: multi-query occlusion ---
 
-MAX_MULTI_QUERIES = 8  # K5's largest batch (csrc/shadow_multi.cu)
+MAX_MULTI_QUERIES = 8  # queries per launch of K5 and K3 (csrc/queries.cuh)
 
 
 def pack_exclusion(excl, n):
@@ -390,28 +394,78 @@ def shadow_sweep_multi(vol, start, target, exid, active, *, grid_size,
     return _occlusion(vol, start, target, active, exid, grid_size, cell_half)
 
 
-def shadow_sweep_multi_cuda(vol, coarse, start, target, exid, active, *,
+def _pixel_operand(t, name, h, w, dtypes, shared=False):
+    """[pointer, pixel stride, component stride] of a per-query operand of
+    K5 or K3 (``csrc/queries.cuh``): a CUDA tensor [H, W, 3] whose pixel
+    (y, x) lies y·W + x pixel strides from its start (a contiguous tensor,
+    or a [3, H, W] slice seen as [H, W, 3]), or with ``shared`` one [3]
+    vector for every pixel (pixel stride 0)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    st = t.stride()
+    if shared and t.shape == (3,):
+        return [t.data_ptr(), 0, st[0]]
+    if t.shape != (h, w, 3) or st[0] != w * st[1]:
+        raise ValueError(f"{name} must be [{h}, {w}, 3]{' or [3]' if shared else ''} "
+                         f"with rows of {w} pixels, got shape {tuple(t.shape)} and "
+                         f"strides {st}")
+    return [t.data_ptr(), st[1], st[2]]
+
+
+def _mask_pointer(a, name, h, w):
+    """The address of a query's active mask, a contiguous CUDA bool [H, W]
+    tensor (checked by :func:`kernels.require` when it is not one)."""
+    if not (a.is_cuda and a.dtype == torch.bool and a.shape == (h, w) and a.is_contiguous()):
+        kernels.require(a, name, torch.bool, (h, w))
+    return a.data_ptr()
+
+
+def _query_table(rows):
+    """The int64 rows of K5's or K3's query table as a ctypes array."""
+    return (ctypes.c_longlong * len(rows))(*rows)
+
+
+_CELL_TYPES = (torch.int32, torch.int64)
+
+
+def shadow_sweep_multi_cuda(vol, coarse, start, target, excl, active, *,
                             grid_size, cell_half):
-    """K5 on the card (``csrc/shadow_multi.cu``): same contract as
-    :func:`shadow_sweep_multi`, one thread per pixel serving its ≤ 8
-    queries; every tensor must be a contiguous CUDA tensor."""
+    """K5 on the card (``csrc/shadow_multi.cu``): :func:`shadow_sweep_multi`'s
+    flags int32 [nq, H, W] of 1 to 8 queries given where the lighting passes
+    leave them: ``start``, ``target``, ``excl`` and ``active`` are
+    sequences of nq tensors (or tensors with nq rows), start f32 [H, W, 3],
+    target f32 [H, W, 3] or [3], excl int32 or int64 [H, W, 3] (the cell
+    the ray skips; none when a coordinate is outside [0, n), as
+    :func:`pack_exclusion` gives −1), active bool [H, W]; all CUDA tensors
+    (``vol`` and ``active`` contiguous, ``coarse`` 16-byte aligned), the
+    vector operands with rows of W pixels.  Each call launches the box
+    kernel, then K5."""
     n = grid_size
-    nq, _, h, w = start.shape
+    nq = len(start)
     if not 1 <= nq <= MAX_MULTI_QUERIES:
         raise ValueError(f"K5 takes 1 to {MAX_MULTI_QUERIES} queries, got {nq}")
+    if not len(target) == len(excl) == len(active) == nq:
+        raise ValueError("start, target, excl and active must hold one entry per query")
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
-    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n))
-    kernels.require(start, "start", torch.float32, (nq, 3, h, w))
-    kernels.require(target, "target", torch.float32, (nq, 3, h, w))
-    kernels.require(exid, "exid", torch.int32, (nq, h, w))
-    kernels.require(active, "active", torch.bool, (nq, h, w))
-    out = torch.empty((nq, h, w), dtype=torch.int32, device=start.device)
+    kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
+    h, w = active[0].shape
+    rows = []
+    for i in range(nq):
+        rows += _pixel_operand(start[i], f"start[{i}]", h, w, (torch.float32,))
+        rows += _pixel_operand(target[i], f"target[{i}]", h, w, (torch.float32,),
+                               shared=True)
+        rows += _pixel_operand(excl[i], f"excl[{i}]", h, w, _CELL_TYPES)
+        rows += [excl[i].dtype == torch.int64, _mask_pointer(active[i], f"active[{i}]", h, w)]
+    out = torch.empty((nq, h, w), dtype=torch.int32, device=vol.device)
+    box, box_launches = _box_scratch(coarse)
     err = kernels.library().ca3d_shadow_multi(
-        start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
-        float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
-        exid.data_ptr(), active.data_ptr(), out.data_ptr(),
-        kernels.stream_of(start),
+        vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
+        float(cell_half), w, h, nq, _query_table(rows), out.data_ptr(),
+        box.data_ptr(), ctypes.byref(box_launches), kernels.stream_of(vol),
     )
+    occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "shadow_multi")
     shadow_sweep_multi_cuda.launches += 1
     return out
@@ -444,12 +498,14 @@ def _occlusion_k2(prepped, ops, kw):
     return shadow_sweep_cuda(prepped.vol, prepped.coarse, *ops, **kw)
 
 
-def _occlusion_k5(prepped, ops, kw):
-    start, target, excl, active = ops
-    ops = (start, target, pack_exclusion(excl, kw["grid_size"]), active)
-    if start.device.type == "cpu":
-        return shadow_sweep_multi(prepped.vol, *ops, **kw)
-    return shadow_sweep_multi_cuda(prepped.vol, prepped.coarse, *ops, **kw)
+def _occlusion_k5(prepped, queries, kw, width, height):
+    """K5's flags of a chunk of queries: the kernel on the queries' own
+    tensors, or for CPU tensors the plain K5 on them stacked."""
+    if queries[0][0].device.type == "cpu":
+        start, target, excl, active = stack_occlusion_queries(queries, width, height)
+        exid = pack_exclusion(excl, kw["grid_size"])
+        return shadow_sweep_multi(prepped.vol, start, target, exid, active, **kw)
+    return shadow_sweep_multi_cuda(prepped.vol, prepped.coarse, *zip(*queries), **kw)
 
 
 def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
@@ -462,20 +518,23 @@ def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
     variables read on every call: by default every query goes to K2, here
     in one launch.  With ``CA3D_OCC_SWEEP`` other than ``1`` the batch is
     cut into chunks of ``CA3D_OCC_NQ`` (default 4) queries, and a chunk
-    goes to K5 (one traversal per pixel for the chunk's queries) unless it
-    holds one query and ``CA3D_OCC_NQ1_SWEEP`` is ``1`` (the default), when
-    it goes to K2.  Both give the same flags."""
-    ops = stack_occlusion_queries(queries, width, height)
+    goes to K5 (one launch for the chunk's queries) unless it holds one
+    query and ``CA3D_OCC_NQ1_SWEEP`` is ``1`` (the default), when
+    it goes to K2.  Both give the same flags.  K2 takes its queries stacked,
+    K5 as they are."""
     kw = dict(grid_size=grid_size, cell_half=_cell_half(cam, grid_size))
     if os.environ.get("CA3D_OCC_SWEEP", "1") == "1":
+        ops = stack_occlusion_queries(queries, width, height)
         return list(_occlusion_k2(prepped, ops, kw) == 1)
     nq_max = int(os.environ.get("CA3D_OCC_NQ", "4"))
     nq1_sweep = os.environ.get("CA3D_OCC_NQ1_SWEEP", "1") == "1"
     out = []
     for i in range(0, len(queries), nq_max):
-        chunk = [o[i : i + nq_max] for o in ops]
-        k2 = chunk[0].shape[0] == 1 and nq1_sweep
-        occ = (_occlusion_k2 if k2 else _occlusion_k5)(prepped, chunk, kw)
+        chunk = queries[i : i + nq_max]
+        if len(chunk) == 1 and nq1_sweep:
+            occ = _occlusion_k2(prepped, stack_occlusion_queries(chunk, width, height), kw)
+        else:
+            occ = _occlusion_k5(prepped, chunk, kw, width, height)
         out += list(occ == 1)
     return out
 
@@ -484,27 +543,37 @@ def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
 
 
 def cell_state(vol, coords, active, *, grid_size):
-    """Plain torch K3: int32 [nq, H, W] cell states ``state(max(c, 0) mod
-    n)`` at ``coords`` (int32 [nq, 3, H, W]); inactive lanes give 0."""
+    """Plain torch K3: uint8 [nq, H, W] cell states ``state(max(c, 0) mod
+    n)`` at ``coords`` (integer [nq, 3, H, W]); inactive lanes give 0."""
     n = grid_size
     x, y, z = (torch.clamp(coords, min=0) % n).unbind(1)
     word = vol.reshape(-1)[(((x >> 5) * n + z) * n + y).long()]
-    return torch.where(active, (word >> (x & 31)) & 1, 0).to(torch.int32)
+    return torch.where(active, (word >> (x & 31)) & 1, 0).to(torch.uint8)
 
 
 def cell_state_cuda(vol, coords, active, *, grid_size):
-    """K3 on the card (``csrc/cell_state.cu``): same contract as
-    :func:`cell_state`; every tensor must be a contiguous CUDA tensor."""
+    """K3 on the card (``csrc/cell_state.cu``): :func:`cell_state`'s states
+    uint8 [nq, H, W] of 1 to 8 lookups given where the lighting passes leave
+    them: ``coords`` and ``active`` are sequences of nq tensors (or tensors
+    with nq rows), coords int32 or int64 [H, W, 3] with rows of W pixels,
+    active bool [H, W]; all CUDA tensors (``vol`` and ``active``
+    contiguous)."""
     n = grid_size
-    nq, _, h, w = coords.shape
+    nq = len(coords)
+    if not 1 <= nq <= MAX_MULTI_QUERIES:
+        raise ValueError(f"K3 takes 1 to {MAX_MULTI_QUERIES} lookups, got {nq}")
+    if len(active) != nq:
+        raise ValueError("coords and active must hold one entry per lookup")
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
-    kernels.require(coords, "coords", torch.int32, (nq, 3, h, w))
-    kernels.require(active, "active", torch.bool, (nq, h, w))
-    out = torch.empty((nq, h, w), dtype=torch.int32, device=coords.device)
+    h, w = active[0].shape
+    rows = []
+    for i in range(nq):
+        rows += _pixel_operand(coords[i], f"coords[{i}]", h, w, _CELL_TYPES)
+        rows += [coords[i].dtype == torch.int64, _mask_pointer(active[i], f"active[{i}]", h, w)]
+    out = torch.empty((nq, h, w), dtype=torch.uint8, device=vol.device)
     err = kernels.library().ca3d_cell_state(
-        coords.device.index or 0, vol.data_ptr(), n, w, h, nq,
-        coords.data_ptr(), active.data_ptr(), out.data_ptr(),
-        kernels.stream_of(coords),
+        vol.device.index or 0, vol.data_ptr(), n, w, h, nq, _query_table(rows),
+        out.data_ptr(), kernels.stream_of(vol),
     )
     kernels.check(err, "cell_state")
     cell_state_cuda.launches += 1
@@ -515,8 +584,8 @@ cell_state_cuda.launches = 0
 
 
 def stack_cell_queries(queries, width, height):
-    """(coords, active) operands of K3 from a list of (coords [H, W, 3]
-    int, active [H, W] bool) queries."""
+    """(coords, active) operands of the plain K3 from a list of (coords
+    [H, W, 3] int, active [H, W] bool) queries."""
     coords = _stack3([c for c, _ in queries], (height, width, 3)).to(torch.int32)
     return coords, torch.stack([a for _, a in queries])
 
@@ -524,10 +593,13 @@ def stack_cell_queries(queries, width, height):
 def cell_state_batch(queries, prepped: Prepped, *, grid_size, width, height):
     """Cell states for a batch of per-pixel coordinate queries, in one
     launch.  ``queries``: list of (coords [H, W, 3] int, active [H, W]
-    bool).  Returns one int32 [H, W] state image per query."""
-    coords, active = stack_cell_queries(queries, width, height)
-    fn = cell_state if coords.device.type == "cpu" else cell_state_cuda
-    return list(fn(prepped.vol, coords, active, grid_size=grid_size))
+    bool).  Returns one uint8 [H, W] state image per query: K3 on the
+    queries' own tensors, or for CPU tensors the plain K3 on them stacked."""
+    if queries[0][0].device.type == "cpu":
+        coords, active = stack_cell_queries(queries, width, height)
+        return list(cell_state(prepped.vol, coords, active, grid_size=grid_size))
+    coords, active = zip(*queries)
+    return list(cell_state_cuda(prepped.vol, coords, active, grid_size=grid_size))
 
 
 # ------------------------------------------------------------ lighting ---

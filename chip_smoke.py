@@ -34,8 +34,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       kernel on the same rule, K1 compose and K4 with and
       without ages on the same visibility plane, and step + frame of the
       multi-state paths; the box kernel at 256³, 512³ and 1024³; the floors
-      of K2, every lane inactive, and of K4, an empty volume; K2 and K4 where
-      the box is the whole volume, gen-230 at 256³ and gen-260 at 512³),
+      of K2 and K5, every lane inactive, and of K4, an empty volume; K2, K5
+      and K4 where the box is the whole volume, gen-230 at 256³ and gen-260
+      at 512³),
       beside the card's name and power limit, and each kernel's bound from
       this run's inputs.  It runs last, after (e) to (i).
   (e) the extended-lighting path: K2 (occlusion sweep) and K3 (cell
@@ -54,7 +55,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       gen-160 scene and 1024³ / 1920×1080 on the gen-200 scene (the
       centre seed under the default rule); K2 vs plain on those frames'
       hard-shadow query and on a full-quality frame's 8 queries at 512³,
-      K3 on its 4 GI lookups, and the CA step at 512³ (gen-160) and 1024³
+      K3 on its 4 GI lookups and at 320³ on random lookups (coordinates at
+      -1, n and 2n + 3 among them, int32 and int64, a window of 481×270
+      pixels), and the CA step at 512³ (gen-160) and 1024³
       (gen-200) and on random words at both, over 5 generations, all
       equal; the Engine on the card vs on the CPU at 320³ / 64×32 for
       hard shadows and gi_temporal; then Engine(512, 1920×1080): step(160),
@@ -62,10 +65,14 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       step(200), render(), run_fused(5), and Engine(512) with soft shadows
       ×4, GI, light_radius 0.08 and gi_temporal, with every kernel's launch
       counter read around each.
-  (g) the opt-in paths: K5 (multi-query occlusion, CA3D_OCC_SWEEP=0) vs its
-      plain version and vs K2, bit for bit, on a full-quality frame's 8
-      queries (chunks of 4 and one launch of 8) at 64³ / 128×64, 256³ and
-      512³ / 1920×1080 and on random rays at 64³ and 512³; K6 (the patch
+  (g) the opt-in paths: K5 (multi-query occlusion, CA3D_OCC_SWEEP=0), on
+      each query's own tensors, vs its plain version and vs K2 on them
+      stacked, bit for bit, and all 0 with every lane inactive, on a
+      full-quality frame's 8 queries (chunks of 4 and one launch of 8) at
+      64³ / 128×64, 256³ (gen-80 and, in (d), gen-230), 512³ and 1024³ /
+      1920×1080 and on random rays at 64³ and 512³ (broadcast targets,
+      int64 cells, excluded cells at -1, n and 2n + 3), K3 on the same
+      frames' 4 GI lookups; K6 (the patch
       prepass) vs its plain version and K1 with its mask vs K1 without it
       (ids equal, depth and rgb within the contract, both modes) at 256³ /
       1080p on the gen-80 and the dense gen-230 scene from three views; the
@@ -75,7 +82,7 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       and K1's launch counters; the Engine with CA3D_OCC_SWEEP=0 on the card
       vs on the CPU at 64³ (full quality, two bounces), then Engine(256,
       1080p) full quality and two bounces and Engine(512) gi_temporal with
-      it, K5 launched and K2 not.
+      it, K5 launched and K2 not, one box launch per K5 and K4 launch.
 
   (h) the multi-state (Generations) path, on the `pyroclastic` preset (Moore
       B6-8/S4-7, 10 states = 4 age planes) grown from the random 5³ seed: the
@@ -102,9 +109,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       256³, 512³ and 1024³ (an empty volume, a region at a corner touching
       three faces, a slab on a face, a region at the centre off the block
       grid, the whole volume), and on those volumes K4 vs plain from three
-      views at 480×270 (ids equal, t within 3e-5) and K2 vs plain on random
-      rays, half of them aimed through the region (flags equal, with every
-      lane inactive all 0).
+      views at 480×270 (ids equal, t within 3e-5), K2 and K5 vs plain on
+      random rays, half of them aimed through the region (flags equal, with
+      every lane inactive all 0), and K3 vs plain on random lookups.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -201,6 +208,57 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def device_queries(torch, queries):
+    """Query tuples of numpy arrays (tests/_torch_query_scene.py) as CUDA
+    tensors."""
+    return [tuple(torch.from_numpy(a).to("cuda") for a in q) for q in queries]
+
+
+def k5_check(torch, rs, tag, vol, coarse, n, queries, cell_half):
+    """K5 on ``queries`` (each query's own tensors, as the lighting passes
+    leave them) in launches of 4, as the CA3D_OCC_SWEEP=0 dispatch runs
+    them, and in one launch, against the plain K5 and K2 on them stacked:
+    every (query, pixel) equal, and with every lane inactive all 0.
+    Returns (the plain flags, the plain K5's ms)."""
+    h, w = queries[0][3].shape
+    start, target, excl, active = rs.stack_occlusion_queries(queries, w, h)
+    kw = dict(grid_size=n, cell_half=cell_half)
+    got = torch.cat([rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries[i:i + 4]), **kw)
+                     for i in range(0, len(queries), 4)])
+    one = rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries), **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    want, ms = timed(torch, lambda: rs.shadow_sweep_multi(
+        vol, start, target, rs.pack_exclusion(excl, n), active, **kw))
+    idle = rs.shadow_sweep_multi_cuda(
+        vol, coarse, *zip(*[(s, t, e, torch.zeros_like(a)) for s, t, e, a in queries]), **kw)
+    bad = int((got != want).sum()) + int((one != want).sum())
+    bad_k2 = int((got != k2).sum())
+    log(f"  K5 {tag}: {len(queries)} queries, {int(active.sum())} active, {int(want.sum())} "
+        f"occluded, {bad} differ from plain, {bad_k2} from K2, plain {ms:.1f} ms")
+    need(bad == 0, f"K5 {tag}: {bad} flags differ from the plain version")
+    need(bad_k2 == 0, f"K5 {tag}: {bad_k2} flags differ from K2")
+    need(int(idle.abs().sum()) == 0, f"K5 {tag}: an inactive lane is not 0")
+    return want, ms
+
+
+def k3_check(torch, rs, tag, vol, n, lookups):
+    """K3 on ``lookups`` (each lookup's own coordinates and mask) against
+    the plain K3 on them stacked, every (query, pixel) equal, and with
+    every lane inactive all 0.  Returns the plain states."""
+    h, w = lookups[0][1].shape
+    coords, active = rs.stack_cell_queries(lookups, w, h)
+    got = rs.cell_state_cuda(vol, *zip(*lookups), grid_size=n)
+    want = rs.cell_state(vol, coords, active, grid_size=n)
+    idle = rs.cell_state_cuda(vol, [c for c, _ in lookups],
+                              [torch.zeros_like(a) for _, a in lookups], grid_size=n)
+    bad = int((got != want).sum())
+    log(f"  K3 {tag}: {len(lookups)} lookups, {int(active.sum())} active, "
+        f"{int(want.sum())} live, {bad} differ")
+    need(bad == 0, f"K3 {tag}: {bad} states differ from the plain version")
+    need(int(idle.sum()) == 0, f"K3 {tag}: an inactive lane is not 0")
+    return want
+
+
 SLICED_SMALL = dict(grid_size=320, width=64, height=32)
 SLICED_ENGINES = {
     # name: (Engine overrides, warm-up steps, run_fused kwargs, timed frames)
@@ -256,6 +314,14 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
     for name, view in views.items():
         k4_check(f"320^3 480x270 random {name}", vol, coarse, scene_cam(view, 480, 270),
                  320, 480, 270)
+    # K3 at 320³ with coordinates in [-3, 2n + 5], a quarter exactly -1, n or
+    # 2n + 3, int32 and int64, on a window whose pixel count is not a
+    # multiple of 8.
+    from _torch_query_scene import cell_queries
+
+    want3 = k3_check(torch, rs, "320^3 481x270 random lookups", vol, 320,
+                     device_queries(torch, cell_queries(320, 4, 270, 481, seed=320)))
+    need(int(want3.sum()) > 0, "K3 320^3: no live cell found")
 
     # K4 and the hard-shadow K2 query at 512³ and 1024³ / 1080p.
     timed_ops = {}
@@ -276,16 +342,11 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
         del q, origin, coords, found, queries
 
     # K2 and K3 on a full-quality frame at 512³, the CA step at 512³.
-    vol, coarse, cam, _, k2, k3 = lighting_operands(512, WIDTH, HEIGHT, steps=160)
+    vol, coarse, cam, _, k2, _, _, lookups = lighting_operands(512, WIDTH, HEIGHT, steps=160)
     k2_check("512^3 full quality", vol, coarse, cam, 512, k2)
-    got3 = rs.cell_state_cuda(vol, *k3, grid_size=512)
-    want3 = rs.cell_state(vol, *k3, grid_size=512)
-    k3_bad = int((got3 != want3).sum())
-    log(f"  K3 512^3 full quality: {k3[0].shape[0]} queries, {int(k3[1].sum())} active, "
-        f"{int(want3.sum())} live, {k3_bad} differ")
-    need(k3_bad == 0, f"K3 512^3: {k3_bad} states differ from the plain version")
+    want3 = k3_check(torch, rs, "512^3 full quality", vol, 512, lookups)
     need(int(want3.sum()) > 0, "K3 512^3: no live neighbour found")
-    del k2, k3, got3, want3
+    del k2, lookups, want3
     # The CA step at both sizes the Engines below run it at: the grown
     # scenes, and random words whose cells reach the boundary.
     g = torch.Generator(dev).manual_seed(11)
@@ -364,10 +425,11 @@ BOX_WINDOW = (480, 270)
 
 def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes) -> dict:
     """Phase (i): the box kernel against its plain twin on ``scenes`` ({tag:
-    (vol, coarse, n)}) and on the box-edge volumes, and K4 and K2 against
-    their plain versions on the box-edge volumes.  Returns the boxes."""
-    sys.path.insert(0, str(HERE / "tests"))
+    (vol, coarse, n)}) and on the box-edge volumes, and K4, K2, K5 and K3
+    against their plain versions on the box-edge volumes.  Returns the
+    boxes."""
     from _torch_box_scene import BOX_CASES, box_edge_volume
+    from _torch_query_scene import cell_queries, occlusion_queries
 
     dev = torch.device("cuda", 0)
     boxes = {}
@@ -436,12 +498,23 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes) -> dic
                                         torch.zeros_like(active), **kw2)
             need(int(idle.abs().sum()) == 0, f"K2 {tag}: an inactive lane is not 0")
             k2_cmp += 1
+            # K5 on queries as the lighting passes leave them (broadcast
+            # targets, int64 cells, excluded cells outside the volume), half
+            # the rays aimed through the region; K3 on random lookups.
+            queries = device_queries(torch, occlusion_queries(n, 4, h, w, seed=n + len(case),
+                                                              region=region))
+            want5, _ = k5_check(torch, rs, tag, vol, coarse, n, queries, kw2["cell_half"])
+            need((int(want5.sum()) > 0) == (case != "empty"),
+                 f"K5 {tag}: {int(want5.sum())} occluded")
+            want3 = k3_check(torch, rs, tag, vol, n, device_queries(
+                torch, cell_queries(n, 4, h, w, seed=n + len(case))))
+            need(case != "empty" or int(want3.sum()) == 0, f"K3 {tag}: a live cell")
             log(f"  box-edge {tag}: box {boxes[tag]}; K4 == plain from {len(views)} views, "
                 f"K2 == plain ({int(active.sum())} active, {int(want.sum())} occluded), "
                 f"idle K2 all 0")
             del vol, coarse, words
     log(f"(i) box kernel == plain on {len(boxes)} mips; K4 == plain on {k4_cmp} frames and "
-        f"K2 on {k2_cmp} batches of box-edge volumes at {BOX_SIZES}")
+        f"K2, K5 and K3 on {k2_cmp} batches of box-edge volumes at {BOX_SIZES}")
     return boxes
 
 
@@ -519,6 +592,24 @@ def occlusion_work(torch, start, target, active, n, bytes_per_lane, box):
     return act * bytes_per_lane + lanes * 5 + mip_bytes(n), act * OPS_RAY + cols * OPS_COLUMN
 
 
+def in_place_bytes(queries):
+    """Bytes K5 reads for its active lanes from the queries' own tensors:
+    the start, a per-pixel target (a shared [3] one once a block, not
+    counted), the excluded cell at its element size."""
+    return sum(int(a.sum()) * (12 + (12 if t.dim() == 3 else 0) + 3 * e.element_size())
+               for _, t, e, a in queries)
+
+
+def lookup_work(lookups):
+    """(bytes, ops) of K3 on its lookups: every lane's flag and state (1 B
+    each), the coordinates of the active lanes at their element size and
+    the word each gathers, a few operations per active lane."""
+    act = [int(a.sum()) for _, a in lookups]
+    nbytes = sum(a.numel() * 2 for _, a in lookups) + sum(
+        n * (3 * c.element_size() + 4) for (c, _), n in zip(lookups, act))
+    return nbytes, sum(act) * 12
+
+
 def primary_work(torch, rf, cam, n, w, h, t_hit, idx, dev, box):
     """(active rays, columns crossed inside the box to the hit or the exit)
     of K1's or K4's primary sweep."""
@@ -535,45 +626,32 @@ def primary_work(torch, rf, cam, n, w, h, t_hit, idx, dev, box):
 
 def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown,
                 scene_cam, views, lighting_operands, compare, to_dev) -> dict:
-    """Phase (g): K5 against plain K5 and K2, K6 against plain K6, K1 with
+    """Phase (g): K5 against plain K5 and K2 (and K3 against plain K3 on
+    the same frames), K6 against plain K6, K1 with
     the prepass mask against K1 without it, the prepass frame path and the
     Engine with CA3D_OCC_SWEEP=0 with their launch counters.  Returns what
     (d) times and reports."""
     dev = torch.device("cuda", 0)
-    out = {"k5_timed": {}, "k1_timed": {}}
+    out = {"k5_timed": {}, "k1_timed": {}, "k3_bounds": {}}
 
-    def k5_check(tag, vol, coarse, size, ops, cell_half):
-        start, target, excl, active = ops
-        exid = rs.pack_exclusion(excl, size)
-        kw = dict(grid_size=size, cell_half=cell_half)
-        nq = start.shape[0]
-        chunks = [rs.shadow_sweep_multi_cuda(vol, coarse, start[i:i + 4], target[i:i + 4],
-                                             exid[i:i + 4], active[i:i + 4], **kw)
-                  for i in range(0, nq, 4)]
-        got = torch.cat(chunks)
-        one = rs.shadow_sweep_multi_cuda(vol, coarse, start, target, exid, active, **kw)
-        k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
-        want, ms = timed(torch, lambda: rs.shadow_sweep_multi(vol, start, target, exid,
-                                                              active, **kw))
-        bad = int((got != want).sum()) + int((one != want).sum())
-        bad_k2 = int((got != k2).sum())
-        log(f"  K5 {tag}: {nq} queries, {int(active.sum())} active, {int(want.sum())} "
-            f"occluded, {bad} differ from plain, {bad_k2} from K2, plain {ms:.1f} ms")
-        need(bad == 0, f"K5 {tag}: {bad} flags differ from the plain version")
-        need(bad_k2 == 0, f"K5 {tag}: {bad_k2} flags differ from K2")
-        need(int(want.sum()) > 0, f"K5 {tag}: nothing is occluded")
-        return exid, ms
+    # K5 on a full-quality frame's 8 queries (in launches of 4, as the
+    # dispatch runs them, and in one launch of 8) and K3 on its 4 lookups,
+    # and on random rays.
+    from _torch_query_scene import occlusion_queries
 
-    # K5 on a full-quality frame's 8 queries (in chunks of 4, as the
-    # dispatch runs them, and in one launch of 8), and on random rays.
     for size, w, h, steps in ((64, 128, 64, 80), (256, WIDTH, HEIGHT, 80),
-                              (512, WIDTH, HEIGHT, 160)):
-        vol, coarse, cam, _, k2, _ = lighting_operands(size, w, h, steps=steps)
+                              (512, WIDTH, HEIGHT, 160), (1024, WIDTH, HEIGHT, 200)):
+        vol, coarse, cam, _, k2, _, queries, lookups = lighting_operands(size, w, h, steps=steps)
         tag = f"{size}^3 {w}x{h} gen-{steps} full quality"
-        exid, ms = k5_check(tag, vol, coarse, size, k2, rs._cell_half(cam, size))
+        want, ms = k5_check(torch, rs, tag, vol, coarse, size, queries, rs._cell_half(cam, size))
+        need(int(want.sum()) > 0, f"K5 {tag}: nothing is occluded")
+        want3 = k3_check(torch, rs, tag, vol, size, lookups)
+        need(int(want3.sum()) > 0, f"K3 {tag}: no live neighbour found")
         if w == WIDTH:
-            out["k5_timed"][size] = (vol, coarse, cam, k2, exid, ms)
-    g = torch.Generator(dev).manual_seed(17)
+            out["k3_bounds"][size] = bound(*lookup_work(lookups))
+        if w == WIDTH and size <= 512:
+            out["k5_timed"][size] = (vol, coarse, cam, k2, queries, ms)
+        del want, want3, lookups
     for size in (64, 512):
         rng = np.random.default_rng(size)
         words = np.zeros((size // 32) * size * size, np.uint32)
@@ -581,18 +659,12 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
         np.bitwise_or.at(words, rng.integers(0, words.size, k),
                          np.uint32(1) << rng.integers(0, 32, k).astype(np.uint32))
         vol = to_dev(words.reshape(size // 32, size, size))
-        nq, w, h = 3, 256, 128
-        rnd = lambda *s: torch.rand(*s, device=dev, generator=g)  # noqa: E731
-        start = rnd(nq, 3, h, w) * 1.4 - 0.7
-        target = rnd(nq, 3, h, w) * 2.0 - 1.0
-        target[-1, 2] = torch.where(rnd(h, w) < 0.5, start[-1, 2], target[-1, 2])
-        cell = torch.floor((start + 0.5) * size).to(torch.int32)
-        other = (rnd(nq, 3, h, w) * (size + 2) - 1).to(torch.int32)
-        excl = torch.where(rnd(nq, 1, h, w) < 0.5, cell, other).contiguous()
-        active = rnd(nq, h, w) < 0.7
         half = float(np.float32(1.0 / size) * np.float32(0.85) * np.float32(0.5))
-        k5_check(f"{size}^3 random rays", vol, coarse_occupancy(vol), size,
-                 (start, target, excl, active), half)
+        queries = device_queries(torch, occlusion_queries(size, 3, 128, 256, seed=size))
+        want, _ = k5_check(torch, rs, f"{size}^3 random rays", vol, coarse_occupancy(vol), size,
+                           queries, half)
+        need(int(want.sum()) > 0, f"K5 {size}^3 random rays: nothing is occluded")
+    g = torch.Generator(dev).manual_seed(17)
 
     # K6 against plain K6, and K1 with the prepass mask against K1 without
     # it, at 256³ / 1080p on the main path's gen-80 scene and the dense
@@ -722,6 +794,9 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
             need(counts["shadow_sweep_multi_cuda"] > 0, f"{name}: K5 never ran: {counts}")
             need(counts["shadow_sweep_cuda"] == 0, f"{name}: K2 ran: {counts}")
             need(counts["cell_state_cuda"] > 0, f"{name}: K3 never ran: {counts}")
+            need(counts["occupied_box_cuda"] == counts["shadow_sweep_multi_cuda"]
+                 + counts["primary_sweep_cuda"], f"{name}: one box launch per K5 / K4 launch: "
+                 f"{counts}")
             log(f"(g) {name}: step({steps}), render(), run_fused({fused}) in "
                 f"{time.perf_counter() - t0:.2f} s; launches {counts}")
             out["launches"][name] = counts
@@ -882,18 +957,16 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
     out["k1_max_abs_err"], out["k1_id_mismatch"] = k1_err, k1_frac
 
     # K2 and K3 on a full-quality frame's queries of the multi-state scene.
-    vol, coarse, cam, _, k2, k3 = lighting_operands(GRID, WIDTH, HEIGHT, vol=vis)
+    vol, coarse, cam, _, k2, _, _, lookups = lighting_operands(GRID, WIDTH, HEIGHT, vol=vis)
     kw23 = dict(grid_size=GRID, cell_half=rs._cell_half(cam, GRID))
     k2_bad = int((rs.shadow_sweep_cuda(vol, coarse, *k2, **kw23)
                   != rs.shadow_sweep(vol, *k2, **kw23)).sum())
-    want3 = rs.cell_state(vol, *k3, grid_size=GRID)
-    k3_bad = int((rs.cell_state_cuda(vol, *k3, grid_size=GRID) != want3).sum())
     log(f"  multi-state scene {GRID}^3: K2 {k2[0].shape[0]} queries, {int(k2[3].sum())} "
-        f"active, {k2_bad} differ; K3 {int(k3[1].sum())} active, {int(want3.sum())} live, "
-        f"{k3_bad} differ")
-    need(k2_bad == 0 and k3_bad == 0, "K2 or K3 != plain on the multi-state scene")
+        f"active, {k2_bad} differ")
+    need(k2_bad == 0, "K2 != plain on the multi-state scene")
+    want3 = k3_check(torch, rs, f"multi-state scene {GRID}^3", vol, GRID, lookups)
     need(int(want3.sum()) > 0, "K3 on the multi-state scene: no neighbour found")
-    del vol, k2, k3, want3
+    del vol, k2, lookups, want3
 
     # K4 with ages: ids and ages equal, t within tolerance.
     k4_err = 0.0
@@ -1146,6 +1219,7 @@ def main() -> dict:
         Path(ct.__file__).resolve().parent.parent == HERE,
         f"imported {ct.__file__}, not the package beside this script",
     )
+    sys.path.insert(1, str(HERE / "tests"))  # the box-edge and query scenes
     from cellularautomatons3d_tpu_torch import kernels
     from cellularautomatons3d_tpu_torch.models.automaton import AutomatonSpec
     from cellularautomatons3d_tpu_torch.ops import ca_step, occupancy
@@ -1391,9 +1465,11 @@ def main() -> dict:
 
     # --------------------------------- (e) extended lighting: K2 and K3 ---
     def lighting_operands(size, w, h, steps=80, vol=None):
-        """K2's and K3's operands of a full-quality frame, as the port
-        builds them: 4 soft-shadow samples + 4 GI slots, 4 GI lookups; of
-        the centre seed after ``steps`` generations, or of ``vol``."""
+        """The occlusion queries and GI lookups of a full-quality frame, as
+        the port builds them: 4 soft-shadow samples + 4 GI slots, 4 GI
+        lookups; of the centre seed after ``steps`` generations, or of
+        ``vol``.  Returns (vol, coarse, cam, geo, K2's stacked operands, the
+        plain K3's stacked operands, the queries, the lookups)."""
         vol = grown(size, steps) if vol is None else vol
         coarse = coarse_occupancy(vol)
         cam = scene_cam(views["front"], w, h, light_radius=LIGHTING["light_radius"],
@@ -1409,16 +1485,17 @@ def main() -> dict:
         queries, slots, _ = rs.lighting_queries(
             cam, q, origin, coords, found, grid_size=size, width=w, height=h,
             soft_k=LIGHTING["soft_shadow_samples"], gi=True)
+        lookups = [(sl[0], sl[3]) for sl in slots]
         k2 = rs.stack_occlusion_queries(queries, w, h)
-        k3 = rs.stack_cell_queries([(sl[0], sl[3]) for sl in slots], w, h)
-        return vol, coarse, cam, (q, origin, coords, found), k2, k3
+        k3 = rs.stack_cell_queries(lookups, w, h)
+        return vol, coarse, cam, (q, origin, coords, found), k2, k3, queries, lookups
 
     for size, w, h in ((64, 128, 64), (GRID, WIDTH, HEIGHT)):
-        vol, coarse, cam, geo, k2, k3 = lighting_operands(size, w, h)
+        vol, coarse, cam, geo, k2, k3, _, lookups = lighting_operands(size, w, h)
         kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
         got = rs.shadow_sweep_cuda(vol, coarse, *k2, **kw)
         want = rs.shadow_sweep(vol, *k2, **kw)
-        got3 = rs.cell_state_cuda(vol, *k3, grid_size=size)
+        got3 = rs.cell_state_cuda(vol, *zip(*lookups), grid_size=size)
         want3 = rs.cell_state(vol, *k3, grid_size=size)
         torch.cuda.synchronize()
         k2_bad, k3_bad = int((got != want).sum()), int((got3 != want3).sum())
@@ -1430,7 +1507,7 @@ def main() -> dict:
         need(k3_bad == 0, f"K3 kernel != plain at {size}^3: {k3_bad} states differ")
         need(int(want.sum()) > 0 and int(want3.sum()) > 0,
              f"{size}^3: the lighting queries never occlude or find a live cell")
-    timed_k23 = (vol, coarse, cam, geo, k2, k3, kw)
+    timed_k23 = (vol, coarse, cam, geo, k2, k3, lookups, kw)
 
     # The Engine on the card against the Engine on the CPU.
     small = dict(grid_size=64, width=128, height=64, **LIGHTING)
@@ -1529,10 +1606,11 @@ def main() -> dict:
     eng.run_fused(10, reset_every=10)
     fused_ms = cuda_ms(torch, lambda: eng.run_fused(100, reset_every=10), 1, warmup=0) / 100
     render_ms = cuda_ms(torch, eng.render, 20, warmup=2)
-    vol, coarse, cam, geo, k2, k3, kw = timed_k23
+    vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
     k2_ms = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **kw), 20, warmup=2)
     k2_plain_ms = cuda_ms(torch, lambda: rs.shadow_sweep(vol, *k2, **kw), 1, warmup=0)
-    k3_ms = cuda_ms(torch, lambda: rs.cell_state_cuda(vol, *k3, grid_size=GRID), 50, warmup=2)
+    k3_ms = cuda_ms(torch, lambda: rs.cell_state_cuda(vol, *zip(*lookups), grid_size=GRID),
+                    50, warmup=2)
     k3_plain_ms = cuda_ms(torch, lambda: rs.cell_state(vol, *k3, grid_size=GRID), 10, warmup=1)
     passes_ms = cuda_ms(torch, lambda: rs.lighting_passes(
         cam, *geo, rs.prep_volume(vol, coarse), grid_size=GRID, width=WIDTH,
@@ -1582,20 +1660,26 @@ def main() -> dict:
          "K4 != plain on the 512^3 gen-260 scene")
     box_ms["k4_full_box_512_ms"] = cuda_ms(torch, lambda: rs.primary_sweep_cuda(
         vol_f, coarse_f, cam, grid_size=512, width=WIDTH, height=HEIGHT), 20, warmup=2)
-    vol, coarse, cam, geo, k2, k3, kw = timed_k23
+    vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
     idle_ops = (*k2[:3], torch.zeros_like(k2[3]))
     need(int(rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw).abs().sum()) == 0,
          "K2 with every lane inactive is not all 0")
     box_ms["k2_idle_ms"] = cuda_ms(
         torch, lambda: rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw), 50, warmup=2)
     vol_230, coarse_230 = scenes[f"{GRID}^3 gen-230"][:2]
-    _, _, cam_230, _, k2_230, _ = lighting_operands(GRID, WIDTH, HEIGHT, vol=vol_230)
+    _, _, cam_230, _, k2_230, _, q_230, l_230 = lighting_operands(GRID, WIDTH, HEIGHT,
+                                                                  vol=vol_230)
     kw_230 = dict(grid_size=GRID, cell_half=rs._cell_half(cam_230, GRID))
     need(torch.equal(rs.shadow_sweep_cuda(vol_230, coarse_230, *k2_230, **kw_230),
                      rs.shadow_sweep(vol_230, *k2_230, **kw_230)),
          "K2 != plain on the gen-230 scene's 8 queries")
+    k5_check(torch, rs, f"{GRID}^3 gen-230 full quality", vol_230, coarse_230, GRID, q_230,
+             kw_230["cell_half"])
+    k3_check(torch, rs, f"{GRID}^3 gen-230 full quality", vol_230, GRID, l_230)
     box_ms["k2_full_box_ms"] = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(
         vol_230, coarse_230, *k2_230, **kw_230), 20, warmup=2)
+    box_ms["k5_full_box_ms"] = cuda_ms(torch, lambda: [rs.shadow_sweep_multi_cuda(
+        vol_230, coarse_230, *zip(*q_230[i:i + 4]), **kw_230) for i in (0, 4)], 20, warmup=2)
     for size in (512, 1024):
         st_big = sliced["timed"][size][0]
         spec_big = AutomatonSpec.from_rule_strings(size)
@@ -1605,23 +1689,24 @@ def main() -> dict:
     # K5 against K2 on a full-quality frame's 8 queries, alternated K2, K5,
     # K5, K2 (K5 as the dispatch runs it: two launches of 4 queries).
     multi_ms = {}
-    for size, (vol, coarse, cam, k2, exid, plain_ms) in multi["k5_timed"].items():
+    for size, (vol, coarse, cam, k2, queries, plain_ms) in multi["k5_timed"].items():
         kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
-        start, target, excl, active = k2
 
         def run_k2():
-            rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+            rs.shadow_sweep_cuda(vol, coarse, *k2, **kw)
 
-        def run_k5():
+        def run_k5(queries=queries):
             for i in (0, 4):
-                rs.shadow_sweep_multi_cuda(vol, coarse, start[i:i + 4], target[i:i + 4],
-                                           exid[i:i + 4], active[i:i + 4], **kw)
+                rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries[i:i + 4]), **kw)
 
         reads = [cuda_ms(torch, fn, 20, warmup=2) for fn in (run_k2, run_k5, run_k5, run_k2)]
         multi_ms[f"k2_{size}_ms"] = (reads[0] + reads[3]) / 2
         multi_ms[f"k5_{size}_ms"] = (reads[1] + reads[2]) / 2
         multi_ms[f"k2_k5_k5_k2_{size}_ms"] = reads
         multi_ms[f"k5_{size}_plain_ms"] = plain_ms
+        if size == GRID:
+            idle = [(s_, t_, e_, torch.zeros_like(a_)) for s_, t_, e_, a_ in queries]
+            multi_ms["k5_idle_ms"] = cuda_ms(torch, lambda: run_k5(idle), 50, warmup=2)
     # K6 and K1 with and without the prepass mask, alternated, on gen-80
     # and gen-230: K1 alone with a given mask, and the whole prepass frame
     # (two dilations, K6, K1).
@@ -1710,19 +1795,27 @@ def main() -> dict:
     bounds["render_fast"] = bound(
         mip_bytes(GRID) + px * 48,
         act * OPS_RAY + cols * OPS_COLUMN + hits * OPS_SHADE + shadow_ops)
-    vol, coarse, cam, geo, k2, k3, kw = timed_k23
+    vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
     bounds["shadow_sweep"] = bound(*occlusion_work(torch, k2[0], k2[1], k2[3], GRID, 36,
                                                    occupancy.occupied_box(coarse, GRID)))
-    act3 = int(k3[1].sum())
-    bounds["cell_state"] = bound(act3 * 16 + k3[1].numel() * 5, act3 * 12)
+    bounds["cell_state"] = bound(*lookup_work(lookups))
+    for size, b in multi["k3_bounds"].items():
+        bounds[f"cell_state_{size}"] = b
     vol, coarse, cam, _ = sliced["timed"][512]
     t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=512, width=WIDTH, height=HEIGHT)
     act, cols = primary_work(torch, rf, cam, 512, WIDTH, HEIGHT, t4, i4, dev,
                              occupancy.occupied_box(coarse, 512))
     bounds["primary_sweep"] = bound(mip_bytes(512) + px * 8, act * OPS_RAY + cols * OPS_COLUMN)
-    _, coarse, _, k2_256, _, _ = multi["k5_timed"][GRID]
-    bounds["shadow_multi"] = bound(*occlusion_work(torch, k2_256[0], k2_256[1], k2_256[3],
-                                                   GRID, 28, occupancy.occupied_box(coarse, GRID)))
+    def k5_work(k2_ops, queries, n, box):
+        nbytes, ops = occlusion_work(torch, k2_ops[0], k2_ops[1], k2_ops[3], n, 0, box)
+        return nbytes + in_place_bytes(queries), ops
+
+    _, coarse, _, k2_256, q_256, _ = multi["k5_timed"][GRID]
+    bounds["shadow_multi"] = bound(*k5_work(k2_256, q_256, GRID,
+                                            occupancy.occupied_box(coarse, GRID)))
+    bounds["shadow_multi_idle"] = bound(k2_256[3].numel() * 5, 0)
+    bounds["shadow_multi_full_box"] = bound(*k5_work(k2_230, q_230, GRID,
+                                                     occupancy.occupied_box(coarse_230, GRID)))
     _, _, pre, cam, _, mask, _, _ = multi["k1_timed"][80]
     live = int(((mask != 0) & (mask != -1)).sum())
     bounds["prepass"] = bound((GRID // 8) ** 2 * 4 + mask.numel() * 4,
@@ -1731,12 +1824,11 @@ def main() -> dict:
     for size in (512, 1024):
         words = size**3 // 32
         bounds[f"ca_step_{size}"] = bound(8 * words, words / nw * bounds["ca_step"]["ops"])
-    vol, coarse, cam, k2_512, _, _ = multi["k5_timed"][512]
+    vol, coarse, cam, k2_512, q_512, _ = multi["k5_timed"][512]
     box = occupancy.occupied_box(coarse, 512)
     bounds["shadow_sweep_512"] = bound(*occlusion_work(torch, k2_512[0], k2_512[1],
                                                        k2_512[3], 512, 36, box))
-    bounds["shadow_multi_512"] = bound(*occlusion_work(torch, k2_512[0], k2_512[1],
-                                                       k2_512[3], 512, 28, box))
+    bounds["shadow_multi_512"] = bound(*k5_work(k2_512, q_512, 512, box))
     vol, coarse, cam, _ = sliced["timed"][1024]
     t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=1024, width=WIDTH, height=HEIGHT)
     act, cols = primary_work(torch, rf, cam, 1024, WIDTH, HEIGHT, t4, i4, dev,

@@ -20,6 +20,7 @@ from cellularautomatons3d_tpu_torch.render import render_fast as rf
 from cellularautomatons3d_tpu_torch.utils import mat4
 
 from _torch_box_scene import BOX_CASES, box_edge_volume
+from _torch_query_scene import cell_queries, cell_states_oracle, occlusion_queries
 
 pytestmark = pytest.mark.cuda
 
@@ -132,7 +133,7 @@ def test_k3_kernel_matches_plain(cuda):
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 
     vol, _, _, (coords, active), _ = _lighting_operands(cuda)
-    got = rs.cell_state_cuda(vol, coords, active, grid_size=N)
+    got = rs.cell_state_cuda(vol, coords.movedim(1, -1), active, grid_size=N)
     want = rs.cell_state(vol, coords, active, grid_size=N)
     assert torch.equal(got, want)
     assert int(want.sum()) > 0
@@ -389,9 +390,10 @@ def test_k5_kernel_matches_plain_and_k2(cuda, nq):
     vol, coarse, (start, target, excl, active), _, cell_half = _lighting_operands(cuda)
     exid = rs.pack_exclusion(excl, N)
     kw = dict(grid_size=N, cell_half=cell_half)
+    per_pixel = [t.movedim(1, -1) for t in (start, target, excl)]
     got = torch.cat([
-        rs.shadow_sweep_multi_cuda(vol, coarse, start[i:i + nq], target[i:i + nq],
-                                   exid[i:i + nq], active[i:i + nq], **kw)
+        rs.shadow_sweep_multi_cuda(vol, coarse, *(t[i:i + nq] for t in per_pixel),
+                                   active[i:i + nq], **kw)
         for i in range(0, start.shape[0], nq)])
     want = rs.shadow_sweep_multi(vol, start, target, exid, active, **kw)
     k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
@@ -409,11 +411,112 @@ def test_k5_kernel_matches_plain_above_256(cuda, n):
     coarse = coarse_occupancy(vol)
     start, target, excl, exid, active = _k5_operands(cuda, n, 3, n)
     kw = dict(grid_size=n, cell_half=float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5)))
-    got = rs.shadow_sweep_multi_cuda(vol, coarse, start, target, exid, active, **kw)
+    got = rs.shadow_sweep_multi_cuda(vol, coarse, start.movedim(1, -1), target.movedim(1, -1),
+                                     excl.movedim(1, -1), active, **kw)
     want = rs.shadow_sweep_multi(vol, start, target, exid, active, **kw)
     k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
     assert torch.equal(got, want) and torch.equal(got, k2)
     assert int(want.sum()) > 0
+
+
+def _queries_on(device, queries):
+    return [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in q)
+            for q in queries]
+
+
+def _k5_k2_plain(vol, coarse, queries, n, cell_half, w, h):
+    """(K5 on the queries' own tensors, plain K5 and K2 on them stacked)."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    kw = dict(grid_size=n, cell_half=cell_half)
+    start, target, excl, active = rs.stack_occlusion_queries(queries, w, h)
+    got = rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries), **kw)
+    want = rs.shadow_sweep_multi(vol, start, target, rs.pack_exclusion(excl, n), active, **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    return got, want, k2
+
+
+@pytest.mark.parametrize("window", [(128, 64), (37, 13)], ids=["128x64", "37x13"])
+@pytest.mark.parametrize("nq", range(1, 9))
+def test_k5_queries_kernel_matches_plain_and_k2(cuda, nq, window):
+    """K5 on queries where the lighting code leaves them (broadcast [3]
+    targets, int32 and int64 cells, excluded cells at -1, n and 2n + 3),
+    on a window that fills its tiles and one that does not: flags equal the
+    plain K5's on the stacked queries and K2's; with every lane inactive
+    all 0."""
+    w, h = window
+    vol = random_volume(cuda, 5, 0.05)
+    coarse = coarse_occupancy(vol)
+    queries = _queries_on(cuda, occlusion_queries(N, nq, h, w, seed=nq))
+    cell_half = float(np.float32(1.0 / N) * np.float32(0.85) * np.float32(0.5))
+    got, want, k2 = _k5_k2_plain(vol, coarse, queries, N, cell_half, w, h)
+    assert torch.equal(got, want) and torch.equal(got, k2)
+    assert int(want.sum()) > 0
+    idle = [(s, t, e, torch.zeros_like(a)) for s, t, e, a in queries]
+    assert int(_k5_k2_plain(vol, coarse, idle, N, cell_half, w, h)[0].sum()) == 0
+
+
+@pytest.mark.parametrize("case", BOX_CASES)
+@pytest.mark.parametrize("n", [64, 320, 512])
+def test_k5_box_edges_match_plain_and_k2(cuda, n, case):
+    """K5 on the box-edge volumes (its launch's box: empty, at a corner, on
+    a face, at the centre, the whole volume), half the rays aimed through
+    the region: flags equal the plain K5's and K2's; the entry point
+    reports its box launch."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box_cuda
+
+    words, region = box_edge_volume(n, case, n + 2)
+    vol = ct.from_reference(words, cuda)
+    coarse = coarse_occupancy(vol)
+    queries = _queries_on(cuda, occlusion_queries(n, 4, 64, 128, seed=n, region=region))
+    cell_half = float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5))
+    boxes = occupied_box_cuda.launches
+    got, want, k2 = _k5_k2_plain(vol, coarse, queries, n, cell_half, 128, 64)
+    assert occupied_box_cuda.launches == boxes + 2  # K5's and K2's entry points
+    assert torch.equal(got, want) and torch.equal(got, k2)
+    assert (int(want.sum()) > 0) == (case != "empty")
+
+
+@pytest.mark.parametrize("window", [(128, 64), (37, 13)], ids=["128x64", "37x13"])
+@pytest.mark.parametrize("n", [64, 320, 512])
+def test_k3_queries_kernel_matches_plain(cuda, n, window):
+    """K3 on 8 lookups where the lighting code leaves them (int32 and int64
+    coordinates in [-3, 2n + 5], a quarter exactly -1, n or 2n + 3), on a
+    window whose pixel count is a multiple of 8 and one that is not (the
+    scalar tail): states equal the plain K3's on the stacked lookups and,
+    at 64³, the numpy oracle; with every lane inactive all 0."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    w, h = window
+    queries = cell_queries(n, 8, h, w, seed=n + w)
+    if n == N:
+        dense = (np.random.default_rng(3).random((N,) * 3) < 0.3).astype(np.uint8)
+        vol = ct.from_reference(ct.pack_grid(dense), cuda)
+    else:
+        vol = sparse_volume(cuda, n, 0.1, n)
+    tq = _queries_on(cuda, queries)
+    got = rs.cell_state_cuda(vol, *zip(*tq), grid_size=n)
+    coords, active = rs.stack_cell_queries(tq, w, h)
+    want = rs.cell_state(vol, coords, active, grid_size=n)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    if n == N:
+        np.testing.assert_array_equal(got.cpu().numpy(), cell_states_oracle(dense, queries))
+    assert int(want.sum()) > 0
+    idle = [(c, torch.zeros_like(a)) for c, a in tq]
+    assert int(rs.cell_state_cuda(vol, *zip(*idle), grid_size=n).sum()) == 0
+
+
+def test_k5_and_k3_on_an_empty_volume(cuda):
+    """An empty volume: K5's box is empty and every flag 0; K3 finds no
+    live cell."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol = torch.zeros((N // 32, N, N), dtype=torch.int32, device=cuda)
+    queries = _queries_on(cuda, occlusion_queries(N, 4, 64, 128, seed=4))
+    got, want, k2 = _k5_k2_plain(vol, coarse_occupancy(vol), queries, N, 0.005, 128, 64)
+    assert int(got.sum()) == int(want.sum()) == int(k2.sum()) == 0
+    tq = _queries_on(cuda, cell_queries(N, 4, 64, 128, seed=4))
+    assert int(rs.cell_state_cuda(vol, *zip(*tq), grid_size=N).sum()) == 0
 
 
 BAND = dict(width=1920, height=64, row0=480)  # rows 480-543 of a 1080p window

@@ -19,6 +19,16 @@ its own kernels there) and times, with CUDA events after a warm-up, at
   blocks is the whole volume), with every lane inactive (its floor), and at
   512³ on gen-160; its hard-shadow query at 512³ (gen-160) and 1024³
   (gen-200);
+* K5 (``render_slab.shadow_sweep_multi_cuda``) on the same 8 queries as
+  two launches of 4 (as the ``CA3D_OCC_SWEEP=0`` dispatch runs them) at 256³
+  on gen-80 and gen-230, with every lane inactive, and at 512³; each tree on
+  its own contract (stacked operands with packed exclusion ids before the
+  redesign, each query's own tensors after), and the whole occlusion batch
+  (``shadow_occlusion_batch``, operands included) with K2 and with K5, and
+  the device time of K2's operand stacking;
+* K3 (``render_slab.cell_state_cuda``) on a full-quality frame's 4 GI
+  lookups at 256³ (gen-80), 512³ (gen-160) and 1024³ (gen-200), each tree on
+  its own contract, and the whole ``cell_state_batch``;
 * K4 (``render_slab.primary_sweep_cuda``) at 512³ on gen-160, at 1024³ on
   gen-200, at 512³ on gen-260 (whose box is the whole volume) and on an empty
   volume at 512³ and 1024³ (its floor); where the tree has
@@ -27,18 +37,28 @@ its own kernels there) and times, with CUDA events after a warm-up, at
 * the binary CA step at 256³, 512³ and 1024³ (default rule), the binary
   step on the ``pyroclastic`` preset's rule (Moore) at 1024³, and the
   multi-state step (both launches) at 1024³ on that preset (10 states) over
-  random ages.
+  random ages; the alive / visibility pass alone (``age_masks_cuda``) at 256³,
+  512³ and 1024³ on such ages;
+* step + frame of the lighting configurations (``Engine.run_fused(k,
+  reset_every=k)``, soft shadows ×4, GI, light radius 0.08) under
+  ``torch.profiler``: full quality at 256³ (gen-80) with the default
+  backend and with ``CA3D_OCC_SWEEP=0``, gi_temporal and two bounces at
+  256³ and gi_temporal at 512³ (gen-160) with the default one: wall and
+  device time per step + frame, the card's busy share, launches, and the
+  device time by kernel.
 
 Each time is CUDA events around back-to-back calls (``*_ms``; a short kernel
 reads the host's enqueue rate there) and, under ``device_ms``, the kernels'
 own device time from a ``torch.profiler`` trace of the same calls.
 
 Before timing it checks that K1's ids equal its plain version's on both
-scenes, that both CA steps equal theirs at 256³, and that K2's flags and
-K4's ids equal theirs on each scene they are timed on, so a broken tree is
-not timed.  Prints one JSON line with the times, the hit counts, the
-registers and spills ``ptxas`` gave K1, K2, K4, the box kernel and the CA
-step kernels, the label and the card, and appends it to ``--out``.  With ``--sass DIR`` it also writes
+scenes, that both CA steps equal theirs at 256³, that K2's flags and K4's
+ids equal theirs on each scene they are timed on, that K5's flags equal
+K2's and K3's states its plain version's, so a broken tree is not timed.
+Prints one JSON line with the times, the hit counts, the registers and
+spills ``ptxas`` gave K1, K2, K3, K4, K5, the box kernel, the CA step
+kernels and the age-mask pass, the label and the card, and appends it to
+``--out``.  With ``--sass DIR`` it also writes
 ``cuobjdump -sass`` of the CA step kernels to ``DIR``.  Compare two trees by
 running them in turns in one call: parent, change, change, parent.
 """
@@ -46,17 +66,21 @@ running them in turns in one call: parent, change, change, parent.
 import argparse
 import inspect
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
 TIMED = ("render_kernel", "ca_step_kernel", "shadow_sweep_kernel", "primary_sweep_kernel",
-         "occupied_box_kernel")
+         "occupied_box_kernel", "shadow_multi_kernel", "cell_state_kernel", "age_masks_kernel")
 K2_KERNELS = ["shadow_sweep_kernel", "occupied_box_kernel"]
 K4_KERNELS = ["primary_sweep_kernel", "occupied_box_kernel"]
+K5_KERNELS = ["shadow_multi_kernel", "occupied_box_kernel"]
+ALL_KERNELS = [""]  # every device event
 
 
 def ptxas_report(log: str) -> dict:
@@ -181,15 +205,79 @@ def main():
             return depth, idx_
         return rs.primary_sweep_cuda(vol_, coarse_, c, grid_size=size, width=w, height=h)
 
-    def k2_operands(vol_, coarse_, size):
-        """K2's operands of a full-quality frame's 8 occlusion queries (4
-        soft-shadow samples, 4 GI slots), built as the port builds them."""
+    def frame_queries(vol_, coarse_, size):
+        """A full-quality frame's 8 occlusion queries (4 soft-shadow
+        samples, 4 GI slots) and its 4 GI lookups, as the lighting passes
+        leave them."""
         depth, idx_ = primary(vol_, coarse_, size, lcam)
         geo = rs.hit_geometry(lcam, idx_, depth, grid_size=size, width=w, height=h)
-        queries, _, _ = rs.lighting_queries(lcam, *geo[:4], grid_size=size, width=w,
-                                            height=h, soft_k=4, gi=True)
+        queries, slots, _ = rs.lighting_queries(lcam, *geo[:4], grid_size=size, width=w,
+                                                height=h, soft_k=4, gi=True)
+        return queries, [(sl[0], sl[3]) for sl in slots]
+
+    def k2_operands(vol_, coarse_, size):
+        """K2's operands of a full-quality frame's 8 occlusion queries."""
+        queries, _ = frame_queries(vol_, coarse_, size)
         return (rs.stack_occlusion_queries(queries, w, h),
                 dict(grid_size=size, cell_half=rs._cell_half(lcam, size)))
+
+    # K5's and K3's contracts: each query's own tensors since the redesign,
+    # stacked operands (K5 with packed exclusion ids) before it.
+    k5_in_place = "excl" in inspect.signature(rs.shadow_sweep_multi_cuda).parameters
+
+    def time_k5(tag, vol_, coarse_, queries, size, check=True):
+        """K5 on 8 queries as two launches of 4, checked against K2."""
+        k5kw = dict(grid_size=size, cell_half=rs._cell_half(lcam, size))
+        stacked = rs.stack_occlusion_queries(queries, w, h)
+        if k5_in_place:
+            run = lambda: [rs.shadow_sweep_multi_cuda(  # noqa: E731
+                vol_, coarse_, *zip(*queries[i:i + 4]), **k5kw) for i in (0, 4)]
+        else:
+            start, target, excl, active = stacked
+            exid = rs.pack_exclusion(excl, size)
+            run = lambda: [rs.shadow_sweep_multi_cuda(  # noqa: E731
+                vol_, coarse_, start[i:i + 4], target[i:i + 4], exid[i:i + 4],
+                active[i:i + 4], **k5kw) for i in (0, 4)]
+        if check and not torch.equal(torch.cat(run()),
+                                     rs.shadow_sweep_cuda(vol_, coarse_, *stacked, **k5kw)):
+            raise SystemExit(f"{label}: {tag}: K5 differs from K2")
+        out[f"{tag}_ms"] = ms(run, 50)
+        dev_ms[tag] = device_ms(run, K5_KERNELS)
+        out[f"{tag}_active"] = int(stacked[3].sum())
+
+    def time_occlusion_batch(tag, vol_, coarse_, queries, size):
+        """The dispatch on the frame's 8 queries, operands included, with K2
+        (the default) and with K5 (CA3D_OCC_SWEEP=0); K2's operand stacking
+        alone (the stacks and the packed ids the parent's K5 path made)."""
+        prepped = rs.prep_volume(vol_, coarse_)
+        run = lambda: rs.shadow_occlusion_batch(  # noqa: E731
+            lcam, queries, prepped, grid_size=size, width=w, height=h)
+        for backend, env in (("k2", "1"), ("k5", "0")):
+            os.environ["CA3D_OCC_SWEEP"] = env
+            out[f"{tag}_{backend}_ms"] = ms(run, 50)
+            dev_ms[f"{tag}_{backend}"] = device_ms(run, ALL_KERNELS)
+        os.environ.pop("CA3D_OCC_SWEEP")
+        stack = lambda: rs.pack_exclusion(  # noqa: E731
+            rs.stack_occlusion_queries(queries, w, h)[2], size)
+        dev_ms[f"{tag}_stacking"] = device_ms(stack, ALL_KERNELS)
+
+    def time_k3(tag, vol_, lookups, size):
+        """K3 on the frame's 4 GI lookups, and the whole cell_state_batch."""
+        stacked = rs.stack_cell_queries(lookups, w, h)
+        if k5_in_place:
+            run = lambda: rs.cell_state_cuda(vol_, *zip(*lookups), grid_size=size)  # noqa: E731
+        else:
+            run = lambda: rs.cell_state_cuda(vol_, *stacked, grid_size=size)  # noqa: E731
+        if not torch.equal(run(), rs.cell_state(vol_, *stacked, grid_size=size)):
+            raise SystemExit(f"{label}: {tag}: K3 differs from its plain version")
+        out[f"{tag}_ms"] = ms(run, 100)
+        dev_ms[tag] = device_ms(run, ["cell_state_kernel"], 50)
+        out[f"{tag}_active"] = int(stacked[1].sum())
+        prepped = rs.prep_volume(vol_)
+        batch = lambda: rs.cell_state_batch(  # noqa: E731
+            lookups, prepped, grid_size=size, width=w, height=h)
+        out[f"{tag}_batch_ms"] = ms(batch, 100)
+        dev_ms[f"{tag}_batch"] = device_ms(batch, ALL_KERNELS, 50)
 
     def hard_operands(vol_, coarse_, size):
         """K2's operands of the sliced frame's hard-shadow query."""
@@ -286,6 +374,14 @@ def main():
             idle = (*k2[:3], torch.zeros_like(k2[3]))
             time_k2("k2_8q_256_idle", vol, coarse, idle, k2kw, check=False)
         del k2
+        queries, lookups = frame_queries(vol, coarse, n)
+        time_k5("k5_8q_256" if steps == 80 else f"k5_8q_256_{g}", vol, coarse, queries, n)
+        if steps == 80:
+            idle = [(s_, t_, e_, torch.zeros_like(a_)) for s_, t_, e_, a_ in queries]
+            time_k5("k5_8q_256_idle", vol, coarse, idle, n, check=False)
+            time_occlusion_batch("occlusion_batch_8q_256", vol, coarse, queries, n)
+            time_k3("k3_4q_256", vol, lookups, n)
+        del queries, lookups
         if no_sweep:
             kw0 = dict(kw, shadow=False)
             out[f"k1_split_{g}_ms"] = {
@@ -328,6 +424,12 @@ def main():
             time_k2(f"k2_hard_{size}", big, big_coarse, *hard_operands(big, big_coarse, size))
         if size == 512 and steps == 160:
             time_k2("k2_8q_512", big, big_coarse, *k2_operands(big, big_coarse, size))
+        if steps != 260:
+            queries, lookups = frame_queries(big, big_coarse, size)
+            if size == 512:
+                time_k5("k5_8q_512", big, big_coarse, queries, size)
+            time_k3(f"k3_4q_{size}", big, lookups, size)
+            del queries, lookups
         del big
         if steps == 200 or steps == 160:
             empty = torch.zeros((size // 32, size, size), dtype=torch.int32, device=dev)
@@ -346,6 +448,56 @@ def main():
         ["ca_step_kernel", "age_masks_kernel"], 10)
     dev_ms["ca_step_moore_1024"] = device_ms(lambda: ca_step.fires_plane_cuda(alive, moore),
                                              ["ca_step_kernel"], 10)
+    # The alive / visibility pass alone on random ages at each size.
+    for size in (256, 512, 1024):
+        ages = planes if size == 1024 else random_ages(size, 3)
+        run = lambda: ca_step.age_masks_cuda(ages)  # noqa: E731
+        out[f"age_masks_{size}_ms"] = ms(run, 100 if size < 1024 else 20)
+        dev_ms[f"age_masks_{size}"] = device_ms(run, ["age_masks_kernel"], 50)
+    del planes, alive
+
+    # Step + frame of the lighting configurations, profiled: full quality at
+    # 256³ with each occlusion backend, gi_temporal and two bounces at 256³
+    # and gi_temporal at 512³ with the default one.
+    from torch.profiler import ProfilerActivity, profile
+
+    def profile_frames(eng, frames):
+        eng.run_fused(frames, reset_every=frames)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run_fused(frames, reset_every=frames)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / frames
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = next((k for k in ("shadow_sweep_kernel", "shadow_multi_kernel",
+                                      "cell_state_kernel", "occupied_box_kernel",
+                                      "render_kernel", "primary_sweep_kernel",
+                                      "ca_step_kernel") if k in e.name), "torch")
+                t_, c_ = by_kernel.get(k, (0.0, 0))
+                by_kernel[k] = (t_ + e.time_range.elapsed_us() / 1e3 / frames, c_ + 1)
+        busy = sum(t_ for t_, _ in by_kernel.values())
+        return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
+                "launches_per_frame": sum(c_ for _, c_ in by_kernel.values()) / frames,
+                "device_ms_by_kernel": {k: v[0] for k, v in by_kernel.items()}}
+
+    lit = dict(soft_shadow_samples=4, indirect_lighting=True, light_radius=0.08)
+    for name, size, steps, cfg, frames, backends in (
+        ("full_quality", n, 80, {}, 10, ("1", "0", "0", "1")),
+        ("gi_temporal", n, 80, dict(gi_temporal=True), 10, ("1", "1")),
+        ("two_bounces", n, 80, dict(indirect_bounces=2), 3, ("1", "1")),
+        ("sliced_512_gi_temporal", 512, 160, dict(gi_temporal=True), 10, ("1", "1")),
+    ):
+        eng = ct.Engine(grid_size=size, width=w, height=h, device="cuda", **lit, **cfg)
+        eng.step(steps)
+        for env in backends:
+            os.environ["CA3D_OCC_SWEEP"] = env
+            out.setdefault(f"frame_{name}_{'k2' if env == '1' else 'k5'}", []).append(
+                profile_frames(eng, frames))
+        del eng
+    os.environ.pop("CA3D_OCC_SWEEP")
     out["device_ms"] = dev_ms
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
