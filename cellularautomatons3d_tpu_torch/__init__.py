@@ -20,7 +20,8 @@ one- and multi-bounce GI, the temporally amortized mode
 ``tick``, ``run``, ``run_fused``).  Two opt-in paths, off by default as in
 the reference: the multi-query occlusion kernel K5
 (``csrc/shadow_multi.cu``, ``CA3D_OCC_SWEEP=0``) and the patch prepass K6
-(``csrc/prepass.cu``) with K1's column-mask gate
+(``csrc/prepass.cuh``, run inside K1 on the card, and alone as
+``csrc/prepass.cu``) with K1's column-mask gate
 (``render_fast.raytrace_tiles(use_prepass=True)``).  On a CPU device the
 same calls run the kernels' plain torch versions.
 """

@@ -14,12 +14,17 @@
 // The traversal (the reference's DDA semantics, float rounding rules and
 // the exact coarse-mip column skip) and the camera ray are sweep.cuh,
 // shared with K2 and K4.  Grids above 256^3 go through K4 and K2 instead.
-// With MASK (raytrace_tiles(use_prepass=True)) the primary sweep's column
-// test is the reference's colmask rule instead of the mip: column c
-// descends iff its clipped segment is non-empty and bit c of the pixel's
-// patch mask (K6, prepass.cu) is set, the ray is steep (render_fast.py
-// column_occ), or the window is too small for the masks (mask_forced,
-// render_fast.py mask_gate_forced); the shadow sweep keeps the mip.  With
+// With a column mask (MASK != kMaskNone) the primary sweep's column test is
+// the reference's colmask rule instead of the mip: column c descends iff
+// its clipped segment is non-empty and bit c of the pixel's patch mask
+// (K6) is set, the ray is steep (render_fast.py column_occ), or the window
+// is too small for the masks (mask_forced, render_fast.py
+// mask_gate_forced); the shadow sweep keeps the mip.  kMaskGiven reads the
+// masks from a tensor (prepass.cu, or any caller's); kMaskInline
+// (raytrace_tiles(use_prepass=True) on the card) computes them: after the
+// mip is staged, warp 0 computes the block's two 8x8 patch masks from it
+// (prepass.cuh patch_mask, 16 lanes a patch, the occupied box's columns)
+// into shared memory, so the prepass frame is this one launch.  With
 // NO_SWEEP neither sweep runs (the frame of an empty volume): the floor of
 // the kernel's timing split, for tools/time_k1.py and chip_smoke.py only.
 //
@@ -35,14 +40,17 @@
 // its first lanes.  Bound: the frame's bytes (the 2 MiB volume, the
 // history read and the four images written, ~100 MB at 1080p); the sweeps'
 // probe loads are L2 hits whose latency the resident warps hide.  With a
-// mask the kernel reads one more i32 per pixel (the patch mask,
+// given mask the kernel reads one more i32 per pixel (the patch mask,
 // L1/L2-resident: 130 KB at 1080p) and does one bit test per column in
-// place of the mip's cell-range test.  With age planes it reads age_bits
+// place of the mip's cell-range test; with an inline mask one warp of each
+// block first sets up the two patch rays and probes 3 blocks a column, and
+// the block waits at one more barrier.  With age planes it reads age_bits
 // <= 4 more words per hit pixel, once, after the sweep.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "prepass.cuh"
 #include "sweep.cuh"
 
 namespace {
@@ -62,8 +70,15 @@ constexpr int P_ALPHA = 33;
 constexpr int P_GAMMA = 34;
 constexpr int P_OVERLAY = 35;
 
-constexpr int kBlockX = 16;
+constexpr int kBlockX = 16;  // two 8x8 prepass patches
 constexpr int kBlockY = 8;
+static_assert(kBlockX == 2 * kPatch && kBlockY == kPatch,
+              "the inline prologue computes two patch masks a block");
+
+// Where the primary sweep's column gate comes from.
+constexpr int kMaskNone = 0;    // the staged mip
+constexpr int kMaskGiven = 1;   // colmask, a tensor of patch masks
+constexpr int kMaskInline = 2;  // computed in the block's prologue
 
 constexpr float kPi = 3.14159265359f;
 
@@ -129,7 +144,7 @@ __device__ __forceinline__ float clip01(float x) {
 // would take 85, and half the warps).
 constexpr int kMinBlocks = 10;
 
-template <bool COMPOSE, bool MASK, bool NO_SWEEP>
+template <bool COMPOSE, int MASK, bool NO_SWEEP>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
     render_kernel(const uint32_t* __restrict__ vol,
                   const uint32_t* __restrict__ coarse, int n, float inv_n,
@@ -145,6 +160,21 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
   __shared__ OccBox box;
   stage_coarse_box<kBlockX * kBlockY / 32>(coarse, coarse_s, n, inv_n, &box);
   const SharedMip mip{coarse_s};
+  // The inline prologue: warp 0 computes the masks of the block's two
+  // patches, 16 lanes each, over the box's columns only (a forced-open gate
+  // or an empty box never reads them).
+  __shared__ uint32_t patch_s[2];
+  if constexpr (MASK == kMaskInline) {
+    if (!mask_forced && !box.empty) {
+      const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+      if (tid < 32) {
+        const int m = patch_mask<16>(cam.p, n, coarse_s, 2 * blockIdx.x + (tid >> 4),
+                                     blockIdx.y, tid & 15, box.zc0, box.zc1);
+        if ((tid & 15) == 0) patch_s[tid >> 4] = (uint32_t)m;
+      }
+      __syncthreads();
+    }
+  }
   // Both sweeps clipped to the occupied box, or, where the box is the whole
   // volume, the unclipped sweeps (the same probes without the clip's code).
   const bool clipped = !box.full;
@@ -171,12 +201,17 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
   bool found = false;
   if (active && !NO_SWEEP) {
     auto primary = [&](const auto& clip) {
-      if constexpr (MASK) {
+      if constexpr (MASK != kMaskNone) {
         // The prepass gate: the mask of the pixel's 8x8 patch, a steep ray,
         // or a window too small for the masks (mask_forced).
         const float adx = fabsf(ray.dx), ady = fabsf(ray.dy), adz = fabsf(ray.dz);
-        const ColumnMask gate{(uint32_t)colmask[(py >> 3) * mask_w + (px >> 3)],
-                              mask_forced || adx > 2.0f * adz || ady > 2.0f * adz};
+        uint32_t bits;
+        if constexpr (MASK == kMaskInline) {
+          bits = mask_forced ? 0u : patch_s[threadIdx.x >> 3];
+        } else {
+          bits = (uint32_t)colmask[(py >> 3) * mask_w + (px >> 3)];
+        }
+        const ColumnMask gate{bits, mask_forced || adx > 2.0f * adz || ady > 2.0f * adz};
         return sweep<true>(vol, gate, n, inv_n, cell_half, ray, t_start, tf,
                            NoExclusion{}, t_hit, hx, hy, hz, clip);
       } else {
@@ -298,7 +333,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
   out_rgb[3 * pix + 2] = powf(overlay ? 0.0f : lb, inv_g);
 }
 
-using RenderKernel = decltype(&render_kernel<false, false, false>);
+using RenderKernel = decltype(&render_kernel<false, kMaskNone, false>);
 
 }  // namespace
 
@@ -307,8 +342,10 @@ extern "C" {
 // vol: uint32[n/32, n, n]; coarse: uint32[n/8, n/8] (ops/occupancy.py);
 // cam: host float[40].  colmask: null, or the prepass's i32 column masks
 // [ceil(H/8), mask_w = ceil(W/8)] (prepass.cu), which then gate the primary
-// sweep's columns; mask_forced = 1 opens that gate on every column (a
-// window too small for the masks: render_fast.py mask_gate_forced).
+// sweep's columns; prepass = 1 (colmask null) gates them by the masks the
+// kernel computes itself; mask_forced = 1 opens either gate on every
+// column (a window too small for the masks: render_fast.py
+// mask_gate_forced).
 // compose = 0: out_rgb is linear rgb [H, W, 3], hist_* and out_hist unused.
 // compose = 1: hist_rgb f32 [H, W, 3] and hist_idx i32 [H, W] are the
 // previous frame, out_rgb is the presentation and out_hist the new history
@@ -319,7 +356,8 @@ extern "C" {
 // Returns the launch's cudaError_t.
 int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
                      int width, int height, const float* cam, int shadow,
-                     const void* colmask, int mask_forced, int compose,
+                     const void* colmask, int prepass, int mask_forced,
+                     int compose,
                      const void* hist_rgb, const void* hist_idx, void* out_rgb,
                      void* out_depth, void* out_idx, void* out_hist,
                      const void* ages, int age_bits, int total_states,
@@ -328,6 +366,9 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
     return cudaErrorInvalidValue;
   }
   if (ages != nullptr && (age_bits < 1 || age_bits > 4 || total_states < 2)) {
+    return cudaErrorInvalidValue;
+  }
+  if (prepass && (colmask != nullptr || no_sweep)) {
     return cudaErrorInvalidValue;
   }
   if (compose && (hist_rgb == nullptr || hist_idx == nullptr ||
@@ -341,12 +382,19 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
   const float inv_n = (float)(1.0 / (double)n);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  static const RenderKernel kernels[6] = {
-      render_kernel<false, false, false>, render_kernel<true, false, false>,
-      render_kernel<false, true, false>,  render_kernel<true, true, false>,
-      render_kernel<false, false, true>,  render_kernel<true, false, true>};
-  const int slot = no_sweep ? 4 + (compose != 0)
-                            : (colmask != nullptr) * 2 + (compose != 0);
+  static const RenderKernel kernels[8] = {
+      render_kernel<false, kMaskNone, false>,
+      render_kernel<true, kMaskNone, false>,
+      render_kernel<false, kMaskGiven, false>,
+      render_kernel<true, kMaskGiven, false>,
+      render_kernel<false, kMaskInline, false>,
+      render_kernel<true, kMaskInline, false>,
+      render_kernel<false, kMaskNone, true>,
+      render_kernel<true, kMaskNone, true>};
+  const int mode = no_sweep ? 3
+                 : prepass  ? kMaskInline
+                            : (colmask != nullptr ? kMaskGiven : kMaskNone);
+  const int slot = mode * 2 + (compose != 0);
   kernels[slot]<<<grid, dim3(kBlockX, kBlockY), 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),

@@ -6,8 +6,9 @@ The sources are ``csrc/ca_step.cu`` (the CA step), ``csrc/render_fast.cu``
 ``csrc/prepass.cu`` (K6) and ``csrc/occupied_box.cu`` (the occupied box
 that K2's, K4's and K5's entry points enqueue before their kernels); all but
 the CA step and K3 share the traversal and float helpers in
-``csrc/sweep.cuh``, and K5 and K3 read their per-query operands through the
-tables of ``csrc/queries.cuh``.
+``csrc/sweep.cuh``, K6 and K1 the patch mask of ``csrc/prepass.cuh``, and
+K5 and K3 read their per-query operands through the tables of
+``csrc/queries.cuh``.
 At first use each source is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain
 C interface, loaded with :mod:`ctypes`; no PyTorch headers are involved,
@@ -52,7 +53,7 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "prepass.cu",
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
 )
-HEADERS = (PACKAGE_DIR / "csrc" / "sweep.cuh", PACKAGE_DIR / "csrc" / "queries.cuh")
+HEADERS = tuple(PACKAGE_DIR / "csrc" / h for h in ("sweep.cuh", "queries.cuh", "prepass.cuh"))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -137,7 +138,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.ca3d_ca_step_multistate.restype = _I
         lib.ca3d_render_fast.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+            _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
             _P, _I, _I, _I, _P,
         ]
         lib.ca3d_render_fast.restype = _I

@@ -2,7 +2,9 @@
 
 Port of ``cellularautomatons3d_tpu.ops.occupancy.coarse_occupancy``: one
 bit per 8³-cell block, 32 blocks per word along x; and of its
-``dilate_occupancy``, which the patch prepass (K6) takes its mip from.
+``dilate_occupancy``, which the reference's patch prepass (K6) takes its
+mip from.  The port's K6 reads the undilated mip and dilates on read
+(:func:`dilated_bits`, ``csrc/prepass.cuh`` ``dilated_bit``).
 
 Input:  packed ``[W, Z, Y]`` words (int32 holding uint32 bits).
 Output: ``[Zc, XG·Yc]`` words with Zc = Z/8, Yc = Y/8 and XG = ⌈W/8⌉
@@ -31,7 +33,7 @@ import torch
 from .. import kernels
 
 __all__ = [
-    "coarse_occupancy", "coarse_shape", "dilate_occupancy", "occupied_box",
+    "coarse_occupancy", "coarse_shape", "dilate_occupancy", "dilated_bits", "occupied_box",
     "occupied_box_cuda", "BLOCK", "BOX_WORDS",
 ]
 
@@ -91,6 +93,21 @@ def dilate_occupancy(coarse: torch.Tensor, dilate_z: bool = True,
         d = d | torch.roll(d, 1, axis) | torch.roll(d, -1, axis)
     d = torch.where(d >= 2**31, d - 2**32, d)  # uint32 bits → int32
     return d.to(torch.int32).reshape(zc, ytot)
+
+
+def dilated_bits(coarse: torch.Tensor, c, by, bx) -> torch.Tensor:
+    """Bits (c, by, bx) of the prepass's mip, ``dilate_occupancy`` applied
+    twice (±1 block in x and y, then ±1 more in x), read from the undilated
+    mip ``coarse`` [n/8, n/8] of an n ≤ 256 grid: the OR of rows by − 1, by,
+    by + 1 of z-row c (y wraps) tested on the x window [bx − 2, bx + 2] of
+    the 32-bit word (x shifts drop bits at its ends).  ``c``, ``by``, ``bx``
+    are integer tensors that broadcast; returns a bool tensor of their
+    shape.  Plain twin of ``csrc/prepass.cuh`` ``dilated_bit``."""
+    nb = coarse.shape[1]
+    words = coarse.to(torch.int64) & 0xFFFFFFFF
+    w = words[c, (by - 1) % nb] | words[c, by] | words[c, (by + 1) % nb]
+    x = w | ((w << 1) & 0xFFFFFFFF) | (w >> 1) | ((w << 2) & 0xFFFFFFFF) | (w >> 2)
+    return ((x >> bx) & 1) == 1
 
 
 def occupied_box(coarse: torch.Tensor, n: int) -> torch.Tensor:

@@ -24,13 +24,19 @@ Two implementations with one contract:
 of the same name; the TPU's tile-blocked pixel layout does not come across,
 so images are ``[H, W]`` / ``[H, W, 3]`` in image order.
 
-The opt-in patch prepass (``raytrace_tiles(use_prepass=True)``, kernel K6:
-:func:`prepass` / :func:`prepass_cuda`, ``csrc/prepass.cu``) gives each
-8×8-pixel patch a mask of the 8-plane columns its rays may hit, from the
-coarse mip dilated twice (``ops.occupancy.dilate_occupancy``); K1 then
-gates its primary sweep's columns by the mask of the pixel's patch
-(``colmask``) instead of the mip.  The Engine never sets it, as in the
-reference.  Pixel (px, py) reads its mask at ``[py // 8, px // 8]``: the
+The opt-in patch prepass (``raytrace_tiles(use_prepass=True)``, kernel K6)
+gives each 8×8-pixel patch a mask of the 8-plane columns its rays may hit,
+from the coarse mip dilated twice (``ops.occupancy.dilate_occupancy``); K1
+then gates its primary sweep's columns by the mask of the pixel's patch
+instead of the mip.  The Engine never sets it, as in the reference.  On
+the card the prepass frame is one launch: K1 computes its blocks' masks
+itself (:func:`raytrace_cuda` with ``prepass=True``; a group of lanes per
+patch, the undilated mip dilated on read, ``csrc/prepass.cuh``).  The same device
+function runs alone as :func:`prepass_cuda` (``csrc/prepass.cu``), which
+gives the masks as a tensor (``colmask``).  On the CPU the frame runs the
+two plain dilations, the plain :func:`prepass` and the plain K1 with
+``colmask``; :func:`prepass_columns` is the plain twin of the card's
+per-column formulation.  Pixel (px, py) reads its mask at ``[py // 8, px // 8]``: the
 reference's upsampling to a tile-blocked image does not come across.  The
 masks cover a patch only while its rays spread by at most ``_PRE_DEV`` per
 unit t, which holds from ~1014 window rows up (1080p); on a smaller window
@@ -56,7 +62,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import dilate_occupancy
+from ..ops.occupancy import dilate_occupancy, dilated_bits
 
 __all__ = [
     "raytrace_tiles",
@@ -64,6 +70,7 @@ __all__ = [
     "raytrace_cuda",
     "prepass",
     "prepass_cuda",
+    "prepass_columns",
     "prepass_mask",
     "mask_gate_forced",
     "PATCH",
@@ -482,10 +489,17 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
 
 
 def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
-                  shadow=True, colmask=None, ages=None, total_states=2, no_sweep=False):
+                  shadow=True, colmask=None, prepass=False, ages=None, total_states=2,
+                  no_sweep=False):
     """K1 on the card (``csrc/render_fast.cu``): same contract as
-    :func:`raytrace`; every tensor must be a contiguous CUDA tensor."""
+    :func:`raytrace`; every tensor must be a contiguous CUDA tensor.
+    ``prepass``: gate the primary sweep by the patch masks K1 computes
+    itself from ``coarse`` (the frame of ``colmask=prepass_mask(...)`` in
+    one launch); not with ``colmask`` or ``no_sweep``.  Such launches are
+    also counted in ``raytrace_cuda.prepass_launches``."""
     cam = _check_args(grid_size, width, height, cam)
+    if prepass and (colmask is not None or no_sweep):
+        raise ValueError("prepass computes the masks: no colmask, no no_sweep")
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     age_bits = 0
@@ -512,8 +526,9 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
     err = lib.ca3d_render_fast(
         dev.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width, height,
         cam.ctypes.data, int(shadow),
-        None if colmask is None else colmask.data_ptr(),
-        int(colmask is not None and mask_gate_forced(cam)), int(history is not None),
+        None if colmask is None else colmask.data_ptr(), int(prepass),
+        int((colmask is not None or prepass) and mask_gate_forced(cam)),
+        int(history is not None),
         ptrs[0], ptrs[1], out_rgb.data_ptr(), depth.data_ptr(),
         idx.data_ptr(), ptrs[2],
         None if ages is None else ages.data_ptr(), age_bits, total_states,
@@ -521,12 +536,14 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
     )
     kernels.check(err, "render_fast")
     raytrace_cuda.launches += 1
+    raytrace_cuda.prepass_launches += int(prepass)
     if history is None:
         return out_rgb, depth, idx
     return out_rgb, depth, idx, new_hist
 
 
 raytrace_cuda.launches = 0
+raytrace_cuda.prepass_launches = 0
 
 
 # ------------------------------------------------------- K6: prepass ---
@@ -543,20 +560,12 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def prepass(coarse_pre, cam, *, grid_size, width, height):
-    """Plain torch K6 (render_fast.py ``_make_prepass``): the int32 column
-    mask of every 8×8 patch, [⌈H/8⌉, ⌈W/8⌉].  The ray of the patch's
-    centre pixel (``(p mod pw)·8 + 4``, no +0.5) over the volume box grown
-    by 0.035 sets bit c when one of three probes of its segment in 8-plane
-    column c lands in an occupied block of ``coarse_pre`` (the coarse mip
-    dilated ±2 blocks in x and ±1 in y, int32 [n/8, n/8]); steep, far or
-    degenerate patches get −1 (every column), patches whose ray misses the
-    box 0."""
-    cam = _check_args(grid_size, width, height, cam)
-    n = grid_size
-    nbk = n // 8
+def _patch_rays(cam, n, width, height, dev):
+    """The prepass ray of every patch's centre pixel (``(p mod pw)·8 + 4``,
+    no +0.5) over the volume box grown by 0.035: (o, d, inv, t0, tf,
+    active, special), o three float32 scalars, the rest [⌈H/8⌉, ⌈W/8⌉]
+    tensors (d and inv xyz triples); ``special``: a steep or far patch."""
     ph, pw = _patch_grid(width, height)
-    dev = coarse_pre.device
     win_w, win_h = cam[P_WIN], cam[P_WIN + 1]
     py = (torch.arange(ph, dtype=torch.float32, device=dev) * PATCH + PATCH // 2)
     px = (torch.arange(pw, dtype=torch.float32, device=dev) * PATCH + PATCH // 2)
@@ -585,8 +594,32 @@ def prepass(coarse_pre, cam, *, grid_size, width, height):
     adx, ady, adz = (di.abs() for di in d)
     steep = (adx > 2.0 * adz - _f32(0.03)) | (ady > 2.0 * adz - _f32(0.03))
     far = tf * _f32(_PRE_DEV * n) > 7.0
+    return o, d, inv, t0, tf, active, steep | far
+
+
+def _patch_masks(bits, active, special):
+    """The int32 masks from the column bits (int64 holding uint32): −1 for
+    a special patch, 0 for a patch whose ray misses the grown box."""
+    mask = torch.where(special & active, -1, torch.where(active, bits, 0))
+    return torch.where(mask >= 2**31, mask - 2**32, mask).to(torch.int32)
+
+
+def prepass(coarse_pre, cam, *, grid_size, width, height):
+    """Plain torch K6 (render_fast.py ``_make_prepass``): the int32 column
+    mask of every 8×8 patch, [⌈H/8⌉, ⌈W/8⌉].  The ray of the patch's
+    centre pixel (``(p mod pw)·8 + 4``, no +0.5) over the volume box grown
+    by 0.035 sets bit c when one of three probes of its segment in 8-plane
+    column c lands in an occupied block of ``coarse_pre`` (the coarse mip
+    dilated ±2 blocks in x and ±1 in y, int32 [n/8, n/8]); steep, far or
+    degenerate patches get −1 (every column), patches whose ray misses the
+    box 0."""
+    cam = _check_args(grid_size, width, height, cam)
+    n = grid_size
+    nbk = n // 8
+    dev = coarse_pre.device
+    o, d, inv, t0, tf, active, special = _patch_rays(cam, n, width, height, dev)
     words = coarse_pre.reshape(-1).to(torch.int64)
-    mask = torch.zeros((ph, pw), dtype=torch.int64, device=dev)
+    mask = torch.zeros(active.shape, dtype=torch.int64, device=dev)
     for c in range(nbk):
         za = np.float32(c * 8 * (1.0 / n) - 0.5)
         zb = np.float32((c * 8 + 8) * (1.0 / n) - 0.5)
@@ -602,21 +635,52 @@ def prepass(coarse_pre, cam, *, grid_size, width, height):
             bx, by = (torch.where(seg, bi, 0.0).to(torch.int64) for bi in b)
             occ = occ | (seg & (((words[c * nbk + by] >> bx) & 1) == 1))
         mask = mask | (occ.to(torch.int64) << c)
-    mask = torch.where((steep | far) & active, -1, torch.where(active, mask, 0))
-    return torch.where(mask >= 2**31, mask - 2**32, mask).to(torch.int32)
+    return _patch_masks(mask, active, special)
 
 
-def prepass_cuda(coarse_pre, cam, *, grid_size, width, height):
-    """K6 on the card (``csrc/prepass.cu``): same contract as
-    :func:`prepass`; ``coarse_pre`` must be a contiguous CUDA tensor."""
+def prepass_columns(coarse, cam, *, grid_size, width, height):
+    """The masks of :func:`prepass` on the twice-dilated mip, computed as the
+    card does (``csrc/prepass.cuh`` ``patch_mask``) from the undilated mip
+    ``coarse`` [n/8, n/8]: all 8-plane columns of every patch at once (the
+    kernel spreads them over a group of lanes), each probe's block read
+    through :func:`~cellularautomatons3d_tpu_torch.ops.occupancy.dilated_bits`,
+    the column bits ORed together.  Plain twin of the kernel's formulation,
+    for the CPU tests; no frame path calls it."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
-    kernels.require(coarse_pre, "coarse_pre", torch.int32, (n // 8, n // 8))
+    nbk = n // 8
+    dev = coarse.device
+    o, d, inv, t0, tf, active, special = _patch_rays(cam, n, width, height, dev)
+    cols = np.arange(nbk)
+    c = torch.from_numpy(cols).to(dev)
+    za = torch.from_numpy((cols * 8 * (1.0 / n) - 0.5).astype(np.float32)).to(dev)
+    zb = torch.from_numpy(((cols * 8 + 8) * (1.0 / n) - 0.5).astype(np.float32)).to(dev)
+    ta = (za - float(o[2])) * inv[2][..., None]
+    tb = (zb - float(o[2])) * inv[2][..., None]
+    lo = torch.maximum(torch.minimum(ta, tb), t0[..., None])
+    hi = torch.minimum(torch.maximum(ta, tb), tf[..., None])
+    seg = (lo < hi) & active[..., None]
+    occ = torch.zeros_like(seg)
+    for tp in (lo, 0.5 * (lo + hi), hi):
+        b = [torch.clamp(torch.floor((tp * di[..., None] + float(oi) + 0.5) * nbk), 0, nbk - 1)
+             for di, oi in zip(d[:2], o[:2])]
+        bx, by = (torch.where(seg, bi, 0.0).to(torch.int64) for bi in b)
+        occ = occ | (seg & dilated_bits(coarse, c, by, bx))
+    return _patch_masks((occ.to(torch.int64) << c).sum(-1), active, special)
+
+
+def prepass_cuda(coarse, cam, *, grid_size, width, height):
+    """K6 on the card (``csrc/prepass.cu``, 4 lanes per patch): the masks of
+    :func:`prepass` on the twice-dilated mip, from the undilated mip
+    ``coarse`` [n/8, n/8] (a contiguous CUDA tensor), dilated on read."""
+    cam = _check_args(grid_size, width, height, cam)
+    n = grid_size
+    kernels.require(coarse, "coarse", torch.int32, (n // 8, n // 8))
     out = torch.empty(_patch_grid(width, height), dtype=torch.int32,
-                      device=coarse_pre.device)
+                      device=coarse.device)
     err = kernels.library().ca3d_prepass(
-        coarse_pre.device.index or 0, coarse_pre.data_ptr(), n, width, height,
-        cam.ctypes.data, out.data_ptr(), kernels.stream_of(coarse_pre),
+        coarse.device.index or 0, coarse.data_ptr(), n, width, height,
+        cam.ctypes.data, out.data_ptr(), kernels.stream_of(coarse),
     )
     kernels.check(err, "prepass")
     prepass_cuda.launches += 1
@@ -627,13 +691,16 @@ prepass_cuda.launches = 0
 
 
 def prepass_mask(coarse, cam, *, grid_size, width, height):
-    """The patch masks of a frame (render_fast.py ``_prepass_mask``): the
-    coarse mip ``coarse`` dilated ±1 block in x and y, then ±1 more in x,
-    through the plain K6 for a CPU mip and K6 for any other."""
+    """The patch masks of a frame (render_fast.py ``_prepass_mask``) from
+    the coarse mip ``coarse``: for a CPU mip the plain K6 on the mip
+    dilated ±1 block in x and y, then ±1 more in x; for any other K6,
+    which dilates on read."""
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    if coarse.device.type != "cpu":
+        return prepass_cuda(coarse, cam, **kw)
     coarse_pre = dilate_occupancy(coarse, dilate_z=False, dilate_y=True)
     coarse_pre = dilate_occupancy(coarse_pre, dilate_z=False, dilate_y=False)
-    fn = prepass if coarse.device.type == "cpu" else prepass_cuda
-    return fn(coarse_pre, cam, grid_size=grid_size, width=width, height=height)
+    return prepass(coarse_pre, cam, **kw)
 
 
 def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
@@ -641,13 +708,16 @@ def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
                    total_states=2):
     """Trace (and with ``history``, compose) one frame: the plain version
     for a CPU volume, the CUDA kernel for any other.  ``use_prepass``: gate
-    the primary sweep by the patch prepass's column masks
-    (:func:`prepass_mask`; every column where :func:`mask_gate_forced`);
-    opt-in, as in the reference.  ``ages`` /
-    ``total_states``: the age bit-planes of a multi-state rule (``vol`` is
-    then its visibility plane), whose hit ages fade the direct term."""
-    kw = dict(grid_size=grid_size, width=width, height=height)
-    colmask = prepass_mask(coarse, cam, **kw) if use_prepass else None
-    fn = raytrace if vol.device.type == "cpu" else raytrace_cuda
-    return fn(vol, coarse, cam, history, shadow=shadow, colmask=colmask,
-              ages=ages, total_states=total_states, **kw)
+    the primary sweep by the patch prepass's column masks (every column
+    where :func:`mask_gate_forced`); opt-in, as in the reference.  On the
+    CPU the masks are :func:`prepass_mask`'s; on the card K1 computes them
+    itself, so the frame is one launch.  ``ages`` / ``total_states``: the
+    age bit-planes of a multi-state rule (``vol`` is then its visibility
+    plane), whose hit ages fade the direct term."""
+    kw = dict(grid_size=grid_size, width=width, height=height, shadow=shadow, ages=ages,
+              total_states=total_states)
+    if vol.device.type != "cpu":
+        return raytrace_cuda(vol, coarse, cam, history, prepass=use_prepass, **kw)
+    colmask = (prepass_mask(coarse, cam, grid_size=grid_size, width=width, height=height)
+               if use_prepass else None)
+    return raytrace(vol, coarse, cam, history, colmask=colmask, **kw)

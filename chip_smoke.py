@@ -73,13 +73,19 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       1920×1080 and on random rays at 64³ and 512³ (broadcast targets,
       int64 cells, excluded cells at -1, n and 2n + 3), K3 on the same
       frames' 4 GI lookups; K6 (the patch
-      prepass) vs its plain version and K1 with its mask vs K1 without it
-      (ids equal, depth and rgb within the contract, both modes) at 256³ /
+      prepass, 4 lanes per patch, on the undilated mip) vs its plain version
+      on the twice-dilated mip, bit for bit, K1 computing its own masks
+      (``prepass=True``) vs K1 given the plain masks and vs K1 without
+      masks, bit for bit, and K1 with K6's mask vs K1 without it (ids
+      equal, depth and rgb within the contract), both modes, at 256³ /
       1080p on the gen-80 and the dense gen-230 scene from three views; the
       prepass frame against the frame without the prepass, bit for bit, on
       both scenes at 1080p and at 64³ / 128×64 (where the mask gate is
-      forced open), both modes; 20 composed frames through raytrace_tiles(use_prepass=True) with K6's
-      and K1's launch counters; the Engine with CA3D_OCC_SWEEP=0 on the card
+      forced open and K1 skips its prologue), both modes; 20 composed frames
+      through raytrace_tiles(use_prepass=True) with K6's and K1's launch
+      counters (one K1 launch with its prologue a frame, no K6 launch) and
+      the kernels of 5 such frames from a torch.profiler trace (one a
+      frame); the Engine with CA3D_OCC_SWEEP=0 on the card
       vs on the CPU at 64³ (full quality, two bounces), then Engine(256,
       1080p) full quality and two bounces and Engine(512) gi_temporal with
       it, K5 launched and K2 not, one box launch per K5 and K4 launch.
@@ -541,6 +547,7 @@ OPS_CA_DECAY = 12     # decay epilogue per age plane: increment, three selects
 OPS_AGE = 20          # age fetch (shift, mask, or per plane) and the fade
 OPS_PATCH = 60        # K6 patch ray and box
 OPS_PATCH_COLUMN = 40  # K6 column span and 3 probes
+OPS_DILATE = 12       # K6's two dilations of the mip, per word
 
 
 def bound(nbytes, ops):
@@ -666,53 +673,69 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
         need(int(want.sum()) > 0, f"K5 {size}^3 random rays: nothing is occluded")
     g = torch.Generator(dev).manual_seed(17)
 
-    # K6 against plain K6, and K1 with the prepass mask against K1 without
-    # it, at 256³ / 1080p on the main path's gen-80 scene and the dense
-    # gen-230 scene (tools/bench_dense.py), from three views.
-    mask_frac = 0.0
+    # K6 on the undilated mip against the plain prepass on the twice-dilated
+    # mip; K1 computing its own masks against K1 given the plain masks and
+    # K1 without masks, bit for bit; K1 with K6's mask against K1 without it
+    # within the contract.  At 256³ / 1080p on the main path's gen-80 scene
+    # and the dense gen-230 scene (tools/bench_dense.py), from three views.
+    def dilated_twice(coarse):
+        return dilate_occupancy(dilate_occupancy(coarse, dilate_z=False),
+                                dilate_z=False, dilate_y=False)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    mask_frac, exact = 0.0, 0
+    rf.prepass_cuda.launches = 0
     for steps in (80, 230):
         vol = grown(GRID, steps)
         coarse = coarse_occupancy(vol)
-        pre = dilate_occupancy(dilate_occupancy(coarse, dilate_z=False),
-                               dilate_z=False, dilate_y=False)
         for name, view in views.items():
             cam = scene_cam(view, WIDTH, HEIGHT)
             kw = dict(grid_size=GRID, width=WIDTH, height=HEIGHT)
-            m_k = rf.prepass_cuda(pre, cam, **kw)
-            m_p, k6_plain_ms = timed(torch, lambda: rf.prepass(pre, cam, **kw))
+            m_k = rf.prepass_mask(coarse, cam, **kw)
+            m_p, k6_plain_ms = timed(torch, lambda: rf.prepass(dilated_twice(coarse), cam, **kw))
             bad = int((m_k != m_p).sum())
             tag = f"{GRID}^3 {WIDTH}x{HEIGHT} gen-{steps} {name}"
             log(f"  K6 {tag}: {m_k.numel()} patches, {int((m_p == -1).sum())} forced, "
                 f"{int((m_p == 0).sum())} empty, {bad} differ, plain {k6_plain_ms:.1f} ms")
             need(bad == 0, f"K6 {tag}: {bad} masks differ from the plain version")
             kw = dict(kw, shadow=True)
-            got = rf.raytrace_cuda(vol, coarse, cam, colmask=m_k, **kw)
-            want = rf.raytrace_cuda(vol, coarse, cam, **kw)
-            torch.cuda.synchronize()
-            _, f = compare(f"K1 mask vs no mask {tag} non-compose", got, want)
-            mask_frac = max(mask_frac, f)
-            hist = (torch.clamp(want[0] * 1.5 + 0.02, 0.0, 1.0).contiguous(),
-                    torch.where(torch.rand(want[2].shape, device=dev, generator=g) < 0.7,
-                                want[2], want[2] + 1).contiguous())
-            got = rf.raytrace_cuda(vol, coarse, cam, hist, colmask=m_k, **kw)
-            want = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
-            torch.cuda.synchronize()
-            _, f = compare(f"K1 mask vs no mask {tag} compose", got, want)
-            mask_frac = max(mask_frac, f)
+            hist = None
+            for mode in ("non-compose", "compose"):
+                got = rf.raytrace_cuda(vol, coarse, cam, hist, colmask=m_k, **kw)
+                want = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
+                torch.cuda.synchronize()
+                _, f = compare(f"K1 mask vs no mask {tag} {mode}", got, want)
+                mask_frac = max(mask_frac, f)
+                inline = rf.raytrace_cuda(vol, coarse, cam, hist, prepass=True, **kw)
+                given = rf.raytrace_cuda(vol, coarse, cam, hist, colmask=m_p, **kw)
+                need(same(inline, given), f"K1 {tag} {mode}: its own masks != the plain masks")
+                need(same(inline, want), f"K1 {tag} {mode}: its own masks != no masks")
+                exact += 2
+                if hist is None:
+                    hist = (torch.clamp(want[0] * 1.5 + 0.02, 0.0, 1.0).contiguous(),
+                            torch.where(torch.rand(want[2].shape, device=dev, generator=g)
+                                        < 0.7, want[2], want[2] + 1).contiguous())
             if name == "front":
-                out["k1_timed"][steps] = (vol, coarse, pre, cam, hist, m_k, kw, k6_plain_ms)
+                out["k1_timed"][steps] = (vol, coarse, cam, hist, m_k, kw, k6_plain_ms)
     out["k1_mask_id_mismatch"] = mask_frac
+    # K6 alone runs only where a caller asks prepass_mask for a frame's
+    # masks, as above; the prepass frame below never launches it.
+    out["k6_launches"] = rf.prepass_cuda.launches
+    need(out["k6_launches"] == 6, f"prepass_mask launched K6 {out['k6_launches']} times, not 6")
+    log(f"  K1 with its own masks == K1 given the plain masks == K1 without: {exact} frames")
     # The prepass frame equals the frame without the prepass, exactly: at
     # 1080p (the mask gate on) on both scenes, and at 64³ / 128×64, where
-    # the window is too small for the masks and the gate is forced open.
+    # the window is too small for the masks, the gate is forced open and K1
+    # skips its prologue.
     exact = 0
-    for vol, coarse, _, cam, hist, _, kw, _ in out["k1_timed"].values():
+    for vol, coarse, cam, hist, _, kw, _ in out["k1_timed"].values():
         need(not rf.mask_gate_forced(cam), "the mask gate is forced open at 1080p")
         for h in (None, hist):
             got = rf.raytrace_tiles(vol, coarse, cam, h, use_prepass=True, **kw)
             want = rf.raytrace_tiles(vol, coarse, cam, h, **kw)
-            need(all(torch.equal(x, y) for x, y in zip(got, want)),
-                 "the 1080p prepass frame != the frame without the prepass")
+            need(same(got, want), "the 1080p prepass frame != the frame without the prepass")
             exact += 1
     vol = grown(64)
     coarse = coarse_occupancy(vol)
@@ -722,20 +745,23 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
         kw = dict(grid_size=64, width=128, height=64, shadow=True)
         want = rf.raytrace_tiles(vol, coarse, cam, **kw)
         hist = (torch.clamp(want[0] * 1.5, 0, 1).contiguous(), want[2].contiguous())
+        m_p = rf.prepass(dilated_twice(coarse), cam, grid_size=64, width=128, height=64)
         for h in (None, hist):
             got = rf.raytrace_tiles(vol, coarse, cam, h, use_prepass=True, **kw)
             ref = rf.raytrace_tiles(vol, coarse, cam, h, **kw)
-            need(all(torch.equal(x, y) for x, y in zip(got, ref)),
+            given = rf.raytrace_cuda(vol, coarse, cam, h, colmask=m_p, **kw)
+            need(same(got, ref) and same(got, given),
                  f"the 128x64 prepass frame != the frame without the prepass ({name})")
             exact += 1
     log(f"  prepass frame == frame without the prepass: {exact} frames at 1080p and 128x64")
 
     # The prepass frame path (tools/bench_dense.py's loop with
     # CA3D_PREPASS=1): composed frames of the gen-230 scene through
-    # raytrace_tiles(use_prepass=True).
-    vol, coarse, _, cam, hist, _, kw, _ = out["k1_timed"][230]
+    # raytrace_tiles(use_prepass=True), one K1 launch a frame.
+    vol, coarse, cam, hist, _, kw, _ = out["k1_timed"][230]
     rf.prepass_cuda.launches = 0
     rf.raytrace_cuda.launches = 0
+    rf.raytrace_cuda.prepass_launches = 0
     h = hist
     for _ in range(20):
         pres, _, idx, color = rf.raytrace_tiles(vol, coarse_occupancy(vol), cam, h,
@@ -743,12 +769,28 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
         h = (color, idx)
     torch.cuda.synchronize()
     counts = {"prepass_cuda": rf.prepass_cuda.launches,
-              "raytrace_cuda": rf.raytrace_cuda.launches}
-    need(all(v > 0 for v in counts.values()), f"prepass path missed a kernel: {counts}")
+              "raytrace_cuda": rf.raytrace_cuda.launches,
+              "raytrace_cuda_prepass": rf.raytrace_cuda.prepass_launches}
+    need(counts == {"prepass_cuda": 0, "raytrace_cuda": 20, "raytrace_cuda_prepass": 20},
+         f"prepass path: not one K1 launch with its prologue a frame: {counts}")
     need(bool(torch.isfinite(pres).all()) and float(pres.max()) > 0.0,
          "prepass frame is not finite or is black")
     log(f"(g) prepass path: 20 composed frames of gen-230; launches {counts}")
     out["prepass_launches"] = counts
+    # The kernels a prepass frame runs, from the card's trace of 5 frames.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            rf.raytrace_tiles(vol, coarse, cam, hist, use_prepass=True, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    need(len(names) == 5 and all("render_kernel" in k for k in names),
+         f"a prepass frame is not one K1 kernel: {len(names)} device events in 5 frames, "
+         f"{sorted(set(names))}")
+    log(f"(g) prepass frame: {len(names) / 5:g} kernel a frame (torch.profiler)")
+    out["prepass_frame_kernels"] = len(names) / 5
 
     # The Engine with CA3D_OCC_SWEEP=0: on the card against the CPU at 64³,
     # then at real size, with every kernel's launch counter read around it.
@@ -1565,7 +1607,8 @@ def main() -> dict:
     # ------------------------------- (g) K5, K6 and K1's column-mask gate ---
     multi = multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown,
                         scene_cam, views, lighting_operands, compare, to_dev)
-    report["multi"] = {k: multi[k] for k in ("k1_mask_id_mismatch", "prepass_launches",
+    report["multi"] = {k: multi[k] for k in ("k1_mask_id_mismatch", "k6_launches",
+                                             "prepass_launches", "prepass_frame_kernels",
                                              "launches")}
 
     # ---------------------------------------- (h) the multi-state path ---
@@ -1708,28 +1751,34 @@ def main() -> dict:
             idle = [(s_, t_, e_, torch.zeros_like(a_)) for s_, t_, e_, a_ in queries]
             multi_ms["k5_idle_ms"] = cuda_ms(torch, lambda: run_k5(idle), 50, warmup=2)
     # K6 and K1 with and without the prepass mask, alternated, on gen-80
-    # and gen-230: K1 alone with a given mask, and the whole prepass frame
-    # (two dilations, K6, K1).
-    for steps, (vol, coarse, pre, cam, hist, mask, kw, k6_plain_ms) in multi["k1_timed"].items():
+    # and gen-230: K1 alone with a given mask, K1 computing its own masks,
+    # and the whole prepass frame.  K6 inside K1 costs the difference of
+    # the second and the first.
+    for steps, (vol, coarse, cam, hist, mask, kw, k6_plain_ms) in multi["k1_timed"].items():
         if steps == 80:
             multi_ms["k6_ms"] = cuda_ms(torch, lambda: rf.prepass_cuda(
-                pre, cam, grid_size=GRID, width=WIDTH, height=HEIGHT), 200, warmup=5)
+                coarse, cam, grid_size=GRID, width=WIDTH, height=HEIGHT), 200, warmup=5)
             multi_ms["k6_plain_ms"] = k6_plain_ms
         runs = {
             "k1_compose": lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw),
             "k1_compose_masked": lambda: rf.raytrace_cuda(vol, coarse, cam, hist,
                                                           colmask=mask, **kw),
+            "k1_compose_inline": lambda: rf.raytrace_cuda(vol, coarse, cam, hist,
+                                                          prepass=True, **kw),
             "k1_compose_prepass_frame": lambda: rf.raytrace_tiles(
                 vol, coarse, cam, hist, use_prepass=True, **kw),
         }
-        order = ["k1_compose", "k1_compose_masked", "k1_compose_prepass_frame",
-                 "k1_compose_prepass_frame", "k1_compose_masked", "k1_compose"]
+        order = ["k1_compose", "k1_compose_masked", "k1_compose_inline",
+                 "k1_compose_prepass_frame", "k1_compose_prepass_frame",
+                 "k1_compose_inline", "k1_compose_masked", "k1_compose"]
         reads = {k: [] for k in runs}
         for k in order:
             reads[k].append(cuda_ms(torch, runs[k], 50, warmup=3))
         for k, v in reads.items():
             multi_ms[f"{k}_gen{steps}_ms"] = sum(v) / len(v)
             multi_ms[f"{k}_gen{steps}_reads_ms"] = v
+        multi_ms[f"k6_inline_gen{steps}_ms"] = (multi_ms[f"k1_compose_inline_gen{steps}_ms"]
+                                                - multi_ms[f"k1_compose_masked_gen{steps}_ms"])
         # K1's split in compose mode: no sweep (ray set-up, composition,
         # stores), then the primary sweep (shadow=False), then both sweeps.
         kw0 = dict(kw, shadow=False)
@@ -1816,10 +1865,13 @@ def main() -> dict:
     bounds["shadow_multi_idle"] = bound(k2_256[3].numel() * 5, 0)
     bounds["shadow_multi_full_box"] = bound(*k5_work(k2_230, q_230, GRID,
                                                      occupancy.occupied_box(coarse_230, GRID)))
-    _, _, pre, cam, _, mask, _, _ = multi["k1_timed"][80]
+    _, _, _, _, mask, _, _ = multi["k1_timed"][80]
     live = int(((mask != 0) & (mask != -1)).sum())
-    bounds["prepass"] = bound((GRID // 8) ** 2 * 4 + mask.numel() * 4,
-                              mask.numel() * OPS_PATCH + live * (GRID // 8) * OPS_PATCH_COLUMN)
+    k6_ops = (mask.numel() * OPS_PATCH + live * (GRID // 8) * OPS_PATCH_COLUMN
+              + (GRID // 8)**2 * OPS_DILATE)
+    bounds["prepass"] = bound(mip_bytes(GRID) + mask.numel() * 4, k6_ops)
+    # Inside K1 the masks stay in shared memory: the mip is the only traffic.
+    bounds["prepass_inline"] = bound(mip_bytes(GRID), k6_ops)
     # The same counts at the other sizes PERF.md's kernel table names.
     for size in (512, 1024):
         words = size**3 // 32
@@ -1897,9 +1949,14 @@ def main() -> dict:
               0.0, box_ms["occupied_box_512_ms"], box_ms["occupied_box_512_plain_ms"]),
         entry("shadow_multi", "shadow_multi.cu", "render/render_slab.py:402", k5_launches,
               0.0, multi_ms[f"k5_{GRID}_ms"], multi_ms[f"k5_{GRID}_plain_ms"]),
-        entry("prepass", "prepass.cu", "render/render_fast.py:889",
-              multi["prepass_launches"]["prepass_cuda"], 0.0, multi_ms["k6_ms"],
-              multi_ms["k6_plain_ms"]),
+        # K6 alone (prepass.cu, through prepass_mask), and K6 inside K1 on
+        # the prepass frame (prepass.cuh's device function, K1's kMaskInline
+        # form): its ms is K1 with its own masks less K1 given them.
+        entry("prepass", "prepass.cu", "render/render_fast.py:889", multi["k6_launches"],
+              0.0, multi_ms["k6_ms"], multi_ms["k6_plain_ms"]),
+        entry("prepass_inline", "render_fast.cu", "render/render_fast.py:889",
+              multi["prepass_launches"]["raytrace_cuda_prepass"], 0.0,
+              multi_ms["k6_inline_gen80_ms"], multi_ms["k6_plain_ms"]),
     ]
     need("jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None},
          "JAX was imported")

@@ -527,22 +527,64 @@ def _band_cam(view):
                        (0.17,) * 3, (0.0,) * 3, row0=BAND["row0"])
 
 
-@pytest.mark.parametrize("view", list(VIEWS))
-@pytest.mark.parametrize("n", [64, 256])
-def test_k6_kernel_matches_plain(cuda, n, view):
+def _dilated_twice(coarse):
     from cellularautomatons3d_tpu_torch.ops.occupancy import dilate_occupancy
 
-    vol = sparse_volume(cuda, n, 0.002, 3)
-    pre = dilate_occupancy(dilate_occupancy(coarse_occupancy(vol), dilate_z=False),
-                           dilate_z=False, dilate_y=False)
+    return dilate_occupancy(dilate_occupancy(coarse, dilate_z=False), dilate_z=False,
+                            dilate_y=False)
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+@pytest.mark.parametrize("n", [64, 96, 256])
+def test_k6_kernel_matches_plain(cuda, n, view):
+    """K6 on the undilated mip (4 lanes per patch, dilated on read) against
+    the plain prepass on the twice-dilated mip and the plain per-column
+    twin, bit for bit, on the 1080p band, at 128×64 and at 203×61."""
+    coarse = coarse_occupancy(sparse_volume(cuda, n, 0.002, 3))
+    pre = _dilated_twice(coarse)
     for cam, w, h in ((_band_cam(view), BAND["width"], BAND["height"]),
-                      (rf.pack_cam(VIEWS[view], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
-                                   (0.17,) * 3, (0.0,) * 3), W, H)):
+                      *((rf.pack_cam(VIEWS[view], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                                     (0.17,) * 3, (0.0,) * 3), w, h)
+                        for w, h in ((W, H), (203, 61)))):
         kw = dict(grid_size=n, width=w, height=h)
-        got = rf.prepass_cuda(pre, cam, **kw)
+        got = rf.prepass_cuda(coarse, cam, **kw)
         want = rf.prepass(pre, cam, **kw)
         assert torch.equal(got, want)
+        assert torch.equal(rf.prepass_columns(coarse, cam, **kw), want)
         assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("compose", [False, True])
+@pytest.mark.parametrize("view", ["front", "oblique"])
+@pytest.mark.parametrize("window", ["1080p", "small"])
+@pytest.mark.parametrize("n", [64, 256])
+def test_k1_inline_prepass_matches_given_mask(cuda, n, window, view, compose):
+    """K1 computing its own patch masks (``prepass=True``) renders K1's
+    frame given the plain masks and its frame without the prepass, bit for
+    bit: at 1920×1080, where the masks gate, and at 128×64, where the gate
+    is forced open and the prologue is skipped."""
+    vol = sparse_volume(cuda, n, 0.002 if n == 64 else 0.0005, 3)
+    coarse = coarse_occupancy(vol)
+    w, h = (1920, 1080) if window == "1080p" else (W, H)
+    cam = rf.pack_cam(VIEWS[view], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29, (0.17,) * 3,
+                      (0.0,) * 3)
+    assert rf.mask_gate_forced(cam) == (window == "small")
+    kw = dict(grid_size=n, width=w, height=h, shadow=True)
+    hist = None
+    if compose:
+        rgb, _, idx = rf.raytrace_cuda(vol, coarse, cam, **kw)
+        hist = (torch.clamp(rgb * 1.5, 0, 1).contiguous(), idx.contiguous())
+    plain_mask = rf.prepass(_dilated_twice(coarse), cam, grid_size=n, width=w, height=h)
+    launches = rf.raytrace_cuda.prepass_launches
+    got = rf.raytrace_cuda(vol, coarse, cam, hist, prepass=True, **kw)
+    assert rf.raytrace_cuda.prepass_launches == launches + 1
+    given = rf.raytrace_cuda(vol, coarse, cam, hist, colmask=plain_mask, **kw)
+    none = rf.raytrace_cuda(vol, coarse, cam, hist, **kw)
+    for a, b, c in zip(got, given, none):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int((none[2] >= 0).sum()) > 0
+    gated = (plain_mask != -1) & (plain_mask != 0)
+    assert bool(gated.any()) and not bool((plain_mask[gated] == (1 << n // 8) - 1).all())
 
 
 @pytest.mark.parametrize("compose", [False, True])

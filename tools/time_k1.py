@@ -14,6 +14,12 @@ its own kernels there) and times, with CUDA events after a warm-up, at
   230 (the dense scene of ``tools/bench_dense.py``); where the tree has K1's
   ``no_sweep`` flag, also the split of compose mode: no sweep (ray set-up,
   composition, stores), ``shadow=False`` (plus the primary sweep) and full;
+* the opt-in prepass frame on the same scenes (``raytrace_tiles(...,
+  use_prepass=True)``, compose), each tree on its own contract: K6
+  (``render_fast.prepass_cuda``; on the undilated mip where K1 takes
+  ``prepass``, else on the twice-dilated one), the two dilations where the
+  frame runs them, K1 given the plain masks, and the whole frame with the
+  kernels it launches (from the profiler trace);
 * K2 (``render_slab.shadow_sweep_cuda``) on a full-quality frame's 8
   occlusion queries at 256³ on gen-80 and on gen-230 (whose box of occupied
   blocks is the whole volume), with every lane inactive (its floor), and at
@@ -56,7 +62,7 @@ scenes, that both CA steps equal theirs at 256³, that K2's flags and K4's
 ids equal theirs on each scene they are timed on, that K5's flags equal
 K2's and K3's states its plain version's, so a broken tree is not timed.
 Prints one JSON line with the times, the hit counts, the registers and
-spills ``ptxas`` gave K1, K2, K3, K4, K5, the box kernel, the CA step
+spills ``ptxas`` gave K1, K2, K3, K4, K5, K6, the box kernel, the CA step
 kernels and the age-mask pass, the label and the card, and appends it to
 ``--out``.  With ``--sass DIR`` it also writes
 ``cuobjdump -sass`` of the CA step kernels to ``DIR``.  Compare two trees by
@@ -75,8 +81,9 @@ import time
 from pathlib import Path
 
 
-TIMED = ("render_kernel", "ca_step_kernel", "shadow_sweep_kernel", "primary_sweep_kernel",
-         "occupied_box_kernel", "shadow_multi_kernel", "cell_state_kernel", "age_masks_kernel")
+TIMED = ("render_kernel", "prepass_kernel", "ca_step_kernel", "shadow_sweep_kernel",
+         "primary_sweep_kernel", "occupied_box_kernel", "shadow_multi_kernel",
+         "cell_state_kernel", "age_masks_kernel")
 K2_KERNELS = ["shadow_sweep_kernel", "occupied_box_kernel"]
 K4_KERNELS = ["primary_sweep_kernel", "occupied_box_kernel"]
 K5_KERNELS = ["shadow_multi_kernel", "occupied_box_kernel"]
@@ -162,10 +169,9 @@ def main():
                       temporal_alpha=d.temporal_alpha, gamma=d.gamma)
     kw = dict(grid_size=n, width=w, height=h, shadow=True)
 
-    def device_ms(fn, kernels, iters=20, warmup=3):
-        """Mean device time per call of fn in the kernels whose names hold one
-        of ``kernels``, from torch.profiler's CUDA trace: the kernels alone,
-        without the host's enqueue between them (None if the trace has none)."""
+    def device_events(fn, iters=20, warmup=3):
+        """(name, µs) of every device event of ``iters`` calls of fn, from
+        torch.profiler's CUDA trace."""
         from torch.profiler import ProfilerActivity, profile
 
         for _ in range(warmup):
@@ -175,9 +181,15 @@ def main():
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(k in e.name for k in kernels)]
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def device_ms(fn, kernels, iters=20, warmup=3):
+        """Mean device time per call of fn in the kernels whose names hold one
+        of ``kernels``: the kernels alone, without the host's enqueue between
+        them (None if the trace has none)."""
+        us = [t for name, t in device_events(fn, iters, warmup)
+              if any(k in name for k in kernels)]
         return sum(us) / iters / 1000.0 if us else None
 
     dev_ms = {}
@@ -317,6 +329,44 @@ def main():
             dev_ms[tag] = device_ms(run, ["occupied_box_kernel"], 100)
             out[f"{tag}_box"] = run().tolist()
 
+    # The prepass frame's contract: K1 computes its own masks since the
+    # redesign (``prepass``), and K6 reads the undilated mip; before it the
+    # frame ran the two dilations, K6 on their mip and K1 with its masks.
+    inline = "prepass" in inspect.signature(rf.raytrace_cuda).parameters
+
+    def time_prepass(g, vol_, coarse_, hist_, idx_):
+        """K6, the dilations (where the frame runs them), K1 given the plain
+        masks and the whole prepass frame, compose, checked against K1
+        without masks."""
+        from cellularautomatons3d_tpu_torch.ops.occupancy import dilate_occupancy
+
+        dilate = lambda: dilate_occupancy(  # noqa: E731
+            dilate_occupancy(coarse_, dilate_z=False), dilate_z=False, dilate_y=False)
+        pre = dilate()
+        plain = rf.prepass(pre, cam, grid_size=n, width=w, height=h)
+        k6_in = coarse_ if inline else pre
+        k6 = lambda: rf.prepass_cuda(k6_in, cam, grid_size=n, width=w, height=h)  # noqa: E731
+        if not torch.equal(k6(), plain):
+            raise SystemExit(f"{label}: K6 {g} differs from its plain version")
+        masked = lambda: rf.raytrace_cuda(  # noqa: E731
+            vol_, coarse_, cam, hist_, colmask=plain, **kw)
+        frame = lambda: rf.raytrace_tiles(vol_, coarse_, cam, hist_,  # noqa: E731
+                                          use_prepass=True, **kw)
+        if not (torch.equal(masked()[2], idx_) and torch.equal(frame()[2], idx_)):
+            raise SystemExit(f"{label}: the prepass frame {g} differs from K1 without masks")
+        out[f"k6_{g}_ms"] = ms(k6, 200)
+        dev_ms[f"k6_{g}"] = device_ms(k6, ["prepass_kernel"], 50)
+        if not inline:
+            out[f"dilations_{g}_ms"] = ms(dilate, 200)
+            dev_ms[f"dilations_{g}"] = device_ms(dilate, ALL_KERNELS, 50)
+        out[f"k1_compose_masked_{g}_ms"] = ms(masked)
+        dev_ms[f"k1_compose_masked_{g}"] = device_ms(masked, ["render_kernel"])
+        out[f"prepass_frame_{g}_ms"] = ms(frame)
+        events = device_events(frame, 20)
+        dev_ms[f"prepass_frame_{g}"] = sum(t for _, t in events) / 20 / 1000.0
+        out[f"prepass_frame_{g}_kernels"] = len(events) / 20
+        out[f"prepass_frame_{g}_kernel_names"] = sorted({k[:60] for k, _ in events})
+
     # The CA steps against their plain versions first.
     vol = ct.from_reference(ct.pack_grid(ct.seed_center(n)), dev)
     rng = np.random.default_rng(0)
@@ -367,6 +417,7 @@ def main():
         dev_ms[f"k1_noncompose_{g}"] = device_ms(
             lambda: rf.raytrace_cuda(vol, coarse, cam, **kw), ["render_kernel"])
         out[f"hit_pixels_{g}"] = int((idx >= 0).sum())
+        time_prepass(g, vol, coarse, hist, idx)
         k2, k2kw = k2_operands(vol, coarse, n)
         tag = "k2_8q_256" if steps == 80 else f"k2_8q_256_{g}"
         time_k2(tag, vol, coarse, k2, k2kw)
