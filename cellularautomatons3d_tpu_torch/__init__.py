@@ -24,6 +24,13 @@ the reference: the multi-query occlusion kernel K5
 ``csrc/prepass.cu``) with K1's column-mask gate
 (``render_fast.raytrace_tiles(use_prepass=True)``).  On a CPU device the
 same calls run the kernels' plain torch versions.
+
+The interactive path: a camera move between frames reprojects the temporal
+history (``render.renderer_fast.reproject_history``); :meth:`Engine.save` /
+:meth:`Engine.load` read and write the JAX package's npz checkpoints; the
+viewer (``python -m cellularautomatons3d_tpu_torch.viewer``, its Engine on the
+card unless ``--device cpu``) streams PNG frames (``utils.image``,
+``utils.video``, the C codec ``native/framesink.c`` built at first use).
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode

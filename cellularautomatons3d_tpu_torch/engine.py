@@ -22,14 +22,20 @@ nothing moves silently to the CPU.  With ``gi_temporal`` each
 soft-shadow sample and the GI slot rotate and the EMA converges to the
 full lighting.
 
+A camera move between frames reprojects the history through the previous
+view-projection (``renderer_fast.reproject_history``), as the JAX Engine
+does; :meth:`Engine.save` / :meth:`Engine.load` write and read the JAX
+package's npz checkpoints, so a file from either package loads in the other.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue-1 item: a moving camera once history exists (8); checkpoints (9);
-the reference pipeline (11); ``mesh_devices`` (12).
+queue-1 item: the reference pipeline (11); ``mesh_devices`` (12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -170,10 +176,12 @@ class Engine:
 
     def render_params(self) -> RenderParams:
         cfg = self.config
-        view = self.camera.matrices(cfg.width, cfg.height)[0]
+        view, prev_view, _, prev_proj_view = self.camera.matrices(cfg.width, cfg.height)
         f32 = np.float32
         return RenderParams(
             view_mat=np.asarray(view, f32),
+            prev_view_mat=np.asarray(prev_view, f32),
+            prev_proj_view=np.asarray(prev_proj_view, f32),
             elapsed_time=f32(self._time_ms * 1e-4),
             cell_size=f32(cfg.cell_size),
             temporal_alpha=f32(cfg.temporal_alpha),
@@ -194,22 +202,16 @@ class Engine:
         history."""
         self._time_ms += dt_ms
         params = self.render_params()
-        moved = not np.array_equal(self.camera.view_mat, self.camera.prev_view_mat)
-        # With no history yet (every id -1) a moved camera blends nothing,
-        # exactly like a static one; only a move over a live history needs
-        # the reprojection that is not ported yet.
-        if moved and bool((self.history.hit_idx >= 0).any()):
-            raise NotImplementedError(
-                "a moving camera (history reprojection) is not ported yet "
-                "(ROADMAP.md queue 1, item 8)"
-            )
+        camera_static = bool(
+            np.array_equal(self.camera.view_mat, self.camera.prev_view_mat)
+        )
         sample_idx = self._render_count if self.config.gi_temporal else None
         ages = {}
         if self.spec.total_states > 2:
             ages = dict(ages=self.state, total_states=self.spec.total_states)
         frame, _, self.history = render_frame_fast(
             self.render_static, self._visibility_plane(), params, self.history,
-            True, sample_idx, **ages,
+            camera_static, sample_idx, **ages,
         )
         self._render_count += 1
         self.camera.end_frame()
@@ -303,9 +305,76 @@ class Engine:
     def restart(self):
         """Apply deferred values, reseed state (main_pathtraced.js:624-637)."""
         updates = dict(self._pending_restart)
+        cfg = self.config.replace(**updates) if updates else self.config
+        # An unported setting raises before anything changes; its pending
+        # value stays until a later set() overrides it.
+        _check_config(cfg)
         self._pending_restart.clear()
-        if updates:
-            self.config = self.config.replace(**updates)
+        self.config = cfg
         self._time_ms = 0.0
         self._build()
         return self
+
+    # ------------------------------------------------------------------ #
+    # checkpoint / resume (the JAX package's npz format)
+    # ------------------------------------------------------------------ #
+    def save(self, path: str, backend: str = "npz"):
+        """Checkpoint to ``path`` as the JAX package's npz (engine.py:457-489
+        there): the state as ``uint32`` words (age planes for a multi-state
+        rule), the counters, the camera with its previous matrices, the
+        config as JSON and the f16 history, so either package loads it."""
+        if backend == "orbax":
+            raise NotImplementedError(
+                "orbax checkpoints are the JAX package's (cellularautomatons3d_tpu"
+                ".Engine.save(path, backend='orbax')); this Engine writes npz"
+            )
+        if backend != "npz":
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
+        np.savez_compressed(
+            path,
+            state=self.state.cpu().numpy().view(np.uint32),
+            simulation_step=self.simulation_step,
+            time_ms=self._time_ms,
+            frame_duration=self._frame_duration,
+            view_mat=self.camera.view_mat,
+            prev_view_mat=self.camera.prev_view_mat,
+            prev_proj_view=self.camera.prev_proj_view,
+            config=json.dumps(dataclasses.asdict(self.config)),
+            history_color=self.history.color.cpu().numpy(),
+            history_idx=self.history.hit_idx.cpu().numpy(),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "Engine":
+        """An Engine on ``device`` resumed from an npz checkpoint written by
+        :meth:`save` or by the JAX package's ``Engine.save`` (engine.py:573-608
+        there).  Files that predate ``prev_proj_view`` or ``frame_duration``
+        keep their defaults, as in the reference."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"{path} is a directory, an orbax checkpoint: load it with the "
+                "JAX package (cellularautomatons3d_tpu.Engine.load)"
+            )
+        with np.load(path, allow_pickle=False) as data:
+            cfg = EngineConfig(**json.loads(str(data["config"])))
+            eng = cls(cfg, device=device)
+            words = data["state"]
+            if words.dtype != np.uint32 or words.shape != tuple(eng.state.shape):
+                raise ValueError(
+                    f"checkpoint state is {words.dtype}{list(words.shape)}, expected "
+                    f"uint32{list(eng.state.shape)} for this config"
+                )
+            eng.state = torch.from_numpy(words.view(np.int32)).to(eng.device)
+            eng.simulation_step = int(data["simulation_step"])
+            eng._time_ms = float(data["time_ms"])
+            eng.history = FastHistory(
+                color=torch.from_numpy(data["history_color"].astype(np.float16)).to(eng.device),
+                hit_idx=torch.from_numpy(data["history_idx"].astype(np.int32)).to(eng.device),
+            )
+            eng.camera.view_mat = data["view_mat"].astype(np.float32)
+            eng.camera.prev_view_mat = data["prev_view_mat"].astype(np.float32)
+            if "prev_proj_view" in data:
+                eng.camera.prev_proj_view = data["prev_proj_view"].astype(np.float32)
+            if "frame_duration" in data:
+                eng._frame_duration = float(data["frame_duration"])
+        return eng

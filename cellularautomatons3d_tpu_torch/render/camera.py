@@ -26,15 +26,20 @@ MIN_SPEED_MUL = 0.001     # main_pathtraced.js:8
 MAX_SPEED_MUL = 100.0     # main_pathtraced.js:9
 
 
-def pixel_uvs(width: int, height: int, device=None) -> torch.Tensor:
+def pixel_uvs(width: int, height: int, device=None, row0: int = 0,
+              full_height: int | None = None) -> torch.Tensor:
     """Per-pixel quad UVs, shape [H, W, 2], row 0 = top of screen:
-    uv.x = (i+0.5)/W, uv.y = 1 - (j+0.5)/H."""
+    uv.x = (i+0.5)/W, uv.y = 1 - (j+row0+0.5)/full_height.  ``row0`` /
+    ``full_height``: the rows of a horizontal shard of a taller window
+    (renderer_fast.py:250-254 of the JAX package); by default the whole
+    window of ``height`` rows."""
+    fh = height if full_height is None else full_height
     xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
-    ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    ys = torch.arange(height, dtype=torch.float32, device=device) + float(row0) + 0.5
     # Tensor divisors: CUDA torch divides by a Python scalar as a multiply
     # by its reciprocal, which is not IEEE division.
     xs = xs / torch.full_like(xs, width)
-    ys = 1.0 - ys / torch.full_like(ys, height)
+    ys = 1.0 - ys / torch.full_like(ys, fh)
     v, u = torch.meshgrid(ys, xs, indexing="ij")  # [H, W]
     return torch.stack([u, v], dim=-1)
 

@@ -496,7 +496,8 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
     ``prepass``: gate the primary sweep by the patch masks K1 computes
     itself from ``coarse`` (the frame of ``colmask=prepass_mask(...)`` in
     one launch); not with ``colmask`` or ``no_sweep``.  Such launches are
-    also counted in ``raytrace_cuda.prepass_launches``."""
+    also counted in ``raytrace_cuda.prepass_launches``, and compose-mode
+    launches (with ``history``) in ``raytrace_cuda.compose_launches``."""
     cam = _check_args(grid_size, width, height, cam)
     if prepass and (colmask is not None or no_sweep):
         raise ValueError("prepass computes the masks: no colmask, no no_sweep")
@@ -537,6 +538,7 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
     kernels.check(err, "render_fast")
     raytrace_cuda.launches += 1
     raytrace_cuda.prepass_launches += int(prepass)
+    raytrace_cuda.compose_launches += int(history is not None)
     if history is None:
         return out_rgb, depth, idx
     return out_rgb, depth, idx, new_hist
@@ -544,6 +546,7 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
 
 raytrace_cuda.launches = 0
 raytrace_cuda.prepass_launches = 0
+raytrace_cuda.compose_launches = 0
 
 
 # ------------------------------------------------------- K6: prepass ---

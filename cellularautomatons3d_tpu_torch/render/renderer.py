@@ -8,8 +8,9 @@ reference pipeline
 
 ``RenderParams`` holds host values (numpy float32): they are packed into the
 kernel's 40-float parameter vector each frame (``renderer_fast._cam_vec``)
-and passed to the kernel by value.  The previous-frame matrices of the JAX
-package's record come with the moving camera (ROADMAP.md queue 1, item 8).
+and passed to the kernel by value.  Its previous-frame matrices feed the
+moving camera's history reprojection (:func:`_get_reprojected_uv`,
+``renderer_fast.reproject_history``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ class RenderParams(NamedTuple):
     (CommonBufferLayout, pathtraced_fragment_clustered.wgsl:17-34)."""
 
     view_mat: np.ndarray          # [4,4] camera-to-world
+    prev_view_mat: np.ndarray     # [4,4]
+    prev_proj_view: np.ndarray    # [4,4] -- "prevProjViewMatInv" (misnomer)
     elapsed_time: np.float32      # performance.now()*1e-4
     cell_size: np.float32         # visible-cube fraction
     temporal_alpha: np.float32
@@ -85,6 +88,28 @@ _INDIRECT_LAYERS = np.array(
     ],
     dtype=np.int32,
 )
+
+
+def _get_reprojected_uv(prev_proj_view, p: torch.Tensor) -> torch.Tensor:
+    """getReprojectedUV (wgsl:473-487, renderer.py:135-143 of the JAX
+    package): project ``p`` [..., 3] through the previous view-projection
+    [4, 4], divide by w, flip y into texture space.  Returns uv [..., 2].
+
+    The 4×4 product is written out per component, each row summed left to
+    right, and the perspective divide divides by a tensor: CUDA torch turns
+    a scalar divisor into a reciprocal multiply, and a matmul may round
+    differently on the card and the CPU.  Within 1 ulp of the reference,
+    not bit for bit (XLA:CPU's dot orders its sums its own way)."""
+    m = np.asarray(prev_proj_view, np.float32)
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+
+    def row(i):
+        return x * float(m[i, 0]) + y * float(m[i, 1]) + z * float(m[i, 2]) + float(m[i, 3])
+
+    w = row(3)
+    cx = row(0) / w
+    cy = row(1) / w
+    return torch.stack([cx * 0.5 + 0.5, -cy * 0.5 + 0.5], dim=-1)
 
 
 def _face_index(normal: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,7 @@
 above), the extended lighting, and frame composition.
 
 Port of ``cellularautomatons3d_tpu.render.renderer_fast`` for grids up to
-1024³ and a static camera, binary and multi-state rules.  For a multi-state
+1024³, binary and multi-state rules.  For a multi-state
 rule ``packed`` is the visibility plane (any cell with age ≥ 1) and
 ``ages`` / ``total_states`` carry the age bit-planes, whose hit ages fade
 the direct term in K1 and in the sliced path; shadows, GI lookups and the
@@ -17,10 +17,12 @@ and counts as a GI neighbour like a live one:
   primary hits, every shadow through K2, GI through K2 and K3, the BRDF in
   torch).  Then emissive light.
 * :func:`render_frame_fast` -- one frame: trace_shaded, then the temporal
-  EMA (validated by the stored hit-cell id), the light cube, f16 history,
-  the depth overlay and gamma in torch.
+  EMA (validated by the stored hit-cell id; after a camera move the history
+  is reprojected first, :func:`reproject_history`), the light cube, f16
+  history, the depth overlay and gamma in torch.
 * :func:`make_fused_loop` -- the production loop (CA steps + one composed
-  frame per iteration) with ``reset_every`` as a runtime argument.  Up to
+  frame per iteration, static camera) with ``reset_every`` as a runtime
+  argument.  Up to
   256³: K1 in compose mode for hard shadows without GI, the extended frame
   in image layout for soft shadows, one-bounce and temporal GI (history f32
   inside, f16 at the exit), and render_frame_fast per iteration for
@@ -37,7 +39,7 @@ import torch
 
 from ..ops.ca_step import step_packed, visibility_plane
 from ..ops.occupancy import coarse_occupancy
-from .camera import get_ray, pixel_uvs
+from .camera import COT_HALF_FOV, get_ray, pixel_uvs
 from .intersect import device_vec, ray_cube_intersect
 from .render_fast import (
     MAX_GRID, P_ALPHA, P_EMIS, P_EMISS, P_GAMMA, P_LEN, P_LIGHT, P_O,
@@ -52,12 +54,13 @@ from .render_slab import (
     prep_volume,
     raytrace_sliced,
 )
-from .renderer import RenderParams, RenderStatic
+from .renderer import RenderParams, RenderStatic, _get_reprojected_uv
 
 __all__ = [
     "FastHistory",
     "init_fast_history",
     "trace_shaded",
+    "reproject_history",
     "render_frame_fast",
     "make_fused_loop",
 ]
@@ -81,13 +84,14 @@ def _sliced(s: RenderStatic) -> bool:
     return s.grid_size > MAX_GRID or s.force_sliced
 
 
-def _cam_vec(params: RenderParams, w, h) -> np.ndarray:
-    """Pack RenderParams into the kernel's parameter vector (host f32)."""
+def _cam_vec(params: RenderParams, w, fh, row0=0.0) -> np.ndarray:
+    """Pack RenderParams into the kernel's parameter vector (host f32) for a
+    window of ``w`` × ``fh`` pixels whose rendered rows start at ``row0``."""
     cam = np.concatenate(
         [
             np.asarray(params.view_mat, np.float32)[:3, :3].reshape(-1),
             np.asarray(params.view_mat, np.float32)[:3, 3],
-            np.array([w, h], np.float32),
+            np.array([w, fh], np.float32),
             np.asarray(params.light_pos, np.float32).reshape(3),
             np.float32([params.light_magnitude]),
             np.float32([params.cell_size]),
@@ -98,7 +102,7 @@ def _cam_vec(params: RenderParams, w, h) -> np.ndarray:
             np.asarray(params.emissive_color, np.float32).reshape(3),
             np.float32([params.emissive_strength]),
             np.float32([params.elapsed_time]),
-            np.float32([0.0]),  # P_ROW0: no row shards (mesh render)
+            np.float32([row0]),
             np.float32([params.temporal_alpha]),
             np.float32([params.gamma]),
             np.float32([params.show_depth_overlay]),
@@ -194,40 +198,100 @@ def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
     return _shaded(s, packed, cam, sample_idx, ages, total_states)[:3]
 
 
+def reproject_history(history: FastHistory, rgb: torch.Tensor,
+                      depth: torch.Tensor, idx: torch.Tensor,
+                      params: RenderParams, w: int, h: int,
+                      full_height: int | None = None, row0: int = 0):
+    """The moving camera's temporal EMA (renderer_fast.py:265-293 of the JAX
+    package; getReprojectedUV and mixWithReprojectedColor, wgsl:429-487).
+
+    Each pixel's hit point ``camera_pos + view_ray · depth`` (the ray of the
+    global window: ``row0`` / ``full_height`` place these ``h`` rows in a
+    window of ``full_height`` rows) is projected through
+    ``params.prev_proj_view``; the history's colour and id are gathered at the
+    pixel it lands on, and the history is blended with ``temporal_alpha``
+    where that pixel is in bounds (inside this shard's rows), this pixel hit
+    a cell, and the ids agree.
+
+    Returns (blended rgb [h, w, 3] f32, the source pixel ``py·w + px``
+    [h, w] int64, -1 where out of bounds, the valid mask [h, w] bool).  Plain
+    torch ops: elementwise products and sums, divisions by tensors and
+    integer conversions, so the card and the CPU agree on the same inputs."""
+    fh = h if full_height is None else full_height
+    dev = rgb.device
+    uv = pixel_uvs(w, h, device=dev, row0=row0, full_height=fh)
+    # get_ray (camera.py) and the view rotation, one component at a time.
+    r = float(np.float32(w) / np.float32(fh))
+    rx = (uv[..., 0] - 0.5) * r
+    ry = uv[..., 1] - 0.5
+    rz = torch.full_like(rx, -float(np.float32(0.5) * COT_HALF_FOV))
+    norm = torch.sqrt(rx * rx + ry * ry + rz * rz)
+    rx, ry, rz = rx / norm, ry / norm, rz / norm
+    view = np.asarray(params.view_mat, np.float32)
+    hit = torch.stack([
+        float(view[i, 3])
+        + (rx * float(view[i, 0]) + ry * float(view[i, 1]) + rz * float(view[i, 2])) * depth
+        for i in range(3)
+    ], dim=-1)
+    uv_r = _get_reprojected_uv(params.prev_proj_view, hit)
+    ux, uy = uv_r[..., 0], uv_r[..., 1]
+    in_bounds = (ux >= 0.0) & (ux <= 1.0) & (uy >= 0.0) & (uy <= 1.0)
+    # astype(int32) truncates toward zero; out-of-bounds and NaN uv (a hit
+    # point on the previous camera's plane) are zeroed first, so the
+    # conversion never sees a value it leaves undefined.
+    ux = torch.where(in_bounds, ux, 0.0)
+    uy = torch.where(in_bounds, uy, 0.0)
+    px = (ux * w).to(torch.int32).clamp(0, w - 1)
+    py_g = (uy * fh).to(torch.int32) - int(row0)
+    in_bounds = in_bounds & (py_g >= 0) & (py_g < h)
+    flat = py_g.clamp(0, h - 1).to(torch.int64) * w + px
+    prev = history.color.reshape(-1, 3)[flat].to(torch.float32)
+    prev_idx = history.hit_idx.reshape(-1)[flat]
+    valid = in_bounds & (idx >= 0) & (prev_idx == idx)
+    alpha = float(np.float32(params.temporal_alpha))
+    mixed = torch.clamp(prev + (rgb - prev) * alpha, 0.0, 1.0)
+    out = torch.where(valid[..., None], mixed, rgb)
+    return out, torch.where(in_bounds, flat, -1), valid
+
+
 def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
                       params: RenderParams, history: FastHistory,
                       camera_static: bool = True, sample_idx=None, *,
-                      ages: torch.Tensor | None = None, total_states: int = 2):
+                      ages: torch.Tensor | None = None, total_states: int = 2,
+                      row0: int = 0, full_height: int | None = None):
     """One fast-path frame.  Returns (presentation [H,W,3] f32, depth
     [H,W] f32, new FastHistory).  ``ages`` / ``total_states``: the age
     bit-planes of a multi-state rule (``packed`` is then its visibility
     plane).  ``sample_idx``: the frame counter of the
     temporally amortized lighting mode; the EMA converges to the full
-    multi-sample lighting.  Static camera only: the reprojection of a
-    moving camera is not ported yet."""
-    if not camera_static:
-        raise NotImplementedError(
-            "a moving camera (history reprojection) is not ported yet "
-            "(ROADMAP.md queue 1, item 8)"
-        )
+    multi-sample lighting.  ``camera_static=False``: the camera moved since
+    the history's frame, whose colour is reprojected
+    (:func:`reproject_history`).  ``row0`` / ``full_height``: this call
+    renders the ``s.height`` rows from ``row0`` of a window of
+    ``full_height`` rows (a row shard: UVs and the frustum are the whole
+    window's)."""
     h, w = s.height, s.width
-    cam = _cam_vec(params, w, h)
+    fh = h if full_height is None else full_height
+    cam = _cam_vec(params, w, fh, row0)
     rgb, depth, idx = trace_shaded(s, packed, cam, sample_idx, ages=ages,
                                    total_states=total_states)
     dev = rgb.device
 
-    uv = pixel_uvs(w, h, device=dev)
-    ray_cam = get_ray(uv, (w, h))
+    uv = pixel_uvs(w, h, device=dev, row0=row0, full_height=fh)
+    ray_cam = get_ray(uv, (w, fh))
     rot = torch.from_numpy(np.asarray(params.view_mat, np.float32)[:3, :3]).to(dev)
     view_ray = ray_cam @ rot.T
     camera_pos = torch.from_numpy(np.asarray(params.view_mat, np.float32)[:3, 3]).to(dev)
 
     # Temporal EMA (wgsl:429-471): same-cell history blended with alpha.
-    prev = history.color.to(torch.float32)
-    same_cell = (idx == history.hit_idx) & (idx >= 0)
-    alpha = float(np.float32(params.temporal_alpha))
-    mixed = torch.clamp(prev + (rgb - prev) * alpha, 0.0, 1.0)
-    out = torch.where(same_cell[..., None], mixed, rgb)
+    if camera_static:
+        prev = history.color.to(torch.float32)
+        same_cell = (idx == history.hit_idx) & (idx >= 0)
+        alpha = float(np.float32(params.temporal_alpha))
+        mixed = torch.clamp(prev + (rgb - prev) * alpha, 0.0, 1.0)
+        out = torch.where(same_cell[..., None], mixed, rgb)
+    else:
+        out, _, _ = reproject_history(history, rgb, depth, idx, params, w, h, fh, row0)
 
     # Light-source cube (wgsl:866-874).
     light_pos = torch.from_numpy(np.asarray(params.light_pos, np.float32)).to(dev)

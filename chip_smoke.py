@@ -118,6 +118,25 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       views at 480×270 (ids equal, t within 3e-5), K2 and K5 vs plain on
       random rays, half of them aimed through the region (flags equal, with
       every lane inactive all 0), and K3 vs plain on random lookups.
+  (j) the interactive path (the viewer's loop: a camera move, then
+      ``Engine.tick``): Engine(256, 1920×1080): step(80), render(), 10 ticks
+      each after a translate, a rotate and a mouse look, K1's launch
+      counters read around them (one non-compose launch a frame, no compose
+      launch); the same at 512³ (gen-160, K4 + K2, 5 ticks) and at 256³ with
+      gi_temporal lighting (K1 + K2 + K3, camera off the GI 0/0 diagonal as
+      in (h)); for every moved frame ``reproject_history`` on the card
+      against the CPU on the same inputs (source pixel and valid mask equal
+      on 1 − 1e-4 of the pixels, rgb within the contract there, some
+      history kept); the Engine on the card vs the CPU over 10 moved ticks
+      at 64³ / 128×64; a checkpoint of the 256³ and 512³ engines saved,
+      loaded on the card (state, history, camera and counters equal, the
+      next moved frame bit for bit) and on the CPU, with save / load wall
+      ms; the viewer over the 256³ engine: 10 ``frame_png()`` with key and
+      mouse inputs between them, each PNG decoding to ``to_uint8`` of its
+      frame, one GET /frame and one POST /input on 127.0.0.1, the native
+      PNG codec's state.  (d) then times render() with a static camera
+      against a moved one (alternated) at 256³ and 512³, reproject_history
+      alone, and the kernels and device ms a moved frame adds (torch.profiler).
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -129,10 +148,12 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import http.client
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1247,6 +1268,321 @@ def multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states) -> dict:
     return bounds
 
 
+# ---------------------------------------------- (j) the interactive path ---
+# name: (Engine overrides, generations before the moves, moved ticks)
+INTERACTIVE = {
+    "moved_256": (dict(grid_size=GRID), 80, 10),
+    "moved_512": (dict(grid_size=512), 160, 5),
+    "moved_256_gi_temporal": (dict(grid_size=GRID, gi_temporal=True, **LIGHTING), 80, 10),
+}
+
+
+def move_camera(cam, i):
+    """The viewer's three inputs in one frame: a WASD translate, an arrow
+    rotate and a mouse look, to alternate sides so the scene stays in view."""
+    s = 1 if i % 2 == 0 else -1
+    cam.translate((s, 0, -1), 0.016)
+    cam.rotate((0, 1, 0), 0.004 * s)
+    cam.mouse_look(6.0 * s, -3.0 * s)
+
+
+@contextlib.contextmanager
+def recorded_frames(engine_mod):
+    """Record each ``render_frame_fast`` call the Engine makes: its
+    arguments and the history it returned (the calls are the Engine's own)."""
+    real = engine_mod.render_frame_fast
+    calls = []
+
+    def spy(s, packed, params, history, camera_static, sample_idx=None, **kw):
+        out = real(s, packed, params, history, camera_static, sample_idx, **kw)
+        calls.append(dict(s=s, packed=packed, params=params, history=history,
+                          camera_static=camera_static, sample_idx=sample_idx, kw=kw,
+                          new=out[2]))
+        return out
+
+    engine_mod.render_frame_fast = spy
+    try:
+        yield calls
+    finally:
+        engine_mod.render_frame_fast = real
+
+
+def reprojection_inputs(rfast, call):
+    """The moved frame's traced (rgb, depth, idx), traced again from the
+    recorded arguments (the frame's own ids are checked against them)."""
+    s, params = call["s"], call["params"]
+    cam = rfast._cam_vec(params, s.width, s.height)
+    return rfast.trace_shaded(s, call["packed"], cam, call["sample_idx"], **call["kw"])
+
+
+def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
+    """Phase (j): the interactive path on the card.  Engines at 1080p whose
+    camera moves before every tick (K1 non-compose at 256³, K4 + K2 at 512³,
+    K1 + K2 + K3 with gi_temporal), their launch counters read around the
+    moved ticks, and ``reproject_history`` of every moved frame on the card
+    against the CPU on the same inputs; the Engine on the card against the
+    CPU at 64³; a checkpoint saved and loaded on the card and on the CPU; the
+    viewer over the 256³ engine, with one HTTP request of each kind.
+    Returns what (d) times and the report keeps."""
+    from cellularautomatons3d_tpu_torch import engine as engine_mod
+    from cellularautomatons3d_tpu_torch import native
+    from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
+    from cellularautomatons3d_tpu_torch.utils import image
+    from cellularautomatons3d_tpu_torch.viewer import server
+    from _torch_png import decode_png
+
+    counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
+               rs.shadow_sweep_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda)
+    out = {"launches": {}, "valid_px": {}, "valid_share_of_hits": {}, "engines": {},
+           "walls_s": {}}
+    for name, (over, steps, ticks) in INTERACTIVE.items():
+        t0 = time.perf_counter()
+        eng = ct.Engine(width=WIDTH, height=HEIGHT, device="cuda", **over)
+        if over.get("indirect_lighting"):
+            eng.camera.translate((1, 0, 0), 0.01)  # off the GI 0/0 diagonal, as in (h)
+        eng.step(steps)
+        eng.render()
+        for fn in counted:
+            fn.launches = 0
+        rf.raytrace_cuda.compose_launches = 0
+        with recorded_frames(engine_mod) as calls:
+            frames = []
+            for i in range(ticks):
+                move_camera(eng.camera, i)
+                frames.append(eng.tick())
+            torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counted}
+        counts["raytrace_cuda_compose"] = rf.raytrace_cuda.compose_launches
+        out["walls_s"][name] = time.perf_counter() - t0
+        for i, f in enumerate(frames):
+            need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"(j) {name} frame {i} shape {tuple(f.shape)}")
+            need(bool(torch.isfinite(f).all()), f"(j) {name} frame {i} has non-finite values")
+            need(float(f.max()) > 0.0, f"(j) {name} frame {i} is black")
+        need(len(calls) == ticks and not any(c["camera_static"] for c in calls),
+             f"(j) {name}: the Engine did not render every tick as moved")
+        sliced, lit = over["grid_size"] > GRID, bool(over.get("indirect_lighting"))
+        want = {"raytrace_cuda": 0 if sliced else ticks, "raytrace_cuda_compose": 0,
+                "primary_sweep_cuda": ticks if sliced else 0,
+                "shadow_sweep_cuda": ticks if sliced or lit else 0,
+                "cell_state_cuda": ticks if lit else 0,
+                "fires_plane_cuda": eng.simulation_step - steps}
+        need(all(counts[k] == v for k, v in want.items()),
+             f"(j) {name}: launches {counts}, expected {want}")
+        need(counts["fires_plane_cuda"] > 0, f"(j) {name}: the CA never stepped")
+        need(counts["occupied_box_cuda"] == counts["shadow_sweep_cuda"]
+             + counts["primary_sweep_cuda"], f"(j) {name}: one box per K2 / K4: {counts}")
+        # reproject_history on the card against the CPU, on the same inputs.
+        valid = hits = 0
+        for i, c in enumerate(calls):
+            rgb, depth, idx = reprojection_inputs(rfast, c)
+            need(torch.equal(idx, c["new"].hit_idx), f"(j) {name} frame {i}: traced ids differ")
+            s, params = c["s"], c["params"]
+            got = rfast.reproject_history(c["history"], rgb, depth, idx, params,
+                                          s.width, s.height)
+            hist = rfast.FastHistory(c["history"].color.cpu(), c["history"].hit_idx.cpu())
+            ref = rfast.reproject_history(hist, rgb.cpu(), depth.cpu(), idx.cpu(), params,
+                                          s.width, s.height)
+            src_frac = float((got[1].cpu() != ref[1]).float().mean())
+            valid_frac = float((got[2].cpu() != ref[2]).float().mean())
+            need(src_frac <= ID_MISMATCH_LIMIT and valid_frac <= ID_MISMATCH_LIMIT,
+                 f"(j) {name} frame {i}: source pixel / valid differ on {src_frac} / "
+                 f"{valid_frac} of the pixels")
+            same = got[2].cpu() == ref[2]
+            a, b = got[0].cpu()[same], ref[0][same]
+            need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+                 f"(j) {name} frame {i}: reprojected rgb cuda vs cpu max err "
+                 f"{float((a - b).abs().max())}")
+            valid += int(ref[2].sum())
+            hits += int((idx >= 0).sum())
+        need(valid > 0, f"(j) {name}: no pixel kept its history through a move")
+        out["valid_px"][name] = valid / len(calls)
+        out["valid_share_of_hits"][name] = valid / max(hits, 1)
+        out["launches"][name] = counts
+        out["engines"][name] = eng
+        if name == "moved_256":
+            last = calls[-1]
+            out["reproject_inputs"] = (last["history"], *reprojection_inputs(rfast, last),
+                                       last["params"])
+        del calls
+        log(f"(j) {name}: step({steps}), render(), {ticks} moved ticks in "
+            f"{out['walls_s'][name]:.2f} s; launches {counts}; history kept on "
+            f"{out['valid_px'][name]:.0f} px a frame, {out['valid_share_of_hits'][name]:.3f} "
+            f"of the hits (card == cpu reprojection)")
+
+    # The Engine on the card against the CPU, 10 moved ticks at 64³.
+    small = dict(grid_size=64, width=128, height=64)
+    res = []
+    for d in ("cuda", "cpu"):
+        e = ct.Engine(device=d, **small)
+        e.step(30)
+        e.render()
+        fr = []
+        for i in range(10):
+            move_camera(e.camera, i)
+            fr.append((e.tick().cpu(), e.history.hit_idx.cpu()))
+        res.append((fr, e.state.cpu()))
+    (gpu, gst), (cpu, cst) = res
+    need(torch.equal(gst, cst), "(j) 64^3 moved Engine state cuda != cpu")
+    worst = 0.0
+    for i, ((fg, ig), (fc, ic)) in enumerate(zip(gpu, cpu)):
+        frac = float((ig != ic).float().mean())
+        worst = max(worst, frac)
+        need(frac <= ID_MISMATCH_LIMIT, f"(j) 64^3 moved tick {i}: ids differ on {frac}")
+        ok = ig == ic
+        need(bool(torch.all((fg - fc).abs()[ok] <= RGB_ATOL + RGB_RTOL * fc.abs()[ok])),
+             f"(j) 64^3 moved tick {i}: frame cuda vs cpu max err {float((fg - fc).abs().max())}")
+    log(f"(j) Engine cuda == cpu over 10 moved ticks at 64^3 (id mismatch {worst:.3g})")
+    out["small_id_mismatch"] = worst
+
+    # A checkpoint on the card: save, load on the card and on the CPU.
+    ck_dir = HERE / "build" / "checkpoints"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    out["checkpoint_ms"] = {}
+    for name in ("moved_256", "moved_512"):
+        eng = out["engines"][name]
+        path = str(ck_dir / f"{name}.npz")
+        t0 = time.perf_counter()
+        eng.save(path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = ct.Engine.load(path, device="cuda")
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        need(back.device.type == "cuda", f"(j) {name}: load put the Engine on {back.device}")
+        need(torch.equal(back.state, eng.state), f"(j) {name}: loaded state differs")
+        need(torch.equal(back.history.color, eng.history.color)
+             and torch.equal(back.history.hit_idx, eng.history.hit_idx),
+             f"(j) {name}: loaded history differs")
+        need(all(np.array_equal(getattr(back.camera, k), getattr(eng.camera, k))
+                 for k in ("view_mat", "prev_view_mat", "prev_proj_view")),
+             f"(j) {name}: loaded camera differs")
+        need((back.simulation_step, back._time_ms, back._frame_duration)
+             == (eng.simulation_step, eng._time_ms, eng._frame_duration),
+             f"(j) {name}: loaded counters differ")
+        for e in (eng, back):
+            move_camera(e.camera, 0)
+        need(torch.equal(back.render(), eng.render()),
+             f"(j) {name}: the next moved frame after load differs")
+        on_cpu = ct.Engine.load(path, device="cpu")
+        need(torch.equal(on_cpu.state, eng.state.cpu()), f"(j) {name}: CPU load state differs")
+        size_mb = os.path.getsize(path) / 2**20
+        os.remove(path)
+        out["checkpoint_ms"][name] = {"save_ms": save_ms, "load_ms": load_ms, "file_mib": size_mb}
+        del back, on_cpu
+        log(f"(j) checkpoint {name}: save {save_ms:.1f} ms, load on the card {load_ms:.1f} ms "
+            f"({size_mb:.2f} MiB), next moved frame bit for bit")
+    ck_dir.rmdir()
+
+    # The viewer over the 256³ 1080p engine.
+    eng = out["engines"]["moved_256"]
+    viewer = server.ViewerServer(engine=eng)
+    shown = []
+    real_tick = eng.tick
+    eng.tick = lambda dt_ms=16.667: shown.append(real_tick(dt_ms)) or shown[-1]
+    try:
+        png_ms = []
+        for i in range(10):
+            s = 1 if i % 2 == 0 else -1
+            viewer.handle_input({"type": "keys", "dt": 0.016, "translate": [s, 0, -1]})
+            viewer.handle_input({"type": "mouse", "dx": 6 * s, "dy": -3 * s})
+            t0 = time.perf_counter()
+            png = viewer.frame_png()
+            png_ms.append((time.perf_counter() - t0) * 1e3)
+            need(np.array_equal(decode_png(png), image.to_uint8(shown[-1])),
+                 f"(j) viewer frame {i}: the PNG is not the frame")
+        httpd = viewer.make_server(port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        # http.client, not urllib: no proxy from the environment can take it
+        # off this host.
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=120)
+        try:
+            conn.request("GET", "/frame")
+            r = conn.getresponse()
+            png = r.read()
+            need(r.status == 200 and np.array_equal(decode_png(png), image.to_uint8(shown[-1])),
+                 f"(j) GET /frame: {r.status}, the PNG is not the frame")
+            conn.request("POST", "/input", body=json.dumps({"type": "mouse", "dx": 4, "dy": 1}),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            reply = json.loads(r.read())
+            need(r.status == 200 and reply.get("ok") is True, f"(j) POST /input: {reply}")
+        finally:
+            conn.close()
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        need(not thread.is_alive(), "(j) the HTTP server thread did not stop")
+    finally:
+        del eng.tick
+    out["frame_png_ms"] = png_ms
+    out["have_native"] = bool(native.HAVE_NATIVE)
+    out["native_build_error"] = native.BUILD_ERROR
+    log(f"(j) viewer: 10 frame_png() at {WIDTH}x{HEIGHT}, median "
+        f"{sorted(png_ms)[len(png_ms) // 2]:.1f} ms ({min(png_ms):.1f}-{max(png_ms):.1f}); "
+        f"GET /frame and POST /input over 127.0.0.1; HAVE_NATIVE {out['have_native']}"
+        + (f" ({out['native_build_error']})" if out["native_build_error"] else ""))
+    return out
+
+
+def interactive_timings(torch, out) -> dict:
+    """Phase (d) for (j): render() with a static camera against a moved one,
+    alternated static, moved, moved, static, at 256³ and 512³ (CUDA events
+    around 10 back-to-back calls: host-bound calls read the host's time);
+    reproject_history alone; and from a torch.profiler trace of 5 calls
+    each, the kernels and device ms of a static and a moved render() and of
+    reproject_history."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
+
+    def device_events(fn, calls):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return len(ev) / calls, sum(e.time_range.elapsed_us() for e in ev) / 1e3 / calls
+
+    ms = {}
+    for name in ("moved_256", "moved_512"):
+        eng = out["engines"][name]
+        turn = [0]
+
+        def moved():
+            move_camera(eng.camera, turn[0])
+            turn[0] += 1
+            eng.render()
+
+        reads = {"static": [], "moved": []}
+        for kind in ("static", "moved", "moved", "static"):
+            fn = eng.render if kind == "static" else moved
+            reads[kind].append(cuda_ms(torch, fn, 10, warmup=2))
+        size = INTERACTIVE[name][0]["grid_size"]
+        ms[f"render_static_{size}_ms"] = sum(reads["static"]) / 2
+        ms[f"render_moved_{size}_ms"] = sum(reads["moved"]) / 2
+        ms[f"render_static_moved_moved_static_{size}_ms"] = [
+            reads["static"][0], reads["moved"][0], reads["moved"][1], reads["static"][1]]
+        eng.render()
+        for kind, fn in (("static", eng.render), ("moved", moved)):
+            k, d = device_events(fn, 5)
+            ms[f"render_{kind}_{size}_kernels"] = k
+            ms[f"render_{kind}_{size}_device_ms"] = d
+        ms[f"moved_frame_added_kernels_{size}"] = (ms[f"render_moved_{size}_kernels"]
+                                                   - ms[f"render_static_{size}_kernels"])
+    hist, rgb, depth, idx, params = out["reproject_inputs"]
+
+    def reproject():
+        rfast.reproject_history(hist, rgb, depth, idx, params, WIDTH, HEIGHT)
+
+    ms["reproject_history_ms"] = cuda_ms(torch, reproject, 20, warmup=2)
+    ms["reproject_history_kernels"], ms["reproject_history_device_ms"] = device_events(
+        reproject, 5)
+    return ms
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -1636,6 +1972,13 @@ def main() -> dict:
              f"the box of {tag} clips nothing: {boxes[tag]}")
     report["boxes"] = boxes
 
+    # ------------------------------------------- (j) the interactive path ---
+    inter = interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy)
+    report["interactive"] = {k: inter[k] for k in (
+        "launches", "valid_px", "valid_share_of_hits", "walls_s", "small_id_mismatch",
+        "checkpoint_ms",
+        "frame_png_ms", "have_native", "native_build_error")}
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
@@ -1802,6 +2145,7 @@ def main() -> dict:
     multi_ms["full_quality_step_plus_frame_k5_ms"] = (reads[1] + reads[2]) / 2
     multi_ms["full_quality_step_plus_frame_k2_k5_k5_k2_ms"] = reads
     ms_ms, ms_specs, ms_states = multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms)
+    inter_ms = interactive_timings(torch, inter)
     timings = {
         "ca_step_ms": ca_ms, "ca_step_plain_ms": ca_plain_ms,
         "k1_compose_ms": k1_ms, "k1_noncompose_ms": k1_nc_ms,
@@ -1810,7 +2154,7 @@ def main() -> dict:
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
         "lighting_passes_ms": passes_ms, **lighting_ms, **sliced_ms, **multi_ms, **ms_ms,
-        **box_ms,
+        **box_ms, **inter_ms,
     }
     report["timings"] = timings
     report["card"] = card
@@ -1821,7 +2165,7 @@ def main() -> dict:
     sliced_launches = sliced["launches"]
 
     def total(fn_name, *runs):
-        return sum(r[fn_name] for r in runs)
+        return sum(r.get(fn_name, 0) for r in runs)
 
     # Each kernel's bound from this run's inputs at the shapes it was timed.
     dev = torch.device("cuda", 0)
@@ -1917,10 +2261,11 @@ def main() -> dict:
                 "library_ms": None}  # no single PyTorch call computes any of them
 
     k5_launches = total("shadow_sweep_multi_cuda", *multi["launches"].values())
-    ms_launches = ms["launches"].values()
+    ms_launches = [*ms["launches"].values(), *inter["launches"].values()]
     report["kernels"] = [
         entry("ca_step", "ca_step.cu", "ops/ca_step.py:118",
-              launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values()),
+              launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values(),
+                                          *inter["launches"].values()),
               0.0, ca_ms, ca_plain_ms),
         entry("ca_step_multistate", "ca_step.cu", "ops/ca_step.py:178",
               total("step_packed_multistate_cuda", *ms_launches), 0.0,

@@ -359,6 +359,81 @@ def test_sliced_engine_matches_cpu(cuda, lighting):
 
 
 
+def _moved_ticks(eng, n):
+    """``n`` ticks, each after a camera move (translate and mouse look)."""
+    frames = []
+    for i in range(n):
+        eng.camera.translate((1, 0, -1), 0.02)
+        eng.camera.mouse_look(5.0 + i, -2.0)
+        frames.append(eng.tick())
+    return frames
+
+
+@pytest.mark.parametrize(
+    "cfg", [dict(grid_size=N, width=W, height=H),
+            dict(grid_size=N, width=W, height=H, gi_temporal=True, **LIGHTING_320),
+            dict(grid_size=320, width=64, height=32)],
+    ids=["hard", "gi_temporal", "sliced"],
+)
+def test_moved_engine_matches_cpu(cuda, cfg):
+    """Moved ticks (history reprojected every frame) on the card against
+    the CPU: ids equal, frames within rtol 3e-3 / atol 3e-4; the
+    reprojection of the last frame, the same function on the same inputs,
+    keeps the same pixels on both."""
+    from cellularautomatons3d_tpu_torch.render import renderer_fast
+
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = ct.Engine(device=dev, **cfg)
+        # gi_temporal: off the default camera, no GI 0/0 enters a history.
+        eng.camera.translate((1, 0, 0), 0.05)
+        eng.step(100 if cfg["grid_size"] > 256 else 20)
+        eng.render()
+        hist = eng.history
+        frames = _moved_ticks(eng, 6)
+        out.append(([f.cpu() for f in frames], eng.history.hit_idx.cpu(), eng, hist))
+    (gpu, gidx, geng, ghist), (cpu, cidx, ceng, chist) = out
+    assert torch.equal(gidx, cidx) and int((cidx >= 0).sum()) > 0
+    for a, b in zip(gpu, cpu):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-4)
+    # reproject_history alone, on copies of the CPU's operands.
+    h, w = cfg["height"], cfg["width"]
+    params = ceng.render_params()
+    rgb = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(1))
+    depth = torch.rand((h, w), generator=torch.Generator().manual_seed(2)) * 1.5
+    args = (chist, rgb, depth, cidx)
+    want = renderer_fast.reproject_history(*args, params, w, h)
+    got = renderer_fast.reproject_history(
+        renderer_fast.FastHistory(chist.color.to(cuda), chist.hit_idx.to(cuda)),
+        rgb.to(cuda), depth.to(cuda), cidx.to(cuda), params, w, h)
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_checkpoint_loads_on_the_other_device(cuda, tmp_path):
+    """save on the card, load on the CPU and on the card (the default), and
+    the reverse: the state bit-exact, the history equal, and the next moved
+    frame of the loaded card engine bit for bit the saved engine's."""
+    eng = ct.Engine(device=cuda, grid_size=N, width=W, height=H)
+    eng.step(20)
+    _moved_ticks(eng, 3)
+    path = str(tmp_path / "card.npz")
+    eng.save(path)
+    on_cpu = ct.Engine.load(path, device="cpu")
+    back = ct.Engine.load(path)
+    assert back.device.type == "cuda"
+    for other in (on_cpu, back):
+        assert torch.equal(other.state.cpu(), eng.state.cpu())
+        assert torch.equal(other.history.color.cpu(), eng.history.color.cpu())
+        assert torch.equal(other.history.hit_idx.cpu(), eng.history.hit_idx.cpu())
+    assert torch.equal(_moved_ticks(back, 1)[0], _moved_ticks(eng, 1)[0])
+    path = str(tmp_path / "cpu.npz")
+    on_cpu.save(path)
+    again = ct.Engine.load(path, device=cuda)
+    assert torch.equal(again.state.cpu(), on_cpu.state)
+    assert torch.equal(again.history.hit_idx.cpu(), on_cpu.history.hit_idx)
+
+
 def _k5_operands(device, n, nq, seed):
     """nq random shadow-ray queries at n³ (starts inside and outside the
     volume, exclusions at the start cell, random, or with a coordinate of

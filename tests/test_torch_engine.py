@@ -19,7 +19,8 @@ from cellularautomatons3d_tpu.render.renderer_fast import FastHistory as JaxHist
 
 import cellularautomatons3d_tpu_torch as ct
 from cellularautomatons3d_tpu_torch.ops import ca_step
-from cellularautomatons3d_tpu_torch.render import render_fast, render_slab
+from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
+from cellularautomatons3d_tpu_torch.render import render_fast, render_slab, renderer_fast
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(grid_size=32, width=128, height=64)
@@ -155,13 +156,25 @@ def test_live_set_of_lighting_fields_rebuilds_render_static():
     assert bool(torch.isfinite(lit).all()) and not torch.equal(lit, hard)
 
 
-def test_moving_camera_over_history_raises():
+def test_moving_camera_over_history_renders():
+    """A camera move over a live history reprojects it (ROADMAP item 8,
+    once a NotImplementedError): the frame renders, and the history the
+    move keeps blends into it (tests/test_torch_camera.py holds it to JAX)."""
     eng = ct.Engine(ct.EngineConfig(**CFG), device="cpu")
     eng.step(4)
-    eng.render()  # first frame: empty history, equivalent to static
+    eng.render()
+    eng.render()
+    hist = eng.history
     eng.camera.translate((1, 0, 0), 0.1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.render()
+    params = eng.render_params()
+    frame = eng.render()
+    assert bool(torch.isfinite(frame).all())
+    rgb, depth, idx = render_fast.raytrace_tiles(
+        eng.state, coarse_occupancy(eng.state), renderer_fast._cam_vec(params, 128, 64),
+        grid_size=32, width=128, height=64, shadow=True)
+    _, src, valid = renderer_fast.reproject_history(hist, rgb, depth, idx, params, 128, 64)
+    assert int(valid.sum()) > 0 and bool((src[valid] >= 0).all())
+    assert torch.equal(eng.history.hit_idx, idx)
 
 
 def test_cuda_engine_raises_without_cuda():
@@ -189,8 +202,11 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; "
         "import cellularautomatons3d_tpu_torch as ct; "
+        "import cellularautomatons3d_tpu_torch.viewer.server, "
+        "cellularautomatons3d_tpu_torch.utils.image, cellularautomatons3d_tpu_torch.native; "
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
         "if sys.modules[m] is not None); "
+        "assert not any(m.split('.')[0] == 'cellularautomatons3d_tpu' for m in sys.modules); "
         "e = ct.Engine(grid_size=32, width=32, height=16, device='cpu'); "
         "e.step(1); assert e.state_dense().sum() == 7; print('ok')"
     )

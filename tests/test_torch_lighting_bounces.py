@@ -76,7 +76,8 @@ def _params():
     view = mat4.initial_view_matrix()
     f32 = np.float32
     return RenderParams(
-        view_mat=view, elapsed_time=f32(0.37), cell_size=f32(0.85),
+        view_mat=view, prev_view_mat=view, prev_proj_view=np.eye(4, dtype=f32),
+        elapsed_time=f32(0.37), cell_size=f32(0.85),
         temporal_alpha=f32(0.1), gamma=f32(2.0), roughness=f32(0.29),
         base_reflectivity=np.full(3, 0.17, f32), material_color=np.zeros(3, f32),
         light_pos=f32([0.721, 1.0, 1.0]), light_magnitude=f32(5.0),

@@ -88,7 +88,9 @@ def torch_static(static_kw):
 
 
 def torch_params():
-    return renderer.RenderParams(view_mat=mat4.initial_view_matrix(), **_live())
+    view = mat4.initial_view_matrix()
+    return renderer.RenderParams(view_mat=view, prev_view_mat=view,
+                                 prev_proj_view=np.eye(4, dtype=np.float32), **_live())
 
 
 def assert_close_but_flipped(got, want, hit, soft):

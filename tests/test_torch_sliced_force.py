@@ -55,7 +55,8 @@ def test_force_sliced_render_frame_fast_matches_jax():
         want = [np.asarray(a) for a in (pres_j, depth_j, hist_j.color, hist_j.hit_idx)]
 
     s = renderer.RenderStatic(width=W, height=H, grid_size=N, force_sliced=True)
-    params = renderer.RenderParams(view_mat=view, **live)
+    params = renderer.RenderParams(view_mat=view, prev_view_mat=view,
+                                   prev_proj_view=np.eye(4, dtype=f32), **live)
     pres, depth, hist = renderer_fast.render_frame_fast(
         s, ct.from_reference(words), params,
         renderer_fast.FastHistory(torch.from_numpy(color), torch.from_numpy(ids)))
