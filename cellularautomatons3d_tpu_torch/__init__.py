@@ -25,6 +25,12 @@ the reference: the multi-query occlusion kernel K5
 (``render_fast.raytrace_tiles(use_prepass=True)``).  On a CPU device the
 same calls run the kernels' plain torch versions.
 
+The exact reference pipeline (``Engine(pipeline="reference")``, and its
+``render_variant="simple"``): ``render.renderer.render_frame``, the
+shader's stochastic march, temporal depth refinement, shadow march and
+colour reprojection in plain torch on the Engine's device, as the reference
+runs it in XLA (``render.raymarch``, ``render.intersect``, ``render.brdf``).
+
 The interactive path: a camera move between frames reprojects the temporal
 history (``render.renderer_fast.reproject_history``); :meth:`Engine.save` /
 :meth:`Engine.load` read and write the JAX package's npz checkpoints; the

@@ -22,13 +22,19 @@ nothing moves silently to the CPU.  With ``gi_temporal`` each
 soft-shadow sample and the GI slot rotate and the EMA converges to the
 full lighting.
 
+``pipeline="reference"`` renders through the exact reference pipeline
+(``render.renderer.render_frame``, ``render_variant`` "clustered" or
+"simple") in plain torch on the Engine's device, with its f16 colour / depth
+:class:`~.render.renderer.RenderHistory`; the CA still steps through the
+hand kernels.
+
 A camera move between frames reprojects the history through the previous
 view-projection (``renderer_fast.reproject_history``), as the JAX Engine
 does; :meth:`Engine.save` / :meth:`Engine.load` write and read the JAX
 package's npz checkpoints, so a file from either package loads in the other.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue-1 item: the reference pipeline (11); ``mesh_devices`` (12).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md queue-1
+item: ``mesh_devices`` (12).
 """
 
 from __future__ import annotations
@@ -44,7 +50,13 @@ from .models.automaton import AutomatonSpec
 from .ops import packing
 from .ops.ca_step import step_packed, visibility_plane
 from .render.camera import CameraRig
-from .render.renderer import RenderParams, RenderStatic
+from .render.renderer import (
+    RenderHistory,
+    RenderParams,
+    RenderStatic,
+    init_history,
+    render_frame,
+)
 from .render.renderer_fast import (
     FastHistory,
     init_fast_history,
@@ -57,10 +69,6 @@ __all__ = ["Engine"]
 
 
 def _check_config(cfg: EngineConfig) -> None:
-    if cfg.pipeline != "fast":
-        raise NotImplementedError(
-            "pipeline='reference' is not ported yet (ROADMAP.md queue 1, item 11)"
-        )
     if cfg.mesh_devices:
         raise NotImplementedError(
             "mesh_devices is not ported yet (ROADMAP.md queue 1, item 12)"
@@ -72,6 +80,8 @@ def _render_static(cfg: EngineConfig) -> RenderStatic:
         width=cfg.width,
         height=cfg.height,
         grid_size=cfg.grid_size,
+        depth_samples=int(cfg.depth_samples),
+        shadow_samples=int(cfg.shadow_samples),
         indirect_lighting=bool(cfg.indirect_lighting),
         soft_shadow_samples=int(cfg.soft_shadow_samples),
         indirect_bounces=int(cfg.indirect_bounces),
@@ -114,8 +124,14 @@ class Engine:
         self.simulation_step = 0
         self._frame_duration = 0.0
         self._render_count = 0
-        self.history = init_fast_history(cfg.width, cfg.height, self.device)
+        self.history = self._init_history(cfg)
         self._seed_state()
+
+    def _init_history(self, cfg: EngineConfig):
+        """Zero history of the pipeline's type: ``FastHistory`` for the fast
+        pipeline, ``RenderHistory`` for the reference one."""
+        init = init_fast_history if cfg.pipeline == "fast" else init_history
+        return init(cfg.width, cfg.height, self.device)
 
     def _seed_state(self):
         cfg = self.config
@@ -202,18 +218,26 @@ class Engine:
         history."""
         self._time_ms += dt_ms
         params = self.render_params()
-        camera_static = bool(
-            np.array_equal(self.camera.view_mat, self.camera.prev_view_mat)
-        )
-        sample_idx = self._render_count if self.config.gi_temporal else None
-        ages = {}
-        if self.spec.total_states > 2:
-            ages = dict(ages=self.state, total_states=self.spec.total_states)
-        frame, _, self.history = render_frame_fast(
-            self.render_static, self._visibility_plane(), params, self.history,
-            camera_static, sample_idx, **ages,
-        )
-        self._render_count += 1
+        multistate = self.spec.total_states > 2
+        if self.config.pipeline == "fast":
+            camera_static = bool(
+                np.array_equal(self.camera.view_mat, self.camera.prev_view_mat)
+            )
+            sample_idx = self._render_count if self.config.gi_temporal else None
+            ages = {}
+            if multistate:
+                ages = dict(ages=self.state, total_states=self.spec.total_states)
+            frame, _, self.history = render_frame_fast(
+                self.render_static, self._visibility_plane(), params, self.history,
+                camera_static, sample_idx, **ages,
+            )
+            self._render_count += 1
+        else:
+            frame, self.history = render_frame(
+                self.render_static, self._visibility_plane(), params, self.history,
+                self.state if multistate else None, self.spec.total_states,
+                self.config.render_variant,
+            )
         self.camera.end_frame()
         return frame
 
@@ -241,16 +265,21 @@ class Engine:
     def run_fused(self, frames: int, steps_per_frame: int = 1,
                   reset_every: int = 0) -> torch.Tensor:
         """Run (steps_per_frame CA steps + 1 composed frame) × frames with
-        no host synchronisation (static camera).  ``reset_every > 0``
-        restores the starting state after every that many frames, as the
-        benchmark's pinned line does.  Returns the last frame."""
+        no host synchronisation (static camera; fast pipeline).
+        ``reset_every > 0`` restores the starting state after every that many
+        frames, as the benchmark's pinned line does, and the generation
+        count grows by the steps of the frames after the last restore.
+        Returns the last frame."""
+        if self.config.pipeline != "fast":
+            raise ValueError("run_fused requires the fast pipeline")
         run = make_fused_loop(
             self.render_static, self.spec, frames, steps_per_frame, reset_every
         )
         self.state, self.history, frame = run(
             self.state, self.render_params(), self.history
         )
-        self.simulation_step += frames * steps_per_frame
+        standing = frames % reset_every if reset_every > 0 else frames
+        self.simulation_step += standing * steps_per_frame
         self._time_ms += frames * 16.667
         self.camera.end_frame()
         return frame
@@ -287,14 +316,16 @@ class Engine:
             return self
         cfg = self.config.replace(**{name: value})
         if name in self._RENDER_REBUILD_FIELDS:
-            # Rebuild RenderStatic (and the history on a resize) without
-            # touching simulation state, the live-resize path
-            # (main_pathtraced.js:781-797); an unported setting raises
-            # before anything changes.
-            _check_config(cfg)
+            # Rebuild RenderStatic, and the history when its type (the
+            # pipeline) or its size no longer matches, without touching
+            # simulation state: the live-resize path (main_pathtraced.js:
+            # 781-797).
             self.render_static = _render_static(cfg)
-            if self.history.color.shape[:2] != (cfg.height, cfg.width):
-                self.history = init_fast_history(cfg.width, cfg.height, self.device)
+            want_fast = cfg.pipeline == "fast"
+            have_fast = isinstance(self.history, FastHistory)
+            shape_ok = self.history.color.shape[:2] == (cfg.height, cfg.width)
+            if want_fast != have_fast or not shape_ok:
+                self.history = self._init_history(cfg)
         self.config = cfg
         return self
 
@@ -322,7 +353,9 @@ class Engine:
         """Checkpoint to ``path`` as the JAX package's npz (engine.py:457-489
         there): the state as ``uint32`` words (age planes for a multi-state
         rule), the counters, the camera with its previous matrices, the
-        config as JSON and the f16 history, so either package loads it."""
+        config as JSON and the f16 history (colour and hit ids for the fast
+        pipeline, colour and depth for the reference one), so either package
+        loads it."""
         if backend == "orbax":
             raise NotImplementedError(
                 "orbax checkpoints are the JAX package's (cellularautomatons3d_tpu"
@@ -330,6 +363,10 @@ class Engine:
             )
         if backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
+        if isinstance(self.history, FastHistory):
+            hist = dict(history_idx=self.history.hit_idx.cpu().numpy())
+        else:
+            hist = dict(history_depth=self.history.depth.cpu().numpy())
         np.savez_compressed(
             path,
             state=self.state.cpu().numpy().view(np.uint32),
@@ -341,7 +378,7 @@ class Engine:
             prev_proj_view=self.camera.prev_proj_view,
             config=json.dumps(dataclasses.asdict(self.config)),
             history_color=self.history.color.cpu().numpy(),
-            history_idx=self.history.hit_idx.cpu().numpy(),
+            **hist,
         )
 
     @classmethod
@@ -367,10 +404,17 @@ class Engine:
             eng.state = torch.from_numpy(words.view(np.int32)).to(eng.device)
             eng.simulation_step = int(data["simulation_step"])
             eng._time_ms = float(data["time_ms"])
-            eng.history = FastHistory(
-                color=torch.from_numpy(data["history_color"].astype(np.float16)).to(eng.device),
-                hit_idx=torch.from_numpy(data["history_idx"].astype(np.int32)).to(eng.device),
-            )
+            color = torch.from_numpy(data["history_color"].astype(np.float16)).to(eng.device)
+            if "history_idx" in data:
+                eng.history = FastHistory(
+                    color=color,
+                    hit_idx=torch.from_numpy(data["history_idx"].astype(np.int32)).to(eng.device),
+                )
+            else:
+                eng.history = RenderHistory(
+                    color=color,
+                    depth=torch.from_numpy(data["history_depth"].astype(np.float16)).to(eng.device),
+                )
             eng.camera.view_mat = data["view_mat"].astype(np.float32)
             eng.camera.prev_view_mat = data["prev_view_mat"].astype(np.float32)
             if "prev_proj_view" in data:

@@ -6,8 +6,8 @@ bounces): Trowbridge-Reitz GGX NDF (pathtraced_fragment_clustered.wgsl:
 Fresnel-Schlick with the reference's unclamped dot (:563-568),
 ``surface_brdf`` (:570-592) and ``calculate_lighting_at`` (:594-633) with
 the position rainbow albedo when the material colour is all zero
-(:598-603).  ``calculate_lighting_at_simple`` belongs to the reference
-pipeline (ROADMAP.md queue 1, item 11) and is not ported yet.
+(:598-603), and the non-clustered shader's ``calculate_lighting_at_simple``
+(pathtraced_fragment.wgsl:338-365), the reference pipeline's simple variant.
 
 Divisions follow IEEE like WGSL, the possibly-zero Cook-Torrance
 denominator included.  The material parameters are host float32 values (the
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .intersect import cube_face_normal, device_vec, vec_norm
+from .intersect import cube_face_normal, device_vec, normalize, vec_norm
 
 __all__ = [
     "trowbridge_reitz_ggx",
@@ -28,6 +28,7 @@ __all__ = [
     "fresnel_schlick",
     "surface_brdf",
     "calculate_lighting_at",
+    "calculate_lighting_at_simple",
 ]
 
 PI = float(np.float32(3.14159265359))  # :65
@@ -37,10 +38,6 @@ def _dot(a, b):
     """Sum over the trailing axis, in the reference's order."""
     p = a * b
     return p[..., 0] + p[..., 1] + p[..., 2]
-
-
-def _normalize(v):
-    return v / vec_norm(v)
 
 
 def trowbridge_reitz_ggx(surface_normal, halfway, roughness):
@@ -73,7 +70,7 @@ def fresnel_schlick(halfway, view_dir, base_reflectivity):
 def surface_brdf(light_dir, view_dir, surface_normal, roughness, albedo,
                  base_reflectivity):
     """Lambertian diffuse + Cook-Torrance specular (:570-592)."""
-    halfway = _normalize(light_dir + view_dir)
+    halfway = normalize(light_dir + view_dir)
     f_l = albedo / torch.full_like(albedo, PI)
     d = trowbridge_reitz_ggx(surface_normal, halfway, roughness)
     g = schlick_ggx(surface_normal, view_dir, roughness) * schlick_ggx(
@@ -101,13 +98,37 @@ def calculate_lighting_at(sample_point, cell_origin, cell_coords, eye_pos,
         c = cell_coords.to(torch.float32)
         c = c / torch.full_like(c, float(grid_size))
         albedo = torch.stack([c[..., 0], c[..., 1], 1.0 - c[..., 0]], dim=-1)
-    view_dir = _normalize(eye_pos - sample_point)
-    light_dir = _normalize(incident_light_pos - sample_point)
+    view_dir = normalize(eye_pos - sample_point)
+    light_dir = normalize(incident_light_pos - sample_point)
     brdf = surface_brdf(
         light_dir, view_dir, surface_normal, roughness, albedo, base_reflectivity
     )
     lr = brdf * incident_light * _dot(light_dir, surface_normal)[..., None]
     return torch.clamp(lr, min=0.0)
+
+
+def calculate_lighting_at_simple(sample_point, cell_origin, cell_coords, camera_pos,
+                                 light_pos, light_magnitude, *, grid_size: int):
+    """The non-clustered shader's lighting (pathtraced_fragment.wgsl:338-365
+    ``calculateLigtingAt``): reflected + diffuse light with inverse-square
+    falloffs of the light and camera distances, rainbow albedo always
+    (pathtraced_fragment.wgsl:440-441).  ``camera_pos`` and ``light_pos``
+    are [3] or [..., 3] tensors, ``light_magnitude`` a host float32."""
+    face_normal = cube_face_normal(sample_point, cell_origin)
+    view_dir = normalize(sample_point - camera_pos)
+    dist_light = vec_norm(light_pos - sample_point)[..., 0]
+    dist_light_factor = torch.clamp(dist_light * dist_light, min=1.0)
+    dist_cam = vec_norm(camera_pos - sample_point)[..., 0]
+    dist_cam_factor = torch.clamp(dist_cam * dist_cam, min=1.0)
+    incident = torch.full_like(dist_light, float(np.float32(light_magnitude))) / dist_light_factor
+    incident_dir = normalize(sample_point - light_pos)
+    # reflect(i, n) = i - 2 · dot(n, i) · n
+    reflected_dir = incident_dir - (2.0 * _dot(face_normal, incident_dir))[..., None] * face_normal
+    reflected = incident * _dot(reflected_dir, -view_dir)
+    c = cell_coords.to(torch.float32)
+    c = c / torch.full_like(c, float(grid_size))
+    color = torch.stack([c[..., 0], c[..., 1], 1.0 - c[..., 0]], dim=-1)
+    return (color * reflected[..., None] + incident[..., None] * color) / dist_cam_factor[..., None]
 
 
 def _const(values, like):

@@ -113,9 +113,8 @@ class ViewerServer:
 
     def handle_input(self, msg: dict):
         """Apply one input message (param, restart, keys, mouse, wheel).  A
-        setting the port refuses (``pipeline="reference"``, ``mesh_devices``
-        on restart) answers ``{"ok": false, "error": ...}`` and leaves the
-        Engine as it was."""
+        setting the port refuses (``mesh_devices`` on restart) answers
+        ``{"ok": false, "error": ...}`` and leaves the Engine as it was."""
         eng = self.engine
         with self._lock:
             kind = msg.get("type")

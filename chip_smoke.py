@@ -138,6 +138,22 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       against a moved one (alternated) at 256³ and 512³, reproject_history
       alone, and the kernels and device ms a moved frame adds (torch.profiler).
 
+  (k) the exact reference pipeline (``Engine(pipeline="reference")``, plain
+      torch frames; the CA step's kernels): the Engine on the card against the
+      CPU at 64³ / 256×128 over 4 ticks with a camera move (clustered, simple,
+      soft shadows ×4 with GI, ``pyroclastic``, and amoeba-445 simple from the
+      seeded random ages BASELINE config 1 loads, so its multi-state step on
+      [3, 2, 64, 64] planes is held to the CPU's; states equal, frames within
+      the reference tests' comparison); then at 1920×1080, every kernel's
+      counter set to 0 before each and read after (one CA step a generation,
+      no frame kernel): 256³ gen-80 with static and moved ticks, the simple
+      variant, ``pyroclastic`` gen-160, soft shadows ×4 with GI and with two
+      bounces, 1024³ gen-200, and BASELINE config 1 (amoeba-445, 64³,
+      640×480, simple; a seeded random grid of ages when the preset dies out
+      from the seed); for each the frame time (median of CUDA events around
+      single ``render()`` calls), the kernels and device ms of one frame
+      (torch.profiler) and its peak memory.
+
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
 line before them is the kernels' JSON summary.  Exits non-zero, printing no
@@ -1583,6 +1599,169 @@ def interactive_timings(torch, out) -> dict:
     return ms
 
 
+# -------------------------------------- (k) the exact reference pipeline ---
+def reference_configs(ct) -> dict:
+    """name: (Engine overrides, generations before the frames, static ticks,
+    moved ticks, timed frames) of phase (k).  Every camera starts 0.01 off
+    the screen's diagonal (the GI 0/0 decision, as in (h) and (j))."""
+    pyro = dict(ct.PRESETS["pyroclastic"], random_initial_state=True)
+    return {
+        "reference_256": (dict(grid_size=GRID), 80, 3, 3, 5),
+        "simple_256": (dict(grid_size=GRID, render_variant="simple"), 80, 2, 2, 5),
+        "pyroclastic_256": (dict(grid_size=GRID, **pyro), 160, 2, 2, 5),
+        "lighting_256": (dict(grid_size=GRID, **LIGHTING), 80, 1, 1, 3),
+        "two_bounces_256": (dict(grid_size=GRID, indirect_bounces=2, **LIGHTING), 80, 1, 1, 3),
+        "reference_1024": (dict(grid_size=1024), 200, 1, 0, 3),
+        # BASELINE config 1: rule 4/4/5 "Amoeba" at 64³, non-clustered, 640×480.
+        "baseline_config1": (dict(ct.PRESETS["amoeba-445"], grid_size=64, width=640,
+                                  height=480, render_variant="simple"), 10, 2, 2, 5),
+    }
+
+
+REFERENCE_CARD_MISMATCH = 1e-3   # tests/test_torch_cuda.py's bound, card vs CPU
+
+
+def reference_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
+    """Phase (k): Engine(pipeline="reference") on the card, the reference
+    pipeline's frames in plain torch and the CA step's kernels.  First the
+    Engine on the card against the CPU at 64³ / 256×128 over 4 ticks with a
+    camera move (states equal, frames within tests/_torch_reference_scene.py's
+    comparison); then each configuration of :func:`reference_configs` with
+    every kernel's counter set to 0 before it and read after it (CA steps
+    only: the frame launches no hand kernel), its frames finite, lit and
+    of a RenderHistory; then its frame time (CUDA events around single
+    render() calls, median after a warm-up), the kernels and device ms of
+    one render() from a torch.profiler trace, and the peak memory of a
+    render() above what the process had allocated before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cellularautomatons3d_tpu_torch.render.renderer import RenderHistory
+    from _torch_multistate_scene import random_ages
+    from _torch_reference_scene import compare
+
+    out = {"launches": {}, "card_vs_cpu": {}, "frame_ms": {}, "frame_reads_ms": {},
+           "kernels_per_frame": {}, "device_ms_per_frame": {}, "peak_mib": {},
+           "allocated_before_mib": {}, "lit_share": {}, "walls_s": {}}
+    # name: (Engine overrides, a dense start state loaded on both devices).
+    # amoeba-445 at 64³ is BASELINE config 1's CA step, [3, 2, 64, 64] age
+    # planes, from the random ages its run below loads.
+    small = {"clustered": ({}, None), "simple": (dict(render_variant="simple"), None),
+             "lighting": (dict(LIGHTING), None),
+             "pyroclastic": (dict(ct.PRESETS["pyroclastic"], random_initial_state=True), None),
+             "amoeba": (dict(ct.PRESETS["amoeba-445"], render_variant="simple"),
+                        random_ages(64, 5, 17, p_dead=0.7))}
+    for name, (over, dense) in small.items():
+        t0 = time.perf_counter()
+        runs = []
+        for device in ("cuda", "cpu"):
+            e = ct.Engine(grid_size=64, width=256, height=128, pipeline="reference",
+                          device=device, **over)
+            if dense is not None:
+                e.set_state_dense(dense)
+            e.camera.translate((1, 0, 0), 0.01)
+            e.step(12)
+            frames = []
+            for i in range(4):
+                if i >= 2:
+                    move_camera(e.camera, i)
+                f = e.tick()
+                frames.append((f.cpu().numpy(), e.history.color.cpu().numpy(),
+                               e.history.depth.cpu().numpy()))
+            runs.append((frames, e.state.cpu()))
+        (gpu, gstate), (cpu, cstate) = runs
+        need(torch.equal(gstate, cstate), f"(k) {name}: Engine state cuda != cpu")
+        fr = {"hit": 0.0, "depth": 0.0, "rgb": 0.0}
+        for a, b in zip(gpu, cpu):
+            try:
+                got = compare(a, b, depth=REFERENCE_CARD_MISMATCH, rgb=REFERENCE_CARD_MISMATCH)
+            except AssertionError as err:
+                raise SmokeFailure(f"(k) {name} cuda vs cpu at 64^3: {err}") from err
+            fr = {k: max(fr[k], v) for k, v in got.items()}
+        need(int((cpu[-1][0].sum(-1) > 0).sum()) > 100, f"(k) {name}: the 64^3 frame is black")
+        out["card_vs_cpu"][name] = fr
+        log(f"(k) Engine(pipeline='reference') {name} cuda vs cpu at 64^3 / 256x128, 4 ticks: "
+            f"mismatch {fr} ({time.perf_counter() - t0:.1f} s)")
+
+    counted = (ca_step.fires_plane_cuda, ca_step.step_packed_multistate_cuda,
+               ca_step.age_masks_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
+               rs.shadow_sweep_cuda, rs.shadow_sweep_multi_cuda, rs.cell_state_cuda,
+               occupancy.occupied_box_cuda)
+    ca_kernels = ("fires_plane_cuda", "step_packed_multistate_cuda", "age_masks_cuda")
+    for name, (over, gens, static, moved, timed_frames) in reference_configs(ct).items():
+        cfg = {"width": WIDTH, "height": HEIGHT, "pipeline": "reference", **over}
+        multistate = cfg.get("total_states", 2) > 2
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng = ct.Engine(device="cuda", **cfg)
+        eng.camera.translate((1, 0, 0), 0.01)
+        eng.step(gens)
+        if name == "baseline_config1" and not eng.state_dense().any():
+            # The preset dies out from the Engine's seed (a lone centre
+            # cell): a seeded random grid of ages, as the CPU tests load.
+            eng.set_state_dense(random_ages(64, 5, 17, p_dead=0.7))
+            out["baseline_config1_state"] = "random ages (seed 17, 30 % live): died out"
+            log("(k) baseline_config1: amoeba-445 dies out from the seed; loaded random ages")
+        frames = []
+        for i in range(static + moved):
+            if i >= static:
+                move_camera(eng.camera, i)
+            frames.append(eng.tick())
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counted}
+        out["launches"][name] = counts
+        out["walls_s"][name] = time.perf_counter() - t0
+        need(isinstance(eng.history, RenderHistory), f"(k) {name}: history is not RenderHistory")
+        for i, f in enumerate(frames):
+            need(tuple(f.shape) == (cfg["height"], cfg["width"], 3),
+                 f"(k) {name} frame {i} shape {tuple(f.shape)}")
+            need(bool(torch.isfinite(f).all()), f"(k) {name} frame {i} has non-finite values")
+        lit = float((frames[-1].sum(-1) > 0).float().mean())
+        out["lit_share"][name] = lit
+        need(lit > 0.005, f"(k) {name}: {lit:.4f} of the pixels lit")
+        need(bool((eng.history.depth[..., 1] == 1).all()), f"(k) {name}: depth target")
+        steps = eng.simulation_step
+        if multistate:
+            need(counts["step_packed_multistate_cuda"] == steps and counts["fires_plane_cuda"] == 0,
+                 f"(k) {name}: not one multi-state step a generation ({steps}): {counts}")
+            need(counts["age_masks_cuda"] == steps + len(frames),
+                 f"(k) {name}: not one age-mask pass a step and a frame: {counts}")
+        else:
+            need(counts["fires_plane_cuda"] == steps, f"(k) {name}: {steps} steps, {counts}")
+        need(all(v == 0 for k, v in counts.items() if k not in ca_kernels),
+             f"(k) {name}: the reference frame launched a frame kernel: {counts}")
+        # The frame's time, kernels, device time and memory (static camera).
+        eng.render()
+        torch.cuda.synchronize()
+        reads = [timed(torch, eng.render)[1] for _ in range(timed_frames)]
+        out["frame_reads_ms"][name] = reads
+        out["frame_ms"][name] = float(np.median(reads))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.render()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out["kernels_per_frame"][name] = len(ev)
+        out["device_ms_per_frame"][name] = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.render()
+        torch.cuda.synchronize()
+        out["allocated_before_mib"][name] = base / 2**20
+        out["peak_mib"][name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        log(f"(k) {name}: {cfg['grid_size']}^3 {cfg['width']}x{cfg['height']} "
+            f"{eng.config.render_variant}, gen {steps}, {static} static + {moved} moved ticks in "
+            f"{out['walls_s'][name]:.1f} s, lit {lit:.3f}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; render() {out['frame_ms'][name]:.2f} ms "
+            f"(median of {reads}), {len(ev)} kernels, "
+            f"{out['device_ms_per_frame'][name]:.2f} ms device, peak +"
+            f"{out['peak_mib'][name]:.0f} MiB over the {out['allocated_before_mib'][name]:.0f} MiB "
+            f"allocated before")
+        del eng, frames
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -1979,6 +2158,10 @@ def main() -> dict:
         "checkpoint_ms",
         "frame_png_ms", "have_native", "native_build_error")}
 
+    # ------------------------------------- (k) the reference pipeline ---
+    refp = reference_phase(torch, np, ct, rf, rs, ca_step, occupancy)
+    report["reference"] = refp
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
@@ -2261,11 +2444,13 @@ def main() -> dict:
                 "library_ms": None}  # no single PyTorch call computes any of them
 
     k5_launches = total("shadow_sweep_multi_cuda", *multi["launches"].values())
-    ms_launches = [*ms["launches"].values(), *inter["launches"].values()]
+    ms_launches = [*ms["launches"].values(), *inter["launches"].values(),
+                   *refp["launches"].values()]
     report["kernels"] = [
         entry("ca_step", "ca_step.cu", "ops/ca_step.py:118",
               launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values(),
-                                          *inter["launches"].values()),
+                                          *inter["launches"].values(),
+                                          *refp["launches"].values()),
               0.0, ca_ms, ca_plain_ms),
         entry("ca_step_multistate", "ca_step.cu", "ops/ca_step.py:178",
               total("step_packed_multistate_cuda", *ms_launches), 0.0,

@@ -63,7 +63,7 @@ def torch_trace_shaded(static_kw, sample_idx=None):
     from cellularautomatons3d_tpu_torch.render.renderer_fast import trace_shaded
 
     s = RenderStatic(width=W, height=H, grid_size=N, **static_kw)
-    res = trace_shaded(s, ct.from_reference(scene_words()), scene_cam(), sample_idx)
+    res = trace_shaded(s, ct.from_reference(scene_words(), device="cpu"), scene_cam(), sample_idx)
     return tuple(a.numpy() for a in res)
 
 

@@ -11,7 +11,8 @@ import pytest
 def one_torch_thread():
     """One intra-op thread for a file's many small torch ops: the suite runs
     several workers, and a thread pool per worker oversubscribes the cores
-    (restored after the file).  Each multi-state test file imports it."""
+    (restored after the file).  Each multi-state and reference-pipeline
+    test file imports it."""
     import torch
 
     threads = torch.get_num_threads()
@@ -75,7 +76,7 @@ def check_sliced_frame_with_ages(kw, cam_kw, max_flipped, n, p_dead, bricks):
         jkw["sample_idx"] = jnp.int32(jkw["sample_idx"])
     want = jax_sliced(vis, cam, n, bricks, ages=jnp.asarray(planes),
                       total_states=S_SLICED, **jkw)
-    got = torch_sliced(vis, cam, n, ages=ct.from_reference(planes),
+    got = torch_sliced(vis, cam, n, ages=ct.from_reference(planes, device="cpu"),
                        total_states=S_SLICED, **kw)
     assert_frame_close(got, want, max_flipped=max_flipped)
     binary = torch_sliced(vis, cam, n, **kw)

@@ -74,7 +74,7 @@ def torch_sliced(words, cam, n=N, **kw):
     import cellularautomatons3d_tpu_torch as ct
     from cellularautomatons3d_tpu_torch.render.render_slab import raytrace_sliced
 
-    out = raytrace_sliced(ct.from_reference(words), cam, grid_size=n, width=W,
+    out = raytrace_sliced(ct.from_reference(words, device="cpu"), cam, grid_size=n, width=W,
                           height=H, **kw)
     return tuple(a.numpy() for a in out)
 
@@ -84,7 +84,7 @@ def torch_primary(words, cam):
     import cellularautomatons3d_tpu_torch as ct
     from cellularautomatons3d_tpu_torch.render.render_slab import primary_sweep
 
-    out = primary_sweep(ct.from_reference(words), cam, grid_size=N, width=W,
+    out = primary_sweep(ct.from_reference(words, device="cpu"), cam, grid_size=N, width=W,
                         height=H)
     return tuple(a.numpy() for a in out)
 

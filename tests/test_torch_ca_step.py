@@ -46,7 +46,7 @@ def both_specs(**kw):
 
 def run_both(packed, jspec, tspec, generations=3):
     j = jnp.asarray(packed)
-    t = ct.from_reference(packed)
+    t = ct.from_reference(packed, device="cpu")
     for g in range(generations):
         j = jax_ca.step_packed(j, jspec)
         t = ca_step.step_packed(t, tspec)
@@ -80,7 +80,7 @@ def test_step_mixed_groups_matches_jax(boundary):
 def test_seed_center_population_seven():
     """Default rule (vN B1,3/S0-6): one cell becomes itself + 6 faces."""
     tspec = AutomatonSpec.from_rule_strings(grid_size=N)
-    packed = ct.from_reference(ct.pack_grid(ct.seed_center(N)))
+    packed = ct.from_reference(ct.pack_grid(ct.seed_center(N)), device="cpu")
     packed = ca_step.step_packed(packed, tspec)
     assert ct.unpack_grid(ct.to_reference(packed)).sum() == 7
 
@@ -90,7 +90,7 @@ def test_seed_center_population_seven():
 def test_shift_packed_matches_jax(offset, boundary):
     packed = random_packed(7, p=0.4)
     want = np.asarray(jax_ca.shift_packed(jnp.asarray(packed), offset, boundary))
-    got = ca_step.shift_packed(ct.from_reference(packed), offset, boundary)
+    got = ca_step.shift_packed(ct.from_reference(packed, device="cpu"), offset, boundary)
     np.testing.assert_array_equal(ct.to_reference(got), want)
 
 
@@ -98,14 +98,14 @@ def test_shift_packed_matches_jax(offset, boundary):
 def test_coarse_occupancy_matches_jax(n, p):
     packed = random_packed(11, p=p, n=n)
     want = np.asarray(jax_coarse(jnp.asarray(packed)))
-    got = coarse_occupancy(ct.from_reference(packed))
+    got = coarse_occupancy(ct.from_reference(packed, device="cpu"))
     np.testing.assert_array_equal(ct.to_reference(got), want)
 
 
 def test_step_fn_and_multistate_guard():
     tspec = AutomatonSpec.from_rule_strings(grid_size=N)
     step = ct.make_step_fn(tspec)
-    packed = ct.from_reference(random_packed(3))
+    packed = ct.from_reference(random_packed(3), device="cpu")
     assert torch.equal(step(packed), ca_step.step_packed(packed, tspec))
     # A multi-state spec steps age planes [B, W, Z, Y] and refuses a binary
     # state (tests/test_torch_multistate_step.py holds it against JAX).
@@ -144,5 +144,5 @@ def test_step_kernel_plan_halo_and_refusal():
     too_wide = dataclasses.replace(spec, offsets_main=((0, 0, 1), (0, 40, 0)))
     with pytest.raises(ValueError, match="±31"):
         ca_step._step_plan(too_wide)
-    state = ct.from_reference(random_packed(4, n=64))
+    state = ct.from_reference(random_packed(4, n=64), device="cpu")
     assert ca_step.fires_plane(state, too_wide).shape == state.shape

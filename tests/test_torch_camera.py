@@ -109,7 +109,8 @@ def moved_frames(s_t, s_j, hist, h, fh, row0):
     packed = volume()
     kw = dict(row0=row0, full_height=fh) if fh != h else {}
     pres, depth, new = renderer_fast.render_frame_fast(
-        s_t, ct.from_reference(packed), torch_params(VIEW_B, VIEW_A), hist, False, **kw)
+        s_t, ct.from_reference(packed, device="cpu"), torch_params(VIEW_B, VIEW_A), hist,
+        False, **kw)
     got = [a.numpy() for a in (pres, depth, new.color.float(), new.hit_idx)]
     pj = jax_params(VIEW_B, VIEW_A)
     hist_j = jrf.FastHistory(*map(jnp.asarray, ct.to_reference(hist)))
@@ -123,7 +124,7 @@ def moved_frames(s_t, s_j, hist, h, fh, row0):
     # JAX's (asserted below), its depth is within the contract.
     params_t = torch_params(VIEW_B, VIEW_A)
     rgb, d, idx = renderer_fast.trace_shaded(
-        s_t, ct.from_reference(packed), renderer_fast._cam_vec(params_t, W, fh, row0))
+        s_t, ct.from_reference(packed, device="cpu"), renderer_fast._cam_vec(params_t, W, fh, row0))
     _, src, valid = renderer_fast.reproject_history(hist, rgb, d, idx, params_t, W, h, fh, row0)
     src_j, valid_j = jax_reprojection(pj, want[1], want[3], hist_j.hit_idx, h, fh, row0)
     return got, want, (src.numpy(), valid.numpy()), (src_j, valid_j)
@@ -148,7 +149,7 @@ def pan(jax_engine):
     B over it, full window (the JAX Engine's RenderStatic, so the JAX
     Engine test below reuses the compiled program)."""
     s_t = renderer.RenderStatic(width=W, height=H, grid_size=N)
-    packed = ct.from_reference(volume())
+    packed = ct.from_reference(volume(), device="cpu")
     _, _, hist_a = renderer_fast.render_frame_fast(
         s_t, packed, torch_params(VIEW_A, VIEW_A),
         renderer_fast.init_fast_history(W, H, "cpu"))

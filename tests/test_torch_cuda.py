@@ -982,3 +982,94 @@ def test_multistate_engine_cuda_matches_cpu(cuda, grid, variant):
     assert int((cidx >= 0).sum()) > 0
     for a, b in zip(gpu, cpu):
         torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-3)
+
+
+# ------------------------------------------- the exact reference pipeline ---
+
+REFERENCE_VARIANTS = {
+    "clustered": {},
+    "simple": dict(render_variant="simple"),
+    "lighting": dict(LIGHTING_320),
+    "two_bounces": dict(LIGHTING_320, indirect_bounces=2),
+    "pyroclastic": dict(ct.PRESETS["pyroclastic"], random_initial_state=True),
+    # BASELINE config 1's rule; the preset dies out from the Engine's seed,
+    # so both devices load the same random ages (REFERENCE_START).
+    "amoeba": dict(ct.PRESETS["amoeba-445"], render_variant="simple"),
+}
+# Dense start states loaded on both devices, by variant.
+REFERENCE_START = {"amoeba": lambda: random_ages("cpu", N, 5, 17, p_dead=0.7)[1].numpy()}
+# The card against the CPU: the same torch ops in the same order, float64
+# sin, IEEE division and sqrt on both; a stated share of pixels may still
+# differ (pow's last bit through the f16 history).
+REFERENCE_CARD_MISMATCH = 1e-3
+
+
+def test_reference_functions_card_equal_cpu(cuda):
+    """The hash, the saturating conversion, cell addressing, the wrapped
+    lookup far outside the volume, the texel fetch on non-finite uv and the
+    shadow march: bit for bit on the card and the CPU."""
+    from cellularautomatons3d_tpu_torch.render import intersect as ti
+    from cellularautomatons3d_tpu_torch.render import raymarch as tm
+    from cellularautomatons3d_tpu_torch.render import renderer as tr
+
+    rng = np.random.default_rng(40)
+    special = torch.tensor([np.nan, np.inf, -np.inf, 3e9, -3e9, 2147483520.0, 2.5, -2.5,
+                            -0.5, 0.0, 63.99, 64.0], dtype=torch.float32)
+    n = torch.from_numpy(rng.uniform(-1.0, 1.1, (1 << 16, 2)).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-40, 40, (1 << 14, 3)).astype(np.float32))
+    pts = torch.cat([pts, special.reshape(-1, 3)])
+    coords = torch.from_numpy(rng.integers(0, 2**31 - 1, (1 << 14, 3)).astype(np.int32))
+    vol = random_volume("cpu", 41, 0.2)
+    img = torch.from_numpy(rng.random((H, W, 4)).astype(np.float16))
+    uv = torch.cartesian_prod(special, special)
+    start = torch.from_numpy(rng.uniform(-0.49, 0.49, (1 << 14, 3)).astype(np.float32))
+    end = torch.tensor([0.721, 1.0, 1.0]).expand_as(start).contiguous()
+    rnd = torch.from_numpy(rng.random(1 << 14).astype(np.float32))
+
+    def run(dev):
+        d = lambda x: x.to(dev)  # noqa: E731
+        cells = ti.cell_from_sample_point(d(start), N)[0]
+        return [
+            ti.nrand(d(n)), ti.n1rand(d(n), np.float32(12.345)), ti.to_int32(d(special)),
+            *ti.cell_from_sample_point(d(pts), N),
+            ti.get_cell_state(d(vol).reshape(-1), d(coords), N),
+            tr._texture_load(d(img), d(uv), W, H),
+            tm.ray_march_shadow(d(vol).reshape(-1), d(start), d(end), cells, d(rnd),
+                                grid_size=N, cell_size_mul=0.85, shadow_samples=30),
+        ]
+
+    for a, b in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("variant", list(REFERENCE_VARIANTS))
+def test_reference_engine_cuda_matches_cpu(cuda, variant):
+    """Engine(pipeline="reference") at 64³ / 256×128 on the card and the CPU
+    over 4 ticks, a camera move before the last two: states equal, frames
+    by the reference tests' comparison."""
+    from _torch_reference_scene import compare
+
+    cfg = dict(grid_size=N, width=256, height=128, pipeline="reference",
+               **REFERENCE_VARIANTS[variant])
+    dense = REFERENCE_START[variant]() if variant in REFERENCE_START else None
+    out = []
+    for device in ("cuda", "cpu"):
+        e = ct.Engine(device=device, **cfg)
+        if dense is not None:
+            e.set_state_dense(dense)
+        e.camera.translate((1, 0, 0), 0.01)  # off the GI 0/0 diagonal
+        e.step(12)
+        frames = []
+        for i in range(4):
+            if i >= 2:
+                e.camera.translate((1, 0, -1), 0.02)
+                e.camera.mouse_look(4.0, -2.0)
+            f = e.tick()
+            frames.append((f.cpu().numpy(), e.history.color.cpu().numpy(),
+                           e.history.depth.cpu().numpy()))
+        out.append((frames, e.state.cpu()))
+    (gpu, gstate), (cpu, cstate) = out
+    assert torch.equal(gstate, cstate)
+    for a, b in zip(gpu, cpu):
+        compare(a, b, depth=REFERENCE_CARD_MISMATCH, rgb=REFERENCE_CARD_MISMATCH)
+    assert (cpu[-1][0].sum(-1) > 0).sum() > 100

@@ -21,6 +21,7 @@ import cellularautomatons3d_tpu_torch as ct
 from cellularautomatons3d_tpu_torch.ops import ca_step
 from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
 from cellularautomatons3d_tpu_torch.render import render_fast, render_slab, renderer_fast
+from cellularautomatons3d_tpu_torch.render.renderer import RenderHistory
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(grid_size=32, width=128, height=64)
@@ -65,12 +66,12 @@ def test_history_round_trip_through_reference_form():
     eng.step(4)
     eng.render()
     pair = ct.to_reference(eng.history)
-    back = ct.from_reference(JaxHistory(*pair))
+    back = ct.from_reference(JaxHistory(*pair), device="cpu")
     assert torch.equal(back.color, eng.history.color)
     assert torch.equal(back.hit_idx, eng.history.hit_idx)
     words = ct.to_reference(eng.state)
     assert words.dtype == np.uint32
-    assert torch.equal(ct.from_reference(words), eng.state)
+    assert torch.equal(ct.from_reference(words, device="cpu"), eng.state)
 
 
 def test_run_fused_reset_every_pins_the_scene():
@@ -79,8 +80,10 @@ def test_run_fused_reset_every_pins_the_scene():
     start = eng.state.clone()
     eng.run_fused(4, reset_every=2)
     assert torch.equal(eng.state, start)  # reset after frames 2 and 4
+    assert eng.simulation_step == 3  # the undone generations are not counted
     eng.run_fused(3, reset_every=2)
     assert not torch.equal(eng.state, start)  # frame 3 stepped past it
+    assert eng.simulation_step == 4
 
 
 def test_tick_cadence_and_restart():
@@ -124,7 +127,6 @@ def test_lighting_configs_build_and_render(overrides):
     "overrides,item",
     [
         (dict(mesh_shape=(2, 1)), "item 12"),
-        (dict(pipeline="reference"), "item 11"),
         (dict(mesh_devices=2, height=64), "item 12"),
     ],
 )
@@ -133,11 +135,32 @@ def test_unported_configs_raise(overrides, item):
         ct.Engine(ct.EngineConfig(**{**CFG, **overrides}), device="cpu")
 
 
-def test_live_set_of_unported_setting_raises_and_changes_nothing():
+@pytest.mark.parametrize(
+    "overrides", [dict(pipeline="reference"), dict(render_variant="simple")]
+)
+def test_reference_pipeline_builds_steps_and_renders(overrides):
+    """The reference pipeline (once refused as ROADMAP item 11) and its
+    simple variant build, step and render
+    (tests/test_torch_reference_*.py hold them to JAX)."""
+    eng = ct.Engine(ct.EngineConfig(**{**CFG, **overrides}), device="cpu")
+    assert eng.config.pipeline == "reference"
+    assert isinstance(eng.history, RenderHistory)
+    assert eng.render_static.depth_samples == 35 and eng.render_static.shadow_samples == 30
+    eng.step(4)
+    frame = eng.tick()
+    assert tuple(frame.shape) == (CFG["height"], CFG["width"], 3)
+    assert bool(torch.isfinite(frame).all()) and float(frame.max()) > 0.0
+    assert eng.history.depth.dtype == torch.float16 and eng.history.depth.any()
+
+
+def test_live_set_of_pipeline_swaps_history_and_keeps_state():
     eng = ct.Engine(ct.EngineConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.set("pipeline", "reference")
-    assert eng.config.pipeline == "fast"
+    eng.step(3)
+    state = eng.state.clone()
+    eng.set("pipeline", "reference")
+    assert eng.config.pipeline == "reference" and not eng.restart_required
+    assert isinstance(eng.history, RenderHistory) and torch.equal(eng.state, state)
+    assert bool(torch.isfinite(eng.render()).all())
 
 
 def test_live_set_of_lighting_fields_rebuilds_render_static():
@@ -186,7 +209,7 @@ def test_cuda_engine_raises_without_cuda():
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_do_not_fall_back():
     spec = ct.AutomatonSpec.from_config(ct.EngineConfig(**CFG))
-    packed = ct.from_reference(ct.pack_grid(ct.seed_center(32)))
+    packed = ct.from_reference(ct.pack_grid(ct.seed_center(32)), device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         ca_step.fires_plane_cuda(packed, spec)
     # A non-CPU tensor takes the kernel path, which raises here.
@@ -203,12 +226,15 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; "
         "import cellularautomatons3d_tpu_torch as ct; "
         "import cellularautomatons3d_tpu_torch.viewer.server, "
-        "cellularautomatons3d_tpu_torch.utils.image, cellularautomatons3d_tpu_torch.native; "
+        "cellularautomatons3d_tpu_torch.utils.image, cellularautomatons3d_tpu_torch.native, "
+        "cellularautomatons3d_tpu_torch.render.raymarch; "
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
         "if sys.modules[m] is not None); "
         "assert not any(m.split('.')[0] == 'cellularautomatons3d_tpu' for m in sys.modules); "
         "e = ct.Engine(grid_size=32, width=32, height=16, device='cpu'); "
-        "e.step(1); assert e.state_dense().sum() == 7; print('ok')"
+        "e.step(1); assert e.state_dense().sum() == 7; "
+        "r = ct.Engine(grid_size=32, width=32, height=16, pipeline='reference', "
+        "device='cpu'); r.step(2); r.render(); print('ok')"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -177,7 +177,7 @@ def test_soft_shadow_jitter_tensor_index_equals_static():
 
 
 def test_hit_geometry_matches_jax(frame):
-    vol = ct.from_reference(frame["words"])
+    vol = ct.from_reference(frame["words"], device="cpu")
     _, depth, idx = raytrace_tiles(vol, coarse_occupancy(vol), frame["cam"],
                                    grid_size=N, width=W, height=H, shadow=False)
     np.testing.assert_array_equal(idx.numpy(), frame["idx"])
@@ -194,7 +194,7 @@ def test_hit_geometry_matches_jax(frame):
 def test_k2_plain_matches_jax(frame):
     """K2's plain version on the JAX kernel's inputs: every flag equal, for
     the frame's 4 soft-shadow samples and 4 GI slots and for random rays."""
-    prepped = render_slab.prep_volume(ct.from_reference(frame["words"]))
+    prepped = render_slab.prep_volume(ct.from_reference(frame["words"], device="cpu"))
     got = render_slab.shadow_occlusion_batch(
         frame["cam"], [tuple(t(a) for a in qq) for qq in frame["queries"]],
         prepped, grid_size=N, width=W, height=H)
@@ -212,7 +212,7 @@ def test_k3_plain_matches_jax(frame):
     JAX kernel returns its cell's state there whenever an active lane of
     the same strip made it visit that z group (its group gate ORs over
     active lanes only).  Every caller masks inactive lanes."""
-    prepped = render_slab.prep_volume(ct.from_reference(frame["words"]))
+    prepped = render_slab.prep_volume(ct.from_reference(frame["words"], device="cpu"))
     got = render_slab.cell_state_batch(
         [(t(c), t(a)) for c, a in frame["slot_coords"]], prepped,
         grid_size=N, width=W, height=H)
@@ -226,7 +226,7 @@ def test_k3_plain_matches_jax(frame):
 def test_k2_k3_wrappers_do_not_fall_back(frame):
     """The CUDA wrappers refuse CPU tensors; a non-CPU batch takes the
     kernel path, which raises here rather than running the plain version."""
-    vol = ct.from_reference(frame["words"])
+    vol = ct.from_reference(frame["words"], device="cpu")
     prepped = render_slab.prep_volume(vol)
     start, target, excl, active = render_slab.stack_occlusion_queries(
         [tuple(t(a) for a in qq) for qq in frame["queries"][:2]], W, H)
@@ -284,7 +284,7 @@ def test_engine_gi_temporal_rotates_sample(monkeypatch):
     # The rotation changes the lighting: samples 0 and 1 differ.
     from cellularautomatons3d_tpu_torch.render.renderer_fast import trace_shaded
 
-    vol = ct.from_reference(scene_words())
+    vol = ct.from_reference(scene_words(), device="cpu")
     a = trace_shaded(eng.render_static, vol, scene_cam(), 0)[0]
     b = trace_shaded(eng.render_static, vol, scene_cam(), 1)[0]
     assert not torch.equal(a, b)

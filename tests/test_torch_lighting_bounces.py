@@ -52,7 +52,7 @@ def test_trace_shaded_two_bounces_matches_jax():
 def test_single_slot_estimates_sum():
     """indirect_bounce(slot=i) == 4 × slot i's contribution: the mean of
     the four single-slot calls equals the full 4-slot call."""
-    vol = ct.from_reference(scene_words())
+    vol = ct.from_reference(scene_words(), device="cpu")
     cam = scene_cam()
     _, depth, idx = raytrace_tiles(vol, coarse_occupancy(vol), cam, grid_size=N,
                                    width=W, height=H, shadow=False)
@@ -94,7 +94,7 @@ def test_fused_loop_matches_frame_sequence(static_kw):
     frame: the tolerance covers that (the reference's own test's)."""
     s = RenderStatic(width=W, height=H, grid_size=N, **static_kw)
     spec = ct.AutomatonSpec.from_config(ct.EngineConfig(grid_size=N))
-    st = ct.from_reference(scene_words())
+    st = ct.from_reference(scene_words(), device="cpu")
     frames = 3
     st_out, hist_out, frame = make_fused_loop(s, spec, frames)(
         st, _params(), init_fast_history(W, H, "cpu"))

@@ -69,7 +69,7 @@ def test_multistate_engine_state_matches_jax_engine(preset):
     state = teng.state.clone()
     teng.set_state_dense(teng.state_dense())
     assert torch.equal(teng.state, state)
-    assert torch.equal(ct.from_reference(np.asarray(jeng.state)), state)
+    assert torch.equal(ct.from_reference(np.asarray(jeng.state), device="cpu"), state)
     words = ct.to_reference(state)
     assert words.dtype == np.uint32 and words.shape == tuple(state.shape)
     np.testing.assert_array_equal(words, np.asarray(jeng.state))
@@ -79,7 +79,7 @@ def test_multistate_engine_state_matches_jax_engine(preset):
 def test_multistate_engine_frames_match_jax_engine():
     jeng, teng, _ = both_engines("pyroclastic")
     jeng.step(10)
-    teng.state = ct.from_reference(np.asarray(jeng.state))  # carried across
+    teng.state = ct.from_reference(np.asarray(jeng.state), device="cpu")  # carried across
     assert_frame(teng.render(), jeng.render())
     np.testing.assert_array_equal(
         teng.history.hit_idx.numpy(), np.asarray(jeng.history.hit_idx))

@@ -103,7 +103,7 @@ def check_fused_loop_against_jax(branch, frames=FRAMES):
     static_kw = BRANCHES[branch]
     want = jax_loop(static_kw, frames)
     spec = ct.AutomatonSpec.from_rule_strings(grid_size=N, **RULE)
-    start = ct.from_reference(blob_planes())
+    start = ct.from_reference(blob_planes(), device="cpu")
     st, hist, frame = renderer_fast.make_fused_loop(
         torch_static(static_kw), spec, frames, 1, RESET)(
         start, torch_params(), renderer_fast.init_fast_history(W, H, "cpu"))
@@ -131,7 +131,7 @@ def test_fused_loop_with_ages_equals_the_frame_sequence(branch):
     tests/test_torch_lighting_bounces.py)."""
     s = torch_static(BRANCHES[branch])
     spec = ct.AutomatonSpec.from_rule_strings(grid_size=N, **RULE)
-    start = ct.from_reference(blob_planes())
+    start = ct.from_reference(blob_planes(), device="cpu")
     st, hist, frame = renderer_fast.make_fused_loop(s, spec, FRAMES)(
         start, torch_params(), renderer_fast.init_fast_history(W, H, "cpu"))
     st2, hist2 = start, renderer_fast.init_fast_history(W, H, "cpu")

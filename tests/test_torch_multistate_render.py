@@ -50,11 +50,11 @@ def run_jax(planes, vis, cam, shadow, history=None):
 
 
 def run_torch(planes, vis, cam, shadow, history=None, with_ages=True):
-    vol = ct.from_reference(vis)
+    vol = ct.from_reference(vis, device="cpu")
     hist = None
     if history is not None:
         hist = (torch.from_numpy(history[0]), torch.from_numpy(history[1]))
-    kw = dict(ages=ct.from_reference(planes), total_states=S) if with_ages else {}
+    kw = dict(ages=ct.from_reference(planes, device="cpu"), total_states=S) if with_ages else {}
     outs = trf.raytrace_tiles(vol, coarse_occupancy(vol), cam, hist, grid_size=N,
                               width=W, height=H, shadow=shadow, **kw)
     return tuple(o.numpy() for o in outs)
@@ -131,12 +131,12 @@ def test_age_fade_clips_and_emissive_is_not_faded():
     assert fade.tolist() == [1.0, 0.5, 0.0, 0.0]
     dense = _wall(3)
     planes = pack_ages(dense, 2)  # age 3 in 2 planes: invalid for S = 3
-    vol = ct.from_reference(visibility(planes))
+    vol = ct.from_reference(visibility(planes), device="cpu")
     cam = cam_for(emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5)
     hist = (torch.zeros((H, W, 3)), torch.full((H, W), -1, dtype=torch.int32))
     _, _, idx, light = trf.raytrace(
         vol, coarse_occupancy(vol), cam, hist, grid_size=N, width=W, height=H,
-        shadow=False, ages=ct.from_reference(planes), total_states=3)
+        shadow=False, ages=ct.from_reference(planes, device="cpu"), total_states=3)
     hit = idx >= 0
     assert hit.sum() > 100
     want = torch.tensor([0.02, 0.03, 0.04]) * 0.5
@@ -148,8 +148,8 @@ def test_plain_k4_age_output_is_the_hit_cells_age():
     cam = cam_for()
     kw = dict(grid_size=N, width=W, height=H)
     t, idx, age = render_slab.primary_sweep(
-        ct.from_reference(vis), cam, ct.from_reference(planes), **kw)
-    t_b, idx_b = render_slab.primary_sweep(ct.from_reference(vis), cam, **kw)
+        ct.from_reference(vis, device="cpu"), cam, ct.from_reference(planes, device="cpu"), **kw)
+    t_b, idx_b = render_slab.primary_sweep(ct.from_reference(vis, device="cpu"), cam, **kw)
     assert torch.equal(idx, idx_b) and torch.equal(t, t_b)
     assert age.dtype == torch.int32
     np.testing.assert_array_equal(age.numpy(), hit_ages(ages, idx.numpy()))
@@ -158,7 +158,7 @@ def test_plain_k4_age_output_is_the_hit_cells_age():
 
 def test_ages_are_validated_and_never_fall_back():
     _, planes, vis = scene()
-    vol, ages = ct.from_reference(vis), ct.from_reference(planes)
+    vol, ages = ct.from_reference(vis, device="cpu"), ct.from_reference(planes, device="cpu")
     kw = dict(grid_size=N, width=W, height=H)
     with pytest.raises(ValueError, match="age planes"):
         trf.raytrace(vol, coarse_occupancy(vol), cam_for(), ages=ages[0], total_states=S, **kw)

@@ -33,7 +33,8 @@ def test_sliced_hard_shadow_frame_with_ages_matches_jax(hard_frame):
 
 def test_k4_age_image_equals_the_dense_ages_at_the_reference_hits(hard_frame):
     ages, planes, vis, cam, want = hard_frame
-    t, idx, age = primary_sweep(ct.from_reference(vis), cam, ct.from_reference(planes),
+    t, idx, age = primary_sweep(ct.from_reference(vis, device="cpu"), cam,
+                                ct.from_reference(planes, device="cpu"),
                                 grid_size=N, width=W, height=H)
     hit = want[2] >= 0
     np.testing.assert_array_equal(idx.numpy(), want[2])

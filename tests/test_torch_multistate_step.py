@@ -54,7 +54,7 @@ def random_ages(seed, total_states, p_dead=0.5):
 def run_all(ages, jspec, tspec, generations=6):
     """Packed JAX, packed torch, dense JAX and dense torch, in step."""
     planes = pack_ages(ages, tspec.age_bits)
-    j, t = jnp.asarray(planes), ct.from_reference(planes)
+    j, t = jnp.asarray(planes), ct.from_reference(planes, device="cpu")
     jd, td = jnp.asarray(ages), torch.from_numpy(ages)
     with jax.disable_jit():
         for g in range(generations):
@@ -103,14 +103,15 @@ def test_multistate_step_on_invalid_encodings_matches_jax(total_states):
     planes = rng.integers(0, 2**32, (tspec.age_bits, N // 32, N, N), dtype=np.uint32)
     with jax.disable_jit():
         want = np.asarray(jax_ca.step_packed_multistate(jnp.asarray(planes), jspec))
-    got = ca_step.step_packed_multistate(ct.from_reference(planes), tspec)
+    got = ca_step.step_packed_multistate(ct.from_reference(planes, device="cpu"), tspec)
     np.testing.assert_array_equal(ct.to_reference(got), want)
 
 
 def test_two_states_through_the_multistate_entry_is_the_binary_step():
     _, tspec = both_specs(total_states=2)
     rng = np.random.default_rng(2)
-    packed = ct.from_reference(ct.pack_grid((rng.random((N, N, N)) < 0.2).astype(np.uint8)))
+    packed = ct.from_reference(ct.pack_grid((rng.random((N, N, N)) < 0.2).astype(np.uint8)),
+                               device="cpu")
     got = ca_step.step_packed_multistate(packed[None], tspec)
     assert got.shape == (1,) + packed.shape
     assert torch.equal(got[0], ca_step.step_packed(packed, tspec))
@@ -121,7 +122,7 @@ def test_three_states_last_age_is_the_first_dying_age():
     _, tspec = both_specs(neighbourhood="moore", born="", survive="", total_states=3)
     ages = np.zeros((N, N, N), np.uint8)
     ages[5, 6, 7] = 1
-    t = ct.from_reference(pack_ages(ages, 2))
+    t = ct.from_reference(pack_ages(ages, 2), device="cpu")
     seen = []
     for _ in range(3):
         t = ca_step.step_packed(t, tspec)
@@ -135,13 +136,13 @@ def test_make_multi_step_equals_single_steps_and_jax(total_states):
                               total_states=total_states)
     ages = random_ages(7, total_states, p_dead=0.7)
     state = pack_ages(ages, tspec.age_bits) if total_states > 2 else ct.pack_grid(ages)
-    start = ct.from_reference(state)
+    start = ct.from_reference(state, device="cpu")
     got = make_multi_step(tspec, 4)(start)
     want = start
     for _ in range(4):
         want = ca_step.step_packed(want, tspec)
     assert torch.equal(got, want)
-    assert torch.equal(start, ct.from_reference(state))  # the input is not modified
+    assert torch.equal(start, ct.from_reference(state, device="cpu"))  # the input is not modified
     with jax.disable_jit():
         ref = jax_multi_step(jspec, 4)(jnp.asarray(state))
     np.testing.assert_array_equal(ct.to_reference(got), np.asarray(ref))
@@ -150,7 +151,7 @@ def test_make_multi_step_equals_single_steps_and_jax(total_states):
 def test_make_step_fn_dispatches_by_total_states():
     _, binary = both_specs()
     _, multi = both_specs(total_states=5)
-    planes = ct.from_reference(pack_ages(random_ages(3, 5), multi.age_bits))
+    planes = ct.from_reference(pack_ages(random_ages(3, 5), multi.age_bits), device="cpu")
     assert torch.equal(ct.make_step_fn(multi)(planes),
                        ca_step.step_packed_multistate(planes, multi))
     assert torch.equal(ct.make_step_fn(binary)(planes[0]),
@@ -171,7 +172,7 @@ def test_make_step_fn_dispatches_by_total_states():
 def test_visibility_and_alive_planes():
     _, multi = both_specs(total_states=10)
     ages = random_ages(4, 10)
-    planes = ct.from_reference(pack_ages(ages, 4))
+    planes = ct.from_reference(pack_ages(ages, 4), device="cpu")
     alive, vis = ca_step.age_masks(planes)
     np.testing.assert_array_equal(ct.unpack_grid(ct.to_reference(alive)), ages == 1)
     np.testing.assert_array_equal(ct.unpack_grid(ct.to_reference(vis)), ages > 0)
@@ -217,14 +218,14 @@ def _random_words(seed, k, shape=(4, 8, 16)):
 
 
 def _to_torch(words):
-    return [ct.from_reference(w) for w in words]
+    return [ct.from_reference(w, device="cpu") for w in words]
 
 
 def test_bitplane_select_and_increment_match_jax():
     a, b, (m,) = _random_words(1, 4), _random_words(2, 3), _random_words(3, 1)
     want = jax_bitplane.select_planes(jnp.asarray(m), [jnp.asarray(x) for x in a],
                                       [jnp.asarray(x) for x in b])
-    got = bitplane.select_planes(ct.from_reference(m), _to_torch(a), _to_torch(b))
+    got = bitplane.select_planes(ct.from_reference(m, device="cpu"), _to_torch(a), _to_torch(b))
     assert len(got) == len(want) == 4  # the shorter list is zero-padded
     for g, w in zip(got, want):
         np.testing.assert_array_equal(ct.to_reference(g), np.asarray(w))

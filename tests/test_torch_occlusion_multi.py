@@ -72,7 +72,7 @@ def test_k5_plain_matches_jax(frame, monkeypatch):
     monkeypatch.setenv("CA3D_OCC_SWEEP", "0")
     calls = []
     _spy(monkeypatch, calls)
-    prepped = render_slab.prep_volume(ct.from_reference(frame["words"]))
+    prepped = render_slab.prep_volume(ct.from_reference(frame["words"], device="cpu"))
     got = render_slab.shadow_occlusion_batch(
         frame["cam"], [tuple(t(a) for a in qq) for qq in frame["queries"]],
         prepped, grid_size=N, width=W, height=H)
@@ -90,7 +90,7 @@ def test_k5_plain_matches_k2_plain(frame):
     random cell, or one with a coordinate of -1 or n."""
     start, target, excl, active = render_slab.stack_occlusion_queries(
         [tuple(t(a) for a in qq) for qq in frame["queries"]], W, H)
-    vol = ct.from_reference(frame["words"])
+    vol = ct.from_reference(frame["words"], device="cpu")
     kw = dict(grid_size=N, cell_half=CELL_HALF)
     k2 = render_slab.shadow_sweep(vol, start, target, excl, active, **kw)
     exid = render_slab.pack_exclusion(excl, N)
@@ -113,7 +113,7 @@ def test_k5_out_of_range_exclusion_never_aliases(excl, occupied):
     dense = np.zeros((N, N, N), np.uint8)
     ox, oy, oz = occupied
     dense[oz, oy, ox] = 1  # dense grids are [z, y, x]
-    vol = ct.from_reference(ct.pack_grid(dense))
+    vol = ct.from_reference(ct.pack_grid(dense), device="cpu")
     centre = lambda c: (c + 0.5) / N - 0.5  # noqa: E731
     start = torch.tensor([centre(ox), centre(oy), centre(oz + 2)], dtype=torch.float32)
     target = start + torch.tensor([1e-4, 0.0, -0.6])
@@ -154,7 +154,7 @@ def test_dispatch_follows_reference(monkeypatch, env, nq, want):
         target = rng.uniform(-1.0, 1.0, (H, W, 3)).astype(np.float32)
         excl = np.floor((start + 0.5) * N).astype(np.int32)
         queries.append((t(start), t(target), t(excl), t(rng.random((H, W)) < 0.8)))
-    prepped = render_slab.prep_volume(ct.from_reference(scene_words()))
+    prepped = render_slab.prep_volume(ct.from_reference(scene_words(), device="cpu"))
     kw = dict(grid_size=N, width=W, height=H)
     base = render_slab.shadow_occlusion_batch(scene_cam(), queries, prepped, **kw)
     for k in ("CA3D_OCC_SWEEP", "CA3D_OCC_NQ1_SWEEP", "CA3D_OCC_NQ"):
@@ -173,7 +173,7 @@ def test_k5_wrapper_does_not_fall_back(monkeypatch):
     """The K5 wrapper refuses CPU tensors and more than 8 queries; a
     non-CPU batch under CA3D_OCC_SWEEP=0 takes the kernel path, which
     raises here rather than running the plain version."""
-    vol = ct.from_reference(scene_words())
+    vol = ct.from_reference(scene_words(), device="cpu")
     prepped = render_slab.prep_volume(vol)
     z3 = torch.zeros((2, 3, H, W))
     ops = (z3, z3, torch.zeros((2, H, W), dtype=torch.int32),

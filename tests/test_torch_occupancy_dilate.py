@@ -33,7 +33,7 @@ def test_dilate_occupancy_matches_jax(n, dilate_z, dilate_y):
     yc = n // 8 if n > 256 else None
     want = np.asarray(jax_dilate(jax_coarse(jnp.asarray(words)), dilate_z=dilate_z,
                                  yc=yc, dilate_y=dilate_y))
-    coarse = coarse_occupancy(ct.from_reference(words))
+    coarse = coarse_occupancy(ct.from_reference(words, device="cpu"))
     got = dilate_occupancy(coarse, dilate_z=dilate_z, yc=yc, dilate_y=dilate_y)
     assert got.dtype == coarse.dtype and got.shape == coarse.shape
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)

@@ -111,7 +111,7 @@ def test_occupied_box_of_a_volume_bounds_its_cells(n):
     dense = np.zeros((n, n, n), np.uint8)  # [z, y, x]
     lo, hi = n // 4 + 3, 3 * n // 4 - 5
     dense[tuple(rng.integers(lo, hi, (3, 40)))] = 1
-    box = occupied_box(coarse_occupancy(ct.from_reference(ct.pack_grid(dense))), n)
+    box = occupied_box(coarse_occupancy(ct.from_reference(ct.pack_grid(dense), device="cpu")), n)
     x0, x1, y0, y1 = box[4:].numpy().view(np.float32)
     zs, ys, xs = np.nonzero(dense)
     assert int(box[0]) == 0 and int(box[1]) == 0

@@ -75,7 +75,7 @@ def test_prepass_masks_match_jax(n, view):
         cam = cam_for(view, window)
         blk = jrf._prepass_mask(jax_coarse(jnp.asarray(words)), jnp.asarray(cam), n, w, h, True)
         want = np.asarray(jrf._from_blocks(blk, w, h))[::trf.PATCH, ::trf.PATCH]
-        got = trf.prepass_mask(coarse_occupancy(ct.from_reference(words)), cam,
+        got = trf.prepass_mask(coarse_occupancy(ct.from_reference(words, device="cpu")), cam,
                                grid_size=n, width=w, height=h).numpy()
         assert got.shape == want.shape == (-(-h // 8), -(-w // 8))
         assert (got != want).mean() <= 0.02
@@ -98,7 +98,7 @@ def _run_jax(words, cam, n, history=None):
 
 
 def _run_torch(words, cam, n, history=None, use_prepass=True):
-    vol = ct.from_reference(words)
+    vol = ct.from_reference(words, device="cpu")
     hist = None if history is None else tuple(torch.from_numpy(a) for a in history)
     return [a.numpy() for a in trf.raytrace_tiles(
         vol, coarse_occupancy(vol), cam, hist, grid_size=n, width=BAND["width"],
@@ -143,7 +143,7 @@ def test_prepass_frame_exact_at_small_window(compose, monkeypatch):
     loses hits (the fault), with the gate forced open it is the frame
     without the prepass, from the three views."""
     n, w, h = 32, SMALL["width"], SMALL["height"]
-    vol = ct.from_reference(scene(n))
+    vol = ct.from_reference(scene(n), device="cpu")
     coarse = coarse_occupancy(vol)
     kw = dict(grid_size=n, width=w, height=h)
     lost = 0
@@ -171,7 +171,7 @@ def test_full_mask_equals_no_mask():
     does for an occupied one: the same frame.  A mask of zeros loses hits
     (on the 1080p band, where the gate is not forced open)."""
     n, w, h = 32, BAND["width"], BAND["height"]
-    vol = ct.from_reference(scene(n))
+    vol = ct.from_reference(scene(n), device="cpu")
     cam = cam_for("oblique", BAND)
     kw = dict(grid_size=n, width=w, height=h)
     full = torch.full((h // 8, w // 8), -1, dtype=torch.int32)
@@ -187,7 +187,7 @@ def test_prepass_wrappers_do_not_fall_back():
     """The K6 and masked K1 wrappers refuse CPU tensors; a non-CPU frame
     with the prepass takes the kernel path, which raises here."""
     n = 32
-    vol = ct.from_reference(scene(n))
+    vol = ct.from_reference(scene(n), device="cpu")
     coarse = coarse_occupancy(vol)
     cam = cam_for("initial", SMALL)
     kw = dict(grid_size=n, width=128, height=64)

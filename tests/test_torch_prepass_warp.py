@@ -84,7 +84,7 @@ def scene_mip(n):
     if n > 64:
         return mip(n // 8, "random", seed=3)
     dense = (np.random.default_rng(5).random((n, n, n)) < 0.002).astype(np.uint8)
-    return coarse_occupancy(ct.from_reference(ct.pack_grid(dense)))
+    return coarse_occupancy(ct.from_reference(ct.pack_grid(dense), device="cpu"))
 
 
 @pytest.mark.parametrize("window", list(WINDOWS))
@@ -113,7 +113,7 @@ def test_prepass_frame_wrapper_does_not_fall_back():
     ``no_sweep`` beside it; nothing is launched."""
     n = 32
     dense = (np.random.default_rng(5).random((n, n, n)) < 0.05).astype(np.uint8)
-    vol = ct.from_reference(ct.pack_grid(dense))
+    vol = ct.from_reference(ct.pack_grid(dense), device="cpu")
     coarse = coarse_occupancy(vol)
     cam = trf.pack_cam(VIEWS["initial"], 128, 64, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
                        (0.17,) * 3, (0.0,) * 3)

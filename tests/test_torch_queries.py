@@ -42,7 +42,8 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def volume():
     rng = np.random.default_rng(5)
-    return ct.from_reference(ct.pack_grid((rng.random((N,) * 3) < 0.05).astype(np.uint8)))
+    return ct.from_reference(ct.pack_grid((rng.random((N,) * 3) < 0.05).astype(np.uint8)),
+                             device="cpu")
 
 
 def as_torch(queries):
@@ -98,7 +99,7 @@ def test_k5_queries_box_edges_match_k2_plain(monkeypatch, case):
     face, at the centre, the whole volume), half of the rays aimed through
     the region, in the dispatch's default chunks of 4."""
     words, region = box_edge_volume(N, case, N + 1)
-    vol = ct.from_reference(words)
+    vol = ct.from_reference(words, device="cpu")
     queries = as_torch(occlusion_queries(N, 6, H, W, seed=len(case), region=region))
     got = k5_path(monkeypatch, vol, queries, N, CELL_HALF, 4)
     want = k2_plain(vol, queries, N, CELL_HALF)
@@ -132,7 +133,7 @@ def test_k5_out_of_range_cell_skips_nothing(monkeypatch, excl, occupied, dtype):
     dense = np.zeros((N, N, N), np.uint8)
     ox, oy, oz = occupied
     dense[oz, oy, ox] = 1  # dense grids are [z, y, x]
-    vol = ct.from_reference(ct.pack_grid(dense))
+    vol = ct.from_reference(ct.pack_grid(dense), device="cpu")
     centre = lambda c: (c + 0.5) / N - 0.5  # noqa: E731
     start = torch.tensor([centre(ox), centre(oy), centre(oz + 2)]).reshape(1, 1, 3)
     target = start.reshape(3) + torch.tensor([1e-4, 0.0, -0.6])
@@ -155,7 +156,7 @@ def test_k3_queries_match_plain_and_oracle(nq):
     -1, n or 2n + 3), int32 and int64: K3's path equals the plain K3 on the
     stacked lookups and the numpy oracle state(max(c, 0) mod n)."""
     dense, queries = _k3_case(N, nq, nq, 0.3)
-    vol = ct.from_reference(ct.pack_grid(dense))
+    vol = ct.from_reference(ct.pack_grid(dense), device="cpu")
     tq = as_torch(queries)
     got = render_slab.cell_state_batch(tq, render_slab.prep_volume(vol), grid_size=N,
                                        width=W, height=H)
@@ -173,7 +174,7 @@ def test_k3_queries_at_320(nq):
     """n = 320 (not a power of two: the wrap's subtract and % differ from a
     mask)."""
     dense, queries = _k3_case(320, nq, 320 + nq, 0.02)
-    vol = ct.from_reference(ct.pack_grid(dense))
+    vol = ct.from_reference(ct.pack_grid(dense), device="cpu")
     tq = as_torch(queries)
     got = torch.stack(render_slab.cell_state_batch(
         tq, render_slab.prep_volume(vol), grid_size=320, width=W, height=H))
@@ -186,7 +187,7 @@ def test_k3_queries_at_320(nq):
 def test_k5_k3_wrappers_refuse_cpu_operands():
     """The kernel wrappers take CUDA tensors only, and at most 8 queries a
     launch; nothing is launched."""
-    vol = ct.from_reference(np.zeros((N // 32, N, N), np.uint32))
+    vol = ct.from_reference(np.zeros((N // 32, N, N), np.uint32), device="cpu")
     coarse = render_slab.prep_volume(vol).coarse
     start, target, excl, active = as_torch(occlusion_queries(N, 1, H, W, seed=1))[0]
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -59,7 +59,7 @@ def run_jax(packed, cam, shadow, history=None):
 
 
 def run_torch(packed, cam, shadow, history=None):
-    vol = ct.from_reference(packed)
+    vol = ct.from_reference(packed, device="cpu")
     hist = None
     if history is not None:
         hist = (torch.from_numpy(history[0]), torch.from_numpy(history[1]))
@@ -132,7 +132,7 @@ def test_dispatch_never_falls_back():
     """A non-CPU volume goes to the CUDA wrapper, which raises here rather
     than running the plain version; the CUDA wrapper refuses CPU tensors."""
     _, packed = scene()
-    vol = ct.from_reference(packed)
+    vol = ct.from_reference(packed, device="cpu")
     meta = vol.to("meta")
     with pytest.raises((ValueError, RuntimeError)):
         trf.raytrace_tiles(meta, coarse_occupancy(vol).to("meta"), cam_for(),
@@ -149,7 +149,7 @@ def test_no_sweep_is_the_empty_volume_frame(compose):
     K1 then gives the frame of an empty volume, ids, depth, rgb and
     history, for a scene that hits."""
     _, packed = scene()
-    vol = ct.from_reference(packed)
+    vol = ct.from_reference(packed, device="cpu")
     empty = torch.zeros_like(vol)
     cam = cam_for(emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5)
     kw = dict(grid_size=N, width=W, height=H, shadow=True)

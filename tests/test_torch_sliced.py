@@ -66,7 +66,7 @@ def test_coarse_occupancy_multigroup_matches_jax(n):
     idx = tuple(rng.integers(0, s, 4000) for s in words.shape)
     words[idx] = rng.integers(1, 2**32, 4000, dtype=np.uint64).astype(np.uint32)
     words[-1, 5, 7] = np.uint32(1 << 31)
-    got = coarse_occupancy(ct.from_reference(words)).numpy().view(np.uint32)
+    got = coarse_occupancy(ct.from_reference(words, device="cpu")).numpy().view(np.uint32)
     want = np.asarray(jax_coarse(jnp.asarray(words)))
     assert got.shape == want.shape == (n // 8, -(-n // 256) * (n // 8))
     np.testing.assert_array_equal(got, want)
@@ -132,7 +132,7 @@ def test_primary_sweep_320_matches_oracle():
     dense[150:170, 150:170, 150:170] = 1
     view = mat4.initial_view_matrix()
     cam = scene_cam("front", w_img, h_img)
-    t, idx = render_slab.primary_sweep(ct.from_reference(ct.pack_grid(dense)), cam,
+    t, idx = render_slab.primary_sweep(ct.from_reference(ct.pack_grid(dense), device="cpu"), cam,
                                        grid_size=n, width=w_img, height=h_img)
     want = _oracle_ids(dense, view, n, w_img, h_img)
     np.testing.assert_array_equal(idx.numpy(), want)
@@ -183,7 +183,7 @@ def test_k1_refuses_sliced_grids_and_k4_refuses_larger():
 
 
 def test_k4_wrapper_refuses_cpu_tensors_and_does_not_fall_back():
-    vol = ct.from_reference(random_words(1, 0.01))
+    vol = ct.from_reference(random_words(1, 0.01), device="cpu")
     cam = scene_cam("front", 32, 16)
     before = render_slab.primary_sweep_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensor"):

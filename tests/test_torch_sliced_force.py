@@ -58,7 +58,7 @@ def test_force_sliced_render_frame_fast_matches_jax():
     params = renderer.RenderParams(view_mat=view, prev_view_mat=view,
                                    prev_proj_view=np.eye(4, dtype=f32), **live)
     pres, depth, hist = renderer_fast.render_frame_fast(
-        s, ct.from_reference(words), params,
+        s, ct.from_reference(words, device="cpu"), params,
         renderer_fast.FastHistory(torch.from_numpy(color), torch.from_numpy(ids)))
     got = [a.numpy() for a in (pres, depth, hist.color, hist.hit_idx)]
 

@@ -194,9 +194,6 @@ def test_handle_input_refuses_unported_settings(viewer):
     eng = viewer.engine
     eng.step(3)
     state = eng.state.clone()
-    out = viewer.handle_input({"type": "param", "name": "pipeline", "value": "reference"})
-    assert out["ok"] is False and "item 11" in out["error"]
-    assert eng.config.pipeline == "fast"
     out = viewer.handle_input({"type": "param", "name": "mesh_devices", "value": 2})
     assert out["ok"] and out["restart_required"]
     out = viewer.handle_input({"type": "restart"})
@@ -207,6 +204,29 @@ def test_handle_input_refuses_unported_settings(viewer):
     viewer.handle_input({"type": "param", "name": "mesh_devices", "value": 0})
     out = viewer.handle_input({"type": "restart"})
     assert out["ok"] and out["simulation_step"] == 0
+
+
+def test_handle_input_switches_to_the_reference_pipeline(viewer):
+    """``pipeline`` and ``render_variant`` (once refused) apply like any
+    render field: the Engine swaps its history, keeps its state and serves
+    the reference pipeline's frames."""
+    from cellularautomatons3d_tpu_torch.render.renderer import RenderHistory
+    from cellularautomatons3d_tpu_torch.render.renderer_fast import FastHistory
+
+    eng = viewer.engine
+    eng.step(3)
+    state = eng.state.clone()
+    out = viewer.handle_input({"type": "param", "name": "pipeline", "value": "reference"})
+    assert out == {"ok": True, "restart_required": False, "simulation_step": 3}
+    assert eng.config.pipeline == "reference" and isinstance(eng.history, RenderHistory)
+    assert torch.equal(eng.state, state)
+    assert decode_png(viewer.frame_png()).shape == (eng.config.height, eng.config.width, 3)
+    out = viewer.handle_input({"type": "param", "name": "render_variant", "value": "simple"})
+    assert out["ok"] and eng.config.render_variant == "simple"
+    viewer.frame_png()
+    viewer.handle_input({"type": "param", "name": "render_variant", "value": "clustered"})
+    viewer.handle_input({"type": "param", "name": "pipeline", "value": "fast"})
+    assert eng.config.pipeline == "fast" and isinstance(eng.history, FastHistory)
 
 
 def test_http_frame_and_input(viewer):
