@@ -37,6 +37,13 @@ history (``render.renderer_fast.reproject_history``); :meth:`Engine.save` /
 viewer (``python -m cellularautomatons3d_tpu_torch.viewer``, its Engine on the
 card unless ``--device cpu``) streams PNG frames (``utils.image``,
 ``utils.video``, the C codec ``native/framesink.c`` built at first use).
+
+Multi-device: ``Engine(mesh_devices=N)`` / ``Engine(mesh_shape=(mz, my))``
+shards the state along Z (or Z and Y) over a mesh of devices and the frame
+by pixel rows (``parallel.sharded``: halo exchange by copies between the
+shards' devices, the slab mode of ``csrc/ca_step.cu`` stepping each shard);
+``parallel.dryrun_multichip`` runs every mesh path once.  ``utils.metrics``
+and ``utils.profiling`` time and trace (CUDA events, ``torch.profiler``).
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode
@@ -50,6 +57,7 @@ from .models import (
 )
 from .engine import Engine
 from .interop import from_reference, to_reference
+from .utils import image, metrics, profiling, video
 from .ops import (
     pack_grid,
     unpack_grid,

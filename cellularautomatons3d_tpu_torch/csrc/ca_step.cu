@@ -52,6 +52,23 @@
 // ops/ca_step.py decay_update bit for bit, invalid encodings (ages >= S)
 // included.  Bound: B + 1 planes read, B written per step plus the masks
 // pass (B read, 1 written).
+//
+// Slab mode (ca3d_ca_step_slab): one shard of a z- or (z, y)-sharded state
+// (parallel/sharded.py), uint32[W, Z, Y] with Z = n / mz and Y = n / my (Y =
+// n on a 1-D mesh).  Replaces: cellularautomatons3d_tpu/parallel/sharded.py
+// _local_step_binary / _local_step_multistate, fires_plane on the haloed
+// slab followed by the interior slice (XLA inside shard_map).  The kernel
+// reads the slab as the padded array that JAX concatenates, without building
+// it: z rows -1 and Z come from two halo planes [W, 1, Y] and, on a 2-D
+// mesh, y columns -1 and Y from two halo columns [W, Z + 2, 1] that carry the
+// corner ribbons; the boundary mode applies at the padded array's edges, as
+// fires_plane applies it there (the halo exchange has already applied the
+// global one).  The source table holds, for each tile position, the source
+// (slab or one of the four halos, CaSlab) in its top bits and the word
+// within that source's row of w below them.  Tiles past Z or Y load but do
+// not compute.  x keeps row_source.  Multi-state: a is the slab's alive plane
+// and the halos are its neighbours' alive planes; only they cross the shard
+// boundary, and the decay epilogue reads the slab's own age words.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,12 +105,48 @@ struct CaRule {
   int halo;
 };
 
+// The slab mode's sources: the slab (or its alive plane) [W, Z, Y], then
+// the z halos [W, 1, Y] low and high, then the y halos [W, Z + 2, 1] low and
+// high (null without a y split), each with its words per row of w.
+constexpr int kSources = 5;
+constexpr int kSourceShift = 28;  // source-table entry: source << 28 | word
+struct CaSlab {
+  const uint32_t* src[kSources];
+  int stride[kSources];
+  int pad_y;  // 1: y columns -1 and Y come from the y halos
+};
+
 // Source index of coordinate s in [-31, n + 30] along z or y; -1 reads
 // zero.  WRAP wraps both edges; CLAMP_REF only the far one.
 __device__ __forceinline__ int axis_source(int s, int n, int boundary) {
   if (s >= n) return boundary == kClamp ? -1 : s - n;
   if (s < 0) return boundary == kWrap ? s + n : -1;
   return s;
+}
+
+// Source index of coordinate v of the padded slab (extent nv), as
+// fires_plane's shifts resolve it on the concatenated array for offsets
+// shorter than nv; -1 reads zero (and marks tile positions no offset reaches).
+__device__ __forceinline__ int padded_source(int v, int nv, int boundary) {
+  if (v >= nv) return boundary == kClamp || v >= 2 * nv ? -1 : v - nv;
+  if (v < 0) return boundary != kWrap || v < -nv ? -1 : v + nv;
+  return v;
+}
+
+// The source-table entry of slab coordinates (zs, ys), each from -1 (the
+// low halo) to Z or Y (the high one) and beyond: the source's index in the
+// top bits, the word within its row of w below, -1 for a zero.
+__device__ __forceinline__ int slab_source(int zs, int ys, int Z, int Y,
+                                           int pad_y, int boundary) {
+  const int zv = padded_source(zs + 1, Z + 2, boundary);
+  const int yv = padded_source(ys + pad_y, Y + 2 * pad_y, boundary);
+  if (zv < 0 || yv < 0) return -1;
+  if (pad_y && yv == 0) return (3 << kSourceShift) | zv;
+  if (pad_y && yv == Y + 1) return (4 << kSourceShift) | zv;
+  const int y = yv - pad_y;
+  if (zv == 0) return (1 << kSourceShift) | y;
+  if (zv == Z + 1) return (2 << kSourceShift) | y;
+  return (zv - 1) * Y + y;
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
@@ -146,21 +199,28 @@ __device__ __forceinline__ int row_source(int r, int W, int boundary) {
 }
 
 // Fill row buffer dst with row r (-1..W) of the tile and its halo, from
-// the block's source table src: the word z * n + y of every position of
-// the halo'd tile under the z / y boundary, -1 for a zero; the x-wrap of
-// rows -1 and W by row_source.  In-range words by cp.async (the caller
-// commits), the others as zeros.
+// the block's source table src: the word z * Y + y of every position of
+// the halo'd tile under the z / y boundary (in slab mode, the source and the
+// word, slab_source), -1 for a zero; the x-wrap of rows -1 and W by
+// row_source.  In-range words by cp.async (the caller commits), the others
+// as zeros.
+template <bool kSlab>
 __device__ __forceinline__ void load_row(uint32_t* dst,
                                          const uint32_t* __restrict__ a,
-                                         const int* src, int r, int W, int nn,
-                                         int buf, int boundary) {
+                                         const int* src, int r, int W,
+                                         int plane, int buf, int boundary,
+                                         const CaSlab& slab) {
   const int ws = row_source(r, W, boundary);
   const int tid = threadIdx.y * kTileY + threadIdx.x;
-  const uint32_t* row = a + ws * nn;
+  const uint32_t* row = a + ws * plane;
   for (int i = tid; i < buf; i += kTileY * kTileZ) {
     const int s = src[i];
     if (ws < 0 || s < 0) {
       dst[i] = 0u;
+    } else if constexpr (kSlab) {
+      const int k = s >> kSourceShift;
+      cp_async4(dst + i, slab.src[k] + ws * slab.stride[k] +
+                             (s & ((1 << kSourceShift) - 1)));
     } else {
       cp_async4(dst + i, row + s);
     }
@@ -169,15 +229,18 @@ __device__ __forceinline__ void load_row(uint32_t* dst,
 
 // B == 0: the binary step, a = state, out = next state.  B = 2..4: the
 // multi-state step on B age planes (planes, out: uint32[B, W, Z, Y]); a is
-// their alive plane (age_masks_kernel).  Block (32, 8), grid (n/32, n/8,
-// chunks); dynamic shared memory: kRing row buffers of (8 + 2 halo) x
-// (32 + 2 halo) words and the source table of as many ints.
-template <int B, int P>
+// their alive plane (age_masks_kernel).  kSlab: a is the slab (or its alive
+// plane) and its halos come from slab (the cube: Z = Y = n, slab unused).
+// Block (32, 8), grid (ceil(Y/32), ceil(Z/8), chunks); dynamic shared
+// memory: kRing row buffers of (8 + 2 halo) x (32 + 2 halo) words and the
+// source table of as many ints.
+template <int B, int P, bool kSlab>
 __global__ void __launch_bounds__(kTileY * kTileZ)
     ca_step_kernel(const uint32_t* __restrict__ a,
                    const uint32_t* __restrict__ planes,
-                   uint32_t* __restrict__ out, int n, int W, int chunk,
-                   int total_states, const __grid_constant__ CaRule rule) {
+                   uint32_t* __restrict__ out, int Z, int Y, int W, int chunk,
+                   int total_states, const __grid_constant__ CaRule rule,
+                   const __grid_constant__ CaSlab slab) {
   extern __shared__ uint32_t ring[];
   const int halo = rule.halo;
   const int pitch = kTileY + 2 * halo;
@@ -187,22 +250,30 @@ __global__ void __launch_bounds__(kTileY * kTileZ)
   const int z0 = blockIdx.y * kTileZ;
   const int w0 = blockIdx.z * chunk;
   const int w1 = min(w0 + chunk, W);
-  const int words = W * n * n;
-  const int own = (z0 + threadIdx.y) * n + y0 + threadIdx.x;
+  const int plane = Z * Y;
+  const int words = W * plane;
+  const int own = (z0 + threadIdx.y) * Y + y0 + threadIdx.x;
+  // A tile past the slab's last plane or column loads but does not compute.
+  const bool active = !kSlab || (z0 + (int)threadIdx.y < Z && y0 + (int)threadIdx.x < Y);
   const int centre = (threadIdx.y + halo) * pitch + threadIdx.x + halo;
   // The source table, after the ring: computed once, read at every row.
   int* src = reinterpret_cast<int*>(ring + kRing * buf);
   for (int i = threadIdx.y * kTileY + threadIdx.x; i < buf;
        i += kTileY * kTileZ) {
     const int row = i / pitch, col = i - row * pitch;
-    const int zs = axis_source(z0 - halo + row, n, rule.boundary);
-    const int ys = axis_source(y0 - halo + col, n, rule.boundary);
-    src[i] = zs < 0 || ys < 0 ? -1 : zs * n + ys;
+    if constexpr (kSlab) {
+      src[i] = slab_source(z0 - halo + row, y0 - halo + col, Z, Y, slab.pad_y,
+                           rule.boundary);
+    } else {
+      const int zs = axis_source(z0 - halo + row, Z, rule.boundary);
+      const int ys = axis_source(y0 - halo + col, Y, rule.boundary);
+      src[i] = zs < 0 || ys < 0 ? -1 : zs * Y + ys;
+    }
   }
   __syncthreads();
   auto load = [&](int r) {
-    load_row(ring + ((r + 1) & (kRing - 1)) * buf, a, src, r, W, n * n, buf,
-             rule.boundary);
+    load_row<kSlab>(ring + ((r + 1) & (kRing - 1)) * buf, a, src, r, W, plane,
+                    buf, rule.boundary, slab);
   };
   // Row r lives in ring buffer (r + 1) % kRing; one cp.async group per row
   // (rows w0 - 1..w0 + 1 share one), empty past the chunk's last row w1,
@@ -219,10 +290,11 @@ __global__ void __launch_bounds__(kTileY * kTileZ)
     cp_async_wait_group<kAhead - 1>();  // row w + 1 has landed
     __syncthreads();  // ... for every thread, and row w - 2 is free
     fetch(w + kAhead + 1);
+    if (!active) continue;
     const uint32_t* prev = ring + (w & (kRing - 1)) * buf + centre;
     const uint32_t* cur = ring + ((w + 1) & (kRing - 1)) * buf + centre;
     const uint32_t* next = ring + ((w + 2) & (kRing - 1)) * buf + centre;
-    const int idx = w * n * n + own;
+    const int idx = w * plane + own;
     uint32_t p[B > 0 ? B : 1];
     uint32_t self;
     if constexpr (B == 0) {
@@ -347,28 +419,32 @@ bool make_rule(CaRule& rule, int n, int boundary, int n_groups,
   return true;
 }
 
-using StepKernel = decltype(&ca_step_kernel<0, 3>);
+using StepKernel = decltype(&ca_step_kernel<0, 3, false>);
 
-template <int P>
+template <int P, bool kSlab>
 StepKernel step_kernel(int age_bits) {
   switch (age_bits) {
-    case 2: return ca_step_kernel<2, P>;
-    case 3: return ca_step_kernel<3, P>;
-    case 4: return ca_step_kernel<4, P>;
-    default: return ca_step_kernel<0, P>;
+    case 2: return ca_step_kernel<2, P, kSlab>;
+    case 3: return ca_step_kernel<3, P, kSlab>;
+    case 4: return ca_step_kernel<4, P, kSlab>;
+    default: return ca_step_kernel<0, P, kSlab>;
   }
 }
 
 // One launch of the step kernel: age_bits 0 (binary) or 2..4, chunk rows of
-// w per block (1 <= chunk <= n/32).
+// w per block (1 <= chunk <= W), on the cube (slab null: Z = Y = 32 W) or on
+// a slab of Z x Y.
 cudaError_t launch_step(int age_bits, const uint32_t* a, const uint32_t* planes,
-                        uint32_t* out, int n, int chunk, int total_states,
-                        const CaRule& rule, cudaStream_t stream) {
-  const int W = n / 32;
+                        uint32_t* out, int W, int Z, int Y, int chunk,
+                        int total_states, const CaRule& rule,
+                        const CaSlab* slab, cudaStream_t stream) {
   if (chunk < 1 || chunk > W) return cudaErrorInvalidValue;
   bool wide = false;  // a group with more than 7 offsets needs 5 count planes
   for (int g = 0; g < rule.n_groups; ++g) wide = wide || rule.group_len[g] > 7;
-  const StepKernel kernel = wide ? step_kernel<5>(age_bits) : step_kernel<3>(age_bits);
+  const StepKernel kernel =
+      slab != nullptr
+          ? (wide ? step_kernel<5, true>(age_bits) : step_kernel<3, true>(age_bits))
+          : (wide ? step_kernel<5, false>(age_bits) : step_kernel<3, false>(age_bits));
   const size_t smem = sizeof(uint32_t) * (kRing + 1) *
                       (kTileZ + 2 * rule.halo) * (kTileY + 2 * rule.halo);
   if (smem > 48 * 1024) {
@@ -376,9 +452,11 @@ cudaError_t launch_step(int age_bits, const uint32_t* a, const uint32_t* planes,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n / kTileY, n / kTileZ, (W + chunk - 1) / chunk);
-  kernel<<<grid, dim3(kTileY, kTileZ), smem, stream>>>(a, planes, out, n, W,
-                                                       chunk, total_states, rule);
+  const dim3 grid((Y + kTileY - 1) / kTileY, (Z + kTileZ - 1) / kTileZ,
+                  (W + chunk - 1) / chunk);
+  kernel<<<grid, dim3(kTileY, kTileZ), smem, stream>>>(
+      a, planes, out, Z, Y, W, chunk, total_states, rule,
+      slab != nullptr ? *slab : CaSlab{});
   return cudaGetLastError();
 }
 
@@ -413,8 +491,8 @@ int ca3d_ca_step(int device, const void* in, void* out, int n, int boundary,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return launch_step(0, static_cast<const uint32_t*>(in), nullptr,
-                     static_cast<uint32_t*>(out), n, chunk, 2, rule,
-                     static_cast<cudaStream_t>(stream));
+                     static_cast<uint32_t*>(out), n / 32, n, n, chunk, 2, rule,
+                     nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // planes: uint32[age_bits, words]; alive, vis: uint32[words] or null.
@@ -455,7 +533,60 @@ int ca3d_ca_step_multistate(int device, const void* planes, const void* alive,
   if (err != cudaSuccess) return err;
   return launch_step(age_bits, static_cast<const uint32_t*>(alive),
                      static_cast<const uint32_t*>(planes),
-                     static_cast<uint32_t*>(out), n, chunk, total_states, rule,
+                     static_cast<uint32_t*>(out), n / 32, n, n, chunk,
+                     total_states, rule, nullptr,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// One generation of a shard (slab mode): alive, out: uint32[W, Z, Y] (for
+// age_bits 2..4, alive is the alive plane of planes: uint32[age_bits, W, Z,
+// Y], and out has planes' shape); z_lo, z_hi: the halo planes [W, 1, Y];
+// y_lo, y_hi: the halo columns [W, Z + 2, 1], or both null on a 1-D mesh (y
+// keeps the boundary mode).  Offsets need |dz| <= 1 and |dy| < Y + 2 (Y
+// without y halos); the rule, halo and chunk arguments are ca3d_ca_step's.
+int ca3d_ca_step_slab(int device, const void* alive, const void* z_lo,
+                      const void* z_hi, const void* y_lo, const void* y_hi,
+                      const void* planes, void* out, int W, int Z, int Y,
+                      int age_bits, int total_states, int boundary,
+                      int n_groups, const int* group_len, const int* offsets,
+                      const unsigned* born, const unsigned* survive, int halo,
+                      int chunk, void* stream) {
+  CaRule rule;
+  const int pad_y = y_lo != nullptr;
+  if (W < 1 || Z < 1 || Y < 1 || alive == nullptr || z_lo == nullptr ||
+      z_hi == nullptr || out == nullptr || (y_hi != nullptr) != pad_y ||
+      !make_rule(rule, 32 * W, boundary, n_groups, group_len, offsets, born,
+                 survive, halo)) {
+    return cudaErrorInvalidValue;
+  }
+  if (age_bits != 0 &&
+      (planes == nullptr || age_bits < 2 || age_bits > 4 || total_states < 3 ||
+       ((total_states - 1) >> age_bits) != 0 ||
+       ((total_states - 1) >> (age_bits - 1)) == 0)) {
+    return cudaErrorInvalidValue;
+  }
+  int total = 0;
+  for (int g = 0; g < n_groups; ++g) total += group_len[g];
+  for (int j = 0; j < total; ++j) {
+    const int dy = offsets[3 * j + 1], dz = offsets[3 * j + 2];
+    if (dz < -1 || dz > 1 || dy <= -(Y + 2 * pad_y) || dy >= Y + 2 * pad_y) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  CaSlab slab = {};
+  const void* src[kSources] = {alive, z_lo, z_hi, y_lo, y_hi};
+  const int stride[kSources] = {Z * Y, Y, Y, Z + 2, Z + 2};
+  for (int k = 0; k < kSources; ++k) {
+    slab.src[k] = static_cast<const uint32_t*>(src[k]);
+    slab.stride[k] = stride[k];
+  }
+  slab.pad_y = pad_y;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_step(age_bits, static_cast<const uint32_t*>(alive),
+                     static_cast<const uint32_t*>(planes),
+                     static_cast<uint32_t*>(out), W, Z, Y, chunk,
+                     age_bits ? total_states : 2, rule, &slab,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -1,10 +1,10 @@
-"""Engine: lifecycle, frame loop and reconfiguration on one device.
+"""Engine: lifecycle, frame loop and reconfiguration, on one device or a mesh.
 
-Port of ``cellularautomatons3d_tpu.engine.Engine`` for the fast pipeline:
-the same live/restart parameter split, frame-loop cadence (render every
-frame, step when the accumulated frame time crosses
-``compute_step_duration_ms``, main_pathtraced.js:1838-1847) and fused
-production loop, on an explicit torch ``device``.
+Port of ``cellularautomatons3d_tpu.engine.Engine``: the same live/restart
+parameter split, frame-loop cadence (render every frame, step when the
+accumulated frame time crosses ``compute_step_duration_ms``,
+main_pathtraced.js:1838-1847) and fused production loop, on an explicit
+torch ``device``.
 
 Every grid the reference takes, 32³ to 1024³, renders, for binary rules
 and for multi-state (Generations) rules, ``total_states`` 3 to 10, whose
@@ -33,8 +33,17 @@ view-projection (``renderer_fast.reproject_history``), as the JAX Engine
 does; :meth:`Engine.save` / :meth:`Engine.load` write and read the JAX
 package's npz checkpoints, so a file from either package loads in the other.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md queue-1
-item: ``mesh_devices`` (12).
+``mesh_devices=N`` (or ``mesh_shape=(mz, my)``) shards the Engine over a
+mesh (``parallel.sharded``, the JAX Engine's mesh mode): the state split
+along Z (or Z and Y) and stepped with halo exchange through the slab mode of
+the step kernel, the fast pipeline's frame rendered by pixel rows, each
+shard its ``height / N`` rows of the whole window from the gathered volume
+(``render_frame_fast(row0=, full_height=)``), with the history split the same
+way.  ``mesh_device_list`` names the mesh's devices, which may repeat
+(``[torch.device("cuda", 0)] * 4`` puts four shards on one card); without
+it a CPU Engine puts every shard on the CPU and a CUDA Engine takes
+``cuda:0`` ... ``cuda:N-1``, raising when there are fewer cards.  The
+reference pipeline renders the gathered state on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -49,6 +58,14 @@ import torch
 from .models.automaton import AutomatonSpec
 from .ops import packing
 from .ops.ca_step import step_packed, visibility_plane
+from .parallel.sharded import (
+    Sharded,
+    make_mesh,
+    make_sharded_step,
+    place_rows,
+    shard_state,
+    to_numpy,
+)
 from .render.camera import CameraRig
 from .render.renderer import (
     RenderHistory,
@@ -66,13 +83,6 @@ from .render.renderer_fast import (
 from .utils.config import EngineConfig
 
 __all__ = ["Engine"]
-
-
-def _check_config(cfg: EngineConfig) -> None:
-    if cfg.mesh_devices:
-        raise NotImplementedError(
-            "mesh_devices is not ported yet (ROADMAP.md queue 1, item 12)"
-        )
 
 
 def _render_static(cfg: EngineConfig) -> RenderStatic:
@@ -93,7 +103,7 @@ class Engine:
     """A running automaton + renderer with carried temporal state."""
 
     def __init__(self, config: EngineConfig | None = None, device="cuda",
-                 **overrides):
+                 mesh_device_list=None, **overrides):
         if config is None:
             config = EngineConfig(**overrides)
         elif overrides:
@@ -107,6 +117,7 @@ class Engine:
             )
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
+        self.mesh_device_list = None if mesh_device_list is None else list(mesh_device_list)
         self.config = config
         self.camera = CameraRig()
         self._pending_restart: list[tuple[str, object]] = []
@@ -118,20 +129,39 @@ class Engine:
     # ------------------------------------------------------------------ #
     def _build(self):
         cfg = self.config
-        _check_config(cfg)
         self.spec = AutomatonSpec.from_config(cfg)
         self.render_static = _render_static(cfg)
         self.simulation_step = 0
         self._frame_duration = 0.0
         self._render_count = 0
+        self.mesh = self._make_mesh(cfg)
+        self._sharded_step = None
+        if self.mesh is not None:
+            self._sharded_step = make_sharded_step(self.spec, self.mesh)
         self.history = self._init_history(cfg)
         self._seed_state()
+
+    def _make_mesh(self, cfg: EngineConfig):
+        """The mesh of ``cfg.mesh_devices`` (``cfg.mesh_shape``) over
+        ``mesh_device_list``, or over every shard on the CPU for a CPU Engine
+        and the first cards for a CUDA one; None without a mesh."""
+        if not cfg.mesh_devices:
+            return None
+        devices = self.mesh_device_list
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * cfg.mesh_devices
+        return make_mesh(cfg.mesh_devices, devices=devices, shape=cfg.mesh_shape)
+
+    def _place_history(self, history):
+        """A history on the Engine's device, or row-sharded over its mesh
+        (every mesh axis: a 2-D mesh splits rows mz · my ways)."""
+        return place_rows(history, self.device, self.mesh)
 
     def _init_history(self, cfg: EngineConfig):
         """Zero history of the pipeline's type: ``FastHistory`` for the fast
         pipeline, ``RenderHistory`` for the reference one."""
         init = init_fast_history if cfg.pipeline == "fast" else init_history
-        return init(cfg.width, cfg.height, self.device)
+        return self._place_history(init(cfg.width, cfg.height, self.device))
 
     def _seed_state(self):
         cfg = self.config
@@ -153,11 +183,25 @@ class Engine:
         else:
             words = np.stack([packing.pack_grid((dense >> i) & 1)
                               for i in range(self.spec.age_bits)])
-        self.state = torch.from_numpy(words.view(np.int32)).to(self.device)
+        self._set_words(words)
+
+    def _set_words(self, words: np.ndarray):
+        """Load packed ``uint32`` words as the state: on the Engine's device,
+        or sharded over its mesh."""
+        state = torch.from_numpy(words.view(np.int32))
+        if self.mesh is None:
+            self.state = state.to(self.device)
+        else:
+            self.state = shard_state(state, self.mesh)
+
+    def _full_state(self) -> torch.Tensor:
+        """The state as one tensor: a mesh Engine's gathered on its first
+        device."""
+        return self.state.full() if self.mesh is not None else self.state
 
     def state_dense(self) -> np.ndarray:
         """Current state as dense ``uint8[Z, Y, X]`` ages."""
-        words = self.state.cpu().numpy().view(np.uint32)
+        words = to_numpy(self.state).view(np.uint32)
         if self.spec.total_states == 2:
             return packing.unpack_grid(words)
         return sum(packing.unpack_grid(words[i]).astype(np.uint8) << i
@@ -165,7 +209,7 @@ class Engine:
 
     def _visibility_plane(self) -> torch.Tensor:
         """Packed occupancy for the renderer: any cell with age ≥ 1."""
-        return visibility_plane(self.state, self.spec)
+        return visibility_plane(self._full_state(), self.spec)
 
     # ------------------------------------------------------------------ #
     # simulation
@@ -173,7 +217,10 @@ class Engine:
     def step(self, n: int = 1):
         """Advance the CA ``n`` generations."""
         for _ in range(n):
-            self.state = step_packed(self.state, self.spec)
+            if self._sharded_step is not None:
+                self.state = self._sharded_step(self.state)
+            else:
+                self.state = step_packed(self.state, self.spec)
             self.simulation_step += 1
         return self
 
@@ -223,6 +270,10 @@ class Engine:
             camera_static = bool(
                 np.array_equal(self.camera.view_mat, self.camera.prev_view_mat)
             )
+        if self.config.pipeline == "fast" and self.mesh is not None:
+            # As the JAX mesh render: no sample index, even with gi_temporal.
+            frame = self._mesh_frame(self.state, params, camera_static, None)
+        elif self.config.pipeline == "fast":
             sample_idx = self._render_count if self.config.gi_temporal else None
             ages = {}
             if multistate:
@@ -233,13 +284,53 @@ class Engine:
             )
             self._render_count += 1
         else:
-            frame, self.history = render_frame(
-                self.render_static, self._visibility_plane(), params, self.history,
-                self.state if multistate else None, self.spec.total_states,
+            # On a mesh: the gathered state and history on its first device,
+            # the single-device frame, the history split by rows again.
+            history = self.history
+            if self.mesh is not None:
+                history = type(history)(*(t.full() for t in history))
+            frame, history = render_frame(
+                self.render_static, self._visibility_plane(), params, history,
+                self._full_state() if multistate else None, self.spec.total_states,
                 self.config.render_variant,
             )
+            self.history = history if self.mesh is None else self._place_history(history)
         self.camera.end_frame()
         return frame
+
+    def _mesh_frame(self, state: Sharded, params: RenderParams,
+                    camera_static: bool, sample_idx) -> torch.Tensor:
+        """One fast-pipeline frame over the mesh (the JAX Engine's
+        ``_build_mesh_render``): each shard renders its ``height / N`` rows
+        of the window (``row0`` = its flat mesh index × ``height / N``) from
+        the volume gathered on its device (once per device) and its row
+        shard of the history, which it updates.  Returns the frame gathered
+        on the mesh's first device."""
+        mesh, s = self.mesh, self.render_static
+        rows = s.height // mesh.size
+        s_local = dataclasses.replace(s, height=rows)
+        multistate = self.spec.total_states > 2
+        volumes = {}
+        frames = []
+        colors = np.empty(mesh.devices.shape, dtype=object)
+        ids = np.empty(mesh.devices.shape, dtype=object)
+        for k, pos in enumerate(np.ndindex(mesh.devices.shape)):
+            dev = mesh.devices[pos]
+            if dev not in volumes:
+                full = state.full(dev)
+                volumes[dev] = (visibility_plane(full, self.spec), full)
+            vis, full = volumes[dev]
+            ages = dict(ages=full, total_states=self.spec.total_states) if multistate else {}
+            hist = FastHistory(self.history.color.shards[pos], self.history.hit_idx.shards[pos])
+            frame, _, hist = render_frame_fast(
+                s_local, vis, params, hist, camera_static, sample_idx,
+                row0=k * rows, full_height=s.height, **ages,
+            )
+            frames.append(frame.to(mesh.devices.flat[0]))
+            colors[pos], ids[pos] = hist
+        self.history = FastHistory(self.history.color.like(colors),
+                                   self.history.hit_idx.like(ids))
+        return torch.cat(frames, 0)
 
     def tick(self, dt_ms: float = 16.667) -> torch.Tensor:
         """One frame-loop iteration with the reference's cadence: render
@@ -272,16 +363,38 @@ class Engine:
         Returns the last frame."""
         if self.config.pipeline != "fast":
             raise ValueError("run_fused requires the fast pipeline")
-        run = make_fused_loop(
-            self.render_static, self.spec, frames, steps_per_frame, reset_every
-        )
-        self.state, self.history, frame = run(
-            self.state, self.render_params(), self.history
-        )
+        if self.mesh is not None:
+            frame = self._run_fused_mesh(frames, steps_per_frame, reset_every)
+        else:
+            run = make_fused_loop(
+                self.render_static, self.spec, frames, steps_per_frame, reset_every
+            )
+            self.state, self.history, frame = run(
+                self.state, self.render_params(), self.history
+            )
         standing = frames % reset_every if reset_every > 0 else frames
         self.simulation_step += standing * steps_per_frame
         self._time_ms += frames * 16.667
         self.camera.end_frame()
+        return frame
+
+    def _run_fused_mesh(self, frames: int, steps_per_frame: int, reset_every: int):
+        """The mesh's fused loop (the JAX Engine's ``_build_mesh_fused_loop``):
+        per frame the sharded steps, then :meth:`_mesh_frame` with a static
+        camera and, with ``gi_temporal``, the loop counter as the sample
+        index; the history stays f16 between frames, as
+        ``render_frame_fast`` keeps it."""
+        params = self.render_params()
+        start = st = self.state
+        frame = None
+        for i in range(frames):
+            for _ in range(steps_per_frame):
+                st = self._sharded_step(st)
+            frame = self._mesh_frame(st, params, True,
+                                     i if self.render_static.gi_temporal else None)
+            if reset_every > 0 and (i + 1) % reset_every == 0:
+                st = start
+        self.state = st
         return frame
 
     # ------------------------------------------------------------------ #
@@ -337,9 +450,12 @@ class Engine:
         """Apply deferred values, reseed state (main_pathtraced.js:624-637)."""
         updates = dict(self._pending_restart)
         cfg = self.config.replace(**updates) if updates else self.config
-        # An unported setting raises before anything changes; its pending
-        # value stays until a later set() overrides it.
-        _check_config(cfg)
+        # A mesh the devices cannot hold, or whose shards the step refuses,
+        # raises before anything changes; its pending value stays until a
+        # later set() overrides it.
+        mesh = self._make_mesh(cfg)
+        if mesh is not None:
+            make_sharded_step(AutomatonSpec.from_config(cfg), mesh)
         self._pending_restart.clear()
         self.config = cfg
         self._time_ms = 0.0
@@ -364,12 +480,12 @@ class Engine:
         if backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         if isinstance(self.history, FastHistory):
-            hist = dict(history_idx=self.history.hit_idx.cpu().numpy())
+            hist = dict(history_idx=to_numpy(self.history.hit_idx))
         else:
-            hist = dict(history_depth=self.history.depth.cpu().numpy())
+            hist = dict(history_depth=to_numpy(self.history.depth))
         np.savez_compressed(
             path,
-            state=self.state.cpu().numpy().view(np.uint32),
+            state=to_numpy(self.state).view(np.uint32),
             simulation_step=self.simulation_step,
             time_ms=self._time_ms,
             frame_duration=self._frame_duration,
@@ -377,16 +493,19 @@ class Engine:
             prev_view_mat=self.camera.prev_view_mat,
             prev_proj_view=self.camera.prev_proj_view,
             config=json.dumps(dataclasses.asdict(self.config)),
-            history_color=self.history.color.cpu().numpy(),
+            history_color=to_numpy(self.history.color),
             **hist,
         )
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "Engine":
+    def load(cls, path: str, device="cuda", mesh_device_list=None) -> "Engine":
         """An Engine on ``device`` resumed from an npz checkpoint written by
         :meth:`save` or by the JAX package's ``Engine.save`` (engine.py:573-608
-        there).  Files that predate ``prev_proj_view`` or ``frame_duration``
-        keep their defaults, as in the reference."""
+        there).  A mesh Engine's file (``mesh_devices`` in its config) resumes
+        as a mesh Engine over ``mesh_device_list`` (as the constructor places
+        it without one), with the state and history sharded.  Files that
+        predate ``prev_proj_view`` or ``frame_duration`` keep their defaults,
+        as in the reference."""
         if os.path.isdir(path):
             raise NotImplementedError(
                 f"{path} is a directory, an orbax checkpoint: load it with the "
@@ -394,27 +513,28 @@ class Engine:
             )
         with np.load(path, allow_pickle=False) as data:
             cfg = EngineConfig(**json.loads(str(data["config"])))
-            eng = cls(cfg, device=device)
+            eng = cls(cfg, device=device, mesh_device_list=mesh_device_list)
             words = data["state"]
             if words.dtype != np.uint32 or words.shape != tuple(eng.state.shape):
                 raise ValueError(
                     f"checkpoint state is {words.dtype}{list(words.shape)}, expected "
                     f"uint32{list(eng.state.shape)} for this config"
                 )
-            eng.state = torch.from_numpy(words.view(np.int32)).to(eng.device)
+            eng._set_words(words)
             eng.simulation_step = int(data["simulation_step"])
             eng._time_ms = float(data["time_ms"])
-            color = torch.from_numpy(data["history_color"].astype(np.float16)).to(eng.device)
+            color = torch.from_numpy(data["history_color"].astype(np.float16))
             if "history_idx" in data:
-                eng.history = FastHistory(
+                history = FastHistory(
                     color=color,
-                    hit_idx=torch.from_numpy(data["history_idx"].astype(np.int32)).to(eng.device),
+                    hit_idx=torch.from_numpy(data["history_idx"].astype(np.int32)),
                 )
             else:
-                eng.history = RenderHistory(
+                history = RenderHistory(
                     color=color,
-                    depth=torch.from_numpy(data["history_depth"].astype(np.float16)).to(eng.device),
+                    depth=torch.from_numpy(data["history_depth"].astype(np.float16)),
                 )
+            eng.history = eng._place_history(history)
             eng.camera.view_mat = data["view_mat"].astype(np.float32)
             eng.camera.prev_view_mat = data["prev_view_mat"].astype(np.float32)
             if "prev_proj_view" in data:

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``csrc/ca_step.cu`` (the CA step), ``csrc/render_fast.cu``
+The sources are ``csrc/ca_step.cu`` (the CA step, on the whole grid or on
+one shard of a sharded grid), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
 ``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
 ``csrc/prepass.cu`` (K6) and ``csrc/occupied_box.cu`` (the occupied box
@@ -137,6 +138,11 @@ def library() -> ctypes.CDLL:
             _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
         ]
         lib.ca3d_ca_step_multistate.restype = _I
+        lib.ca3d_ca_step_slab.argtypes = [
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+            _I, _I, _P,
+        ]
+        lib.ca3d_ca_step_slab.restype = _I
         lib.ca3d_render_fast.argtypes = [
             _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
             _P, _I, _I, _I, _P,

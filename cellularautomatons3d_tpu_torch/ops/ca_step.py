@@ -14,6 +14,15 @@ Port of ``cellularautomatons3d_tpu.ops.ca_step``, binary and multi-state
   the binary neighbour loop on it with a decay epilogue.  They run for CUDA
   tensors.
 
+:func:`fires_slab` / :func:`step_slab_multistate` and their kernels
+:func:`fires_slab_cuda` / :func:`step_slab_multistate_cuda` step one shard
+of a sharded state (``parallel.sharded``): a slab ``[W, Z, Y]`` with its halo
+planes and, on a 2-D mesh, its halo columns (:func:`pad_slab`); the plain
+version is ``fires_plane`` on the padded slab and the interior slice, as
+the JAX package's ``parallel.sharded._local_step_binary`` /
+``_local_step_multistate``, and the kernel reads the halos in place.
+:func:`step_slab` picks between them by the tensor's device.
+
 :func:`step_packed` picks by ``spec.total_states`` and the tensor's device:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernels or
 raises.  :func:`visibility_plane` is the packed occupancy the renderer takes
@@ -50,6 +59,12 @@ __all__ = [
     "age_masks",
     "age_masks_cuda",
     "visibility_plane",
+    "pad_slab",
+    "fires_slab",
+    "fires_slab_cuda",
+    "step_slab_multistate",
+    "step_slab_multistate_cuda",
+    "step_slab",
 ]
 
 _BOUNDARY_CODE = {b: i for i, b in enumerate(BoundaryMode.ALL)}
@@ -153,16 +168,19 @@ def _rule_arrays(spec: AutomatonSpec):
 _TARGET_BLOCKS = 4 * 132
 
 
-@functools.lru_cache(maxsize=16)
-def _step_plan(spec: AutomatonSpec) -> tuple[int, int]:
-    """(halo, chunk) of the step kernel (``csrc/ca_step.cu``): each block
-    owns an 8 × 32 (z, y) tile and streams ``chunk`` rows of w, with a halo
-    of ``halo`` words in z and y, the rule's largest |dy| or |dz|.  ``chunk``
-    splits W = n/32 so that about ``_TARGET_BLOCKS`` blocks run: all of W at
-    512³ and above, 3 rows at 256³ (chunks of 3, 3, 2).  Raises for
-    offsets the kernel does not take: |dx| > 31 (one neighbour word each
-    way) or |dy|, |dz| > 31."""
+@functools.lru_cache(maxsize=64)
+def _step_plan(spec: AutomatonSpec, z: int | None = None,
+               y: int | None = None) -> tuple[int, int]:
+    """(halo, chunk) of the step kernel (``csrc/ca_step.cu``) on the grid, or
+    on a slab of ``z`` × ``y`` words: each block owns an 8 × 32 (z, y) tile
+    and streams ``chunk`` rows of w, with a halo of ``halo`` words in z and
+    y, the rule's largest |dy| or |dz|.  ``chunk`` splits W = n/32 so that
+    about ``_TARGET_BLOCKS`` blocks run: all of W at 512³ and above, 3 rows
+    at 256³ (chunks of 3, 3, 2).  Raises for offsets the kernel does not
+    take: |dx| > 31 (one neighbour word each way) or |dy|, |dz| > 31."""
     n = spec.grid_size
+    z = n if z is None else z
+    y = n if y is None else y
     _, lens, offs, _, _ = _rule_arrays(spec)
     offs = offs[: int(lens.sum())]
     if len(offs) and np.abs(offs).max() > 31:
@@ -171,7 +189,7 @@ def _step_plan(spec: AutomatonSpec) -> tuple[int, int]:
             f"{[tuple(o) for o in offs[np.abs(offs).max(axis=1) > 31]]}")
     halo = int(np.abs(offs[:, 1:]).max()) if len(offs) else 0
     w = n // 32
-    yz_blocks = (n // 32) * (n // 8)
+    yz_blocks = -(-y // 32) * -(-z // 8)
     chunks = min(w, max(1, -(-_TARGET_BLOCKS // yz_blocks)))
     return halo, -(-w // chunks)
 
@@ -323,6 +341,110 @@ def step_packed_multistate_cuda(age_planes: torch.Tensor, spec: AutomatonSpec) -
 
 
 step_packed_multistate_cuda.launches = 0
+
+
+def pad_slab(slab: torch.Tensor, z_halos, y_halos=None) -> torch.Tensor:
+    """The padded slab the plain slab step runs on: the z halo planes
+    ``(low, high)``, each ``[W, 1, Y]``, around ``slab`` ``[W, Z, Y]`` along
+    z, then on a 2-D mesh the y halo columns ``(low, high)``, each ``[W, Z +
+    2, 1]``, along y (the JAX package's ``halo_exchange_z`` /
+    ``halo_exchange_y`` concatenations)."""
+    padded = torch.cat([z_halos[0], slab, z_halos[1]], dim=1)
+    if y_halos is not None:
+        padded = torch.cat([y_halos[0], padded, y_halos[1]], dim=2)
+    return padded
+
+
+def fires_slab(alive: torch.Tensor, z_halos, y_halos, spec: AutomatonSpec) -> torch.Tensor:
+    """Plain torch: one generation of a shard, ``fires_plane`` on the padded
+    slab (:func:`pad_slab`) and its interior ``[W, Z, Y]``, as the JAX
+    package's ``_local_step_binary``.  The slab kernel's twin."""
+    fires = fires_plane(pad_slab(alive, z_halos, y_halos), spec)
+    inner = fires[:, 1:-1, 1:-1] if y_halos is not None else fires[:, 1:-1, :]
+    return inner.contiguous()
+
+
+def _slab_kernel(alive, z_halos, y_halos, spec: AutomatonSpec, planes=None):
+    """Launch the slab mode of the step kernel: binary on ``alive``, or with
+    ``planes`` the multi-state step of those age planes whose alive plane is
+    ``alive``.  The halos are read where they lie."""
+    w, z, y = alive.shape
+    kernels.require(alive, "slab", torch.int32, (spec.grid_size // 32, z, y))
+    operands = [(t, f"z halo {i}", (w, 1, y)) for i, t in enumerate(z_halos)]
+    if y_halos is not None:
+        operands += [(t, f"y halo {i}", (w, z + 2, 1)) for i, t in enumerate(y_halos)]
+    if planes is not None:
+        operands.append((planes, "age planes", (spec.age_bits, w, z, y)))
+    for t, name, shape in operands:
+        kernels.require(t, name, torch.int32, shape)
+        if t.device != alive.device:
+            raise ValueError(f"{name} is on {t.device}, the slab on {alive.device}")
+    halo, chunk = _step_plan(spec, z, y)
+    out = torch.empty_like(alive if planes is None else planes)
+    n_groups, lens, offs, born, survive = _rule_arrays(spec)
+    y_lo, y_hi = (None, None) if y_halos is None else (t.data_ptr() for t in y_halos)
+    err = kernels.library().ca3d_ca_step_slab(
+        alive.device.index or 0, alive.data_ptr(), z_halos[0].data_ptr(),
+        z_halos[1].data_ptr(), y_lo, y_hi,
+        None if planes is None else planes.data_ptr(), out.data_ptr(), w, z, y,
+        0 if planes is None else spec.age_bits, spec.total_states,
+        _BOUNDARY_CODE[spec.boundary], n_groups, lens.ctypes.data, offs.ctypes.data,
+        born.ctypes.data, survive.ctypes.data, halo, chunk, kernels.stream_of(alive),
+    )
+    kernels.check(err, "ca_step_slab")
+    return out
+
+
+def fires_slab_cuda(alive: torch.Tensor, z_halos, y_halos, spec: AutomatonSpec) -> torch.Tensor:
+    """:func:`fires_slab` by the slab mode of the CUDA step kernel, one
+    launch.  Takes contiguous int32 CUDA tensors on one device: the slab
+    ``[W, Z, Y]``, its z halos ``[W, 1, Y]`` and, or None, its y halos ``[W,
+    Z + 2, 1]``; raises for anything else, and for offsets with |dz| > 1 or
+    |dy| ≥ the padded slab's y extent."""
+    out = _slab_kernel(alive, z_halos, y_halos, spec)
+    fires_slab_cuda.launches += 1
+    return out
+
+
+fires_slab_cuda.launches = 0
+
+
+def step_slab_multistate(age_planes: torch.Tensor, alive: torch.Tensor, z_halos, y_halos,
+                         spec: AutomatonSpec) -> torch.Tensor:
+    """Plain torch: one multi-state generation of a shard, age planes ``[B,
+    W, Z, Y]`` whose alive plane is ``alive`` (age == 1) and the halos of
+    the neighbours' alive planes: only they cross the shard boundary, as in
+    the JAX package's ``_local_step_multistate``.  The slab kernel's twin."""
+    planes = list(age_planes.unbind(0))
+    dead = bitplane.eq_const(planes, 0, spec.age_bits)
+    fires = fires_slab(alive, z_halos, y_halos, spec)
+    return torch.stack(decay_update(planes, alive, dead, fires, spec.total_states))
+
+
+def step_slab_multistate_cuda(age_planes: torch.Tensor, alive: torch.Tensor, z_halos,
+                              y_halos, spec: AutomatonSpec) -> torch.Tensor:
+    """:func:`step_slab_multistate` by the slab mode of the multi-state step
+    kernel (neighbour loop on the alive plane and its halos, decay epilogue
+    on the slab's own age words), one launch; the operands of
+    :func:`fires_slab_cuda` and the age planes ``[B, W, Z, Y]``."""
+    out = _slab_kernel(alive, z_halos, y_halos, spec, planes=age_planes)
+    step_slab_multistate_cuda.launches += 1
+    return out
+
+
+step_slab_multistate_cuda.launches = 0
+
+
+def step_slab(state: torch.Tensor, alive: torch.Tensor, z_halos, y_halos,
+              spec: AutomatonSpec) -> torch.Tensor:
+    """One generation of a shard: the binary slab (``alive`` is ``state``)
+    or the multi-state age planes; the plain version for a CPU tensor, the
+    slab kernel for any other."""
+    cpu = state.device.type == "cpu"
+    if spec.total_states == 2:
+        return (fires_slab if cpu else fires_slab_cuda)(state, z_halos, y_halos, spec)
+    step = step_slab_multistate if cpu else step_slab_multistate_cuda
+    return step(state, alive, z_halos, y_halos, spec)
 
 
 def step_packed(packed: torch.Tensor, spec: AutomatonSpec) -> torch.Tensor:

@@ -17,8 +17,7 @@ In the port the same split holds:
 Copied from ``cellularautomatons3d_tpu.utils.config`` with the same fields
 and defaults (main_pathtraced.js:100-153, SURVEY.md §2.1).  The port's
 Engine takes every rule (``total_states`` 2 to 10), grid and lighting
-setting and both pipelines; it raises ``NotImplementedError`` for
-``mesh_devices``, which it does not cover yet.
+setting, both pipelines and the mesh (``mesh_devices``, ``mesh_shape``).
 """
 
 from __future__ import annotations

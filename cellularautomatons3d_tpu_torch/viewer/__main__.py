@@ -1,5 +1,5 @@
 """python -m cellularautomatons3d_tpu_torch.viewer [--port 8000] [--grid 64]
-[--device cuda|cpu] ..."""
+[--device cuda|cpu] [--mesh N] ..."""
 
 import argparse
 
@@ -20,8 +20,9 @@ def main():
     )
     p.add_argument(
         "--mesh", type=int, default=0, metavar="N",
-        help="shard the engine over an N-device 1-D mesh (not ported yet: "
-        "the Engine raises NotImplementedError)",
+        help="shard the engine over an N-device 1-D mesh: N shards on the CPU "
+        "with --device cpu, else the cards cuda:0 .. cuda:N-1 (raises with the "
+        "card count when there are fewer)",
     )
     args = p.parse_args()
     overrides = dict(grid_size=args.grid, width=args.width, height=args.height)

@@ -56,7 +56,7 @@ FIELDS = [
     ("born_corners", "born rules corners", "text", {"restart": True}),
     ("survive_corners", "survive rules corners", "text", {"restart": True}),
     ("total_states", "total states", "int", {"min": 2, "max": 16, "restart": True}),
-    # Parallelism: 0 = single device, N = 1-D mesh (the port refuses N > 0).
+    # Parallelism: 0 = single device, N = 1-D mesh (BASELINE config 5).
     ("mesh_devices", "mesh devices", "int", {"min": 0, "max": 64, "restart": True}),
     ("gamma", "1 / gamma", "float", {"min": 1.0, "max": 5.0}),
     ("pipeline", "pipeline", "select", {"options": ["fast", "reference"]}),
@@ -113,8 +113,10 @@ class ViewerServer:
 
     def handle_input(self, msg: dict):
         """Apply one input message (param, restart, keys, mouse, wheel).  A
-        setting the port refuses (``mesh_devices`` on restart) answers
-        ``{"ok": false, "error": ...}`` and leaves the Engine as it was."""
+        setting the Engine refuses (a ``mesh_devices`` on restart that its
+        devices cannot hold, or that does not divide the grid or the window)
+        answers ``{"ok": false, "error": ...}`` and leaves the Engine as it
+        was."""
         eng = self.engine
         with self._lock:
             kind = msg.get("type")
@@ -123,7 +125,7 @@ class ViewerServer:
                     eng.set(msg["name"], msg["value"])
                 elif kind == "restart":
                     eng.restart()
-            except NotImplementedError as e:
+            except ValueError as e:
                 return {"ok": False, "error": str(e),
                         "restart_required": eng.restart_required,
                         "simulation_step": eng.simulation_step}
@@ -265,9 +267,10 @@ class ViewerServer:
     def serve(self, port: int = 8000, host: str = "127.0.0.1"):
         """Serve until interrupted."""
         with self.make_server(port, host) as httpd:
-            cfg, dev = self.engine.config, self.engine.device
+            eng = self.engine
+            where = eng.device if eng.mesh is None else eng.mesh
             print(f"viewer: http://{host}:{httpd.server_address[1]}/  "
-                  f"(grid {cfg.grid_size}³ on {dev})")
+                  f"(grid {eng.config.grid_size}³ on {where})")
             httpd.serve_forever()
 
 

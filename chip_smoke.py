@@ -154,6 +154,31 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       single ``render()`` calls), the kernels and device ms of one frame
       (torch.profiler) and its peak memory.
 
+  (l) the mesh (``Engine(mesh_devices=4)``, ``parallel.sharded``), its 4
+      shards on one card through ``mesh_device_list=[cuda:0] * 4`` (and, on
+      a host with more cards, also on distinct cards): the slab mode of the
+      step kernel against its plain twin on the card, bit for bit, on the
+      halos the exchange gives (Moore and von Neumann x 3 boundary modes at
+      512³ as 4 z shards and as (2, 2), 1024³ as 4; ``pyroclastic`` at
+      512³); the sharded step against the single-device step over 20
+      generations at 512³ (4 and (2, 2) shards, every boundary mode); then,
+      every counter set to 0 before each and read after, mesh Engines at
+      1920×1080: 512³ (gen-160, K4 + K2 per shard, 2 render() and
+      run_fused(10)), 256³ (gen-80, K1 per shard) and ``pyroclastic`` 512³
+      (gen-320, the multi-state slab step), with exact slab and frame launch
+      counts, each against the single-device Engine on the same calls (state
+      and hit ids equal, rgb within rtol 3e-3 / atol 3e-4); on each band
+      with row0 > 0 that those frames render, K1 (256³) or K4 and the
+      hard-shadow K2 (512³, with ages for ``pyroclastic``) against its
+      plain twin on the band's camera, at the tolerances of (a), (f) and
+      (h); the port's ``dryrun_multichip(4, devices=[cuda:0] * 4)``; and
+      the times (CUDA events, ``utils.metrics.cuda_time_fn``, alternated
+      with the single-device ones: the sharded step and the single-device
+      step at 512³ and 1024³, the halo exchange alone, the slab kernel alone
+      with its bound, the multi-state slab step, mesh render() and
+      run_fused frames at 512³ and 256³).  On one card these
+      are the cost of the decomposition, not a scaling.
+
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
 line before them is the kernels' JSON summary.  Exits non-zero, printing no
@@ -222,21 +247,6 @@ def card_line() -> str:
     )
     need(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, iters, warmup=2):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def timed(torch, fn):
@@ -1184,6 +1194,8 @@ def multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms):
     K4 with and without ages on the same visibility plane (alternated); step
     + frame of each Engine of (h).  Returns (timings, specs by size, states
     by size)."""
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+
     ms_ms = dict(ms["plain_ms"])
     ms_specs = {GRID: ms["engines"]["ms_256"][0].spec,
                 **{size: v[4] for size, v in ms["k4_timed"].items()}}
@@ -1194,40 +1206,40 @@ def multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms):
             size, **{k: v for k, v in ct.PRESETS[MS_PRESET].items() if k != "total_states"})
         alive = ca_step.age_masks_cuda(planes, vis=False)[0]
         iters = 500 if size == GRID else 50 if size == MS_SLICED[0] else 20
-        ms_ms[f"ms_step_{size}_ms"] = cuda_ms(
-            torch, lambda: ca_step.step_packed_multistate_cuda(planes, spec_ms), iters,
+        ms_ms[f"ms_step_{size}_ms"] = cuda_time_fn(
+            lambda: ca_step.step_packed_multistate_cuda(planes, spec_ms), reps=iters,
             warmup=3)
-        ms_ms[f"age_masks_{size}_ms"] = cuda_ms(
-            torch, lambda: ca_step.age_masks_cuda(planes, vis=False), iters, warmup=3)
-        ms_ms[f"ca_step_same_rule_{size}_ms"] = cuda_ms(
-            torch, lambda: ca_step.fires_plane_cuda(alive, binary_spec), iters, warmup=3)
+        ms_ms[f"age_masks_{size}_ms"] = cuda_time_fn(
+            lambda: ca_step.age_masks_cuda(planes, vis=False), reps=iters, warmup=3)
+        ms_ms[f"ca_step_same_rule_{size}_ms"] = cuda_time_fn(
+            lambda: ca_step.fires_plane_cuda(alive, binary_spec), reps=iters, warmup=3)
         if size == GRID:
-            ms_ms["ms_step_plain_ms"] = cuda_ms(
-                torch, lambda: ca_step.step_packed_multistate(planes, spec_ms), 10, warmup=2)
-            ms_ms["age_masks_plain_ms"] = cuda_ms(
-                torch, lambda: ca_step.age_masks(planes), 20, warmup=2)
+            ms_ms["ms_step_plain_ms"] = cuda_time_fn(
+                lambda: ca_step.step_packed_multistate(planes, spec_ms), reps=10, warmup=2)
+            ms_ms["age_masks_plain_ms"] = cuda_time_fn(
+                lambda: ca_step.age_masks(planes), reps=20, warmup=2)
     planes, vis, coarse, cam, hist, kw = ms["k1_timed"]
     kw_binary = {k: v for k, v in kw.items() if k not in ("ages", "total_states")}
     with_ages = lambda: rf.raytrace_cuda(vis, coarse, cam, hist, **kw)  # noqa: E731
     without = lambda: rf.raytrace_cuda(vis, coarse, cam, hist, **kw_binary)  # noqa: E731
-    reads = [cuda_ms(torch, fn, 50, warmup=3) for fn in (without, with_ages, with_ages, without)]
+    reads = [cuda_time_fn(fn, reps=50, warmup=3) for fn in (without, with_ages, with_ages, without)]
     ms_ms["k1_compose_ms_scene_ms"] = (reads[0] + reads[3]) / 2
     ms_ms["k1_compose_ages_ms"] = (reads[1] + reads[2]) / 2
     ms_ms["k1_compose_without_with_with_without_ms"] = reads
-    ms_ms["k1_ages_plain_compose_ms"] = cuda_ms(
-        torch, lambda: rf.raytrace(vis, coarse, cam, hist, **kw), 2, warmup=1)
+    ms_ms["k1_ages_plain_compose_ms"] = cuda_time_fn(
+        lambda: rf.raytrace(vis, coarse, cam, hist, **kw), reps=2, warmup=1)
     for size, (planes, vis, coarse, cam, _) in ms["k4_timed"].items():
         kw4 = dict(grid_size=size, width=WIDTH, height=HEIGHT)
         with_ages = lambda: rs.primary_sweep_cuda(vis, coarse, cam, planes, **kw4)  # noqa: E731
         without = lambda: rs.primary_sweep_cuda(vis, coarse, cam, **kw4)  # noqa: E731
-        reads = [cuda_ms(torch, fn, 20, warmup=2)
+        reads = [cuda_time_fn(fn, reps=20, warmup=2)
                  for fn in (without, with_ages, with_ages, without)]
         ms_ms[f"k4_{size}_ms_scene_ms"] = (reads[0] + reads[3]) / 2
         ms_ms[f"k4_ages_{size}_ms"] = (reads[1] + reads[2]) / 2
         ms_ms[f"k4_without_with_with_without_{size}_ms"] = reads
     for name, (e, fr) in ms["engines"].items():
-        ms_ms[f"{name}_step_plus_frame_ms"] = cuda_ms(
-            torch, lambda e=e, fr=fr: e.run_fused(fr, reset_every=min(fr, 10)), 1,
+        ms_ms[f"{name}_step_plus_frame_ms"] = cuda_time_fn(
+            lambda e=e, fr=fr: e.run_fused(fr, reset_every=min(fr, 10)), reps=1,
             warmup=0) / fr
     return ms_ms, ms_specs, ms_states
 
@@ -1551,6 +1563,7 @@ def interactive_timings(torch, out) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
 
     def device_events(fn, calls):
         fn()
@@ -1575,7 +1588,7 @@ def interactive_timings(torch, out) -> dict:
         reads = {"static": [], "moved": []}
         for kind in ("static", "moved", "moved", "static"):
             fn = eng.render if kind == "static" else moved
-            reads[kind].append(cuda_ms(torch, fn, 10, warmup=2))
+            reads[kind].append(cuda_time_fn(fn, reps=10, warmup=2))
         size = INTERACTIVE[name][0]["grid_size"]
         ms[f"render_static_{size}_ms"] = sum(reads["static"]) / 2
         ms[f"render_moved_{size}_ms"] = sum(reads["moved"]) / 2
@@ -1593,7 +1606,7 @@ def interactive_timings(torch, out) -> dict:
     def reproject():
         rfast.reproject_history(hist, rgb, depth, idx, params, WIDTH, HEIGHT)
 
-    ms["reproject_history_ms"] = cuda_ms(torch, reproject, 20, warmup=2)
+    ms["reproject_history_ms"] = cuda_time_fn(reproject, reps=20, warmup=2)
     ms["reproject_history_kernels"], ms["reproject_history_device_ms"] = device_events(
         reproject, 5)
     return ms
@@ -1762,6 +1775,351 @@ def reference_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     return out
 
 
+# ------------------------------------------------------------- (l) the mesh ---
+MESH_SHARDS = 4
+MESH_RULES = {"moore": dict(neighbourhood="moore", born="4,5", survive="2-6"),
+              "von_neumann": dict(neighbourhood="von neumann", born="1,3", survive="0-6")}
+MESH_SLAB_CASES = ((512, None), (512, (2, 2)), (1024, None))   # (grid, mesh_shape)
+# name: (Engine overrides, generations, render() calls, run_fused frames)
+MESH_ENGINES = {
+    "mesh_512": (dict(grid_size=512), 160, 2, 10),
+    "mesh_256": (dict(grid_size=GRID), 80, 2, 0),
+    "mesh_ms_512": (dict(ct_preset=MS_PRESET, grid_size=512, random_initial_state=True),
+                    MS_GENERATIONS[512], 1, 5),
+}
+MESH_COUNTED = ("fires_slab_cuda", "step_slab_multistate_cuda", "age_masks_cuda",
+                "fires_plane_cuda", "step_packed_multistate_cuda", "raytrace_cuda",
+                "primary_sweep_cuda", "shadow_sweep_cuda", "occupied_box_cuda")
+
+
+def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
+    """Phase (l): the mesh (``Engine(mesh_devices=4)``, ``parallel.sharded``),
+    its 4 shards on one card (``mesh_device_list=[cuda:0] * 4``) and, where
+    the host has more cards, also on distinct cards.  The slab kernel against
+    its plain twin (on the card, on the halos the exchange gives), the
+    sharded step against the single-device step, the mesh Engines' launch
+    counts (every counter set to 0 just before them and read just after), the
+    mesh frames and fused loop against the single-device Engine, each
+    band's K1 or K4 + K2 with row0 > 0 against its plain twin, the port's
+    ``dryrun_multichip``; then the times (CUDA events): on one card they are
+    the cost of the decomposition, not a scaling."""
+    from cellularautomatons3d_tpu_torch import engine as engine_mod
+    from cellularautomatons3d_tpu_torch.ops import ca_reference
+    from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+    from cellularautomatons3d_tpu_torch.utils.profiling import profile_trace
+    from cellularautomatons3d_tpu_torch.parallel import (
+        dryrun_multichip, exchange_halos, make_mesh, make_sharded_step, shard_state)
+
+    dev = torch.device("cuda", 0)
+    one_card = [dev] * MESH_SHARDS
+    out = {"slab_cases": 0, "launches": {}, "frames": {}, "bands": {}, "timings": {},
+           "bounds": {}}
+    fns = {"fires_slab_cuda": ca_step.fires_slab_cuda,
+           "step_slab_multistate_cuda": ca_step.step_slab_multistate_cuda,
+           "age_masks_cuda": ca_step.age_masks_cuda,
+           "fires_plane_cuda": ca_step.fires_plane_cuda,
+           "step_packed_multistate_cuda": ca_step.step_packed_multistate_cuda,
+           "raytrace_cuda": rf.raytrace_cuda, "primary_sweep_cuda": rs.primary_sweep_cuda,
+           "shadow_sweep_cuda": rs.shadow_sweep_cuda,
+           "occupied_box_cuda": occupancy.occupied_box_cuda}
+
+    def random_words(size, seed):
+        g = torch.Generator(dev).manual_seed(seed)
+        return torch.randint(-2**31, 2**31 - 1, (size // 32, size, size), dtype=torch.int32,
+                             device=dev, generator=g)
+
+    def ms_planes(size, seed, spec):
+        g = torch.Generator(dev).manual_seed(seed)
+        ages = torch.randint(1, spec.total_states, (size,) * 3, dtype=torch.uint8, device=dev,
+                             generator=g)
+        ages[torch.rand((size,) * 3, device=dev, generator=g) < 0.6] = 0
+        return ca_reference.dense_to_planes(ages, spec.age_bits)
+
+    def slab_check(state, spec, tag):
+        """Every shard's slab kernel against its plain twin, on the card, on
+        the halos the exchange gives."""
+        alive, zh, yh = exchange_halos(state, spec)
+        shards = state.shards.reshape(alive.shape)
+        for pos in np.ndindex(alive.shape):
+            args = (alive[pos], zh[pos], yh[pos], spec)
+            if spec.total_states == 2:
+                got, want = ca_step.fires_slab_cuda(*args), ca_step.fires_slab(*args)
+            else:
+                got = ca_step.step_slab_multistate_cuda(shards[pos], *args)
+                want = ca_step.step_slab_multistate(shards[pos], *args)
+            need(torch.equal(got, want), f"(l) slab kernel != plain: {tag} shard {pos}")
+        out["slab_cases"] += 1
+
+    # The slab kernel against its plain twin, bit for bit.
+    t0 = time.perf_counter()
+    states = {}
+    for size, shape in MESH_SLAB_CASES:
+        words = states.setdefault(size, random_words(size, size))
+        mesh = make_mesh(MESH_SHARDS, devices=one_card, shape=shape)
+        for rname, rule in MESH_RULES.items():
+            for boundary in ct.BoundaryMode.ALL:
+                spec = ct.AutomatonSpec.from_rule_strings(size, boundary=boundary, **rule)
+                slab_check(shard_state(words, mesh), spec,
+                           f"{size}^3 {shape or MESH_SHARDS} {rname} {boundary}")
+    ms_spec = ct.AutomatonSpec.from_rule_strings(512, **{
+        k: v for k, v in ct.PRESETS[MS_PRESET].items()})
+    ms_state = ms_planes(512, 5, ms_spec)
+    for shape in (None, (2, 2)):
+        mesh = make_mesh(MESH_SHARDS, devices=one_card, shape=shape)
+        slab_check(shard_state(ms_state, mesh), ms_spec, f"512^3 {MS_PRESET} {shape}")
+    log(f"(l) slab kernel == plain twin, bit for bit: {out['slab_cases']} cases "
+        f"(Moore and von Neumann x 3 boundary modes at 512^3 as 4 and (2, 2) shards, "
+        f"1024^3 as 4; {MS_PRESET} at 512^3) in {time.perf_counter() - t0:.1f} s")
+
+    # The sharded step against the single-device step over 20 generations.
+    t0 = time.perf_counter()
+    for shape in (None, (2, 2)):
+        mesh = make_mesh(MESH_SHARDS, devices=one_card, shape=shape)
+        for boundary in ct.BoundaryMode.ALL:
+            spec = ct.AutomatonSpec.from_rule_strings(512, boundary=boundary,
+                                                      **MESH_RULES["moore"])
+            step = make_sharded_step(spec, mesh)
+            st = shard_state(states[512], mesh)
+            ref = states[512]
+            for g in range(20):
+                st, ref = step(st), ca_step.fires_plane_cuda(ref, spec)
+            need(torch.equal(st.full(), ref),
+                 f"(l) sharded step != single-device step: 512^3 {shape} {boundary}")
+    log(f"(l) sharded step == single-device step over 20 generations at 512^3, "
+        f"4 and (2, 2) shards x 3 boundary modes, in {time.perf_counter() - t0:.1f} s")
+
+    # The main path: mesh Engines with every counter read around them.
+    engines = {}
+    for name, (over, gens, renders, fused) in MESH_ENGINES.items():
+        over = dict(over)
+        preset = over.pop("ct_preset", None)
+        cfg = dict(width=WIDTH, height=HEIGHT, **(ct.PRESETS[preset] if preset else {}), **over)
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        em = ct.Engine(device="cuda", mesh_devices=MESH_SHARDS, mesh_device_list=one_card, **cfg)
+        em.step(gens)
+        frames = [em.render() for _ in range(renders)]
+        hist_ids = [em.history.hit_idx.full()]
+        if fused:
+            frames.append(em.run_fused(fused))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fns[k].launches for k in MESH_COUNTED}
+        out["launches"][name] = counts
+        slab = "step_slab_multistate_cuda" if preset else "fires_slab_cuda"
+        need(counts[slab] == MESH_SHARDS * (gens + fused),
+             f"(l) {name}: one slab launch a shard and generation: {counts}")
+        need(counts["fires_plane_cuda"] == 0 and counts["step_packed_multistate_cuda"] == 0,
+             f"(l) {name}: the mesh launched the whole-grid step: {counts}")
+        frame_kernel = "raytrace_cuda" if cfg["grid_size"] <= GRID else "primary_sweep_cuda"
+        need(counts[frame_kernel] == MESH_SHARDS * (renders + fused),
+             f"(l) {name}: one frame kernel a shard and frame: {counts}")
+        if cfg["grid_size"] > GRID:
+            need(counts["shadow_sweep_cuda"] == counts["primary_sweep_cuda"],
+                 f"(l) {name}: one hard-shadow K2 per K4: {counts}")
+        for i, f in enumerate(frames):
+            need(tuple(f.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(f).all())
+                 and float(f.max()) > 0.0, f"(l) {name} frame {i} is not a finite lit frame")
+        engines[name] = (em, cfg, gens, renders, fused, frames, hist_ids)
+        log(f"(l) {name}: Engine({cfg['grid_size']}, {WIDTH}x{HEIGHT}, 4 shards on {dev}) "
+            f"step({gens}), render() x{renders}, run_fused({fused}) in {wall:.2f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+
+    # The mesh against the single-device Engine on the same calls.
+    for name, (em, cfg, gens, renders, fused, frames, hist_ids) in engines.items():
+        e1 = ct.Engine(device="cuda", **cfg)
+        e1.step(gens)
+        want = [e1.render() for _ in range(renders)]
+        want_ids = [e1.history.hit_idx]
+        if fused:
+            want.append(e1.run_fused(fused))
+        need(torch.equal(em.state.full(), e1.state),
+             f"(l) {name}: mesh state != single-device state")
+        need(all(torch.equal(a, b) for a, b in zip(hist_ids, want_ids)),
+             f"(l) {name}: mesh hit ids != single-device hit ids")
+        errs = []
+        for i, (a, b) in enumerate(zip(frames, want)):
+            errs.append(float((a - b).abs().max()))
+            need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+                 f"(l) {name} frame {i}: mesh vs single-device max err {errs[-1]}")
+        out["frames"][name] = {"max_abs_err": errs, "hit_share": float(
+            (want_ids[0] >= 0).float().mean())}
+        log(f"(l) {name}: mesh == single-device (state, ids; rgb max err {errs})")
+        del e1
+
+    # Every band with row0 > 0 that a mesh frame launches a kernel on,
+    # against the kernel's plain twin on the same band camera: K1 at 256³,
+    # K4 and the hard-shadow K2 above it (with ages for the multi-state
+    # rule), at the tolerances of phases (a), (f) and (h).
+    for name, (em, *_) in engines.items():
+        with recorded_frames(engine_mod) as calls:
+            em.render()
+        bands = [c for c in calls if c["kw"]["row0"] > 0]
+        need(len(bands) == MESH_SHARDS - 1, f"(l) {name}: {len(bands)} bands with row0 > 0")
+        hits = occluded = 0
+        errs = []
+        for c in bands:
+            s, vol, kw = c["s"], c["packed"], c["kw"]
+            n, w, rows, row0 = s.grid_size, s.width, s.height, kw["row0"]
+            cam = rfast._cam_vec(c["params"], w, kw["full_height"], row0)
+            ages, total_states = kw.get("ages"), kw.get("total_states", 2)
+            coarse = occupancy.coarse_occupancy(vol)
+            tag = f"(l) {name} rows {row0}-{row0 + rows} of {kw['full_height']}"
+            ids = c["new"].hit_idx   # the band's ids in the frame: the camera is the frame's
+            if n <= GRID:
+                k1 = dict(grid_size=n, width=w, height=rows, ages=ages,
+                          total_states=total_states, shadow=s.soft_shadow_samples <= 1)
+                got = rf.raytrace_cuda(vol, coarse, cam, **k1)
+                want = rf.raytrace(vol, coarse, cam, **k1)
+                need(torch.equal(got[2], ids), f"{tag}: not the frame's band")
+                errs.append(compare(f"{tag} K1", got, want)[0])
+                hits += int((want[2] >= 0).sum())
+                continue
+            k4 = dict(grid_size=n, width=w, height=rows)
+            got = rs.primary_sweep_cuda(vol, coarse, cam, ages, **k4)
+            want = rs.primary_sweep(vol, cam, ages, **k4)
+            errs.append(float((got[0] - want[0]).abs().max()))
+            need(all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
+                 f"{tag} K4: ids or ages differ from the plain version")
+            need(errs[-1] <= DEPTH_ATOL, f"{tag} K4: t error {errs[-1]} > {DEPTH_ATOL}")
+            need(torch.equal(got[1], ids), f"{tag}: not the frame's band")
+            q, origin, coords, found, _ = rs.hit_geometry(cam, got[1], got[0], **k4)
+            queries, _, _ = rs.lighting_queries(cam, q, origin, coords, found, soft_k=1, **k4)
+            k2 = rs.stack_occlusion_queries(queries, w, rows)
+            k2_kw = dict(grid_size=n, cell_half=rs._cell_half(cam, n))
+            flags = rs.shadow_sweep(vol, *k2, **k2_kw)
+            need(torch.equal(rs.shadow_sweep_cuda(vol, coarse, *k2, **k2_kw), flags),
+                 f"{tag} K2: flags differ from the plain version")
+            hits += int((want[1] >= 0).sum())
+            occluded += int(flags.sum())
+        need(hits > 0, f"(l) {name}: no band with row0 > 0 hits anything")
+        need(n <= GRID or occluded > 0, f"(l) {name}: nothing occluded in the bands")
+        out["bands"][name] = {"max_abs_err": max(errs), "hits": hits, "occluded": occluded}
+        kernels_run = "K1" if n <= GRID else "K4 + K2"
+        log(f"(l) {name}: {kernels_run} == plain on the {len(bands)} bands with row0 > 0 "
+            f"({hits} hits, {occluded} occluded; max err {max(errs):.3g})")
+
+    line = dryrun_multichip(MESH_SHARDS, devices=one_card)
+    out["dryrun"] = line
+    out["placement"] = "one card"
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        k = min(cards, MESH_SHARDS)
+        out["dryrun_cards"] = dryrun_multichip(k)
+        mesh = make_mesh(k)
+        spec = ct.AutomatonSpec.from_rule_strings(512, **MESH_RULES["moore"])
+        st, ref = shard_state(states[512], mesh), states[512]
+        step = make_sharded_step(spec, mesh)
+        for _ in range(20):
+            st, ref = step(st), ca_step.fires_plane_cuda(ref, spec)
+        need(torch.equal(st.full(dev), ref), "(l) sharded step on distinct cards != single")
+        out["placement"] = f"one card and {k} distinct cards"
+    log(f"(l) ran with the shards on {out['placement']}")
+
+    # Times: CUDA events around back-to-back calls (utils.metrics.cuda_time_fn),
+    # and with queued=True the device's time alone (the stream sleeps until
+    # every call is enqueued), which events around a host-bound call do not
+    # show.
+    tm = out["timings"]
+
+    def device_ms(fn):
+        return cuda_time_fn(fn, reps=20, warmup=3, queued=True)
+
+    for size in (512, 1024):
+        spec = ct.AutomatonSpec.from_rule_strings(size)
+        mesh = make_mesh(MESH_SHARDS, devices=one_card)
+        st = shard_state(states[size], mesh)
+        step = make_sharded_step(spec, mesh)
+        words = states[size]
+        single = lambda: ca_step.fires_plane_cuda(words, spec)  # noqa: E731
+        sharded = lambda: step(st)  # noqa: E731
+        reads = [cuda_time_fn(fn, reps=50, warmup=3) for fn in (single, sharded, sharded, single)]
+        tm[f"ca_step_single_{size}_ms"] = (reads[0] + reads[3]) / 2
+        tm[f"ca_step_sharded_{size}_ms"] = (reads[1] + reads[2]) / 2
+        tm[f"ca_step_single_sharded_sharded_single_{size}_ms"] = reads
+        tm[f"halo_exchange_{size}_ms"] = cuda_time_fn(lambda: exchange_halos(st, spec),
+                                                      reps=50, warmup=3)
+        alive, zh, yh = exchange_halos(st, spec)
+        slabs = [(alive[p], zh[p], yh[p], spec) for p in np.ndindex(alive.shape)]
+        tm[f"ca_step_slab_{size}_ms"] = cuda_time_fn(
+            lambda: [ca_step.fires_slab_cuda(*a) for a in slabs], reps=50, warmup=3)
+        tm[f"ca_step_slab_{size}_device_ms"] = device_ms(
+            lambda: [ca_step.fires_slab_cuda(*a) for a in slabs])
+        tm[f"ca_step_single_{size}_device_ms"] = device_ms(single)
+        tm[f"ca_step_sharded_{size}_device_ms"] = device_ms(sharded)
+        tm[f"halo_exchange_{size}_device_ms"] = device_ms(lambda: exchange_halos(st, spec))
+        if size == 512:
+            tm["ca_step_slab_plain_ms"] = cuda_time_fn(
+                lambda: [ca_step.fires_slab(*a) for a in slabs], reps=5, warmup=1)
+        rule = ca_step._rule_arrays(spec)
+        values = sum(bin(int(m)).count("1") for m in (*rule[3][:rule[0]], *rule[4][:rule[0]]))
+        nw = size**3 // 32
+        halo_bytes = sum(t.numel() * 4 for a in slabs for t in a[1])
+        key = "ca_step_slab" if size == 512 else f"ca_step_slab_{size}"
+        out["bounds"][key] = bound(8 * nw + halo_bytes, nw * (
+            int(rule[1][:rule[0]].sum()) * OPS_CA_NEIGHBOUR + values * OPS_CA_RULE_VALUE))
+    # The multi-state slab step (the alive planes from the exchange given).
+    mesh = make_mesh(MESH_SHARDS, devices=one_card)
+    st = shard_state(ms_state, mesh)
+    alive, zh, yh = exchange_halos(st, ms_spec)
+    shards = st.shards.reshape(alive.shape)
+    slabs = [(shards[p], alive[p], zh[p], yh[p], ms_spec) for p in np.ndindex(alive.shape)]
+    tm["ca_step_slab_multistate_512_ms"] = cuda_time_fn(
+        lambda: [ca_step.step_slab_multistate_cuda(*a) for a in slabs], reps=50, warmup=3)
+    tm["ca_step_slab_multistate_512_device_ms"] = device_ms(
+        lambda: [ca_step.step_slab_multistate_cuda(*a) for a in slabs])
+    tm["ca_step_slab_multistate_plain_ms"] = cuda_time_fn(
+        lambda: [ca_step.step_slab_multistate(*a) for a in slabs], reps=5, warmup=1)
+    ms_step = make_sharded_step(ms_spec, mesh)
+    tm["ms_step_sharded_512_ms"] = cuda_time_fn(lambda: ms_step(st), reps=20, warmup=2)
+    tm["ms_step_single_512_ms"] = cuda_time_fn(
+        lambda: ca_step.step_packed_multistate_cuda(ms_state, ms_spec), reps=20, warmup=2)
+    rule = ca_step._rule_arrays(ms_spec)
+    values = sum(bin(int(m)).count("1") for m in (*rule[3][:rule[0]], *rule[4][:rule[0]]))
+    nw, bits = 512**3 // 32, ms_spec.age_bits
+    halo_bytes = sum(t.numel() * 4 for a in slabs for t in a[2])
+    out["bounds"]["ca_step_slab_multistate"] = bound(
+        4 * nw * (2 * bits + 1) + halo_bytes,
+        nw * (int(rule[1][:rule[0]].sum()) * OPS_CA_NEIGHBOUR + values * OPS_CA_RULE_VALUE
+              + bits * OPS_CA_DECAY))
+    # Mesh frames and fused frames against the single-device Engine's,
+    # alternated single, mesh, mesh, single; then one frame of each traced
+    # (utils.profiling.profile_trace): kernels, device ms and the wall.
+    for name in ("mesh_512", "mesh_256"):
+        em, cfg, gens = engines[name][:3]
+        e1 = ct.Engine(device="cuda", **cfg).step(gens)
+        reads = [cuda_time_fn(e.render, reps=10, warmup=2) for e in (e1, em, em, e1)]
+        tm[f"{name}_render_single_ms"] = (reads[0] + reads[3]) / 2
+        tm[f"{name}_render_ms"] = (reads[1] + reads[2]) / 2
+        tm[f"{name}_render_single_mesh_mesh_single_ms"] = reads
+        reads = [cuda_time_fn(lambda e=e: e.run_fused(10, reset_every=10), reps=1, warmup=0) / 10
+                 for e in (e1, em, em, e1)]
+        tm[f"{name}_fused_frame_single_ms"] = (reads[0] + reads[3]) / 2
+        tm[f"{name}_fused_frame_ms"] = (reads[1] + reads[2]) / 2
+        tm[f"{name}_fused_frame_single_mesh_mesh_single_ms"] = reads
+        for tag, e in (("single", e1), ("mesh", em)):
+            t0 = time.perf_counter()
+            with profile_trace() as prof:
+                e.render()
+            wall = (time.perf_counter() - t0) * 1e3
+            ev = [x for x in prof.events() if x.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(x.time_range.elapsed_us() for x in ev) / 1e3
+            tm[f"{name}_render_{tag}_profile"] = {"kernels": len(ev), "device_ms": busy,
+                                                  "wall_ms": wall}
+        del e1
+    card = card_line()
+    log(f"(l) timings on {card} (CUDA events; the 4 shards share one card, so these are the "
+        f"cost of the decomposition, not a scaling):")
+    for k, v in tm.items():
+        log(f"  {k}: {v}")
+    for k, b in out["bounds"].items():
+        log(f"  bound {k}: {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    out["card"] = card
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -1784,6 +2142,7 @@ def main() -> dict:
     from cellularautomatons3d_tpu_torch.render import render_fast as rf
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
     from cellularautomatons3d_tpu_torch.utils import mat4
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
 
     dev = torch.device("cuda", 0)
     report: dict = {"device": torch.cuda.get_device_name(0)}
@@ -2162,45 +2521,50 @@ def main() -> dict:
     refp = reference_phase(torch, np, ct, rf, rs, ca_step, occupancy)
     report["reference"] = refp
 
+    # ------------------------------------------------------------ (l) the mesh ---
+    mesh = mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare)
+    report["mesh"] = {k: mesh[k] for k in ("slab_cases", "launches", "frames", "timings",
+                                           "placement", "dryrun")}
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
-    ca_ms = cuda_ms(torch, lambda: ca_step.fires_plane_cuda(st, spec), 1000, warmup=20)
-    ca_plain_ms = cuda_ms(torch, lambda: ca_step.fires_plane(st, spec), 20, warmup=2)
+    ca_ms = cuda_time_fn(lambda: ca_step.fires_plane_cuda(st, spec), reps=1000, warmup=20)
+    ca_plain_ms = cuda_time_fn(lambda: ca_step.fires_plane(st, spec), reps=20, warmup=2)
     vol, coarse, cam, hist, kw = timed_k1
-    k1_ms = cuda_ms(torch, lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw), 50, warmup=3)
-    k1_nc_ms = cuda_ms(torch, lambda: rf.raytrace_cuda(vol, coarse, cam, **kw), 50, warmup=3)
-    k1_plain_ms = cuda_ms(torch, lambda: rf.raytrace(vol, coarse, cam, hist, **kw), 3, warmup=1)
-    occ_ms = cuda_ms(torch, lambda: coarse_occupancy(vol), 200, warmup=5)
+    k1_ms = cuda_time_fn(lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw), reps=50, warmup=3)
+    k1_nc_ms = cuda_time_fn(lambda: rf.raytrace_cuda(vol, coarse, cam, **kw), reps=50, warmup=3)
+    k1_plain_ms = cuda_time_fn(lambda: rf.raytrace(vol, coarse, cam, hist, **kw), reps=3, warmup=1)
+    occ_ms = cuda_time_fn(lambda: coarse_occupancy(vol), reps=200, warmup=5)
     eng.run_fused(10, reset_every=10)
-    fused_ms = cuda_ms(torch, lambda: eng.run_fused(100, reset_every=10), 1, warmup=0) / 100
-    render_ms = cuda_ms(torch, eng.render, 20, warmup=2)
+    fused_ms = cuda_time_fn(lambda: eng.run_fused(100, reset_every=10), reps=1, warmup=0) / 100
+    render_ms = cuda_time_fn(eng.render, reps=20, warmup=2)
     vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
-    k2_ms = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **kw), 20, warmup=2)
-    k2_plain_ms = cuda_ms(torch, lambda: rs.shadow_sweep(vol, *k2, **kw), 1, warmup=0)
-    k3_ms = cuda_ms(torch, lambda: rs.cell_state_cuda(vol, *zip(*lookups), grid_size=GRID),
-                    50, warmup=2)
-    k3_plain_ms = cuda_ms(torch, lambda: rs.cell_state(vol, *k3, grid_size=GRID), 10, warmup=1)
-    passes_ms = cuda_ms(torch, lambda: rs.lighting_passes(
+    k2_ms = cuda_time_fn(lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **kw), reps=20, warmup=2)
+    k2_plain_ms = cuda_time_fn(lambda: rs.shadow_sweep(vol, *k2, **kw), reps=1, warmup=0)
+    k3_ms = cuda_time_fn(lambda: rs.cell_state_cuda(vol, *zip(*lookups), grid_size=GRID),
+                         reps=50, warmup=2)
+    k3_plain_ms = cuda_time_fn(lambda: rs.cell_state(vol, *k3, grid_size=GRID), reps=10, warmup=1)
+    passes_ms = cuda_time_fn(lambda: rs.lighting_passes(
         cam, *geo, rs.prep_volume(vol, coarse), grid_size=GRID, width=WIDTH,
-        height=HEIGHT, soft_k=LIGHTING["soft_shadow_samples"], gi=True), 5, warmup=1)
+        height=HEIGHT, soft_k=LIGHTING["soft_shadow_samples"], gi=True), reps=5, warmup=1)
     lighting_ms = {
-        f"{name}_step_plus_frame_ms": cuda_ms(
-            torch, lambda e=e: e.run_fused(20, reset_every=10), 1, warmup=0) / 20
+        f"{name}_step_plus_frame_ms": cuda_time_fn(
+            lambda e=e: e.run_fused(20, reset_every=10), reps=1, warmup=0) / 20
         for name, e in lighting_engines.items()
     }
     sliced_ms = {
-        f"{name}_step_plus_frame_ms": cuda_ms(
-            torch, lambda e=e, fr=fr: e.run_fused(fr, reset_every=fr), 1, warmup=0) / fr
+        f"{name}_step_plus_frame_ms": cuda_time_fn(
+            lambda e=e, fr=fr: e.run_fused(fr, reset_every=fr), reps=1, warmup=0) / fr
         for name, (e, fr) in sliced["engines"].items()
     }
     for size, (vol, coarse, cam, k2) in sliced["timed"].items():
         kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
-        sliced_ms[f"k4_{size}_ms"] = cuda_ms(
-            torch, lambda: rs.primary_sweep_cuda(vol, coarse, cam, **kw), 20, warmup=2)
-        sliced_ms[f"k2_hard_{size}_ms"] = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(
+        sliced_ms[f"k4_{size}_ms"] = cuda_time_fn(
+            lambda: rs.primary_sweep_cuda(vol, coarse, cam, **kw), reps=20, warmup=2)
+        sliced_ms[f"k2_hard_{size}_ms"] = cuda_time_fn(lambda: rs.shadow_sweep_cuda(
             vol, coarse, *k2, grid_size=size, cell_half=rs._cell_half(cam, size)),
-            20, warmup=2)
+            reps=20, warmup=2)
     sliced_ms.update(sliced["plain_ms"])
     # The box kernel alone; the floors of K4 (an empty volume: ray set-up and
     # stores) and of K2 (every lane inactive); K4 and K2 where the box is the
@@ -2209,16 +2573,17 @@ def main() -> dict:
     for tag, size in ((f"{GRID}^3 gen-80", GRID), ("512^3 gen-160", 512),
                       ("1024^3 gen-200", 1024)):
         c = scenes[tag][1]
-        box_ms[f"occupied_box_{size}_ms"] = cuda_ms(
-            torch, lambda: occupancy.occupied_box_cuda(c, size), 200, warmup=5)
-        box_ms[f"occupied_box_{size}_plain_ms"] = cuda_ms(
-            torch, lambda: occupancy.occupied_box(c, size), 5, warmup=1)
+        box_ms[f"occupied_box_{size}_ms"] = cuda_time_fn(
+            lambda: occupancy.occupied_box_cuda(c, size), reps=200, warmup=5)
+        box_ms[f"occupied_box_{size}_plain_ms"] = cuda_time_fn(
+            lambda: occupancy.occupied_box(c, size), reps=5, warmup=1)
     for size in (512, 1024):
         empty = torch.zeros((size // 32, size, size), dtype=torch.int32, device=dev)
         empty_coarse = coarse_occupancy(empty)
         cam = sliced["timed"][size][2]
-        box_ms[f"k4_empty_{size}_ms"] = cuda_ms(torch, lambda: rs.primary_sweep_cuda(
-            empty, empty_coarse, cam, grid_size=size, width=WIDTH, height=HEIGHT), 50, warmup=3)
+        box_ms[f"k4_empty_{size}_ms"] = cuda_time_fn(lambda: rs.primary_sweep_cuda(
+            empty, empty_coarse, cam, grid_size=size, width=WIDTH, height=HEIGHT),
+            reps=50, warmup=3)
         del empty
     vol_f, coarse_f = scenes["512^3 gen-260"][:2]
     cam = sliced["timed"][512][2]
@@ -2227,14 +2592,14 @@ def main() -> dict:
     t4p, i4p = rs.primary_sweep(vol_f, cam, grid_size=512, width=WIDTH, height=HEIGHT)
     need(torch.equal(i4f, i4p) and float((t4f - t4p).abs().max()) <= DEPTH_ATOL,
          "K4 != plain on the 512^3 gen-260 scene")
-    box_ms["k4_full_box_512_ms"] = cuda_ms(torch, lambda: rs.primary_sweep_cuda(
-        vol_f, coarse_f, cam, grid_size=512, width=WIDTH, height=HEIGHT), 20, warmup=2)
+    box_ms["k4_full_box_512_ms"] = cuda_time_fn(lambda: rs.primary_sweep_cuda(
+        vol_f, coarse_f, cam, grid_size=512, width=WIDTH, height=HEIGHT), reps=20, warmup=2)
     vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
     idle_ops = (*k2[:3], torch.zeros_like(k2[3]))
     need(int(rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw).abs().sum()) == 0,
          "K2 with every lane inactive is not all 0")
-    box_ms["k2_idle_ms"] = cuda_ms(
-        torch, lambda: rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw), 50, warmup=2)
+    box_ms["k2_idle_ms"] = cuda_time_fn(
+        lambda: rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw), reps=50, warmup=2)
     vol_230, coarse_230 = scenes[f"{GRID}^3 gen-230"][:2]
     _, _, cam_230, _, k2_230, _, q_230, l_230 = lighting_operands(GRID, WIDTH, HEIGHT,
                                                                   vol=vol_230)
@@ -2245,15 +2610,15 @@ def main() -> dict:
     k5_check(torch, rs, f"{GRID}^3 gen-230 full quality", vol_230, coarse_230, GRID, q_230,
              kw_230["cell_half"])
     k3_check(torch, rs, f"{GRID}^3 gen-230 full quality", vol_230, GRID, l_230)
-    box_ms["k2_full_box_ms"] = cuda_ms(torch, lambda: rs.shadow_sweep_cuda(
-        vol_230, coarse_230, *k2_230, **kw_230), 20, warmup=2)
-    box_ms["k5_full_box_ms"] = cuda_ms(torch, lambda: [rs.shadow_sweep_multi_cuda(
-        vol_230, coarse_230, *zip(*q_230[i:i + 4]), **kw_230) for i in (0, 4)], 20, warmup=2)
+    box_ms["k2_full_box_ms"] = cuda_time_fn(lambda: rs.shadow_sweep_cuda(
+        vol_230, coarse_230, *k2_230, **kw_230), reps=20, warmup=2)
+    box_ms["k5_full_box_ms"] = cuda_time_fn(lambda: [rs.shadow_sweep_multi_cuda(
+        vol_230, coarse_230, *zip(*q_230[i:i + 4]), **kw_230) for i in (0, 4)], reps=20, warmup=2)
     for size in (512, 1024):
         st_big = sliced["timed"][size][0]
         spec_big = AutomatonSpec.from_rule_strings(size)
-        sliced_ms[f"ca_step_{size}_ms"] = cuda_ms(
-            torch, lambda: ca_step.fires_plane_cuda(st_big, spec_big), 50, warmup=3)
+        sliced_ms[f"ca_step_{size}_ms"] = cuda_time_fn(
+            lambda: ca_step.fires_plane_cuda(st_big, spec_big), reps=50, warmup=3)
 
     # K5 against K2 on a full-quality frame's 8 queries, alternated K2, K5,
     # K5, K2 (K5 as the dispatch runs it: two launches of 4 queries).
@@ -2268,22 +2633,22 @@ def main() -> dict:
             for i in (0, 4):
                 rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries[i:i + 4]), **kw)
 
-        reads = [cuda_ms(torch, fn, 20, warmup=2) for fn in (run_k2, run_k5, run_k5, run_k2)]
+        reads = [cuda_time_fn(fn, reps=20, warmup=2) for fn in (run_k2, run_k5, run_k5, run_k2)]
         multi_ms[f"k2_{size}_ms"] = (reads[0] + reads[3]) / 2
         multi_ms[f"k5_{size}_ms"] = (reads[1] + reads[2]) / 2
         multi_ms[f"k2_k5_k5_k2_{size}_ms"] = reads
         multi_ms[f"k5_{size}_plain_ms"] = plain_ms
         if size == GRID:
             idle = [(s_, t_, e_, torch.zeros_like(a_)) for s_, t_, e_, a_ in queries]
-            multi_ms["k5_idle_ms"] = cuda_ms(torch, lambda: run_k5(idle), 50, warmup=2)
+            multi_ms["k5_idle_ms"] = cuda_time_fn(lambda: run_k5(idle), reps=50, warmup=2)
     # K6 and K1 with and without the prepass mask, alternated, on gen-80
     # and gen-230: K1 alone with a given mask, K1 computing its own masks,
     # and the whole prepass frame.  K6 inside K1 costs the difference of
     # the second and the first.
     for steps, (vol, coarse, cam, hist, mask, kw, k6_plain_ms) in multi["k1_timed"].items():
         if steps == 80:
-            multi_ms["k6_ms"] = cuda_ms(torch, lambda: rf.prepass_cuda(
-                coarse, cam, grid_size=GRID, width=WIDTH, height=HEIGHT), 200, warmup=5)
+            multi_ms["k6_ms"] = cuda_time_fn(lambda: rf.prepass_cuda(
+                coarse, cam, grid_size=GRID, width=WIDTH, height=HEIGHT), reps=200, warmup=5)
             multi_ms["k6_plain_ms"] = k6_plain_ms
         runs = {
             "k1_compose": lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw),
@@ -2299,7 +2664,7 @@ def main() -> dict:
                  "k1_compose_inline", "k1_compose_masked", "k1_compose"]
         reads = {k: [] for k in runs}
         for k in order:
-            reads[k].append(cuda_ms(torch, runs[k], 50, warmup=3))
+            reads[k].append(cuda_time_fn(runs[k], reps=50, warmup=3))
         for k, v in reads.items():
             multi_ms[f"{k}_gen{steps}_ms"] = sum(v) / len(v)
             multi_ms[f"{k}_gen{steps}_reads_ms"] = v
@@ -2309,11 +2674,11 @@ def main() -> dict:
         # stores), then the primary sweep (shadow=False), then both sweeps.
         kw0 = dict(kw, shadow=False)
         multi_ms[f"k1_split_gen{steps}_ms"] = {
-            "no_sweep": cuda_ms(torch, lambda: rf.raytrace_cuda(
-                vol, coarse, cam, hist, no_sweep=True, **kw), 50, warmup=3),
-            "primary": cuda_ms(torch, lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw0),
-                               50, warmup=3),
-            "full": cuda_ms(torch, lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw), 50,
+            "no_sweep": cuda_time_fn(lambda: rf.raytrace_cuda(
+                vol, coarse, cam, hist, no_sweep=True, **kw), reps=50, warmup=3),
+            "primary": cuda_time_fn(lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw0),
+                               reps=50, warmup=3),
+            "full": cuda_time_fn(lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw), reps=50,
                             warmup=3),
         }
     # Full-quality step + frame with K5 against K2 (the same Engine; the
@@ -2322,8 +2687,8 @@ def main() -> dict:
     reads = []
     for k5 in (False, True, True, False):
         with env_var("CA3D_OCC_SWEEP", "0" if k5 else "1"):
-            reads.append(cuda_ms(torch, lambda: eng_fq.run_fused(10, reset_every=10),
-                                 1, warmup=0) / 10)
+            reads.append(cuda_time_fn(lambda: eng_fq.run_fused(10, reset_every=10),
+                                 reps=1, warmup=0) / 10)
     multi_ms["full_quality_step_plus_frame_k2_ms"] = (reads[0] + reads[3]) / 2
     multi_ms["full_quality_step_plus_frame_k5_ms"] = (reads[1] + reads[2]) / 2
     multi_ms["full_quality_step_plus_frame_k2_k5_k5_k2_ms"] = reads
@@ -2432,6 +2797,7 @@ def main() -> dict:
                              i4f, dev, occupancy.occupied_box(coarse_f, 512))
     bounds["primary_sweep_full_box_512"] = bound(mip_bytes(512) + px * 8,
                                                  act * OPS_RAY + cols * OPS_COLUMN)
+    bounds.update(mesh["bounds"])
     report["bounds"] = bounds
 
     def entry(name, source, replaces, launches, err, ms, plain):
@@ -2444,8 +2810,9 @@ def main() -> dict:
                 "library_ms": None}  # no single PyTorch call computes any of them
 
     k5_launches = total("shadow_sweep_multi_cuda", *multi["launches"].values())
+    mesh_launches = list(mesh["launches"].values())
     ms_launches = [*ms["launches"].values(), *inter["launches"].values(),
-                   *refp["launches"].values()]
+                   *refp["launches"].values(), *mesh_launches]
     report["kernels"] = [
         entry("ca_step", "ca_step.cu", "ops/ca_step.py:118",
               launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values(),
@@ -2487,6 +2854,16 @@ def main() -> dict:
         entry("prepass_inline", "render_fast.cu", "render/render_fast.py:889",
               multi["prepass_launches"]["raytrace_cuda_prepass"], 0.0,
               multi_ms["k6_inline_gen80_ms"], multi_ms["k6_plain_ms"]),
+        # The slab mode of the step kernel: one generation of the 512³ grid as
+        # 4 z shards (4 launches on the exchange's halos), binary and
+        # pyroclastic; the XLA of _local_step_binary / _multistate in JAX.
+        entry("ca_step_slab", "ca_step.cu", "parallel/sharded.py:175",
+              total("fires_slab_cuda", *mesh_launches), 0.0,
+              mesh["timings"]["ca_step_slab_512_ms"], mesh["timings"]["ca_step_slab_plain_ms"]),
+        entry("ca_step_slab_multistate", "ca_step.cu", "parallel/sharded.py:180",
+              total("step_slab_multistate_cuda", *mesh_launches), 0.0,
+              mesh["timings"]["ca_step_slab_multistate_512_ms"],
+              mesh["timings"]["ca_step_slab_multistate_plain_ms"]),
     ]
     need("jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None},
          "JAX was imported")

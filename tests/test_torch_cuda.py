@@ -208,6 +208,32 @@ def test_k2_kernel_matches_plain_512(cuda):
     assert not want[-1][target[-1, 2] == start[-1, 2]].any()
 
 
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_k4_k2_band_kernels_match_plain(cuda, view):
+    """K4 and the hard-shadow K2 on a row band of a 1080p window (row0 > 0,
+    as a mesh frame's row shard renders it) at 512³: ids equal, t within
+    3e-5, occlusion flags equal."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    n, w, h = 512, BAND["width"], BAND["height"]
+    vol = sparse_volume(cuda, n, 0.01, 11)
+    coarse = coarse_occupancy(vol)
+    cam = _band_cam(view)
+    kw = dict(grid_size=n, width=w, height=h)
+    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    t_p, i_p = rs.primary_sweep(vol, cam, **kw)
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
+    assert int((i_p >= 0).sum()) > 0
+    q, origin, coords, found, _ = rs.hit_geometry(cam, i_k, t_k, **kw)
+    queries, _, _ = rs.lighting_queries(cam, q, origin, coords, found, soft_k=1, **kw)
+    ops = rs.stack_occlusion_queries(queries, w, h)
+    k2 = dict(grid_size=n, cell_half=rs._cell_half(cam, n))
+    want = rs.shadow_sweep(vol, *ops, **k2)
+    assert torch.equal(rs.shadow_sweep_cuda(vol, coarse, *ops, **k2), want)
+    assert int(want.sum()) > 0
+
+
 def test_occupied_box_kernel_matches_plain(cuda):
     """The box kernel (csrc/occupied_box.cu) against its plain twin on
     empty, full and random mips and on mips with one block set, at every
@@ -1073,3 +1099,86 @@ def test_reference_engine_cuda_matches_cpu(cuda, variant):
     for a, b in zip(gpu, cpu):
         compare(a, b, depth=REFERENCE_CARD_MISMATCH, rgb=REFERENCE_CARD_MISMATCH)
     assert (cpu[-1][0].sum(-1) > 0).sum() > 100
+
+
+@pytest.mark.parametrize("states", [2, 10])
+@pytest.mark.parametrize("n,shape", [(32, (8,)), (32, (32,)), (32, (4, 2)), (32, (2, 4)),
+                                     (32, (2, 16)), (96, (3, 3))])
+def test_ca_step_slab_kernel(cuda, n, shape, states):
+    """The slab mode of the step kernel (every shard of a mesh on one card)
+    against the plain slab step on the same halos, and the sharded step
+    against the single-device step, the slab's own halos arbitrary: Moore and
+    von Neumann, every boundary mode, at 32³ (shards of 4 and 1 z planes, of
+    16 and 2 y columns) and 96³ over (3, 3), bit for bit over 3
+    generations."""
+    from cellularautomatons3d_tpu_torch.parallel import sharded
+
+    k = int(np.prod(shape))
+    mesh = sharded.make_mesh(k, devices=[cuda] * k, shape=shape if len(shape) == 2 else None)
+    for i, neighbourhood in enumerate(("moore", "von neumann")):
+        for boundary in ct.BoundaryMode.ALL:
+            spec = ct.AutomatonSpec.from_rule_strings(
+                n, neighbourhood=neighbourhood, born="2,4", survive="1-4",
+                total_states=states, boundary=boundary)
+            if states == 2:
+                rng = np.random.default_rng(n + i)
+                a = ct.from_reference(
+                    ct.pack_grid((rng.random((n,) * 3) < 0.3).astype(np.uint8)), cuda)
+            else:
+                a, _ = random_ages(cuda, n, states, n + i)
+            step = sharded.make_sharded_step(spec, mesh)
+            st, ref = sharded.shard_state(a, mesh), a
+            for _ in range(3):
+                shard = st.shards.flat[k // 2]
+                alive = shard if states == 2 else ca_step.age_masks_cuda(shard, vis=False)[0]
+                zh = (torch.zeros_like(alive[:, :1]), alive[:, -1:].contiguous())
+                yh = None
+                if len(shape) == 2:
+                    z2 = alive.shape[1] + 2
+                    yh = tuple(torch.full((alive.shape[0], z2, 1), v, dtype=torch.int32,
+                                          device=cuda) for v in (-1, 0x5555))
+                got = ca_step.step_slab(shard, alive, zh, yh, spec)
+                want = ca_step.step_slab(shard.cpu(), alive.cpu(),
+                                         tuple(t.cpu() for t in zh),
+                                         None if yh is None else tuple(t.cpu() for t in yh),
+                                         spec)
+                assert torch.equal(got.cpu(), want)
+                st, ref = step(st), ca_step.step_packed(ref, spec)
+                assert torch.equal(st.full(), ref)
+            assert int((ref != 0).sum()) > 0
+
+
+def test_ca_step_slab_kernel_refuses(cuda):
+    spec = ct.AutomatonSpec.from_rule_strings(32)
+    slab = torch.zeros((1, 4, 32), dtype=torch.int32, device=cuda)
+    zh = (slab[:, :1].clone(), slab[:, :1].clone())
+    with pytest.raises(ValueError, match="z halo 1"):
+        ca_step.fires_slab_cuda(slab, (zh[0], zh[1][:, :, :16]), None, spec)
+    with pytest.raises(ValueError, match="z halo 1 must be a CUDA tensor"):
+        ca_step.fires_slab_cuda(slab, (zh[0], zh[1].cpu()), None, spec)
+    import dataclasses
+
+    deep = dataclasses.replace(spec, offsets_main=((0, 0, 2),))
+    with pytest.raises(RuntimeError, match="ca_step_slab"):
+        ca_step.fires_slab_cuda(slab, zh, None, deep)
+
+
+def test_cuda_time_fn_queued_reads_the_device(cuda):
+    """``cuda_time_fn(queued=True)`` times the device alone: 8 tiny launches
+    a call read far less than the host's enqueue does, one 512³ step reads
+    the kernel's time either way, and a call that synchronises raises."""
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+
+    spec = ct.AutomatonSpec.from_rule_strings(32)
+    small = random_volume(cuda, 3, 0.2)[:1, :32, :32].contiguous()
+    tiny = lambda: [ca_step.fires_plane_cuda(small, spec) for _ in range(8)]  # noqa: E731
+    assert 0.0 < cuda_time_fn(tiny, reps=20, queued=True) < cuda_time_fn(tiny, reps=20)
+    big_spec = ct.AutomatonSpec.from_rule_strings(512)
+    g = torch.Generator(cuda).manual_seed(1)
+    words = torch.randint(-2**31, 2**31 - 1, (16, 512, 512), dtype=torch.int32, device=cuda,
+                          generator=g)
+    step = lambda: ca_step.fires_plane_cuda(words, big_spec)  # noqa: E731
+    queued, events = cuda_time_fn(step, reps=20, queued=True), cuda_time_fn(step, reps=20)
+    assert queued == pytest.approx(events, rel=0.25)
+    with pytest.raises(RuntimeError, match="could not enqueue"):
+        cuda_time_fn(lambda: torch.cuda.synchronize(), reps=2, warmup=0, queued=True)

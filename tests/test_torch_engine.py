@@ -124,15 +124,23 @@ def test_lighting_configs_build_and_render(overrides):
 
 
 @pytest.mark.parametrize(
-    "overrides,item",
-    [
-        (dict(mesh_shape=(2, 1)), "item 12"),
-        (dict(mesh_devices=2, height=64), "item 12"),
-    ],
+    "overrides", [dict(mesh_shape=(2, 1)), dict(mesh_devices=2, height=64)]
 )
-def test_unported_configs_raise(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ct.Engine(ct.EngineConfig(**{**CFG, **overrides}), device="cpu")
+def test_mesh_configs_build_step_and_render(overrides):
+    """mesh_shape and mesh_devices (once refused as ROADMAP item 12) build a
+    mesh Engine, its shards on the CPU, whose state and frame equal the
+    single-device Engine's (tests/test_torch_sharded.py and
+    tests/test_torch_engine_mesh.py hold the mesh to JAX)."""
+    eng = ct.Engine(ct.EngineConfig(**{**CFG, **overrides}), device="cpu")
+    one = ct.Engine(ct.EngineConfig(**CFG), device="cpu")
+    assert eng.mesh.size == 2 and [str(d) for d in eng.mesh.devices.flat] == ["cpu"] * 2
+    eng.step(4)
+    one.step(4)
+    np.testing.assert_array_equal(eng.state_dense(), one.state_dense())
+    frame = eng.render()
+    assert tuple(frame.shape) == (CFG["height"], CFG["width"], 3)
+    assert_frame(frame, one.render().numpy())
+    assert torch.equal(eng.history.hit_idx.full(), one.history.hit_idx)
 
 
 @pytest.mark.parametrize(

@@ -190,20 +190,31 @@ def test_handle_input_each_kind(viewer):
     assert out["ok"] and not out["restart_required"] and eng.config.born == "2"
 
 
-def test_handle_input_refuses_unported_settings(viewer):
+def test_handle_input_applies_mesh_devices(viewer):
+    """``mesh_devices`` (once refused as ROADMAP item 12) applies on restart:
+    the CPU Engine shards over a mesh of CPU shards and serves frames; a mesh
+    the grid cannot divide answers ok: false and leaves the Engine as it
+    was."""
     eng = viewer.engine
     eng.step(3)
-    state = eng.state.clone()
     out = viewer.handle_input({"type": "param", "name": "mesh_devices", "value": 2})
     assert out["ok"] and out["restart_required"]
     out = viewer.handle_input({"type": "restart"})
-    assert out["ok"] is False and "item 12" in out["error"]
-    assert out["restart_required"] and out["simulation_step"] == 3
-    assert eng.config.mesh_devices == 0 and torch.equal(eng.state, state)
+    assert out == {"ok": True, "restart_required": False, "simulation_step": 0}
+    assert eng.mesh.shape == {"z": 2} and eng.config.mesh_devices == 2
+    png = viewer.frame_png()
+    assert decode_png(png).shape == (CFG["height"], CFG["width"], 3)
+    eng.step(2)
+    state = eng.state_dense()
+    viewer.handle_input({"type": "param", "name": "mesh_devices", "value": 3})
+    out = viewer.handle_input({"type": "restart"})
+    assert out["ok"] is False and "divisible" in out["error"]
+    assert out["restart_required"] and out["simulation_step"] == 2
+    assert eng.config.mesh_devices == 2 and (eng.state_dense() == state).all()
     viewer.frame_png()  # the engine still renders
     viewer.handle_input({"type": "param", "name": "mesh_devices", "value": 0})
     out = viewer.handle_input({"type": "restart"})
-    assert out["ok"] and out["simulation_step"] == 0
+    assert out["ok"] and out["simulation_step"] == 0 and eng.mesh is None
 
 
 def test_handle_input_switches_to_the_reference_pipeline(viewer):
