@@ -17,12 +17,14 @@ one- and multi-bounce GI, the temporally amortized mode
 (``render.render_slab`` with the occlusion kernel K2,
 ``csrc/shadow_sweep.cu``, and the cell-state kernel K3,
 ``csrc/cell_state.cu``) -- driven by :class:`Engine` (``step``, ``render``,
-``tick``, ``run``, ``run_fused``).  Two opt-in paths, off by default as in
+``tick``, ``run``, ``run_fused``).  Opt-in paths, off by default as in
 the reference: the multi-query occlusion kernel K5
-(``csrc/shadow_multi.cu``, ``CA3D_OCC_SWEEP=0``) and the patch prepass K6
+(``csrc/shadow_multi.cu``, ``CA3D_OCC_SWEEP=0``), the patch prepass K6
 (``csrc/prepass.cuh``, run inside K1 on the card, and alone as
 ``csrc/prepass.cu``) with K1's column-mask gate
-(``render_fast.raytrace_tiles(use_prepass=True)``).  On a CPU device the
+(``render_fast.raytrace_tiles(use_prepass=True)``), and K1's descents
+``CA3D_MIP1=1`` (the plane mip, ``csrc/plane_occupancy.cu``) and
+``CA3D_SLICEGATE=1`` (``render.render_fast``).  On a CPU device the
 same calls run the kernels' plain torch versions.
 
 The exact reference pipeline (``Engine(pipeline="reference")``, and its

@@ -28,6 +28,21 @@
 // NO_SWEEP neither sweep runs (the frame of an empty volume): the floor of
 // the kernel's timing split, for tools/time_k1.py and chip_smoke.py only.
 //
+// OPT picks the descent of both sweeps (sweep.cuh) for the reference's
+// opt-in traversal options, each the same frame as the default:
+// kOptMip1 (CA3D_MIP1, render_fast.py use_mip1) gates each probe's fine
+// fetch by the plane mip's bit of its own cell, read through the read-only
+// path (the 32 KiB mip of a 256^3 grid staged in each of an SM's ten blocks
+// would take 320 KiB of its 228 KiB); kOptSliceGate (CA3D_SLICEGATE,
+// descend_gated) loads a column's plane words before it tests them.  Both
+// run with and without a mask (kMaskNone, kMaskInline).  kOptNoSkip
+// descends every column of the occupied box (no MASK): the coarse column
+// skip's attribution run (the reference's _column_dilate=False, which there
+// feeds an undilated mip and is not exact; this one is).  The reference's
+// third option, the sticky any-ray-alive gate (CA3D_ALIVE_GATE), has no
+// code here: a thread leaves its column loop at its hit, and a warp when
+// its last live lane does.
+//
 // Design on the H100 (one thread per pixel, one 16x8-pixel tile per
 // block): about 93 % of a main-path frame's rays miss, and the first design
 // walked every 8-plane column of each ray's z-extent, each a span, four
@@ -79,6 +94,32 @@ static_assert(kBlockX == 2 * kPatch && kBlockY == kPatch,
 constexpr int kMaskNone = 0;    // the staged mip
 constexpr int kMaskGiven = 1;   // colmask, a tensor of patch masks
 constexpr int kMaskInline = 2;  // computed in the block's prologue
+
+// K1's descent options (OPT).
+constexpr int kOptNone = 0;       // EachPlane, the mip's column skip
+constexpr int kOptMip1 = 1;       // PlaneMip
+constexpr int kOptSliceGate = 2;  // Prefetch
+constexpr int kOptNoSkip = 3;     // AllColumns: every column of the box
+
+// The column gate and the descent of an OPT.
+template <int OPT>
+__device__ __forceinline__ auto column_gate(const uint32_t* coarse_s) {
+  if constexpr (OPT == kOptNoSkip) {
+    return AllColumns{};
+  } else {
+    return SharedMip{coarse_s};
+  }
+}
+template <int OPT>
+__device__ __forceinline__ auto descent_of(const uint32_t* planes, int nb) {
+  if constexpr (OPT == kOptMip1) {
+    return PlaneMip{planes, nb};
+  } else if constexpr (OPT == kOptSliceGate) {
+    return Prefetch{};
+  } else {
+    return EachPlane{};
+  }
+}
 
 constexpr float kPi = 3.14159265359f;
 
@@ -144,7 +185,7 @@ __device__ __forceinline__ float clip01(float x) {
 // would take 85, and half the warps).
 constexpr int kMinBlocks = 10;
 
-template <bool COMPOSE, int MASK, bool NO_SWEEP>
+template <bool COMPOSE, int MASK, bool NO_SWEEP, int OPT = kOptNone>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
     render_kernel(const uint32_t* __restrict__ vol,
                   const uint32_t* __restrict__ coarse, int n, float inv_n,
@@ -155,11 +196,12 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
                   float* __restrict__ out_depth, int* __restrict__ out_idx,
                   float* __restrict__ out_hist,
                   const uint32_t* __restrict__ ages, int age_bits,
-                  int total_states) {
+                  int total_states, const uint32_t* __restrict__ planes) {
   __shared__ uint32_t coarse_s[kMaxStagedWords];
   __shared__ OccBox box;
   stage_coarse_box<kBlockX * kBlockY / 32>(coarse, coarse_s, n, inv_n, &box);
-  const SharedMip mip{coarse_s};
+  const auto mip = column_gate<OPT>(coarse_s);
+  const auto descent = descent_of<OPT>(planes, n >> 3);
   // The inline prologue: warp 0 computes the masks of the block's two
   // patches, 16 lanes each, over the box's columns only (a forced-open gate
   // or an empty box never reads them).
@@ -213,10 +255,10 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
         }
         const ColumnMask gate{bits, mask_forced || adx > 2.0f * adz || ady > 2.0f * adz};
         return sweep<true>(vol, gate, n, inv_n, cell_half, ray, t_start, tf,
-                           NoExclusion{}, t_hit, hx, hy, hz, clip);
+                           NoExclusion{}, t_hit, hx, hy, hz, clip, descent);
       } else {
         return sweep<true>(vol, mip, n, inv_n, cell_half, ray, t_start, tf,
-                           NoExclusion{}, t_hit, hx, hy, hz, clip);
+                           NoExclusion{}, t_hit, hx, hy, hz, clip, descent);
       }
     };
     found = clipped ? primary(BoxClip{&box}) : primary(NoClip{});
@@ -250,7 +292,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
       int x2, y2, z2;
       auto blocked = [&](const auto& clip) {
         return sweep<false>(vol, mip, n, inv_n, cell_half, sr, 0.0f, sh_tf,
-                            CellExclusion{hx, hy, hz}, t2, x2, y2, z2, clip);
+                            CellExclusion{hx, hy, hz}, t2, x2, y2, z2, clip,
+                            descent);
       };
       if (clipped ? blocked(BoxClip{&box}) : blocked(NoClip{})) {
         occl = 0.0095f;
@@ -353,6 +396,10 @@ extern "C" {
 // n/32, n, n] of a rule with total_states > 2, of which vol is the
 // visibility plane; the hit's age then fades the direct term.  no_sweep = 1
 // skips both sweeps (the frame of an empty volume; for timing only).
+// The descent options (at most one; with or without prepass, never with
+// colmask or no_sweep): planes, the plane mip uint32[n, n/8]
+// (ops/occupancy.py plane_occupancy), selects kOptMip1; slicegate = 1
+// kOptSliceGate; column_skip = 0 kOptNoSkip (not with prepass either).
 // Returns the launch's cudaError_t.
 int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
                      int width, int height, const float* cam, int shadow,
@@ -361,7 +408,8 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
                      const void* hist_rgb, const void* hist_idx, void* out_rgb,
                      void* out_depth, void* out_idx, void* out_hist,
                      const void* ages, int age_bits, int total_states,
-                     int no_sweep, void* stream) {
+                     int no_sweep, const void* planes, int slicegate,
+                     int column_skip, void* stream) {
   if (n < 32 || n > kMaxStagedGrid || n % 32 != 0 || width < 1 || height < 1) {
     return cudaErrorInvalidValue;
   }
@@ -373,6 +421,15 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
   }
   if (compose && (hist_rgb == nullptr || hist_idx == nullptr ||
                   out_hist == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const int opt = planes != nullptr ? kOptMip1
+                : slicegate        ? kOptSliceGate
+                : !column_skip     ? kOptNoSkip
+                                   : kOptNone;
+  if (opt != kOptNone &&
+      ((planes != nullptr) + (slicegate != 0) + (column_skip == 0) > 1 ||
+       colmask != nullptr || no_sweep || (opt == kOptNoSkip && prepass))) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -391,19 +448,35 @@ int ca3d_render_fast(int device, const void* vol, const void* coarse, int n,
       render_kernel<true, kMaskInline, false>,
       render_kernel<false, kMaskNone, true>,
       render_kernel<true, kMaskNone, true>};
+  // The options' instantiations: [opt - 1][prepass][compose].
+  static const RenderKernel option_kernels[3][2][2] = {
+      {{render_kernel<false, kMaskNone, false, kOptMip1>,
+        render_kernel<true, kMaskNone, false, kOptMip1>},
+       {render_kernel<false, kMaskInline, false, kOptMip1>,
+        render_kernel<true, kMaskInline, false, kOptMip1>}},
+      {{render_kernel<false, kMaskNone, false, kOptSliceGate>,
+        render_kernel<true, kMaskNone, false, kOptSliceGate>},
+       {render_kernel<false, kMaskInline, false, kOptSliceGate>,
+        render_kernel<true, kMaskInline, false, kOptSliceGate>}},
+      {{render_kernel<false, kMaskNone, false, kOptNoSkip>,
+        render_kernel<true, kMaskNone, false, kOptNoSkip>},
+       {nullptr, nullptr}}};
   const int mode = no_sweep ? 3
                  : prepass  ? kMaskInline
                             : (colmask != nullptr ? kMaskGiven : kMaskNone);
   const int slot = mode * 2 + (compose != 0);
-  kernels[slot]<<<grid, dim3(kBlockX, kBlockY), 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const RenderKernel kernel =
+      opt == kOptNone ? kernels[slot]
+                      : option_kernels[opt - 1][prepass != 0][compose != 0];
+  kernel<<<grid, dim3(kBlockX, kBlockY), 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
       n, inv_n, width, height, c, shadow, static_cast<const int*>(colmask),
       (width + 7) / 8, mask_forced, static_cast<const float*>(hist_rgb),
       static_cast<const int*>(hist_idx), static_cast<float*>(out_rgb),
       static_cast<float*>(out_depth), static_cast<int*>(out_idx),
       static_cast<float*>(out_hist), static_cast<const uint32_t*>(ages),
-      age_bits, total_states);
+      age_bits, total_states, static_cast<const uint32_t*>(planes));
   return cudaGetLastError();
 }
 

@@ -42,6 +42,19 @@
 // The packed volume itself is read from global memory at every size: 2 MiB
 // at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
 // probes of occupied columns go to HBM.
+//
+// How a descended column probes its 8 planes (the Descent of sweep()):
+// EachPlane, one plane after the other, each a load then a test (every
+// kernel's default); K1's opt-in options (render_fast.py CA3D_MIP1 and
+// CA3D_SLICEGATE in the reference, both exact) are PlaneMip, which fetches a
+// plane's fine word only where the probe's 1x8x8 block is occupied in the
+// plane mip (ops/occupancy.py plane_occupancy, [n, n/8] words at n <= 256,
+// read through the read-only path: 32 KiB at 256^3, ten blocks an SM
+// could not each stage it), and Prefetch, which loads the column's
+// in-segment plane words before testing any (render_fast.py descend_gated:
+// gather the needed words, then consume them).  AllColumns is a column gate
+// that reports every column occupied: K1 without the coarse column skip,
+// to measure what it saves.
 
 #pragma once
 
@@ -320,6 +333,15 @@ __device__ __forceinline__ auto mip_of(const uint32_t* coarse,
   }
 }
 
+// The column gate that descends every column (K1 with column_skip=False):
+// what the coarse mip's skip saves is the difference to SharedMip.
+struct AllColumns {
+  __device__ __forceinline__ bool occupied(int, int, int, int, int,
+                                           int) const {
+    return true;
+  }
+};
+
 // The column gate of K1 with a prepass mask (render_fast.py column_occ with
 // colmask): column c descends iff bit c of the pixel's patch mask is set
 // or the ray is steep (|dx| > 2|dz| or |dy| > 2|dz|); the block range is
@@ -439,15 +461,37 @@ __device__ __forceinline__ bool column_occupied(const Mip& mip, const Ray& r,
                       min(ya, yb) >> 3, max(ya, yb) >> 3);
 }
 
+// The descents of a column (see the top of this file).  EachPlane and
+// PlaneMip probe plane by plane, fetching the fine word where open() is true.
+struct EachPlane {
+  static constexpr bool kPrefetch = false;
+  __device__ __forceinline__ bool open(int, int, int) const { return true; }
+};
+// PlaneMip: the plane mip of an n <= 256 grid, [n, n/8] words (one x-group),
+// tested at the probe's own clamped cell, so the undilated mip is exact.
+struct PlaneMip {
+  static constexpr bool kPrefetch = false;
+  const uint32_t* __restrict__ planes;
+  int nb;  // n / 8: words a plane
+  __device__ __forceinline__ bool open(int k, int cx, int cy) const {
+    return (__ldg(planes + k * nb + (cy >> 3)) >> (cx >> 3)) & 1u;
+  }
+};
+struct Prefetch {
+  static constexpr bool kPrefetch = true;
+  __device__ __forceinline__ bool open(int, int, int) const { return true; }
+};
+
 // The midpoint probe of z-plane k: whether it hits, and the hit's t and
 // (x, y) cell.  PRIMARY selects the accept rule (tN <= tF and tF >=
-// t_start) over the shadow rule (tN <= tF and tN >= 0).
-template <bool PRIMARY, class Excl>
+// t_start) over the shadow rule (tN <= tF and tN >= 0); the fine word is
+// fetched only where the descent's open() is true.
+template <bool PRIMARY, class Excl, class Descent = EachPlane>
 __device__ __forceinline__ bool probe_plane(
     const uint32_t* __restrict__ vol, int n, float fn, float inv_n,
     float cell_half, const Ray& r, float inv_dx, float inv_dy, float inv_dz,
     int k, float t_start, float t_end, const Excl& excluded, float& t_hit,
-    int& hx, int& hy) {
+    int& hx, int& hy, const Descent& descent = Descent{}) {
   const float gz = (float)k;
   const float pa = (gz * inv_n - 0.5f - r.oz) * inv_dz;
   const float pb = ((gz + 1.0f) * inv_n - 0.5f - r.oz) * inv_dz;
@@ -457,6 +501,7 @@ __device__ __forceinline__ bool probe_plane(
   const float tm = 0.5f * (lo + hi);
   const int cx = cell_of(r.ox + tm * r.dx, fn, n);
   const int cy = cell_of(r.oy + tm * r.dy, fn, n);
+  if (!descent.open(k, cx, cy)) return false;
   const uint32_t word = __ldg(vol + (size_t)(cx >> 5) * ((size_t)n * n) +
                               (size_t)k * n + cy);
   if (!((word >> (cx & 31)) & 1u)) return false;
@@ -482,14 +527,69 @@ __device__ __forceinline__ bool probe_plane(
   return true;
 }
 
+// The Prefetch descent of 8-plane column c: the words of its planes whose
+// segment is not empty are all requested before any is tested (up to 8
+// independent loads in flight in place of 8 load-then-test steps; each
+// plane's cell by probe_plane's expressions, written out again so that
+// probe_plane, every kernel's default, compiles as before), their bits
+// folded into one mask (bit f: the f-th plane in pass order), then the set
+// bits walked in that order through probe_plane, whose second read of the
+// word is an L1 hit.  The column's result is the plane-by-plane loop's.
+template <bool PRIMARY, class Excl>
+__device__ __forceinline__ bool descend_prefetched(
+    const uint32_t* __restrict__ vol, int n, float fn, float inv_n,
+    float cell_half, const Ray& r, float inv_dx, float inv_dy, float inv_dz,
+    int c, bool up, float t_start, float t_end, const Excl& excluded,
+    float& t_hit, int& hx, int& hy, int& hz) {
+  uint32_t word[8];
+  uint64_t shift = 0u;  // cx & 31 of plane f in byte f
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const int k = up ? c * 8 + f : c * 8 + 7 - f;
+    const float gz = (float)k;
+    const float pa = (gz * inv_n - 0.5f - r.oz) * inv_dz;
+    const float pb = ((gz + 1.0f) * inv_n - 0.5f - r.oz) * inv_dz;
+    const float lo = maxp(minp(pa, pb), t_start);
+    const float hi = minp(maxp(pa, pb), t_end);
+    word[f] = 0u;
+    if (lo < hi) {
+      const float tm = 0.5f * (lo + hi);
+      const int cx = cell_of(r.ox + tm * r.dx, fn, n);
+      const int cy = cell_of(r.oy + tm * r.dy, fn, n);
+      word[f] = __ldg(vol + (size_t)(cx >> 5) * ((size_t)n * n) + (size_t)k * n + cy);
+      shift |= (uint64_t)(cx & 31) << (8 * f);
+    }
+  }
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    bits |= ((word[f] >> (uint32_t)((shift >> (8 * f)) & 31u)) & 1u) << f;
+  }
+  while (bits != 0u) {
+    const int f = __ffs(bits) - 1;
+    bits &= bits - 1u;
+    const int k = up ? c * 8 + f : c * 8 + 7 - f;
+    if (probe_plane<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx, inv_dy,
+                             inv_dz, k, t_start, t_end, excluded, t_hit, hx,
+                             hy)) {
+      hz = k;
+      return true;
+    }
+  }
+  return false;
+}
+
 // One sweep: first cell hit in plane order, with the column gate of Mip,
-// the exclusion of Excl and the column / t-range of Clip.
-template <bool PRIMARY, class Mip, class Excl, class Clip = NoClip>
+// the exclusion of Excl, the column / t-range of Clip and the column
+// descent of Descent.
+template <bool PRIMARY, class Mip, class Excl, class Clip = NoClip,
+          class Descent = EachPlane>
 __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
                       float inv_n, float cell_half, const Ray& r,
                       float t_start, float t_end, Excl excluded,
                       float& t_hit, int& hx, int& hy, int& hz,
-                      const Clip& clip = Clip{}) {
+                      const Clip& clip = Clip{},
+                      const Descent& descent = Descent{}) {
   if (!(r.dz > 0.0f) && !(r.dz < 0.0f)) return false;
   const bool up = r.dz > 0.0f;
   const float inv_dx = 1.0f / r.dx;
@@ -514,13 +614,21 @@ __device__ bool sweep(const uint32_t* __restrict__ vol, Mip mip, int n,
       if (c_hi < t0) continue;
     }
     if (!column_occupied(mip, r, fn, n, c, c_lo, c_hi)) continue;
-    for (int f = 0; f < 8; ++f) {
-      const int k = up ? c * 8 + f : c * 8 + 7 - f;
-      if (probe_plane<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx, inv_dy,
-                               inv_dz, k, t_start, t_end, excluded, t_hit, hx,
-                               hy)) {
-        hz = k;
+    if constexpr (Descent::kPrefetch) {
+      if (descend_prefetched<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx,
+                                      inv_dy, inv_dz, c, up, t_start, t_end,
+                                      excluded, t_hit, hx, hy, hz)) {
         return true;
+      }
+    } else {
+      for (int f = 0; f < 8; ++f) {
+        const int k = up ? c * 8 + f : c * 8 + 7 - f;
+        if (probe_plane<PRIMARY>(vol, n, fn, inv_n, cell_half, r, inv_dx,
+                                 inv_dy, inv_dz, k, t_start, t_end, excluded,
+                                 t_hit, hx, hy, descent)) {
+          hz = k;
+          return true;
+        }
       }
     }
   }

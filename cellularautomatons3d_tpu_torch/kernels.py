@@ -4,9 +4,10 @@ The sources are ``csrc/ca_step.cu`` (the CA step, on the whole grid or on
 one shard of a sharded grid), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
 ``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
-``csrc/prepass.cu`` (K6) and ``csrc/occupied_box.cu`` (the occupied box
-that K2's, K4's and K5's entry points enqueue before their kernels); all but
-the CA step and K3 share the traversal and float helpers in
+``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box
+that K2's, K4's and K5's entry points enqueue before their kernels) and
+``csrc/plane_occupancy.cu`` (the plane mip of K1's mip1 descent); all but
+the CA step, K3 and the plane mip share the traversal and float helpers in
 ``csrc/sweep.cuh``, K6 and K1 the patch mask of ``csrc/prepass.cuh``, and
 K5 and K3 read their per-query operands through the tables of
 ``csrc/queries.cuh``.
@@ -53,6 +54,7 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "shadow_multi.cu",
     PACKAGE_DIR / "csrc" / "prepass.cu",
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
+    PACKAGE_DIR / "csrc" / "plane_occupancy.cu",
 )
 HEADERS = tuple(PACKAGE_DIR / "csrc" / h for h in ("sweep.cuh", "queries.cuh", "prepass.cuh"))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
@@ -145,7 +147,7 @@ def library() -> ctypes.CDLL:
         lib.ca3d_ca_step_slab.restype = _I
         lib.ca3d_render_fast.argtypes = [
             _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-            _P, _I, _I, _I, _P,
+            _P, _I, _I, _I, _P, _I, _I, _P,
         ]
         lib.ca3d_render_fast.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
@@ -168,6 +170,8 @@ def library() -> ctypes.CDLL:
         lib.ca3d_prepass.restype = _I
         lib.ca3d_occupied_box.argtypes = [_I, _P, _I, _P, _P]
         lib.ca3d_occupied_box.restype = _I
+        lib.ca3d_plane_occupancy.argtypes = [_I, _P, _I, _P, _P]
+        lib.ca3d_plane_occupancy.restype = _I
         _lib = lib
     return _lib
 

@@ -5,6 +5,9 @@ bit per 8³-cell block, 32 blocks per word along x; and of its
 ``dilate_occupancy``, which the reference's patch prepass (K6) takes its
 mip from.  The port's K6 reads the undilated mip and dilates on read
 (:func:`dilated_bits`, ``csrc/prepass.cuh`` ``dilated_bit``).
+:func:`plane_occupancy` is the plane-level mip (one bit per 1×8×8 block, at
+full z resolution) that K1's opt-in ``CA3D_MIP1`` descent reads; on the
+card ``csrc/plane_occupancy.cu`` computes it (:func:`plane_occupancy_cuda`).
 
 Input:  packed ``[W, Z, Y]`` words (int32 holding uint32 bits).
 Output: ``[Zc, XG·Yc]`` words with Zc = Z/8, Yc = Y/8 and XG = ⌈W/8⌉
@@ -33,8 +36,9 @@ import torch
 from .. import kernels
 
 __all__ = [
-    "coarse_occupancy", "coarse_shape", "dilate_occupancy", "dilated_bits", "occupied_box",
-    "occupied_box_cuda", "BLOCK", "BOX_WORDS",
+    "coarse_occupancy", "coarse_shape", "plane_occupancy", "plane_occupancy_cuda",
+    "dilate_occupancy", "dilated_bits", "occupied_box", "occupied_box_cuda", "BLOCK",
+    "BOX_WORDS",
 ]
 
 BLOCK = 8  # downsample factor per axis
@@ -52,18 +56,65 @@ def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:
     if z % BLOCK or y % BLOCK:
         raise ValueError(f"grid extents must be multiples of {BLOCK}")
     zc, yc = z // BLOCK, y // BLOCK
-    xg = max(1, -(-w // BLOCK))
     # [W, Zc, 8, Yc, 8, 4 bytes] → any over the 8×8 (z, y) cells of a block.
     v = packed.contiguous().view(torch.uint8).reshape(w, zc, BLOCK, yc, BLOCK, 4)
-    occ = (v != 0).any(dim=4).any(dim=2)              # [W, Zc, Yc, 4]
-    occ = occ.permute(1, 2, 0, 3).reshape(zc, yc, w * 4)  # x-block = 4w + byte
+    return _pack_blocks((v != 0).any(dim=4).any(dim=2))
+
+
+def _pack_blocks(occ: torch.Tensor) -> torch.Tensor:
+    """[W, R, Yc, 4] block occupancy (x-block 4w + byte) → [R, XG·Yc] int32
+    words holding the uint32 bits, x-groups laid out group-major (bit ``xb
+    & 31`` of word ``(xb >> 5)·Yc + yc``); shared by the 8³ and the
+    plane-level mips."""
+    w, r, yc, _ = occ.shape
+    xg = max(1, -(-w // BLOCK))
+    occ = occ.permute(1, 2, 0, 3).reshape(r, yc, w * 4)  # x-block = 4w + byte
     if w * 4 < xg * 32:  # a partial last group (grids 288-480): empty blocks
         occ = torch.nn.functional.pad(occ, (0, xg * 32 - w * 4))
-    shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
-    words = (occ.reshape(zc, yc, xg, 32).to(torch.int64) << shifts).sum(-1)
+    shifts = torch.arange(32, dtype=torch.int64, device=occ.device)
+    words = (occ.reshape(r, yc, xg, 32).to(torch.int64) << shifts).sum(-1)
     # uint32 bits → int32 (two's complement), groups laid out group-major.
     words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    return words.permute(0, 2, 1).reshape(zc, xg * yc).contiguous()
+    return words.permute(0, 2, 1).reshape(r, xg * yc).contiguous()
+
+
+def plane_occupancy(packed: torch.Tensor) -> torch.Tensor:
+    """Plane-level block mip (the reference's ``plane_occupancy``): full z
+    resolution, 8× in x and y.  Returns ``[Z, XG·Yc]`` int32 words holding
+    the uint32 bits, in :func:`coarse_occupancy`'s group-major layout: bit
+    ``xb & 31`` of ``plane[z, (xb >> 5)·Yc + yb]`` = any live cell in the
+    1×8×8 block (z, xb, yb).  The 8 y-words of a block are ORed with three
+    pairwise ORs (torch has no OR-reduce), then each byte is an x-block.
+    Plain torch on the volume's device, as the reference computes it in
+    XLA; K1's mip1 descent (``csrc/sweep.cuh`` ``PlaneMip``) reads it.  The
+    plain twin of :func:`plane_occupancy_cuda`."""
+    w, z, y = packed.shape
+    if y % BLOCK:
+        raise ValueError(f"grid extents must be multiples of {BLOCK}")
+    v = packed.reshape(w, z, y // BLOCK, BLOCK)
+    v = v[..., :4] | v[..., 4:]
+    v = v[..., :2] | v[..., 2:]
+    v = v[..., 0] | v[..., 1]  # [W, Z, Yc]
+    return _pack_blocks(v.contiguous().view(torch.uint8).reshape(w, z, y // BLOCK, 4) != 0)
+
+
+def plane_occupancy_cuda(packed: torch.Tensor) -> torch.Tensor:
+    """:func:`plane_occupancy` on the card in one launch
+    (``csrc/plane_occupancy.cu``, a thread an output word); ``packed`` must
+    be a contiguous, 16-byte aligned CUDA tensor [n/32, n, n], n ≤ 1024."""
+    n = packed.shape[-1]
+    kernels.require(packed, "packed", torch.int32, (n // 32, n, n), align=16)
+    out = torch.empty((n, -(-n // 256) * (n // BLOCK)), dtype=torch.int32,
+                      device=packed.device)
+    err = kernels.library().ca3d_plane_occupancy(
+        packed.device.index or 0, packed.data_ptr(), n, out.data_ptr(),
+        kernels.stream_of(packed))
+    kernels.check(err, "plane_occupancy")
+    plane_occupancy_cuda.launches += 1
+    return out
+
+
+plane_occupancy_cuda.launches = 0
 
 
 def dilate_occupancy(coarse: torch.Tensor, dilate_z: bool = True,

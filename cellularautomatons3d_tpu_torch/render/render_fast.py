@@ -43,6 +43,35 @@ unit t, which holds from ~1014 window rows up (1080p); on a smaller window
 :func:`mask_gate_forced` is true and the gate descends every column (the
 reference's tile-wide descent hides this; a per-pixel gate does not).
 
+The reference's three opt-in traversal options, each exact (every frame
+equals the default's), are read by :func:`raytrace_tiles` from the
+environment at every call, as the reference reads them at trace time, so
+the Engine, the fused loop and the viewer follow them without a restart:
+
+* ``CA3D_MIP1=1``: each probe of a descended column first tests its
+  1×8×8 block in the plane mip (``ops.occupancy.plane_occupancy``) and
+  fetches the fine word only where that block is occupied; both sweeps.
+  The reference probes one unclamped midpoint block per lane group and so
+  reads the mip dilated in x and y; a thread here tests its probe's own
+  clamped cell, so the kernel and the twin read the undilated mip.
+* ``CA3D_SLICEGATE=1``: each descended column's in-segment plane words
+  are loaded before any is tested, then the hit pass walks them in plane
+  order (the reference gathers the column's flagged slices into a scratch,
+  then consumes it); both sweeps.  It switches ``CA3D_MIP1`` off, as in
+  the reference.
+* ``CA3D_ALIVE_GATE=1`` needs no variable here: the reference's sticky
+  any-ray-alive scalar skips a tile's later column groups once none of its
+  rays is alive; a thread of K1 leaves its column loop at its own hit and a
+  warp when its last live lane does, which is that gate at 32 lanes.
+
+On the card each option is its own instantiation of K1
+(:func:`raytrace_cuda` with ``mip1`` or ``slicegate``).  The plain twin
+gates by the plane mip (the bit of each probe's cell); it needs no form of
+the other two, since it fetches every plane's word and keeps the first hit.
+:func:`raytrace_cuda` with ``column_skip=False`` runs K1 with every column
+of the occupied box descended (the coarse mip reports every column
+occupied), to measure what the column skip saves; no frame path sets it.
+
 ``no_sweep`` (both implementations) skips both sweeps -- nothing is hit and
 nothing is shadowed, so the frame is that of an empty volume -- to time the
 ray set-up, composition and stores alone (the reference's
@@ -58,11 +87,14 @@ min/max propagate NaN.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import dilate_occupancy, dilated_bits
+from ..ops.occupancy import (
+    dilate_occupancy, dilated_bits, plane_occupancy, plane_occupancy_cuda)
 
 __all__ = [
     "raytrace_tiles",
@@ -73,6 +105,7 @@ __all__ = [
     "prepass_columns",
     "prepass_mask",
     "mask_gate_forced",
+    "descent_options",
     "PATCH",
     "P_LEN",
     "pack_cam",
@@ -212,7 +245,7 @@ def _pixel_rays(cam, width, height, device):
 
 
 def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
-           colmask=None, forced=False):
+           colmask=None, forced=False, mip1=None):
     """One plane-midpoint sweep over every z-plane, all pixels at once.
 
     ``exclude`` is None for the primary sweep (accept tN ≤ tF ∧ tF ≥
@@ -222,7 +255,14 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
     prepass mask [H, W] int32; plane k is then probed only if its 8-plane
     column c = k // 8 passes K1's mask gate (a non-empty clipped column
     segment, and bit c set, a steep ray or ``forced``: see
-    :func:`mask_gate_forced`).  Returns (found, t, hx, hy, hz)."""
+    :func:`mask_gate_forced`).  ``mip1``: the plane mip
+    (:func:`~cellularautomatons3d_tpu_torch.ops.occupancy.plane_occupancy`);
+    a probe then counts only where bit (cx >> 3, cy >> 3) of its plane is
+    set, (cx, cy) its own clamped cell: the mip1 descent's gate, exact on
+    the undilated mip.  The slice-gated descent and the any-ray-alive gate
+    need no twin: this sweep fetches every plane's word and keeps the first
+    hit, which is what those descents compute.  Returns (found, t, hx, hy,
+    hz)."""
     ox, oy, oz = o
     dx, dy, dz = d
     inv_n = float(np.float32(1.0 / n))
@@ -261,6 +301,10 @@ def _sweep(vol_flat, n, cell_half, o, d, t_start, t_end, active, exclude=None,
         cy = torch.where(seg_ok, cyf, 0.0).to(torch.int32)
         word = vol_flat[((cx >> 5) * (n * n) + kk * n + cy).long()]
         cand = seg_ok & (((word >> (cx & 31)) & 1) == 1)
+        if mip1 is not None:
+            at = kk * mip1.shape[1] + (cx >> 8) * (n // 8) + (cy >> 3)
+            block = mip1.reshape(-1)[at.long()]
+            cand = cand & (((block >> ((cx >> 3) & 31)) & 1) == 1)
         if isinstance(exclude, torch.Tensor):
             cand = cand & ((cx + cy * n + kk * (n * n)) != exclude)
         elif exclude is not None:
@@ -351,6 +395,12 @@ def _age_fade(age, total_states):
     return torch.clamp(num / torch.full_like(num, float(total_states - 1)), 0.0, 1.0)
 
 
+def _check_plane_mip(mip1, n):
+    if tuple(mip1.shape) != (n, n // 8) or mip1.dtype != torch.int32:
+        raise ValueError(f"mip1 must be the int32 plane mip [{n}, {n // 8}], got "
+                         f"{mip1.dtype} {tuple(mip1.shape)}")
+
+
 def _check_ages(ages, vol, total_states=2):
     if ages.ndim != 4 or tuple(ages.shape[1:]) != tuple(vol.shape) or total_states < 2:
         raise ValueError(
@@ -359,13 +409,14 @@ def _check_ages(ages, vol, total_states=2):
         )
 
 
-def _primary(vol, cam, n, width, height, colmask=None, ages=None, no_sweep=False):
+def _primary(vol, cam, n, width, height, colmask=None, ages=None, no_sweep=False, mip1=None):
     """Camera rays, volume entry and exit, and the primary sweep of every
     pixel: ((ux, o, d, active, tf), (found, t, hx, hy, hz), age), each [H,
     W] (o and d are xyz triples).  ``colmask``: the prepass's patch masks
     [⌈H/8⌉, ⌈W/8⌉], which then gate the sweep's columns.  ``ages``: the age
     bit-planes; ``age`` is then each hit's age (:func:`_hit_ages`), else
-    None.  ``no_sweep``: no sweep, nothing found."""
+    None.  ``no_sweep``: no sweep, nothing found.  ``mip1``: the plane mip
+    that gates the sweep's probes (:func:`_sweep`)."""
     dev = vol.device
     f = lambda i: float(cam[i])  # noqa: E731
     cell_half = float(np.float32(1.0 / n) * cam[P_CELLMUL] * np.float32(0.5))
@@ -385,13 +436,15 @@ def _primary(vol, cam, n, width, height, colmask=None, ages=None, no_sweep=False
         hits = (torch.zeros_like(active), torch.zeros_like(dx), zero, zero, zero)
     else:
         hits = _sweep(vol.reshape(-1), n, cell_half, o, d, t_start, tf, active,
-                      colmask=colmask, forced=colmask is not None and mask_gate_forced(cam))
+                      colmask=colmask, forced=colmask is not None and mask_gate_forced(cam),
+                      mip1=mip1)
     age = None if ages is None else _hit_ages(ages, n, hits[0], *hits[2:])
     return (ux, o, d, active, tf), hits, age
 
 
 def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
-             shadow=True, colmask=None, ages=None, total_states=2, no_sweep=False):
+             shadow=True, colmask=None, ages=None, total_states=2, no_sweep=False,
+             mip1=None):
     """Plain torch K1 (the kernel's reference; ``coarse`` is unused).
 
     Without ``history``: returns (rgb [H,W,3] linear light, depth [H,W],
@@ -404,18 +457,24 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
     int32 [B, n/32, n, n] of a rule with ``total_states`` > 2, of which
     ``vol`` is the visibility plane; the hit's age then fades the direct
     term (with ``shadow=False``: the unshadowed but faded direct term).
-    ``no_sweep``: skip both sweeps (the frame of an empty volume)."""
+    ``no_sweep``: skip both sweeps (the frame of an empty volume).
+    ``mip1``: the plane mip int32 [n, n/8] of ``vol``
+    (:func:`~cellularautomatons3d_tpu_torch.ops.occupancy.plane_occupancy`),
+    which then gates both sweeps' probes (the twin of the card's mip1
+    descent; the frame is the same)."""
     cam = _check_args(grid_size, width, height, cam)
     n = grid_size
     if ages is not None:
         _check_ages(ages, vol, total_states)
+    if mip1 is not None:
+        _check_plane_mip(mip1, n)
     f = lambda i: float(cam[i])  # noqa: E731
     vol_flat = vol.reshape(-1)
     inv_n = float(np.float32(1.0 / n))
     cell_half = float(np.float32(inv_n) * cam[P_CELLMUL] * np.float32(0.5))
 
     (ux, (ox, oy, oz), (dx, dy, dz), active, tf), (found, t_hit, hx, hy, hz), age = (
-        _primary(vol, cam, n, width, height, colmask, ages, no_sweep)
+        _primary(vol, cam, n, width, height, colmask, ages, no_sweep, mip1)
     )
     depth = torch.where(found, t_hit, torch.where(active, tf, 0.0))
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
@@ -430,7 +489,7 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
         )
         occluded = _sweep(
             vol_flat, n, cell_half, (qx, qy, qz), (sdx, sdy, sdz),
-            torch.zeros_like(sh_tf), sh_tf, found, exclude=(hx, hy, hz),
+            torch.zeros_like(sh_tf), sh_tf, found, exclude=(hx, hy, hz), mip1=mip1,
         )[0]
         occl = torch.where(occluded, OCCLUDED, 1.0)
     co = [(h.to(torch.float32) + 0.5) * inv_n - 0.5 for h in (hx, hy, hz)]
@@ -490,17 +549,34 @@ def raytrace(vol, coarse, cam, history=None, *, grid_size, width, height,
 
 def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
                   shadow=True, colmask=None, prepass=False, ages=None, total_states=2,
-                  no_sweep=False):
+                  no_sweep=False, mip1=None, slicegate=False, column_skip=True):
     """K1 on the card (``csrc/render_fast.cu``): same contract as
     :func:`raytrace`; every tensor must be a contiguous CUDA tensor.
     ``prepass``: gate the primary sweep by the patch masks K1 computes
     itself from ``coarse`` (the frame of ``colmask=prepass_mask(...)`` in
     one launch); not with ``colmask`` or ``no_sweep``.  Such launches are
     also counted in ``raytrace_cuda.prepass_launches``, and compose-mode
-    launches (with ``history``) in ``raytrace_cuda.compose_launches``."""
+    launches (with ``history``) in ``raytrace_cuda.compose_launches``.
+
+    The descents (the frame is the same in every one): ``mip1``, the plane
+    mip int32 [n, n/8] of ``vol`` (``ops.occupancy.plane_occupancy``), gates
+    each probe's fine fetch by its block's bit; ``slicegate`` loads each
+    descended column's plane words before testing them; ``column_skip=False``
+    descends every column of the occupied box (the attribution run of the
+    coarse column skip).  At most one of them, with or without ``prepass``
+    (``column_skip=False`` without), never with ``colmask`` or
+    ``no_sweep``; their launches are also counted in
+    ``raytrace_cuda.mip1_launches``, ``slicegate_launches`` and
+    ``noskip_launches``."""
     cam = _check_args(grid_size, width, height, cam)
     if prepass and (colmask is not None or no_sweep):
         raise ValueError("prepass computes the masks: no colmask, no no_sweep")
+    options = (mip1 is not None) + bool(slicegate) + (not column_skip)
+    if options > 1:
+        raise ValueError("mip1, slicegate and column_skip=False are separate descents")
+    if options and (colmask is not None or no_sweep or (prepass and not column_skip)):
+        raise ValueError("the descent options run with or without prepass only "
+                         "(column_skip=False without it), never with colmask or no_sweep")
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     age_bits = 0
@@ -511,6 +587,8 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
     kernels.require(coarse, "coarse", torch.int32, (n // 8, n // 8))
     if colmask is not None:
         kernels.require(colmask, "colmask", torch.int32, _patch_grid(width, height))
+    if mip1 is not None:
+        kernels.require(mip1, "mip1", torch.int32, (n, n // 8))
     lib = kernels.library()
     dev = vol.device
     out_rgb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -533,12 +611,16 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
         ptrs[0], ptrs[1], out_rgb.data_ptr(), depth.data_ptr(),
         idx.data_ptr(), ptrs[2],
         None if ages is None else ages.data_ptr(), age_bits, total_states,
-        int(no_sweep), kernels.stream_of(vol),
+        int(no_sweep), None if mip1 is None else mip1.data_ptr(), int(bool(slicegate)),
+        int(bool(column_skip)), kernels.stream_of(vol),
     )
     kernels.check(err, "render_fast")
     raytrace_cuda.launches += 1
     raytrace_cuda.prepass_launches += int(prepass)
     raytrace_cuda.compose_launches += int(history is not None)
+    raytrace_cuda.mip1_launches += int(mip1 is not None)
+    raytrace_cuda.slicegate_launches += int(bool(slicegate))
+    raytrace_cuda.noskip_launches += int(not column_skip)
     if history is None:
         return out_rgb, depth, idx
     return out_rgb, depth, idx, new_hist
@@ -547,6 +629,9 @@ def raytrace_cuda(vol, coarse, cam, history=None, *, grid_size, width, height,
 raytrace_cuda.launches = 0
 raytrace_cuda.prepass_launches = 0
 raytrace_cuda.compose_launches = 0
+raytrace_cuda.mip1_launches = 0
+raytrace_cuda.slicegate_launches = 0
+raytrace_cuda.noskip_launches = 0
 
 
 # ------------------------------------------------------- K6: prepass ---
@@ -706,9 +791,21 @@ def prepass_mask(coarse, cam, *, grid_size, width, height):
     return prepass(coarse_pre, cam, **kw)
 
 
+def descent_options(mip1=None, slicegate=None) -> tuple[bool, bool]:
+    """K1's (mip1, slicegate) descent: each argument left None is read from
+    the environment now (``CA3D_MIP1``, ``CA3D_SLICEGATE``: ``1`` is on), as
+    the reference reads them at trace time; slicegate switches mip1 off
+    (render_fast.py:1441-1443)."""
+    if slicegate is None:
+        slicegate = os.environ.get("CA3D_SLICEGATE", "0") == "1"
+    if mip1 is None:
+        mip1 = os.environ.get("CA3D_MIP1", "0") == "1"
+    return bool(mip1) and not slicegate, bool(slicegate)
+
+
 def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
                    height, shadow=True, use_prepass=False, ages=None,
-                   total_states=2):
+                   total_states=2, mip1=None, slicegate=None):
     """Trace (and with ``history``, compose) one frame: the plain version
     for a CPU volume, the CUDA kernel for any other.  ``use_prepass``: gate
     the primary sweep by the patch prepass's column masks (every column
@@ -716,11 +813,20 @@ def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
     CPU the masks are :func:`prepass_mask`'s; on the card K1 computes them
     itself, so the frame is one launch.  ``ages`` / ``total_states``: the
     age bit-planes of a multi-state rule (``vol`` is then its visibility
-    plane), whose hit ages fade the direct term."""
+    plane), whose hit ages fade the direct term.  ``mip1`` / ``slicegate``:
+    K1's opt-in descents (module docstring), read from ``CA3D_MIP1`` /
+    ``CA3D_SLICEGATE`` at this call where None (:func:`descent_options`);
+    with mip1 the frame computes the plane mip of ``vol`` (on the card
+    ``plane_occupancy_cuda``, one launch); on the CPU slicegate changes
+    nothing (the plain sweep needs no form of it)."""
     kw = dict(grid_size=grid_size, width=width, height=height, shadow=shadow, ages=ages,
               total_states=total_states)
+    mip1, slicegate = descent_options(mip1, slicegate)
     if vol.device.type != "cpu":
-        return raytrace_cuda(vol, coarse, cam, history, prepass=use_prepass, **kw)
+        return raytrace_cuda(vol, coarse, cam, history, prepass=use_prepass,
+                             mip1=plane_occupancy_cuda(vol) if mip1 else None,
+                             slicegate=slicegate, **kw)
     colmask = (prepass_mask(coarse, cam, grid_size=grid_size, width=width, height=height)
                if use_prepass else None)
-    return raytrace(vol, coarse, cam, history, colmask=colmask, **kw)
+    return raytrace(vol, coarse, cam, history, colmask=colmask,
+                    mip1=plane_occupancy(vol) if mip1 else None, **kw)

@@ -63,7 +63,9 @@ def cuda_time_fn(fn, *args, reps: int = 10, warmup: int = 2, device=None,
     device's alone: the stream first sleeps until every call is enqueued,
     which the timer checks (the start event must still be pending once the
     last call is in), doubling the sleep until it holds; ``fn`` must not
-    synchronise.  Needs a CUDA device."""
+    synchronise, and ``reps`` calls must not launch more kernels than the
+    stream queues while it sleeps (600 could, 2,400 could not on an H100).
+    Needs a CUDA device."""
     for _ in range(warmup):
         fn(*args, **kwargs)
     torch.cuda.synchronize(device)

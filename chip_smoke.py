@@ -178,6 +178,18 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       with its bound, the multi-state slab step, mesh render() and
       run_fused frames at 512³ and 256³).  On one card these
       are the cost of the decomposition, not a scaling.
+  (m) K1's descents (run right after (c)): the plane mip's kernel
+      (``csrc/plane_occupancy.cu``) against ``plane_occupancy``, bit for bit,
+      on random volumes at 32³ to 1024³; on the gen-80, gen-230 and
+      ``pyroclastic`` gen-160 scenes of ``Engine(256)`` at 1920×1080, K1 in
+      both modes with mip1, slicegate, each with the prepass, and the column
+      skip off, bit for bit against the default kernel and within the
+      contract of the plain twin; ``Engine.run_fused(10, reset_every=10)``
+      under ``CA3D_MIP1=1`` and ``CA3D_SLICEGATE=1`` equal to the default
+      Engine's, every counter set to 0 before each and read after (10 launches
+      of the mode, and of the plane mip under mip1); the attribution run
+      without the column skip; then each mode alternated with the default and
+      the plane mip with its twin, by CUDA events and by the device's time.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -2120,6 +2132,236 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
     return out
 
 
+# ------------------------------------------------- (m) K1's descent options ---
+# The scenes at full width: (name, Engine overrides, generations).
+OPTION_SCENES = (
+    ("gen-80", {}, 80),
+    ("gen-230", {}, 230),
+    ("pyroclastic gen-160", dict(random_initial_state=True), 160),
+)
+# K1's modes: (name, raytrace_cuda options; "mip1" is replaced by the plane mip).
+K1_MODES = {
+    "default": {},
+    "mip1": dict(mip1=True),
+    "slicegate": dict(slicegate=True),
+    "mip1_prepass": dict(mip1=True, prepass=True),
+    "slicegate_prepass": dict(slicegate=True, prepass=True),
+    "noskip": dict(column_skip=False),
+}
+K1_OPTION_VARIABLES = {"mip1": "CA3D_MIP1", "slicegate": "CA3D_SLICEGATE"}
+
+
+def k1_registers(log_text) -> dict:
+    """ptxas's registers and spill bytes of each K1 instantiation,
+    ``render_kernel<COMPOSE, MASK, NO_SWEEP, OPT>``, from the build log."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( for|$)",
+                      line)
+        if m:
+            k = re.search(r"render_kernelILb(\d)ELi(\d)ELb(\d)ELi(\d)E", m.group(1))
+            name = "render_kernel<%s,%s,%s,%s>" % k.groups() if k else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compare) -> dict:
+    """Phase (m): K1's descent options at full width, 256³ / 1920×1080 on the
+    gen-80, gen-230 and ``pyroclastic`` gen-160 scenes of ``Engine(256)``:
+    every mode (mip1, slicegate, each with the prepass, and the column skip
+    off) in both modes of K1 bit for bit against the default kernel and within
+    the contract of its plain twin; ``Engine.run_fused(10, reset_every=10)``
+    under ``CA3D_MIP1=1`` and ``CA3D_SLICEGATE=1`` against the default Engine,
+    every counter set to 0 just before each and read just after; the column
+    skip's attribution run; then the times of each mode alternated with the
+    default (default, mode, mode, default; CUDA events and the device's
+    time); the plane mip's kernel against its plain twin ``plane_occupancy``,
+    bit for bit, on every scene and on random volumes at 32³ to 1024³, and
+    both timed.  (No torch.profiler trace here: a trace this early makes phase
+    (g)'s later one drop kernel events.)"""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        plane_occupancy, plane_occupancy_cuda)
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+
+    dev = torch.device("cuda", 0)
+    out = {"checks": {}, "launches": {}, "errors": {}, "timings": {}, "plain_ms": {}}
+    counters = ("launches", "compose_launches", "prepass_launches", "mip1_launches",
+                "slicegate_launches", "noskip_launches")
+
+    def reset():
+        for c in counters:
+            setattr(rf.raytrace_cuda, c, 0)
+        ca_step.fires_plane_cuda.launches = 0
+        plane_occupancy_cuda.launches = 0
+
+    def read():
+        counts = {c: getattr(rf.raytrace_cuda, c) for c in counters}
+        counts["plane_occupancy_cuda"] = plane_occupancy_cuda.launches
+        return counts
+
+    # The plane mip's kernel against its plain twin on random volumes (two
+    # x-groups, the last partial, at 320³; four at 1024³).
+    g = torch.Generator(dev).manual_seed(13)
+    for size in (32, 96, 256, 320, 1024):
+        for p_live in (0.0, 0.0005, 0.05, 1.0):
+            shape = (size // 32, size, size)
+            if p_live == 1.0:
+                words = torch.full(shape, -1, dtype=torch.int32, device=dev)
+            else:
+                words = torch.zeros(shape, dtype=torch.int32, device=dev)
+                for b in range(32):  # bit b of every word, live with p_live
+                    live = torch.rand(shape, device=dev, generator=g) < p_live
+                    words |= live.to(torch.int32) << b
+            got, want = plane_occupancy_cuda(words), plane_occupancy(words)
+            need(torch.equal(got, want), f"(m) plane_occupancy kernel != plain at {size}^3 "
+                 f"density {p_live}")
+            del words
+    log("(m) the plane mip's kernel == plane_occupancy, bit for bit, at 32^3 to 1024^3")
+
+    scenes = {}
+    t0 = time.perf_counter()
+    for name, overrides, steps in OPTION_SCENES:
+        preset = ct.PRESETS["pyroclastic"] if "pyroclastic" in name else {}
+        eng = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda",
+                        **preset, **overrides)
+        eng.step(steps)
+        vis = ca_step.visibility_plane(eng.state, eng.spec)
+        ages = eng.state if eng.spec.total_states > 2 else None
+        scenes[name] = (vis, ages, eng.spec.total_states)
+    cam = scene_cam(views["front"], WIDTH, HEIGHT)
+    kw0 = dict(grid_size=GRID, width=WIDTH, height=HEIGHT, shadow=True)
+    timed = {}
+    for name, (vis, ages, states) in scenes.items():
+        coarse, plane = occupancy.coarse_occupancy(vis), plane_occupancy(vis)
+        need(torch.equal(plane_occupancy_cuda(vis), plane),
+             f"(m) plane_occupancy kernel != plain on {name}")
+        kw = dict(kw0, ages=ages, total_states=states)
+        base = rf.raytrace_cuda(vis, coarse, cam, **kw)
+        keep = torch.rand(base[2].shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(7)) < 0.7
+        hist = (torch.clamp(base[0] * 1.5 + 0.02, 0.0, 1.0).contiguous(),
+                torch.where(keep, base[2], base[2] + 1).contiguous())
+        mask = rf.prepass_mask(coarse, cam, grid_size=GRID, width=WIDTH, height=HEIGHT)
+        plain = {}
+        for history in (None, hist):
+            mode_tag = "compose" if history is not None else "non-compose"
+            ref = rf.raytrace_cuda(vis, coarse, cam, history, **kw)
+            for mode, options in K1_MODES.items():
+                if mode == "default":
+                    continue
+                opts = dict(options)
+                if opts.pop("mip1", False):
+                    opts["mip1"] = plane
+                got = rf.raytrace_cuda(vis, coarse, cam, history, **opts, **kw)
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+                # The plain twin: with the plane mip for mip1, with the plain
+                # prepass masks for the prepass modes.
+                key = (history is not None, "mip1" in opts, bool(opts.get("prepass")))
+                if key not in plain:
+                    t1 = time.perf_counter()
+                    plain[key] = rf.raytrace(vis, None, cam, history,
+                                             colmask=mask if key[2] else None,
+                                             mip1=plane if key[1] else None, **kw)
+                    torch.cuda.synchronize()
+                    out["plain_ms"][f"{name} {mode_tag} {key}"] = (time.perf_counter() - t1) * 1e3
+                err, frac = compare(f"(m) {name} {mode_tag} {mode} vs plain", got, plain[key])
+                need(equal, f"(m) {name} {mode_tag}: K1 {mode} != the default kernel")
+                out["checks"][f"{name} {mode_tag} {mode}"] = dict(bit_equal=equal, err=err,
+                                                                  id_mismatch=frac)
+                out["errors"][mode] = max(out["errors"].get(mode, 0.0), err)
+        timed[name] = (vis, coarse, plane, hist, kw)
+    log(f"(m) K1's modes == the default kernel, bit for bit, on {len(scenes)} scenes x 2 modes "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # The Engine under each variable against the default Engine: the fused
+    # loop of 10 frames from gen-80, every counter set to 0 just before each
+    # run and read just after.
+    runs = {}
+    for variable in (None, *K1_OPTION_VARIABLES.values()):
+        with contextlib.ExitStack() as stack:
+            if variable is not None:
+                stack.enter_context(env_var(variable, "1"))
+            eng = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda").step(80)
+            torch.cuda.synchronize()
+            reset()
+            frame = eng.run_fused(10, reset_every=10)
+            torch.cuda.synchronize()
+            counts = read()
+            counts["ca_step"] = ca_step.fires_plane_cuda.launches
+        runs[variable or "default"] = (frame, eng.history.color, eng.history.hit_idx, eng.state)
+        out["launches"][variable or "default"] = counts
+        log(f"  Engine run_fused(10, reset_every=10) under {variable or 'no variable'}: "
+            f"launches {counts}")
+    for variable in K1_OPTION_VARIABLES.values():
+        need(all(torch.equal(a, b) for a, b in zip(runs[variable], runs["default"])),
+             f"(m) the Engine's fused frames under {variable} != without it")
+    need(out["launches"]["default"]["launches"] == 10 and
+         out["launches"]["default"]["mip1_launches"] == 0 and
+         out["launches"]["default"]["slicegate_launches"] == 0,
+         f"(m) the default Engine's K1 launches: {out['launches']['default']}")
+    for mode, variable in K1_OPTION_VARIABLES.items():
+        c = out["launches"][variable]
+        need(c["launches"] == 10 and c[f"{mode}_launches"] == 10 and c["compose_launches"] == 10,
+             f"(m) under {variable} the fused loop did not run K1's {mode} mode: {c}")
+        need(c["plane_occupancy_cuda"] == (10 if mode == "mip1" else 0),
+             f"(m) under {variable}: plane mip launches {c}")
+    # The column skip's attribution run: K1 without it, composing 10 frames of
+    # the gen-80 scene, as a timing split would.
+    vis, coarse, plane, hist, kw = timed["gen-80"]
+    reset()
+    for _ in range(10):
+        rf.raytrace_cuda(vis, coarse, cam, hist, column_skip=False, **kw)
+    torch.cuda.synchronize()
+    out["launches"]["column_skip_off"] = read()
+    need(out["launches"]["column_skip_off"]["noskip_launches"] == 10,
+         f"(m) the attribution run missed K1's noskip mode: {out['launches']['column_skip_off']}")
+    log(f"  the column skip's attribution run: {out['launches']['column_skip_off']}")
+
+    # Times, compose mode: each mode alternated with the default (default,
+    # mode, mode, default), CUDA events and the device's time.
+    tm = out["timings"]
+    for name, (vis, coarse, plane, hist, kw) in timed.items():
+        calls = {}
+        for mode, options in K1_MODES.items():
+            opts = dict(options)
+            if opts.pop("mip1", False):
+                opts["mip1"] = plane
+            calls[mode] = (lambda o=opts: rf.raytrace_cuda(vis, coarse, cam, hist, **o, **kw))
+        for mode in K1_MODES:
+            if mode == "default":
+                continue
+            for label, queued in (("events", False), ("device", True)):
+                reads = [cuda_time_fn(calls[m], reps=50, warmup=3, queued=queued)
+                         for m in ("default", mode, mode, "default")]
+                tm[f"k1_{mode}_{name}_{label}_reads_ms"] = reads
+                tm[f"k1_{mode}_{name}_{label}_ms"] = (reads[1] + reads[2]) / 2
+                tm[f"k1_default_vs_{mode}_{name}_{label}_ms"] = (reads[0] + reads[3]) / 2
+        # The plane mip: the kernel alternated with its plain twin (50 calls:
+        # queued, the twin's ~600 launches must fit the stream's queue while
+        # it sleeps; 200 calls could not be enqueued).
+        calls = {"kernel": lambda: plane_occupancy_cuda(vis), "plain": lambda: plane_occupancy(vis)}
+        for label, queued in (("events", False), ("device", True)):
+            reads = [cuda_time_fn(calls[m], reps=50, warmup=5, queued=queued)
+                     for m in ("plain", "kernel", "kernel", "plain")]
+            tm[f"plane_occupancy_{name}_{label}_reads_ms"] = reads
+            tm[f"plane_occupancy_{name}_{label}_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"plane_occupancy_plain_{name}_{label}_ms"] = (reads[0] + reads[3]) / 2
+    for k, v in tm.items():
+        log(f"  {k}: {v}")
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -2157,6 +2399,10 @@ def main() -> dict:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    report["k1_registers"] = k1_registers(lib_path.with_suffix(".log").read_text())
+    log(f"  K1 instantiations <COMPOSE, MASK, NO_SWEEP, OPT>: {report['k1_registers']}")
+    need(len(report["k1_registers"]) == 18, f"K1 has {len(report['k1_registers'])} instantiations "
+         "in the build log, not 18")
 
     def to_dev(words):
         return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
@@ -2378,6 +2624,10 @@ def main() -> dict:
     log(f"(c) main path: step(80), render() x2, run_fused(150, reset_every=10) "
         f"in {main_s:.2f} s; launches {launches}; hit fraction {hits:.3f}")
     report["launches"] = launches
+
+    # ------------------------------------------- (m) K1's descent options ---
+    options = options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compare)
+    report["k1_options"] = options
 
     # --------------------------------- (e) extended lighting: K2 and K3 ---
     def lighting_operands(size, w, h, steps=80, vol=None):
@@ -2798,10 +3048,14 @@ def main() -> dict:
     bounds["primary_sweep_full_box_512"] = bound(mip_bytes(512) + px * 8,
                                                  act * OPS_RAY + cols * OPS_COLUMN)
     bounds.update(mesh["bounds"])
+    # The plane mip at 256³: the volume read once, the mip written once; an
+    # OR a word and a byte test a word and byte.
+    bounds["plane_occupancy"] = bound(GRID**3 // 8 + GRID * (GRID // 8) * 4,
+                                      GRID**3 // 32 * 5)
     report["bounds"] = bounds
 
-    def entry(name, source, replaces, launches, err, ms, plain):
-        b = bounds[name]
+    def entry(name, source, replaces, launches, err, ms, plain, bound_name=None):
+        b = bounds[bound_name or name]
         return {"name": name, "route": "cuda",
                 "source": f"cellularautomatons3d_tpu_torch/csrc/{source}",
                 "replaces": f"cellularautomatons3d_tpu/{replaces}",
@@ -2828,6 +3082,28 @@ def main() -> dict:
         entry("render_fast", "render_fast.cu", "render/render_fast.py:1018",
               launches["render_fast"] + total("raytrace_cuda", *ms_launches),
               max(k1_err, ms["k1_max_abs_err"]), k1_ms, k1_plain_ms),
+        # K1's opt-in descents (phase (m), gen-80, compose): the launches of
+        # the fused loop under CA3D_MIP1 / CA3D_SLICEGATE and of the column
+        # skip's attribution run; plain = the twin (with the plane mip for
+        # mip1) on the same frame; the bound is K1's, the same work.
+        entry("render_fast_mip1", "render_fast.cu", "render/render_fast.py:726",
+              options["launches"]["CA3D_MIP1"]["mip1_launches"],
+              max(options["errors"]["mip1"], options["errors"]["mip1_prepass"]),
+              options["timings"]["k1_mip1_gen-80_events_ms"],
+              options["plain_ms"]["gen-80 compose (True, True, False)"], bound_name="render_fast"),
+        entry("render_fast_slicegate", "render_fast.cu", "render/render_fast.py:632",
+              options["launches"]["CA3D_SLICEGATE"]["slicegate_launches"],
+              max(options["errors"]["slicegate"], options["errors"]["slicegate_prepass"]),
+              options["timings"]["k1_slicegate_gen-80_events_ms"],
+              options["plain_ms"]["gen-80 compose (True, False, False)"], bound_name="render_fast"),
+        entry("plane_occupancy", "plane_occupancy.cu", "ops/occupancy.py:72",
+              options["launches"]["CA3D_MIP1"]["plane_occupancy_cuda"], 0.0,
+              options["timings"]["plane_occupancy_gen-80_events_ms"],
+              options["timings"]["plane_occupancy_plain_gen-80_events_ms"]),
+        entry("render_fast_noskip", "render_fast.cu", "render/render_fast.py:1420",
+              options["launches"]["column_skip_off"]["noskip_launches"],
+              options["errors"]["noskip"], options["timings"]["k1_noskip_gen-80_events_ms"],
+              options["plain_ms"]["gen-80 compose (True, False, False)"], bound_name="render_fast"),
         entry("shadow_sweep", "shadow_sweep.cu", "render/render_slab.py:354",
               total("shadow_sweep_cuda", *lighting_launches.values(),
                     *sliced_launches.values(), *ms_launches),

@@ -1182,3 +1182,86 @@ def test_cuda_time_fn_queued_reads_the_device(cuda):
     assert queued == pytest.approx(events, rel=0.25)
     with pytest.raises(RuntimeError, match="could not enqueue"):
         cuda_time_fn(lambda: torch.cuda.synchronize(), reps=2, warmup=0, queued=True)
+
+
+K1_OPTIONS = {
+    "mip1": dict(mip1=True), "slicegate": dict(slicegate=True),
+    "mip1_prepass": dict(mip1=True, prepass=True),
+    "slicegate_prepass": dict(slicegate=True, prepass=True),
+    "noskip": dict(column_skip=False),
+}
+
+
+@pytest.mark.parametrize("compose", [False, True])
+@pytest.mark.parametrize("option", list(K1_OPTIONS))
+@pytest.mark.parametrize("window", ["small", "band"])
+def test_k1_descent_options_equal_default(cuda, window, option, compose):
+    """K1's descents (the plane-mip gate, the prefetched column, every
+    column descended) render the default kernel's frame bit for bit (the
+    prepass kernel's, with ``prepass``), and the plain twin's within the
+    contract, with ages too; each counts its launch."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import plane_occupancy
+
+    vol = random_volume(cuda, 5, 0.05)
+    coarse = coarse_occupancy(vol)
+    if window == "small":
+        w, h = W, H
+        cam = rf.pack_cam(VIEWS["oblique"], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                          (0.17,) * 3, (0.0,) * 3)
+    else:
+        w, h = BAND["width"], BAND["height"]
+        cam = _band_cam("oblique")
+    g = torch.Generator(cuda).manual_seed(4)
+    ages = torch.randint(-2**31, 2**31 - 1, (3, *vol.shape), dtype=torch.int32, device=cuda,
+                         generator=g) & vol
+    options = dict(K1_OPTIONS[option])
+    if options.pop("mip1", False):
+        options["mip1"] = plane_occupancy(vol)
+    prepass = options.get("prepass", False)
+    counter = {"mip1": "mip1_launches", "slicegate": "slicegate_launches",
+               "noskip": "noskip_launches"}[option.split("_")[0]]
+    for extra in (dict(), dict(ages=ages, total_states=8)):
+        kw = dict(grid_size=N, width=w, height=h, shadow=True, **extra)
+        hist = None
+        if compose:
+            rgb, _, idx = rf.raytrace(vol, coarse, cam, **kw)
+            hist = (torch.clamp(rgb * 1.5, 0, 1).contiguous(), idx.contiguous())
+        before = getattr(rf.raytrace_cuda, counter)
+        got = rf.raytrace_cuda(vol, coarse, cam, hist, **options, **kw)
+        assert getattr(rf.raytrace_cuda, counter) == before + 1
+        ref = rf.raytrace_cuda(vol, coarse, cam, hist, prepass=prepass, **kw)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        want = rf.raytrace(vol, coarse, cam, hist, mip1=options.get("mip1"), **kw)
+        assert torch.equal(got[2], want[2]) and int((want[2] >= 0).sum()) > 0
+        torch.testing.assert_close(got[1], want[1], atol=3e-5, rtol=0)
+        torch.testing.assert_close(got[0], want[0], atol=3e-4, rtol=3e-3)
+
+
+@pytest.mark.parametrize("variable", ["CA3D_MIP1", "CA3D_SLICEGATE"])
+def test_k1_options_engine_matches_default(cuda, monkeypatch, variable):
+    """The Engine's frames and fused loop under each variable (read per
+    call) equal the default Engine's on the card, through the option's
+    kernel."""
+    cfg = dict(grid_size=N, width=W, height=H)
+    out = []
+    for on in (False, True):
+        if on:
+            monkeypatch.setenv(variable, "1")
+        counts = (rf.raytrace_cuda.launches, rf.raytrace_cuda.mip1_launches,
+                  rf.raytrace_cuda.slicegate_launches)
+        eng = ct.Engine(device=cuda, **cfg)
+        eng.step(20)
+        frames = [eng.render(), eng.run_fused(4, reset_every=2)]
+        torch.cuda.synchronize()
+        k1, mip1, slicegate = (rf.raytrace_cuda.launches - counts[0],
+                               rf.raytrace_cuda.mip1_launches - counts[1],
+                               rf.raytrace_cuda.slicegate_launches - counts[2])
+        assert k1 >= 5
+        if not on:
+            assert (mip1, slicegate) == (0, 0)
+        else:
+            assert (mip1, slicegate) == ((k1, 0) if variable == "CA3D_MIP1" else (0, k1))
+        out.append([*frames, eng.history.hit_idx])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
