@@ -45,7 +45,11 @@ shards the state along Z (or Z and Y) over a mesh of devices and the frame
 by pixel rows (``parallel.sharded``: halo exchange by copies between the
 shards' devices, the slab mode of ``csrc/ca_step.cu`` stepping each shard);
 ``parallel.dryrun_multichip`` runs every mesh path once.  ``utils.metrics``
-and ``utils.profiling`` time and trace (CUDA events, ``torch.profiler``).
+and ``utils.profiling`` time and trace (CUDA events, ``torch.profiler``); the
+attribution tools of ``tools`` (``python -m
+cellularautomatons3d_tpu_torch.tools.<name>``: ``profile_trace``,
+``trace_summary``, ``profile_gi``, ``profile_frame``, ``bench_dense``,
+``bench_scale``, ``bench_512_ablate``) measure where a frame's time goes.
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode

@@ -37,7 +37,9 @@
 // where the probes of occupied columns go to HBM.  Inside the box the
 // column walk takes most of the time at 512^3, the probes at 1024^3
 // (PERF.md §6).  The age fetch adds age_bits <= 4 word loads per hit pixel,
-// after the sweep.
+// after the sweep.  SKIP = false (column_skip = 0, the column skip's
+// attribution run; no frame path sets it) descends every column of the box
+// (AllColumns) and stages no mip: the hits are the same.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,7 +53,7 @@ using namespace ca3d;
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-template <bool STAGED>
+template <bool STAGED, bool SKIP = true>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     primary_sweep_kernel(const uint32_t* __restrict__ vol,
                          const uint32_t* __restrict__ coarse,
@@ -61,7 +63,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                          float* __restrict__ out_t, int* __restrict__ out_idx,
                          const uint32_t* __restrict__ ages, int age_bits,
                          int* __restrict__ out_age) {
-  __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
+  __shared__ uint32_t coarse_s[STAGED && SKIP ? kMaxStagedWords : 1];
   __shared__ OccBox box;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
@@ -78,7 +80,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const float tf = minp(minp(fx, fy), fz);
   load_box(occ, &box, threadIdx.y * blockDim.x + threadIdx.x);
   __syncthreads();
-  if constexpr (STAGED) {
+  if constexpr (STAGED && SKIP) {
     if (!box.empty) stage_coarse(coarse, coarse_s, n);
   }
   if (px >= width || py >= height) return;
@@ -91,9 +93,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   bool found = false;
   if (active) {
     auto primary = [&](const auto& clip) {
-      return sweep<true>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
-                         cell_half, ray, t_start, tf, NoExclusion{}, t_hit,
-                         hx, hy, hz, clip);
+      return sweep<true>(vol, skip_gate<STAGED, SKIP>(coarse, coarse_s), n,
+                         inv_n, cell_half, ray, t_start, tf, NoExclusion{},
+                         t_hit, hx, hy, hz, clip);
     };
     found = box.full ? primary(NoClip{}) : primary(BoxClip{&box});
   }
@@ -116,13 +118,14 @@ extern "C" {
 // of which vol is the visibility plane, and out_age: i32 [H, W] then takes
 // each hit's age.  box: int32[8], scratch for the launch's OccBox, which
 // the box kernel enqueued here writes first; box_launches: a host int that
-// counts that launch (one added once it is enqueued).  Returns the first
+// counts that launch (one added once it is enqueued).  column_skip = 0
+// descends every column of the box (SKIP = false).  Returns the first
 // launch error (cudaError_t).
 int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
                             int n, int width, int height, const float* cam,
                             void* out_t, void* out_idx, const void* ages,
-                            int age_bits, void* out_age, void* box,
-                            int* box_launches, void* stream) {
+                            int age_bits, void* out_age, int column_skip,
+                            void* box, int* box_launches, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
       box_launches == nullptr) {
     return cudaErrorInvalidValue;
@@ -143,8 +146,9 @@ int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  auto kernel = n <= kMaxStagedGrid ? primary_sweep_kernel<true>
-                                    : primary_sweep_kernel<false>;
+  auto kernel = !column_skip            ? primary_sweep_kernel<false, false>
+                : n <= kMaxStagedGrid ? primary_sweep_kernel<true>
+                                      : primary_sweep_kernel<false>;
   return launch_after_box(
       kernel, grid, block, s, static_cast<const uint32_t*>(vol),
       static_cast<const uint32_t*>(coarse), occ, n, inv_n, width, height, c,
@@ -158,7 +162,7 @@ int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
                        void* out_idx, void* box, int* box_launches,
                        void* stream) {
   return ca3d_primary_sweep_ages(device, vol, coarse, n, width, height, cam,
-                                 out_t, out_idx, nullptr, 0, nullptr, box,
+                                 out_t, out_idx, nullptr, 0, nullptr, 1, box,
                                  box_launches, stream);
 }
 

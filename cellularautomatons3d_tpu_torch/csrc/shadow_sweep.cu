@@ -44,7 +44,9 @@
 // blocks, each a flag load and a store.  K5 (shadow_multi.cu), the opt-in
 // backend, runs the same sweep on operands it reads where the lighting code
 // leaves them.  Left for later PRs: the reference's start-column gate, and
-// compacting the active lanes.
+// compacting the active lanes.  SKIP = false (column_skip = 0, the column
+// skip's attribution run; no frame path sets it) descends every column of
+// the box (AllColumns) and stages no mip: the flags are the same.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,7 +60,7 @@ using namespace ca3d;
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-template <bool STAGED>
+template <bool STAGED, bool SKIP = true>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     shadow_sweep_kernel(const uint32_t* __restrict__ vol,
                         const uint32_t* __restrict__ coarse,
@@ -69,7 +71,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
                         const int* __restrict__ excl,
                         const uint8_t* __restrict__ active,
                         int* __restrict__ out) {
-  __shared__ uint32_t coarse_s[STAGED ? kMaxStagedWords : 1];
+  __shared__ uint32_t coarse_s[STAGED && SKIP ? kMaxStagedWords : 1];
   __shared__ OccBox box;
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
@@ -87,7 +89,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
     if (inside) out[i1] = 0;
     return;
   }
-  if constexpr (STAGED) stage_coarse(coarse, coarse_s, n);
+  if constexpr (STAGED && SKIP) stage_coarse(coarse, coarse_s, n);
   if (!inside) return;
   int occluded = 0;
   if (lane_active) {
@@ -107,9 +109,9 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
     float t_hit;
     int hx, hy, hz;
     const CellExclusion skip{excl[i3], excl[i3 + npix], excl[i3 + 2 * npix]};
-    occluded = sweep<false>(vol, mip_of<STAGED>(coarse, coarse_s), n, inv_n,
-                            cell_half, r, 0.0f, t1, skip, t_hit, hx, hy, hz,
-                            BoxClip{&box}) ? 1 : 0;
+    occluded = sweep<false>(vol, skip_gate<STAGED, SKIP>(coarse, coarse_s), n,
+                            inv_n, cell_half, r, 0.0f, t1, skip, t_hit, hx, hy,
+                            hz, BoxClip{&box}) ? 1 : 0;
   }
   out[i1] = occluded;
 }
@@ -125,12 +127,13 @@ extern "C" {
 // size, (1/n) * cell_size * 0.5 in f32.  box: int32[8], scratch for the
 // launch's OccBox, which the box kernel enqueued here writes first;
 // box_launches: a host int that counts that launch (one added once it is
-// enqueued).  Returns the first launch error (cudaError_t).
+// enqueued).  column_skip = 0 descends every column of the box (SKIP =
+// false).  Returns the first launch error (cudaError_t).
 int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
                       float cell_half, int width, int height, int nq,
                       const void* start, const void* target, const void* excl,
-                      const void* active, void* out, void* box,
-                      int* box_launches, void* stream) {
+                      const void* active, void* out, int column_skip,
+                      void* box, int* box_launches, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
       nq < 1 || nq > 65535 || box_launches == nullptr) {
     return cudaErrorInvalidValue;
@@ -146,8 +149,9 @@ int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY, nq);
-  auto kernel = n <= kMaxStagedGrid ? shadow_sweep_kernel<true>
-                                    : shadow_sweep_kernel<false>;
+  auto kernel = !column_skip            ? shadow_sweep_kernel<false, false>
+                : n <= kMaxStagedGrid ? shadow_sweep_kernel<true>
+                                      : shadow_sweep_kernel<false>;
   return launch_after_box(
       kernel, grid, block, s, static_cast<const uint32_t*>(vol),
       static_cast<const uint32_t*>(coarse), occ, n, inv_n, cell_half, width,

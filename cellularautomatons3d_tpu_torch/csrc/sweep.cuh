@@ -333,14 +333,27 @@ __device__ __forceinline__ auto mip_of(const uint32_t* coarse,
   }
 }
 
-// The column gate that descends every column (K1 with column_skip=False):
-// what the coarse mip's skip saves is the difference to SharedMip.
+// The column gate that descends every column (K1, K2 and K4 with
+// column_skip=False): what the coarse mip's skip saves is the difference to
+// SharedMip / GlobalMip.
 struct AllColumns {
   __device__ __forceinline__ bool occupied(int, int, int, int, int,
                                            int) const {
     return true;
   }
 };
+
+// The column gate of K2 and K4: the mip of mip_of<STAGED> (SKIP, the
+// default), or every column of the box (the column skip's attribution run).
+template <bool STAGED, bool SKIP>
+__device__ __forceinline__ auto skip_gate(const uint32_t* coarse,
+                                          const uint32_t* coarse_s) {
+  if constexpr (SKIP) {
+    return mip_of<STAGED>(coarse, coarse_s);
+  } else {
+    return AllColumns{};
+  }
+}
 
 // The column gate of K1 with a prepass mask (render_fast.py column_occ with
 // colmask): column c descends iff bit c of the pixel's patch mask is set

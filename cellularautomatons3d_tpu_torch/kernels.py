@@ -151,7 +151,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.ca3d_render_fast.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
-            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P, _IP, _P,
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _IP, _P,
         ]
         lib.ca3d_shadow_sweep.restype = _I
         lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P]
@@ -159,7 +159,7 @@ def library() -> ctypes.CDLL:
         lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _IP, _P]
         lib.ca3d_primary_sweep.restype = _I
         lib.ca3d_primary_sweep_ages.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _IP, _P,
+            _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _IP, _P,
         ]
         lib.ca3d_primary_sweep_ages.restype = _I
         lib.ca3d_shadow_multi.argtypes = [

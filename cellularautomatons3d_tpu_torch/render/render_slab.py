@@ -184,11 +184,15 @@ def _box_scratch(coarse):
             ctypes.c_int(0))
 
 
-def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height):
+def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height,
+                       column_skip=True):
     """K4 on the card (``csrc/primary_sweep.cu``): same contract as
     :func:`primary_sweep`; ``vol``, ``coarse`` and ``ages`` must be
     contiguous CUDA tensors (``coarse`` 16-byte aligned).  Each call
-    launches the box kernel, then K4."""
+    launches the box kernel, then K4.  ``column_skip=False`` descends every
+    column of the occupied box (the same hits; the attribution run of the
+    coarse column skip, which no frame path makes), also counted in
+    ``primary_sweep_cuda.noskip_launches``."""
     cam = _check_sliced(grid_size, width, height, cam)
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
@@ -206,16 +210,18 @@ def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height)
         vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width,
         height, cam.ctypes.data, t.data_ptr(), idx.data_ptr(),
         None if ages is None else ages.data_ptr(), age_bits,
-        None if age is None else age.data_ptr(), box.data_ptr(),
+        None if age is None else age.data_ptr(), int(bool(column_skip)), box.data_ptr(),
         ctypes.byref(box_launches), kernels.stream_of(vol),
     )
     occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "primary_sweep")
     primary_sweep_cuda.launches += 1
+    primary_sweep_cuda.noskip_launches += int(not column_skip)
     return (t, idx) if ages is None else (t, idx, age)
 
 
 primary_sweep_cuda.launches = 0
+primary_sweep_cuda.noskip_launches = 0
 
 
 def primary_hits(cam, prepped: Prepped, ages=None, *, grid_size, width, height):
@@ -341,11 +347,13 @@ def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
 
 
 def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
-                      cell_half):
+                      cell_half, column_skip=True):
     """K2 on the card (``csrc/shadow_sweep.cu``): same contract as
     :func:`shadow_sweep`; every tensor must be a contiguous CUDA tensor
     (``coarse`` 16-byte aligned).  Each call launches the box kernel, then
-    K2."""
+    K2.  ``column_skip=False`` descends every column of the occupied box
+    (the same flags; the attribution run of the coarse column skip, which no
+    frame path makes), also counted in ``shadow_sweep_cuda.noskip_launches``."""
     n = grid_size
     nq, _, h, w = start.shape
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
@@ -359,16 +367,18 @@ def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
     err = kernels.library().ca3d_shadow_sweep(
         start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
-        excl.data_ptr(), active.data_ptr(), out.data_ptr(), box.data_ptr(),
-        ctypes.byref(box_launches), kernels.stream_of(start),
+        excl.data_ptr(), active.data_ptr(), out.data_ptr(), int(bool(column_skip)),
+        box.data_ptr(), ctypes.byref(box_launches), kernels.stream_of(start),
     )
     occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "shadow_sweep")
     shadow_sweep_cuda.launches += 1
+    shadow_sweep_cuda.noskip_launches += int(not column_skip)
     return out
 
 
 shadow_sweep_cuda.launches = 0
+shadow_sweep_cuda.noskip_launches = 0
 
 
 # -------------------------------------------- K5: multi-query occlusion ---

@@ -190,6 +190,24 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       of the mode, and of the plane mip under mip1); the attribution run
       without the column skip; then each mode alternated with the default and
       the plane mip with its twin, by CUDA events and by the device's time.
+  (n) the attribution tools (``cellularautomatons3d_tpu_torch.tools``, run
+      after (i)): K4 and K2 without the coarse column skip
+      (``column_skip=False``) bit for bit against the default kernels and
+      within the contract of their plain twins (ids equal, depth within
+      3e-5, flags equal) on the 512³ gen-160 and 1024³ gen-200 frames of (f)
+      and the box-edge volumes of (i) (checked inside (i)); their
+      attribution run (10 launches each at 512³, every counter set to 0
+      before it) and their times alternated with the defaults'; then each
+      tool's short form (``profile_trace`` in the headline, ``multistate
+      --grid 1024`` and ``moved`` modes, 3-5 frames; ``trace_summary`` on the
+      headline trace; ``profile_gi``, ``profile_frame``, ``bench_dense``,
+      ``bench_scale``, ``bench_512_ablate``) in one child process of this
+      script (``--tools``: a torch.profiler trace in this process would make
+      the later phases' traces drop kernel events), each line's keys finite
+      and positive, and the trace summary's launches per frame equal to the
+      launch counters read around the traced frames (headline: one K1
+      compose launch and one CA step a frame; multi-state: one step and two
+      age-mask launches a generation and frame).
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -488,11 +506,13 @@ BOX_SIZES = (256, 512, 1024)
 BOX_WINDOW = (480, 270)
 
 
-def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes) -> dict:
+def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip) -> dict:
     """Phase (i): the box kernel against its plain twin on ``scenes`` ({tag:
     (vol, coarse, n)}) and on the box-edge volumes, and K4, K2, K5 and K3
-    against their plain versions on the box-edge volumes.  Returns the
-    boxes."""
+    against their plain versions on the box-edge volumes; for phase (n), K4
+    and K2 without the column skip on the same volumes, bit for bit against
+    the default kernels and within the contract of the plain twins (counted
+    in ``noskip``).  Returns the boxes."""
     from _torch_box_scene import BOX_CASES, box_edge_volume
     from _torch_query_scene import cell_queries, occlusion_queries
 
@@ -534,6 +554,12 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes) -> dic
                      f"K4 {tag} {name}: {bad} ids differ, t error {err}")
                 need((hits > 0) == (case != "empty"), f"K4 {tag} {name}: {hits} hits")
                 k4_cmp += 1
+                t_n, i_n = rs.primary_sweep_cuda(vol, coarse, cam, column_skip=False, **kw)
+                need(torch.equal(t_n, t_k) and torch.equal(i_n, i_k),
+                     f"(n) K4 without the column skip != the default on {tag} {name}")
+                need(torch.equal(i_n, i_p) and float((t_n - t_p).abs().max()) <= DEPTH_ATOL,
+                     f"(n) K4 without the column skip != plain on {tag} {name}")
+                noskip["k4_box_edge"] = noskip.get("k4_box_edge", 0) + 1
             # K2 on random rays: starts in [-0.7, 0.7]³ (inside and outside
             # the box and the volume), half the rays aimed at the region's
             # centre, the last query's rays half flat (dz == 0).
@@ -559,6 +585,11 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes) -> dic
             bad = int((got != want).sum())
             need(bad == 0, f"K2 {tag}: {bad} flags differ from the plain version")
             need((int(want.sum()) > 0) == (case != "empty"), f"K2 {tag}: {int(want.sum())} occluded")
+            got_n = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active,
+                                         column_skip=False, **kw2)
+            need(torch.equal(got_n, got) and torch.equal(got_n, want),
+                 f"(n) K2 without the column skip != the default or plain on {tag}")
+            noskip["k2_box_edge"] = noskip.get("k2_box_edge", 0) + 1
             idle = rs.shadow_sweep_cuda(vol, coarse, start, target, excl,
                                         torch.zeros_like(active), **kw2)
             need(int(idle.abs().sum()) == 0, f"K2 {tag}: an inactive lane is not 0")
@@ -2362,6 +2393,192 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
     return out
 
 
+# ------------------------------------------------ (n) the attribution tools ---
+# Each tool's short form, run in one child process: (module, argv).  A
+# torch.profiler trace in this process would make later phases' traces drop
+# kernel events (phase (g)'s trace did after one in (m)), so the tools trace in
+# a process of their own.
+TOOL_RUNS = (
+    ("profile_trace", ["--mode", "headline", "--frames", "5", "--reps", "3"]),
+    ("profile_trace", ["--mode", "multistate", "--grid", "1024", "--frames", "3", "--reps", "3"]),
+    ("profile_trace", ["--mode", "moved", "--frames", "5", "--reps", "3"]),
+    ("trace_summary", ["headline_256", "--frames", "5"]),
+    ("profile_gi", ["--reps", "3", "--calls", "2"]),
+    ("profile_frame", ["--reps", "3", "--calls", "5"]),
+    ("bench_dense", ["230", "5", "--reps", "3"]),
+    ("bench_scale", ["--frames", "3", "--reps", "3"]),
+    ("bench_512_ablate", ["3", "--reps", "3", "--calls", "10"]),
+)
+TOOLS_TIMEOUT_S = 420
+
+
+def not_positive(rec: dict, keys) -> list[str]:
+    """The keys of ``keys`` whose values in ``rec`` are missing, or numbers
+    that are not finite and positive."""
+    import math
+
+    return [k for k in keys if not isinstance(rec.get(k), (int, float))
+            or isinstance(rec.get(k), bool) or not (math.isfinite(rec[k]) and rec[k] > 0)]
+
+
+def tools_child() -> None:
+    """The child of phase (n): each tool's short form in turn, in this
+    process, its traces under build/traces/chip_smoke/; prints the tools'
+    JSON lines and, after each tool, ``{"tool_done": name, "s": wall}``."""
+    import importlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, str(HERE))
+    traces = HERE / "build" / "traces" / "chip_smoke"
+    for name, argv in TOOL_RUNS:
+        mod = importlib.import_module(f"cellularautomatons3d_tpu_torch.tools.{name}")
+        if name == "profile_trace":
+            argv = argv + ["--out", str(traces / argv[1])]
+        elif name == "trace_summary":
+            argv = [str(traces / "headline" / "trace.json"), *argv[1:]]
+        elif name == "profile_gi":
+            argv = argv + ["--out", str(traces / "profile_gi")]
+        t0 = time.perf_counter()
+        mod.main(argv)
+        print(json.dumps({"tool_done": name, "s": time.perf_counter() - t0}), flush=True)
+
+
+def tools_phase(torch, np, rs, sliced, noskip) -> dict:
+    """Phase (n): K4 and K2 without the column skip on the 512³ gen-160 and
+    1024³ gen-200 frames of (f), bit for bit against the default kernels
+    and within the contract of the plain twins (the box-edge volumes were
+    held in (i)); their attribution run (10 launches each, every counter
+    set to 0 before it) and their times alternated with the defaults'; then
+    the tools' short forms in a child process, each line's keys finite and
+    positive, and the trace summary's launches per frame equal to the
+    launch counters read around the traced frames."""
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+
+    t_phase = time.perf_counter()
+    out = {"checks": dict(noskip), "timings": {}, "launches": {}}
+    for size, (vol, coarse, cam, k2) in sliced["timed"].items():
+        kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        k2kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        t_d, i_d = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+        t_n, i_n = rs.primary_sweep_cuda(vol, coarse, cam, column_skip=False, **kw)
+        t_p, i_p = rs.primary_sweep(vol, cam, **kw)
+        need(torch.equal(t_n, t_d) and torch.equal(i_n, i_d),
+             f"(n) K4 without the column skip != the default at {size}^3")
+        err = float((t_n - t_p).abs().max())
+        need(torch.equal(i_n, i_p) and err <= DEPTH_ATOL,
+             f"(n) K4 without the column skip != plain at {size}^3 (t error {err})")
+        o_d = rs.shadow_sweep_cuda(vol, coarse, *k2, **k2kw)
+        o_n = rs.shadow_sweep_cuda(vol, coarse, *k2, column_skip=False, **k2kw)
+        o_p = rs.shadow_sweep(vol, *k2, **k2kw)
+        need(torch.equal(o_n, o_d) and torch.equal(o_n, o_p),
+             f"(n) K2 without the column skip != the default or plain at {size}^3")
+        out["checks"][f"{size}"] = dict(k4_depth_err=err, hits=int((i_n >= 0).sum()),
+                                        k2_occluded=int(o_n.sum()))
+        out["k4_max_abs_err"] = max(out.get("k4_max_abs_err", 0.0), err)
+        del t_d, i_d, t_n, i_n, t_p, i_p, o_d, o_n, o_p
+    log(f"(n) K4 and K2 without the column skip == the default kernels, bit for bit, and "
+        f"== plain at 512^3 and 1024^3 and on the box-edge volumes ({noskip})")
+    # The attribution run: 10 launches of each, 512³.
+    vol, coarse, cam, k2 = sliced["timed"][512]
+    kw = dict(grid_size=512, width=WIDTH, height=HEIGHT)
+    k2kw = dict(grid_size=512, cell_half=rs._cell_half(cam, 512))
+    for f in (rs.primary_sweep_cuda, rs.shadow_sweep_cuda):
+        f.launches = f.noskip_launches = 0
+    for _ in range(10):
+        rs.primary_sweep_cuda(vol, coarse, cam, column_skip=False, **kw)
+        rs.shadow_sweep_cuda(vol, coarse, *k2, column_skip=False, **k2kw)
+    torch.cuda.synchronize()
+    out["launches"] = {f"{f.__name__}.{c}": getattr(f, c)
+                       for f in (rs.primary_sweep_cuda, rs.shadow_sweep_cuda)
+                       for c in ("launches", "noskip_launches")}
+    need(all(v == 10 for v in out["launches"].values()),
+         f"(n) the attribution run's launches: {out['launches']}")
+    # Times at 512³ and 1024³: default, off, off, default, by events and the
+    # device's time.
+    tm = out["timings"]
+    for size, (vol, coarse, cam, k2) in sliced["timed"].items():
+        kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        k2kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        calls = {
+            "k4": {s: (lambda skip=s == "on": rs.primary_sweep_cuda(
+                vol, coarse, cam, column_skip=skip, **kw)) for s in ("on", "off")},
+            "k2": {s: (lambda skip=s == "on": rs.shadow_sweep_cuda(
+                vol, coarse, *k2, column_skip=skip, **k2kw)) for s in ("on", "off")},
+        }
+        for name, fns in calls.items():
+            for label, queued in (("events", False), ("device", True)):
+                reads = [cuda_time_fn(fns[m], reps=50, warmup=3, queued=queued)
+                         for m in ("on", "off", "off", "on")]
+                tm[f"{name}_{size}_{label}_reads_ms"] = reads
+                tm[f"{name}_noskip_{size}_{label}_ms"] = (reads[1] + reads[2]) / 2
+                tm[f"{name}_{size}_{label}_ms"] = (reads[0] + reads[3]) / 2
+    for k, v in tm.items():
+        if not k.endswith("reads_ms"):
+            log(f"  {k}: {v:.4f}")
+
+    # The tools, in a child process.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--tools"], cwd=HERE,
+                          capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+    out["tools_s"] = time.perf_counter() - t0
+    need(proc.returncode == 0, f"(n) the tools' child failed (exit {proc.returncode}): "
+         f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    (HERE / "chiprun_out").mkdir(exist_ok=True)
+    (HERE / "chiprun_out" / "chip_smoke_tools.jsonl").write_text(
+        "".join(json.dumps(x) + "\n" for x in lines))
+    done = {x["tool_done"]: x["s"] for x in lines if "tool_done" in x}
+    recs = [x for x in lines if "tool" in x]
+    need(set(done) == {name for name, _ in TOOL_RUNS}, f"(n) tools that did not finish: "
+         f"{sorted({name for name, _ in TOOL_RUNS} - set(done))}")
+    import importlib
+
+    card = card_line()
+    for rec in recs:
+        mod = importlib.import_module(f"cellularautomatons3d_tpu_torch.tools.{rec['tool']}")
+        keys = getattr(mod, "KEYS", ("busy_ms", "busy_share", "idle_share", "launches_per_frame"))
+        bad = not_positive(rec, keys)
+        need(not bad, f"(n) {rec['tool']} {rec.get('mode', rec.get('part', ''))}: keys {bad} "
+             f"missing or not finite and positive")
+        if rec["tool"] != "trace_summary":
+            need(rec.get("card") == card and rec.get("device") == torch.cuda.get_device_name(0),
+                 f"(n) {rec['tool']}: card {rec.get('card')!r}, device {rec.get('device')!r}")
+    by_mode = {r["mode"]: r for r in recs if r["tool"] == "profile_trace"}
+    expect = {  # per frame: kernel family -> launches
+        "headline": {"render_kernel": 1, "ca_step_kernel": 1},
+        "multistate": {"ca_step_kernel": 1, "age_masks_kernel": 2, "primary_sweep_kernel": 1,
+                       "shadow_sweep_kernel": 1, "occupied_box_kernel": 2},
+        "moved": {"render_kernel": 1},
+    }
+    for mode, fams in expect.items():
+        rec = by_mode[mode]
+        need(rec["launches_match"], f"(n) {mode}: trace launches != counters: {rec['launches']}")
+        for fam, n in fams.items():
+            got = rec["launches"].get(fam, {})
+            need(got.get("trace") == n and got.get("counters") == n,
+                 f"(n) {mode}: {fam} launches a frame {got}, expected {n}")
+        log(f"  (n) profile_trace {mode}: frame {rec['frame_ms']:.4f} ms, busy "
+            f"{rec['busy_ms_per_frame']:.4f} ms a frame, idle {rec['idle_share']:.3f}, "
+            f"{rec['launches_per_frame']:.1f} launches a frame; trace == counters "
+            f"{rec['launches']}")
+    summary = [r for r in recs if r["tool"] == "trace_summary"][0]
+    need(abs(summary["busy_ms"] - by_mode["headline"]["busy_ms"]) < 1e-9,
+         "(n) trace_summary's busy ms != profile_trace's on the same trace")
+    ablate = {r["row"]: r for r in recs if r["tool"] == "bench_512_ablate"}
+    need({"frame", "k4_column_skip", "k2_column_skip"} <= set(ablate),
+         f"(n) bench_512_ablate rows: {sorted(ablate)}")
+    out["tools"] = {name: s for name, s in done.items()}
+    out["tool_lines"] = len(recs)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"(n) {len(recs)} tool lines from {len(done)} tools in {out['tools_s']:.1f} s; "
+        f"phase (n) {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -2752,13 +2969,18 @@ def main() -> dict:
         "512^3 gen-260": (full_512, coarse_occupancy(full_512), 512),
         "1024^3 gen-200": (*sliced["timed"][1024][:2], 1024),
     }
-    boxes = box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes)
+    noskip = {}
+    boxes = box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip)
     for tag in (f"{GRID}^3 gen-230", "512^3 gen-260"):
         need(boxes[tag]["full"] == 1, f"the box of {tag} is not the whole volume: {boxes[tag]}")
     for tag in (f"{GRID}^3 gen-80", "512^3 gen-160", "1024^3 gen-200"):
         need(boxes[tag]["full"] == 0 and boxes[tag]["empty"] == 0,
              f"the box of {tag} clips nothing: {boxes[tag]}")
     report["boxes"] = boxes
+
+    # ----------------------------------------------- (n) the attribution tools ---
+    tools = tools_phase(torch, np, rs, sliced, noskip)
+    report["tools"] = tools
 
     # ------------------------------------------- (j) the interactive path ---
     inter = interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy)
@@ -3116,6 +3338,17 @@ def main() -> dict:
               total("primary_sweep_cuda", *sliced_launches.values(), *ms_launches),
               max(sliced["k4_max_abs_err"], ms["k4_max_abs_err"]),
               sliced_ms["k4_512_ms"], sliced_ms["k4_512_plain_ms"]),
+        # K4 and K2 without the coarse column skip (phase (n)'s attribution
+        # run at 512³; no frame path launches them): plain = the twin, which
+        # has no skip; the bound is the default kernel's, the same work.
+        entry("primary_sweep_noskip", "primary_sweep.cu", "render/render_slab.py:279",
+              tools["launches"]["primary_sweep_cuda.noskip_launches"], tools["k4_max_abs_err"],
+              tools["timings"]["k4_noskip_512_events_ms"], sliced_ms["k4_512_plain_ms"],
+              bound_name="primary_sweep"),
+        entry("shadow_sweep_noskip", "shadow_sweep.cu", "render/render_slab.py:354",
+              tools["launches"]["shadow_sweep_cuda.noskip_launches"], 0.0,
+              tools["timings"]["k2_noskip_512_events_ms"], sliced_ms["k2_hard_512_plain_ms"],
+              bound_name="shadow_sweep_hard_512"),
         entry("occupied_box", "occupied_box.cu", "render/render_fast.py:1514",
               total("occupied_box_cuda", *lighting_launches.values(),
                     *sliced_launches.values(), *ms_launches),
@@ -3150,6 +3383,13 @@ def main() -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--tools"]:  # phase (n)'s child process
+        try:
+            tools_child()
+        except SmokeFailure as e:
+            print(f"chip_smoke --tools FAILED: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        sys.exit(0)
     try:
         rep = main()
     except SmokeFailure as e:
