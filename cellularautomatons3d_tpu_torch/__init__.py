@@ -49,7 +49,9 @@ and ``utils.profiling`` time and trace (CUDA events, ``torch.profiler``); the
 attribution tools of ``tools`` (``python -m
 cellularautomatons3d_tpu_torch.tools.<name>``: ``profile_trace``,
 ``trace_summary``, ``profile_gi``, ``profile_frame``, ``bench_dense``,
-``bench_scale``, ``bench_512_ablate``) measure where a frame's time goes.
+``bench_scale``, ``bench_512_ablate``) measure where a frame's time goes, and
+``bench_torch.py`` at the repository root prints the reference ``bench.py``'s
+line from the port.
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode

@@ -21,8 +21,8 @@ and counts as a GI neighbour like a live one:
   is reprojected first, :func:`reproject_history`), the light cube, f16
   history, the depth overlay and gamma in torch.
 * :func:`make_fused_loop` -- the production loop (CA steps + one composed
-  frame per iteration, static camera) with ``reset_every`` as a runtime
-  argument.  Up to
+  frame per iteration, static camera) with the reset period as a runtime
+  argument (``run(..., reset_period)``, ``reset_every`` by default).  Up to
   256³: K1 in compose mode for hard shadows without GI, the extended frame
   in image layout for soft shadows, one-bounce and temporal GI (history f32
   inside, f16 at the exit), and render_frame_fast per iteration for
@@ -353,10 +353,12 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
     """The production loop: ``frames`` iterations of (CA steps + one
     composed frame).
 
-    Returns ``run(state, params, history) -> (state, history, last_frame)``.
-    ``reset_every > 0`` restores the input state after every that many
-    frames (the benchmark's pinned scene: every frame still steps and
-    renders).  Static camera.  The input ``state`` is not modified.  With
+    Returns ``run(state, params, history, reset_period=None) -> (state,
+    history, last_frame)``.  A reset period ``rp > 0`` restores the input
+    state after every ``rp`` frames (the benchmark's pinned scene: every
+    frame still steps and renders); ``rp`` is ``reset_period`` when given,
+    else ``reset_every``, so one loop runs the pinned and the dense lines
+    (``bench_torch.py``), as the reference's runtime operand.  Static camera.  The input ``state`` is not modified.  With
     ``s.gi_temporal`` the sample index is the loop counter, from 0 on each
     call.  Binary and multi-state automata: a multi-state ``state`` is the
     age bit-planes ``[B, W, Z, Y]``, stepped by the multi-state step, and
@@ -382,10 +384,12 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
             st = step_packed(st, spec)
         return st
 
-    def reset(i, st, state):
-        return state if reset_every > 0 and (i + 1) % reset_every == 0 else st
+    def run(state, params: RenderParams, history: FastHistory, reset_period=None):
+        rp = reset_every if reset_period is None else int(reset_period)
 
-    def run(state, params: RenderParams, history: FastHistory):
+        def reset(i, st):
+            return state if rp > 0 and (i + 1) % rp == 0 else st
+
         cam = _cam_vec(params, w, h)
         frame = torch.zeros((h, w, 3), dtype=torch.float32, device=state.device)
         st = state
@@ -398,7 +402,7 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
                     i if s.gi_temporal else None,
                     ages=st if multistate else None, total_states=total_states,
                 )
-                st = reset(i, st, state)
+                st = reset(i, st)
             return st, hist, frame
         hist = (history.color.to(torch.float32), history.hit_idx)
         for i in range(frames):
@@ -417,7 +421,7 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
                     s, vis, cam, hist, ages, total_states,
                     i if s.gi_temporal else None,
                 )
-            st = reset(i, st, state)
+            st = reset(i, st)
         new_history = FastHistory(color=hist[0].to(torch.float16), hit_idx=hist[1])
         return st, new_history, frame
 

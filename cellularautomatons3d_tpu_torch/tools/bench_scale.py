@@ -31,33 +31,14 @@ torch does not need.
 
 from __future__ import annotations
 
-import numpy as np
-
 from ..ops.ca_step import visibility_plane
 from ..ops.loop import make_multi_step
-from ..render.renderer import RenderParams, RenderStatic
+from ..render.renderer import RenderStatic
 from ..render.renderer_fast import init_fast_history, make_fused_loop, render_frame_fast
-from ..utils import mat4
 from . import common
 
 KEYS = ("value",)
 NAMES = ("512", "1024", "gi", "gi_temporal", "gi_temporal_loop")
-
-
-def _params(width: int, height: int) -> RenderParams:
-    """The JAX tools' ``RenderParams``: the initial view, static."""
-    view = mat4.initial_view_matrix()
-    proj_view = mat4.multiply(mat4.initial_projection_matrix(width, height), mat4.inverse(view))
-    f32 = np.float32
-    return RenderParams(
-        view_mat=np.asarray(view, f32), prev_view_mat=np.asarray(view, f32),
-        prev_proj_view=np.asarray(proj_view, f32), elapsed_time=f32(common.ELAPSED),
-        cell_size=f32(common.CELL_SIZE), temporal_alpha=f32(0.1), gamma=f32(2.0),
-        roughness=f32(common.ROUGHNESS), base_reflectivity=np.asarray(common.REFLECTIVITY, f32),
-        material_color=np.asarray(common.MATERIAL, f32),
-        light_pos=np.asarray(common.LIGHT_POS, f32),
-        light_magnitude=f32(common.LIGHT_MAGNITUDE), show_depth_overlay=f32(0.0),
-    )
 
 
 def _static(run, grid, **kw) -> RenderStatic:
@@ -70,7 +51,7 @@ def _static(run, grid, **kw) -> RenderStatic:
 def _frames(run, s: RenderStatic, state, k: int):
     """k frames of render_frame_fast (static camera, the history carried;
     the frame counter as the sample index with gi_temporal), as one call."""
-    params = _params(s.width, s.height)
+    params = common.render_params(s.width, s.height)
     vis = visibility_plane(state, common.spec_of(s.grid_size))
 
     def frames():
@@ -84,7 +65,7 @@ def _frames(run, s: RenderStatic, state, k: int):
 
 def _loop(run, s: RenderStatic, state, k: int):
     run_loop = make_fused_loop(s, common.spec_of(s.grid_size), k, reset_every=10)
-    params = _params(s.width, s.height)
+    params = common.render_params(s.width, s.height)
     return lambda: run_loop(state, params, init_fast_history(s.width, s.height, run.dev))
 
 

@@ -35,6 +35,7 @@ from ..ops.loop import make_multi_step
 from ..ops.occupancy import occupied_box_cuda, plane_occupancy_cuda
 from ..ops.packing import pack_grid, seed_center
 from ..render import render_fast, render_slab
+from ..render.renderer import RenderParams
 from ..utils import mat4
 from ..utils.config import EngineConfig
 from ..utils.metrics import cuda_time_fn
@@ -167,30 +168,54 @@ def cam(width: int, height: int, view=None, **kw) -> np.ndarray:
         elapsed_time=ELAPSED, **kw)
 
 
+def render_params(width: int, height: int) -> RenderParams:
+    """The JAX tools' and ``bench.py``'s ``RenderParams``: the initial view,
+    static, gamma 2, temporal alpha 0.1."""
+    view = mat4.initial_view_matrix()
+    proj_view = mat4.multiply(mat4.initial_projection_matrix(width, height), mat4.inverse(view))
+    f32 = np.float32
+    return RenderParams(
+        view_mat=np.asarray(view, f32), prev_view_mat=np.asarray(view, f32),
+        prev_proj_view=np.asarray(proj_view, f32), elapsed_time=f32(ELAPSED),
+        cell_size=f32(CELL_SIZE), temporal_alpha=f32(0.1), gamma=f32(2.0),
+        roughness=f32(ROUGHNESS), base_reflectivity=np.asarray(REFLECTIVITY, f32),
+        material_color=np.asarray(MATERIAL, f32), light_pos=np.asarray(LIGHT_POS, f32),
+        light_magnitude=f32(LIGHT_MAGNITUDE), show_depth_overlay=f32(0.0),
+    )
+
+
 # --------------------------------------------------------------- timing ---
 
 
-def timed(run: Run, fn, calls: int = 10, reps: int | None = None, warmup: int = 2) -> dict:
+def timed(run: Run, fn, calls: int = 10, reps: int | None = None, warmup: int = 2,
+          prepare=None) -> dict:
     """ms per call of ``calls`` back-to-back calls, ``reps`` times after
-    ``warmup`` calls: the median, the least and the most, and every read."""
+    ``warmup`` calls: the median, the least and the most, and every read.
+    With ``prepare``, each warm-up call and each rep first makes the calls'
+    arguments, ``fn(*prepare())``, outside the timed window."""
+    def args():
+        return () if prepare is None else prepare()
+
     for _ in range(warmup):
-        fn()
+        fn(*args())
     run.sync()
     reads = []
     for _ in range(run.reps if reps is None else reps):
+        a = args()
+        run.sync()
         if run.cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(calls):
-                fn()
+                fn(*a)
             end.record()
             end.synchronize()
             reads.append(start.elapsed_time(end) / calls)
         else:
             t0 = time.perf_counter()
             for _ in range(calls):
-                fn()
+                fn(*a)
             reads.append((time.perf_counter() - t0) * 1e3 / calls)
     return {"ms": statistics.median(reads), "min_ms": min(reads), "max_ms": max(reads),
             "reads_ms": reads}

@@ -209,6 +209,16 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       compose launch and one CA step a frame; multi-state: one step and two
       age-mask launches a generation and frame).
 
+  (o) the port's bench (``bench_torch.py``, run last): the script at its
+      defaults in a child process (256³ / 1920×1080, 150 frames pinned and
+      dense, 1000 steps, 5 repeats), its one stdout line with every key of
+      ``bench.py``'s line and the spread, finite and positive, ``device``
+      naming the card and its power limit, printed here; ``measure`` at
+      64³ / 128×64 over 12 frames on the card and on the CPU (final states
+      bit for bit, frames within rtol 3e-3 / atol 3e-4); and K1's and the CA
+      step's launch counters set to 0 before one pinned call at full size and
+      read after it: 150 and 150.
+
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
 line before them is the kernels' JSON summary.  Exits non-zero, printing no
@@ -2579,6 +2589,84 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
     return out
 
 
+# ----------------------------------------------------------- (o) the bench ---
+BENCH_TIMEOUT_S = 300
+
+
+def bench_phase(torch, rf, ca_step) -> dict:
+    """Phase (o): ``bench_torch.py`` at its defaults in a child process, its
+    one stdout line checked (every key of ``bench.py``'s line, the spread,
+    finite and positive numbers, ``device`` the card and its power limit)
+    and printed; ``bench_torch.measure`` at 64³ / 128×64 over 12 frames on
+    the card and on the CPU, final states bit for bit and frames within the
+    contract; K1's and the CA step's launch counters around one pinned call
+    at full size (150 frames)."""
+    import bench_torch
+    from cellularautomatons3d_tpu_torch.render.renderer_fast import init_fast_history
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    proc = subprocess.run([sys.executable, str(HERE / "bench_torch.py")], cwd=HERE,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    out["bench_s"] = time.perf_counter() - t_phase
+    need(proc.returncode == 0, f"(o) bench_torch.py failed (exit {proc.returncode}): "
+         f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    need(len(lines) == 1, f"(o) bench_torch.py printed {len(lines)} lines on stdout")
+    rec = json.loads(lines[0])
+    keys = bench_torch.bench_py_keys()
+    need(keys | {"repeats", "spread"} <= set(rec),
+         f"(o) bench_torch's line lacks {sorted(keys | {'repeats', 'spread'} - set(rec))}")
+    bad = not_positive(rec, keys - {"metric", "unit", "device"})
+    bad += [f"spread.{k}" for k in ("value", "dense_scene_ms", "step_ms")
+            if not_positive(rec["spread"].get(k, {}), ("min", "max"))]
+    need(not bad, f"(o) bench_torch's line: {bad} missing or not finite and positive")
+    need(rec["repeats"] >= 5, f"(o) bench_torch ran {rec['repeats']} repeats")
+    card = card_line()
+    need(rec["device"] == card and torch.cuda.get_device_name(0) in rec["device"],
+         f"(o) bench_torch's device {rec['device']!r}, the card {card!r}")
+    print(lines[0], flush=True)
+    for line in proc.stderr.splitlines():
+        log(f"  {line}")
+    out["line"] = rec
+
+    # The same function on the card and on the CPU.
+    small = dict(grid=64, width=128, height=64, frames=12, steps=20, warmup_gens=80, repeats=2)
+    _, st_g, fr_g = bench_torch.measure(**small, device="cuda")
+    _, st_c, fr_c = bench_torch.measure(**small, device="cpu")
+    need(torch.equal(st_g.cpu(), st_c), "(o) measure's final state: cuda != cpu")
+    fr_g = fr_g.cpu()
+    err = float((fr_g - fr_c).abs().max())
+    need(bool(torch.all((fr_g - fr_c).abs() <= RGB_ATOL + RGB_RTOL * fr_c.abs())),
+         f"(o) measure's frame: cuda vs cpu max err {err}")
+    out["small_max_abs_err"] = err
+
+    # One pinned call at full size, every counter read around it.
+    dev = torch.device("cuda", 0)
+    spec, scene, run, params = bench_torch.scene_and_loop(
+        GRID, WIDTH, HEIGHT, bench_torch.FRAMES, bench_torch.WARMUP_GENS, dev)
+    start, hist = scene.clone(), init_fast_history(WIDTH, HEIGHT, dev)
+    torch.cuda.synchronize()
+    ca_step.fires_plane_cuda.launches = 0
+    rf.raytrace_cuda.launches = 0
+    st, _, frame = run(start, params, hist, bench_torch.RESET_PERIOD)
+    torch.cuda.synchronize()
+    out["launches"] = {"render_fast": rf.raytrace_cuda.launches,
+                       "ca_step": ca_step.fires_plane_cuda.launches}
+    frames = bench_torch.FRAMES
+    need(out["launches"] == {"render_fast": frames, "ca_step": frames},
+         f"(o) one pinned call of {frames} frames launched {out['launches']}")
+    need(torch.equal(st, scene), "(o) the pinned call did not end on the scene")
+    need(bool(torch.isfinite(frame).all()) and float(frame.max()) > 0.0,
+         "(o) the pinned call's frame is not finite or black")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"(o) bench_torch.py: one line, every key of bench.py's, {rec['repeats']} repeats, "
+        f"on {rec['device']} in {out['bench_s']:.1f} s; measure() cuda == cpu at 64^3 "
+        f"(frame max err {err:.3g}); one pinned call: {out['launches']}; phase (o) "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -3374,6 +3462,9 @@ def main() -> dict:
               mesh["timings"]["ca_step_slab_multistate_512_ms"],
               mesh["timings"]["ca_step_slab_multistate_plain_ms"]),
     ]
+    # ----------------------------------------------------------- (o) the bench ---
+    report["bench"] = bench_phase(torch, rf, ca_step)
+
     need("jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None},
          "JAX was imported")
     out_dir = HERE / "chiprun_out"

@@ -2,16 +2,17 @@
 port against the JAX package at 32³ / 64×32 in each of the fused loop's three
 branches -- K1 compose mode (hard shadows), the extended frame (soft shadows
 and temporally amortized GI) and ``render_frame_fast`` per iteration (the
-sliced path, ``force_sliced``; tests/test_torch_multistate_frames_sliced.py,
-a file of its own so that ``--dist loadfile`` spreads the JAX runs, 2 frames
-there) -- over 3 frames with ``reset_every=2``, from a blob of random valid ages of an
-8-state rule.
+sliced path, ``force_sliced``, K4 with its age output, f16 history between
+frames) -- from a blob of random valid ages of an 8-state rule, with
+``reset_every=2``: the K1 branches over 3 frames, the sliced one over 2 (the
+second frame renders the state stepped twice over the first one's history,
+then the state is restored).
 
 Contract: states and history ids equal; frames and history colours within
 rtol 3e-3 / atol 3e-4, soft-shadow frames with the flipped-pixel allowance of
 tests/_torch_lighting_scene.py.  JAX's K1 branches run jitted with the Pallas
 kernels in interpret mode, its sliced branch op by op under
-``jax.disable_jit()`` as tests/test_render_slab.py runs it.
+``jax.disable_jit()`` as tests/test_render_slab.py runs it, ~35 s a frame.
 """
 
 import contextlib
@@ -48,6 +49,8 @@ BRANCHES = {
     "extended": dict(LIGHTING, gi_temporal=True),
     "per_frame": dict(force_sliced=True),
 }
+# Frames of each branch's run against JAX.
+JAX_FRAMES = {"compose": FRAMES, "extended": FRAMES, "per_frame": 2}
 
 
 def blob_planes():
@@ -99,8 +102,10 @@ def assert_close_but_flipped(got, want, hit, soft):
     assert (~close).sum() <= allowed, f"{(~close).sum()} of {hit.sum()} hit pixels differ"
 
 
-def check_fused_loop_against_jax(branch, frames=FRAMES):
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_fused_loop_with_ages_matches_jax(branch):
     static_kw = BRANCHES[branch]
+    frames = JAX_FRAMES[branch]
     want = jax_loop(static_kw, frames)
     spec = ct.AutomatonSpec.from_rule_strings(grid_size=N, **RULE)
     start = ct.from_reference(blob_planes(), device="cpu")
@@ -116,11 +121,6 @@ def check_fused_loop_against_jax(branch, frames=FRAMES):
     assert_close_but_flipped(hist.color.float().numpy(), want[1].astype(np.float32), hit, soft)
     # reset_every=2: the state is frames % 2 steps past the start.
     assert torch.equal(st, ca_step.step_packed(start, spec) if frames % RESET else start)
-
-
-@pytest.mark.parametrize("branch", ["compose", "extended"])
-def test_fused_loop_with_ages_matches_jax(branch):
-    check_fused_loop_against_jax(branch)
 
 
 @pytest.mark.parametrize("branch", list(BRANCHES))

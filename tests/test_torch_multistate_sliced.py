@@ -1,11 +1,16 @@
 """The sliced path with age planes: the port's ``raytrace_sliced(ages=…)``
 (plain K4 with its age output, the age fade in torch) against the JAX
-package's at 64³ / 128×64 over 2 bricks (32-plane slabs), whose per-brick age
-layouts and age merge across bricks the port replaces by one fetch at the
-hit, on a Generations scene of a 10-state rule with hard shadows.  The frame
-of the temporally amortized lighting is
-tests/test_torch_multistate_sliced_temporal.py (one JAX frame a file, so
-``--dist loadfile`` spreads them).
+package's, one module-scoped JAX frame per lighting mode:
+
+* hard shadows at 64³ / 128×64 over 2 bricks (32-plane slabs), whose
+  per-brick age layouts and age merge across bricks the port replaces by one
+  fetch at the hit, on a Generations scene of a 10-state rule;
+* the temporally amortized lighting (one rotating soft-shadow sample and one
+  GI slot a frame) at 32³ / 128×64 over one brick: the fade multiplies the
+  occlusion quotient of the direct term and not the GI added after it; a
+  soft-shadow frame allows a few penumbra pixels
+  (tests/_torch_lighting_scene.py).
+
 Contract of tests/_torch_sliced_scene.py.
 """
 
@@ -19,23 +24,33 @@ from _torch_sliced_scene import H, N, W
 
 from _torch_multistate_scene import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module")
-def hard_frame():
-    return check_sliced_frame_with_ages(
-        {}, {}, max_flipped=0, n=N, p_dead=0.98,
-        bricks=dict(slab_planes=32, x_chunk_cells=64))
-
-
-def test_sliced_hard_shadow_frame_with_ages_matches_jax(hard_frame):
-    assert (hard_frame[4][2] >= 0).sum() > 500
+# Lighting mode: (raytrace_sliced options, camera options, flipped pixels
+# allowed, grid, share of dead cells, bricks).
+MODES = {
+    "hard": ({}, {}, 0, N, 0.98, dict(slab_planes=32, x_chunk_cells=64)),
+    "gi_temporal": (dict(soft_shadow_samples=4, indirect=True, sample_idx=2),
+                    dict(light_radius=0.08, elapsed_time=0.37), 8, 32, 0.95,
+                    dict(slab_planes=32, x_chunk_cells=32)),
+}
 
 
-def test_k4_age_image_equals_the_dense_ages_at_the_reference_hits(hard_frame):
-    ages, planes, vis, cam, want = hard_frame
+@pytest.fixture(scope="module", params=list(MODES))
+def sliced_frame(request):
+    kw, cam_kw, flipped, n, p_dead, bricks = MODES[request.param]
+    return request.param, check_sliced_frame_with_ages(
+        kw, cam_kw, max_flipped=flipped, n=n, p_dead=p_dead, bricks=bricks)
+
+
+def test_sliced_frame_with_ages_matches_jax(sliced_frame):
+    mode, (_, _, _, _, want) = sliced_frame
+    assert (want[2] >= 0).sum() > (500 if mode == "hard" else 50)
+
+
+def test_k4_age_image_equals_the_dense_ages_at_the_reference_hits(sliced_frame):
+    mode, (ages, planes, vis, cam, want) = sliced_frame
     t, idx, age = primary_sweep(ct.from_reference(vis, device="cpu"), cam,
                                 ct.from_reference(planes, device="cpu"),
-                                grid_size=N, width=W, height=H)
+                                grid_size=MODES[mode][3], width=W, height=H)
     hit = want[2] >= 0
     np.testing.assert_array_equal(idx.numpy(), want[2])
     np.testing.assert_array_equal(age.numpy(), hit_ages(ages, want[2]))
