@@ -52,6 +52,15 @@ cellularautomatons3d_tpu_torch.tools.<name>``: ``profile_trace``,
 ``bench_scale``, ``bench_512_ablate``) measure where a frame's time goes, and
 ``bench_torch.py`` at the repository root prints the reference ``bench.py``'s
 line from the port.
+
+The flagship forward step, the twin of the JAX package's
+``__graft_entry__.entry``: ``cellularautomatons3d_tpu_torch.entry`` (``from
+cellularautomatons3d_tpu_torch.entry import entry``; not re-exported here, so
+the name stays the module's), one CA generation and one frame of the
+reference pipeline on its ``_example`` scene, with the command line ``python
+-m cellularautomatons3d_tpu_torch.entry [dryrun N] [--device cpu]``.
+:func:`from_reference` and :func:`to_reference` carry states, histories and
+the reference pipeline's ``RenderParams`` between the two packages.
 """
 
 from .utils.config import EngineConfig, LightConfig, BoundaryMode

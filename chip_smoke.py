@@ -218,6 +218,20 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       bit for bit, frames within rtol 3e-3 / atol 3e-4); and K1's and the CA
       step's launch counters set to 0 before one pinned call at full size and
       read after it: 150 and 150.
+  (p) the flagship forward step (``cellularautomatons3d_tpu_torch.entry``,
+      the twin of ``__graft_entry__.entry``: one CA generation, then one
+      frame of the exact reference pipeline at 64³ / 320×240 with 16 depth
+      and 8 shadow steps; run after (l)): ``entry()``'s fn on the card
+      chained 3 calls deep against ``entry(device="cpu")``'s (states bit for
+      bit, frames within the comparison of (k)), every counter set to 0
+      before each call and read after it (one CA step launch, no frame
+      kernel); ``python -m cellularautomatons3d_tpu_torch.entry`` in a child
+      process (its ``entry OK:`` line, no JAX loaded); one call's time
+      (median of 5 CUDA-event reads after a warm-up) and peak memory, and its
+      kernels and device ms from a torch.profiler trace in a second child
+      (``--entry-trace``: one call is ~1,900 launches, more than
+      ``cuda_time_fn(queued=True)``'s sleeping stream queues, and a trace late
+      in this process drops kernel events).
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -2667,6 +2681,131 @@ def bench_phase(torch, rf, ca_step) -> dict:
     return out
 
 
+# --------------------------------------------- (p) the flagship forward step ---
+ENTRY_CALLS = 3         # chained calls of entry()'s fn on the card and the CPU
+ENTRY_TIMED = 5         # CUDA-event reads of one call, after a warm-up
+ENTRY_TIMEOUT_S = 300
+ENTRY_SHAPES = ("((240, 320, 3), (2, 64, 64), RenderHistory(color=(240, 320, 4), "
+                "depth=(240, 320, 2)))")
+
+
+def entry_trace_child() -> None:
+    """The trace child of phase (p): ``entry()``'s fn on the card, two calls
+    of warm-up, then a torch.profiler trace of ``ENTRY_TIMED`` calls (a trace
+    late in the parent's process drops kernel events); prints one JSON line
+    with the kernels and device ms a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false")
+    sys.path.insert(0, str(HERE))
+    from cellularautomatons3d_tpu_torch.entry import entry
+
+    fn, (packed, params, hist) = entry()
+    for _ in range(2):
+        fn(packed, params, hist)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ENTRY_TIMED):
+            fn(packed, params, hist)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    need(ev, "(p) the trace holds no kernel event")
+    print(json.dumps({"kernels_per_call": len(ev) / ENTRY_TIMED,
+                      "device_ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3 / ENTRY_TIMED,
+                      "ca_step_kernels": sum("ca_step_kernel" in e.name for e in ev) / ENTRY_TIMED}),
+          flush=True)
+
+
+def entry_phase(torch, np, counted) -> dict:
+    """Phase (p): the flagship forward step (``cellularautomatons3d_tpu_torch.entry``,
+    the twin of ``__graft_entry__.entry``: one CA generation, then one frame
+    of the reference pipeline at 64³ / 320×240, 16 depth and 8 shadow steps).
+    ``entry()``'s fn on the card chained ``ENTRY_CALLS`` calls deep against
+    ``entry(device="cpu")``'s: states equal, frames within the reference
+    tests' comparison, each call one CA step launch and no frame kernel
+    (every counter set to 0 just before the call and read just after); the
+    command line in a child process (its ``entry OK:`` line, no JAX loaded);
+    then the time of one call (median of CUDA events around single calls
+    after a warm-up), its peak memory, and its kernels and device ms from a
+    torch.profiler trace in a second child process."""
+    from cellularautomatons3d_tpu_torch import to_reference, unpack_grid
+    from cellularautomatons3d_tpu_torch.entry import entry
+    from _torch_reference_scene import compare
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": [], "card_vs_cpu": [], "lit_px": []}
+    fn, card = entry()
+    cpu_fn, cpu = entry(device="cpu")
+    for i in range(ENTRY_CALLS):
+        for k in counted:
+            k.launches = 0
+        frame, packed, hist = fn(*card)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in counted}
+        out["launches"].append(counts)
+        need(counts["fires_plane_cuda"] == 1 and sum(counts.values()) == 1,
+             f"(p) call {i}: not one CA step launch and no other kernel: {counts}")
+        cframe, cpacked, chist = cpu_fn(*cpu)
+        need(torch.equal(packed.cpu(), cpacked), f"(p) call {i}: state cuda != cpu")
+        need(tuple(frame.shape) == (240, 320, 3) and bool(torch.isfinite(frame).all()),
+             f"(p) call {i}: frame {tuple(frame.shape)} not a finite 240x320 window")
+        lit = int((cframe.sum(-1) > 0).sum())
+        out["lit_px"].append(lit)
+        need(lit > 10, f"(p) call {i}: {lit} pixels lit")
+        try:
+            fr = compare((frame.cpu().numpy(), hist.color.cpu().numpy(), hist.depth.cpu().numpy()),
+                         (cframe.numpy(), chist.color.numpy(), chist.depth.numpy()),
+                         depth=REFERENCE_CARD_MISMATCH, rgb=REFERENCE_CARD_MISMATCH)
+        except AssertionError as err:
+            raise SmokeFailure(f"(p) call {i} cuda vs cpu: {err}") from err
+        out["card_vs_cpu"].append(fr)
+        card = (packed, card[1], hist)
+        cpu = (cpacked, cpu[1], chist)
+    out["population"] = int(unpack_grid(to_reference(packed)).sum())
+
+    code = ("import runpy, sys; sys.modules['jax'] = None; sys.argv = ['entry']; "
+            "runpy.run_module('cellularautomatons3d_tpu_torch.entry', run_name='__main__', "
+            "alter_sys=True); "
+            "assert not any(m.split('.')[0] in ('jax', 'cellularautomatons3d_tpu') "
+            "for m in sys.modules if sys.modules[m] is not None)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True,
+                          text=True, timeout=ENTRY_TIMEOUT_S)
+    need(proc.returncode == 0, f"(p) the entry command failed (exit {proc.returncode}): "
+         f"{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    need(line == f"entry OK: {ENTRY_SHAPES}", f"(p) the entry command printed {proc.stdout!r}")
+    out["command_line"] = line
+
+    # The time, memory and kernels of one call from the example arguments.
+    fn, args = entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    reads = [timed(torch, lambda: fn(*args))[1] for _ in range(ENTRY_TIMED)]
+    out["call_reads_ms"] = reads
+    out["call_ms"] = float(np.median(reads))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--entry-trace"],
+                          cwd=HERE, capture_output=True, text=True, timeout=ENTRY_TIMEOUT_S)
+    need(proc.returncode == 0, f"(p) the trace child failed (exit {proc.returncode}): "
+         f"{proc.stderr[-3000:]}")
+    trace = json.loads(proc.stdout.strip().splitlines()[-1])
+    need(trace["ca_step_kernels"] == 1, f"(p) the trace: {trace}")
+    out.update(trace)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"(p) entry(): {ENTRY_CALLS} chained calls cuda == cpu (states bit for bit, frames "
+        f"{out['card_vs_cpu']}), lit {out['lit_px']} px, launches {out['launches']}; "
+        f"command line: {line!r}; one call {out['call_ms']:.2f} ms (median of {reads}), "
+        f"{trace['kernels_per_call']:.0f} kernels, {trace['device_ms']:.3f} ms device, peak "
+        f"+{out['peak_mib']:.1f} MiB; phase (p) {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -3086,6 +3225,14 @@ def main() -> dict:
     report["mesh"] = {k: mesh[k] for k in ("slab_cases", "launches", "frames", "timings",
                                            "placement", "dryrun")}
 
+    # --------------------------------------------- (p) the flagship forward step ---
+    counted = (ca_step.fires_plane_cuda, ca_step.step_packed_multistate_cuda,
+               ca_step.age_masks_cuda, ca_step.fires_slab_cuda, ca_step.step_slab_multistate_cuda,
+               rf.raytrace_cuda, rf.prepass_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
+               rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
+               occupancy.plane_occupancy_cuda)
+    report["entry"] = entry_phase(torch, np, counted)
+
     # -------------------------------------------------- (d) timings ---
     card = card_line()
     st = eng80.state
@@ -3381,7 +3528,8 @@ def main() -> dict:
         entry("ca_step", "ca_step.cu", "ops/ca_step.py:118",
               launches["ca_step"] + total("fires_plane_cuda", *sliced_launches.values(),
                                           *inter["launches"].values(),
-                                          *refp["launches"].values()),
+                                          *refp["launches"].values(),
+                                          *report["entry"]["launches"]),
               0.0, ca_ms, ca_plain_ms),
         entry("ca_step_multistate", "ca_step.cu", "ops/ca_step.py:178",
               total("step_packed_multistate_cuda", *ms_launches), 0.0,
@@ -3474,6 +3622,13 @@ def main() -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--entry-trace"]:  # phase (p)'s trace child
+        try:
+            entry_trace_child()
+        except SmokeFailure as e:
+            print(f"chip_smoke --entry-trace FAILED: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        sys.exit(0)
     if sys.argv[1:] == ["--tools"]:  # phase (n)'s child process
         try:
             tools_child()

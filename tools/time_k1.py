@@ -39,7 +39,9 @@ its own kernels there) and times, with CUDA events after a warm-up, at
   gen-200, at 512³ on gen-260 (whose box is the whole volume) and on an empty
   volume at 512³ and 1024³ (its floor); where the tree has
   ``ops.occupancy.occupied_box_cuda``, the box kernel alone at each size
-  (K2's and K4's times include its launch, as their wrappers make it);
+  (K2's and K4's times include its launch, as their wrappers make it), and
+  in the same trace the launch floor (a one-element torch ``fill_``) and the
+  plane mip's kernel (``ops.occupancy.plane_occupancy_cuda``) on the volume;
 * the binary CA step at 256³, 512³ and 1024³ (default rule), the binary
   step on the ``pyroclastic`` preset's rule (Moore) at 1024³, and the
   multi-state step (both launches) at 1024³ on that preset (10 states) over
@@ -320,13 +322,32 @@ def main():
         dev_ms[tag] = device_ms(run, K4_KERNELS)
         out[f"{tag}_hits"] = int((run()[1] >= 0).sum())
 
-    def time_box(tag, coarse_, size):
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def time_box(tag, vol_, coarse_, size):
+        """The box kernel by events, then in one trace beside the launch
+        floor (a one-element torch ``fill_``) and, where the tree has it, the
+        plane mip's kernel on the same volume: ``device_ms`` gets ``tag``,
+        ``fill_<size>`` and ``plane_occupancy_<size>``."""
         from cellularautomatons3d_tpu_torch.ops import occupancy
 
         if hasattr(occupancy, "occupied_box_cuda"):
             run = lambda: occupancy.occupied_box_cuda(coarse_, size)  # noqa: E731
             out[f"{tag}_ms"] = ms(run, 200)
-            dev_ms[tag] = device_ms(run, ["occupied_box_kernel"], 100)
+            plane = getattr(occupancy, "plane_occupancy_cuda", None)
+
+            def beside():
+                run()
+                one.fill_(1)
+                if plane is not None:
+                    plane(vol_)
+
+            iters = 100
+            events = device_events(beside, iters)
+            for key, kernel in ((tag, "occupied_box_kernel"), (f"fill_{size}", "FillFunctor"),
+                                (f"plane_occupancy_{size}", "plane_occupancy_kernel")):
+                us = [t for name, t in events if kernel in name]
+                dev_ms[key] = sum(us) / iters / 1000.0 if us else None
             out[f"{tag}_box"] = run().tolist()
 
     # The prepass frame's contract: K1 computes its own masks since the
@@ -452,7 +473,7 @@ def main():
             out["ca_step_256_ms"] = ms(lambda: ca_step.fires_plane_cuda(vol, spec), 1000, 20)
             dev_ms["ca_step_256"] = device_ms(lambda: ca_step.fires_plane_cuda(vol, spec),
                                               ["ca_step_kernel"], 100)
-            time_box("box_256", coarse, n)
+            time_box("box_256", vol, coarse, n)
     # The sliced sizes: K4 (and the hard-shadow K2) on the centre seed grown
     # 160 generations at 512³, 260 at 512³ (the box is the whole volume) and
     # 200 at 1024³; K4 on an empty volume; the CA step at 512³ on gen-160
@@ -471,7 +492,7 @@ def main():
         tag = f"k4_{size}" if steps != 260 else "k4_512_gen260"
         time_k4(tag, big, big_coarse, size)
         if steps != 260:
-            time_box(f"box_{size}", big_coarse, size)
+            time_box(f"box_{size}", big, big_coarse, size)
             time_k2(f"k2_hard_{size}", big, big_coarse, *hard_operands(big, big_coarse, size))
         if size == 512 and steps == 160:
             time_k2("k2_8q_512", big, big_coarse, *k2_operands(big, big_coarse, size))
