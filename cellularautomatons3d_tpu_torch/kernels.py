@@ -5,11 +5,14 @@ one shard of a sharded grid), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
 ``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
 ``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box
-that K2's, K4's and K5's entry points enqueue before their kernels) and
-``csrc/plane_occupancy.cu`` (the plane mip of K1's mip1 descent); all but
-the CA step, K3 and the plane mip share the traversal and float helpers in
-``csrc/sweep.cuh``, K6 and K1 the patch mask of ``csrc/prepass.cuh``, and
-K5 and K3 read their per-query operands through the tables of
+that K2's, K4's and K5's entry points enqueue before their kernels),
+``csrc/plane_occupancy.cu`` (the plane mip of K1's mip1 descent),
+``csrc/coarse_occupancy.cu`` (the 8³ mip every frame path rebuilds) and
+``csrc/reproject.cu`` (the moving camera's history reprojection); all but
+the CA step, K3, the two mips and the reprojection share the traversal
+and float helpers in ``csrc/sweep.cuh``, K6 and K1 the patch mask of
+``csrc/prepass.cuh``, the two mips the block row of ``csrc/block_mip.cuh``,
+and K5 and K3 read their per-query operands through the tables of
 ``csrc/queries.cuh``.
 At first use each source is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain
@@ -55,8 +58,11 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "prepass.cu",
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
     PACKAGE_DIR / "csrc" / "plane_occupancy.cu",
+    PACKAGE_DIR / "csrc" / "coarse_occupancy.cu",
+    PACKAGE_DIR / "csrc" / "reproject.cu",
 )
-HEADERS = tuple(PACKAGE_DIR / "csrc" / h for h in ("sweep.cuh", "queries.cuh", "prepass.cuh"))
+HEADERS = tuple(PACKAGE_DIR / "csrc" / h
+                for h in ("sweep.cuh", "queries.cuh", "prepass.cuh", "block_mip.cuh"))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -172,6 +178,10 @@ def library() -> ctypes.CDLL:
         lib.ca3d_occupied_box.restype = _I
         lib.ca3d_plane_occupancy.argtypes = [_I, _P, _I, _P, _P]
         lib.ca3d_plane_occupancy.restype = _I
+        lib.ca3d_coarse_occupancy.argtypes = [_I, _P, _I, _P, _P]
+        lib.ca3d_coarse_occupancy.restype = _I
+        lib.ca3d_reproject.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.ca3d_reproject.restype = _I
         _lib = lib
     return _lib
 

@@ -18,7 +18,7 @@ from .ca_step import (
     visibility_plane,
 )
 from .loop import make_multi_step
-from .occupancy import coarse_occupancy
+from .occupancy import coarse_occupancy, occupancy_mip
 
 __all__ = [
     "pack_grid",
@@ -39,4 +39,5 @@ __all__ = [
     "fires_plane",
     "fires_plane_cuda",
     "coarse_occupancy",
+    "occupancy_mip",
 ]

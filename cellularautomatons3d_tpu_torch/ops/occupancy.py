@@ -19,8 +19,11 @@ from global memory (32 KiB at 512³, 256 KiB at 1024³).
 
 Each byte of a packed word is one 8-cell x-block (bit b of word w is cell
 32w + b, and the words are little-endian), so the mip is an ``any`` over
-bytes followed by packing the block bits into words: a handful of launches
-per rebuild, which matters because the fused loop rebuilds it every frame.
+bytes followed by packing the block bits into words: a dozen launches per
+rebuild in eager torch.  Every frame path rebuilds it every frame, so they
+take it from :func:`occupancy_mip`: on the card one launch of
+``csrc/coarse_occupancy.cu`` (:func:`coarse_occupancy_cuda`), on the CPU
+the plain twin :func:`coarse_occupancy`.
 
 :func:`occupied_box` reduces a mip to the box of its occupied blocks, which
 K2, K4 and K5 clip their sweeps to; on the card ``csrc/occupied_box.cu``
@@ -36,9 +39,9 @@ import torch
 from .. import kernels
 
 __all__ = [
-    "coarse_occupancy", "coarse_shape", "plane_occupancy", "plane_occupancy_cuda",
-    "dilate_occupancy", "dilated_bits", "occupied_box", "occupied_box_cuda", "BLOCK",
-    "BOX_WORDS",
+    "coarse_occupancy", "coarse_occupancy_cuda", "occupancy_mip", "coarse_shape",
+    "plane_occupancy", "plane_occupancy_cuda", "dilate_occupancy", "dilated_bits",
+    "occupied_box", "occupied_box_cuda", "BLOCK", "BOX_WORDS",
 ]
 
 BLOCK = 8  # downsample factor per axis
@@ -59,6 +62,33 @@ def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:
     # [W, Zc, 8, Yc, 8, 4 bytes] → any over the 8×8 (z, y) cells of a block.
     v = packed.contiguous().view(torch.uint8).reshape(w, zc, BLOCK, yc, BLOCK, 4)
     return _pack_blocks((v != 0).any(dim=4).any(dim=2))
+
+
+def coarse_occupancy_cuda(packed: torch.Tensor) -> torch.Tensor:
+    """:func:`coarse_occupancy` on the card in one launch
+    (``csrc/coarse_occupancy.cu``, a thread a plane word, the 8 planes of a
+    block folded by warp shuffles); ``packed`` must be a contiguous, 16-byte
+    aligned CUDA tensor [n/32, n, n], n ≤ 1024."""
+    n = packed.shape[-1]
+    kernels.require(packed, "packed", torch.int32, (n // 32, n, n), align=16)
+    out = torch.empty(coarse_shape(n), dtype=torch.int32, device=packed.device)
+    err = kernels.library().ca3d_coarse_occupancy(
+        packed.device.index or 0, packed.data_ptr(), n, out.data_ptr(),
+        kernels.stream_of(packed))
+    kernels.check(err, "coarse_occupancy")
+    coarse_occupancy_cuda.launches += 1
+    return out
+
+
+coarse_occupancy_cuda.launches = 0
+
+
+def occupancy_mip(packed: torch.Tensor) -> torch.Tensor:
+    """The frame paths' 8³ mip of ``packed``: the plain twin for a CPU
+    tensor, else the kernel (which raises on anything but a CUDA tensor)."""
+    if packed.device.type == "cpu":
+        return coarse_occupancy(packed)
+    return coarse_occupancy_cuda(packed)
 
 
 def _pack_blocks(occ: torch.Tensor) -> torch.Tensor:

@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import BOX_WORDS, coarse_occupancy, coarse_shape, occupied_box_cuda
+from ..ops.occupancy import BOX_WORDS, coarse_shape, occupancy_mip, occupied_box_cuda
 from . import brdf
 from .intersect import (
     FULL_CUBE_SIZE,
@@ -141,8 +141,9 @@ class Prepped(NamedTuple):
 
 
 def prep_volume(packed: torch.Tensor, coarse: torch.Tensor | None = None) -> Prepped:
-    """The whole-volume counterpart of the reference's ``prep_slabs``."""
-    return Prepped(packed, coarse_occupancy(packed) if coarse is None else coarse)
+    """The whole-volume counterpart of the reference's ``prep_slabs``; the
+    mip from :func:`~..ops.occupancy.occupancy_mip` unless given."""
+    return Prepped(packed, occupancy_mip(packed) if coarse is None else coarse)
 
 
 def _check_sliced(grid_size, width, height, cam):

@@ -18,7 +18,9 @@ and counts as a GI neighbour like a live one:
   torch).  Then emissive light.
 * :func:`render_frame_fast` -- one frame: trace_shaded, then the temporal
   EMA (validated by the stored hit-cell id; after a camera move the history
-  is reprojected first, :func:`reproject_history`), the light cube, f16
+  is reprojected first: on the card :func:`reproject_history_cuda`, one
+  launch of ``csrc/reproject.cu``, on the CPU its plain twin
+  :func:`reproject_history`), the light cube, f16
   history, the depth overlay and gamma in torch.
 * :func:`make_fused_loop` -- the production loop (CA steps + one composed
   frame per iteration, static camera) with the reset period as a runtime
@@ -37,8 +39,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops.ca_step import step_packed, visibility_plane
-from ..ops.occupancy import coarse_occupancy
+from ..ops.occupancy import occupancy_mip
 from .camera import COT_HALF_FOV, get_ray, pixel_uvs
 from .intersect import device_vec, ray_cube_intersect
 from .render_fast import (
@@ -61,6 +64,7 @@ __all__ = [
     "init_fast_history",
     "trace_shaded",
     "reproject_history",
+    "reproject_history_cuda",
     "render_frame_fast",
     "make_fused_loop",
 ]
@@ -167,7 +171,7 @@ def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2)
             sample_idx=sample_idx if s.gi_temporal else None,
         )
     else:
-        coarse = coarse_occupancy(packed)
+        coarse = occupancy_mip(packed)
         rgb, depth, idx = raytrace_tiles(
             packed, coarse, cam, grid_size=s.grid_size, width=s.width,
             height=s.height, shadow=s.soft_shadow_samples <= 1, ages=ages,
@@ -254,6 +258,54 @@ def reproject_history(history: FastHistory, rgb: torch.Tensor,
     return out, torch.where(in_bounds, flat, -1), valid
 
 
+def reproject_history_cuda(history: FastHistory, rgb: torch.Tensor,
+                           depth: torch.Tensor, idx: torch.Tensor,
+                           params: RenderParams, w: int, h: int,
+                           full_height: int | None = None, row0: int = 0, *,
+                           with_source: bool = False):
+    """:func:`reproject_history` on the card in one launch
+    (``csrc/reproject.cu``, a thread a pixel, the twin's operations in its
+    order).  Every operand must be a contiguous CUDA tensor of the frame's
+    shape: ``rgb`` f32 [h, w, 3], ``depth`` f32 [h, w], ``idx`` and
+    ``history.hit_idx`` int32 [h, w], ``history.color`` f16 [h, w, 3].
+    Returns the blended rgb; with ``with_source`` also the source pixel
+    (int64, -1 out of bounds) and the valid mask, as the twin does."""
+    fh = h if full_height is None else full_height
+    for t, name, dtype, shape in (
+        (history.color, "history.color", torch.float16, (h, w, 3)),
+        (history.hit_idx, "history.hit_idx", torch.int32, (h, w)),
+        (rgb, "rgb", torch.float32, (h, w, 3)),
+        (depth, "depth", torch.float32, (h, w)),
+        (idx, "idx", torch.int32, (h, w)),
+    ):
+        kernels.require(t, name, dtype, shape, align=t.element_size())
+    if not (0 <= row0 and row0 + h <= fh):
+        raise ValueError(f"rows {row0}..{row0 + h} do not fit a window of {fh} rows")
+    view = np.asarray(params.view_mat, np.float32)
+    consts = np.concatenate([
+        view[:3, :].reshape(-1),
+        np.asarray(params.prev_proj_view, np.float32).reshape(-1),
+        np.float32([np.float32(w) / np.float32(fh), -(np.float32(0.5) * COT_HALF_FOV),
+                    params.temporal_alpha]),
+    ]).astype(np.float32)
+    dev = rgb.device
+    out = torch.empty_like(rgb)
+    src = torch.empty((h, w), dtype=torch.int64, device=dev) if with_source else None
+    valid = torch.empty((h, w), dtype=torch.bool, device=dev) if with_source else None
+    err = kernels.library().ca3d_reproject(
+        dev.index or 0, history.color.data_ptr(), history.hit_idx.data_ptr(),
+        rgb.data_ptr(), depth.data_ptr(), idx.data_ptr(), w, h, fh, int(row0),
+        consts.ctypes.data, out.data_ptr(),
+        None if src is None else src.data_ptr(), None if valid is None else valid.data_ptr(),
+        kernels.stream_of(rgb))
+    kernels.check(err, "reproject")
+    reproject_history_cuda.launches += 1
+    return (out, src, valid) if with_source else out
+
+
+reproject_history_cuda.launches = 0
+
+
 def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
                       params: RenderParams, history: FastHistory,
                       camera_static: bool = True, sample_idx=None, *,
@@ -290,8 +342,10 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
         alpha = float(np.float32(params.temporal_alpha))
         mixed = torch.clamp(prev + (rgb - prev) * alpha, 0.0, 1.0)
         out = torch.where(same_cell[..., None], mixed, rgb)
-    else:
+    elif dev.type == "cpu":
         out, _, _ = reproject_history(history, rgb, depth, idx, params, w, h, fh, row0)
+    else:
+        out = reproject_history_cuda(history, rgb, depth, idx, params, w, h, fh, row0)
 
     # Light-source cube (wgsl:866-874).
     light_pos = torch.from_numpy(np.asarray(params.light_pos, np.float32)).to(dev)
@@ -411,7 +465,7 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
             ages = st if multistate else None
             if use_compose:
                 frame, _, idx, color = raytrace_tiles(
-                    vis, coarse_occupancy(vis), cam, hist,
+                    vis, occupancy_mip(vis), cam, hist,
                     grid_size=n, width=w, height=h, shadow=True, ages=ages,
                     total_states=total_states,
                 )

@@ -27,7 +27,7 @@ import os
 
 import torch
 
-from ..ops.occupancy import coarse_occupancy
+from ..ops.occupancy import occupancy_mip
 from ..render import render_fast
 from . import common
 
@@ -49,7 +49,7 @@ def main(argv=None) -> list[dict]:
              torch.full((h, w), -1, dtype=torch.int32, device=run.dev))]
 
     def frame():
-        out = render_fast.raytrace_tiles(vol, coarse_occupancy(vol), cam, hist[0], **kw)
+        out = render_fast.raytrace_tiles(vol, occupancy_mip(vol), cam, hist[0], **kw)
         hist[0] = (out[3], out[2])
 
     def frames():

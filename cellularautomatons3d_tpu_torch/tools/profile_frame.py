@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.occupancy import coarse_occupancy
+from ..ops.occupancy import occupancy_mip
 from ..render import render_fast
 from . import common
 
@@ -59,7 +59,7 @@ def main(argv=None) -> list[dict]:
     grid = run.grid(256)
     vol = common.scene(grid, 80, run.dev)
     empty = torch.zeros_like(vol)
-    volumes = {"scene": (vol, coarse_occupancy(vol)), "empty": (empty, coarse_occupancy(empty))}
+    volumes = {"scene": (vol, occupancy_mip(vol)), "empty": (empty, occupancy_mip(empty))}
     cam = common.cam(w, h)
     out = []
     for variant in args.variants or VARIANTS:

@@ -47,7 +47,7 @@ from pathlib import Path
 
 import torch
 
-from ..ops.occupancy import coarse_occupancy
+from ..ops.occupancy import occupancy_mip
 from ..render import render_fast, render_slab
 from ..render.render_fast import P_LIGHT, P_LMAG, P_O
 from ..render.intersect import device_vec
@@ -75,7 +75,7 @@ def parts(run: common.Run, vol, cam, grid: int) -> dict:
     """The GI frame's parts as calls on the same inputs."""
     w, h = run.window
     kw = dict(grid_size=grid, width=w, height=h)
-    coarse = coarse_occupancy(vol)
+    coarse = occupancy_mip(vol)
     prepped = render_slab.prep_volume(vol, coarse)
 
     def primary():

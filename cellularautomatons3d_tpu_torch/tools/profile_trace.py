@@ -25,9 +25,11 @@ are read around the traced frames.  Modes:
   (gen-560), ``run_fused(K, reset_every=min(K, 10))``;
 * ``moved``: 256³ gen-80 (``--grid 512``: gen-160), K ``render()`` calls each
   after a camera move (a translate, a rotate and a mouse look), beside K
-  static ones; ``renderer_fast.reproject_history`` runs inside a
-  ``record_function`` range of its own, so the trace splits what a moved
-  frame adds by kernel: the reprojection against the rest;
+  static ones; the reprojection (``renderer_fast.reproject_history_cuda``
+  on the card, one kernel; its twin ``reproject_history`` on the CPU) runs
+  inside a ``record_function`` range of its own, ``reproject_history``, so
+  the trace splits what a moved frame adds by kernel: the reprojection
+  against the rest;
 * ``mesh``: ``Engine(mesh_devices=4, mesh_device_list=[cuda:0] * 4)`` at
   ``--grid 512`` (gen-160, the default) or ``256`` (gen-80),
   ``run_fused(K, reset_every=K)``.
@@ -46,7 +48,6 @@ needs neither, and the Engine's own calls are what is traced.
 from __future__ import annotations
 
 import contextlib
-import functools
 import time
 from pathlib import Path
 
@@ -80,18 +81,33 @@ def move_camera(rig, i: int):
     rig.mouse_look(6.0 * s, -3.0 * s)
 
 
+class _Ranged:
+    """``fn`` called inside a ``record_function(label)`` range.  Its
+    attributes are ``fn``'s, read and written through, so a kernel wrapper
+    that counts into its own ``.launches`` by name keeps counting into
+    ``fn``'s while the module holds this in its place."""
+
+    def __init__(self, fn, label: str):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_label", label)
+
+    def __call__(self, *a, **kw):
+        with torch.profiler.record_function(self._label):
+            return self._fn(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
 @contextlib.contextmanager
 def attributed(module, name: str, label: str):
     """Put ``module.name`` inside a ``record_function(label)`` range for the
     block, so a trace can attribute its kernels; restored on exit."""
     real = getattr(module, name)
-
-    @functools.wraps(real)
-    def wrapped(*a, **kw):
-        with torch.profiler.record_function(label):
-            return real(*a, **kw)
-
-    setattr(module, name, wrapped)
+    setattr(module, name, _Ranged(real, label))
     try:
         yield
     finally:
@@ -133,7 +149,8 @@ def trace_frames(run: common.Run, eng: Engine, mode: str, k: int, out_dir) -> di
     call = frames_call(eng, mode, k)
     with common.counted() as launched, profile_trace(str(out_dir)):
         if mode == "moved":
-            with attributed(renderer_fast, "reproject_history", "reproject_history"):
+            reproject = "reproject_history_cuda" if run.cuda else "reproject_history"
+            with attributed(renderer_fast, reproject, "reproject_history"):
                 with torch.profiler.record_function("moved render"):
                     call()
                 with torch.profiler.record_function("static render"):

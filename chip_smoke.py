@@ -21,9 +21,10 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       at 64³.
   (c) the main path at real size: Engine(grid_size=256, 1920×1080,
       device="cuda"): step(80), render() twice, run_fused(150,
-      reset_every=10), with both kernels' launch counters read around it.
+      reset_every=10), with the CA step's, K1's and the 8³ mip's launch
+      counters read around it (one mip kernel a frame).
   (d) timings with CUDA events (kernel vs plain, CA step, step + composed
-      frame; K2 and K3 vs plain, the lighting passes, and step + frame of
+      frame, the 8³ mip as the frame path runs it beside its twin; K2 and K3 vs plain, the lighting passes, and step + frame of
       the three lighting configurations; K4 and K2's hard-shadow query vs
       plain and step + frame at 512³ and 1024³; K5 against K2 on a
       full-quality frame's 8 queries at 256³ and 512³, K6, K1 with and
@@ -127,7 +128,8 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       in (h)); for every moved frame ``reproject_history`` on the card
       against the CPU on the same inputs (source pixel and valid mask equal
       on 1 − 1e-4 of the pixels, rgb within the contract there, some
-      history kept); the Engine on the card vs the CPU over 10 moved ticks
+      history kept), and the reprojection kernel against the twin on the
+      card, bit for bit; the Engine on the card vs the CPU over 10 moved ticks
       at 64³ / 128×64; a checkpoint of the 256³ and 512³ engines saved,
       loaded on the card (state, history, camera and counters equal, the
       next moved frame bit for bit) and on the CPU, with save / load wall
@@ -198,16 +200,18 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       and the box-edge volumes of (i) (checked inside (i)); their
       attribution run (10 launches each at 512³, every counter set to 0
       before it) and their times alternated with the defaults'; then each
-      tool's short form (``profile_trace`` in the headline, ``multistate
-      --grid 1024`` and ``moved`` modes, 3-5 frames; ``trace_summary`` on the
+      tool's short form (``profile_trace`` in the ``moved``, headline and
+      ``multistate --grid 1024`` modes, 3-5 frames; ``trace_summary`` on the
       headline trace; ``profile_gi``, ``profile_frame``, ``bench_dense``,
       ``bench_scale``, ``bench_512_ablate``) in one child process of this
       script (``--tools``: a torch.profiler trace in this process would make
       the later phases' traces drop kernel events), each line's keys finite
       and positive, and the trace summary's launches per frame equal to the
       launch counters read around the traced frames (headline: one K1
-      compose launch and one CA step a frame; multi-state: one step and two
-      age-mask launches a generation and frame).
+      compose launch, one CA step and one mip kernel a frame, and beside them
+      only the fused call's 3 torch launches; multi-state: one step and two
+      age-mask launches a generation and frame; moved: one mip a frame and
+      one reprojection kernel a moved frame).
 
   (o) the port's bench (``bench_torch.py``, run last): the script at its
       defaults in a child process (256³ / 1920×1080, 150 frames pinned and
@@ -215,9 +219,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       ``bench.py``'s line and the spread, finite and positive, ``device``
       naming the card and its power limit, printed here; ``measure`` at
       64³ / 128×64 over 12 frames on the card and on the CPU (final states
-      bit for bit, frames within rtol 3e-3 / atol 3e-4); and K1's and the CA
-      step's launch counters set to 0 before one pinned call at full size and
-      read after it: 150 and 150.
+      bit for bit, frames within rtol 3e-3 / atol 3e-4); and K1's, the CA
+      step's and the mip's launch counters set to 0 before one pinned call at
+      full size and read after it: 150, 150 and 150.
   (p) the flagship forward step (``cellularautomatons3d_tpu_torch.entry``,
       the twin of ``__graft_entry__.entry``: one CA generation, then one
       frame of the exact reference pipeline at 64³ / 320×240 with 16 depth
@@ -232,6 +236,19 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       (``--entry-trace``: one call is ~1,900 launches, more than
       ``cuda_time_fn(queued=True)``'s sleeping stream queues, and a trace late
       in this process drops kernel events).
+  (q) the frame paths' two small kernels (run after (j)): the 8³ mip
+      (``csrc/coarse_occupancy.cu``) against its twin ``coarse_occupancy``,
+      bit for bit, on random, empty and full volumes at 32³, 64³, 256³, 288³,
+      480³, 512³ and 1024³ and on the scenes (256³ gen-80 and gen-230, 512³
+      gen-160 and gen-260, 1024³ gen-200, the ``pyroclastic`` visibility
+      plane); the reprojection (``csrc/reproject.cu``) against its twin
+      ``reproject_history`` on the card on moved 256³ and 512³ frames of (j)'s
+      engines and on a row shard (rows 540..810 of 1080): rgb, source pixels
+      and valid masks bit for bit (else counted, rgb within rtol 3e-3 / atol
+      3e-4, the rest equal); the launch counters of 10 fused compose frames
+      (10 CA step, 10 mip and 10 K1 launches) and of one moved render() (one
+      mip, one K1, one reprojection); both kernels alternated with their twins
+      by CUDA events and by queued device time, with their bounds.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -492,8 +509,11 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
             f"{int((cidx >= 0).sum())} hit pixels)")
 
     # The Engine at full size.
+    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy_cuda
+
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
-               rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda)
+               rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda,
+               coarse_occupancy_cuda)
     launches, engines = {}, {}
     for name, (cfg, steps, fused, frames) in SLICED_ENGINES.items():
         for fn in counted:
@@ -516,6 +536,8 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
         need(counts["raytrace_cuda"] == 0, f"{name} launched K1: {counts}")
         need(counts["occupied_box_cuda"] == counts["primary_sweep_cuda"]
              + counts["shadow_sweep_cuda"], f"{name}: one box launch per K2 / K4 launch: {counts}")
+        need(counts["coarse_occupancy_cuda"] == counts["primary_sweep_cuda"],
+             f"{name}: one mip launch per sliced frame: {counts}")
         hits = float((eng.history.hit_idx >= 0).float().mean())
         log(f"(f) {name}: step({steps}), render(), run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}; hit fraction {hits:.3f}")
@@ -1415,7 +1437,8 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     camera moves before every tick (K1 non-compose at 256³, K4 + K2 at 512³,
     K1 + K2 + K3 with gi_temporal), their launch counters read around the
     moved ticks, and ``reproject_history`` of every moved frame on the card
-    against the CPU on the same inputs; the Engine on the card against the
+    against the CPU on the same inputs, and the reprojection kernel against it
+    on the card, bit for bit; the Engine on the card against the
     CPU at 64³; a checkpoint saved and loaded on the card and on the CPU; the
     viewer over the 256³ engine, with one HTTP request of each kind.
     Returns what (d) times and the report keeps."""
@@ -1427,7 +1450,8 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     from _torch_png import decode_png
 
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
-               rs.shadow_sweep_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda)
+               rs.shadow_sweep_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
+               occupancy.coarse_occupancy_cuda, rfast.reproject_history_cuda)
     out = {"launches": {}, "valid_px": {}, "valid_share_of_hits": {}, "engines": {},
            "walls_s": {}}
     for name, (over, steps, ticks) in INTERACTIVE.items():
@@ -1460,6 +1484,7 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                 "primary_sweep_cuda": ticks if sliced else 0,
                 "shadow_sweep_cuda": ticks if sliced or lit else 0,
                 "cell_state_cuda": ticks if lit else 0,
+                "coarse_occupancy_cuda": ticks, "reproject_history_cuda": ticks,
                 "fires_plane_cuda": eng.simulation_step - steps}
         need(all(counts[k] == v for k, v in want.items()),
              f"(j) {name}: launches {counts}, expected {want}")
@@ -1474,6 +1499,10 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
             s, params = c["s"], c["params"]
             got = rfast.reproject_history(c["history"], rgb, depth, idx, params,
                                           s.width, s.height)
+            kernel = rfast.reproject_history_cuda(c["history"], rgb, depth, idx, params,
+                                                  s.width, s.height, with_source=True)
+            need(all(torch.equal(a, b) for a, b in zip(kernel, got)),
+                 f"(j) {name} frame {i}: the reprojection kernel != its twin on the card")
             hist = rfast.FastHistory(c["history"].color.cpu(), c["history"].hit_idx.cpu())
             ref = rfast.reproject_history(hist, rgb.cpu(), depth.cpu(), idx.cpu(), params,
                                           s.width, s.height)
@@ -1502,7 +1531,7 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
         log(f"(j) {name}: step({steps}), render(), {ticks} moved ticks in "
             f"{out['walls_s'][name]:.2f} s; launches {counts}; history kept on "
             f"{out['valid_px'][name]:.0f} px a frame, {out['valid_share_of_hits'][name]:.3f} "
-            f"of the hits (card == cpu reprojection)")
+            f"of the hits (card == cpu reprojection, kernel == twin)")
 
     # The Engine on the card against the CPU, 10 moved ticks at 64³.
     small = dict(grid_size=64, width=128, height=64)
@@ -1679,6 +1708,181 @@ def interactive_timings(torch, out) -> dict:
     return ms
 
 
+# ------------------------------------- (q) the 8³ mip and the reprojection ---
+MIP_SIZES = (32, 64, 256, 288, 480, 512, 1024)
+OPS_REPROJECT = 100   # a pixel's ray, hit point, projection, tests and blend
+
+
+def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -> dict:
+    """Phase (q): the frame paths' 8³ mip kernel (``csrc/coarse_occupancy.cu``)
+    against its plain twin ``coarse_occupancy``, bit for bit, on random,
+    empty and full volumes at every size of ``MIP_SIZES`` and on the scenes of
+    (i) and the ``pyroclastic`` visibility plane; the reprojection kernel
+    (``csrc/reproject.cu``) against its twin ``reproject_history`` on the same
+    inputs, on moved 256³ and 512³ frames of (j)'s engines and on a row shard
+    (row0 > 0): blended rgb, source pixels and valid masks bit for bit, or, if
+    not, their counts reported and rgb held to rtol 3e-3 / atol 3e-4 with the
+    source pixels and masks equal; the launch counters, set to 0 just before
+    and read just after, of 10 fused compose frames (10 CA step, 10 mip, 10 K1
+    launches) and of one moved render() (one mip, one K1, one reprojection);
+    both kernels' times beside their twins' (alternated twin, kernel, kernel,
+    twin; CUDA events and queued device time) and their bounds from these
+    inputs."""
+    import dataclasses
+
+    from cellularautomatons3d_tpu_torch import engine as engine_mod
+    from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+
+    t_phase = time.perf_counter()
+    dev = next(iter(scenes.values()))[0].device
+    mip, twin = occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy
+    out = {"mip_cases": 0, "reproject": {}, "launches": {}, "timings": {}, "bounds": {},
+           "max_abs_err": 0.0}
+
+    # The mip on random, empty and full volumes at every size.
+    g = torch.Generator(dev).manual_seed(17)
+    for size in MIP_SIZES:
+        shape = (size // 32, size, size)
+        words = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=dev,
+                              generator=g)
+        vols = {"empty": torch.zeros_like(words), "full": torch.full_like(words, -1)}
+        for p in (0.0005, 0.05):
+            vols[f"random {p}"] = torch.where(
+                torch.rand(shape, device=dev, generator=g) < p, words, 0)
+        for name, vol in vols.items():
+            need(torch.equal(mip(vol), twin(vol)),
+                 f"(q) the mip kernel != coarse_occupancy at {size}^3 {name}")
+            out["mip_cases"] += 1
+        del words, vols
+    # On the scenes: (i)'s and the pyroclastic visibility plane.
+    pyro = ct.Engine(grid_size=GRID, width=64, height=32, device=dev,
+                     **ct.PRESETS["pyroclastic"], random_initial_state=True)
+    pyro.step(160)
+    vols = {tag: v[0] for tag, v in scenes.items()}
+    vols[f"{GRID}^3 pyroclastic gen-160"] = ca_step.visibility_plane(pyro.state, pyro.spec)
+    for tag, vol in vols.items():
+        got = mip(vol)
+        need(torch.equal(got, twin(vol)), f"(q) the mip kernel != coarse_occupancy on {tag}")
+        need(bool((got != 0).any()), f"(q) the mip of {tag} is empty")
+        out["mip_cases"] += 1
+    log(f"(q) the mip kernel == coarse_occupancy, bit for bit: {out['mip_cases']} volumes "
+        f"({len(MIP_SIZES)} sizes x empty / full / 2 densities, {len(vols)} scenes)")
+
+    # The reprojection on the moved frames of (j)'s engines and a row shard.
+    def check(tag, args):
+        got = rfast.reproject_history_cuda(*args, with_source=True)
+        want = rfast.reproject_history(*args)
+        diff = [int((a != b).sum()) for a, b in zip(got, want)]
+        err = float((got[0] - want[0]).abs().max())
+        rec = dict(rgb_differ=diff[0], src_differ=diff[1], valid_differ=diff[2],
+                   max_abs_err=err, valid_px=int(want[2].sum()),
+                   in_bounds_hits=int(((want[1] >= 0) & (args[3] >= 0)).sum()))
+        out["reproject"][tag] = rec
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(f"  (q) reprojection {tag}: kernel vs twin differ on {diff} (rgb, source, valid), "
+            f"rgb max err {err:.3g}; {rec['valid_px']} px keep their history")
+        need(diff[1] == 0 and diff[2] == 0, f"(q) reprojection {tag}: source pixels / valid "
+             f"masks differ on {diff[1]} / {diff[2]} pixels")
+        a, b = got[0], want[0]
+        need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
+             f"(q) reprojection {tag}: rgb outside rtol {RGB_RTOL} / atol {RGB_ATOL} ({err})")
+        return rec["valid_px"]
+
+    timed = {}
+    for name in ("moved_256", "moved_512"):
+        e = inter["engines"][name]
+        with recorded_frames(engine_mod) as calls:
+            for i in range(3):
+                move_camera(e.camera, i)
+                e.render()
+        kept = 0
+        for i, c in enumerate(calls):
+            rgb, depth, idx = reprojection_inputs(rfast, c)
+            s = c["s"]
+            args = (c["history"], rgb, depth, idx, c["params"], s.width, s.height)
+            kept += check(f"{name} frame {i}", args)
+        need(kept > 0, f"(q) reprojection {name}: no pixel kept its history")
+        timed[INTERACTIVE[name][0]["grid_size"]] = args
+        if name == "moved_256":
+            # A row shard: the quarter of the window from its middle row.
+            c, h, row0 = calls[-1], HEIGHT // 4, HEIGHT // 2
+            s_band = dataclasses.replace(c["s"], height=h)
+            cam = rfast._cam_vec(c["params"], WIDTH, HEIGHT, row0)
+            rgb, depth, idx = rfast.trace_shaded(s_band, c["packed"], cam, c["sample_idx"],
+                                                 **c["kw"])
+            hist = rfast.FastHistory(*(t[row0:row0 + h].contiguous() for t in c["history"]))
+            kept = check(f"{GRID}^3 rows {row0}..{row0 + h} of {HEIGHT}",
+                         (hist, rgb, depth, idx, c["params"], WIDTH, h, HEIGHT, row0))
+            need(kept > 0, "(q) reprojection of the row shard: no pixel kept its history")
+        del calls
+
+    # The launch counters of the main path's frames.
+    counters = (ca_step.fires_plane_cuda, mip, rf.raytrace_cuda, rfast.reproject_history_cuda)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for f in counters:
+            f.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {f.__name__: f.launches for f in counters}
+
+    c = out["launches"]["fused_10"] = counted(lambda: eng.run_fused(10, reset_every=10))
+    need(c == {"fires_plane_cuda": 10, "coarse_occupancy_cuda": 10, "raytrace_cuda": 10,
+               "reproject_history_cuda": 0}, f"(q) 10 fused compose frames launched {c}")
+    e256 = inter["engines"]["moved_256"]
+
+    def moved():
+        move_camera(e256.camera, 1)
+        e256.render()
+
+    c = out["launches"]["moved_render"] = counted(moved)
+    need(c == {"fires_plane_cuda": 0, "coarse_occupancy_cuda": 1, "raytrace_cuda": 1,
+               "reproject_history_cuda": 1}, f"(q) one moved render() launched {c}")
+    log(f"(q) launches: 10 fused compose frames {out['launches']['fused_10']}; one moved "
+        f"render() {out['launches']['moved_render']}")
+
+    # Times: twin, kernel, kernel, twin, by events and by queued device time
+    # (reps small enough that the twins' launches fit the sleeping stream).
+    tm = out["timings"]
+    for tag, size in ((f"{GRID}^3 gen-80", GRID), ("512^3 gen-160", 512),
+                      ("1024^3 gen-200", 1024)):
+        vol = scenes[tag][0]
+        calls = {"kernel": lambda: mip(vol), "plain": lambda: twin(vol)}
+        for label, queued in (("events", False), ("device", True)):
+            reads = [cuda_time_fn(calls[m], reps=30, warmup=3, queued=queued)
+                     for m in ("plain", "kernel", "kernel", "plain")]
+            tm[f"coarse_occupancy_{size}_{label}_reads_ms"] = reads
+            tm[f"coarse_occupancy_{size}_{label}_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"coarse_occupancy_plain_{size}_{label}_ms"] = (reads[0] + reads[3]) / 2
+        words = size**3 // 32
+        out["bounds"][f"coarse_occupancy_{size}"] = bound(words * 4 + mip_bytes(size), words * 5)
+    for size, args in timed.items():
+        calls = {"kernel": lambda: rfast.reproject_history_cuda(*args),
+                 "plain": lambda: rfast.reproject_history(*args)}
+        for label, queued in (("events", False), ("device", True)):
+            reads = [cuda_time_fn(calls[m], reps=3 if m == "plain" else 30, warmup=2,
+                                  queued=queued)
+                     for m in ("plain", "kernel", "kernel", "plain")]
+            tm[f"reproject_{size}_{label}_reads_ms"] = reads
+            tm[f"reproject_{size}_{label}_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"reproject_plain_{size}_{label}_ms"] = (reads[0] + reads[3]) / 2
+        # Each pixel's rgb, depth, id and output; the source id of each
+        # in-bounds hit, the colour of each pixel that blends.
+        want = rfast.reproject_history(*args)
+        px = args[5] * args[6]
+        hits = int(((want[1] >= 0) & (args[3] >= 0)).sum())
+        out["bounds"][f"reproject_{size}"] = bound(
+            px * 32 + hits * 4 + int(want[2].sum()) * 6, px * OPS_REPROJECT)
+    for k, v in tm.items():
+        if not k.endswith("reads_ms"):
+            log(f"  (q) {k}: {v:.5f}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"(q) phase {out['wall_s']:.1f} s")
+    return out
+
+
 # -------------------------------------- (k) the exact reference pipeline ---
 def reference_configs(ct) -> dict:
     """name: (Engine overrides, generations before the frames, static ticks,
@@ -1715,6 +1919,7 @@ def reference_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     render() above what the process had allocated before it."""
     from torch.profiler import ProfilerActivity, profile
 
+    from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
     from cellularautomatons3d_tpu_torch.render.renderer import RenderHistory
     from _torch_multistate_scene import random_ages
     from _torch_reference_scene import compare
@@ -1765,7 +1970,8 @@ def reference_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     counted = (ca_step.fires_plane_cuda, ca_step.step_packed_multistate_cuda,
                ca_step.age_masks_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.shadow_sweep_multi_cuda, rs.cell_state_cuda,
-               occupancy.occupied_box_cuda)
+               occupancy.occupied_box_cuda, occupancy.coarse_occupancy_cuda,
+               rfast.reproject_history_cuda)
     ca_kernels = ("fires_plane_cuda", "step_packed_multistate_cuda", "age_masks_cuda")
     for name, (over, gens, static, moved, timed_frames) in reference_configs(ct).items():
         cfg = {"width": WIDTH, "height": HEIGHT, "pipeline": "reference", **over}
@@ -1856,7 +2062,8 @@ MESH_ENGINES = {
 }
 MESH_COUNTED = ("fires_slab_cuda", "step_slab_multistate_cuda", "age_masks_cuda",
                 "fires_plane_cuda", "step_packed_multistate_cuda", "raytrace_cuda",
-                "primary_sweep_cuda", "shadow_sweep_cuda", "occupied_box_cuda")
+                "primary_sweep_cuda", "shadow_sweep_cuda", "occupied_box_cuda",
+                "coarse_occupancy_cuda")
 
 
 def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
@@ -1889,7 +2096,8 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
            "step_packed_multistate_cuda": ca_step.step_packed_multistate_cuda,
            "raytrace_cuda": rf.raytrace_cuda, "primary_sweep_cuda": rs.primary_sweep_cuda,
            "shadow_sweep_cuda": rs.shadow_sweep_cuda,
-           "occupied_box_cuda": occupancy.occupied_box_cuda}
+           "occupied_box_cuda": occupancy.occupied_box_cuda,
+           "coarse_occupancy_cuda": occupancy.coarse_occupancy_cuda}
 
     def random_words(size, seed):
         g = torch.Generator(dev).manual_seed(seed)
@@ -1983,6 +2191,8 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
         frame_kernel = "raytrace_cuda" if cfg["grid_size"] <= GRID else "primary_sweep_cuda"
         need(counts[frame_kernel] == MESH_SHARDS * (renders + fused),
              f"(l) {name}: one frame kernel a shard and frame: {counts}")
+        need(counts["coarse_occupancy_cuda"] == counts[frame_kernel],
+             f"(l) {name}: one mip kernel a shard and frame: {counts}")
         if cfg["grid_size"] > GRID:
             need(counts["shadow_sweep_cuda"] == counts["primary_sweep_cuda"],
                  f"(l) {name}: one hard-shadow K2 per K4: {counts}")
@@ -2258,10 +2468,12 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
             setattr(rf.raytrace_cuda, c, 0)
         ca_step.fires_plane_cuda.launches = 0
         plane_occupancy_cuda.launches = 0
+        occupancy.coarse_occupancy_cuda.launches = 0
 
     def read():
         counts = {c: getattr(rf.raytrace_cuda, c) for c in counters}
         counts["plane_occupancy_cuda"] = plane_occupancy_cuda.launches
+        counts["coarse_occupancy_cuda"] = occupancy.coarse_occupancy_cuda.launches
         return counts
 
     # The plane mip's kernel against its plain twin on random volumes (two
@@ -2361,6 +2573,8 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
     for variable in K1_OPTION_VARIABLES.values():
         need(all(torch.equal(a, b) for a, b in zip(runs[variable], runs["default"])),
              f"(m) the Engine's fused frames under {variable} != without it")
+    need(all(c["coarse_occupancy_cuda"] == 10 for c in out["launches"].values()),
+         f"(m) the fused loop's mip launches: {out['launches']}")
     need(out["launches"]["default"]["launches"] == 10 and
          out["launches"]["default"]["mip1_launches"] == 0 and
          out["launches"]["default"]["slicegate_launches"] == 0,
@@ -2421,11 +2635,13 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
 # Each tool's short form, run in one child process: (module, argv).  A
 # torch.profiler trace in this process would make later phases' traces drop
 # kernel events (phase (g)'s trace did after one in (m)), so the tools trace in
-# a process of their own.
+# a process of their own.  The moved mode traces first: as the third trace of
+# the process it lost one of its 10 mip kernels on an H100, while first in a
+# process its families matched the counters in every run.
 TOOL_RUNS = (
+    ("profile_trace", ["--mode", "moved", "--frames", "5", "--reps", "3"]),
     ("profile_trace", ["--mode", "headline", "--frames", "5", "--reps", "3"]),
     ("profile_trace", ["--mode", "multistate", "--grid", "1024", "--frames", "3", "--reps", "3"]),
-    ("profile_trace", ["--mode", "moved", "--frames", "5", "--reps", "3"]),
     ("trace_summary", ["headline_256", "--frames", "5"]),
     ("profile_gi", ["--reps", "3", "--calls", "2"]),
     ("profile_frame", ["--reps", "3", "--calls", "5"]),
@@ -2572,11 +2788,12 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
             need(rec.get("card") == card and rec.get("device") == torch.cuda.get_device_name(0),
                  f"(n) {rec['tool']}: card {rec.get('card')!r}, device {rec.get('device')!r}")
     by_mode = {r["mode"]: r for r in recs if r["tool"] == "profile_trace"}
-    expect = {  # per frame: kernel family -> launches
-        "headline": {"render_kernel": 1, "ca_step_kernel": 1},
+    expect = {  # per frame: kernel family -> launches (moved: K moved and K static frames)
+        "headline": {"render_kernel": 1, "ca_step_kernel": 1, "coarse_occupancy_kernel": 1},
         "multistate": {"ca_step_kernel": 1, "age_masks_kernel": 2, "primary_sweep_kernel": 1,
-                       "shadow_sweep_kernel": 1, "occupied_box_kernel": 2},
-        "moved": {"render_kernel": 1},
+                       "shadow_sweep_kernel": 1, "occupied_box_kernel": 2,
+                       "coarse_occupancy_kernel": 1},
+        "moved": {"render_kernel": 1, "coarse_occupancy_kernel": 1, "reproject_kernel": 0.5},
     }
     for mode, fams in expect.items():
         rec = by_mode[mode]
@@ -2589,6 +2806,15 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
             f"{rec['busy_ms_per_frame']:.4f} ms a frame, idle {rec['idle_share']:.3f}, "
             f"{rec['launches_per_frame']:.1f} launches a frame; trace == counters "
             f"{rec['launches']}")
+    # The headline frame launches no torch op of its own: beside its 3
+    # kernels only the fused call's few launches (its history's conversions
+    # and the frame's zero fill: 3 a call on an H100), fewer than one a frame,
+    # where the occupancy rebuild's torch ops were 12 a frame.
+    rec = by_mode["headline"]
+    other = (rec["launches_per_frame"] - sum(expect["headline"].values())) * rec["frames"]
+    need(-1e-6 < other < rec["frames"], f"(n) headline: {other:.2f} launches in a call of "
+         f"{rec['frames']} frames beside the step, mip and K1 kernels")
+    out["headline_other_launches_per_call"] = other
     summary = [r for r in recs if r["tool"] == "trace_summary"][0]
     need(abs(summary["busy_ms"] - by_mode["headline"]["busy_ms"]) < 1e-9,
          "(n) trace_summary's busy ms != profile_trace's on the same trace")
@@ -2613,9 +2839,10 @@ def bench_phase(torch, rf, ca_step) -> dict:
     finite and positive numbers, ``device`` the card and its power limit)
     and printed; ``bench_torch.measure`` at 64³ / 128×64 over 12 frames on
     the card and on the CPU, final states bit for bit and frames within the
-    contract; K1's and the CA step's launch counters around one pinned call
-    at full size (150 frames)."""
+    contract; K1's, the CA step's and the mip's launch counters around one
+    pinned call at full size (150 frames)."""
     import bench_torch
+    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy_cuda
     from cellularautomatons3d_tpu_torch.render.renderer_fast import init_fast_history
 
     t_phase = time.perf_counter()
@@ -2663,12 +2890,15 @@ def bench_phase(torch, rf, ca_step) -> dict:
     torch.cuda.synchronize()
     ca_step.fires_plane_cuda.launches = 0
     rf.raytrace_cuda.launches = 0
+    coarse_occupancy_cuda.launches = 0
     st, _, frame = run(start, params, hist, bench_torch.RESET_PERIOD)
     torch.cuda.synchronize()
     out["launches"] = {"render_fast": rf.raytrace_cuda.launches,
-                       "ca_step": ca_step.fires_plane_cuda.launches}
+                       "ca_step": ca_step.fires_plane_cuda.launches,
+                       "coarse_occupancy": coarse_occupancy_cuda.launches}
     frames = bench_torch.FRAMES
-    need(out["launches"] == {"render_fast": frames, "ca_step": frames},
+    need(out["launches"] == {"render_fast": frames, "ca_step": frames,
+                             "coarse_occupancy": frames},
          f"(o) one pinned call of {frames} frames launched {out['launches']}")
     need(torch.equal(st, scene), "(o) the pinned call did not end on the scene")
     need(bool(torch.isfinite(frame).all()) and float(frame.max()) > 0.0,
@@ -2827,6 +3057,7 @@ def main() -> dict:
     from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy, dilate_occupancy
     from cellularautomatons3d_tpu_torch.render import render_fast as rf
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
+    from cellularautomatons3d_tpu_torch.render import renderer_fast as rfast
     from cellularautomatons3d_tpu_torch.utils import mat4
     from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
 
@@ -3039,6 +3270,7 @@ def main() -> dict:
     # -------------------------------------- (c) the main path, real size ---
     ca_step.fires_plane_cuda.launches = 0
     rf.raytrace_cuda.launches = 0
+    occupancy.coarse_occupancy_cuda.launches = 0
     t0 = time.perf_counter()
     eng = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda")
     eng.step(80)
@@ -3049,6 +3281,7 @@ def main() -> dict:
     launches = {
         "ca_step": ca_step.fires_plane_cuda.launches,
         "render_fast": rf.raytrace_cuda.launches,
+        "coarse_occupancy": occupancy.coarse_occupancy_cuda.launches,
     }
     main_s = time.perf_counter() - t0
     for i, f in enumerate((f1, f2, f3)):
@@ -3057,6 +3290,8 @@ def main() -> dict:
         need(float(f.max()) > 0.0, f"frame {i} is black")
     need(launches["ca_step"] > 0 and launches["render_fast"] > 0,
          f"main path missed a kernel: {launches}")
+    need(launches["coarse_occupancy"] == launches["render_fast"],
+         f"main path: not one mip kernel a frame: {launches}")
     # The 80-step state against the plain step on the same device.
     spec = eng.spec
     ref = to_dev(ct.pack_grid(ct.seed_center(GRID)))
@@ -3216,6 +3451,11 @@ def main() -> dict:
         "checkpoint_ms",
         "frame_png_ms", "have_native", "native_build_error")}
 
+    # ------------------------------------- (q) the mip and the reprojection ---
+    mipq = mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter)
+    report["mip_reproject"] = {k: mipq[k] for k in ("mip_cases", "reproject", "launches",
+                                                    "timings", "max_abs_err", "wall_s")}
+
     # ------------------------------------- (k) the reference pipeline ---
     refp = reference_phase(torch, np, ct, rf, rs, ca_step, occupancy)
     report["reference"] = refp
@@ -3230,7 +3470,8 @@ def main() -> dict:
                ca_step.age_masks_cuda, ca_step.fires_slab_cuda, ca_step.step_slab_multistate_cuda,
                rf.raytrace_cuda, rf.prepass_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
                rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
-               occupancy.plane_occupancy_cuda)
+               occupancy.plane_occupancy_cuda, occupancy.coarse_occupancy_cuda,
+               rfast.reproject_history_cuda)
     report["entry"] = entry_phase(torch, np, counted)
 
     # -------------------------------------------------- (d) timings ---
@@ -3242,7 +3483,8 @@ def main() -> dict:
     k1_ms = cuda_time_fn(lambda: rf.raytrace_cuda(vol, coarse, cam, hist, **kw), reps=50, warmup=3)
     k1_nc_ms = cuda_time_fn(lambda: rf.raytrace_cuda(vol, coarse, cam, **kw), reps=50, warmup=3)
     k1_plain_ms = cuda_time_fn(lambda: rf.raytrace(vol, coarse, cam, hist, **kw), reps=3, warmup=1)
-    occ_ms = cuda_time_fn(lambda: coarse_occupancy(vol), reps=200, warmup=5)
+    occ_ms = cuda_time_fn(lambda: occupancy.occupancy_mip(vol), reps=200, warmup=5)
+    occ_plain_ms = cuda_time_fn(lambda: coarse_occupancy(vol), reps=200, warmup=5)
     eng.run_fused(10, reset_every=10)
     fused_ms = cuda_time_fn(lambda: eng.run_fused(100, reset_every=10), reps=1, warmup=0) / 100
     render_ms = cuda_time_fn(eng.render, reps=20, warmup=2)
@@ -3405,6 +3647,7 @@ def main() -> dict:
         "ca_step_ms": ca_ms, "ca_step_plain_ms": ca_plain_ms,
         "k1_compose_ms": k1_ms, "k1_noncompose_ms": k1_nc_ms,
         "k1_plain_compose_ms": k1_plain_ms, "coarse_occupancy_ms": occ_ms,
+        "coarse_occupancy_plain_ms": occ_plain_ms,
         "pinned_step_plus_frame_ms": fused_ms, "render_call_ms": render_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
@@ -3509,6 +3752,11 @@ def main() -> dict:
     # OR a word and a byte test a word and byte.
     bounds["plane_occupancy"] = bound(GRID**3 // 8 + GRID * (GRID // 8) * 4,
                                       GRID**3 // 32 * 5)
+    # The 8³ mip (the volume read once, the mip written once) at 256³, 512³
+    # and 1024³, and the reprojection from (q)'s moved 256³ and 512³ frames.
+    bounds.update(mipq["bounds"])
+    bounds["coarse_occupancy"] = bounds[f"coarse_occupancy_{GRID}"]
+    bounds["reproject"] = bounds[f"reproject_{GRID}"]
     report["bounds"] = bounds
 
     def entry(name, source, replaces, launches, err, ms, plain, bound_name=None):
@@ -3562,6 +3810,20 @@ def main() -> dict:
               options["launches"]["column_skip_off"]["noskip_launches"],
               options["errors"]["noskip"], options["timings"]["k1_noskip_gen-80_events_ms"],
               options["plain_ms"]["gen-80 compose (True, False, False)"], bound_name="render_fast"),
+        # The frame paths' 8³ mip, one launch a frame on every path ((c)'s main
+        # path, the sliced, interactive and mesh frames, (q)'s runs), and the
+        # moved frame's reprojection ((j)'s ticks, (q)'s moved render()).
+        entry("coarse_occupancy", "coarse_occupancy.cu", "ops/occupancy.py:30",
+              launches["coarse_occupancy"] + total(
+                  "coarse_occupancy_cuda", *sliced_launches.values(), *inter["launches"].values(),
+                  *mesh_launches, *mipq["launches"].values()),
+              0.0, mipq["timings"][f"coarse_occupancy_{GRID}_events_ms"],
+              mipq["timings"][f"coarse_occupancy_plain_{GRID}_events_ms"]),
+        entry("reproject", "reproject.cu", "render/renderer_fast.py:265",
+              total("reproject_history_cuda", *inter["launches"].values(),
+                    *mipq["launches"].values()),
+              mipq["max_abs_err"], mipq["timings"][f"reproject_{GRID}_events_ms"],
+              mipq["timings"][f"reproject_plain_{GRID}_events_ms"]),
         entry("shadow_sweep", "shadow_sweep.cu", "render/render_slab.py:354",
               total("shadow_sweep_cuda", *lighting_launches.values(),
                     *sliced_launches.values(), *ms_launches),

@@ -94,9 +94,23 @@ def test_shift_packed_matches_jax(offset, boundary):
     np.testing.assert_array_equal(ct.to_reference(got), want)
 
 
-@pytest.mark.parametrize("n,p", [(32, 0.01), (64, 0.002), (96, 0.001), (320, 0.0002)])
+def sparse_packed(seed, n, count=4000):
+    """Packed words [n/32, n, n] with ``count`` random words set anywhere
+    and one bit in the last x-word (a partial last x-group above 256)."""
+    rng = np.random.default_rng(seed)
+    words = np.zeros((n // 32, n, n), np.uint32)
+    at = tuple(rng.integers(0, s, count) for s in words.shape)
+    words[at] = rng.integers(1, 2**32, count, dtype=np.uint64).astype(np.uint32)
+    words[-1, n - 3, 5] = np.uint32(1 << 31)
+    return words
+
+
+# p: the cells' density of a dense random grid; None: sparse random words
+# (256: one full x-group, 480: a partial second one, 512: two).
+@pytest.mark.parametrize("n,p", [(32, 0.01), (64, 0.002), (96, 0.001), (320, 0.0002),
+                                 (256, None), (480, None), (512, None)])
 def test_coarse_occupancy_matches_jax(n, p):
-    packed = random_packed(11, p=p, n=n)
+    packed = random_packed(11, p=p, n=n) if p is not None else sparse_packed(n, n)
     want = np.asarray(jax_coarse(jnp.asarray(packed)))
     got = coarse_occupancy(ct.from_reference(packed, device="cpu"))
     np.testing.assert_array_equal(ct.to_reference(got), want)

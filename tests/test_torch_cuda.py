@@ -1265,3 +1265,82 @@ def test_k1_options_engine_matches_default(cuda, monkeypatch, variable):
         out.append([*frames, eng.history.hit_idx])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [32, 64, 256, 288, 480, 512])
+def test_coarse_occupancy_kernel_matches_plain(cuda, n):
+    """The 8³ mip's kernel (csrc/coarse_occupancy.cu) against its plain twin,
+    bit for bit, on empty, full, sparse random words and one bit in the last
+    x-word (the partial last group at 288 and 480), one launch each."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_occupancy_cuda, occupancy_mip)
+
+    g = torch.Generator(cuda).manual_seed(n)
+    shape = (n // 32, n, n)
+    words = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=cuda, generator=g)
+    last = torch.zeros(shape, dtype=torch.int32, device=cuda)
+    last[-1, n - 3, 5] = -2**31
+    vols = [torch.zeros(shape, dtype=torch.int32, device=cuda),
+            torch.full(shape, -1, dtype=torch.int32, device=cuda), last]
+    for p in (0.001, 0.05):
+        vols.append(torch.where(torch.rand(shape, device=cuda, generator=g) < p, words, 0))
+    for vol in vols:
+        before = coarse_occupancy_cuda.launches
+        got = occupancy_mip(vol)
+        assert coarse_occupancy_cuda.launches == before + 1
+        assert torch.equal(got, coarse_occupancy(vol)), n
+
+
+@pytest.mark.parametrize("rows", [(H, 0, H), (16, 24, H), (H, 0, 2 * H)],
+                         ids=["window", "shard", "top_half"])
+def test_reproject_kernel_matches_plain(cuda, rows):
+    """The reprojection kernel (csrc/reproject.cu) against its plain twin
+    on the card on the same operands, bit for bit: blended rgb, source
+    pixels and valid mask; a moved camera's parameters, random depths and
+    ids from a small set, so that some pixels blend; a row shard at row0 >
+    0 of its window."""
+    from cellularautomatons3d_tpu_torch.render import renderer_fast
+
+    h, row0, fh = rows
+    eng = ct.Engine(device="cpu", grid_size=N, width=W, height=fh)
+    eng.render()  # the previous frame's view-projection
+    eng.camera.translate((1, 0, -1), 0.05)
+    eng.camera.mouse_look(7.0, -3.0)
+    params = eng.render_params()
+    g = torch.Generator(cuda).manual_seed(h + row0)
+    hist = renderer_fast.FastHistory(
+        torch.rand((h, W, 3), device=cuda, generator=g).to(torch.float16),
+        torch.randint(-1, 4, (h, W), dtype=torch.int32, device=cuda, generator=g))
+    rgb = torch.rand((h, W, 3), device=cuda, generator=g)
+    depth = torch.rand((h, W), device=cuda, generator=g) * 1.5
+    idx = torch.randint(-1, 4, (h, W), dtype=torch.int32, device=cuda, generator=g)
+    args = (hist, rgb, depth, idx, params, W, h, fh, row0)
+    before = renderer_fast.reproject_history_cuda.launches
+    got = renderer_fast.reproject_history_cuda(*args, with_source=True)
+    assert renderer_fast.reproject_history_cuda.launches == before + 1
+    want = renderer_fast.reproject_history(*args)
+    assert int(want[2].sum()) > 0 and int((want[1] == -1).sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(renderer_fast.reproject_history_cuda(*args), want[0])
+
+
+def test_frames_launch_the_mip_and_reprojection_kernels(cuda):
+    """A moved render() launches one reprojection kernel and one mip
+    kernel; a fused compose frame one mip kernel, and no frame path runs
+    the twins on the card."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+    from cellularautomatons3d_tpu_torch.render import renderer_fast
+
+    eng = ct.Engine(device=cuda, grid_size=N, width=W, height=H)
+    eng.step(20)
+    eng.render()
+    counters = (occupancy.coarse_occupancy_cuda, renderer_fast.reproject_history_cuda)
+    for fn in counters:
+        fn.launches = 0
+    eng.camera.translate((1, 0, -1), 0.02)
+    eng.render()
+    assert [fn.launches for fn in counters] == [1, 1]
+    eng.run_fused(4, reset_every=2)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [5, 1]
