@@ -1,4 +1,4 @@
-// The occupied box of a coarse occupancy mip, once per launch of K2, K4 or K5.
+// The occupied box of a given coarse occupancy mip, alone.
 //
 // Replaces: the global occupied z-range of the reference's occupancy
 // rebuild (cellularautomatons3d_tpu/render/render_fast.py raytrace_tiles,
@@ -9,6 +9,10 @@
 // open (+-inf) on a side that reaches a face of the volume, with `empty`
 // and `full` flags (make_box); K1 reduces the same box per block
 // (stage_coarse_box).  Its plain twin is ops/occupancy.py occupied_box.
+// No frame path launches it: the occupancy rebuild writes the box beside
+// the mip in its one launch (coarse_occupancy.cu), once a frame for every
+// K2, K4 and K5 launch of the frame.  It reduces a mip a caller brings
+// (render_slab.prep_volume(packed, coarse)) and is the box's yardstick.
 //
 // One block of 1024 threads: the mip is at most 256 KiB (1024^3: 128
 // z-rows of XG = 4 groups of 128 words), L2-resident after the occupancy
@@ -20,9 +24,7 @@
 // mip's bytes at the one SM's L2 rate, and the launch: 2 us of device time
 // at 256^3, 6 us at 1024^3 on the H100.  A cluster of 8 blocks reducing
 // through distributed shared memory took 3.8 us at 1024^3 but 3.3 at 256^3,
-// where K2 runs every lighting frame; dropped (PERF.md §6).  Computed again
-// for each K2, K4 and K5 launch: sharing one box across a sliced frame's K4 and
-// K2 would save one such launch a frame.
+// where K2 runs every lighting frame; dropped (PERF.md §6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,9 +46,6 @@ __global__ void __launch_bounds__(kThreads)
                         OccBox* __restrict__ out) {
   __shared__ uint32_t part_x[kWarps][kMaxGroups];
   __shared__ int part_r[kWarps][4];
-  // The K2, K4 or K5 launch after this one may start now; it waits for this
-  // kernel's end before it reads the box (load_box).
-  asm volatile("griddepcontrol.launch_dependents;");
   const int nb = n >> 3;
   const int xg = (nb + 31) >> 5;
   const int row = xg * nb;          // words per z-row
@@ -122,21 +121,6 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-namespace ca3d {
-
-cudaError_t launch_occupied_box(const uint32_t* coarse, int n, OccBox* box,
-                                cudaStream_t stream) {
-  if (n < 32 || n > kMaxGrid || n % 32 != 0 || box == nullptr ||
-      (reinterpret_cast<uintptr_t>(coarse) & 15u) != 0u) {
-    return cudaErrorInvalidValue;
-  }
-  occupied_box_kernel<<<1, kThreads, 0, stream>>>(
-      reinterpret_cast<const uint4*>(coarse), n, (float)(1.0 / (double)n), box);
-  return cudaGetLastError();
-}
-
-}  // namespace ca3d
-
 extern "C" {
 
 // coarse: uint32[n/8, XG*n/8] (ops/occupancy.py, XG = ceil(n/256)), n <= 1024,
@@ -145,11 +129,16 @@ extern "C" {
 // cudaError_t.
 int ca3d_occupied_box(int device, const void* coarse, int n, void* box,
                       void* stream) {
+  if (n < 32 || n > kMaxGrid || n % 32 != 0 || box == nullptr ||
+      (reinterpret_cast<uintptr_t>(coarse) & 15u) != 0u) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return launch_occupied_box(static_cast<const uint32_t*>(coarse), n,
-                             static_cast<OccBox*>(box),
-                             static_cast<cudaStream_t>(stream));
+  occupied_box_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(coarse), n, (float)(1.0 / (double)n),
+      static_cast<OccBox*>(box));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -20,12 +20,10 @@
 // the rays of the sparse scenes miss, and each used to walk every 8-plane
 // column of its z extent, up to n/8, with four cell lookups and a mip test
 // per column; above 256^3 the mip (32 KiB at 512^3, 256 KiB at 1024^3) is
-// read from L2 through the read-only path.  Now one launch of
-// occupied_box.cu, enqueued by the entry point just before this kernel,
-// reduces the mip to the box of occupied blocks.  This kernel is launched
-// as its programmatic dependent: its blocks may start while the box kernel
-// runs, set up their rays, and wait for it only to read the box (load_box).
-// An empty box skips the sweep (every pixel misses), a whole-volume
+// read from L2 through the read-only path.  Now the box of occupied blocks
+// comes with the operands: the occupancy rebuild's one launch
+// (coarse_occupancy.cu) wrote it beside the mip, once a frame for K4 and
+// the frame's K2.  An empty box skips the sweep (every pixel misses), a whole-volume
 // box runs the unclipped sweep (the clip alone there cost 3.5 %: camera
 // rays start outside the volume, so it has nothing to cut; PERF.md §6),
 // any other box the sweep clipped to it (BoxClip: only the columns and
@@ -69,7 +67,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   const float* P = cam.p;
 
-  // The ray first, while the box kernel may still run.
   float ux;
   const Ray ray = camera_ray(P, px, py, ux);
   float nx, fx, ny, fy, nz, fz;
@@ -116,18 +113,16 @@ extern "C" {
 // float[40] (render_fast.py pack_cam); out_t: f32 [H, W]; out_idx: i32
 // [H, W].  ages: null, or the age bit-planes uint32[age_bits, n/32, n, n]
 // of which vol is the visibility plane, and out_age: i32 [H, W] then takes
-// each hit's age.  box: int32[8], scratch for the launch's OccBox, which
-// the box kernel enqueued here writes first; box_launches: a host int that
-// counts that launch (one added once it is enqueued).  column_skip = 0
-// descends every column of the box (SKIP = false).  Returns the first
-// launch error (cudaError_t).
+// each hit's age.  box: int32[8], the OccBox of coarse (ops/occupancy.py
+// occupied_box).  column_skip = 0 descends every column of the box (SKIP =
+// false).  Returns the launch's cudaError_t.
 int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
                             int n, int width, int height, const float* cam,
                             void* out_t, void* out_idx, const void* ages,
                             int age_bits, void* out_age, int column_skip,
-                            void* box, int* box_launches, void* stream) {
+                            const void* box, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
-      box_launches == nullptr) {
+      box == nullptr) {
     return cudaErrorInvalidValue;
   }
   if (ages != nullptr && (age_bits < 1 || age_bits > 4 || out_age == nullptr)) {
@@ -135,11 +130,6 @@ int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto occ = static_cast<OccBox*>(box);
-  err = launch_occupied_box(static_cast<const uint32_t*>(coarse), n, occ, s);
-  if (err != cudaSuccess) return err;
-  *box_launches += 1;
   Cam c;
   for (int i = 0; i < P_LEN; ++i) c.p[i] = cam[i];
   const float inv_n = (float)(1.0 / (double)n);
@@ -149,21 +139,21 @@ int ca3d_primary_sweep_ages(int device, const void* vol, const void* coarse,
   auto kernel = !column_skip            ? primary_sweep_kernel<false, false>
                 : n <= kMaxStagedGrid ? primary_sweep_kernel<true>
                                       : primary_sweep_kernel<false>;
-  return launch_after_box(
-      kernel, grid, block, s, static_cast<const uint32_t*>(vol),
-      static_cast<const uint32_t*>(coarse), occ, n, inv_n, width, height, c,
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
+      static_cast<const OccBox*>(box), n, inv_n, width, height, c,
       static_cast<float*>(out_t), static_cast<int*>(out_idx),
       static_cast<const uint32_t*>(ages), age_bits, static_cast<int*>(out_age));
+  return cudaGetLastError();
 }
 
 // The binary frame: ca3d_primary_sweep_ages without age planes.
 int ca3d_primary_sweep(int device, const void* vol, const void* coarse, int n,
                        int width, int height, const float* cam, void* out_t,
-                       void* out_idx, void* box, int* box_launches,
-                       void* stream) {
+                       void* out_idx, const void* box, void* stream) {
   return ca3d_primary_sweep_ages(device, vol, coarse, n, width, height, cam,
                                  out_t, out_idx, nullptr, 0, nullptr, 1, box,
-                                 box_launches, stream);
+                                 stream);
 }
 
 }  // extern "C"

@@ -25,9 +25,9 @@
 // block.  Only hit pixels cast shadow and GI rays (about 93 % of the lanes
 // of the sparse scenes are inactive), so a block first reads its lanes'
 // active flags, and a block with none (or an empty volume) writes its zeros
-// and leaves before it touches the mip.  The entry point enqueues the box
-// kernel (occupied_box.cu), then this one as its programmatic dependent;
-// the active rays sweep clipped to the box (BoxClip, exact from any start).
+// and leaves before it touches the mip.  The box of occupied blocks comes
+// with the operands (written beside the mip by coarse_occupancy.cu); the
+// active rays sweep clipped to it (BoxClip, exact from any start).
 // Up to 256^3 an active block stages the 4 KiB mip in shared memory; above,
 // the mip is read from L2.  40 registers, no spill.
 //
@@ -75,7 +75,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const long long npix = (long long)width * height;
   const long long pix = (long long)py * width + px;
   const OcclusionQuery& oq = qs.q[q];
-  // The flag first, while the box kernel may still run.
   const bool lane_active = inside && oq.active[pix] != 0;
   load_box(occ, &box, tid);
   // The barrier also publishes the box; both tests are block-uniform.
@@ -126,37 +125,30 @@ extern "C" {
 // (ops/occupancy.py, XG = ceil(n/256)), 16-byte aligned; queries: nq rows
 // of kOcclusionRow int64 (queries.cuh), 1 <= nq <= 8, every operand on the
 // device; out: i32 [nq, H, W] (1 = occluded).  cell_half is the visible
-// cube's half size, (1/n) * cell_size * 0.5 in f32.  box: int32[8],
-// scratch for the launch's OccBox, which the box kernel enqueued here
-// writes first; box_launches: a host int that counts that launch (one
-// added once it is enqueued).  Returns the first launch error
-// (cudaError_t).
+// cube's half size, (1/n) * cell_size * 0.5 in f32.  box: int32[8], the
+// OccBox of coarse (ops/occupancy.py occupied_box).  Returns the launch's
+// cudaError_t.
 int ca3d_shadow_multi(int device, const void* vol, const void* coarse, int n,
                       float cell_half, int width, int height, int nq,
-                      const long long* queries, void* out, void* box,
-                      int* box_launches, void* stream) {
+                      const long long* queries, void* out, const void* box,
+                      void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
-      nq < 1 || nq > kMaxQueries || queries == nullptr ||
-      box_launches == nullptr) {
+      nq < 1 || nq > kMaxQueries || queries == nullptr || box == nullptr) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto occ = static_cast<OccBox*>(box);
-  err = launch_occupied_box(static_cast<const uint32_t*>(coarse), n, occ, s);
-  if (err != cudaSuccess) return err;
-  *box_launches += 1;
   const float inv_n = (float)(1.0 / (double)n);
   const dim3 block(kBlockX * kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY, nq);
   auto kernel = n <= kMaxStagedGrid ? shadow_multi_kernel<true>
                                     : shadow_multi_kernel<false>;
-  return launch_after_box(
-      kernel, grid, block, s, static_cast<const uint32_t*>(vol),
-      static_cast<const uint32_t*>(coarse), occ, n, inv_n, cell_half, width,
-      height, occlusion_queries(queries, nq), static_cast<int*>(out));
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
+      static_cast<const OccBox*>(box), n, inv_n, cell_half, width, height,
+      occlusion_queries(queries, nq), static_cast<int*>(out));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

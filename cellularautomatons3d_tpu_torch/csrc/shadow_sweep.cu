@@ -23,10 +23,9 @@
 // about 93 % of the lanes of the sparse scenes, and most whole blocks, are
 // inactive.  A block first reads its lanes' active flags, and a block with
 // none (or an empty volume) writes its zeros and leaves before it touches
-// the mip.  One launch of occupied_box.cu, enqueued by the entry point just
-// before this kernel, reduces the mip to the box of occupied blocks (this
-// kernel may start while it runs, loads its flags, and waits for it only to
-// read the box: a programmatic dependent launch); the active rays sweep
+// the mip.  The box of occupied blocks comes with the operands: the
+// occupancy rebuild's one launch (coarse_occupancy.cu) wrote it beside the
+// mip, once a frame for every sweep of the frame; the active rays sweep
 // clipped to it (BoxClip: only the columns and t-range inside the box,
 // exact from any start, inside the box or not).  The clip also serves a
 // whole-volume box: its walk starts at the ray's start column, where an
@@ -81,7 +80,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const size_t q = blockIdx.z;
   const size_t i1 = q * npix + pix;      // [nq, H, W]
   const size_t i3 = 3 * q * npix + pix;  // [nq, 3, H, W], component 0
-  // The flag first, while the box kernel may still run.
   const bool lane_active = inside && active[i1] != 0;
   load_box(occ, &box, threadIdx.y * blockDim.x + threadIdx.x);
   // The barrier also publishes the box; both tests are block-uniform.
@@ -124,27 +122,20 @@ extern "C" {
 // (ops/occupancy.py, XG = ceil(n/256)), 16-byte aligned; start, target:
 // f32 [nq, 3, H, W]; excl: i32 [nq, 3, H, W]; active: u8 [nq, H, W]; out:
 // i32 [nq, H, W] (1 = occluded).  cell_half is the visible cube's half
-// size, (1/n) * cell_size * 0.5 in f32.  box: int32[8], scratch for the
-// launch's OccBox, which the box kernel enqueued here writes first;
-// box_launches: a host int that counts that launch (one added once it is
-// enqueued).  column_skip = 0 descends every column of the box (SKIP =
-// false).  Returns the first launch error (cudaError_t).
+// size, (1/n) * cell_size * 0.5 in f32.  box: int32[8], the OccBox of
+// coarse (ops/occupancy.py occupied_box).  column_skip = 0 descends every
+// column of the box (SKIP = false).  Returns the launch's cudaError_t.
 int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
                       float cell_half, int width, int height, int nq,
                       const void* start, const void* target, const void* excl,
                       const void* active, void* out, int column_skip,
-                      void* box, int* box_launches, void* stream) {
+                      const void* box, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
-      nq < 1 || nq > 65535 || box_launches == nullptr) {
+      nq < 1 || nq > 65535 || box == nullptr) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto occ = static_cast<OccBox*>(box);
-  err = launch_occupied_box(static_cast<const uint32_t*>(coarse), n, occ, s);
-  if (err != cudaSuccess) return err;
-  *box_launches += 1;
   const float inv_n = (float)(1.0 / (double)n);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
@@ -152,12 +143,13 @@ int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
   auto kernel = !column_skip            ? shadow_sweep_kernel<false, false>
                 : n <= kMaxStagedGrid ? shadow_sweep_kernel<true>
                                       : shadow_sweep_kernel<false>;
-  return launch_after_box(
-      kernel, grid, block, s, static_cast<const uint32_t*>(vol),
-      static_cast<const uint32_t*>(coarse), occ, n, inv_n, cell_half, width,
-      height, static_cast<const float*>(start),
-      static_cast<const float*>(target), static_cast<const int*>(excl),
-      static_cast<const uint8_t*>(active), static_cast<int*>(out));
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
+      static_cast<const OccBox*>(box), n, inv_n, cell_half, width, height,
+      static_cast<const float*>(start), static_cast<const float*>(target),
+      static_cast<const int*>(excl), static_cast<const uint8_t*>(active),
+      static_cast<int*>(out));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

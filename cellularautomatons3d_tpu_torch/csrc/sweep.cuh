@@ -37,8 +37,8 @@
 // unclipped (NoClip) when the box is the whole volume, K2 and K5 clip there
 // too, so their walk starts at the ray's start.  K1 reduces the box in each
 // block from its staged mip (stage_coarse_box); K2, K4 and K5 read it from
-// a small device buffer that one launch of occupied_box.cu writes before
-// each of theirs (launch_occupied_box).
+// the 8-word buffer that the occupancy rebuild's one launch writes beside
+// the mip (coarse_occupancy.cu), once a frame for all of the frame's sweeps.
 // The packed volume itself is read from global memory at every size: 2 MiB
 // at 256^3 sits in the 50 MB L2, 128 MiB at 1024^3 does not, so there the
 // probes of occupied columns go to HBM.
@@ -205,8 +205,9 @@ static_assert(sizeof(OccBox) == 32, "OccBox is the 8-word box buffer");
 // The box of a non-empty mip from its occupied block range: x-blocks
 // [xb0, xb1], y-blocks [yb0, yb1] and 8-plane columns [zmin, zmax] of an
 // n^3 grid (nb = n/8 blocks a side, inv_n = 1/n in f32).  K1's per-block
-// reduction (stage_coarse_box) and the box kernel (occupied_box.cu) both
-// build their box here, so the two agree.
+// reduction (stage_coarse_box), the mip kernel's box (coarse_occupancy.cu)
+// and the box kernel (occupied_box.cu) all build their box here, so they
+// agree.
 __device__ __forceinline__ OccBox make_box(int xb0, int xb1, int yb0, int yb1,
                                            int zmin, int zmax, int nb,
                                            float inv_n) {
@@ -224,42 +225,17 @@ __device__ __forceinline__ OccBox make_box(int xb0, int xb1, int yb0, int yb1,
   return box;
 }
 
-// Enqueue, on stream, the one-block kernel that reduces the coarse mip of
-// an n^3 grid (any n <= 1024: [n/8, XG*n/8] words, 16-byte aligned) to its
-// OccBox in box (occupied_box.cu; the same box stage_coarse_box gives K1,
-// and all zero but `empty` for an empty mip).  Returns the launch's error.
-cudaError_t launch_occupied_box(const uint32_t* coarse, int n, OccBox* box,
-                                cudaStream_t stream);
-
-// Copy the launch's box into shared memory (threads 0-7, one word each),
-// once the box kernel before this one has finished (programmatic dependent
-// launch: this kernel may start while that one runs, and waits here; a no-op
-// when it was launched the ordinary way).  The caller's next barrier
-// publishes the box.
+// Copy the launch's box into shared memory (threads 0-7, one word each).
+// griddepcontrol.wait is a no-op after an ordinary launch (every launch of
+// the sweeps is one), and would wait for the kernel before to finish under
+// a programmatic dependent launch.  The caller's next barrier publishes the
+// box.
 __device__ __forceinline__ void load_box(const OccBox* src, OccBox* dst,
                                          int tid) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (tid < 8) {
     reinterpret_cast<int*>(dst)[tid] = reinterpret_cast<const int*>(src)[tid];
   }
-}
-
-// Launch kernel(args...) on stream after the box kernel enqueued just
-// before it, allowed to start while that one still runs (its blocks wait
-// in load_box).  Returns the launch's error.
-template <typename... Params, typename... Args>
-cudaError_t launch_after_box(void (*kernel)(Params...), dim3 grid,
-                             dim3 block, cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // stage_coarse for a block of WARPS warps, and the box of the staged mip:

@@ -4,13 +4,14 @@ The sources are ``csrc/ca_step.cu`` (the CA step, on the whole grid or on
 one shard of a sharded grid), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
 ``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
-``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box
-that K2's, K4's and K5's entry points enqueue before their kernels),
-``csrc/plane_occupancy.cu`` (the plane mip of K1's mip1 descent),
-``csrc/coarse_occupancy.cu`` (the 8³ mip every frame path rebuilds) and
+``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box of
+a given mip, alone), ``csrc/plane_occupancy.cu`` (the plane mip of K1's
+mip1 descent), ``csrc/coarse_occupancy.cu`` (the 8³ mip every frame path
+rebuilds, with the occupied box K2, K4 and K5 clip to in the same launch) and
 ``csrc/reproject.cu`` (the moving camera's history reprojection); all but
-the CA step, K3, the two mips and the reprojection share the traversal
-and float helpers in ``csrc/sweep.cuh``, K6 and K1 the patch mask of
+the CA step, K3, the plane mip and the reprojection share the traversal
+and float helpers in ``csrc/sweep.cuh`` (the 8³ mip its ``OccBox`` and
+``make_box``), K6 and K1 the patch mask of
 ``csrc/prepass.cuh``, the two mips the block row of ``csrc/block_mip.cuh``,
 and K5 and K3 read their per-query operands through the tables of
 ``csrc/queries.cuh``.
@@ -75,7 +76,6 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_IP = ctypes.POINTER(ctypes.c_int)  # a host int the entry point counts into
 
 
 def _nvcc() -> str:
@@ -157,19 +157,19 @@ def library() -> ctypes.CDLL:
         ]
         lib.ca3d_render_fast.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
-            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _IP, _P,
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
         ]
         lib.ca3d_shadow_sweep.restype = _I
         lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P]
         lib.ca3d_cell_state.restype = _I
-        lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _IP, _P]
+        lib.ca3d_primary_sweep.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.ca3d_primary_sweep.restype = _I
         lib.ca3d_primary_sweep_ages.argtypes = [
-            _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _IP, _P,
+            _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P,
         ]
         lib.ca3d_primary_sweep_ages.restype = _I
         lib.ca3d_shadow_multi.argtypes = [
-            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _IP, _P,
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P,
         ]
         lib.ca3d_shadow_multi.restype = _I
         lib.ca3d_prepass.argtypes = [_I, _P, _I, _I, _I, _P, _P, _P]
@@ -178,8 +178,10 @@ def library() -> ctypes.CDLL:
         lib.ca3d_occupied_box.restype = _I
         lib.ca3d_plane_occupancy.argtypes = [_I, _P, _I, _P, _P]
         lib.ca3d_plane_occupancy.restype = _I
-        lib.ca3d_coarse_occupancy.argtypes = [_I, _P, _I, _P, _P]
+        lib.ca3d_coarse_occupancy.argtypes = [_I, _P, _I, _P, _P, _P, _P]
         lib.ca3d_coarse_occupancy.restype = _I
+        lib.ca3d_coarse_occupancy_scratch_words.argtypes = []
+        lib.ca3d_coarse_occupancy_scratch_words.restype = _I
         lib.ca3d_reproject.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.ca3d_reproject.restype = _I
         _lib = lib

@@ -18,7 +18,7 @@ from .ca_step import (
     visibility_plane,
 )
 from .loop import make_multi_step
-from .occupancy import coarse_occupancy, occupancy_mip
+from .occupancy import coarse_occupancy, occupancy_mip, occupancy_mip_box
 
 __all__ = [
     "pack_grid",
@@ -40,4 +40,5 @@ __all__ = [
     "fires_plane_cuda",
     "coarse_occupancy",
     "occupancy_mip",
+    "occupancy_mip_box",
 ]

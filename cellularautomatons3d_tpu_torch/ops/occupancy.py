@@ -26,9 +26,12 @@ take it from :func:`occupancy_mip`: on the card one launch of
 the plain twin :func:`coarse_occupancy`.
 
 :func:`occupied_box` reduces a mip to the box of its occupied blocks, which
-K2, K4 and K5 clip their sweeps to; on the card ``csrc/occupied_box.cu``
-computes it (:func:`occupied_box_cuda`, and inside K2's, K4's and K5's entry
-points).
+K2, K4 and K5 clip their sweeps to.  A frame that runs any of them takes
+the mip and its box from :func:`occupancy_mip_box`: on the card the same
+launch of ``csrc/coarse_occupancy.cu`` writes both
+(:func:`coarse_occupancy_box_cuda`), on the CPU the plain twin
+:func:`coarse_occupancy_box`.  ``csrc/occupied_box.cu``
+(:func:`occupied_box_cuda`) reduces a mip a caller brings, alone.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from .. import kernels
 
 __all__ = [
     "coarse_occupancy", "coarse_occupancy_cuda", "occupancy_mip", "coarse_shape",
+    "coarse_occupancy_box", "coarse_occupancy_box_cuda", "occupancy_mip_box",
     "plane_occupancy", "plane_occupancy_cuda", "dilate_occupancy", "dilated_bits",
     "occupied_box", "occupied_box_cuda", "BLOCK", "BOX_WORDS",
 ]
@@ -64,23 +68,62 @@ def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:
     return _pack_blocks((v != 0).any(dim=4).any(dim=2))
 
 
-def coarse_occupancy_cuda(packed: torch.Tensor) -> torch.Tensor:
-    """:func:`coarse_occupancy` on the card in one launch
-    (``csrc/coarse_occupancy.cu``, a thread a plane word, the 8 planes of a
-    block folded by warp shuffles); ``packed`` must be a contiguous, 16-byte
-    aligned CUDA tensor [n/32, n, n], n ≤ 1024."""
+def _launch_mip(packed: torch.Tensor, with_box: bool):
+    """One launch of ``csrc/coarse_occupancy.cu``: the mip, and with
+    ``with_box`` its box (else None)."""
     n = packed.shape[-1]
     kernels.require(packed, "packed", torch.int32, (n // 32, n, n), align=16)
     out = torch.empty(coarse_shape(n), dtype=torch.int32, device=packed.device)
+    box, scratch = None, None
+    if with_box:
+        box = torch.empty(BOX_WORDS, dtype=torch.int32, device=packed.device)
+        scratch = _box_scratch(packed.device, kernels.stream_of(packed))
     err = kernels.library().ca3d_coarse_occupancy(
         packed.device.index or 0, packed.data_ptr(), n, out.data_ptr(),
-        kernels.stream_of(packed))
+        None if scratch is None else scratch.data_ptr(),
+        None if box is None else box.data_ptr(), kernels.stream_of(packed))
     kernels.check(err, "coarse_occupancy")
+    return out, box
+
+
+# The box's accumulator and ticket, one per (device index, stream handle):
+# zeroed here once, left zero by every launch that uses it, and never used
+# by two launches at once, since a stream runs its launches in turn.
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _box_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index or 0, stream)
+    if key not in _SCRATCH:
+        words = kernels.library().ca3d_coarse_occupancy_scratch_words()
+        _SCRATCH[key] = torch.zeros(words, dtype=torch.int32, device=device)
+    return _SCRATCH[key]
+
+
+def coarse_occupancy_cuda(packed: torch.Tensor) -> torch.Tensor:
+    """:func:`coarse_occupancy` on the card in one launch
+    (``csrc/coarse_occupancy.cu``: up to 256³ a block a 4-word strip, two
+    16-byte loads a thread; above, a thread a plane word); ``packed`` must be
+    a contiguous, 16-byte aligned CUDA tensor [n/32, n, n], n ≤ 1024."""
+    out, _ = _launch_mip(packed, with_box=False)
     coarse_occupancy_cuda.launches += 1
     return out
 
 
 coarse_occupancy_cuda.launches = 0
+
+
+def coarse_occupancy_box_cuda(packed: torch.Tensor):
+    """:func:`coarse_occupancy_box` on the card in the one launch of
+    :func:`coarse_occupancy_cuda`, whose blocks also fold the box of the
+    words they write and whose last block writes it: (mip, box int32
+    [8]).  ``packed`` as for :func:`coarse_occupancy_cuda`."""
+    out = _launch_mip(packed, with_box=True)
+    coarse_occupancy_box_cuda.launches += 1
+    return out
+
+
+coarse_occupancy_box_cuda.launches = 0
 
 
 def occupancy_mip(packed: torch.Tensor) -> torch.Tensor:
@@ -89,6 +132,22 @@ def occupancy_mip(packed: torch.Tensor) -> torch.Tensor:
     if packed.device.type == "cpu":
         return coarse_occupancy(packed)
     return coarse_occupancy_cuda(packed)
+
+
+def coarse_occupancy_box(packed: torch.Tensor):
+    """(mip, box): :func:`coarse_occupancy` of ``packed`` and its
+    :func:`occupied_box`.  The plain twin of :func:`coarse_occupancy_box_cuda`."""
+    coarse = coarse_occupancy(packed)
+    return coarse, occupied_box(coarse, packed.shape[-1])
+
+
+def occupancy_mip_box(packed: torch.Tensor):
+    """The 8³ mip of ``packed`` and its box, for a frame whose K2, K4 or K5
+    clip to it: the plain twin for a CPU tensor, else one launch of the
+    kernel (which raises on anything but a CUDA tensor)."""
+    if packed.device.type == "cpu":
+        return coarse_occupancy_box(packed)
+    return coarse_occupancy_box_cuda(packed)
 
 
 def _pack_blocks(occ: torch.Tensor) -> torch.Tensor:
@@ -200,8 +259,9 @@ def occupied_box(coarse: torch.Tensor, n: int) -> torch.Tensor:
     cell, ``(b·8 − 1)/n − 0.5`` and ``(b·8 + 9)/n − 0.5`` in float32 with
     1/n rounded once, and ±inf on a side whose block touches the volume's
     face.  ``full``: the box is the whole volume.  An empty mip gives
-    ``empty`` = 1 and zeros.  Plain twin of ``csrc/occupied_box.cu``; the
-    result lies on the mip's device."""
+    ``empty`` = 1 and zeros.  Plain twin of ``csrc/occupied_box.cu`` and of
+    the box ``csrc/coarse_occupancy.cu`` writes; the result lies on the
+    mip's device."""
     nb = n // BLOCK
     xg = -(-n // 256)
     if tuple(coarse.shape) != coarse_shape(n):
@@ -235,9 +295,9 @@ def occupied_box(coarse: torch.Tensor, n: int) -> torch.Tensor:
 
 def occupied_box_cuda(coarse: torch.Tensor, n: int) -> torch.Tensor:
     """:func:`occupied_box` on the card (``csrc/occupied_box.cu``, one
-    block); ``coarse`` must be a contiguous, 16-byte aligned CUDA tensor.
-    K2's, K4's and K5's wrappers add to its count the launches of it that
-    their entry points report."""
+    block) for a mip the caller brings; ``coarse`` must be a contiguous,
+    16-byte aligned CUDA tensor.  No frame path launches it: they take the
+    box from :func:`coarse_occupancy_box_cuda`."""
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
     box = torch.empty(BOX_WORDS, dtype=torch.int32, device=coarse.device)
     err = kernels.library().ca3d_occupied_box(

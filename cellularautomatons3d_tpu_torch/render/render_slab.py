@@ -16,10 +16,11 @@ test overrides (``slab_planes``, ``x_chunk_cells``), ``SlabGroup``,
 min-t composite over bricks with its cross-brick best-t carry, and the
 view-dependent brick-order flip are TPU VMEM layout, not kernels.
 ``prepped`` is the packed volume (for a multi-state rule its visibility
-plane, age ≥ 1; the age bit-planes go to K4 and nowhere else) and its
-coarse occupancy mip (:func:`prep_volume`); images are ``[H, W]`` / ``[H, W, 3]`` in image
-order.  Exact-t ties between distinct cells, where the reference keeps
-the first brick processed, keep the first cell in plane order here.
+plane, age ≥ 1; the age bit-planes go to K4 and nowhere else), its
+coarse occupancy mip and the mip's occupied box (:func:`prep_volume`);
+images are ``[H, W]`` / ``[H, W, 3]`` in image order.  Exact-t ties
+between distinct cells, where the reference keeps the first brick
+processed, keep the first cell in plane order here.
 
 Four kernels, each with a plain torch version of the same contract that
 runs for CPU tensors and is the kernel's reference:
@@ -37,15 +38,15 @@ runs for CPU tensors and is the kernel's reference:
 * K3, cell state (:func:`cell_state` / :func:`cell_state_cuda`,
   ``csrc/cell_state.cu``).
 
-K4, K2 and K5 are clipped on the card to the box of occupied blocks that a
-one-block kernel (``csrc/occupied_box.cu``, plain twin
-``ops.occupancy.occupied_box``) reduces from the mip just before each of
-them, in the same entry point; the plain versions clip nothing.  K2 takes
-its queries stacked by :func:`stack_occlusion_queries`; K5 and K3 take each
-query's tensors where the lighting passes leave them (start, cells [H, W,
-3], a target [H, W, 3] or the light's [3], active [H, W]), through a table
-of pointers and strides (``csrc/queries.cuh``), and their plain versions
-take the same queries stacked.
+K4, K2 and K5 are clipped on the card to the box of occupied blocks,
+``prepped.box`` (plain twin ``ops.occupancy.occupied_box``), which the
+occupancy rebuild's one launch (``csrc/coarse_occupancy.cu``) writes beside
+the mip, once a frame for all of them; the plain versions clip nothing.
+K2 takes its queries stacked by :func:`stack_occlusion_queries`; K5 and K3
+take each query's tensors where the lighting passes leave them (start,
+cells [H, W, 3], a target [H, W, 3] or the light's [3], active [H, W]),
+through a table of pointers and strides (``csrc/queries.cuh``), and their
+plain versions take the same queries stacked.
 
 :func:`primary_hits`, :func:`shadow_occlusion_batch` and
 :func:`cell_state_batch` pick by device.
@@ -68,7 +69,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import BOX_WORDS, coarse_shape, occupancy_mip, occupied_box_cuda
+from ..ops.occupancy import (
+    BOX_WORDS, coarse_shape, occupancy_mip_box, occupied_box, occupied_box_cuda)
 from . import brdf
 from .intersect import (
     FULL_CUBE_SIZE,
@@ -138,12 +140,20 @@ class Prepped(NamedTuple):
 
     vol: torch.Tensor     # packed words int32 [n/32, n, n]
     coarse: torch.Tensor  # coarse occupancy mip int32 [n/8, XG·n/8] (the skip)
+    box: torch.Tensor     # its occupied box int32 [8] (the clip of K2, K4, K5)
 
 
 def prep_volume(packed: torch.Tensor, coarse: torch.Tensor | None = None) -> Prepped:
-    """The whole-volume counterpart of the reference's ``prep_slabs``; the
-    mip from :func:`~..ops.occupancy.occupancy_mip` unless given."""
-    return Prepped(packed, occupancy_mip(packed) if coarse is None else coarse)
+    """The whole-volume counterpart of the reference's ``prep_slabs``: the
+    mip and its box from :func:`~..ops.occupancy.occupancy_mip_box` (on the
+    card one launch for both), or, for a mip the caller brings, its box alone
+    (on the card one launch of ``csrc/occupied_box.cu``)."""
+    if coarse is None:
+        return Prepped(packed, *occupancy_mip_box(packed))
+    n = packed.shape[-1]
+    if coarse.device.type == "cpu":
+        return Prepped(packed, coarse, occupied_box(coarse, n))
+    return Prepped(packed, coarse, occupied_box_cuda(coarse, n))
 
 
 def _check_sliced(grid_size, width, height, cam):
@@ -177,27 +187,28 @@ def primary_sweep(vol, cam, ages=None, *, grid_size, width, height):
     return (t_hit, idx) if ages is None else (t_hit, idx, age)
 
 
-def _box_scratch(coarse):
-    """The 8 words K2's, K4's and K5's entry points have the box kernel
-    (``csrc/occupied_box.cu``) write before their own kernel reads them, and
-    the host int the entry point adds one to once it has launched it."""
-    return (torch.empty(BOX_WORDS, dtype=torch.int32, device=coarse.device),
-            ctypes.c_int(0))
+def _require_box(box, vol):
+    """The sweeps' box operand: the int32 [8] ``OccBox`` of the mip, a
+    contiguous CUDA tensor on the volume's device."""
+    kernels.require(box, "box", torch.int32, (BOX_WORDS,))
+    if box.device != vol.device:
+        raise ValueError(f"box must be on the volume's device {vol.device}, got {box.device}")
 
 
-def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height,
+def primary_sweep_cuda(vol, coarse, box, cam, ages=None, *, grid_size, width, height,
                        column_skip=True):
     """K4 on the card (``csrc/primary_sweep.cu``): same contract as
-    :func:`primary_sweep`; ``vol``, ``coarse`` and ``ages`` must be
-    contiguous CUDA tensors (``coarse`` 16-byte aligned).  Each call
-    launches the box kernel, then K4.  ``column_skip=False`` descends every
-    column of the occupied box (the same hits; the attribution run of the
-    coarse column skip, which no frame path makes), also counted in
-    ``primary_sweep_cuda.noskip_launches``."""
+    :func:`primary_sweep`; ``vol``, ``coarse``, ``box`` (the mip's occupied
+    box, ``Prepped.box``) and ``ages`` must be contiguous CUDA tensors
+    (``coarse`` 16-byte aligned).  One launch.  ``column_skip=False``
+    descends every column of the occupied box (the same hits; the
+    attribution run of the coarse column skip, which no frame path makes),
+    also counted in ``primary_sweep_cuda.noskip_launches``."""
     cam = _check_sliced(grid_size, width, height, cam)
     n = grid_size
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
+    _require_box(box, vol)
     t = torch.empty((height, width), dtype=torch.float32, device=vol.device)
     idx = torch.empty((height, width), dtype=torch.int32, device=vol.device)
     age, age_bits = None, 0
@@ -206,15 +217,13 @@ def primary_sweep_cuda(vol, coarse, cam, ages=None, *, grid_size, width, height,
         age_bits = ages.shape[0]
         kernels.require(ages, "ages", torch.int32, (age_bits, n // 32, n, n))
         age = torch.empty((height, width), dtype=torch.int32, device=vol.device)
-    box, box_launches = _box_scratch(coarse)
     err = kernels.library().ca3d_primary_sweep_ages(
         vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n, width,
         height, cam.ctypes.data, t.data_ptr(), idx.data_ptr(),
         None if ages is None else ages.data_ptr(), age_bits,
         None if age is None else age.data_ptr(), int(bool(column_skip)), box.data_ptr(),
-        ctypes.byref(box_launches), kernels.stream_of(vol),
+        kernels.stream_of(vol),
     )
-    occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "primary_sweep")
     primary_sweep_cuda.launches += 1
     primary_sweep_cuda.noskip_launches += int(not column_skip)
@@ -231,7 +240,7 @@ def primary_hits(cam, prepped: Prepped, ages=None, *, grid_size, width, height):
     kw = dict(grid_size=grid_size, width=width, height=height)
     if prepped.vol.device.type == "cpu":
         return primary_sweep(prepped.vol, cam, ages, **kw)
-    return primary_sweep_cuda(prepped.vol, prepped.coarse, cam, ages, **kw)
+    return primary_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, cam, ages, **kw)
 
 
 # ------------------------------------------------------------ geometry ---
@@ -347,31 +356,31 @@ def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
                       grid_size, cell_half)
 
 
-def shadow_sweep_cuda(vol, coarse, start, target, excl, active, *, grid_size,
+def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_size,
                       cell_half, column_skip=True):
     """K2 on the card (``csrc/shadow_sweep.cu``): same contract as
-    :func:`shadow_sweep`; every tensor must be a contiguous CUDA tensor
-    (``coarse`` 16-byte aligned).  Each call launches the box kernel, then
-    K2.  ``column_skip=False`` descends every column of the occupied box
-    (the same flags; the attribution run of the coarse column skip, which no
-    frame path makes), also counted in ``shadow_sweep_cuda.noskip_launches``."""
+    :func:`shadow_sweep`; every tensor, ``box`` (the mip's occupied box,
+    ``Prepped.box``) too, must be a contiguous CUDA tensor (``coarse``
+    16-byte aligned).  One launch.  ``column_skip=False`` descends every
+    column of the occupied box (the same flags; the attribution run of the
+    coarse column skip, which no frame path makes), also counted in
+    ``shadow_sweep_cuda.noskip_launches``."""
     n = grid_size
     nq, _, h, w = start.shape
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
+    _require_box(box, vol)
     kernels.require(start, "start", torch.float32, (nq, 3, h, w))
     kernels.require(target, "target", torch.float32, (nq, 3, h, w))
     kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
     kernels.require(active, "active", torch.bool, (nq, h, w))
     out = torch.empty((nq, h, w), dtype=torch.int32, device=start.device)
-    box, box_launches = _box_scratch(coarse)
     err = kernels.library().ca3d_shadow_sweep(
         start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
         excl.data_ptr(), active.data_ptr(), out.data_ptr(), int(bool(column_skip)),
-        box.data_ptr(), ctypes.byref(box_launches), kernels.stream_of(start),
+        box.data_ptr(), kernels.stream_of(start),
     )
-    occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "shadow_sweep")
     shadow_sweep_cuda.launches += 1
     shadow_sweep_cuda.noskip_launches += int(not column_skip)
@@ -441,7 +450,7 @@ def _query_table(rows):
 _CELL_TYPES = (torch.int32, torch.int64)
 
 
-def shadow_sweep_multi_cuda(vol, coarse, start, target, excl, active, *,
+def shadow_sweep_multi_cuda(vol, coarse, box, start, target, excl, active, *,
                             grid_size, cell_half):
     """K5 on the card (``csrc/shadow_multi.cu``): :func:`shadow_sweep_multi`'s
     flags int32 [nq, H, W] of 1 to 8 queries given where the lighting passes
@@ -451,8 +460,8 @@ def shadow_sweep_multi_cuda(vol, coarse, start, target, excl, active, *,
     the ray skips; none when a coordinate is outside [0, n), as
     :func:`pack_exclusion` gives −1), active bool [H, W]; all CUDA tensors
     (``vol`` and ``active`` contiguous, ``coarse`` 16-byte aligned), the
-    vector operands with rows of W pixels.  Each call launches the box
-    kernel, then K5."""
+    vector operands with rows of W pixels; ``box`` is the mip's occupied box
+    (``Prepped.box``), a contiguous CUDA int32 [8].  One launch."""
     n = grid_size
     nq = len(start)
     if not 1 <= nq <= MAX_MULTI_QUERIES:
@@ -461,6 +470,7 @@ def shadow_sweep_multi_cuda(vol, coarse, start, target, excl, active, *,
         raise ValueError("start, target, excl and active must hold one entry per query")
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
+    _require_box(box, vol)
     h, w = active[0].shape
     rows = []
     for i in range(nq):
@@ -470,13 +480,11 @@ def shadow_sweep_multi_cuda(vol, coarse, start, target, excl, active, *,
         rows += _pixel_operand(excl[i], f"excl[{i}]", h, w, _CELL_TYPES)
         rows += [excl[i].dtype == torch.int64, _mask_pointer(active[i], f"active[{i}]", h, w)]
     out = torch.empty((nq, h, w), dtype=torch.int32, device=vol.device)
-    box, box_launches = _box_scratch(coarse)
     err = kernels.library().ca3d_shadow_multi(
         vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, _query_table(rows), out.data_ptr(),
-        box.data_ptr(), ctypes.byref(box_launches), kernels.stream_of(vol),
+        box.data_ptr(), kernels.stream_of(vol),
     )
-    occupied_box_cuda.launches += box_launches.value
     kernels.check(err, "shadow_multi")
     shadow_sweep_multi_cuda.launches += 1
     return out
@@ -506,7 +514,7 @@ def stack_occlusion_queries(queries, width, height):
 def _occlusion_k2(prepped, ops, kw):
     if ops[0].device.type == "cpu":
         return shadow_sweep(prepped.vol, *ops, **kw)
-    return shadow_sweep_cuda(prepped.vol, prepped.coarse, *ops, **kw)
+    return shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, **kw)
 
 
 def _occlusion_k5(prepped, queries, kw, width, height):
@@ -516,7 +524,8 @@ def _occlusion_k5(prepped, queries, kw, width, height):
         start, target, excl, active = stack_occlusion_queries(queries, width, height)
         exid = pack_exclusion(excl, kw["grid_size"])
         return shadow_sweep_multi(prepped.vol, start, target, exid, active, **kw)
-    return shadow_sweep_multi_cuda(prepped.vol, prepped.coarse, *zip(*queries), **kw)
+    return shadow_sweep_multi_cuda(prepped.vol, prepped.coarse, prepped.box,
+                                   *zip(*queries), **kw)
 
 
 def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,

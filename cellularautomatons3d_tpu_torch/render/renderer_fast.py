@@ -117,8 +117,7 @@ def _cam_vec(params: RenderParams, w, fh, row0=0.0) -> np.ndarray:
     return cam
 
 
-def _extended_lighting(s: RenderStatic, packed, coarse, cam, rgb, depth, idx,
-                       sample_idx):
+def _extended_lighting(s: RenderStatic, prepped, cam, rgb, depth, idx, sample_idx):
     """Soft shadows and GI on top of K1's frame (renderer_fast.py:121-178):
     returns (rgb with occlusion and indirect light, the world ray
     direction d [H, W, 3])."""
@@ -126,7 +125,7 @@ def _extended_lighting(s: RenderStatic, packed, coarse, cam, rgb, depth, idx,
     soft = s.soft_shadow_samples > 1
     gi = s.indirect_lighting
     temporal = s.gi_temporal and sample_idx is not None
-    prepped = prep_volume(packed, coarse)
+    packed = prepped.vol
     q, origin, coords, found, d = _hit_geometry(cam, idx, depth, n, w, h)
     jitter_k = sample_idx % s.soft_shadow_samples if soft and temporal else None
     kw = dict(grid_size=n, width=w, height=h)
@@ -171,15 +170,17 @@ def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2)
             sample_idx=sample_idx if s.gi_temporal else None,
         )
     else:
-        coarse = occupancy_mip(packed)
+        # The extended lighting's K2 clips to the mip's box: then the one
+        # launch of the occupancy rebuild writes both.
+        extended = s.soft_shadow_samples > 1 or s.indirect_lighting
+        prepped = prep_volume(packed) if extended else None
         rgb, depth, idx = raytrace_tiles(
-            packed, coarse, cam, grid_size=s.grid_size, width=s.width,
-            height=s.height, shadow=s.soft_shadow_samples <= 1, ages=ages,
-            total_states=total_states,
+            packed, prepped.coarse if extended else occupancy_mip(packed), cam,
+            grid_size=s.grid_size, width=s.width, height=s.height,
+            shadow=s.soft_shadow_samples <= 1, ages=ages, total_states=total_states,
         )
-        if s.soft_shadow_samples > 1 or s.indirect_lighting:
-            rgb, d = _extended_lighting(s, packed, coarse, cam, rgb, depth, idx,
-                                        sample_idx)
+        if extended:
+            rgb, d = _extended_lighting(s, prepped, cam, rgb, depth, idx, sample_idx)
     emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], rgb.device)
     rgb = torch.where((idx >= 0)[..., None], rgb + emis, rgb)
     return rgb, depth, idx, d

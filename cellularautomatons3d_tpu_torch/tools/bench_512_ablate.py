@@ -76,12 +76,12 @@ def sweeps(run: common.Run, vol, cam, grid: int) -> dict:
             "k4": {s: (lambda: render_slab.primary_sweep(vol, cam, **kw)) for s in ("on", "off")},
             "k2": {s: (lambda: render_slab.shadow_sweep(vol, *ops, **k2)) for s in ("on", "off")},
         }
-    coarse = prepped.coarse
+    coarse, box = prepped.coarse, prepped.box
     return {
         "k4": {s: (lambda skip=s == "on": render_slab.primary_sweep_cuda(
-            vol, coarse, cam, column_skip=skip, **kw)) for s in ("on", "off")},
+            vol, coarse, box, cam, column_skip=skip, **kw)) for s in ("on", "off")},
         "k2": {s: (lambda skip=s == "on": render_slab.shadow_sweep_cuda(
-            vol, coarse, *ops, column_skip=skip, **k2)) for s in ("on", "off")},
+            vol, coarse, box, *ops, column_skip=skip, **k2)) for s in ("on", "off")},
     }
 
 

@@ -47,7 +47,6 @@ from pathlib import Path
 
 import torch
 
-from ..ops.occupancy import occupancy_mip
 from ..render import render_fast, render_slab
 from ..render.render_fast import P_LIGHT, P_LMAG, P_O
 from ..render.intersect import device_vec
@@ -75,8 +74,8 @@ def parts(run: common.Run, vol, cam, grid: int) -> dict:
     """The GI frame's parts as calls on the same inputs."""
     w, h = run.window
     kw = dict(grid_size=grid, width=w, height=h)
-    coarse = occupancy_mip(vol)
-    prepped = render_slab.prep_volume(vol, coarse)
+    prepped = render_slab.prep_volume(vol)
+    coarse = prepped.coarse
 
     def primary():
         rgb, depth, idx = render_fast.raytrace_tiles(vol, coarse, cam, shadow=False, **kw)

@@ -21,8 +21,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       at 64³.
   (c) the main path at real size: Engine(grid_size=256, 1920×1080,
       device="cuda"): step(80), render() twice, run_fused(150,
-      reset_every=10), with the CA step's, K1's and the 8³ mip's launch
-      counters read around it (one mip kernel a frame).
+      reset_every=10), with the CA step's, K1's, the 8³ mip's and the box's
+      launch counters read around it (one mip kernel a frame, the mip alone:
+      no box launch).
   (d) timings with CUDA events (kernel vs plain, CA step, step + composed
       frame, the 8³ mip as the frame path runs it beside its twin; K2 and K3 vs plain, the lighting passes, and step + frame of
       the three lighting configurations; K4 and K2's hard-shadow query vs
@@ -48,7 +49,8 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       the CPU at 64³ for full quality, gi_temporal and two-bounce GI; then
       each of the three at real size, Engine(256, 1920×1080, soft shadows
       ×4, GI, light_radius 0.08): step(80), render(), run_fused(50,
-      reset_every=10), with every kernel's launch counter read around it.
+      reset_every=10), with every kernel's launch counter read around it (one
+      mip launch with its box a frame, no box kernel).
   (f) the >256³ path (render_slab.raytrace_sliced): K4 (primary-hit
       sweep) vs its plain version, ids equal and depth within atol 3e-5,
       at 320³ / 480×270 on a sparse random volume (two coarse x-groups,
@@ -65,7 +67,8 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       render(), run_fused(20, reset_every=10), Engine(1024, 1920×1080):
       step(200), render(), run_fused(5), and Engine(512) with soft shadows
       ×4, GI, light_radius 0.08 and gi_temporal, with every kernel's launch
-      counter read around each.
+      counter read around each (one mip launch with its box a frame for K4
+      and K2, no box kernel).
   (g) the opt-in paths: K5 (multi-query occlusion, CA3D_OCC_SWEEP=0), on
       each query's own tensors, vs its plain version and vs K2 on them
       stacked, bit for bit, and all 0 with every lane inactive, on a
@@ -89,7 +92,8 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       frame); the Engine with CA3D_OCC_SWEEP=0 on the card
       vs on the CPU at 64³ (full quality, two bounces), then Engine(256,
       1080p) full quality and two bounces and Engine(512) gi_temporal with
-      it, K5 launched and K2 not, one box launch per K5 and K4 launch.
+      it, K5 launched and K2 not, one occupancy rebuild with its box a frame
+      and no box-kernel launch.
 
   (h) the multi-state (Generations) path, on the `pyroclastic` preset (Moore
       B6-8/S4-7, 10 states = 4 age planes) grown from the random 5³ seed: the
@@ -110,15 +114,17 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       launch counter read around each (one multi-state step per generation,
       the binary step never), and on each scene a population above zero,
       every age 1..9 among the hit pixels and a hit share of 2 to 25 %.
-  (i) the occupied box (``csrc/occupied_box.cu``, launched inside K2's and
-      K4's entry points, which clip their sweeps to it): the box kernel vs
-      its plain twin on every scene of this run and on box-edge volumes at
-      256³, 512³ and 1024³ (an empty volume, a region at a corner touching
-      three faces, a slab on a face, a region at the centre off the block
-      grid, the whole volume), and on those volumes K4 vs plain from three
-      views at 480×270 (ids equal, t within 3e-5), K2 and K5 vs plain on
-      random rays, half of them aimed through the region (flags equal, with
-      every lane inactive all 0), and K3 vs plain on random lookups.
+  (i) the occupied box that K2, K4 and K5 clip their sweeps to: the box
+      kernel alone (``csrc/occupied_box.cu``) and the box the mip kernel
+      writes in its launch (``csrc/coarse_occupancy.cu``) vs the plain twin on
+      every scene of this run and on box-edge volumes at 256³, 512³ and 1024³
+      (an empty volume, a region at a corner touching three faces, a slab on
+      a face, a region at the centre off the block grid, the whole volume),
+      and on those volumes, their box from ``prep_volume(vol, coarse)`` (the
+      box kernel's one path, counted), K4 vs plain from three views at
+      480×270 (ids equal, t within 3e-5), K2 and K5 vs plain on random rays,
+      half of them aimed through the region (flags equal, with every lane
+      inactive all 0), and K3 vs plain on random lookups.
   (j) the interactive path (the viewer's loop: a camera move, then
       ``Engine.tick``): Engine(256, 1920×1080): step(80), render(), 10 ticks
       each after a translate, a rotate and a mouse look, K1's launch
@@ -237,18 +243,22 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       ``cuda_time_fn(queued=True)``'s sleeping stream queues, and a trace late
       in this process drops kernel events).
   (q) the frame paths' two small kernels (run after (j)): the 8³ mip
-      (``csrc/coarse_occupancy.cu``) against its twin ``coarse_occupancy``,
+      (``csrc/coarse_occupancy.cu``), alone and with its box in the same
+      launch, against the twins ``coarse_occupancy`` and ``occupied_box``,
       bit for bit, on random, empty and full volumes at 32³, 64³, 256³, 288³,
-      480³, 512³ and 1024³ and on the scenes (256³ gen-80 and gen-230, 512³
+      480³, 512³ and 1024³, on the scenes (256³ gen-80 and gen-230, 512³
       gen-160 and gen-260, 1024³ gen-200, the ``pyroclastic`` visibility
-      plane); the reprojection (``csrc/reproject.cu``) against its twin
+      plane), on (i)'s box-edge volumes at 256³, 512³ and 1024³, and launched
+      on two streams at once; the reprojection (``csrc/reproject.cu``) against its twin
       ``reproject_history`` on the card on moved 256³ and 512³ frames of (j)'s
       engines and on a row shard (rows 540..810 of 1080): rgb, source pixels
       and valid masks bit for bit (else counted, rgb within rtol 3e-3 / atol
       3e-4, the rest equal); the launch counters of 10 fused compose frames
       (10 CA step, 10 mip and 10 K1 launches) and of one moved render() (one
-      mip, one K1, one reprojection); both kernels alternated with their twins
-      by CUDA events and by queued device time, with their bounds.
+      mip, one K1, one reprojection), no box launch in either; both kernels
+      alternated with their twins by CUDA events and by queued device time,
+      the mip with its box alternated with the mip kernel and the box kernel
+      in turn, and the plane mip, with their bounds.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -338,6 +348,16 @@ def device_queries(torch, queries):
     return [tuple(torch.from_numpy(a).to("cuda") for a in q) for q in queries]
 
 
+def box_of(coarse):
+    """The occupied box of a mip, from the plain twin ``occupied_box`` on the
+    mip's device: the operand K2, K4 and K5 clip to, for the comparisons that
+    hold a sweep to its plain version (the frame paths take it from the mip
+    kernel's launch)."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box
+
+    return occupied_box(coarse, coarse.shape[0] * 8)
+
+
 def k5_check(torch, rs, tag, vol, coarse, n, queries, cell_half):
     """K5 on ``queries`` (each query's own tensors, as the lighting passes
     leave them) in launches of 4, as the CA3D_OCC_SWEEP=0 dispatch runs
@@ -347,14 +367,16 @@ def k5_check(torch, rs, tag, vol, coarse, n, queries, cell_half):
     h, w = queries[0][3].shape
     start, target, excl, active = rs.stack_occlusion_queries(queries, w, h)
     kw = dict(grid_size=n, cell_half=cell_half)
-    got = torch.cat([rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries[i:i + 4]), **kw)
+    box = box_of(coarse)
+    got = torch.cat([rs.shadow_sweep_multi_cuda(vol, coarse, box, *zip(*queries[i:i + 4]), **kw)
                      for i in range(0, len(queries), 4)])
-    one = rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries), **kw)
-    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    one = rs.shadow_sweep_multi_cuda(vol, coarse, box, *zip(*queries), **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, **kw)
     want, ms = timed(torch, lambda: rs.shadow_sweep_multi(
         vol, start, target, rs.pack_exclusion(excl, n), active, **kw))
     idle = rs.shadow_sweep_multi_cuda(
-        vol, coarse, *zip(*[(s, t, e, torch.zeros_like(a)) for s, t, e, a in queries]), **kw)
+        vol, coarse, box, *zip(*[(s, t, e, torch.zeros_like(a)) for s, t, e, a in queries]),
+        **kw)
     bad = int((got != want).sum()) + int((one != want).sum())
     bad_k2 = int((got != k2).sum())
     log(f"  K5 {tag}: {len(queries)} queries, {int(active.sum())} active, {int(want.sum())} "
@@ -406,7 +428,7 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
     def k4_check(tag, vol, coarse, cam, size, w, h):
         nonlocal k4_err
         kw = dict(grid_size=size, width=w, height=h)
-        t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+        t_k, i_k = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, **kw)
         (t_p, i_p), ms = timed(torch, lambda: rs.primary_sweep(vol, cam, **kw))
         bad = int((i_k != i_p).sum())
         err = float((t_k - t_p).abs().max())
@@ -421,7 +443,7 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
 
     def k2_check(tag, vol, coarse, cam, size, ops):
         kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
-        got = rs.shadow_sweep_cuda(vol, coarse, *ops, **kw)
+        got = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *ops, **kw)
         want, ms = timed(torch, lambda: rs.shadow_sweep(vol, *ops, **kw))
         bad = int((got != want).sum())
         log(f"  K2 {tag}: {ops[0].shape[0]} queries, {int(ops[3].sum())} active, "
@@ -509,11 +531,12 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
             f"{int((cidx >= 0).sum())} hit pixels)")
 
     # The Engine at full size.
-    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy_cuda
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_occupancy_box_cuda, coarse_occupancy_cuda)
 
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda,
-               coarse_occupancy_cuda)
+               coarse_occupancy_cuda, coarse_occupancy_box_cuda)
     launches, engines = {}, {}
     for name, (cfg, steps, fused, frames) in SLICED_ENGINES.items():
         for fn in counted:
@@ -529,15 +552,15 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
             need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
             need(float(f.max()) > 0.0, f"{name} frame {i} is black")
         needed = ["fires_plane_cuda", "primary_sweep_cuda", "shadow_sweep_cuda",
-                  "occupied_box_cuda"]
+                  "coarse_occupancy_box_cuda"]
         if cfg.get("indirect_lighting"):
             needed.append("cell_state_cuda")
         need(all(counts[k] > 0 for k in needed), f"{name} missed a kernel: {counts}")
         need(counts["raytrace_cuda"] == 0, f"{name} launched K1: {counts}")
-        need(counts["occupied_box_cuda"] == counts["primary_sweep_cuda"]
-             + counts["shadow_sweep_cuda"], f"{name}: one box launch per K2 / K4 launch: {counts}")
-        need(counts["coarse_occupancy_cuda"] == counts["primary_sweep_cuda"],
-             f"{name}: one mip launch per sliced frame: {counts}")
+        need(counts["occupied_box_cuda"] == 0 and counts["coarse_occupancy_cuda"] == 0,
+             f"{name}: the box comes from the mip's launch, no box kernel: {counts}")
+        need(counts["coarse_occupancy_box_cuda"] == counts["primary_sweep_cuda"],
+             f"{name}: one mip launch (with its box) per sliced frame: {counts}")
         hits = float((eng.history.hit_idx >= 0).float().mean())
         log(f"(f) {name}: step({steps}), render(), run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}; hit fraction {hits:.3f}")
@@ -553,30 +576,37 @@ BOX_WINDOW = (480, 270)
 
 
 def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip) -> dict:
-    """Phase (i): the box kernel against its plain twin on ``scenes`` ({tag:
-    (vol, coarse, n)}) and on the box-edge volumes, and K4, K2, K5 and K3
-    against their plain versions on the box-edge volumes; for phase (n), K4
-    and K2 without the column skip on the same volumes, bit for bit against
-    the default kernels and within the contract of the plain twins (counted
-    in ``noskip``).  Returns the boxes."""
+    """Phase (i): the box, from the box kernel alone and from the mip kernel's
+    launch with its box, against the plain twins on ``scenes`` ({tag: (vol,
+    coarse, n)}) and on the box-edge volumes, and K4, K2, K5 and K3 against
+    their plain versions on the box-edge volumes, their box from
+    ``prep_volume(vol, coarse)``, the path of a caller that brings its own
+    mip (one box-kernel launch each, counted in ``prep_launches``); for
+    phase (n), K4 and K2 without the column skip on the same volumes, bit
+    for bit against the default kernels and within the contract of the plain
+    twins (counted in ``noskip``).  Returns (the boxes, prep_launches)."""
     from _torch_box_scene import BOX_CASES, box_edge_volume
     from _torch_query_scene import cell_queries, occlusion_queries
 
     dev = torch.device("cuda", 0)
     boxes = {}
+    prep_launches = {"occupied_box_cuda": 0}
 
-    def box_check(tag, coarse, n):
+    def box_check(tag, coarse, n, vol):
         got = occupancy.occupied_box_cuda(coarse, n)
         want = occupancy.occupied_box(coarse, n)
         need(torch.equal(got, want), f"box kernel != plain on {tag}: {got.tolist()} "
              f"!= {want.tolist()}")
+        mip, fused = occupancy.coarse_occupancy_box_cuda(vol)
+        need(torch.equal(mip, coarse) and torch.equal(fused, want),
+             f"the mip kernel's box != plain on {tag}: {fused.tolist()} != {want.tolist()}")
         b = got.tolist()
         ext = np.array(b[4:], np.int32).view(np.float32).tolist()
         boxes[tag] = dict(empty=b[0], full=b[1], zc=b[2:4], x=ext[:2], y=ext[2:])
         return b
 
     for tag, (vol, coarse, n) in scenes.items():
-        box_check(tag, coarse, n)
+        box_check(tag, coarse, n, vol)
         log(f"  box of {tag}: {boxes[tag]}")
     k4_cmp = k2_cmp = 0
     for n in BOX_SIZES:
@@ -585,13 +615,17 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip
             vol = to_dev(words)
             coarse = occupancy.coarse_occupancy(vol)
             tag = f"{n}^3 {case}"
-            b = box_check(tag, coarse, n)
+            b = box_check(tag, coarse, n, vol)
             need((b[0], b[1]) == (case == "empty", case == "full"), f"box of {tag}: {b}")
+            before = occupancy.occupied_box_cuda.launches
+            box = rs.prep_volume(vol, coarse).box
+            prep_launches["occupied_box_cuda"] += occupancy.occupied_box_cuda.launches - before
+            need(box.tolist() == b, f"prep_volume's box of {tag}: {box.tolist()}")
             w, h = BOX_WINDOW
             kw = dict(grid_size=n, width=w, height=h)
             for name, view in views.items():
                 cam = scene_cam(view, w, h)
-                t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+                t_k, i_k = rs.primary_sweep_cuda(vol, coarse, box, cam, **kw)
                 t_p, i_p = rs.primary_sweep(vol, cam, **kw)
                 bad = int((i_k != i_p).sum())
                 err = float((t_k - t_p).abs().max())
@@ -600,7 +634,7 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip
                      f"K4 {tag} {name}: {bad} ids differ, t error {err}")
                 need((hits > 0) == (case != "empty"), f"K4 {tag} {name}: {hits} hits")
                 k4_cmp += 1
-                t_n, i_n = rs.primary_sweep_cuda(vol, coarse, cam, column_skip=False, **kw)
+                t_n, i_n = rs.primary_sweep_cuda(vol, coarse, box, cam, column_skip=False, **kw)
                 need(torch.equal(t_n, t_k) and torch.equal(i_n, i_k),
                      f"(n) K4 without the column skip != the default on {tag} {name}")
                 need(torch.equal(i_n, i_p) and float((t_n - t_p).abs().max()) <= DEPTH_ATOL,
@@ -626,17 +660,18 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip
             active = rnd(nq, h, w) < 0.7
             kw2 = dict(grid_size=n, cell_half=float(np.float32(1.0 / n) * np.float32(0.85)
                                                     * np.float32(0.5)))
-            got = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw2)
+            got = rs.shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, **kw2)
             want = rs.shadow_sweep(vol, start, target, excl, active, **kw2)
             bad = int((got != want).sum())
             need(bad == 0, f"K2 {tag}: {bad} flags differ from the plain version")
-            need((int(want.sum()) > 0) == (case != "empty"), f"K2 {tag}: {int(want.sum())} occluded")
-            got_n = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active,
+            need((int(want.sum()) > 0) == (case != "empty"),
+                 f"K2 {tag}: {int(want.sum())} occluded")
+            got_n = rs.shadow_sweep_cuda(vol, coarse, box, start, target, excl, active,
                                          column_skip=False, **kw2)
             need(torch.equal(got_n, got) and torch.equal(got_n, want),
                  f"(n) K2 without the column skip != the default or plain on {tag}")
             noskip["k2_box_edge"] = noskip.get("k2_box_edge", 0) + 1
-            idle = rs.shadow_sweep_cuda(vol, coarse, start, target, excl,
+            idle = rs.shadow_sweep_cuda(vol, coarse, box, start, target, excl,
                                         torch.zeros_like(active), **kw2)
             need(int(idle.abs().sum()) == 0, f"K2 {tag}: an inactive lane is not 0")
             k2_cmp += 1
@@ -655,9 +690,10 @@ def box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip
                 f"K2 == plain ({int(active.sum())} active, {int(want.sum())} occluded), "
                 f"idle K2 all 0")
             del vol, coarse, words
-    log(f"(i) box kernel == plain on {len(boxes)} mips; K4 == plain on {k4_cmp} frames and "
-        f"K2, K5 and K3 on {k2_cmp} batches of box-edge volumes at {BOX_SIZES}")
-    return boxes
+    log(f"(i) box kernel and the mip kernel's box == plain on {len(boxes)} mips; K4 == plain "
+        f"on {k4_cmp} frames and K2, K5 and K3 on {k2_cmp} batches of box-edge volumes at "
+        f"{BOX_SIZES}; prep_volume(vol, coarse) launched {prep_launches}")
+    return boxes, prep_launches
 
 
 # ---------------------------------------------------------------- bounds ---
@@ -948,8 +984,11 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
                 need(bool(torch.all((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())),
                      f"K5 64^3 {name}: frame cuda vs cpu max err {float((a - b).abs().max())}")
             log(f"  Engine {name} with CA3D_OCC_SWEEP=0 cuda == cpu at 64^3")
+        from cellularautomatons3d_tpu_torch.ops import occupancy
+
         counted = (rf.raytrace_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
-                   rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, rs.occupied_box_cuda)
+                   rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, rs.occupied_box_cuda,
+                   occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda)
         out["launches"], out["engines"] = {}, {}
         for name, cfg, steps, fused in (
             ("k5_full_quality", dict(grid_size=GRID, **LIGHTING), 80, 10),
@@ -972,9 +1011,10 @@ def multi_phase(torch, np, ct, rf, rs, coarse_occupancy, dilate_occupancy, grown
             need(counts["shadow_sweep_multi_cuda"] > 0, f"{name}: K5 never ran: {counts}")
             need(counts["shadow_sweep_cuda"] == 0, f"{name}: K2 ran: {counts}")
             need(counts["cell_state_cuda"] > 0, f"{name}: K3 never ran: {counts}")
-            need(counts["occupied_box_cuda"] == counts["shadow_sweep_multi_cuda"]
-                 + counts["primary_sweep_cuda"], f"{name}: one box launch per K5 / K4 launch: "
-                 f"{counts}")
+            frames = 1 + fused
+            need(counts["occupied_box_cuda"] == 0 and counts["coarse_occupancy_cuda"] == 0
+                 and counts["coarse_occupancy_box_cuda"] == frames,
+                 f"{name}: one mip launch with its box a frame, no box kernel: {counts}")
             log(f"(g) {name}: step({steps}), render(), run_fused({fused}) in "
                 f"{time.perf_counter() - t0:.2f} s; launches {counts}")
             out["launches"][name] = counts
@@ -1137,7 +1177,7 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
     # K2 and K3 on a full-quality frame's queries of the multi-state scene.
     vol, coarse, cam, _, k2, _, _, lookups = lighting_operands(GRID, WIDTH, HEIGHT, vol=vis)
     kw23 = dict(grid_size=GRID, cell_half=rs._cell_half(cam, GRID))
-    k2_bad = int((rs.shadow_sweep_cuda(vol, coarse, *k2, **kw23)
+    k2_bad = int((rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *k2, **kw23)
                   != rs.shadow_sweep(vol, *k2, **kw23)).sum())
     log(f"  multi-state scene {GRID}^3: K2 {k2[0].shape[0]} queries, {int(k2[3].sum())} "
         f"active, {k2_bad} differ")
@@ -1153,7 +1193,7 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
         nonlocal k4_err
         coarse = coarse_occupancy(vis)
         kw = dict(grid_size=size, width=w, height=h)
-        t_k, i_k, a_k = rs.primary_sweep_cuda(vis, coarse, cam, planes, **kw)
+        t_k, i_k, a_k = rs.primary_sweep_cuda(vis, coarse, box_of(coarse), cam, planes, **kw)
         (t_p, i_p, a_p), ms = timed(torch, lambda: rs.primary_sweep(vis, cam, planes, **kw))
         bad, bad_age = int((i_k != i_p).sum()), int((a_k != a_p).sum())
         err = float((t_k - t_p).abs().max())
@@ -1164,7 +1204,7 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
         need(torch.equal(hit_ages(planes, i_k).to(torch.int32), a_k[i_k >= 0]),
              f"K4 with ages {tag}: the age image is not the hit cells' age")
         need(bool((a_k[i_k < 0] == 1).all()), f"K4 with ages {tag}: a miss's age is not 1")
-        t_b, i_b = rs.primary_sweep_cuda(vis, coarse, cam, **kw)
+        t_b, i_b = rs.primary_sweep_cuda(vis, coarse, box_of(coarse), cam, **kw)
         need(torch.equal(i_b, i_k) and torch.equal(t_b, t_k),
              f"K4 {tag}: the outputs change with the ages")
         k4_err = max(k4_err, err)
@@ -1221,9 +1261,12 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
             f"{int((cidx >= 0).sum())} hit pixels)")
 
     # The path at full width.
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
     counted = (ca_step.step_packed_multistate_cuda, ca_step.age_masks_cuda,
                ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
-               rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda)
+               rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda,
+               occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda)
     out["launches"], out["engines"] = {}, {}
     for name, (cfg, fused, frames) in MS_ENGINES.items():
         for fn in counted:
@@ -1263,11 +1306,15 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
         unused = ["raytrace_cuda"] if size > GRID else ["primary_sweep_cuda"]
         if cfg.get("indirect_lighting"):
             needed += ["shadow_sweep_cuda", "cell_state_cuda"]
-        if "shadow_sweep_cuda" in needed:
-            needed.append("occupied_box_cuda")
         need(all(counts[k] > 0 for k in needed), f"{name} missed a kernel: {counts}")
-        need(counts["occupied_box_cuda"] == counts["primary_sweep_cuda"]
-             + counts["shadow_sweep_cuda"], f"{name}: one box launch per K2 / K4 launch: {counts}")
+        # One occupancy rebuild a frame: the mip with its box where K2 or K4
+        # clips to it, else the mip alone; never the box kernel.
+        mips = ["coarse_occupancy_cuda", "coarse_occupancy_box_cuda"]
+        if "shadow_sweep_cuda" in needed:
+            mips.reverse()
+        need(counts[mips[0]] == 2 + fused["frames"] and counts[mips[1]] == 0
+             and counts["occupied_box_cuda"] == 0,
+             f"{name}: one {mips[0]} a frame, no box kernel: {counts}")
         need(all(counts[k] == 0 for k in unused), f"{name} launched {unused}: {counts}")
         log(f"(h) {name}: step({steps}), render() x2, run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}")
@@ -1319,8 +1366,10 @@ def multistate_timings(torch, ct, rf, rs, ca_step, AutomatonSpec, ms):
         lambda: rf.raytrace(vis, coarse, cam, hist, **kw), reps=2, warmup=1)
     for size, (planes, vis, coarse, cam, _) in ms["k4_timed"].items():
         kw4 = dict(grid_size=size, width=WIDTH, height=HEIGHT)
-        with_ages = lambda: rs.primary_sweep_cuda(vis, coarse, cam, planes, **kw4)  # noqa: E731
-        without = lambda: rs.primary_sweep_cuda(vis, coarse, cam, **kw4)  # noqa: E731
+        box = box_of(coarse)
+        with_ages = lambda: rs.primary_sweep_cuda(  # noqa: E731
+            vis, coarse, box, cam, planes, **kw4)
+        without = lambda: rs.primary_sweep_cuda(vis, coarse, box, cam, **kw4)  # noqa: E731
         reads = [cuda_time_fn(fn, reps=20, warmup=2)
                  for fn in (without, with_ages, with_ages, without)]
         ms_ms[f"k4_{size}_ms_scene_ms"] = (reads[0] + reads[3]) / 2
@@ -1374,7 +1423,7 @@ def multistate_bounds(torch, rf, rs, ca_step, ms, ms_specs, ms_states) -> dict:
         mip_bytes(GRID) + px * 48 + hits * age_bits * 32,
         act * OPS_RAY + cols * OPS_COLUMN + hits * (OPS_SHADE + OPS_AGE) + shadow_ops)
     for size, (planes, vis, coarse, cam, _) in ms["k4_timed"].items():
-        t4, i4, _ = rs.primary_sweep_cuda(vis, coarse, cam, planes, grid_size=size,
+        t4, i4, _ = rs.primary_sweep_cuda(vis, coarse, box_of(coarse), cam, planes, grid_size=size,
                                           width=WIDTH, height=HEIGHT)
         act, cols = primary_work(torch, rf, cam, size, WIDTH, HEIGHT, t4, i4, dev,
                                  occupied_box(coarse, size))
@@ -1451,7 +1500,8 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
 
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
-               occupancy.coarse_occupancy_cuda, rfast.reproject_history_cuda)
+               occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda,
+               rfast.reproject_history_cuda)
     out = {"launches": {}, "valid_px": {}, "valid_share_of_hits": {}, "engines": {},
            "walls_s": {}}
     for name, (over, steps, ticks) in INTERACTIVE.items():
@@ -1484,13 +1534,15 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                 "primary_sweep_cuda": ticks if sliced else 0,
                 "shadow_sweep_cuda": ticks if sliced or lit else 0,
                 "cell_state_cuda": ticks if lit else 0,
-                "coarse_occupancy_cuda": ticks, "reproject_history_cuda": ticks,
+                # one occupancy rebuild a tick, with the box where K2 / K4
+                # clip to it, and no box kernel
+                "coarse_occupancy_cuda": 0 if sliced or lit else ticks,
+                "coarse_occupancy_box_cuda": ticks if sliced or lit else 0,
+                "occupied_box_cuda": 0, "reproject_history_cuda": ticks,
                 "fires_plane_cuda": eng.simulation_step - steps}
         need(all(counts[k] == v for k, v in want.items()),
              f"(j) {name}: launches {counts}, expected {want}")
         need(counts["fires_plane_cuda"] > 0, f"(j) {name}: the CA never stepped")
-        need(counts["occupied_box_cuda"] == counts["shadow_sweep_cuda"]
-             + counts["primary_sweep_cuda"], f"(j) {name}: one box per K2 / K4: {counts}")
         # reproject_history on the card against the CPU, on the same inputs.
         valid = hits = 0
         for i, c in enumerate(calls):
@@ -1714,19 +1766,23 @@ OPS_REPROJECT = 100   # a pixel's ray, hit point, projection, tests and blend
 
 
 def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -> dict:
-    """Phase (q): the frame paths' 8³ mip kernel (``csrc/coarse_occupancy.cu``)
-    against its plain twin ``coarse_occupancy``, bit for bit, on random,
-    empty and full volumes at every size of ``MIP_SIZES`` and on the scenes of
-    (i) and the ``pyroclastic`` visibility plane; the reprojection kernel
+    """Phase (q): the frame paths' 8³ mip kernel (``csrc/coarse_occupancy.cu``),
+    alone and with its box in the same launch, against the plain twins
+    ``coarse_occupancy`` and ``occupied_box``, bit for bit, on random, empty
+    and full volumes at every size of ``MIP_SIZES``, on the scenes of (i), the
+    ``pyroclastic`` visibility plane and (i)'s box-edge volumes at 256³, 512³
+    and 1024³, and launched on two streams at once; the reprojection kernel
     (``csrc/reproject.cu``) against its twin ``reproject_history`` on the same
     inputs, on moved 256³ and 512³ frames of (j)'s engines and on a row shard
     (row0 > 0): blended rgb, source pixels and valid masks bit for bit, or, if
     not, their counts reported and rgb held to rtol 3e-3 / atol 3e-4 with the
     source pixels and masks equal; the launch counters, set to 0 just before
     and read just after, of 10 fused compose frames (10 CA step, 10 mip, 10 K1
-    launches) and of one moved render() (one mip, one K1, one reprojection);
-    both kernels' times beside their twins' (alternated twin, kernel, kernel,
-    twin; CUDA events and queued device time) and their bounds from these
+    launches) and of one moved render() (one mip, one K1, one reprojection),
+    no box launch in either; both kernels' times beside their twins'
+    (alternated twin, kernel, kernel, twin; CUDA events and queued device
+    time), the mip with its box beside the mip and the box kernel in turn
+    (pair, fused, fused, pair) and the plane mip, and their bounds from these
     inputs."""
     import dataclasses
 
@@ -1736,9 +1792,22 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
 
     t_phase = time.perf_counter()
     dev = next(iter(scenes.values()))[0].device
+    from _torch_box_scene import BOX_CASES, box_edge_volume
+
     mip, twin = occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy
-    out = {"mip_cases": 0, "reproject": {}, "launches": {}, "timings": {}, "bounds": {},
-           "max_abs_err": 0.0}
+    fused, fused_twin = occupancy.coarse_occupancy_box_cuda, occupancy.coarse_occupancy_box
+    out = {"mip_cases": 0, "mip_box_cases": 0, "reproject": {}, "launches": {}, "timings": {},
+           "bounds": {}, "max_abs_err": 0.0}
+
+    def mip_box_check(tag, vol):
+        want = fused_twin(vol)
+        for i in range(2):  # twice: the launch leaves its accumulator zero
+            got = fused(vol)
+            need(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                 f"(q) the mip kernel with its box != the twins on {tag} (launch {i + 1}): "
+                 f"box {got[1].tolist()} != {want[1].tolist()}")
+        out["mip_box_cases"] += 1
+        return want
 
     # The mip on random, empty and full volumes at every size.
     g = torch.Generator(dev).manual_seed(17)
@@ -1754,6 +1823,9 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
             need(torch.equal(mip(vol), twin(vol)),
                  f"(q) the mip kernel != coarse_occupancy at {size}^3 {name}")
             out["mip_cases"] += 1
+            box = mip_box_check(f"{size}^3 {name}", vol)[1]
+            need(int(box[0]) == (name == "empty") and (name != "full" or int(box[1]) == 1),
+                 f"(q) the box of {size}^3 {name}: {box.tolist()}")
         del words, vols
     # On the scenes: (i)'s and the pyroclastic visibility plane.
     pyro = ct.Engine(grid_size=GRID, width=64, height=32, device=dev,
@@ -1766,8 +1838,35 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
         need(torch.equal(got, twin(vol)), f"(q) the mip kernel != coarse_occupancy on {tag}")
         need(bool((got != 0).any()), f"(q) the mip of {tag} is empty")
         out["mip_cases"] += 1
+        mip_box_check(tag, vol)
+    for size in (GRID, 512, 1024):
+        for case in BOX_CASES:
+            vol = ct.from_reference(box_edge_volume(size, case, size)[0], dev)
+            box = mip_box_check(f"{size}^3 box-edge {case}", vol)[1]
+            need((int(box[0]), int(box[1])) == (case == "empty", case == "full"),
+                 f"(q) the box of the {size}^3 box-edge {case} volume: {box.tolist()}")
+            del vol
+    # Two streams at once, each with its own accumulator: 8 launches each in
+    # turn, neither waiting for the other.
+    pairs = [(vols[f"{GRID}^3 gen-80"], torch.cuda.Stream(dev)),
+             (scenes["512^3 gen-160"][0], torch.cuda.Stream(dev))]
+    wants = [fused_twin(v) for v, _ in pairs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(8):
+        for k, (v, stream) in enumerate(pairs):
+            with torch.cuda.stream(stream):
+                got[k].append(fused(v))
+    torch.cuda.synchronize()
+    for k in range(2):
+        need(all(torch.equal(m, wants[k][0]) and torch.equal(b, wants[k][1]) for m, b in got[k]),
+             f"(q) the mip kernel with its box on two streams at once: stream {k} differs")
+    out["mip_box_cases"] += 2
+    del pairs, got
     log(f"(q) the mip kernel == coarse_occupancy, bit for bit: {out['mip_cases']} volumes "
-        f"({len(MIP_SIZES)} sizes x empty / full / 2 densities, {len(vols)} scenes)")
+        f"({len(MIP_SIZES)} sizes x empty / full / 2 densities, {len(vols)} scenes); with its "
+        f"box == the twins on {out['mip_box_cases']} cases (those, (i)'s box-edge volumes at "
+        f"{GRID}^3 / 512^3 / 1024^3, each launched twice, and two streams at once)")
 
     # The reprojection on the moved frames of (j)'s engines and a row shard.
     def check(tag, args):
@@ -1818,7 +1917,8 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
         del calls
 
     # The launch counters of the main path's frames.
-    counters = (ca_step.fires_plane_cuda, mip, rf.raytrace_cuda, rfast.reproject_history_cuda)
+    counters = (ca_step.fires_plane_cuda, mip, fused, occupancy.occupied_box_cuda,
+                rf.raytrace_cuda, rfast.reproject_history_cuda)
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -1829,7 +1929,8 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
         return {f.__name__: f.launches for f in counters}
 
     c = out["launches"]["fused_10"] = counted(lambda: eng.run_fused(10, reset_every=10))
-    need(c == {"fires_plane_cuda": 10, "coarse_occupancy_cuda": 10, "raytrace_cuda": 10,
+    need(c == {"fires_plane_cuda": 10, "coarse_occupancy_cuda": 10,
+               "coarse_occupancy_box_cuda": 0, "occupied_box_cuda": 0, "raytrace_cuda": 10,
                "reproject_history_cuda": 0}, f"(q) 10 fused compose frames launched {c}")
     e256 = inter["engines"]["moved_256"]
 
@@ -1838,7 +1939,8 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
         e256.render()
 
     c = out["launches"]["moved_render"] = counted(moved)
-    need(c == {"fires_plane_cuda": 0, "coarse_occupancy_cuda": 1, "raytrace_cuda": 1,
+    need(c == {"fires_plane_cuda": 0, "coarse_occupancy_cuda": 1,
+               "coarse_occupancy_box_cuda": 0, "occupied_box_cuda": 0, "raytrace_cuda": 1,
                "reproject_history_cuda": 1}, f"(q) one moved render() launched {c}")
     log(f"(q) launches: 10 fused compose frames {out['launches']['fused_10']}; one moved "
         f"render() {out['launches']['moved_render']}")
@@ -1856,8 +1958,32 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
             tm[f"coarse_occupancy_{size}_{label}_reads_ms"] = reads
             tm[f"coarse_occupancy_{size}_{label}_ms"] = (reads[1] + reads[2]) / 2
             tm[f"coarse_occupancy_plain_{size}_{label}_ms"] = (reads[0] + reads[3]) / 2
+        # The mip with its box (fused) beside the mip kernel and the box
+        # kernel in turn (pair), and its twins.
+        c = mip(vol)
+        calls = {"fused": lambda: fused(vol),
+                 "pair": lambda: occupancy.occupied_box_cuda(mip(vol), size),
+                 "plain": lambda: fused_twin(vol)}
+        for label, queued in (("events", False), ("device", True)):
+            reads = [cuda_time_fn(calls[m], reps=30, warmup=3, queued=queued)
+                     for m in ("pair", "fused", "fused", "pair")]
+            tm[f"coarse_occupancy_box_{size}_{label}_reads_ms"] = reads
+            tm[f"coarse_occupancy_box_{size}_{label}_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"coarse_occupancy_then_box_{size}_{label}_ms"] = (reads[0] + reads[3]) / 2
+            tm[f"occupied_box_{size}_{label}_ms"] = cuda_time_fn(
+                lambda: occupancy.occupied_box_cuda(c, size), reps=30, warmup=3, queued=queued)
+        tm[f"coarse_occupancy_box_plain_{size}_events_ms"] = cuda_time_fn(
+            calls["plain"], reps=3, warmup=1)
         words = size**3 // 32
         out["bounds"][f"coarse_occupancy_{size}"] = bound(words * 4 + mip_bytes(size), words * 5)
+        out["bounds"][f"coarse_occupancy_box_{size}"] = bound(
+            words * 4 + mip_bytes(size) + 32, words * 5 + mip_bytes(size) // 4 * 6)
+    # The plane mip (K1's opt-in mip1 input, csrc/block_mip.cuh's row helper
+    # shared with the 8³ mip above 256³) at 256³ on the same timer.
+    vol = scenes[f"{GRID}^3 gen-80"][0]
+    for label, queued in (("events", False), ("device", True)):
+        tm[f"plane_occupancy_{GRID}_{label}_ms"] = cuda_time_fn(
+            lambda: occupancy.plane_occupancy_cuda(vol), reps=30, warmup=3, queued=queued)
     for size, args in timed.items():
         calls = {"kernel": lambda: rfast.reproject_history_cuda(*args),
                  "plain": lambda: rfast.reproject_history(*args)}
@@ -1971,7 +2097,7 @@ def reference_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                ca_step.age_masks_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.shadow_sweep_multi_cuda, rs.cell_state_cuda,
                occupancy.occupied_box_cuda, occupancy.coarse_occupancy_cuda,
-               rfast.reproject_history_cuda)
+               occupancy.coarse_occupancy_box_cuda, rfast.reproject_history_cuda)
     ca_kernels = ("fires_plane_cuda", "step_packed_multistate_cuda", "age_masks_cuda")
     for name, (over, gens, static, moved, timed_frames) in reference_configs(ct).items():
         cfg = {"width": WIDTH, "height": HEIGHT, "pipeline": "reference", **over}
@@ -2063,7 +2189,7 @@ MESH_ENGINES = {
 MESH_COUNTED = ("fires_slab_cuda", "step_slab_multistate_cuda", "age_masks_cuda",
                 "fires_plane_cuda", "step_packed_multistate_cuda", "raytrace_cuda",
                 "primary_sweep_cuda", "shadow_sweep_cuda", "occupied_box_cuda",
-                "coarse_occupancy_cuda")
+                "coarse_occupancy_cuda", "coarse_occupancy_box_cuda")
 
 
 def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
@@ -2097,7 +2223,8 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
            "raytrace_cuda": rf.raytrace_cuda, "primary_sweep_cuda": rs.primary_sweep_cuda,
            "shadow_sweep_cuda": rs.shadow_sweep_cuda,
            "occupied_box_cuda": occupancy.occupied_box_cuda,
-           "coarse_occupancy_cuda": occupancy.coarse_occupancy_cuda}
+           "coarse_occupancy_cuda": occupancy.coarse_occupancy_cuda,
+           "coarse_occupancy_box_cuda": occupancy.coarse_occupancy_box_cuda}
 
     def random_words(size, seed):
         g = torch.Generator(dev).manual_seed(seed)
@@ -2191,8 +2318,14 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
         frame_kernel = "raytrace_cuda" if cfg["grid_size"] <= GRID else "primary_sweep_cuda"
         need(counts[frame_kernel] == MESH_SHARDS * (renders + fused),
              f"(l) {name}: one frame kernel a shard and frame: {counts}")
-        need(counts["coarse_occupancy_cuda"] == counts[frame_kernel],
-             f"(l) {name}: one mip kernel a shard and frame: {counts}")
+        # One occupancy rebuild a shard and frame, with its box where K4 and
+        # K2 clip to it; no box kernel.
+        mips = ["coarse_occupancy_cuda", "coarse_occupancy_box_cuda"]
+        if cfg["grid_size"] > GRID:
+            mips.reverse()
+        need(counts[mips[0]] == counts[frame_kernel] and counts[mips[1]] == 0
+             and counts["occupied_box_cuda"] == 0,
+             f"(l) {name}: one {mips[0]} a shard and frame, no box kernel: {counts}")
         if cfg["grid_size"] > GRID:
             need(counts["shadow_sweep_cuda"] == counts["primary_sweep_cuda"],
                  f"(l) {name}: one hard-shadow K2 per K4: {counts}")
@@ -2255,7 +2388,7 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
                 hits += int((want[2] >= 0).sum())
                 continue
             k4 = dict(grid_size=n, width=w, height=rows)
-            got = rs.primary_sweep_cuda(vol, coarse, cam, ages, **k4)
+            got = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, ages, **k4)
             want = rs.primary_sweep(vol, cam, ages, **k4)
             errs.append(float((got[0] - want[0]).abs().max()))
             need(all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])),
@@ -2267,7 +2400,8 @@ def mesh_phase(torch, np, ct, rf, rs, ca_step, occupancy, compare) -> dict:
             k2 = rs.stack_occlusion_queries(queries, w, rows)
             k2_kw = dict(grid_size=n, cell_half=rs._cell_half(cam, n))
             flags = rs.shadow_sweep(vol, *k2, **k2_kw)
-            need(torch.equal(rs.shadow_sweep_cuda(vol, coarse, *k2, **k2_kw), flags),
+            need(torch.equal(rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *k2, **k2_kw),
+                             flags),
                  f"{tag} K2: flags differ from the plain version")
             hits += int((want[1] >= 0).sum())
             occluded += int(flags.sum())
@@ -2702,16 +2836,16 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
     for size, (vol, coarse, cam, k2) in sliced["timed"].items():
         kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
         k2kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
-        t_d, i_d = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
-        t_n, i_n = rs.primary_sweep_cuda(vol, coarse, cam, column_skip=False, **kw)
+        t_d, i_d = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, **kw)
+        t_n, i_n = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, column_skip=False, **kw)
         t_p, i_p = rs.primary_sweep(vol, cam, **kw)
         need(torch.equal(t_n, t_d) and torch.equal(i_n, i_d),
              f"(n) K4 without the column skip != the default at {size}^3")
         err = float((t_n - t_p).abs().max())
         need(torch.equal(i_n, i_p) and err <= DEPTH_ATOL,
              f"(n) K4 without the column skip != plain at {size}^3 (t error {err})")
-        o_d = rs.shadow_sweep_cuda(vol, coarse, *k2, **k2kw)
-        o_n = rs.shadow_sweep_cuda(vol, coarse, *k2, column_skip=False, **k2kw)
+        o_d = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *k2, **k2kw)
+        o_n = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *k2, column_skip=False, **k2kw)
         o_p = rs.shadow_sweep(vol, *k2, **k2kw)
         need(torch.equal(o_n, o_d) and torch.equal(o_n, o_p),
              f"(n) K2 without the column skip != the default or plain at {size}^3")
@@ -2728,8 +2862,8 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
     for f in (rs.primary_sweep_cuda, rs.shadow_sweep_cuda):
         f.launches = f.noskip_launches = 0
     for _ in range(10):
-        rs.primary_sweep_cuda(vol, coarse, cam, column_skip=False, **kw)
-        rs.shadow_sweep_cuda(vol, coarse, *k2, column_skip=False, **k2kw)
+        rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, column_skip=False, **kw)
+        rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *k2, column_skip=False, **k2kw)
     torch.cuda.synchronize()
     out["launches"] = {f"{f.__name__}.{c}": getattr(f, c)
                        for f in (rs.primary_sweep_cuda, rs.shadow_sweep_cuda)
@@ -2742,11 +2876,12 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
     for size, (vol, coarse, cam, k2) in sliced["timed"].items():
         kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
         k2kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        box = box_of(coarse)
         calls = {
             "k4": {s: (lambda skip=s == "on": rs.primary_sweep_cuda(
-                vol, coarse, cam, column_skip=skip, **kw)) for s in ("on", "off")},
+                vol, coarse, box, cam, column_skip=skip, **kw)) for s in ("on", "off")},
             "k2": {s: (lambda skip=s == "on": rs.shadow_sweep_cuda(
-                vol, coarse, *k2, column_skip=skip, **k2kw)) for s in ("on", "off")},
+                vol, coarse, box, *k2, column_skip=skip, **k2kw)) for s in ("on", "off")},
         }
         for name, fns in calls.items():
             for label, queued in (("events", False), ("device", True)):
@@ -2789,18 +2924,20 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
                  f"(n) {rec['tool']}: card {rec.get('card')!r}, device {rec.get('device')!r}")
     by_mode = {r["mode"]: r for r in recs if r["tool"] == "profile_trace"}
     expect = {  # per frame: kernel family -> launches (moved: K moved and K static frames)
-        "headline": {"render_kernel": 1, "ca_step_kernel": 1, "coarse_occupancy_kernel": 1},
+        "headline": {"render_kernel": 1, "ca_step_kernel": 1, "coarse_occupancy_kernel": 1,
+                     "occupied_box_kernel": 0},
         "multistate": {"ca_step_kernel": 1, "age_masks_kernel": 2, "primary_sweep_kernel": 1,
-                       "shadow_sweep_kernel": 1, "occupied_box_kernel": 2,
+                       "shadow_sweep_kernel": 1, "occupied_box_kernel": 0,
                        "coarse_occupancy_kernel": 1},
-        "moved": {"render_kernel": 1, "coarse_occupancy_kernel": 1, "reproject_kernel": 0.5},
+        "moved": {"render_kernel": 1, "coarse_occupancy_kernel": 1, "reproject_kernel": 0.5,
+                  "occupied_box_kernel": 0},
     }
     for mode, fams in expect.items():
         rec = by_mode[mode]
         need(rec["launches_match"], f"(n) {mode}: trace launches != counters: {rec['launches']}")
         for fam, n in fams.items():
             got = rec["launches"].get(fam, {})
-            need(got.get("trace") == n and got.get("counters") == n,
+            need(got.get("trace", 0) == n and got.get("counters", 0) == n,
                  f"(n) {mode}: {fam} launches a frame {got}, expected {n}")
         log(f"  (n) profile_trace {mode}: frame {rec['frame_ms']:.4f} ms, busy "
             f"{rec['busy_ms_per_frame']:.4f} ms a frame, idle {rec['idle_share']:.3f}, "
@@ -3268,9 +3405,10 @@ def main() -> dict:
         f"id mismatch {k1_frac:.3g}); Engine cuda == cpu at 64^3 (id mismatch {id_frac:.3g})")
 
     # -------------------------------------- (c) the main path, real size ---
-    ca_step.fires_plane_cuda.launches = 0
-    rf.raytrace_cuda.launches = 0
-    occupancy.coarse_occupancy_cuda.launches = 0
+    main_counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, occupancy.coarse_occupancy_cuda,
+                    occupancy.coarse_occupancy_box_cuda, occupancy.occupied_box_cuda)
+    for fn in main_counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     eng = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda")
     eng.step(80)
@@ -3282,6 +3420,8 @@ def main() -> dict:
         "ca_step": ca_step.fires_plane_cuda.launches,
         "render_fast": rf.raytrace_cuda.launches,
         "coarse_occupancy": occupancy.coarse_occupancy_cuda.launches,
+        "coarse_occupancy_box": occupancy.coarse_occupancy_box_cuda.launches,
+        "occupied_box": occupancy.occupied_box_cuda.launches,
     }
     main_s = time.perf_counter() - t0
     for i, f in enumerate((f1, f2, f3)):
@@ -3292,6 +3432,8 @@ def main() -> dict:
          f"main path missed a kernel: {launches}")
     need(launches["coarse_occupancy"] == launches["render_fast"],
          f"main path: not one mip kernel a frame: {launches}")
+    need(launches["coarse_occupancy_box"] == 0 and launches["occupied_box"] == 0,
+         f"main path: K1's frame launched a box: {launches}")
     # The 80-step state against the plain step on the same device.
     spec = eng.spec
     ref = to_dev(ct.pack_grid(ct.seed_center(GRID)))
@@ -3323,7 +3465,7 @@ def main() -> dict:
             _, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=size,
                                              width=w, height=h, shadow=False)
         else:
-            depth, idx = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=size,
+            depth, idx = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, grid_size=size,
                                                width=w, height=h)
         q, origin, coords, found, _ = rs.hit_geometry(
             cam, idx, depth, grid_size=size, width=w, height=h)
@@ -3338,7 +3480,7 @@ def main() -> dict:
     for size, w, h in ((64, 128, 64), (GRID, WIDTH, HEIGHT)):
         vol, coarse, cam, geo, k2, k3, _, lookups = lighting_operands(size, w, h)
         kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
-        got = rs.shadow_sweep_cuda(vol, coarse, *k2, **kw)
+        got = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *k2, **kw)
         want = rs.shadow_sweep(vol, *k2, **kw)
         got3 = rs.cell_state_cuda(vol, *zip(*lookups), grid_size=size)
         want3 = rs.cell_state(vol, *k3, grid_size=size)
@@ -3376,7 +3518,8 @@ def main() -> dict:
 
     # The three lighting configurations at real size.
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.shadow_sweep_cuda,
-               rs.cell_state_cuda, occupancy.occupied_box_cuda)
+               rs.cell_state_cuda, occupancy.coarse_occupancy_box_cuda,
+               occupancy.coarse_occupancy_cuda, occupancy.occupied_box_cuda)
     lighting_launches, lighting_engines = {}, {}
     for name, variant in LIGHTING_VARIANTS.items():
         for fn in counted:
@@ -3392,9 +3535,14 @@ def main() -> dict:
             need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
             need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
             need(float(f.max()) > 0.0, f"{name} frame {i} is black")
-        need(all(v > 0 for v in counts.values()), f"{name} missed a kernel: {counts}")
-        need(counts["occupied_box_cuda"] == counts["shadow_sweep_cuda"],
-             f"{name}: one box launch per K2 launch: {counts}")
+        absent = ("coarse_occupancy_cuda", "occupied_box_cuda")
+        need(all(v > 0 for k, v in counts.items() if k not in absent),
+             f"{name} missed a kernel: {counts}")
+        # One occupancy rebuild a frame, the mip with its box (K2 clips to
+        # it), and no box kernel.
+        need(counts["coarse_occupancy_box_cuda"] == counts["raytrace_cuda"] == 51
+             and all(counts[k] == 0 for k in absent),
+             f"{name}: one mip launch with its box a frame, no box kernel: {counts}")
         log(f"(e) {name}: step(80), render(), run_fused(50, reset_every=10) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}")
         lighting_launches[name] = counts
@@ -3432,7 +3580,8 @@ def main() -> dict:
         "1024^3 gen-200": (*sliced["timed"][1024][:2], 1024),
     }
     noskip = {}
-    boxes = box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev, scenes, noskip)
+    boxes, box_prep_launches = box_phase(torch, np, rs, occupancy, scene_cam, views, to_dev,
+                                         scenes, noskip)
     for tag in (f"{GRID}^3 gen-230", "512^3 gen-260"):
         need(boxes[tag]["full"] == 1, f"the box of {tag} is not the whole volume: {boxes[tag]}")
     for tag in (f"{GRID}^3 gen-80", "512^3 gen-160", "1024^3 gen-200"):
@@ -3471,7 +3620,7 @@ def main() -> dict:
                rf.raytrace_cuda, rf.prepass_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
                rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
                occupancy.plane_occupancy_cuda, occupancy.coarse_occupancy_cuda,
-               rfast.reproject_history_cuda)
+               occupancy.coarse_occupancy_box_cuda, rfast.reproject_history_cuda)
     report["entry"] = entry_phase(torch, np, counted)
 
     # -------------------------------------------------- (d) timings ---
@@ -3489,13 +3638,15 @@ def main() -> dict:
     fused_ms = cuda_time_fn(lambda: eng.run_fused(100, reset_every=10), reps=1, warmup=0) / 100
     render_ms = cuda_time_fn(eng.render, reps=20, warmup=2)
     vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
-    k2_ms = cuda_time_fn(lambda: rs.shadow_sweep_cuda(vol, coarse, *k2, **kw), reps=20, warmup=2)
+    prepped = rs.prep_volume(vol, coarse)
+    k2_ms = cuda_time_fn(lambda: rs.shadow_sweep_cuda(vol, coarse, prepped.box, *k2, **kw),
+                         reps=20, warmup=2)
     k2_plain_ms = cuda_time_fn(lambda: rs.shadow_sweep(vol, *k2, **kw), reps=1, warmup=0)
     k3_ms = cuda_time_fn(lambda: rs.cell_state_cuda(vol, *zip(*lookups), grid_size=GRID),
                          reps=50, warmup=2)
     k3_plain_ms = cuda_time_fn(lambda: rs.cell_state(vol, *k3, grid_size=GRID), reps=10, warmup=1)
     passes_ms = cuda_time_fn(lambda: rs.lighting_passes(
-        cam, *geo, rs.prep_volume(vol, coarse), grid_size=GRID, width=WIDTH,
+        cam, *geo, prepped, grid_size=GRID, width=WIDTH,
         height=HEIGHT, soft_k=LIGHTING["soft_shadow_samples"], gi=True), reps=5, warmup=1)
     lighting_ms = {
         f"{name}_step_plus_frame_ms": cuda_time_fn(
@@ -3509,10 +3660,11 @@ def main() -> dict:
     }
     for size, (vol, coarse, cam, k2) in sliced["timed"].items():
         kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        box = box_of(coarse)
         sliced_ms[f"k4_{size}_ms"] = cuda_time_fn(
-            lambda: rs.primary_sweep_cuda(vol, coarse, cam, **kw), reps=20, warmup=2)
+            lambda: rs.primary_sweep_cuda(vol, coarse, box, cam, **kw), reps=20, warmup=2)
         sliced_ms[f"k2_hard_{size}_ms"] = cuda_time_fn(lambda: rs.shadow_sweep_cuda(
-            vol, coarse, *k2, grid_size=size, cell_half=rs._cell_half(cam, size)),
+            vol, coarse, box, *k2, grid_size=size, cell_half=rs._cell_half(cam, size)),
             reps=20, warmup=2)
     sliced_ms.update(sliced["plain_ms"])
     # The box kernel alone; the floors of K4 (an empty volume: ray set-up and
@@ -3529,40 +3681,46 @@ def main() -> dict:
     for size in (512, 1024):
         empty = torch.zeros((size // 32, size, size), dtype=torch.int32, device=dev)
         empty_coarse = coarse_occupancy(empty)
+        empty_box = box_of(empty_coarse)
         cam = sliced["timed"][size][2]
         box_ms[f"k4_empty_{size}_ms"] = cuda_time_fn(lambda: rs.primary_sweep_cuda(
-            empty, empty_coarse, cam, grid_size=size, width=WIDTH, height=HEIGHT),
+            empty, empty_coarse, empty_box, cam, grid_size=size, width=WIDTH, height=HEIGHT),
             reps=50, warmup=3)
         del empty
     vol_f, coarse_f = scenes["512^3 gen-260"][:2]
     cam = sliced["timed"][512][2]
-    t4f, i4f = rs.primary_sweep_cuda(vol_f, coarse_f, cam, grid_size=512, width=WIDTH,
+    box_f = box_of(coarse_f)
+    t4f, i4f = rs.primary_sweep_cuda(vol_f, coarse_f, box_f, cam, grid_size=512, width=WIDTH,
                                      height=HEIGHT)
     t4p, i4p = rs.primary_sweep(vol_f, cam, grid_size=512, width=WIDTH, height=HEIGHT)
     need(torch.equal(i4f, i4p) and float((t4f - t4p).abs().max()) <= DEPTH_ATOL,
          "K4 != plain on the 512^3 gen-260 scene")
     box_ms["k4_full_box_512_ms"] = cuda_time_fn(lambda: rs.primary_sweep_cuda(
-        vol_f, coarse_f, cam, grid_size=512, width=WIDTH, height=HEIGHT), reps=20, warmup=2)
+        vol_f, coarse_f, box_f, cam, grid_size=512, width=WIDTH, height=HEIGHT),
+        reps=20, warmup=2)
     vol, coarse, cam, geo, k2, k3, lookups, kw = timed_k23
     idle_ops = (*k2[:3], torch.zeros_like(k2[3]))
-    need(int(rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw).abs().sum()) == 0,
+    need(int(rs.shadow_sweep_cuda(vol, coarse, prepped.box, *idle_ops, **kw).abs().sum()) == 0,
          "K2 with every lane inactive is not all 0")
     box_ms["k2_idle_ms"] = cuda_time_fn(
-        lambda: rs.shadow_sweep_cuda(vol, coarse, *idle_ops, **kw), reps=50, warmup=2)
+        lambda: rs.shadow_sweep_cuda(vol, coarse, prepped.box, *idle_ops, **kw),
+        reps=50, warmup=2)
     vol_230, coarse_230 = scenes[f"{GRID}^3 gen-230"][:2]
     _, _, cam_230, _, k2_230, _, q_230, l_230 = lighting_operands(GRID, WIDTH, HEIGHT,
                                                                   vol=vol_230)
     kw_230 = dict(grid_size=GRID, cell_half=rs._cell_half(cam_230, GRID))
-    need(torch.equal(rs.shadow_sweep_cuda(vol_230, coarse_230, *k2_230, **kw_230),
+    box_230 = box_of(coarse_230)
+    need(torch.equal(rs.shadow_sweep_cuda(vol_230, coarse_230, box_230, *k2_230, **kw_230),
                      rs.shadow_sweep(vol_230, *k2_230, **kw_230)),
          "K2 != plain on the gen-230 scene's 8 queries")
     k5_check(torch, rs, f"{GRID}^3 gen-230 full quality", vol_230, coarse_230, GRID, q_230,
              kw_230["cell_half"])
     k3_check(torch, rs, f"{GRID}^3 gen-230 full quality", vol_230, GRID, l_230)
     box_ms["k2_full_box_ms"] = cuda_time_fn(lambda: rs.shadow_sweep_cuda(
-        vol_230, coarse_230, *k2_230, **kw_230), reps=20, warmup=2)
+        vol_230, coarse_230, box_230, *k2_230, **kw_230), reps=20, warmup=2)
     box_ms["k5_full_box_ms"] = cuda_time_fn(lambda: [rs.shadow_sweep_multi_cuda(
-        vol_230, coarse_230, *zip(*q_230[i:i + 4]), **kw_230) for i in (0, 4)], reps=20, warmup=2)
+        vol_230, coarse_230, box_230, *zip(*q_230[i:i + 4]), **kw_230) for i in (0, 4)],
+        reps=20, warmup=2)
     for size in (512, 1024):
         st_big = sliced["timed"][size][0]
         spec_big = AutomatonSpec.from_rule_strings(size)
@@ -3574,13 +3732,14 @@ def main() -> dict:
     multi_ms = {}
     for size, (vol, coarse, cam, k2, queries, plain_ms) in multi["k5_timed"].items():
         kw = dict(grid_size=size, cell_half=rs._cell_half(cam, size))
+        box = box_of(coarse)
 
         def run_k2():
-            rs.shadow_sweep_cuda(vol, coarse, *k2, **kw)
+            rs.shadow_sweep_cuda(vol, coarse, box, *k2, **kw)
 
         def run_k5(queries=queries):
             for i in (0, 4):
-                rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries[i:i + 4]), **kw)
+                rs.shadow_sweep_multi_cuda(vol, coarse, box, *zip(*queries[i:i + 4]), **kw)
 
         reads = [cuda_time_fn(fn, reps=20, warmup=2) for fn in (run_k2, run_k5, run_k5, run_k2)]
         multi_ms[f"k2_{size}_ms"] = (reads[0] + reads[3]) / 2
@@ -3693,7 +3852,8 @@ def main() -> dict:
     for size, b in multi["k3_bounds"].items():
         bounds[f"cell_state_{size}"] = b
     vol, coarse, cam, _ = sliced["timed"][512]
-    t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=512, width=WIDTH, height=HEIGHT)
+    t4, i4 = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, grid_size=512, width=WIDTH,
+                                   height=HEIGHT)
     act, cols = primary_work(torch, rf, cam, 512, WIDTH, HEIGHT, t4, i4, dev,
                              occupancy.occupied_box(coarse, 512))
     bounds["primary_sweep"] = bound(mip_bytes(512) + px * 8, act * OPS_RAY + cols * OPS_COLUMN)
@@ -3724,7 +3884,8 @@ def main() -> dict:
                                                        k2_512[3], 512, 36, box))
     bounds["shadow_multi_512"] = bound(*k5_work(k2_512, q_512, 512, box))
     vol, coarse, cam, _ = sliced["timed"][1024]
-    t4, i4 = rs.primary_sweep_cuda(vol, coarse, cam, grid_size=1024, width=WIDTH, height=HEIGHT)
+    t4, i4 = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, grid_size=1024,
+                                   width=WIDTH, height=HEIGHT)
     act, cols = primary_work(torch, rf, cam, 1024, WIDTH, HEIGHT, t4, i4, dev,
                              occupancy.occupied_box(coarse, 1024))
     bounds["primary_sweep_1024"] = bound(mip_bytes(1024) + px * 8,
@@ -3756,6 +3917,7 @@ def main() -> dict:
     # and 1024³, and the reprojection from (q)'s moved 256³ and 512³ frames.
     bounds.update(mipq["bounds"])
     bounds["coarse_occupancy"] = bounds[f"coarse_occupancy_{GRID}"]
+    bounds["coarse_occupancy_box"] = bounds[f"coarse_occupancy_box_{GRID}"]
     bounds["reproject"] = bounds[f"reproject_{GRID}"]
     report["bounds"] = bounds
 
@@ -3819,6 +3981,16 @@ def main() -> dict:
                   *mesh_launches, *mipq["launches"].values()),
               0.0, mipq["timings"][f"coarse_occupancy_{GRID}_events_ms"],
               mipq["timings"][f"coarse_occupancy_plain_{GRID}_events_ms"]),
+        # The same launch with the mip's box (the occupied z-range the
+        # reference derives from the mip): one a frame on every path whose
+        # K2, K4 or K5 clips to the box ((e)'s lighting, (f)'s sliced, (g)'s
+        # K5, (h)'s multi-state, (j)'s moved and (l)'s mesh frames).
+        entry("coarse_occupancy_box", "coarse_occupancy.cu", "render/render_fast.py:1514",
+              total("coarse_occupancy_box_cuda", *lighting_launches.values(),
+                    *sliced_launches.values(), *ms_launches,
+                    *multi["launches"].values()),
+              0.0, mipq["timings"][f"coarse_occupancy_box_{GRID}_events_ms"],
+              mipq["timings"][f"coarse_occupancy_box_plain_{GRID}_events_ms"]),
         entry("reproject", "reproject.cu", "render/renderer_fast.py:265",
               total("reproject_history_cuda", *inter["launches"].values(),
                     *mipq["launches"].values()),
@@ -3847,9 +4019,11 @@ def main() -> dict:
               tools["launches"]["shadow_sweep_cuda.noskip_launches"], 0.0,
               tools["timings"]["k2_noskip_512_events_ms"], sliced_ms["k2_hard_512_plain_ms"],
               bound_name="shadow_sweep_hard_512"),
+        # The box kernel alone: no frame path launches it since the mip's
+        # launch writes the box; (i)'s prep_volume(vol, coarse), the path of a
+        # caller that brings its own mip, launches it once a volume.
         entry("occupied_box", "occupied_box.cu", "render/render_fast.py:1514",
-              total("occupied_box_cuda", *lighting_launches.values(),
-                    *sliced_launches.values(), *ms_launches),
+              total("occupied_box_cuda", box_prep_launches),
               0.0, box_ms["occupied_box_512_ms"], box_ms["occupied_box_512_plain_ms"]),
         entry("shadow_multi", "shadow_multi.cu", "render/render_slab.py:402", k5_launches,
               0.0, multi_ms[f"k5_{GRID}_ms"], multi_ms[f"k5_{GRID}_plain_ms"]),

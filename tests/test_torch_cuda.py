@@ -15,7 +15,7 @@ import torch
 
 import cellularautomatons3d_tpu_torch as ct
 from cellularautomatons3d_tpu_torch.ops import ca_step
-from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
+from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy, occupied_box
 from cellularautomatons3d_tpu_torch.render import render_fast as rf
 from cellularautomatons3d_tpu_torch.utils import mat4
 
@@ -34,6 +34,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def box_of(coarse):
+    """The occupied box of a mip (the plain twin, on the mip's device): the
+    operand K2, K4 and K5 clip to."""
+    return occupied_box(coarse, coarse.shape[0] * 8)
 
 
 def random_volume(device, seed, p):
@@ -121,7 +127,8 @@ def test_k2_kernel_matches_plain(cuda):
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 
     vol, coarse, ops, _, cell_half = _lighting_operands(cuda)
-    got = rs.shadow_sweep_cuda(vol, coarse, *ops, grid_size=N, cell_half=cell_half)
+    got = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *ops, grid_size=N,
+                               cell_half=cell_half)
     want = rs.shadow_sweep(vol, *ops, grid_size=N, cell_half=cell_half)
     assert torch.equal(got, want)
     assert int(want[:8].sum()) > 0 and int(want[8:].sum()) > 0
@@ -173,7 +180,7 @@ def test_k4_kernel_matches_plain(cuda, n, view, density):
     cam = rf.pack_cam(VIEWS[view], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
                       (0.17,) * 3, (0.0,) * 3)
     kw = dict(grid_size=n, width=w, height=h)
-    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, **kw)
     t_p, i_p = rs.primary_sweep(vol, cam, **kw)
     assert torch.equal(i_k, i_p)
     torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
@@ -201,7 +208,7 @@ def test_k2_kernel_matches_plain_512(cuda):
     active = rnd(nq, h, w) < 0.7
     cell_half = float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5))
     kw = dict(grid_size=n, cell_half=cell_half)
-    got = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    got = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), start, target, excl, active, **kw)
     want = rs.shadow_sweep(vol, start, target, excl, active, **kw)
     assert torch.equal(got, want)
     assert int(want.sum()) > 0
@@ -220,7 +227,7 @@ def test_k4_k2_band_kernels_match_plain(cuda, view):
     coarse = coarse_occupancy(vol)
     cam = _band_cam(view)
     kw = dict(grid_size=n, width=w, height=h)
-    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, **kw)
     t_p, i_p = rs.primary_sweep(vol, cam, **kw)
     assert torch.equal(i_k, i_p)
     torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
@@ -230,7 +237,7 @@ def test_k4_k2_band_kernels_match_plain(cuda, view):
     ops = rs.stack_occlusion_queries(queries, w, h)
     k2 = dict(grid_size=n, cell_half=rs._cell_half(cam, n))
     want = rs.shadow_sweep(vol, *ops, **k2)
-    assert torch.equal(rs.shadow_sweep_cuda(vol, coarse, *ops, **k2), want)
+    assert torch.equal(rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *ops, **k2), want)
     assert int(want.sum()) > 0
 
 
@@ -279,14 +286,16 @@ def valid_mip_bits(n, device):
 @pytest.mark.parametrize("n", [64, 320, 512])
 def test_k4_box_edges_match_plain(cuda, n, case, view):
     """K4 on volumes whose occupied box is empty, touches faces, sits off
-    the block grid or is the whole volume, from three views: the launch's
-    box equals the plain box, ids equal, t within 3e-5."""
-    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box, occupied_box_cuda
+    the block grid or is the whole volume, from three views: the box the
+    mip kernel writes beside the mip equals the plain box, K4 launches no box
+    kernel, ids equal, t within 3e-5."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_occupancy_box_cuda, occupied_box_cuda)
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 
     vol = ct.from_reference(box_edge_volume(n, case, n)[0], cuda)
-    coarse = coarse_occupancy(vol)
-    box = occupied_box_cuda(coarse, n)
+    coarse, box = coarse_occupancy_box_cuda(vol)
+    assert torch.equal(coarse, coarse_occupancy(vol))
     assert torch.equal(box, occupied_box(coarse, n))
     assert (int(box[0]), int(box[1])) == (case == "empty", case == "full")
     w, h = 256, 128
@@ -294,8 +303,8 @@ def test_k4_box_edges_match_plain(cuda, n, case, view):
                       (0.17,) * 3, (0.0,) * 3)
     kw = dict(grid_size=n, width=w, height=h)
     boxes = occupied_box_cuda.launches
-    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
-    assert occupied_box_cuda.launches == boxes + 1  # as K4's entry point reports
+    t_k, i_k = rs.primary_sweep_cuda(vol, coarse, box, cam, **kw)
+    assert occupied_box_cuda.launches == boxes
     t_p, i_p = rs.primary_sweep(vol, cam, **kw)
     assert torch.equal(i_k, i_p)
     torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
@@ -309,13 +318,15 @@ def test_k2_box_edges_match_plain(cuda, n, case):
     the volume, half the rays aimed through the occupied region, exclusions
     as in K5's tests; flags equal the plain K2's, some rays that start
     outside the box are occluded, and with every lane inactive all flags
-    are 0."""
-    from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box_cuda
+    are 0; the box comes from the mip kernel and K2 launches no box kernel."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_occupancy_box_cuda, occupied_box_cuda)
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 
     words, region = box_edge_volume(n, case, n + 1)
     vol = ct.from_reference(words, cuda)
-    coarse = coarse_occupancy(vol)
+    coarse, box = coarse_occupancy_box_cuda(vol)
+    assert torch.equal(box, occupied_box(coarse, n))
     start, target, excl, _, active = _k5_operands(cuda, n, 3, n)
     if region is not None:
         mid = torch.tensor([(a + b) / 2 / n - 0.5 for a, b in zip(*region)], device=cuda)
@@ -326,8 +337,8 @@ def test_k2_box_edges_match_plain(cuda, n, case):
     cell_half = float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5))
     kw = dict(grid_size=n, cell_half=cell_half)
     boxes = occupied_box_cuda.launches
-    got = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
-    assert occupied_box_cuda.launches == boxes + 1  # as K2's entry point reports
+    got = rs.shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, **kw)
+    assert occupied_box_cuda.launches == boxes
     want = rs.shadow_sweep(vol, start, target, excl, active, **kw)
     assert torch.equal(got, want)
     if region is not None:
@@ -338,7 +349,8 @@ def test_k2_box_edges_match_plain(cuda, n, case):
     else:
         assert int(want.sum()) == 0
     idle = torch.zeros_like(active)
-    assert int(rs.shadow_sweep_cuda(vol, coarse, start, target, excl, idle, **kw).sum()) == 0
+    idle_flags = rs.shadow_sweep_cuda(vol, coarse, box, start, target, excl, idle, **kw)
+    assert int(idle_flags.sum()) == 0
 
 
 @pytest.mark.parametrize(
@@ -493,11 +505,11 @@ def test_k5_kernel_matches_plain_and_k2(cuda, nq):
     kw = dict(grid_size=N, cell_half=cell_half)
     per_pixel = [t.movedim(1, -1) for t in (start, target, excl)]
     got = torch.cat([
-        rs.shadow_sweep_multi_cuda(vol, coarse, *(t[i:i + nq] for t in per_pixel),
+        rs.shadow_sweep_multi_cuda(vol, coarse, box_of(coarse), *(t[i:i + nq] for t in per_pixel),
                                    active[i:i + nq], **kw)
         for i in range(0, start.shape[0], nq)])
     want = rs.shadow_sweep_multi(vol, start, target, exid, active, **kw)
-    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), start, target, excl, active, **kw)
     assert torch.equal(got, want) and torch.equal(got, k2)
     assert int(want[:8].sum()) > 0 and int(want[8:].sum()) > 0
 
@@ -512,10 +524,11 @@ def test_k5_kernel_matches_plain_above_256(cuda, n):
     coarse = coarse_occupancy(vol)
     start, target, excl, exid, active = _k5_operands(cuda, n, 3, n)
     kw = dict(grid_size=n, cell_half=float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5)))
-    got = rs.shadow_sweep_multi_cuda(vol, coarse, start.movedim(1, -1), target.movedim(1, -1),
+    got = rs.shadow_sweep_multi_cuda(vol, coarse, box_of(coarse), start.movedim(1, -1),
+                                     target.movedim(1, -1),
                                      excl.movedim(1, -1), active, **kw)
     want = rs.shadow_sweep_multi(vol, start, target, exid, active, **kw)
-    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), start, target, excl, active, **kw)
     assert torch.equal(got, want) and torch.equal(got, k2)
     assert int(want.sum()) > 0
 
@@ -531,9 +544,9 @@ def _k5_k2_plain(vol, coarse, queries, n, cell_half, w, h):
 
     kw = dict(grid_size=n, cell_half=cell_half)
     start, target, excl, active = rs.stack_occlusion_queries(queries, w, h)
-    got = rs.shadow_sweep_multi_cuda(vol, coarse, *zip(*queries), **kw)
+    got = rs.shadow_sweep_multi_cuda(vol, coarse, box_of(coarse), *zip(*queries), **kw)
     want = rs.shadow_sweep_multi(vol, start, target, rs.pack_exclusion(excl, n), active, **kw)
-    k2 = rs.shadow_sweep_cuda(vol, coarse, start, target, excl, active, **kw)
+    k2 = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), start, target, excl, active, **kw)
     return got, want, k2
 
 
@@ -562,8 +575,8 @@ def test_k5_queries_kernel_matches_plain_and_k2(cuda, nq, window):
 def test_k5_box_edges_match_plain_and_k2(cuda, n, case):
     """K5 on the box-edge volumes (its launch's box: empty, at a corner, on
     a face, at the centre, the whole volume), half the rays aimed through
-    the region: flags equal the plain K5's and K2's; the entry point
-    reports its box launch."""
+    the region: flags equal the plain K5's and K2's; neither launches a box
+    kernel."""
     from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box_cuda
 
     words, region = box_edge_volume(n, case, n + 2)
@@ -573,7 +586,7 @@ def test_k5_box_edges_match_plain_and_k2(cuda, n, case):
     cell_half = float(np.float32(1.0 / n) * np.float32(0.85) * np.float32(0.5))
     boxes = occupied_box_cuda.launches
     got, want, k2 = _k5_k2_plain(vol, coarse, queries, n, cell_half, 128, 64)
-    assert occupied_box_cuda.launches == boxes + 2  # K5's and K2's entry points
+    assert occupied_box_cuda.launches == boxes
     assert torch.equal(got, want) and torch.equal(got, k2)
     assert (int(want.sum()) > 0) == (case != "empty")
 
@@ -978,7 +991,7 @@ def test_k4_kernel_with_ages_matches_plain(cuda, n):
     cam = rf.pack_cam(VIEWS["oblique"], w, h, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
                       (0.17,) * 3, (0.0,) * 3)
     kw = dict(grid_size=n, width=w, height=h)
-    t_k, i_k, a_k = rs.primary_sweep_cuda(vol, coarse, cam, ages, **kw)
+    t_k, i_k, a_k = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, ages, **kw)
     t_p, i_p, a_p = rs.primary_sweep(vol, cam, ages, **kw)
     assert torch.equal(i_k, i_p) and torch.equal(a_k, a_p)
     torch.testing.assert_close(t_k, t_p, atol=3e-5, rtol=0)
@@ -988,7 +1001,7 @@ def test_k4_kernel_with_ages_matches_plain(cuda, n):
     assert torch.equal(a_p[hit], want[hit].to(torch.int32))
     assert len(torch.unique(a_p[hit])) == total_states - 1
     # Without ages the binary outputs are unchanged.
-    t_b, i_b = rs.primary_sweep_cuda(vol, coarse, cam, **kw)
+    t_b, i_b = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, **kw)
     assert torch.equal(i_b, i_k) and torch.equal(t_b, t_k)
 
 
@@ -1289,6 +1302,94 @@ def test_coarse_occupancy_kernel_matches_plain(cuda, n):
         got = occupancy_mip(vol)
         assert coarse_occupancy_cuda.launches == before + 1
         assert torch.equal(got, coarse_occupancy(vol)), n
+
+
+def _mip_volumes(n, device, seed):
+    """Empty, full, one live cell at each of two opposite corners, one bit in
+    the last x-word, and sparse random words of an n³ volume."""
+    g = torch.Generator(device).manual_seed(seed)
+    shape = (n // 32, n, n)
+    zeros = lambda: torch.zeros(shape, dtype=torch.int32, device=device)  # noqa: E731
+    vols = {"empty": zeros(), "full": torch.full(shape, -1, dtype=torch.int32, device=device)}
+    vols["corner_lo"], vols["corner_hi"], vols["last_word"] = zeros(), zeros(), zeros()
+    vols["corner_lo"][0, 0, 0] = 1
+    vols["corner_hi"][-1, -1, -1] = -2**31
+    vols["last_word"][-1, n - 3, 5] = 1 << 20
+    words = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=device, generator=g)
+    for p in (0.00002, 0.001, 0.05):
+        vols[f"random {p}"] = torch.where(
+            torch.rand(shape, device=device, generator=g) < p, words, 0)
+    return vols
+
+
+@pytest.mark.parametrize("n", [32, 64, 128, 256, 288, 480, 512, 1024])
+def test_coarse_occupancy_box_kernel_matches_plain(cuda, n):
+    """The mip kernel with its box (one launch of csrc/coarse_occupancy.cu)
+    against the twins, bit for bit: the mip against coarse_occupancy, the box
+    against occupied_box of it, on every volume of _mip_volumes and on the
+    box-edge volumes, each launched three times in a row (the launch leaves
+    its accumulator zero for the next); one launch each, no box kernel."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_occupancy_box, coarse_occupancy_box_cuda, occupancy_mip_box, occupied_box_cuda)
+
+    vols = _mip_volumes(n, cuda, n)
+    for case in BOX_CASES:
+        vols[f"box {case}"] = ct.from_reference(box_edge_volume(n, case, n)[0], cuda)
+    for name, vol in vols.items():
+        want = coarse_occupancy_box(vol)
+        assert int(want[1][0]) == int(not bool((vol != 0).any())), name
+        launches, boxes = coarse_occupancy_box_cuda.launches, occupied_box_cuda.launches
+        for _ in range(3):
+            got = occupancy_mip_box(vol)
+            assert torch.equal(got[0], want[0]), (n, name)
+            assert torch.equal(got[1], want[1]), (n, name, got[1].tolist(), want[1].tolist())
+        assert coarse_occupancy_box_cuda.launches == launches + 3
+        assert occupied_box_cuda.launches == boxes
+
+
+def test_coarse_occupancy_box_kernel_on_two_streams(cuda):
+    """Two streams launching the mip with its box in turn, without waiting
+    for each other (each stream has its own accumulator): every mip and box
+    equals the twins."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import (
+        coarse_occupancy_box, coarse_occupancy_box_cuda)
+
+    vols = [list(_mip_volumes(n, cuda, 7).values()) for n in (256, 512)]
+    wants = [[coarse_occupancy_box(v) for v in vs] for vs in vols]
+    streams = [torch.cuda.Stream(cuda) for _ in vols]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(4):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[k] += [coarse_occupancy_box_cuda(v) for v in vols[k]]
+    torch.cuda.synchronize()
+    for k in range(2):
+        for i, (mip, box) in enumerate(got[k]):
+            want = wants[k][i % len(wants[k])]
+            assert torch.equal(mip, want[0]) and torch.equal(box, want[1]), (k, i)
+
+
+@pytest.mark.parametrize("config", ["headline", "lighting", "sliced"])
+def test_frames_launch_one_occupancy_rebuild_and_no_box_kernel(cuda, config):
+    """Every frame launches one occupancy rebuild and no box kernel: the mip
+    alone for K1's frame, the mip with its box for a frame whose K2 or K4
+    clips to it (soft shadows and GI; the sliced path)."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
+    kw = {"headline": dict(grid_size=N), "lighting": dict(grid_size=N, **LIGHTING_320),
+          "sliced": dict(grid_size=320)}[config]
+    eng = ct.Engine(device=cuda, width=W, height=H, **kw)
+    eng.step(20)
+    counters = (occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda,
+                occupancy.occupied_box_cuda)
+    for fn in counters:
+        fn.launches = 0
+    eng.render()
+    eng.run_fused(3, reset_every=2)
+    torch.cuda.synchronize()
+    want = [4, 0, 0] if config == "headline" else [0, 4, 0]
+    assert [fn.launches for fn in counters] == want
 
 
 @pytest.mark.parametrize("rows", [(H, 0, H), (16, 24, H), (H, 0, 2 * H)],

@@ -231,11 +231,11 @@ def test_k2_k3_wrappers_do_not_fall_back(frame):
     start, target, excl, active = render_slab.stack_occlusion_queries(
         [tuple(t(a) for a in qq) for qq in frame["queries"][:2]], W, H)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        render_slab.shadow_sweep_cuda(vol, prepped.coarse, start, target, excl,
+        render_slab.shadow_sweep_cuda(vol, prepped.coarse, prepped.box, start, target, excl,
                                       active, grid_size=N, cell_half=0.01)
     with pytest.raises(ValueError, match="CUDA tensor"):
         render_slab.cell_state_cuda(vol, excl, active, grid_size=N)
-    meta = render_slab.Prepped(vol.to("meta"), prepped.coarse.to("meta"))
+    meta = render_slab.Prepped(*(t.to("meta") for t in prepped))
     with pytest.raises((ValueError, RuntimeError)):
         render_slab.shadow_occlusion_batch(
             frame["cam"], [tuple(t(a).to("meta") for a in frame["queries"][0])],

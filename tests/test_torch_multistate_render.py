@@ -166,7 +166,8 @@ def test_ages_are_validated_and_never_fall_back():
         trf.raytrace_cuda(vol, coarse_occupancy(vol), cam_for(), ages=ages,
                           total_states=S, **kw)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        render_slab.primary_sweep_cuda(vol, coarse_occupancy(vol), cam_for(), ages, **kw)
+        render_slab.primary_sweep_cuda(vol, *render_slab.prep_volume(vol)[1:], cam_for(), ages,
+                                       **kw)
     with pytest.raises((ValueError, RuntimeError)):
         trf.raytrace_tiles(vol.to("meta"), coarse_occupancy(vol).to("meta"), cam_for(),
                            ages=ages.to("meta"), total_states=S, **kw)

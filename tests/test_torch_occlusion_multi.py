@@ -179,15 +179,16 @@ def test_k5_wrapper_does_not_fall_back(monkeypatch):
     ops = (z3, z3, torch.zeros((2, H, W), dtype=torch.int32),
            torch.ones((2, H, W), dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        render_slab.shadow_sweep_multi_cuda(vol, prepped.coarse, *ops, grid_size=N,
-                                            cell_half=CELL_HALF)
+        render_slab.shadow_sweep_multi_cuda(vol, prepped.coarse, prepped.box, *ops,
+                                            grid_size=N, cell_half=CELL_HALF)
     z9 = torch.zeros((9, 3, H, W))
     with pytest.raises(ValueError, match="1 to 8"):
         render_slab.shadow_sweep_multi_cuda(
-            vol, prepped.coarse, z9, z9, torch.zeros((9, H, W), dtype=torch.int32),
-            torch.ones((9, H, W), dtype=torch.bool), grid_size=N, cell_half=CELL_HALF)
+            vol, prepped.coarse, prepped.box, z9, z9,
+            torch.zeros((9, H, W), dtype=torch.int32), torch.ones((9, H, W), dtype=torch.bool),
+            grid_size=N, cell_half=CELL_HALF)
     monkeypatch.setenv("CA3D_OCC_SWEEP", "0")
-    meta = render_slab.Prepped(vol.to("meta"), prepped.coarse.to("meta"))
+    meta = render_slab.Prepped(*(t.to("meta") for t in prepped))
     q = (torch.zeros((H, W, 3)), torch.ones((H, W, 3)),
          torch.zeros((H, W, 3), dtype=torch.int32), torch.ones((H, W), dtype=torch.bool))
     with pytest.raises((ValueError, RuntimeError)):

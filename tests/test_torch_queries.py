@@ -188,13 +188,13 @@ def test_k5_k3_wrappers_refuse_cpu_operands():
     """The kernel wrappers take CUDA tensors only, and at most 8 queries a
     launch; nothing is launched."""
     vol = ct.from_reference(np.zeros((N // 32, N, N), np.uint32), device="cpu")
-    coarse = render_slab.prep_volume(vol).coarse
+    _, coarse, box = render_slab.prep_volume(vol)
     start, target, excl, active = as_torch(occlusion_queries(N, 1, H, W, seed=1))[0]
     with pytest.raises(ValueError, match="CUDA tensor"):
-        render_slab.shadow_sweep_multi_cuda(vol, coarse, [start], [target], [excl], [active],
-                                            grid_size=N, cell_half=CELL_HALF)
+        render_slab.shadow_sweep_multi_cuda(vol, coarse, box, [start], [target], [excl],
+                                            [active], grid_size=N, cell_half=CELL_HALF)
     with pytest.raises(ValueError, match="1 to 8"):
-        render_slab.shadow_sweep_multi_cuda(vol, coarse, [start] * 9, [target] * 9,
+        render_slab.shadow_sweep_multi_cuda(vol, coarse, box, [start] * 9, [target] * 9,
                                             [excl] * 9, [active] * 9, grid_size=N,
                                             cell_half=CELL_HALF)
     with pytest.raises(ValueError, match="CUDA tensor"):

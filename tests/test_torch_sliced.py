@@ -187,10 +187,10 @@ def test_k4_wrapper_refuses_cpu_tensors_and_does_not_fall_back():
     cam = scene_cam("front", 32, 16)
     before = render_slab.primary_sweep_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
-        render_slab.primary_sweep_cuda(vol, coarse_occupancy(vol), cam, grid_size=64,
-                                       width=32, height=16)
+        render_slab.primary_sweep_cuda(vol, *render_slab.prep_volume(vol)[1:], cam,
+                                       grid_size=64, width=32, height=16)
     # A non-CPU volume takes the kernel path, which raises here.
-    meta = render_slab.prep_volume(vol.to("meta"), coarse_occupancy(vol).to("meta"))
+    meta = render_slab.Prepped(*(t.to("meta") for t in render_slab.prep_volume(vol)))
     with pytest.raises((ValueError, RuntimeError)):
         render_slab.primary_hits(cam, meta, grid_size=64, width=32, height=16)
     assert render_slab.primary_sweep_cuda.launches == before

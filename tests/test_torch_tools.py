@@ -20,7 +20,7 @@ import cellularautomatons3d_tpu as ca
 from cellularautomatons3d_tpu.ops.loop import make_multi_step as jax_multi_step
 from cellularautomatons3d_tpu.render import render_fast as jax_rf
 from cellularautomatons3d_tpu.utils import mat4 as jax_mat4
-from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
+from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy, occupied_box
 from cellularautomatons3d_tpu_torch.render import render_fast, render_slab
 from cellularautomatons3d_tpu_torch.tools import (
     bench_512_ablate, bench_dense, bench_scale, common, profile_frame, profile_gi,
@@ -211,16 +211,17 @@ def test_column_skip_switch_needs_the_card():
     n, w, h = 64, 64, 32
     vol = common.scene(n, 160, "cpu")
     coarse = coarse_occupancy(vol)
+    box = occupied_box(coarse, n)
     cam = common.cam(w, h)
     with pytest.raises(ValueError, match="CUDA"):
-        render_slab.primary_sweep_cuda(vol, coarse, cam, grid_size=n, width=w, height=h,
+        render_slab.primary_sweep_cuda(vol, coarse, box, cam, grid_size=n, width=w, height=h,
                                        column_skip=False)
     t, idx = render_slab.primary_sweep(vol, cam, grid_size=n, width=w, height=h)
     q, _, coords, found, _ = render_slab.hit_geometry(cam, idx, t, grid_size=n, width=w, height=h)
     light = torch.tensor([0.721, 1.0, 1.0])
     ops = render_slab.stack_occlusion_queries([(q, light, coords, found)], w, h)
     with pytest.raises(ValueError, match="CUDA"):
-        render_slab.shadow_sweep_cuda(vol, coarse, *ops, grid_size=n, cell_half=0.01,
+        render_slab.shadow_sweep_cuda(vol, coarse, box, *ops, grid_size=n, cell_half=0.01,
                                       column_skip=False)
     with pytest.raises(ValueError, match="CUDA"):
         render_fast.raytrace_cuda(vol, coarse, cam, grid_size=n, width=w, height=h,

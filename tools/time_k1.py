@@ -39,7 +39,9 @@ its own kernels there) and times, with CUDA events after a warm-up, at
   gen-200, at 512³ on gen-260 (whose box is the whole volume) and on an empty
   volume at 512³ and 1024³ (its floor); where the tree has
   ``ops.occupancy.occupied_box_cuda``, the box kernel alone at each size
-  (K2's and K4's times include its launch, as their wrappers make it), and
+  (K2's, K4's and K5's times include its launch where their entry points
+  make it, before the box became their operand, written by the mip
+  kernel's launch; a tree with the operand passes the twin's box), and
   in the same trace the launch floor (a one-element torch ``fill_``) and the
   plane mip's kernel (``ops.occupancy.plane_occupancy_cuda``) on the volume;
 * the binary CA step at 256³, 512³ and 1024³ (default rule), the binary
@@ -212,12 +214,25 @@ def main():
                        d.cell_size, d.roughness, d.base_reflectivity, d.material_color,
                        light_radius=0.08, elapsed_time=0.37)
 
+    # The sweeps' box: an operand since the mip kernel's launch writes it;
+    # before, K2's, K4's and K5's entry points launched the box kernel.
+    box_operand = "box" in inspect.signature(rs.primary_sweep_cuda).parameters
+
+    def boxed(coarse_):
+        """The operands after the mip: (its box,) or ()."""
+        if not box_operand:
+            return ()
+        from cellularautomatons3d_tpu_torch.ops.occupancy import occupied_box
+
+        return (occupied_box(coarse_, coarse_.shape[0] * 8),)
+
     def primary(vol_, coarse_, size, c):
         if size <= 256:
             _, depth, idx_ = rf.raytrace_cuda(vol_, coarse_, c, grid_size=size, width=w,
                                               height=h, shadow=False)
             return depth, idx_
-        return rs.primary_sweep_cuda(vol_, coarse_, c, grid_size=size, width=w, height=h)
+        return rs.primary_sweep_cuda(vol_, coarse_, *boxed(coarse_), c, grid_size=size,
+                                     width=w, height=h)
 
     def frame_queries(vol_, coarse_, size):
         """A full-quality frame's 8 occlusion queries (4 soft-shadow
@@ -243,9 +258,10 @@ def main():
         """K5 on 8 queries as two launches of 4, checked against K2."""
         k5kw = dict(grid_size=size, cell_half=rs._cell_half(lcam, size))
         stacked = rs.stack_occlusion_queries(queries, w, h)
+        box = boxed(coarse_)
         if k5_in_place:
             run = lambda: [rs.shadow_sweep_multi_cuda(  # noqa: E731
-                vol_, coarse_, *zip(*queries[i:i + 4]), **k5kw) for i in (0, 4)]
+                vol_, coarse_, *box, *zip(*queries[i:i + 4]), **k5kw) for i in (0, 4)]
         else:
             start, target, excl, active = stacked
             exid = rs.pack_exclusion(excl, size)
@@ -253,7 +269,8 @@ def main():
                 vol_, coarse_, start[i:i + 4], target[i:i + 4], exid[i:i + 4],
                 active[i:i + 4], **k5kw) for i in (0, 4)]
         if check and not torch.equal(torch.cat(run()),
-                                     rs.shadow_sweep_cuda(vol_, coarse_, *stacked, **k5kw)):
+                                     rs.shadow_sweep_cuda(vol_, coarse_, *box, *stacked,
+                                                          **k5kw)):
             raise SystemExit(f"{label}: {tag}: K5 differs from K2")
         out[f"{tag}_ms"] = ms(run, 50)
         dev_ms[tag] = device_ms(run, K5_KERNELS)
@@ -295,8 +312,8 @@ def main():
 
     def hard_operands(vol_, coarse_, size):
         """K2's operands of the sliced frame's hard-shadow query."""
-        depth, idx_ = rs.primary_sweep_cuda(vol_, coarse_, cam, grid_size=size, width=w,
-                                            height=h)
+        depth, idx_ = rs.primary_sweep_cuda(vol_, coarse_, *boxed(coarse_), cam,
+                                            grid_size=size, width=w, height=h)
         geo = rs.hit_geometry(cam, idx_, depth, grid_size=size, width=w, height=h)
         queries, _, _ = rs.lighting_queries(cam, *geo[:4], grid_size=size, width=w,
                                             height=h, soft_k=1)
@@ -304,7 +321,8 @@ def main():
                 dict(grid_size=size, cell_half=rs._cell_half(cam, size)))
 
     def time_k2(tag, vol_, coarse_, ops, k2kw, check=True):
-        run = lambda: rs.shadow_sweep_cuda(vol_, coarse_, *ops, **k2kw)  # noqa: E731
+        box = boxed(coarse_)
+        run = lambda: rs.shadow_sweep_cuda(vol_, coarse_, *box, *ops, **k2kw)  # noqa: E731
         if check and not torch.equal(
                 run(), rs.shadow_sweep(vol_, *ops, **k2kw)):
             raise SystemExit(f"{label}: {tag}: K2 differs from its plain version")
@@ -314,7 +332,8 @@ def main():
 
     def time_k4(tag, vol_, coarse_, size, check=True):
         kw4 = dict(grid_size=size, width=w, height=h)
-        run = lambda: rs.primary_sweep_cuda(vol_, coarse_, cam, **kw4)  # noqa: E731
+        box = boxed(coarse_)
+        run = lambda: rs.primary_sweep_cuda(vol_, coarse_, *box, cam, **kw4)  # noqa: E731
         if check and not torch.equal(
                 run()[1], rs.primary_sweep(vol_, cam, **kw4)[1]):
             raise SystemExit(f"{label}: {tag}: K4 differs from its plain version")
