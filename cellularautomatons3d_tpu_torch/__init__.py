@@ -23,7 +23,8 @@ the reference: the multi-query occlusion kernel K5
 (``csrc/prepass.cuh``, run inside K1 on the card, and alone as
 ``csrc/prepass.cu``) with K1's column-mask gate
 (``render_fast.raytrace_tiles(use_prepass=True)``), and K1's descents
-``CA3D_MIP1=1`` (the plane mip, ``csrc/plane_occupancy.cu``) and
+``CA3D_MIP1=1`` (the plane mip, written by the frame's one launch of
+``csrc/coarse_occupancy.cu``) and
 ``CA3D_SLICEGATE=1`` (``render.render_fast``).  On a CPU device the
 same calls run the kernels' plain torch versions.
 

@@ -1,6 +1,6 @@
-// The block row of a packed volume's mips: shared by the plane mip
-// (plane_occupancy.cu, one word a plane) and the 8^3 mip
-// (coarse_occupancy.cu, the OR of 8 such words along z).
+// The block row of a packed volume's mips: a plane-mip word, which
+// coarse_occupancy.cu's mapping above 256^3 computes a thread and ORs 8 of
+// along z into an 8^3-mip word.
 //
 // The volume is uint32[n/32, n, n] (x-word, z, y), 16-byte aligned, n a
 // multiple of 32 up to 1024.  A word of x-group g (XG = ceil(n/256) groups)

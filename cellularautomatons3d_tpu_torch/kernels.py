@@ -5,14 +5,14 @@ one shard of a sharded grid), ``csrc/render_fast.cu``
 (K1), ``csrc/shadow_sweep.cu`` (K2), ``csrc/cell_state.cu`` (K3),
 ``csrc/primary_sweep.cu`` (K4), ``csrc/shadow_multi.cu`` (K5),
 ``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box of
-a given mip, alone), ``csrc/plane_occupancy.cu`` (the plane mip of K1's
-mip1 descent), ``csrc/coarse_occupancy.cu`` (the 8³ mip every frame path
-rebuilds, with the occupied box K2, K4 and K5 clip to in the same launch) and
-``csrc/reproject.cu`` (the moving camera's history reprojection); all but
-the CA step, K3, the plane mip and the reprojection share the traversal
-and float helpers in ``csrc/sweep.cuh`` (the 8³ mip its ``OccBox`` and
-``make_box``), K6 and K1 the patch mask of
-``csrc/prepass.cuh``, the two mips the block row of ``csrc/block_mip.cuh``,
+a given mip, alone), ``csrc/coarse_occupancy.cu`` (the 8³ mip every frame
+path rebuilds, with the occupied box K2, K4 and K5 clip to and the plane mip
+of K1's mip1 descent in the same launch) and ``csrc/reproject.cu`` (the
+moving camera's history reprojection); all but the CA step, K3 and the
+reprojection share the traversal and float helpers in ``csrc/sweep.cuh``
+(the occupancy rebuild its ``OccBox`` and ``make_box``), K6 and K1 the
+patch mask of ``csrc/prepass.cuh``, the rebuild above 256³ the block row of
+``csrc/block_mip.cuh``,
 and K5 and K3 read their per-query operands through the tables of
 ``csrc/queries.cuh``.
 At first use each source is compiled by its own ``nvcc``, all started
@@ -58,7 +58,6 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "shadow_multi.cu",
     PACKAGE_DIR / "csrc" / "prepass.cu",
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
-    PACKAGE_DIR / "csrc" / "plane_occupancy.cu",
     PACKAGE_DIR / "csrc" / "coarse_occupancy.cu",
     PACKAGE_DIR / "csrc" / "reproject.cu",
 )
@@ -176,9 +175,7 @@ def library() -> ctypes.CDLL:
         lib.ca3d_prepass.restype = _I
         lib.ca3d_occupied_box.argtypes = [_I, _P, _I, _P, _P]
         lib.ca3d_occupied_box.restype = _I
-        lib.ca3d_plane_occupancy.argtypes = [_I, _P, _I, _P, _P]
-        lib.ca3d_plane_occupancy.restype = _I
-        lib.ca3d_coarse_occupancy.argtypes = [_I, _P, _I, _P, _P, _P, _P]
+        lib.ca3d_coarse_occupancy.argtypes = [_I, _P, _I, _P, _P, _P, _P, _P]
         lib.ca3d_coarse_occupancy.restype = _I
         lib.ca3d_coarse_occupancy_scratch_words.argtypes = []
         lib.ca3d_coarse_occupancy_scratch_words.restype = _I

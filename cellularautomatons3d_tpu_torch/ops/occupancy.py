@@ -6,8 +6,7 @@ bit per 8³-cell block, 32 blocks per word along x; and of its
 mip from.  The port's K6 reads the undilated mip and dilates on read
 (:func:`dilated_bits`, ``csrc/prepass.cuh`` ``dilated_bit``).
 :func:`plane_occupancy` is the plane-level mip (one bit per 1×8×8 block, at
-full z resolution) that K1's opt-in ``CA3D_MIP1`` descent reads; on the
-card ``csrc/plane_occupancy.cu`` computes it (:func:`plane_occupancy_cuda`).
+full z resolution) that K1's opt-in ``CA3D_MIP1`` descent reads.
 
 Input:  packed ``[W, Z, Y]`` words (int32 holding uint32 bits).
 Output: ``[Zc, XG·Yc]`` words with Zc = Z/8, Yc = Y/8 and XG = ⌈W/8⌉
@@ -21,20 +20,22 @@ Each byte of a packed word is one 8-cell x-block (bit b of word w is cell
 32w + b, and the words are little-endian), so the mip is an ``any`` over
 bytes followed by packing the block bits into words: a dozen launches per
 rebuild in eager torch.  Every frame path rebuilds it every frame, so they
-take it from :func:`occupancy_mip`: on the card one launch of
-``csrc/coarse_occupancy.cu`` (:func:`coarse_occupancy_cuda`), on the CPU
-the plain twin :func:`coarse_occupancy`.
-
-:func:`occupied_box` reduces a mip to the box of its occupied blocks, which
-K2, K4 and K5 clip their sweeps to.  A frame that runs any of them takes
-the mip and its box from :func:`occupancy_mip_box`: on the card the same
-launch of ``csrc/coarse_occupancy.cu`` writes both
-(:func:`coarse_occupancy_box_cuda`), on the CPU the plain twin
-:func:`coarse_occupancy_box`.  ``csrc/occupied_box.cu``
-(:func:`occupied_box_cuda`) reduces a mip a caller brings, alone.
+take it from :func:`occupancy_rebuild`: on the card one launch of
+``csrc/coarse_occupancy.cu``, on the CPU the plain twins.  The rebuild
+returns what the frame asks for beside the 8³ mip: the box of its occupied
+blocks (:func:`occupied_box`), which K2, K4 and K5 clip their sweeps to, and
+the plane mip of K1's mip1 descent.  The launch is
+:func:`coarse_occupancy_cuda` (the mip alone), :func:`coarse_occupancy_box_cuda`
+(with the box) or :func:`coarse_occupancy_plane_cuda` (with the plane mip,
+and the box where asked); :func:`occupancy_mip` and :func:`occupancy_mip_box`
+are its two common forms.  :func:`plane_occupancy_cuda` is the plane mip
+alone (the same kernel); ``csrc/occupied_box.cu`` (:func:`occupied_box_cuda`)
+reduces a mip a caller brings, alone.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from .. import kernels
 __all__ = [
     "coarse_occupancy", "coarse_occupancy_cuda", "occupancy_mip", "coarse_shape",
     "coarse_occupancy_box", "coarse_occupancy_box_cuda", "occupancy_mip_box",
+    "Occupancy", "occupancy_rebuild", "coarse_occupancy_plane_cuda", "plane_shape",
     "plane_occupancy", "plane_occupancy_cuda", "dilate_occupancy", "dilated_bits",
     "occupied_box", "occupied_box_cuda", "BLOCK", "BOX_WORDS",
 ]
@@ -57,6 +59,19 @@ def coarse_shape(n: int) -> tuple[int, int]:
     return n // BLOCK, -(-n // 256) * (n // BLOCK)
 
 
+def plane_shape(n: int) -> tuple[int, int]:
+    """Shape of the plane mip of an n³ grid: [n, XG·n/8], XG = ⌈n/256⌉."""
+    return n, -(-n // 256) * (n // BLOCK)
+
+
+class Occupancy(NamedTuple):
+    """A frame's occupancy rebuild (:func:`occupancy_rebuild`)."""
+
+    coarse: torch.Tensor         # the 8³ mip int32 [n/8, XG·n/8]
+    box: torch.Tensor | None     # its occupied box int32 [8], where asked for
+    plane: torch.Tensor | None   # the plane mip int32 [n, XG·n/8], where asked for
+
+
 def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:
     """8× occupancy mip; see module docstring."""
     w, z, y = packed.shape
@@ -68,22 +83,24 @@ def coarse_occupancy(packed: torch.Tensor) -> torch.Tensor:
     return _pack_blocks((v != 0).any(dim=4).any(dim=2))
 
 
-def _launch_mip(packed: torch.Tensor, with_box: bool):
-    """One launch of ``csrc/coarse_occupancy.cu``: the mip, and with
-    ``with_box`` its box (else None)."""
+def _launch(packed: torch.Tensor, box: bool, plane: bool) -> Occupancy:
+    """One launch of ``csrc/coarse_occupancy.cu``: the 8³ mip, and its box
+    and the plane mip where asked (else None)."""
     n = packed.shape[-1]
     kernels.require(packed, "packed", torch.int32, (n // 32, n, n), align=16)
-    out = torch.empty(coarse_shape(n), dtype=torch.int32, device=packed.device)
-    box, scratch = None, None
-    if with_box:
-        box = torch.empty(BOX_WORDS, dtype=torch.int32, device=packed.device)
-        scratch = _box_scratch(packed.device, kernels.stream_of(packed))
+    dev = packed.device
+    out = torch.empty(coarse_shape(n), dtype=torch.int32, device=dev)
+    planes = torch.empty(plane_shape(n), dtype=torch.int32, device=dev) if plane else None
+    boxes, scratch = None, None
+    if box:
+        boxes = torch.empty(BOX_WORDS, dtype=torch.int32, device=dev)
+        scratch = _box_scratch(dev, kernels.stream_of(packed))
     err = kernels.library().ca3d_coarse_occupancy(
-        packed.device.index or 0, packed.data_ptr(), n, out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        None if box is None else box.data_ptr(), kernels.stream_of(packed))
+        dev.index or 0, packed.data_ptr(), n, out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (planes, scratch, boxes)),
+        kernels.stream_of(packed))
     kernels.check(err, "coarse_occupancy")
-    return out, box
+    return Occupancy(out, boxes, planes)
 
 
 # The box's accumulator and ticket, one per (device index, stream handle):
@@ -105,7 +122,7 @@ def coarse_occupancy_cuda(packed: torch.Tensor) -> torch.Tensor:
     (``csrc/coarse_occupancy.cu``: up to 256³ a block a 4-word strip, two
     16-byte loads a thread; above, a thread a plane word); ``packed`` must be
     a contiguous, 16-byte aligned CUDA tensor [n/32, n, n], n ≤ 1024."""
-    out, _ = _launch_mip(packed, with_box=False)
+    out = _launch(packed, box=False, plane=False).coarse
     coarse_occupancy_cuda.launches += 1
     return out
 
@@ -118,7 +135,7 @@ def coarse_occupancy_box_cuda(packed: torch.Tensor):
     :func:`coarse_occupancy_cuda`, whose blocks also fold the box of the
     words they write and whose last block writes it: (mip, box int32
     [8]).  ``packed`` as for :func:`coarse_occupancy_cuda`."""
-    out = _launch_mip(packed, with_box=True)
+    out = _launch(packed, box=True, plane=False)[:2]
     coarse_occupancy_box_cuda.launches += 1
     return out
 
@@ -126,12 +143,42 @@ def coarse_occupancy_box_cuda(packed: torch.Tensor):
 coarse_occupancy_box_cuda.launches = 0
 
 
-def occupancy_mip(packed: torch.Tensor) -> torch.Tensor:
-    """The frame paths' 8³ mip of ``packed``: the plain twin for a CPU
-    tensor, else the kernel (which raises on anything but a CUDA tensor)."""
+def coarse_occupancy_plane_cuda(packed: torch.Tensor, with_box: bool = False) -> Occupancy:
+    """The 8³ mip, the plane mip and, ``with_box``, the box (else None) on
+    the card in one launch of :func:`coarse_occupancy_cuda`'s kernel, whose
+    threads also store the plane words they fold: the rebuild of a frame
+    under K1's mip1 descent.  ``packed`` as for :func:`coarse_occupancy_cuda`."""
+    out = _launch(packed, box=with_box, plane=True)
+    coarse_occupancy_plane_cuda.launches += 1
+    return out
+
+
+coarse_occupancy_plane_cuda.launches = 0
+
+
+def occupancy_rebuild(packed: torch.Tensor, *, box: bool = False,
+                      plane: bool = False) -> Occupancy:
+    """A frame's occupancy of ``packed``: the 8³ mip, with ``box`` its
+    occupied box and with ``plane`` the plane mip (each else None).  The
+    plain twins for a CPU tensor, else one launch of the kernel (which
+    raises on anything but a CUDA tensor): :func:`coarse_occupancy_plane_cuda`
+    with ``plane``, else :func:`coarse_occupancy_box_cuda` with ``box``,
+    else :func:`coarse_occupancy_cuda`."""
     if packed.device.type == "cpu":
-        return coarse_occupancy(packed)
-    return coarse_occupancy_cuda(packed)
+        coarse = coarse_occupancy(packed)
+        return Occupancy(coarse, occupied_box(coarse, packed.shape[-1]) if box else None,
+                         plane_occupancy(packed) if plane else None)
+    if plane:
+        return coarse_occupancy_plane_cuda(packed, with_box=box)
+    if box:
+        return Occupancy(*coarse_occupancy_box_cuda(packed), None)
+    return Occupancy(coarse_occupancy_cuda(packed), None, None)
+
+
+def occupancy_mip(packed: torch.Tensor) -> torch.Tensor:
+    """The frame paths' 8³ mip of ``packed`` (:func:`occupancy_rebuild`):
+    the plain twin for a CPU tensor, else the kernel."""
+    return occupancy_rebuild(packed).coarse
 
 
 def coarse_occupancy_box(packed: torch.Tensor):
@@ -143,11 +190,9 @@ def coarse_occupancy_box(packed: torch.Tensor):
 
 def occupancy_mip_box(packed: torch.Tensor):
     """The 8³ mip of ``packed`` and its box, for a frame whose K2, K4 or K5
-    clip to it: the plain twin for a CPU tensor, else one launch of the
-    kernel (which raises on anything but a CUDA tensor)."""
-    if packed.device.type == "cpu":
-        return coarse_occupancy_box(packed)
-    return coarse_occupancy_box_cuda(packed)
+    clip to it (:func:`occupancy_rebuild`): the plain twin for a CPU tensor,
+    else one launch of the kernel."""
+    return occupancy_rebuild(packed, box=True)[:2]
 
 
 def _pack_blocks(occ: torch.Tensor) -> torch.Tensor:
@@ -176,7 +221,8 @@ def plane_occupancy(packed: torch.Tensor) -> torch.Tensor:
     pairwise ORs (torch has no OR-reduce), then each byte is an x-block.
     Plain torch on the volume's device, as the reference computes it in
     XLA; K1's mip1 descent (``csrc/sweep.cuh`` ``PlaneMip``) reads it.  The
-    plain twin of :func:`plane_occupancy_cuda`."""
+    plain twin of the plane mip of :func:`coarse_occupancy_plane_cuda` and of
+    :func:`plane_occupancy_cuda`."""
     w, z, y = packed.shape
     if y % BLOCK:
         raise ValueError(f"grid extents must be multiples of {BLOCK}")
@@ -188,17 +234,12 @@ def plane_occupancy(packed: torch.Tensor) -> torch.Tensor:
 
 
 def plane_occupancy_cuda(packed: torch.Tensor) -> torch.Tensor:
-    """:func:`plane_occupancy` on the card in one launch
-    (``csrc/plane_occupancy.cu``, a thread an output word); ``packed`` must
-    be a contiguous, 16-byte aligned CUDA tensor [n/32, n, n], n ≤ 1024."""
-    n = packed.shape[-1]
-    kernels.require(packed, "packed", torch.int32, (n // 32, n, n), align=16)
-    out = torch.empty((n, -(-n // 256) * (n // BLOCK)), dtype=torch.int32,
-                      device=packed.device)
-    err = kernels.library().ca3d_plane_occupancy(
-        packed.device.index or 0, packed.data_ptr(), n, out.data_ptr(),
-        kernels.stream_of(packed))
-    kernels.check(err, "plane_occupancy")
+    """:func:`plane_occupancy` on the card in one launch of
+    ``csrc/coarse_occupancy.cu`` with its plane mip (the 8³ mip of the same
+    launch is dropped); ``packed`` must be a contiguous, 16-byte aligned
+    CUDA tensor [n/32, n, n], n ≤ 1024.  No frame path launches it: they
+    take the plane mip from :func:`occupancy_rebuild`."""
+    out = _launch(packed, box=False, plane=True).plane
     plane_occupancy_cuda.launches += 1
     return out
 

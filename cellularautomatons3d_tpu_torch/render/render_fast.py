@@ -53,7 +53,9 @@ the Engine, the fused loop and the viewer follow them without a restart:
   fetches the fine word only where that block is occupied; both sweeps.
   The reference probes one unclamped midpoint block per lane group and so
   reads the mip dilated in x and y; a thread here tests its probe's own
-  clamped cell, so the kernel and the twin read the undilated mip.
+  clamped cell, so the kernel and the twin read the undilated mip.  The
+  frame paths take the plane mip and the 8³ mip from one launch of the
+  occupancy rebuild (``ops.occupancy.occupancy_rebuild``).
 * ``CA3D_SLICEGATE=1``: each descended column's in-segment plane words
   are loaded before any is tested, then the hit pass walks them in plane
   order (the reference gathers the column's flagged slices into a scratch,
@@ -93,8 +95,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ops.occupancy import (
-    dilate_occupancy, dilated_bits, plane_occupancy, plane_occupancy_cuda)
+from ..ops.occupancy import dilate_occupancy, dilated_bits, plane_occupancy
 
 __all__ = [
     "raytrace_tiles",
@@ -805,7 +806,7 @@ def descent_options(mip1=None, slicegate=None) -> tuple[bool, bool]:
 
 def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
                    height, shadow=True, use_prepass=False, ages=None,
-                   total_states=2, mip1=None, slicegate=None):
+                   total_states=2, mip1=None, slicegate=None, plane=None):
     """Trace (and with ``history``, compose) one frame: the plain version
     for a CPU volume, the CUDA kernel for any other.  ``use_prepass``: gate
     the primary sweep by the patch prepass's column masks (every column
@@ -816,17 +817,24 @@ def raytrace_tiles(vol, coarse, cam, history=None, *, grid_size, width,
     plane), whose hit ages fade the direct term.  ``mip1`` / ``slicegate``:
     K1's opt-in descents (module docstring), read from ``CA3D_MIP1`` /
     ``CA3D_SLICEGATE`` at this call where None (:func:`descent_options`);
-    with mip1 the frame computes the plane mip of ``vol`` (on the card
-    ``plane_occupancy_cuda``, one launch); on the CPU slicegate changes
-    nothing (the plain sweep needs no form of it)."""
+    on the CPU slicegate changes nothing (the plain sweep needs no form of
+    it).  ``plane``: the plane mip of ``vol``, which the mip1 descent reads
+    and ignores otherwise; the frame paths take it with ``coarse`` from one
+    launch (``ops.occupancy.occupancy_rebuild(vol, plane=True)``).  On the
+    card the mip1 descent raises without it; on the CPU a frame given none
+    computes :func:`~cellularautomatons3d_tpu_torch.ops.occupancy.plane_occupancy`."""
     kw = dict(grid_size=grid_size, width=width, height=height, shadow=shadow, ages=ages,
               total_states=total_states)
     mip1, slicegate = descent_options(mip1, slicegate)
     if vol.device.type != "cpu":
+        if mip1 and plane is None:
+            raise ValueError("the mip1 descent needs the frame's plane mip: take it with the "
+                             "8³ mip from ops.occupancy.occupancy_rebuild(vol, plane=True)")
         return raytrace_cuda(vol, coarse, cam, history, prepass=use_prepass,
-                             mip1=plane_occupancy_cuda(vol) if mip1 else None,
-                             slicegate=slicegate, **kw)
+                             mip1=plane if mip1 else None, slicegate=slicegate, **kw)
+    if mip1 and plane is None:
+        plane = plane_occupancy(vol)
     colmask = (prepass_mask(coarse, cam, grid_size=grid_size, width=width, height=height)
                if use_prepass else None)
     return raytrace(vol, coarse, cam, history, colmask=colmask,
-                    mip1=plane_occupancy(vol) if mip1 else None, **kw)
+                    mip1=plane if mip1 else None, **kw)

@@ -41,20 +41,20 @@ import torch
 
 from .. import kernels
 from ..ops.ca_step import step_packed, visibility_plane
-from ..ops.occupancy import occupancy_mip
+from ..ops.occupancy import occupancy_rebuild
 from .camera import COT_HALF_FOV, get_ray, pixel_uvs
 from .intersect import device_vec, ray_cube_intersect
 from .render_fast import (
     MAX_GRID, P_ALPHA, P_EMIS, P_EMISS, P_GAMMA, P_LEN, P_LIGHT, P_O,
-    P_OVERLAY, raytrace_tiles,
+    P_OVERLAY, descent_options, raytrace_tiles,
 )
 from .render_slab import (
+    Prepped,
     _hit_geometry,
     _pixel_uv,
     direct_occlusion,
     indirect_bounce,
     lighting_passes,
-    prep_volume,
     raytrace_sliced,
 )
 from .renderer import RenderParams, RenderStatic, _get_reprojected_uv
@@ -170,16 +170,20 @@ def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2)
             sample_idx=sample_idx if s.gi_temporal else None,
         )
     else:
-        # The extended lighting's K2 clips to the mip's box: then the one
-        # launch of the occupancy rebuild writes both.
+        # The extended lighting's K2 clips to the mip's box, and K1's mip1
+        # descent reads the plane mip: the one launch of the occupancy
+        # rebuild writes what the frame reads.
         extended = s.soft_shadow_samples > 1 or s.indirect_lighting
-        prepped = prep_volume(packed) if extended else None
+        mip1, slicegate = descent_options()
+        occ = occupancy_rebuild(packed, box=extended, plane=mip1)
         rgb, depth, idx = raytrace_tiles(
-            packed, prepped.coarse if extended else occupancy_mip(packed), cam,
+            packed, occ.coarse, cam,
             grid_size=s.grid_size, width=s.width, height=s.height,
             shadow=s.soft_shadow_samples <= 1, ages=ages, total_states=total_states,
+            mip1=mip1, slicegate=slicegate, plane=occ.plane,
         )
         if extended:
+            prepped = Prepped(packed, occ.coarse, occ.box)
             rgb, d = _extended_lighting(s, prepped, cam, rgb, depth, idx, sample_idx)
     emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], rgb.device)
     rgb = torch.where((idx >= 0)[..., None], rgb + emis, rgb)
@@ -465,10 +469,13 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
             vis = visibility_plane(st, spec)
             ages = st if multistate else None
             if use_compose:
+                mip1, slicegate = descent_options()
+                occ = occupancy_rebuild(vis, plane=mip1)
                 frame, _, idx, color = raytrace_tiles(
-                    vis, occupancy_mip(vis), cam, hist,
+                    vis, occ.coarse, cam, hist,
                     grid_size=n, width=w, height=h, shadow=True, ages=ages,
-                    total_states=total_states,
+                    total_states=total_states, mip1=mip1, slicegate=slicegate,
+                    plane=occ.plane,
                 )
                 hist = (color, idx)
             else:

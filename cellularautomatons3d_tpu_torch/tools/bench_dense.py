@@ -8,8 +8,9 @@ counterpart of ``tools/bench_dense.py``)::
 The centre seed after ``gen`` generations (default 230, the dense line's
 scene) at 256³ / 1920×1080 (``--small``: 32³, 64×32); ``k`` (default 20)
 composed frames back to back through ``render_fast.raytrace_tiles`` with the
-history carried (K1 in compose mode, the coarse mip rebuilt each frame as the
-fused loop does), no CA step.  ``raytrace_tiles`` reads ``CA3D_SLICEGATE``
+history carried (K1 in compose mode, the occupancy rebuilt each frame as the
+fused loop does: the 8³ mip, with the plane mip under ``CA3D_MIP1``, in one
+launch), no CA step.  ``raytrace_tiles`` reads ``CA3D_SLICEGATE``
 and ``CA3D_MIP1`` at every call, so K1's descents compare without a code
 change.  The JAX tool's ``CA3D_BD_SHADOW``, ``CA3D_BD_NOSWEEP`` and
 ``CA3D_PREPASS`` splits are ``profile_frame``'s variants here.
@@ -27,7 +28,7 @@ import os
 
 import torch
 
-from ..ops.occupancy import occupancy_mip
+from ..ops.occupancy import occupancy_rebuild
 from ..render import render_fast
 from . import common
 
@@ -49,7 +50,10 @@ def main(argv=None) -> list[dict]:
              torch.full((h, w), -1, dtype=torch.int32, device=run.dev))]
 
     def frame():
-        out = render_fast.raytrace_tiles(vol, occupancy_mip(vol), cam, hist[0], **kw)
+        mip1, slicegate = render_fast.descent_options()
+        occ = occupancy_rebuild(vol, plane=mip1)
+        out = render_fast.raytrace_tiles(vol, occ.coarse, cam, hist[0], mip1=mip1,
+                                         slicegate=slicegate, plane=occ.plane, **kw)
         hist[0] = (out[3], out[2])
 
     def frames():

@@ -33,7 +33,8 @@ from ..models.automaton import AutomatonSpec
 from ..ops import ca_step
 from ..ops.loop import make_multi_step
 from ..ops.occupancy import (
-    coarse_occupancy_box_cuda, coarse_occupancy_cuda, occupied_box_cuda, plane_occupancy_cuda)
+    coarse_occupancy_box_cuda, coarse_occupancy_cuda, coarse_occupancy_plane_cuda,
+    occupied_box_cuda, plane_occupancy_cuda)
 from ..ops.packing import pack_grid, seed_center
 from ..render import render_fast, render_slab, renderer_fast
 from ..render.renderer import RenderParams
@@ -73,8 +74,8 @@ FAMILIES = {
     "shadow_multi_kernel": (render_slab.shadow_sweep_multi_cuda,),
     "cell_state_kernel": (render_slab.cell_state_cuda,),
     "occupied_box_kernel": (occupied_box_cuda,),
-    "plane_occupancy_kernel": (plane_occupancy_cuda,),
-    "coarse_occupancy_kernel": (coarse_occupancy_cuda, coarse_occupancy_box_cuda),
+    "coarse_occupancy_kernel": (coarse_occupancy_cuda, coarse_occupancy_box_cuda,
+                                coarse_occupancy_plane_cuda, plane_occupancy_cuda),
     "reproject_kernel": (renderer_fast.reproject_history_cuda,),
     "prepass_kernel": (render_fast.prepass_cuda,),
 }

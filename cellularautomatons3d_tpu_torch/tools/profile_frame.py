@@ -6,7 +6,8 @@
 
 One frame of K1 through ``render_fast.raytrace_tiles`` (non-compose, as the
 JAX tool times it) on 256³ gen-80 at 1920×1080 (``--small``: 32³, 64×32),
-the coarse mip made once outside the timed call.  Variants (all by
+the occupancy (the 8³ mip and the plane mip that K1 reads under
+``CA3D_MIP1``) made once outside the timed call.  Variants (all by
 default):
 
 * ``full``: the default frame (the hard shadow on);
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.occupancy import occupancy_mip
+from ..ops.occupancy import occupancy_rebuild
 from ..render import render_fast
 from . import common
 
@@ -36,14 +37,15 @@ VARIANTS = ("full", "noshadow", "nosweep", "prepass", "empty")
 KEYS = ("ms", "device_ms", "k1_launches_per_frame")
 
 
-def frame_call(run: common.Run, variant: str, vol, coarse, cam, grid: int):
+def frame_call(run: common.Run, variant: str, vol, occ, cam, grid: int):
     w, h = run.window
     kw = dict(grid_size=grid, width=w, height=h)
+    coarse = occ.coarse
     if variant == "nosweep":
         trace = render_fast.raytrace_cuda if run.cuda else render_fast.raytrace
         return lambda: trace(vol, coarse, cam, no_sweep=True, **kw)
     opts = {"noshadow": dict(shadow=False), "prepass": dict(use_prepass=True)}.get(variant, {})
-    return lambda: render_fast.raytrace_tiles(vol, coarse, cam, **opts, **kw)
+    return lambda: render_fast.raytrace_tiles(vol, coarse, cam, plane=occ.plane, **opts, **kw)
 
 
 def main(argv=None) -> list[dict]:
@@ -59,12 +61,13 @@ def main(argv=None) -> list[dict]:
     grid = run.grid(256)
     vol = common.scene(grid, 80, run.dev)
     empty = torch.zeros_like(vol)
-    volumes = {"scene": (vol, occupancy_mip(vol)), "empty": (empty, occupancy_mip(empty))}
+    volumes = {"scene": (vol, occupancy_rebuild(vol, plane=True)),
+               "empty": (empty, occupancy_rebuild(empty, plane=True))}
     cam = common.cam(w, h)
     out = []
     for variant in args.variants or VARIANTS:
-        v, coarse = volumes["empty" if variant == "empty" else "scene"]
-        fn = frame_call(run, variant, v, coarse, cam, grid)
+        v, occ = volumes["empty" if variant == "empty" else "scene"]
+        fn = frame_call(run, variant, v, occ, cam, grid)
         with common.counted() as launched:
             idx = fn()[2]
         ms = common.timed(run, fn, calls=args.calls)

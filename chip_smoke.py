@@ -186,16 +186,23 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       with its bound, the multi-state slab step, mesh render() and
       run_fused frames at 512³ and 256³).  On one card these
       are the cost of the decomposition, not a scaling.
-  (m) K1's descents (run right after (c)): the plane mip's kernel
-      (``csrc/plane_occupancy.cu``) against ``plane_occupancy``, bit for bit,
-      on random volumes at 32³ to 1024³; on the gen-80, gen-230 and
+  (m) K1's descents (run right after (c)): the plane mip from the
+      occupancy rebuild's launch (``csrc/coarse_occupancy.cu``'s ``PLANE``
+      instantiations, with and without the box, and ``plane_occupancy_cuda``)
+      against ``plane_occupancy``, bit for bit, with the 8³ mip and the box of
+      the same launch against their twins, on random volumes at 32³ to 1024³;
+      on the gen-80, gen-230 and
       ``pyroclastic`` gen-160 scenes of ``Engine(256)`` at 1920×1080, K1 in
       both modes with mip1, slicegate, each with the prepass, and the column
       skip off, bit for bit against the default kernel and within the
       contract of the plain twin; ``Engine.run_fused(10, reset_every=10)``
       under ``CA3D_MIP1=1`` and ``CA3D_SLICEGATE=1`` equal to the default
       Engine's, every counter set to 0 before each and read after (10 launches
-      of the mode, and of the plane mip under mip1); the attribution run
+      of the mode; under mip1 10 rebuilds with the plane mip, no mip alone and
+      no standalone plane mip); under ``CA3D_MIP1=1`` the other K1 frame
+      paths (render(), ``gi_temporal``, ``pyroclastic``, a 4-shard mesh on
+      the one card) equal to their default frames with one rebuild a frame
+      (a shard) and no other occupancy kernel; the attribution run
       without the column skip; then each mode alternated with the default and
       the plane mip with its twin, by CUDA events and by the device's time.
   (n) the attribution tools (``cellularautomatons3d_tpu_torch.tools``, run
@@ -243,9 +250,10 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       ``cuda_time_fn(queued=True)``'s sleeping stream queues, and a trace late
       in this process drops kernel events).
   (q) the frame paths' two small kernels (run after (j)): the 8³ mip
-      (``csrc/coarse_occupancy.cu``), alone and with its box in the same
-      launch, against the twins ``coarse_occupancy`` and ``occupied_box``,
-      bit for bit, on random, empty and full volumes at 32³, 64³, 256³, 288³,
+      (``csrc/coarse_occupancy.cu``), alone, with its box, with the plane
+      mip and with both in the same launch, against the twins
+      ``coarse_occupancy``, ``occupied_box`` and ``plane_occupancy``, bit for
+      bit, on random, empty and full volumes at 32³, 64³, 256³, 288³,
       480³, 512³ and 1024³, on the scenes (256³ gen-80 and gen-230, 512³
       gen-160 and gen-260, 1024³ gen-200, the ``pyroclastic`` visibility
       plane), on (i)'s box-edge volumes at 256³, 512³ and 1024³, and launched
@@ -258,7 +266,9 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       mip, one K1, one reprojection), no box launch in either; both kernels
       alternated with their twins by CUDA events and by queued device time,
       the mip with its box alternated with the mip kernel and the box kernel
-      in turn, and the plane mip, with their bounds.
+      in turn, the mip with the plane mip alternated with the mip then the
+      plane mip alone (a mip1 frame's rebuild before they shared a launch) at
+      256³, 512³ and 1024³, with their bounds.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -1782,8 +1792,10 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
     no box launch in either; both kernels' times beside their twins'
     (alternated twin, kernel, kernel, twin; CUDA events and queued device
     time), the mip with its box beside the mip and the box kernel in turn
-    (pair, fused, fused, pair) and the plane mip, and their bounds from these
-    inputs."""
+    (pair, fused, fused, pair), the mip with the plane mip (the ``PLANE``
+    instantiations, checked on the same volumes with and without the box, and
+    on two streams) beside the mip then the plane mip alone, and their bounds
+    from these inputs."""
     import dataclasses
 
     from cellularautomatons3d_tpu_torch import engine as engine_mod
@@ -1796,8 +1808,9 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
 
     mip, twin = occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy
     fused, fused_twin = occupancy.coarse_occupancy_box_cuda, occupancy.coarse_occupancy_box
-    out = {"mip_cases": 0, "mip_box_cases": 0, "reproject": {}, "launches": {}, "timings": {},
-           "bounds": {}, "max_abs_err": 0.0}
+    with_plane = occupancy.coarse_occupancy_plane_cuda
+    out = {"mip_cases": 0, "mip_box_cases": 0, "plane_cases": 0, "reproject": {}, "launches": {},
+           "timings": {}, "bounds": {}, "max_abs_err": 0.0}
 
     def mip_box_check(tag, vol):
         want = fused_twin(vol)
@@ -1807,6 +1820,15 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
                  f"(q) the mip kernel with its box != the twins on {tag} (launch {i + 1}): "
                  f"box {got[1].tolist()} != {want[1].tolist()}")
         out["mip_box_cases"] += 1
+        plane = occupancy.plane_occupancy(vol)
+        for with_box in (False, True):  # the PLANE instantiations
+            for i in range(2):
+                got = with_plane(vol, with_box=with_box)
+                need(torch.equal(got.coarse, want[0]) and torch.equal(got.plane, plane) and
+                     (not with_box or torch.equal(got.box, want[1])),
+                     f"(q) the mip kernel with the plane mip (box {with_box}) != the twins on "
+                     f"{tag} (launch {i + 1})")
+            out["plane_cases"] += 1
         return want
 
     # The mip on random, empty and full volumes at every size.
@@ -1847,26 +1869,31 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
                  f"(q) the box of the {size}^3 box-edge {case} volume: {box.tolist()}")
             del vol
     # Two streams at once, each with its own accumulator: 8 launches each in
-    # turn, neither waiting for the other.
+    # turn, neither waiting for the other; with the box alone, then with the
+    # plane mip too.
     pairs = [(vols[f"{GRID}^3 gen-80"], torch.cuda.Stream(dev)),
              (scenes["512^3 gen-160"][0], torch.cuda.Stream(dev))]
-    wants = [fused_twin(v) for v, _ in pairs]
-    torch.cuda.synchronize()
-    got = [[], []]
-    for _ in range(8):
-        for k, (v, stream) in enumerate(pairs):
-            with torch.cuda.stream(stream):
-                got[k].append(fused(v))
-    torch.cuda.synchronize()
-    for k in range(2):
-        need(all(torch.equal(m, wants[k][0]) and torch.equal(b, wants[k][1]) for m, b in got[k]),
-             f"(q) the mip kernel with its box on two streams at once: stream {k} differs")
+    wants = [(*fused_twin(v), occupancy.plane_occupancy(v)) for v, _ in pairs]
+    for launch in (fused, lambda v: with_plane(v, with_box=True)):
+        torch.cuda.synchronize()
+        got = [[], []]
+        for _ in range(8):
+            for k, (v, stream) in enumerate(pairs):
+                with torch.cuda.stream(stream):
+                    got[k].append(launch(v))
+        torch.cuda.synchronize()
+        for k in range(2):
+            need(all(torch.equal(o[0], wants[k][0]) and torch.equal(o[1], wants[k][1]) and
+                     (len(o) == 2 or torch.equal(o[2], wants[k][2])) for o in got[k]),
+                 f"(q) the mip kernel with its box on two streams at once: stream {k} differs")
     out["mip_box_cases"] += 2
+    out["plane_cases"] += 2
     del pairs, got
     log(f"(q) the mip kernel == coarse_occupancy, bit for bit: {out['mip_cases']} volumes "
         f"({len(MIP_SIZES)} sizes x empty / full / 2 densities, {len(vols)} scenes); with its "
         f"box == the twins on {out['mip_box_cases']} cases (those, (i)'s box-edge volumes at "
-        f"{GRID}^3 / 512^3 / 1024^3, each launched twice, and two streams at once)")
+        f"{GRID}^3 / 512^3 / 1024^3, each launched twice, and two streams at once); with the "
+        f"plane mip (and the box) == the twins on {out['plane_cases']} cases")
 
     # The reprojection on the moved frames of (j)'s engines and a row shard.
     def check(tag, args):
@@ -1978,12 +2005,32 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
         out["bounds"][f"coarse_occupancy_{size}"] = bound(words * 4 + mip_bytes(size), words * 5)
         out["bounds"][f"coarse_occupancy_box_{size}"] = bound(
             words * 4 + mip_bytes(size) + 32, words * 5 + mip_bytes(size) // 4 * 6)
-    # The plane mip (K1's opt-in mip1 input, csrc/block_mip.cuh's row helper
-    # shared with the 8³ mip above 256³) at 256³ on the same timer.
-    vol = scenes[f"{GRID}^3 gen-80"][0]
-    for label, queued in (("events", False), ("device", True)):
-        tm[f"plane_occupancy_{GRID}_{label}_ms"] = cuda_time_fn(
-            lambda: occupancy.plane_occupancy_cuda(vol), reps=30, warmup=3, queued=queued)
+        # The rebuild of a mip1 frame: the mip with the plane mip in one
+        # launch (fused, the PLANE instantiation) beside the mip then the
+        # plane mip alone (pair: a mip1 frame's two launches before they
+        # shared one), with the box too, the plane mip alone, and the twins.
+        calls = {"fused": lambda: with_plane(vol), "pair": lambda: (
+                     mip(vol), occupancy.plane_occupancy_cuda(vol)),
+                 "fused_box": lambda: with_plane(vol, with_box=True),
+                 "alone": lambda: occupancy.plane_occupancy_cuda(vol),
+                 "plain": lambda: (twin(vol), occupancy.plane_occupancy(vol))}
+        for label, queued in (("events", False), ("device", True)):
+            reads = [cuda_time_fn(calls[m], reps=30, warmup=3, queued=queued)
+                     for m in ("pair", "fused", "fused", "pair")]
+            tm[f"coarse_occupancy_plane_{size}_{label}_reads_ms"] = reads
+            tm[f"coarse_occupancy_plane_{size}_{label}_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"coarse_occupancy_then_plane_{size}_{label}_ms"] = (reads[0] + reads[3]) / 2
+            for m in ("fused_box", "alone"):
+                key = {"fused_box": "coarse_occupancy_plane_box", "alone": "plane_occupancy"}[m]
+                tm[f"{key}_{size}_{label}_ms"] = cuda_time_fn(calls[m], reps=30, warmup=3,
+                                                              queued=queued)
+        tm[f"coarse_occupancy_plane_plain_{size}_events_ms"] = cuda_time_fn(
+            calls["plain"], reps=3, warmup=1)
+        # The volume read once; the two mips written once; an OR a word and
+        # a byte test a word and byte for the plane mip, an OR a plane word.
+        planes = mip_bytes(size) * 8  # [n, XG·n/8] words
+        out["bounds"][f"coarse_occupancy_plane_{size}"] = bound(
+            words * 4 + mip_bytes(size) + planes, words * 5 + planes // 4)
     for size, args in timed.items():
         calls = {"kernel": lambda: rfast.reproject_history_cuda(*args),
                  "plain": lambda: rfast.reproject_history(*args)}
@@ -2548,11 +2595,36 @@ K1_MODES = {
     "noskip": dict(column_skip=False),
 }
 K1_OPTION_VARIABLES = {"mip1": "CA3D_MIP1", "slicegate": "CA3D_SLICEGATE"}
+# The K1 frame paths (m) drives under CA3D_MIP1 beside the fused compose
+# loop: (preset, Engine overrides, generations, shards, one frame of the
+# Engine).
+MIP1_PATHS = {
+    "render": (None, dict(grid_size=GRID), 80, 1, lambda e: e.render()),
+    "gi_temporal": (None, dict(grid_size=GRID, gi_temporal=True, **LIGHTING), 80, 1,
+                    lambda e: e.run_fused(1)),
+    "pyroclastic": ("pyroclastic", dict(grid_size=GRID, random_initial_state=True), 160, 1,
+                    lambda e: e.run_fused(1)),
+    "mesh": (None, dict(grid_size=GRID, mesh_devices=4), 80, 4, lambda e: e.render()),
+}
 
 
 def k1_registers(log_text) -> dict:
     """ptxas's registers and spill bytes of each K1 instantiation,
     ``render_kernel<COMPOSE, MASK, NO_SWEEP, OPT>``, from the build log."""
+    return registers(log_text, r"render_kernelILb(\d)ELi(\d)ELb(\d)ELi(\d)E",
+                     "render_kernel<%s,%s,%s,%s>")
+
+
+def occupancy_registers(log_text) -> dict:
+    """The same of each instantiation of the occupancy rebuild,
+    ``coarse_occupancy_kernel<STRIP, BOX, PLANE>``."""
+    return registers(log_text, r"coarse_occupancy_kernelILb(\d)ELb(\d)ELb(\d)E",
+                     "coarse_occupancy_kernel<%s,%s,%s>")
+
+
+def registers(log_text, mangled, label) -> dict:
+    """ptxas's registers and spill bytes of each kernel whose mangled name
+    matches ``mangled``, keyed by ``label`` % its groups, from the build log."""
     import re
 
     out, name = {}, None
@@ -2560,8 +2632,8 @@ def k1_registers(log_text) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( for|$)",
                       line)
         if m:
-            k = re.search(r"render_kernelILb(\d)ELi(\d)ELb(\d)ELi(\d)E", m.group(1))
-            name = "render_kernel<%s,%s,%s,%s>" % k.groups() if k else None
+            k = re.search(mangled, m.group(1))
+            name = label % k.groups() if k else None
             continue
         if name is None:
             continue
@@ -2584,12 +2656,15 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
     every counter set to 0 just before each and read just after; the column
     skip's attribution run; then the times of each mode alternated with the
     default (default, mode, mode, default; CUDA events and the device's
-    time); the plane mip's kernel against its plain twin ``plane_occupancy``,
+    time); the plane mip of the occupancy rebuild's launch against its plain
+    twin ``plane_occupancy`` (and that launch's 8³ mip and box against theirs),
     bit for bit, on every scene and on random volumes at 32³ to 1024³, and
-    both timed.  (No torch.profiler trace here: a trace this early makes phase
+    timed; every other K1 frame path under ``CA3D_MIP1=1`` with its launch
+    counts.  (No torch.profiler trace here: a trace this early makes phase
     (g)'s later one drop kernel events.)"""
     from cellularautomatons3d_tpu_torch.ops.occupancy import (
-        plane_occupancy, plane_occupancy_cuda)
+        coarse_occupancy_box, coarse_occupancy_plane_cuda, plane_occupancy,
+        plane_occupancy_cuda)
     from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
 
     dev = torch.device("cuda", 0)
@@ -2601,17 +2676,35 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
         for c in counters:
             setattr(rf.raytrace_cuda, c, 0)
         ca_step.fires_plane_cuda.launches = 0
-        plane_occupancy_cuda.launches = 0
-        occupancy.coarse_occupancy_cuda.launches = 0
+        for fn in occupancy_counters:
+            fn.launches = 0
 
     def read():
         counts = {c: getattr(rf.raytrace_cuda, c) for c in counters}
-        counts["plane_occupancy_cuda"] = plane_occupancy_cuda.launches
-        counts["coarse_occupancy_cuda"] = occupancy.coarse_occupancy_cuda.launches
+        counts.update({fn.__name__: fn.launches for fn in occupancy_counters})
         return counts
 
-    # The plane mip's kernel against its plain twin on random volumes (two
-    # x-groups, the last partial, at 320³; four at 1024³).
+    def plane_check(tag, words):
+        """The plane mip, alone and with the 8³ mip (and the box) of one
+        launch, against the twins."""
+        want = (*coarse_occupancy_box(words), plane_occupancy(words))
+        need(torch.equal(plane_occupancy_cuda(words), want[2]),
+             f"(m) plane_occupancy_cuda != plane_occupancy on {tag}")
+        for with_box in (False, True):
+            got = coarse_occupancy_plane_cuda(words, with_box=with_box)
+            need(torch.equal(got.plane, want[2]) and torch.equal(got.coarse, want[0]),
+                 f"(m) the rebuild with the plane mip (box {with_box}) != the twins on {tag}")
+            if with_box:
+                need(torch.equal(got.box, want[1]),
+                     f"(m) the rebuild's box with the plane mip != occupied_box on {tag}: "
+                     f"{got.box.tolist()} != {want[1].tolist()}")
+        return want
+
+    occupancy_counters = (occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda,
+                          coarse_occupancy_plane_cuda, plane_occupancy_cuda,
+                          occupancy.occupied_box_cuda)
+    # The plane mip against its plain twin on random volumes (two x-groups,
+    # the last partial, at 320³; four at 1024³).
     g = torch.Generator(dev).manual_seed(13)
     for size in (32, 96, 256, 320, 1024):
         for p_live in (0.0, 0.0005, 0.05, 1.0):
@@ -2623,11 +2716,10 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
                 for b in range(32):  # bit b of every word, live with p_live
                     live = torch.rand(shape, device=dev, generator=g) < p_live
                     words |= live.to(torch.int32) << b
-            got, want = plane_occupancy_cuda(words), plane_occupancy(words)
-            need(torch.equal(got, want), f"(m) plane_occupancy kernel != plain at {size}^3 "
-                 f"density {p_live}")
+            plane_check(f"{size}^3 density {p_live}", words)
             del words
-    log("(m) the plane mip's kernel == plane_occupancy, bit for bit, at 32^3 to 1024^3")
+    log("(m) the rebuild's plane mip == plane_occupancy, its 8^3 mip and box == their twins, "
+        "bit for bit, at 32^3 to 1024^3")
 
     scenes = {}
     t0 = time.perf_counter()
@@ -2643,9 +2735,7 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
     kw0 = dict(grid_size=GRID, width=WIDTH, height=HEIGHT, shadow=True)
     timed = {}
     for name, (vis, ages, states) in scenes.items():
-        coarse, plane = occupancy.coarse_occupancy(vis), plane_occupancy(vis)
-        need(torch.equal(plane_occupancy_cuda(vis), plane),
-             f"(m) plane_occupancy kernel != plain on {name}")
+        coarse, _, plane = plane_check(name, vis)
         kw = dict(kw0, ages=ages, total_states=states)
         base = rf.raytrace_cuda(vis, coarse, cam, **kw)
         keep = torch.rand(base[2].shape, device=dev,
@@ -2707,8 +2797,13 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
     for variable in K1_OPTION_VARIABLES.values():
         need(all(torch.equal(a, b) for a, b in zip(runs[variable], runs["default"])),
              f"(m) the Engine's fused frames under {variable} != without it")
-    need(all(c["coarse_occupancy_cuda"] == 10 for c in out["launches"].values()),
-         f"(m) the fused loop's mip launches: {out['launches']}")
+    for variable, c in out["launches"].items():
+        mip1 = variable == "CA3D_MIP1"
+        want = {"coarse_occupancy_cuda": 0 if mip1 else 10, "coarse_occupancy_box_cuda": 0,
+                "coarse_occupancy_plane_cuda": 10 if mip1 else 0, "plane_occupancy_cuda": 0,
+                "occupied_box_cuda": 0}
+        need({k: c[k] for k in want} == want,
+             f"(m) the fused loop's occupancy launches under {variable}: {c}")
     need(out["launches"]["default"]["launches"] == 10 and
          out["launches"]["default"]["mip1_launches"] == 0 and
          out["launches"]["default"]["slicegate_launches"] == 0,
@@ -2717,8 +2812,48 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
         c = out["launches"][variable]
         need(c["launches"] == 10 and c[f"{mode}_launches"] == 10 and c["compose_launches"] == 10,
              f"(m) under {variable} the fused loop did not run K1's {mode} mode: {c}")
-        need(c["plane_occupancy_cuda"] == (10 if mode == "mip1" else 0),
-             f"(m) under {variable}: plane mip launches {c}")
+
+    # The other K1 frame paths under CA3D_MIP1, each against its default
+    # frames: render() (K1 alone), the extended lighting's frames
+    # (gi_temporal), the multi-state fused loop and the mesh's K1 shards (4
+    # on this card); one rebuild with the plane mip a frame (a shard), with
+    # the box where the extended lighting clips to it, and no other
+    # occupancy kernel.
+    out["mip1_paths"] = {}
+    for path, (preset, cfg, gens, shards, drive) in MIP1_PATHS.items():
+        frames, counts = {}, {}
+        cfg = {**(ct.PRESETS[preset] if preset else {}), **cfg}
+        if shards > 1:
+            cfg["mesh_device_list"] = [dev] * shards
+        for on in (False, True):
+            with env_var("CA3D_MIP1", "1" if on else "0"):
+                eng = ct.Engine(width=WIDTH, height=HEIGHT, device="cuda", **cfg)
+                eng.step(gens)
+                torch.cuda.synchronize()
+                reset()
+                got = [drive(eng) for _ in range(3)]
+                torch.cuda.synchronize()
+                counts[on] = read()
+                ids = eng.history.hit_idx  # a mesh's is row shards: gather them
+                frames[on] = [*got, ids.full() if shards > 1 else ids]
+        need(all(torch.equal(a, b) for a, b in zip(frames[True], frames[False])),
+             f"(m) {path} under CA3D_MIP1 != its default frames")
+        rebuilds = 3 * shards
+        lit = "soft_shadow_samples" in cfg
+        c = counts[True]
+        want = {"coarse_occupancy_plane_cuda": rebuilds, "coarse_occupancy_cuda": 0,
+                "coarse_occupancy_box_cuda": 0, "plane_occupancy_cuda": 0,
+                "occupied_box_cuda": 0, "mip1_launches": rebuilds, "launches": rebuilds}
+        need({k: c[k] for k in want} == want, f"(m) {path} under CA3D_MIP1 launched {c}")
+        c = counts[False]
+        want = {"coarse_occupancy_plane_cuda": 0, "coarse_occupancy_cuda": 0 if lit else rebuilds,
+                "coarse_occupancy_box_cuda": rebuilds if lit else 0, "plane_occupancy_cuda": 0,
+                "occupied_box_cuda": 0, "mip1_launches": 0, "launches": rebuilds}
+        need({k: c[k] for k in want} == want, f"(m) {path} without CA3D_MIP1 launched {c}")
+        out["mip1_paths"][path] = {"mip1": counts[True], "default": counts[False]}
+        log(f"  {path} under CA3D_MIP1 == default, launches {counts[True]}")
+        del eng, frames
+
     # The column skip's attribution run: K1 without it, composing 10 frames of
     # the gen-80 scene, as a timing split would.
     vis, coarse, plane, hist, kw = timed["gen-80"]
@@ -3215,6 +3350,11 @@ def main() -> dict:
     log(f"  K1 instantiations <COMPOSE, MASK, NO_SWEEP, OPT>: {report['k1_registers']}")
     need(len(report["k1_registers"]) == 18, f"K1 has {len(report['k1_registers'])} instantiations "
          "in the build log, not 18")
+    occ_regs = report["occupancy_registers"] = occupancy_registers(
+        lib_path.with_suffix(".log").read_text())
+    log(f"  occupancy rebuild instantiations <STRIP, BOX, PLANE>: {occ_regs}")
+    need(len(occ_regs) == 8 and all(r.get("spill_bytes", 0) == 0 for r in occ_regs.values()),
+         f"the occupancy rebuild's 8 instantiations without spills: {occ_regs}")
 
     def to_dev(words):
         return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(dev)
@@ -3406,7 +3546,8 @@ def main() -> dict:
 
     # -------------------------------------- (c) the main path, real size ---
     main_counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, occupancy.coarse_occupancy_cuda,
-                    occupancy.coarse_occupancy_box_cuda, occupancy.occupied_box_cuda)
+                    occupancy.coarse_occupancy_box_cuda, occupancy.occupied_box_cuda,
+                    occupancy.coarse_occupancy_plane_cuda, occupancy.plane_occupancy_cuda)
     for fn in main_counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3422,6 +3563,8 @@ def main() -> dict:
         "coarse_occupancy": occupancy.coarse_occupancy_cuda.launches,
         "coarse_occupancy_box": occupancy.coarse_occupancy_box_cuda.launches,
         "occupied_box": occupancy.occupied_box_cuda.launches,
+        "coarse_occupancy_plane": occupancy.coarse_occupancy_plane_cuda.launches,
+        "plane_occupancy": occupancy.plane_occupancy_cuda.launches,
     }
     main_s = time.perf_counter() - t0
     for i, f in enumerate((f1, f2, f3)):
@@ -3434,6 +3577,8 @@ def main() -> dict:
          f"main path: not one mip kernel a frame: {launches}")
     need(launches["coarse_occupancy_box"] == 0 and launches["occupied_box"] == 0,
          f"main path: K1's frame launched a box: {launches}")
+    need(launches["coarse_occupancy_plane"] == 0 and launches["plane_occupancy"] == 0,
+         f"main path: the default frame launched a plane mip: {launches}")
     # The 80-step state against the plain step on the same device.
     spec = eng.spec
     ref = to_dev(ct.pack_grid(ct.seed_center(GRID)))
@@ -3620,7 +3765,8 @@ def main() -> dict:
                rf.raytrace_cuda, rf.prepass_cuda, rs.primary_sweep_cuda, rs.shadow_sweep_cuda,
                rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
                occupancy.plane_occupancy_cuda, occupancy.coarse_occupancy_cuda,
-               occupancy.coarse_occupancy_box_cuda, rfast.reproject_history_cuda)
+               occupancy.coarse_occupancy_box_cuda, occupancy.coarse_occupancy_plane_cuda,
+               rfast.reproject_history_cuda)
     report["entry"] = entry_phase(torch, np, counted)
 
     # -------------------------------------------------- (d) timings ---
@@ -3911,8 +4057,9 @@ def main() -> dict:
     bounds.update(mesh["bounds"])
     # The plane mip at 256³: the volume read once, the mip written once; an
     # OR a word and a byte test a word and byte.
-    bounds["plane_occupancy"] = bound(GRID**3 // 8 + GRID * (GRID // 8) * 4,
-                                      GRID**3 // 32 * 5)
+    # The plane mip at 256³: since it shares the 8³ mip's launch, that
+    # launch's work (the volume read once, both mips written once).
+    bounds["plane_occupancy"] = mipq["bounds"][f"coarse_occupancy_plane_{GRID}"]
     # The 8³ mip (the volume read once, the mip written once) at 256³, 512³
     # and 1024³, and the reprojection from (q)'s moved 256³ and 512³ frames.
     bounds.update(mipq["bounds"])
@@ -3964,10 +4111,15 @@ def main() -> dict:
               max(options["errors"]["slicegate"], options["errors"]["slicegate_prepass"]),
               options["timings"]["k1_slicegate_gen-80_events_ms"],
               options["plain_ms"]["gen-80 compose (True, False, False)"], bound_name="render_fast"),
-        entry("plane_occupancy", "plane_occupancy.cu", "ops/occupancy.py:72",
-              options["launches"]["CA3D_MIP1"]["plane_occupancy_cuda"], 0.0,
-              options["timings"]["plane_occupancy_gen-80_events_ms"],
-              options["timings"]["plane_occupancy_plain_gen-80_events_ms"]),
+        # The plane mip, written by the occupancy rebuild's launch with the
+        # 8³ mip (the PLANE instantiations): the launches of (m)'s mip1
+        # frames (the fused loop, render(), gi_temporal, pyroclastic, the
+        # mesh's shards); ms the launch at 256³ gen-80, plain both twins.
+        entry("plane_occupancy", "coarse_occupancy.cu", "ops/occupancy.py:72",
+              options["launches"]["CA3D_MIP1"]["coarse_occupancy_plane_cuda"] + sum(
+                  p["mip1"]["coarse_occupancy_plane_cuda"] for p in options["mip1_paths"].values()),
+              0.0, mipq["timings"][f"coarse_occupancy_plane_{GRID}_events_ms"],
+              mipq["timings"][f"coarse_occupancy_plane_plain_{GRID}_events_ms"]),
         entry("render_fast_noskip", "render_fast.cu", "render/render_fast.py:1420",
               options["launches"]["column_skip_off"]["noskip_launches"],
               options["errors"]["noskip"], options["timings"]["k1_noskip_gen-80_events_ms"],

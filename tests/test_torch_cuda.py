@@ -1445,3 +1445,144 @@ def test_frames_launch_the_mip_and_reprojection_kernels(cuda):
     eng.run_fused(4, reset_every=2)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [5, 1]
+
+
+# ------------------------------------------ the plane mip in the rebuild ---
+
+@pytest.mark.parametrize("n", [32, 64, 128, 256, 288, 480, 512, 1024])
+def test_coarse_occupancy_plane_kernel_matches_plain(cuda, n):
+    """The occupancy rebuild with the plane mip (csrc/coarse_occupancy.cu's
+    PLANE instantiations) against the twins, bit for bit: the 8³ mip against
+    coarse_occupancy, the plane mip against plane_occupancy and, with the
+    box, the box against occupied_box, on every volume of _mip_volumes and on
+    the box-edge volumes, each launched three times in a row; one launch a
+    call, and neither the mip alone nor the box form launched."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
+    vols = _mip_volumes(n, cuda, n + 1)
+    for case in BOX_CASES:
+        vols[f"box {case}"] = ct.from_reference(box_edge_volume(n, case, n)[0], cuda)
+    counters = (occupancy.coarse_occupancy_plane_cuda, occupancy.coarse_occupancy_cuda,
+                occupancy.coarse_occupancy_box_cuda, occupancy.plane_occupancy_cuda)
+    for name, vol in vols.items():
+        coarse, box = occupancy.coarse_occupancy_box(vol)
+        plane = occupancy.plane_occupancy(vol)
+        for with_box in (False, True):
+            before = [fn.launches for fn in counters]
+            for _ in range(3):
+                got = occupancy.occupancy_rebuild(vol, box=with_box, plane=True)
+                assert torch.equal(got.coarse, coarse), (n, name, with_box)
+                assert torch.equal(got.plane, plane), (n, name, with_box)
+                if with_box:
+                    assert torch.equal(got.box, box), (n, name, got.box.tolist(), box.tolist())
+                else:
+                    assert got.box is None
+            assert [fn.launches for fn in counters] == [before[0] + 3, *before[1:]]
+
+
+def test_coarse_occupancy_plane_kernel_on_two_streams(cuda):
+    """Two streams launching the rebuild with the plane mip and the box in
+    turn, without waiting for each other: every output equals the twins."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
+    vols = [list(_mip_volumes(n, cuda, 9).values()) for n in (256, 512)]
+    wants = [[(*occupancy.coarse_occupancy_box(v), occupancy.plane_occupancy(v)) for v in vs]
+             for vs in vols]
+    streams = [torch.cuda.Stream(cuda) for _ in vols]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(4):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[k] += [occupancy.coarse_occupancy_plane_cuda(v, with_box=True)
+                           for v in vols[k]]
+    torch.cuda.synchronize()
+    for k in range(2):
+        for i, occ in enumerate(got[k]):
+            want = wants[k][i % len(wants[k])]
+            assert torch.equal(occ.coarse, want[0]) and torch.equal(occ.box, want[1]), (k, i)
+            assert torch.equal(occ.plane, want[2]), (k, i)
+
+
+@pytest.mark.parametrize("n", [32, 96, 256, 320, 1024])
+def test_plane_occupancy_cuda_matches_plain(cuda, n):
+    """plane_occupancy_cuda (the rebuild's kernel, its 8³ mip dropped)
+    against plane_occupancy, bit for bit, one launch a call."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
+    for name, vol in _mip_volumes(n, cuda, n + 2).items():
+        before = occupancy.plane_occupancy_cuda.launches
+        got = occupancy.plane_occupancy_cuda(vol)
+        assert occupancy.plane_occupancy_cuda.launches == before + 1
+        assert torch.equal(got, occupancy.plane_occupancy(vol)), (n, name)
+
+
+MIP1_FRAMES = {
+    "headline": (dict(grid_size=N), 1),
+    "lighting": (dict(grid_size=N, **LIGHTING_320), 1),
+    "gi_temporal": (dict(grid_size=N, **LIGHTING_320, gi_temporal=True), 1),
+    "multistate": (dict(grid_size=N, **ct.PRESETS["pyroclastic"], random_initial_state=True), 1),
+    "mesh": (dict(grid_size=N, mesh_devices=4), 4),
+}
+
+
+@pytest.mark.parametrize("config", list(MIP1_FRAMES))
+def test_mip1_frames_launch_one_occupancy_rebuild(cuda, monkeypatch, config):
+    """Under CA3D_MIP1 every K1 frame (render(), the fused loop, the extended
+    lighting, multi-state, each shard of a mesh) launches one occupancy
+    rebuild with the plane mip and no other occupancy kernel; without it the
+    frames launch what they did before the plane mip joined the rebuild (the
+    mip alone, or with its box for the extended lighting) and no plane mip.
+    The frames are the same either way."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
+    cfg, shards = MIP1_FRAMES[config]
+    extra = {"mesh_device_list": [cuda] * shards} if shards > 1 else {}
+    counters = (occupancy.coarse_occupancy_plane_cuda, occupancy.coarse_occupancy_cuda,
+                occupancy.coarse_occupancy_box_cuda, occupancy.occupied_box_cuda,
+                occupancy.plane_occupancy_cuda)
+    extended = "soft_shadow_samples" in cfg
+    out = []
+    for on in (False, True):
+        monkeypatch.setenv("CA3D_MIP1", "1" if on else "0")
+        eng = ct.Engine(device=cuda, width=W, height=H, **cfg, **extra)
+        eng.step(12)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        mip1 = rf.raytrace_cuda.mip1_launches
+        frames = [eng.render(), eng.run_fused(3, reset_every=2)]
+        torch.cuda.synchronize()
+        rebuilds = 4 * shards
+        if on:
+            want = [rebuilds, 0, 0, 0, 0]
+        else:
+            want = [0, 0 if extended else rebuilds, rebuilds if extended else 0, 0, 0]
+        assert [fn.launches for fn in counters] == want, (config, on)
+        assert rf.raytrace_cuda.mip1_launches - mip1 == (rebuilds if on else 0)
+        ids = eng.history.hit_idx  # a mesh's is row shards: gather them
+        out.append([*frames, ids.full() if shards > 1 else ids])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_mip1_frame_on_the_card_needs_the_plane_mip(cuda, monkeypatch):
+    """raytrace_tiles builds no plane mip on the card: under CA3D_MIP1 a
+    frame given none raises before any launch."""
+    from cellularautomatons3d_tpu_torch.ops import occupancy
+
+    monkeypatch.setenv("CA3D_MIP1", "1")
+    vol = random_volume(cuda, 5, 0.05)
+    occ = occupancy.occupancy_rebuild(vol, plane=True)
+    cam = rf.pack_cam(VIEWS["oblique"], W, H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                      (0.17,) * 3, (0.0,) * 3)
+    kw = dict(grid_size=N, width=W, height=H)
+    before = (rf.raytrace_cuda.launches, occupancy.plane_occupancy_cuda.launches)
+    with pytest.raises(ValueError, match="plane mip"):
+        rf.raytrace_tiles(vol, occ.coarse, cam, **kw)
+    assert before == (rf.raytrace_cuda.launches, occupancy.plane_occupancy_cuda.launches)
+    got = rf.raytrace_tiles(vol, occ.coarse, cam, plane=occ.plane, **kw)
+    want = rf.raytrace_cuda(vol, occ.coarse, cam, **kw)
+    assert rf.raytrace_cuda.mip1_launches >= 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

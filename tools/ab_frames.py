@@ -12,6 +12,8 @@ directory is the tree (so each imports, and builds at first use, its own
 
 * ``headline``: ``python -m cellularautomatons3d_tpu_torch.tools.profile_trace
   --mode headline --frames K`` (256³ gen-80, the fused compose loop);
+* ``mip1``: the same under ``CA3D_MIP1=1`` (K1's plane-mip descent, whose
+  frame also rebuilds the plane mip);
 * ``moved``: ``... --mode moved --frames K`` (K ``render()`` calls after a
   camera move beside K static ones);
 * ``sliced``, ``sliced_1024``, ``gi``, ``gi_temporal``, ``two_bounces``:
@@ -24,8 +26,12 @@ directory is the tree (so each imports, and builds at first use, its own
   mip alone (``coarse_occupancy_cuda``), the box alone (``occupied_box_cuda``
   on that mip), the two in turn, the mip with its box in one launch
   (``coarse_occupancy_box_cuda``, where the tree has it: its mip and box held
-  to the twins bit for bit first), the plane mip (``plane_occupancy_cuda``) and
-  a one-element ``fill_`` (the launch floor).
+  to the twins bit for bit first), the plane mip (``plane_occupancy_cuda``),
+  the mip then the plane mip (a mip1 frame's rebuild before the two shared a
+  launch), the mip with the plane mip in one launch, without and with the
+  box (``coarse_occupancy_plane_cuda``, where the tree has it: its outputs
+  held to the twins bit for bit first) and a one-element ``fill_`` (the
+  launch floor).
 
 Each JSON line is written to FILE (default ``chiprun_out/ab_frames.jsonl``)
 with its tree's label and pass; then one summary line a tree and metric:
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -45,6 +52,7 @@ from pathlib import Path
 TRACE = ["-m", "cellularautomatons3d_tpu_torch.tools.profile_trace", "--mode"]
 RUNS = {
     "headline": TRACE + ["headline"],
+    "mip1": TRACE + ["headline"],
     "moved": TRACE + ["moved"],
     "sliced": TRACE + ["sliced"],
     "sliced_1024": TRACE + ["sliced", "--grid", "1024"],
@@ -54,12 +62,15 @@ RUNS = {
     "bench": ["bench_torch.py"],
     "mip": [str(Path(__file__).resolve()), "--mip-child"],
 }
+ENV = {"mip1": {"CA3D_MIP1": "1"}}   # run: the variables it sets
 FRAME = ("frame_ms", "busy_ms_per_frame", "launches_per_frame", "events_busy_share")
 MIP_GRIDS = {256: 80, 512: 160, 1024: 200}   # grid: generations of the scene
-MIP_CALLS = ("mip", "box", "mip_then_box", "mip_box", "plane", "fill")
+MIP_CALLS = ("mip", "box", "mip_then_box", "mip_box", "plane", "mip_then_plane", "mip_plane",
+             "mip_plane_box", "fill")
 # run: the keys of its line that the summary reads
 METRICS = {
     "headline": FRAME,
+    "mip1": FRAME,
     "moved": ("frame_ms", "moved_extra_launches_per_frame", "moved_extra_device_ms_per_frame",
               "launches_per_frame", "busy_ms_per_frame"),
     "sliced": FRAME, "sliced_1024": FRAME, "gi": FRAME, "gi_temporal": FRAME,
@@ -79,8 +90,6 @@ def card() -> str:
 def mip_child() -> None:
     """The ``mip`` run, in a process whose working directory is the tree:
     one JSON line of device ms a call (see the module docstring)."""
-    import os
-
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -92,6 +101,7 @@ def mip_child() -> None:
     rec = {"device": torch.cuda.get_device_name(dev), "card": card()}
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     fused = getattr(occupancy, "coarse_occupancy_box_cuda", None)
+    with_plane = getattr(occupancy, "coarse_occupancy_plane_cuda", None)
     for grid, gens in MIP_GRIDS.items():
         vol = common.scene(grid, gens, dev)
         mip = occupancy.coarse_occupancy_cuda(vol)
@@ -101,8 +111,20 @@ def mip_child() -> None:
             "mip_then_box": lambda: occupancy.occupied_box_cuda(
                 occupancy.coarse_occupancy_cuda(vol), grid),
             "plane": lambda: occupancy.plane_occupancy_cuda(vol),
+            "mip_then_plane": lambda: (occupancy.coarse_occupancy_cuda(vol),
+                                       occupancy.plane_occupancy_cuda(vol)),
             "fill": lambda: one.fill_(grid),
         }
+        if with_plane is not None:
+            want = (*occupancy.coarse_occupancy_box(vol), occupancy.plane_occupancy(vol))
+            for box in (False, True):
+                got = with_plane(vol, with_box=box)
+                if not (torch.equal(got.coarse, want[0]) and torch.equal(got.plane, want[2])
+                        and (not box or torch.equal(got.box, want[1]))):
+                    raise AssertionError(f"coarse_occupancy_plane_cuda(with_box={box}) != its "
+                                         f"twins at {grid}^3")
+            calls["mip_plane"] = lambda: with_plane(vol)
+            calls["mip_plane_box"] = lambda: with_plane(vol, with_box=True)
         if fused is not None:
             got = fused(vol)
             want = occupancy.coarse_occupancy_box(vol)
@@ -116,12 +138,12 @@ def mip_child() -> None:
     print(json.dumps(rec), flush=True)
 
 
-def run_one(tree: Path, argv, frames: int) -> dict:
+def run_one(tree: Path, argv, frames: int, env=None) -> dict:
     args = list(argv)
     if args[0] == "-m":
         args += ["--frames", str(frames), "--out", str(tree / "build" / "traces" / "ab")]
     proc = subprocess.run([sys.executable, *args], cwd=tree, capture_output=True, text=True,
-                          timeout=TIMEOUT_S)
+                          timeout=TIMEOUT_S, env={**os.environ, **(env or {})})
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(args)} in {tree} failed ({proc.returncode}):\n"
                            f"{proc.stderr[-3000:]}")
@@ -154,7 +176,7 @@ def main(argv=None) -> list[dict]:
     recs = []
     for i, label in enumerate((labels[0], labels[1], labels[1], labels[0])):
         for run in runs:
-            rec = run_one(trees[label], RUNS[run], args.frames)
+            rec = run_one(trees[label], RUNS[run], args.frames, ENV.get(run))
             rec.update(ab_tree=label, ab_pass=i, ab_run=run)
             recs.append(rec)
             print(json.dumps({k: rec.get(k) for k in ("ab_tree", "ab_pass", "ab_run",
