@@ -1,0 +1,155 @@
+// The occlusion queries of an extended-lighting frame: one launch writes
+// every operand that the frame's occlusion kernel (K2, or K5 through
+// queries.cuh) and its neighbour lookups (K3) read.
+//
+// Replaces: the XLA geometry of cellularautomatons3d_tpu/render/
+// render_slab.py lighting_passes (:1431; the hit geometry of hit_geometry
+// :1661, the soft-shadow jitter of soft_shadow_jitter :1221, the GI slots'
+// geometry), which JAX fuses under jit.  The port's torch twin,
+// render_slab.py lighting_queries_stacked (_hit_geometry, lighting_queries,
+// stack_occlusion_queries), runs it as ~200 eager launches and a cat.
+//
+// One thread a pixel.  From the primary hit's id and t (K1's depth or K4's
+// t) and the camera it forms the ray, the hit point q, the cell and its
+// centre (shading.cuh hit_geometry), then writes, query by query, K2's
+// active masks [nq, H, W] on every pixel and its stacked operands [nq, 3,
+// H, W] (start, target, excluded cell) on the active lanes only: K2, K5
+// and K3 read a lane's operands only where its mask is set, so the other
+// lanes are left as the caller allocated them (torch.empty).  A miss
+// writes its nq zero masks and nothing else.
+//   * n_soft direct-shadow queries from q, excluding the hit cell, active
+//     on hits: toward the light (jitter mode 0, the hard shadow), toward
+//     jittered sample k = the query's index (mode 1), or toward the one
+//     rotating sample jitter_k of the temporal mode (mode 2);
+//   * n_slots GI slots (4, or the temporal mode's one slot gi_slot): from
+//     the slot's entry point n_point toward the light, excluding the clamped
+//     neighbour cell n_cl, active where the entry exists (ok_geo).
+// K3 reads the slots' cells and masks in place, as [3, H, W] slices of the
+// excluded cells and the masks.  A temporal index the caller holds on the
+// card (sample_k, sample_slot: int64 scalars) is read here, never on the
+// host.  Every float expression is the twin's, in its order.
+// Bound: bytes.  It reads 8 B a pixel and writes 1 B a query (the mask) and
+// 36 B an active lane: 16 B a pixel for full quality's 8 queries plus 36 B
+// on each active lane, whose count is the frame's (about 6 % of a 1080p
+// frame's pixels hit at 256^3, gen-80).  The arithmetic, on hit pixels
+// only, is ~100-250 flops a query and 3 double-precision sines a jittered
+// sample.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "shading.cuh"
+
+namespace {
+
+using namespace ca3d;
+
+constexpr int kThreads = 256;
+constexpr int kMaxQueries = 65535;  // K2's limit (gridDim.z)
+
+struct QueryArgs {
+  Cam cam;
+  LightConsts k;
+  int n, width, height;
+  int n_soft, jitter_mode, jitter_k, n_slots, gi_slot;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    lighting_queries_kernel(const QueryArgs a, const int* __restrict__ idx,
+                            const float* __restrict__ t,
+                            const int64_t* __restrict__ sample_k,
+                            const int64_t* __restrict__ sample_slot,
+                            float* __restrict__ start, float* __restrict__ target,
+                            int* __restrict__ excl, uint8_t* __restrict__ active) {
+  const int npix = a.width * a.height;
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= npix) return;
+  const int px = pix % a.width, py = pix / a.width;
+  const float* P = a.cam.p;
+  const Hit h = hit_geometry(P, a.k, a.n, px, py, idx[pix], t[pix]);
+  const V3 light{P[P_LIGHT], P[P_LIGHT + 1], P[P_LIGHT + 2]};
+  const int nq = a.n_soft + a.n_slots;
+  if (!h.found) {
+    for (int q = 0; q < nq; ++q) active[(size_t)q * npix + pix] = 0;
+    return;
+  }
+  auto put = [&](int q, V3 s, V3 g, int ex, int ey, int ez, bool on) {
+    active[(size_t)q * npix + pix] = on;
+    if (!on) return;
+    const size_t b = (size_t)3 * q * npix + pix;
+    start[b] = s.x;
+    start[b + npix] = s.y;
+    start[b + 2 * (size_t)npix] = s.z;
+    target[b] = g.x;
+    target[b + npix] = g.y;
+    target[b + 2 * (size_t)npix] = g.z;
+    excl[b] = ex;
+    excl[b + npix] = ey;
+    excl[b + 2 * (size_t)npix] = ez;
+  };
+  const int jk = sample_k != nullptr ? (int)*sample_k : a.jitter_k;
+  for (int s = 0; s < a.n_soft; ++s) {
+    const V3 g = a.jitter_mode == 0 ? light
+                                    : jitter_target(P, a.k, h.ux, h.uy,
+                                                    a.jitter_mode == 1 ? s : jk);
+    put(s, h.q, g, h.cx, h.cy, h.cz, true);
+  }
+  if (a.n_slots == 0) return;
+  const int face = face_index(cube_face_normal(h.q, h.origin));
+  const int gs = sample_slot != nullptr ? (int)*sample_slot : a.gi_slot;
+  for (int i = 0; i < a.n_slots; ++i) {
+    const Slot sl = slot_geometry(a.k, h, face, a.n_slots == 4 ? i : gs);
+    put(a.n_soft + i, sl.point, light, sl.nx, sl.ny, sl.nz, sl.ok);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// cam: host float[40]; consts: host float[24] (shading.cuh LightConsts);
+// idx: int32[H, W] primary hit ids (-1 = miss); t: float[H, W] their t (a
+// miss's value enters q only).  n_soft direct-shadow queries of jitter_mode
+// 0 (hard), 1 (sample = query index) or 2 (sample jitter_k, or *sample_k
+// when given), then n_slots (0, 1 or 4) GI slots (slot i of 4, or gi_slot,
+// or *sample_slot when given).  Outputs, nq = n_soft + n_slots: active
+// uint8[nq, H, W], every element written; start and target float[nq, 3, H,
+// W] and excl int32[nq, 3, H, W], written on the active lanes only.
+// Returns the launch's cudaError_t.
+int ca3d_lighting_queries(int device, const float* cam, const float* consts, int n,
+                          int width, int height, int n_soft, int jitter_mode,
+                          int jitter_k, int n_slots, int gi_slot, const void* sample_k,
+                          const void* sample_slot, const void* idx, const void* t,
+                          void* start, void* target, void* excl, void* active,
+                          void* stream) {
+  const int nq = n_soft + n_slots;
+  if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 || n_soft < 0 ||
+      (n_slots != 0 && n_slots != 1 && n_slots != 4) || nq < 1 || nq > kMaxQueries ||
+      jitter_mode < 0 || jitter_mode > 2 || (jitter_mode == 2 && n_soft != 1) ||
+      gi_slot < 0 || gi_slot > 3 || (long long)width * height > INT32_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  QueryArgs a;
+  for (int i = 0; i < P_LEN; ++i) a.cam.p[i] = cam[i];
+  a.k = *reinterpret_cast<const LightConsts*>(consts);
+  a.n = n;
+  a.width = width;
+  a.height = height;
+  a.n_soft = n_soft;
+  a.jitter_mode = jitter_mode;
+  a.jitter_k = jitter_k;
+  a.n_slots = n_slots;
+  a.gi_slot = gi_slot;
+  const int npix = width * height;
+  lighting_queries_kernel<<<(npix + kThreads - 1) / kThreads, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int*>(idx), static_cast<const float*>(t),
+      static_cast<const int64_t*>(sample_k), static_cast<const int64_t*>(sample_slot),
+      static_cast<float*>(start), static_cast<float*>(target), static_cast<int*>(excl),
+      static_cast<uint8_t*>(active));
+  return cudaGetLastError();
+}
+
+}  // extern "C"

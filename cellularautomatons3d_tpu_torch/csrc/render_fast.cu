@@ -66,24 +66,15 @@
 #include <cuda_runtime.h>
 
 #include "prepass.cuh"
+#include "shading.cuh"
 #include "sweep.cuh"
 
 namespace {
 
 using namespace ca3d;
 
-// Camera/params vector layout: render_fast.py P_* constants (the ray's
-// are in sweep.cuh).
-constexpr int P_LIGHT = 14;
-constexpr int P_LMAG = 17;
-constexpr int P_ROUGH = 19;
-constexpr int P_REFL = 20;
-constexpr int P_MATC = 23;
-constexpr int P_EMIS = 27;
-constexpr int P_EMISS = 30;
-constexpr int P_ALPHA = 33;
-constexpr int P_GAMMA = 34;
-constexpr int P_OVERLAY = 35;
+// Camera/params vector layout: render_fast.py P_* constants (in sweep.cuh
+// and shading.cuh).
 
 constexpr int kBlockX = 16;  // two 8x8 prepass patches
 constexpr int kBlockY = 8;
@@ -174,10 +165,6 @@ __device__ void shade(const float* P, float qx, float qy, float qz, float cox,
   outr = maxp(0.0f, (alr / kPi + spec * fr) * lm * nol);
   outg = maxp(0.0f, (alg / kPi + spec * fg) * lm * nol);
   outb = maxp(0.0f, (alb / kPi + spec * fb) * lm * nol);
-}
-
-__device__ __forceinline__ float clip01(float x) {
-  return minp(maxp(x, 0.0f), 1.0f);
 }
 
 // Ten resident blocks per SM: at most 48 registers, as the unclipped
@@ -344,23 +331,15 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks)
     const float pr = hist_rgb[3 * pix + 0];
     const float pg = hist_rgb[3 * pix + 1];
     const float pb = hist_rgb[3 * pix + 2];
-    lr = clip01(pr + (r - pr) * alpha);
-    lg = clip01(pg + (g - pg) * alpha);
-    lb = clip01(pb + (b - pb) * alpha);
+    lr = clamp01(pr + (r - pr) * alpha);
+    lg = clamp01(pg + (g - pg) * alpha);
+    lb = clamp01(pb + (b - pb) * alpha);
   }
-  // Light-source cube (wgsl:866-874), drawn over black pixels only.
-  const float lrad = 0.005f;
-  const float ivx = 1.0f / ray.dx, ivy = 1.0f / ray.dy, ivz = 1.0f / ray.dz;
-  const float l1x = (P[P_LIGHT] - lrad - ray.ox) * ivx;
-  const float l2x = (P[P_LIGHT] + lrad - ray.ox) * ivx;
-  const float l1y = (P[P_LIGHT + 1] - lrad - ray.oy) * ivy;
-  const float l2y = (P[P_LIGHT + 1] + lrad - ray.oy) * ivy;
-  const float l1z = (P[P_LIGHT + 2] - lrad - ray.oz) * ivz;
-  const float l2z = (P[P_LIGHT + 2] + lrad - ray.oz) * ivz;
-  const float ltn = maxp(maxp(minp(l1x, l2x), minp(l1y, l2y)), minp(l1z, l2z));
-  const float ltf = minp(minp(maxp(l1x, l2x), maxp(l1y, l2y)), maxp(l1z, l2z));
+  // Light-source cube (wgsl:866-874), drawn over black pixels only
+  // (shading.cuh, shared with the shade kernel's composition).
   const bool black = lr == 0.0f && lg == 0.0f && lb == 0.0f;
-  if (ltn <= ltf && ltf >= 0.0f && black) {
+  if (black && light_cube_hit(P, V3{ray.ox, ray.oy, ray.oz},
+                              V3{ray.dx, ray.dy, ray.dz})) {
     lr = 1.0f;
     lg = 1.0f;
     lb = 1.0f;

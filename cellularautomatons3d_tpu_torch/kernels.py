@@ -7,12 +7,18 @@ one shard of a sharded grid), ``csrc/render_fast.cu``
 ``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box of
 a given mip, alone), ``csrc/coarse_occupancy.cu`` (the 8³ mip every frame
 path rebuilds, with the occupied box K2, K4 and K5 clip to and the plane mip
-of K1's mip1 descent in the same launch) and ``csrc/reproject.cu`` (the
-moving camera's history reprojection); all but the CA step, K3 and the
+of K1's mip1 descent in the same launch), ``csrc/reproject.cu`` (the
+moving camera's history reprojection), ``csrc/lighting_queries.cu`` (an
+extended-lighting frame's occlusion queries: its hit geometry, soft-shadow
+jitter and GI slot geometry as K2's operands) and
+``csrc/lighting_shade.cu`` (the frame's shading: the occlusion quotient,
+the one-bounce double BRDF, the sliced frame's direct light and the fused
+loop's composition); all but the CA step, K3 and the
 reprojection share the traversal and float helpers in ``csrc/sweep.cuh``
 (the occupancy rebuild its ``OccBox`` and ``make_box``), K6 and K1 the
 patch mask of ``csrc/prepass.cuh``, the rebuild above 256³ the block row of
-``csrc/block_mip.cuh``,
+``csrc/block_mip.cuh``, the two lighting kernels and K1's composition the
+geometry and BRDF of ``csrc/shading.cuh``,
 and K5 and K3 read their per-query operands through the tables of
 ``csrc/queries.cuh``.
 At first use each source is compiled by its own ``nvcc``, all started
@@ -60,9 +66,12 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
     PACKAGE_DIR / "csrc" / "coarse_occupancy.cu",
     PACKAGE_DIR / "csrc" / "reproject.cu",
+    PACKAGE_DIR / "csrc" / "lighting_queries.cu",
+    PACKAGE_DIR / "csrc" / "lighting_shade.cu",
 )
 HEADERS = tuple(PACKAGE_DIR / "csrc" / h
-                for h in ("sweep.cuh", "queries.cuh", "prepass.cuh", "block_mip.cuh"))
+                for h in ("sweep.cuh", "queries.cuh", "prepass.cuh", "block_mip.cuh",
+                          "shading.cuh"))
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "cellularautomatons3d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -181,6 +190,15 @@ def library() -> ctypes.CDLL:
         lib.ca3d_coarse_occupancy_scratch_words.restype = _I
         lib.ca3d_reproject.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.ca3d_reproject.restype = _I
+        lib.ca3d_lighting_queries.argtypes = [
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.ca3d_lighting_queries.restype = _I
+        lib.ca3d_lighting_shade.argtypes = [
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.ca3d_lighting_shade.restype = _I
         _lib = lib
     return _lib
 

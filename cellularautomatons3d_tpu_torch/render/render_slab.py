@@ -22,7 +22,7 @@ images are ``[H, W]`` / ``[H, W, 3]`` in image order.  Exact-t ties
 between distinct cells, where the reference keeps the first brick
 processed, keep the first cell in plane order here.
 
-Four kernels, each with a plain torch version of the same contract that
+Six kernels, each with a plain torch version of the same contract that
 runs for CPU tensors and is the kernel's reference:
 
 * K4, primary hits (:func:`primary_sweep` / :func:`primary_sweep_cuda`,
@@ -36,7 +36,22 @@ runs for CPU tensors and is the kernel's reference:
   backend of ``shadow_occlusion_batch`` (``CA3D_OCC_SWEEP=0``), up to
   ``CA3D_OCC_NQ`` queries a launch; its flags equal K2's;
 * K3, cell state (:func:`cell_state` / :func:`cell_state_cuda`,
-  ``csrc/cell_state.cu``).
+  ``csrc/cell_state.cu``);
+* the queries kernel (:func:`lighting_queries_stacked` /
+  :func:`lighting_queries_cuda`, ``csrc/lighting_queries.cu``): from a
+  frame's primary hits, its hit geometry, soft-shadow jitter and GI slot
+  geometry as K2's stacked operands, whose slot rows K3 reads in place;
+* the shade kernel (:func:`lighting_shade` / :func:`lighting_shade_cuda`,
+  ``csrc/lighting_shade.cu``): the occlusion quotient, the one-bounce
+  double BRDF, the sliced frame's direct light and the fused loop's
+  composition.
+
+A one-bounce (or temporal) lighting frame is :func:`lighting_passes`:
+queries, K2 (or K5), K3, shade, four launches on the card, where JAX fuses
+the XLA geometry and shading around its kernels under ``jit``.  The
+multi-bounce frames take their direct shadow from the queries kernel and K2
+(:func:`direct_occlusion`); their GI recursion (:func:`indirect_bounce`)
+stays in torch around K2 and K3.
 
 K4, K2 and K5 are clipped on the card to the box of occupied blocks,
 ``prepped.box`` (plain twin ``ops.occupancy.occupied_box``), which the
@@ -81,14 +96,17 @@ from .intersect import (
 )
 from .render_fast import (
     OCCLUDED,
+    P_ALPHA,
     P_CELLMUL,
     P_EMIS,
     P_EMISS,
+    P_GAMMA,
     P_LIGHT,
     P_LMAG,
     P_LRAD,
     P_MATC,
     P_O,
+    P_OVERLAY,
     P_REFL,
     P_ROUGH,
     P_ROW0,
@@ -128,6 +146,14 @@ __all__ = [
     "direct_occlusion",
     "indirect_bounce",
     "lighting_queries",
+    "Lighting",
+    "MAX_LIGHTING_QUERIES",
+    "lighting_queries_stacked",
+    "lighting_queries_cuda",
+    "occlusion_flags",
+    "slot_states",
+    "lighting_shade",
+    "lighting_shade_cuda",
     "lighting_passes",
 ]
 
@@ -259,12 +285,9 @@ def _hit_geometry(cam, idx_img, t_img, n, width, height):
     return q, origin, coords, idx_img >= 0, d
 
 
-def hit_geometry(cam, idx_img, t_img, *, grid_size, width, height):
-    """(q, origin, coords, found, tf_miss) from a traced hit image: the
-    surface point, its cell's centre and integer coordinates (a miss, id -1,
-    decodes to (n-1, n-1, -1)), the hit mask, and the volume exit depth of
-    the rays that cross the volume (0 elsewhere)."""
-    q, origin, coords, found, d = _hit_geometry(cam, idx_img, t_img, grid_size, width, height)
+def _miss_depth(cam, d):
+    """The volume exit depth [H, W] of the rays along ``d`` [H, W, 3] that
+    cross the volume, 0 elsewhere (hit_geometry's ``tf_miss``)."""
     o = np.asarray(cam[P_O : P_O + 3], np.float32)
     t1 = torch.stack([torch.full_like(d[..., i], float(np.float32(-0.5) - o[i])) / d[..., i]
                       for i in range(3)], dim=-1)
@@ -273,7 +296,16 @@ def hit_geometry(cam, idx_img, t_img, *, grid_size, width, height):
     tf = torch.amin(torch.maximum(t1, t2), dim=-1)
     tn = torch.amax(torch.minimum(t1, t2), dim=-1)
     crossed = (tn <= tf) & (tf >= 0.0)
-    return q, origin, coords, found, torch.where(crossed, tf, 0.0)
+    return torch.where(crossed, tf, 0.0)
+
+
+def hit_geometry(cam, idx_img, t_img, *, grid_size, width, height):
+    """(q, origin, coords, found, tf_miss) from a traced hit image: the
+    surface point, its cell's centre and integer coordinates (a miss, id -1,
+    decodes to (n-1, n-1, -1)), the hit mask, and the volume exit depth of
+    the rays that cross the volume (0 elsewhere)."""
+    q, origin, coords, found, d = _hit_geometry(cam, idx_img, t_img, grid_size, width, height)
+    return q, origin, coords, found, _miss_depth(cam, d)
 
 
 def _pixel_uv(cam, width, height, device):
@@ -357,7 +389,7 @@ def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
 
 
 def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_size,
-                      cell_half, column_skip=True):
+                      cell_half, column_skip=True, out=None):
     """K2 on the card (``csrc/shadow_sweep.cu``): same contract as
     :func:`shadow_sweep`; every tensor, ``box`` (the mip's occupied box,
     ``Prepped.box``) too, must be a contiguous CUDA tensor (``coarse``
@@ -374,7 +406,7 @@ def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_siz
     kernels.require(target, "target", torch.float32, (nq, 3, h, w))
     kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
     kernels.require(active, "active", torch.bool, (nq, h, w))
-    out = torch.empty((nq, h, w), dtype=torch.int32, device=start.device)
+    out = _flags_out(out, nq, h, w, start.device)
     err = kernels.library().ca3d_shadow_sweep(
         start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
@@ -389,6 +421,15 @@ def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_siz
 
 shadow_sweep_cuda.launches = 0
 shadow_sweep_cuda.noskip_launches = 0
+
+
+def _flags_out(out, nq, h, w, device):
+    """The flags tensor of an occlusion launch: ``out`` checked, or a new
+    one."""
+    if out is None:
+        return torch.empty((nq, h, w), dtype=torch.int32, device=device)
+    kernels.require(out, "out", torch.int32, (nq, h, w))
+    return out
 
 
 # -------------------------------------------- K5: multi-query occlusion ---
@@ -451,7 +492,7 @@ _CELL_TYPES = (torch.int32, torch.int64)
 
 
 def shadow_sweep_multi_cuda(vol, coarse, box, start, target, excl, active, *,
-                            grid_size, cell_half):
+                            grid_size, cell_half, out=None):
     """K5 on the card (``csrc/shadow_multi.cu``): :func:`shadow_sweep_multi`'s
     flags int32 [nq, H, W] of 1 to 8 queries given where the lighting passes
     leave them: ``start``, ``target``, ``excl`` and ``active`` are
@@ -461,7 +502,8 @@ def shadow_sweep_multi_cuda(vol, coarse, box, start, target, excl, active, *,
     :func:`pack_exclusion` gives −1), active bool [H, W]; all CUDA tensors
     (``vol`` and ``active`` contiguous, ``coarse`` 16-byte aligned), the
     vector operands with rows of W pixels; ``box`` is the mip's occupied box
-    (``Prepped.box``), a contiguous CUDA int32 [8].  One launch."""
+    (``Prepped.box``), a contiguous CUDA int32 [8].  One launch.  ``out``: as
+    :func:`shadow_sweep_cuda`'s."""
     n = grid_size
     nq = len(start)
     if not 1 <= nq <= MAX_MULTI_QUERIES:
@@ -479,7 +521,7 @@ def shadow_sweep_multi_cuda(vol, coarse, box, start, target, excl, active, *,
                                shared=True)
         rows += _pixel_operand(excl[i], f"excl[{i}]", h, w, _CELL_TYPES)
         rows += [excl[i].dtype == torch.int64, _mask_pointer(active[i], f"active[{i}]", h, w)]
-    out = torch.empty((nq, h, w), dtype=torch.int32, device=vol.device)
+    out = _flags_out(out, nq, h, w, vol.device)
     err = kernels.library().ca3d_shadow_multi(
         vol.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, _query_table(rows), out.data_ptr(),
@@ -511,10 +553,10 @@ def stack_occlusion_queries(queries, width, height):
     )
 
 
-def _occlusion_k2(prepped, ops, kw):
+def _occlusion_k2(prepped, ops, kw, out=None):
     if ops[0].device.type == "cpu":
         return shadow_sweep(prepped.vol, *ops, **kw)
-    return shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, **kw)
+    return shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, out=out, **kw)
 
 
 def _occlusion_k5(prepped, queries, kw, width, height):
@@ -526,6 +568,15 @@ def _occlusion_k5(prepped, queries, kw, width, height):
         return shadow_sweep_multi(prepped.vol, start, target, exid, active, **kw)
     return shadow_sweep_multi_cuda(prepped.vol, prepped.coarse, prepped.box,
                                    *zip(*queries), **kw)
+
+
+def _occlusion_backend():
+    """The occlusion backend of the environment, read on every call: (every
+    query to K2, K5's chunk size, a chunk of one to K2) from
+    ``CA3D_OCC_SWEEP``, ``CA3D_OCC_NQ`` and ``CA3D_OCC_NQ1_SWEEP``."""
+    return (os.environ.get("CA3D_OCC_SWEEP", "1") == "1",
+            int(os.environ.get("CA3D_OCC_NQ", "4")),
+            os.environ.get("CA3D_OCC_NQ1_SWEEP", "1") == "1")
 
 
 def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
@@ -543,11 +594,10 @@ def shadow_occlusion_batch(cam, queries, prepped: Prepped, *, grid_size, width,
     it goes to K2.  Both give the same flags.  K2 takes its queries stacked,
     K5 as they are."""
     kw = dict(grid_size=grid_size, cell_half=_cell_half(cam, grid_size))
-    if os.environ.get("CA3D_OCC_SWEEP", "1") == "1":
+    all_k2, nq_max, nq1_sweep = _occlusion_backend()
+    if all_k2:
         ops = stack_occlusion_queries(queries, width, height)
         return list(_occlusion_k2(prepped, ops, kw) == 1)
-    nq_max = int(os.environ.get("CA3D_OCC_NQ", "4"))
-    nq1_sweep = os.environ.get("CA3D_OCC_NQ1_SWEEP", "1") == "1"
     out = []
     for i in range(0, len(queries), nq_max):
         chunk = queries[i : i + nq_max]
@@ -661,17 +711,43 @@ def _slot_geometry(cam, n, point, pcoords, off, active):
     return n_cl, n_origin, n_point, ok
 
 
-def direct_occlusion(cam, q, coords, found, prepped, *, grid_size, width,
-                     height, soft_k=1, jitter_k=None):
-    """Direct-light occlusion quotient [H, W]: hard (one ray per pixel) or
-    soft (``soft_k`` jittered area-light samples averaged,
-    renderer.py:212-224), all samples in one launch.  ``jitter_k``: the
-    temporally amortized mode's sample index in [0, soft_k), one jittered
-    sample per frame.  The direct-shadow half of :func:`lighting_passes`."""
-    return lighting_passes(
-        cam, q, None, coords, found, prepped, grid_size=grid_size,
-        width=width, height=height, soft_k=soft_k, jitter_k=jitter_k,
-    )[0]
+def _gi_slots(cam, n, q, origin, coords, found, gi_slot=None):
+    """The GI slots' geometry of the hit (:func:`_slot_geometry` of the 4
+    slots of the hit's face, or of the temporal mode's one ``gi_slot``)."""
+    layers = _layers(q.device)
+    face = _face_index(cube_face_normal(q, origin))
+    if gi_slot is None:
+        offs = [layers[:, i, :][face] for i in range(4)]
+    else:
+        offs = [layers[:, gi_slot, :][face]]
+    return [_slot_geometry(cam, n, q, coords, off, found) for off in offs]
+
+
+def _soft_occlusion(occs, div):
+    """The direct-light occlusion quotient [H, W]: the queries' quotients
+    summed from 0 in order, then divided by ``div``."""
+    occ_sum = torch.zeros(occs[0].shape, dtype=torch.float32, device=occs[0].device)
+    for occluded in occs:
+        occ_sum = occ_sum + _occlusion_quotient(occluded)
+    return occ_sum / torch.full_like(occ_sum, float(div))
+
+
+def direct_occlusion(cam, idx, t, prepped, *, grid_size, width, height, soft_k=1,
+                     jitter_k=None):
+    """Direct-light occlusion quotient [H, W] of a frame's primary hits
+    (``idx``, ``t`` as :func:`lighting_queries_stacked` takes them): hard
+    (one ray per pixel) or soft (``soft_k`` jittered area-light samples
+    averaged, renderer.py:212-224), all samples in one launch.
+    ``jitter_k``: the temporally amortized mode's sample index in [0,
+    soft_k), one jittered sample per frame.  The direct-shadow half of the
+    lighting passes for the multi-bounce frames: the queries kernel, K2
+    (:func:`occlusion_flags`), then the quotient in torch; for CPU tensors
+    the queries twin."""
+    light = Lighting(soft_k=soft_k, jitter_k=jitter_k)
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    flags = occlusion_flags(cam, _queries(cam, idx, t, light, **kw), prepped,
+                            grid_size=grid_size)
+    return _soft_occlusion(list(flags == 1), light.occ_div)
 
 
 def indirect_bounce(vol, cam, q, origin, coords, found, prepped, *, grid_size,
@@ -738,7 +814,7 @@ def indirect_bounce(vol, cam, q, origin, coords, found, prepped, *, grid_size,
 
 def lighting_queries(cam, q, origin, coords, found, *, grid_size, width,
                      height, soft_k=1, jitter_k=None, gi=False, gi_slot=None):
-    """The occlusion queries of :func:`lighting_passes`: (queries, slots,
+    """The occlusion queries of the lighting passes: (queries, slots,
     n_soft) -- the ``n_soft`` direct-shadow queries (soft-shadow samples,
     or the hard shadow) followed by one per GI slot, and each slot's
     (n_cl, n_origin, n_point, ok_geo)."""
@@ -764,78 +840,413 @@ def lighting_queries(cam, q, origin, coords, found, *, grid_size, width,
                 queries.append((q, target, coords, found))
             n_soft = max(1, soft_k)
 
-    slots = []
-    if gi:
-        layers = _layers(dev)
-        face = _face_index(cube_face_normal(q, origin))
-        if gi_slot is None:
-            offs = [layers[:, i, :][face] for i in range(4)]
-        else:
-            offs = [layers[:, gi_slot, :][face]]
-        for off in offs:
-            slot = _slot_geometry(cam, n, q, coords, off, found)
-            slots.append(slot)
-            queries.append((slot[2], light, slot[0], slot[3]))
+    slots = _gi_slots(cam, n, q, origin, coords, found, gi_slot) if gi else []
+    for n_cl, _, n_point, ok in slots:
+        queries.append((n_point, light, n_cl, ok))
     return queries, slots, n_soft
 
 
-def lighting_passes(cam, q, origin, coords, found, prepped, *, grid_size,
-                    width, height, soft_k=1, jitter_k=None, gi=False,
-                    gi_slot=None):
-    """Soft-shadow occlusion and one-bounce GI with every occlusion query of
-    the frame in one K2 launch and the GI slots' states in one K3 launch.
+# ------------------------------------ the lighting passes' two kernels ---
 
-    The GI slots' occlusion rays depend only on the hit geometry, not on the
-    neighbour's state, which only gates whether a slot contributes, so the
-    ``soft_k`` jittered samples and the 4 slots (1 with ``gi_slot``) share
-    the launch.  Covers ``bounces == 1`` and the temporally amortized mode;
-    deeper recursion is :func:`indirect_bounce`.  ``soft_k=None``: no
-    direct-shadow queries.  Returns (occl [H, W] or None, gi_rgb [H, W, 3]
-    or None)."""
+# Queries a frame's lighting passes may hold: K2's limit (its grid's z).
+MAX_LIGHTING_QUERIES = 65535
+
+
+class Lighting(NamedTuple):
+    """What a frame's lighting passes evaluate.
+
+    ``soft_k``: the direct-shadow queries -- None for none, 1 (or less) for
+    the hard shadow toward the light, k > 1 for k jittered area-light
+    samples averaged; ``jitter_k``: the temporally amortized mode's one
+    rotating sample in [0, soft_k) (an int or an int tensor, read on the
+    card by the kernels), whose quotient is not divided.  ``gi``: one-bounce
+    GI over the hit face's 4 neighbour slots; ``gi_slot``: the temporal
+    mode's one slot (int or int tensor), scaled ×4."""
+
+    soft_k: int | None = None
+    jitter_k: object = None
+    gi: bool = False
+    gi_slot: object = None
+
+    @property
+    def n_soft(self) -> int:
+        if self.soft_k is None:
+            return 0
+        return 1 if self.jitter_k is not None else max(1, self.soft_k)
+
+    @property
+    def n_slots(self) -> int:
+        if not self.gi:
+            return 0
+        return 1 if self.gi_slot is not None else 4
+
+    @property
+    def nq(self) -> int:
+        return self.n_soft + self.n_slots
+
+    @property
+    def jitter_mode(self) -> int:
+        """0: the hard shadow; 1: sample k is query k; 2: the one sample
+        ``jitter_k``."""
+        if self.jitter_k is not None:
+            return 2
+        return 1 if self.soft_k is not None and self.soft_k > 1 else 0
+
+    @property
+    def occ_div(self) -> int:
+        return 1 if self.jitter_k is not None else max(1, self.soft_k or 1)
+
+
+def _light_consts(cam, n: int, light: Lighting) -> np.ndarray:
+    """The host-rounded float32 constants of the lighting kernels
+    (``csrc/shading.cuh`` ``LightConsts``), each rounded as the torch twins
+    round it."""
+    f = np.float32
+    cell = f(FULL_CUBE_SIZE / n)
+    t = f(cam[P_TIME])
+    r = f(cam[P_ROUGH])
+    a2 = r * r
+    nn = r + f(1.0)
+    kd = (nn * nn) / f(8.0)
+    refl = np.asarray(cam[P_REFL : P_REFL + 3], f)
+    consts = np.concatenate([
+        [cell, cell * f(0.5), f(_cell_half(cam, n)), f(0.07) * (t - np.floor(t)),
+         f(2.0) * f(cam[P_LRAD]), a2, a2 - f(1.0), kd, f(1.0) - kd],
+        refl, f(1.0) - refl, cam[P_MATC : P_MATC + 3], cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS],
+        [f(n), f(light.occ_div), f(1.0) / f(cam[P_GAMMA])],
+    ]).astype(f)
+    assert consts.shape == (24,)
+    return consts
+
+
+def _sample_operand(v, name, device):
+    """(device int64 scalar or None, host int) of a temporal index: an int
+    goes to the kernel as a value, a tensor as its address (read there, no
+    host sync)."""
+    if v is None or isinstance(v, (int, np.integer)):
+        return None, 0 if v is None else int(v)
+    if not isinstance(v, torch.Tensor) or v.numel() != 1 or v.dtype.is_floating_point:
+        raise ValueError(f"{name} must be an int or a one-element integer tensor, got {v!r}")
+    if v.device != device:
+        raise ValueError(f"{name} must be on {device}, got {v.device}")
+    return v.reshape(()).to(torch.int64), 0
+
+
+def _check_hits(idx, t, width, height):
+    kernels.require(idx, "idx", torch.int32, (height, width))
+    kernels.require(t, "t", torch.float32, (height, width))
+
+
+def lighting_queries_stacked(cam, idx, t, light: Lighting, *, grid_size, width, height):
+    """Plain twin of the queries kernel: the occlusion operands of a
+    frame's lighting passes, stacked for K2 -- (start, target, excl,
+    active), [nq, 3, H, W] float32, float32, int32 and [nq, H, W] bool --
+    from its primary hits (``idx`` int32 [H, W], -1 = miss, and ``t``
+    float32 [H, W], K1's depth or K4's t): :func:`_hit_geometry`,
+    :func:`lighting_queries` and :func:`stack_occlusion_queries`.  The GI
+    slots' rows double as K3's lookups (cells and masks)."""
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    q, origin, coords, found, _ = _hit_geometry(cam, idx, t, grid_size, width, height)
+    queries, _, _ = lighting_queries(
+        cam, q, origin, coords, found, soft_k=light.soft_k, jitter_k=light.jitter_k,
+        gi=light.gi, gi_slot=light.gi_slot, **kw)
+    return stack_occlusion_queries(queries, width, height)
+
+
+def lighting_queries_cuda(cam, idx, t, light: Lighting, *, grid_size, width, height):
+    """The queries kernel on the card (``csrc/lighting_queries.cu``): the
+    operands of :func:`lighting_queries_stacked` in one launch, the masks
+    bit for bit and the start, target and excluded cell bit for bit on the
+    active lanes, the only ones K2, K5 and K3 read (elsewhere they are left
+    unwritten).  ``idx`` and ``t`` must be contiguous CUDA tensors; a
+    temporal index given as a tensor is read on the card."""
+    cam = _check_sliced(grid_size, width, height, cam)
+    n, nq = grid_size, light.nq
+    _check_hits(idx, t, width, height)
+    if not 1 <= nq <= MAX_LIGHTING_QUERIES:
+        raise ValueError(f"the queries kernel takes 1 to {MAX_LIGHTING_QUERIES} queries, "
+                         f"got {nq}")
+    dev = idx.device
+    sample_k, jk = _sample_operand(light.jitter_k, "jitter_k", dev)
+    sample_slot, gs = _sample_operand(light.gi_slot, "gi_slot", dev)
+    if light.n_slots == 1 and sample_slot is None and not 0 <= gs < 4:
+        raise ValueError(f"gi_slot must be in [0, 4), got {gs}")
+    start = torch.empty((nq, 3, height, width), dtype=torch.float32, device=dev)
+    target = torch.empty_like(start)
+    excl = torch.empty((nq, 3, height, width), dtype=torch.int32, device=dev)
+    active = torch.empty((nq, height, width), dtype=torch.bool, device=dev)
+    consts = _light_consts(cam, n, light)
+    err = kernels.library().ca3d_lighting_queries(
+        dev.index or 0, cam.ctypes.data, consts.ctypes.data, n, width, height, light.n_soft,
+        light.jitter_mode, jk, light.n_slots, gs,
+        None if sample_k is None else sample_k.data_ptr(),
+        None if sample_slot is None else sample_slot.data_ptr(),
+        idx.data_ptr(), t.data_ptr(), start.data_ptr(), target.data_ptr(), excl.data_ptr(),
+        active.data_ptr(), kernels.stream_of(idx))
+    kernels.check(err, "lighting_queries")
+    lighting_queries_cuda.launches += 1
+    return start, target, excl, active
+
+
+lighting_queries_cuda.launches = 0
+
+
+def _queries(cam, idx, t, light: Lighting, **kw):
+    """The queries kernel, or for CPU tensors its twin."""
+    cpu = idx.device.type == "cpu"
+    return (lighting_queries_stacked if cpu else lighting_queries_cuda)(cam, idx, t, light, **kw)
+
+
+def occlusion_flags(cam, ops, prepped: Prepped, *, grid_size):
+    """The occluded flags int32 [nq, H, W] of stacked queries ``ops`` (K2's
+    operands), with :func:`shadow_occlusion_batch`'s backends: K2 on the
+    whole batch, or with ``CA3D_OCC_SWEEP`` other than ``1`` chunks of
+    ``CA3D_OCC_NQ`` queries, each to K5 on the batch's [3, H, W] rows in
+    place (or K2, for a chunk of one under ``CA3D_OCC_NQ1_SWEEP``), written
+    into one flags tensor."""
     n = grid_size
+    kw = dict(grid_size=n, cell_half=_cell_half(cam, n))
+    all_k2, nq_max, nq1_sweep = _occlusion_backend()
+    if all_k2:
+        return _occlusion_k2(prepped, ops, kw)
+    nq, _, h, w = ops[0].shape
+    cpu = ops[0].device.type == "cpu"
+    out = None if cpu else torch.empty((nq, h, w), dtype=torch.int32, device=ops[0].device)
+    parts = []
+    for i in range(0, nq, nq_max):
+        j = min(i + nq_max, nq)
+        chunk = tuple(op[i:j] for op in ops)
+        if j - i == 1 and nq1_sweep:
+            parts.append(_occlusion_k2(prepped, chunk, kw, out=None if cpu else out[i:j]))
+        elif cpu:
+            parts.append(shadow_sweep_multi(prepped.vol, chunk[0], chunk[1],
+                                            pack_exclusion(chunk[2], n), chunk[3], **kw))
+        else:
+            shadow_sweep_multi_cuda(
+                prepped.vol, prepped.coarse, prepped.box,
+                *([row.movedim(0, -1) for row in op] for op in chunk[:3]), list(chunk[3]),
+                out=out[i:j], **kw)
+    return torch.cat(parts) if cpu else out
+
+
+def slot_states(ops, n_soft, prepped: Prepped, *, grid_size):
+    """The GI slots' neighbour states uint8 [n_slots, H, W]: K3 on the
+    slots' rows of the stacked queries (their excluded cells and masks,
+    after the ``n_soft`` direct-shadow rows), read in place on the card."""
+    _, _, excl, active = ops
+    cells, masks = excl[n_soft:], active[n_soft:]
+    if cells.device.type == "cpu":
+        return cell_state(prepped.vol, cells, masks, grid_size=grid_size)
+    return cell_state_cuda(prepped.vol, [c.movedim(0, -1) for c in cells], list(masks),
+                           grid_size=grid_size)
+
+
+def _lighting_tail(cam, geo, idx, t, occl, gi_rgb, *, grid_size, rgb=None, age=None,
+                   total_states=2, history=None):
+    """The frame's light from its occlusion quotient ``occl`` [H, W] and GI
+    ``gi_rgb`` [H, W, 3] (either None): :func:`lighting_shade`'s last steps,
+    also the multi-bounce frames'.  ``geo``: :func:`_hit_geometry`'s output
+    of the hits (``idx``, ``t``)."""
+    q, origin, coords, found, d = geo
     dev = q.device
-    kw = dict(grid_size=n, width=width, height=height)
-    queries, slots, n_soft = lighting_queries(
-        cam, q, origin, coords, found, soft_k=soft_k, jitter_k=jitter_k,
-        gi=gi, gi_slot=gi_slot, **kw,
-    )
-    if not queries:
-        return None, None
-    occs = shadow_occlusion_batch(cam, queries, prepped, **kw)
-
-    occl = None
-    if n_soft:
-        occ_sum = torch.zeros_like(q[..., 0])
-        for occluded in occs[:n_soft]:
-            occ_sum = occ_sum + _occlusion_quotient(occluded)
-        div = 1 if jitter_k is not None else max(1, soft_k)
-        occl = occ_sum / torch.full_like(occ_sum, float(div))
-
-    gi_rgb = None
-    if gi:
+    if rgb is None:
+        # raytrace_sliced: the direct light, faded and shadowed, plus the GI.
         light = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
+        o = device_vec(cam[P_O : P_O + 3], dev)
+        color = _shader(cam, grid_size)(q, origin, coords, o,
+                                        torch.full_like(q, float(cam[P_LMAG])), light)
+        out = torch.clamp(color, min=0.0)
+        if age is not None:
+            fade = _age_fade(age, total_states)
+            occl = fade if occl is None else occl * fade
+        if occl is not None:
+            out = out * occl[..., None]
+        if gi_rgb is not None:
+            out = out + gi_rgb
+        out = torch.where(found[..., None], out, 0.0)
+        depth = torch.where(found, t, _miss_depth(cam, d))
+    else:
+        # K1's frame: its unshadowed (age-faded) light times the quotient.
+        out, depth = rgb, t
+        if occl is not None:
+            out = out * occl[..., None]
+        if gi_rgb is not None:
+            out = out + torch.where(found[..., None], gi_rgb, 0.0)
+    emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], dev)
+    out = torch.where(found[..., None], out + emis, out)
+    if history is None:
+        return out if rgb is not None else (out, depth)
+
+    # The fused loop's composition (_ext_frame_blocked): the id-checked EMA
+    # against the f32 history, the light cube, the depth overlay, gamma.
+    prev, prev_idx = history
+    width, height = d.shape[1], d.shape[0]
+    same = (idx == prev_idx) & found
+    mixed = torch.clamp(prev + (out - prev) * float(cam[P_ALPHA]), 0.0, 1.0)
+    out = torch.where(same[..., None], mixed, out)
+    lt_near, lt_far = ray_cube_intersect(
+        device_vec(cam[P_O : P_O + 3], dev), d,
+        device_vec(cam[P_LIGHT : P_LIGHT + 3], dev), float(np.float32(0.005)),
+    )
+    light_hit = (lt_near <= lt_far) & (lt_far >= 0.0)
+    black = (out == 0.0).all(dim=-1)
+    out = torch.where((light_hit & black)[..., None], 1.0, out)
+    new_hist = out
+    ux, _ = _pixel_uv(cam, width, height, dev)
+    overlay = (ux < 0.5) & bool(cam[P_OVERLAY] == 1.0)
+    overlay_rgb = torch.stack([depth, torch.zeros_like(depth), torch.zeros_like(depth)], dim=-1)
+    out = torch.where(overlay[..., None], overlay_rgb, out)
+    pres = torch.pow(out, float(np.float32(1.0) / cam[P_GAMMA]))
+    return pres, new_hist
+
+
+def lighting_shade(cam, idx, t, flags, states, light: Lighting, *, grid_size, width,
+                   height, rgb=None, age=None, total_states=2, history=None):
+    """Plain twin of the shade kernel: a frame's light from its primary
+    hits (``idx``, ``t`` as :func:`lighting_queries_stacked` takes them),
+    its occlusion flags (int32 [nq, H, W], 1 = occluded, the ``n_soft``
+    direct-shadow queries then the GI slots; None without queries) and its
+    slots' neighbour states (uint8 [n_slots, H, W], or None).
+
+    The soft occlusion quotient (the samples' quotients summed, divided by
+    ``soft_k``, or by 1 in the temporal mode) and the one-bounce GI (each
+    slot's reflected light ``quotient · shade(n_point, …) + emissive`` and
+    its bounce ``shade(q, …, reflected, n_point)``, summed where the slot's
+    entry exists and its neighbour is alive, ×4 for the temporal slot), then:
+
+    * with ``rgb`` (K1's unshadowed, age-faded frame [H, W, 3]): ``rgb ·
+      occl`` plus the GI on hits; returns the light [H, W, 3], or with
+      ``history`` = (color f32 [H, W, 3], ids int32 [H, W]) the fused loop's
+      composition (the id-checked EMA, the light cube, the depth overlay of
+      ``t``, gamma): (presentation, new history color);
+    * without (the sliced frame): the direct light ``clamp(shade(q, origin,
+      coords, o, lmag, light), 0)`` times the quotient and the age fade of
+      ``age`` (int32 [H, W], or None), plus the GI, black on misses;
+      returns (light, depth), the depth t on hits and the volume's exit
+      elsewhere.
+
+    The light includes the emissive light on hits (added before the
+    composition)."""
+    n = grid_size
+    geo = _hit_geometry(cam, idx, t, n, width, height)
+    q, origin, coords, found, _ = geo
+    n_soft = light.n_soft
+    occl = _soft_occlusion(list(flags[:n_soft] == 1), light.occ_div) if n_soft else None
+    gi_rgb = None
+    if light.gi:
+        dev = q.device
+        lpos = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
         o = device_vec(cam[P_O : P_O + 3], dev)
         lmag3 = torch.full_like(q, float(cam[P_LMAG]))
         emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], dev)
         shade = _shader(cam, n)
-        slot_states = cell_state_batch(
-            [(n_cl, ok_geo) for n_cl, _, _, ok_geo in slots], prepped, **kw
-        )
         total = torch.zeros_like(q)
+        slots = _gi_slots(cam, n, q, origin, coords, found, light.gi_slot)
         for (n_cl, n_origin, n_point, ok_geo), st, occluded in zip(
-            slots, slot_states, occs[n_soft:]
+            slots, states, flags[n_soft:] == 1
         ):
             ok = ok_geo & (st == 1)
             reflected = _occlusion_quotient(occluded)[..., None] * shade(
-                n_point, n_origin, n_cl, q, lmag3, light
+                n_point, n_origin, n_cl, q, lmag3, lpos
             ) + emis
             bounce = shade(q, origin, coords, o, reflected, n_point)
             total = total + torch.where(ok[..., None], bounce, 0.0)
-        if gi_slot is not None:
+        if light.gi_slot is not None:
             total = total * 4.0  # unbiased 1-of-4 estimator
         gi_rgb = total
+    return _lighting_tail(cam, geo, idx, t, occl, gi_rgb, grid_size=n, rgb=rgb, age=age,
+                          total_states=total_states, history=history)
 
-    return occl, gi_rgb
+
+def lighting_shade_cuda(cam, idx, t, flags, states, light: Lighting, *, grid_size, width,
+                        height, rgb=None, age=None, total_states=2, history=None):
+    """The shade kernel on the card (``csrc/lighting_shade.cu``): the
+    contract of :func:`lighting_shade` in one launch.  Every tensor must be
+    a contiguous CUDA tensor of the frame's shape; a temporal slot given as
+    a tensor is read on the card.  Compose-mode launches (with ``history``)
+    are also counted in ``lighting_shade_cuda.compose_launches``."""
+    cam = _check_sliced(grid_size, width, height, cam)
+    n, nq, h, w = grid_size, light.nq, height, width
+    _check_hits(idx, t, w, h)
+    if nq > MAX_LIGHTING_QUERIES:
+        raise ValueError(f"the shade kernel takes at most {MAX_LIGHTING_QUERIES} queries, "
+                         f"got {nq}")
+    if nq:
+        kernels.require(flags, "flags", torch.int32, (nq, h, w))
+    elif flags is not None:
+        raise ValueError("flags must be None for a frame without queries")
+    if light.n_slots:
+        kernels.require(states, "states", torch.uint8, (light.n_slots, h, w))
+    elif states is not None:
+        raise ValueError("states must be None for a frame without GI")
+    sliced = rgb is None
+    dev = idx.device
+    if sliced:
+        if history is not None:
+            raise ValueError("the sliced frame does not compose: no history")
+        if age is not None:
+            kernels.require(age, "age", torch.int32, (h, w))
+        if total_states < 2:
+            raise ValueError(f"total_states must be >= 2, got {total_states}")
+    else:
+        kernels.require(rgb, "rgb", torch.float32, (h, w, 3))
+        if age is not None:
+            raise ValueError("K1's frame is faded already: no age")
+        if history is not None:
+            kernels.require(history[0], "history color", torch.float32, (h, w, 3))
+            kernels.require(history[1], "history ids", torch.int32, (h, w))
+    sample_slot, gs = _sample_operand(light.gi_slot, "gi_slot", dev)
+    if light.n_slots == 1 and sample_slot is None and not 0 <= gs < 4:
+        raise ValueError(f"gi_slot must be in [0, 4), got {gs}")
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty((h, w), dtype=torch.float32, device=dev) if sliced else None
+    new_hist = torch.empty_like(out) if history is not None else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    consts = _light_consts(cam, n, light)
+    err = kernels.library().ca3d_lighting_shade(
+        dev.index or 0, cam.ctypes.data, consts.ctypes.data, n, w, h, light.n_soft,
+        light.n_slots, gs, ptr(sample_slot), int(sliced), int(history is not None), total_states,
+        idx.data_ptr(), t.data_ptr(), ptr(flags), ptr(states), ptr(rgb), ptr(age),
+        ptr(None if history is None else history[0]),
+        ptr(None if history is None else history[1]), out.data_ptr(), ptr(depth),
+        ptr(new_hist), kernels.stream_of(idx))
+    kernels.check(err, "lighting_shade")
+    lighting_shade_cuda.launches += 1
+    lighting_shade_cuda.compose_launches += int(history is not None)
+    if sliced:
+        return out, depth
+    return out if history is None else (out, new_hist)
+
+
+lighting_shade_cuda.launches = 0
+lighting_shade_cuda.compose_launches = 0
+
+
+def lighting_passes(cam, idx, t, prepped: Prepped, light: Lighting, *, grid_size, width,
+                    height, rgb=None, age=None, total_states=2, history=None):
+    """Soft shadows (or the hard shadow) and one-bounce GI of a frame from
+    its primary hits: the queries (:func:`lighting_queries_cuda`, one
+    launch), every occlusion query of the frame in one K2 launch
+    (:func:`occlusion_flags`), the GI slots' states in one K3 launch
+    (:func:`slot_states`) and the shading (:func:`lighting_shade_cuda`, one
+    launch) -- four launches a frame on the card; for CPU tensors the plain
+    twins.  The GI slots' occlusion rays depend only on the hit geometry,
+    not on the neighbour's state, which only gates whether a slot
+    contributes, so the ``soft_k`` jittered samples and the 4 slots (1 with
+    ``gi_slot``) share the launch.  Covers ``bounces == 1`` and the
+    temporally amortized mode; deeper recursion is :func:`indirect_bounce`.
+    Arguments and results: :func:`lighting_shade`'s."""
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    cpu = idx.device.type == "cpu"
+    flags = states = None
+    if light.nq:
+        ops = _queries(cam, idx, t, light, **kw)
+        flags = occlusion_flags(cam, ops, prepped, grid_size=grid_size)
+        if light.n_slots:
+            states = slot_states(ops, light.n_soft, prepped, grid_size=grid_size)
+    return (lighting_shade if cpu else lighting_shade_cuda)(
+        cam, idx, t, flags, states, light, rgb=rgb, age=age, total_states=total_states,
+        history=history, **kw)
 
 
 # ------------------------------------------------------- sliced frame ---
@@ -846,7 +1257,8 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
                     indirect=False, indirect_bounces=1, sample_idx=None):
     """One frame of any grid up to 1024³ (render_slab.raytrace_sliced):
     (light_rgb [H, W, 3], depth [H, W], hit_idx [H, W] int32; −1 = miss),
-    without emissive light (the caller adds it).  ``ages`` /
+    the light with the emissive light on hits (which JAX's
+    ``raytrace_sliced`` leaves to its caller, ``trace_shaded``).  ``ages`` /
     ``total_states``: the age bit-planes of a multi-state rule, of which
     ``vol`` is the visibility plane; K4 then also returns each hit's age,
     whose fade ``clip((S − age)/(S − 1), 0, 1)`` multiplies the direct term
@@ -854,12 +1266,13 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
 
     K4 finds the primary hits; the hard shadow (``soft_shadow_samples`` ≤
     1), the soft-shadow samples and the GI slots ride one K2 launch and the
-    GI lookups one K3 launch (:func:`lighting_passes`), or, for
-    ``indirect_bounces`` > 1, :func:`direct_occlusion` and
-    :func:`indirect_bounce`; the direct light is the reference's
-    Cook-Torrance BRDF in torch.  ``sample_idx``: the frame counter of the
-    temporally amortized mode, which evaluates one rotating soft-shadow
-    sample and one GI slot per frame (one bounce)."""
+    GI lookups one K3 launch between the queries kernel and the shade
+    kernel, which computes the direct light, the reference's Cook-Torrance
+    BRDF (:func:`lighting_passes`); for ``indirect_bounces`` > 1,
+    :func:`direct_occlusion` and :func:`indirect_bounce`.
+    ``sample_idx``: the frame counter of the temporally amortized mode,
+    which evaluates one rotating soft-shadow sample and one GI slot per
+    frame (one bounce)."""
     n = grid_size
     cam = _check_sliced(n, width, height, cam)
     kw = dict(grid_size=n, width=width, height=height)
@@ -867,8 +1280,8 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
     if ages is not None:
         _check_ages(ages, vol, total_states)
     t_img, idx, *age_img = primary_hits(cam, prepped, ages, **kw)
-    q, origin, coords, found, tf_miss = hit_geometry(cam, idx, t_img, **kw)
-    depth = torch.where(found, t_img, tf_miss)
+    age = age_img[0] if age_img else None
+    tail = dict(age=age, total_states=total_states)
 
     gi_slot, gi_bounces, jitter_k = None, indirect_bounces, None
     if indirect and sample_idx is not None:
@@ -876,33 +1289,20 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
     if shadow and sample_idx is not None and soft_shadow_samples > 1:
         jitter_k = sample_idx % soft_shadow_samples
 
-    gi_rgb = None
     if not indirect or gi_bounces == 1:
         # Single-bounce configurations: every occlusion query in one launch.
-        occl, gi_rgb = lighting_passes(
-            cam, q, origin, coords, found, prepped,
-            soft_k=soft_shadow_samples if shadow else None, jitter_k=jitter_k,
-            gi=indirect, gi_slot=gi_slot, **kw,
-        )
+        light = Lighting(soft_k=soft_shadow_samples if shadow else None,
+                         jitter_k=jitter_k, gi=indirect, gi_slot=gi_slot)
+        rgb, depth = lighting_passes(cam, idx, t_img, prepped, light, **tail, **kw)
     else:
+        geo = _hit_geometry(cam, idx, t_img, n, width, height)
+        q, origin, coords, found, _ = geo
         occl = (
-            direct_occlusion(cam, q, coords, found, prepped,
-                             soft_k=soft_shadow_samples, jitter_k=jitter_k, **kw)
+            direct_occlusion(cam, idx, t_img, prepped, soft_k=soft_shadow_samples,
+                             jitter_k=jitter_k, **kw)
             if shadow else None
         )
         gi_rgb = indirect_bounce(vol, cam, q, origin, coords, found, prepped,
                                  bounces=gi_bounces, slot=gi_slot, **kw)
-
-    light = device_vec(cam[P_LIGHT : P_LIGHT + 3], q.device)
-    o = device_vec(cam[P_O : P_O + 3], q.device)
-    color = _shader(cam, n)(q, origin, coords, o,
-                            torch.full_like(q, float(cam[P_LMAG])), light)
-    out = torch.clamp(color, min=0.0)
-    if age_img:
-        fade = _age_fade(age_img[0], total_states)
-        occl = fade if occl is None else occl * fade
-    if occl is not None:
-        out = out * occl[..., None]
-    if gi_rgb is not None:
-        out = out + gi_rgb
-    return torch.where(found[..., None], out, 0.0), depth, idx
+        rgb, depth = _lighting_tail(cam, geo, idx, t_img, occl, gi_rgb, grid_size=n, **tail)
+    return rgb, depth, idx

@@ -12,10 +12,12 @@ and counts as a GI neighbour like a live one:
 * :func:`trace_shaded` -- the traced and shaded scene.  Up to 256³: K1
   with the hard shadow, or K1 unshadowed followed by the extended lighting
   of ``render_slab`` (soft shadows through K2, one- or multi-bounce GI
-  through K2 and K3, the temporally amortized mode).  Above 256³, or with
+  through K2 and K3, the temporally amortized mode; one bounce and the
+  temporal mode as ``render_slab.lighting_passes``: the queries kernel, K2,
+  K3 and the shade kernel).  Above 256³, or with
   ``RenderStatic.force_sliced``: ``render_slab.raytrace_sliced`` (K4's
-  primary hits, every shadow through K2, GI through K2 and K3, the BRDF in
-  torch).  Then emissive light.
+  primary hits, then the same passes, the shade kernel computing the direct
+  light too).  Then emissive light (in the shade kernel where it runs).
 * :func:`render_frame_fast` -- one frame: trace_shaded, then the temporal
   EMA (validated by the stored hit-cell id; after a camera move the history
   is reprojected first: on the card :func:`reproject_history_cuda`, one
@@ -26,8 +28,9 @@ and counts as a GI neighbour like a live one:
   frame per iteration, static camera) with the reset period as a runtime
   argument (``run(..., reset_period)``, ``reset_every`` by default).  Up to
   256³: K1 in compose mode for hard shadows without GI, the extended frame
-  in image layout for soft shadows, one-bounce and temporal GI (history f32
-  inside, f16 at the exit), and render_frame_fast per iteration for
+  in image layout for soft shadows, one-bounce and temporal GI (K1, queries,
+  K2, K3, and the shade kernel in compose mode; history f32 inside, f16 at
+  the exit), and render_frame_fast per iteration for
   multi-bounce GI.  The sliced path always takes render_frame_fast per
   iteration, as in the reference, so its history is f16 between frames.
 """
@@ -45,13 +48,13 @@ from ..ops.occupancy import occupancy_rebuild
 from .camera import COT_HALF_FOV, get_ray, pixel_uvs
 from .intersect import device_vec, ray_cube_intersect
 from .render_fast import (
-    MAX_GRID, P_ALPHA, P_EMIS, P_EMISS, P_GAMMA, P_LEN, P_LIGHT, P_O,
-    P_OVERLAY, descent_options, raytrace_tiles,
+    MAX_GRID, P_EMIS, P_EMISS, P_LEN, descent_options, raytrace_tiles,
 )
 from .render_slab import (
+    Lighting,
     Prepped,
     _hit_geometry,
-    _pixel_uv,
+    _lighting_tail,
     direct_occlusion,
     indirect_bounce,
     lighting_passes,
@@ -117,77 +120,79 @@ def _cam_vec(params: RenderParams, w, fh, row0=0.0) -> np.ndarray:
     return cam
 
 
-def _extended_lighting(s: RenderStatic, prepped, cam, rgb, depth, idx, sample_idx):
-    """Soft shadows and GI on top of K1's frame (renderer_fast.py:121-178):
-    returns (rgb with occlusion and indirect light, the world ray
-    direction d [H, W, 3])."""
+def _extended_lighting(s: RenderStatic, prepped, cam, rgb, depth, idx, sample_idx,
+                       history=None):
+    """Soft shadows and GI on top of K1's frame (renderer_fast.py:121-178),
+    with the emissive light: the rgb [H, W, 3], or with ``history`` the
+    fused loop's (presentation, new history color).  One bounce and the
+    temporal mode are :func:`render_slab.lighting_passes` (queries, K2, K3,
+    shade: four launches on the card); two or more bounces take their direct
+    shadow from the queries kernel and K2 and run the GI recursion's
+    per-level passes in torch."""
     n, w, h = s.grid_size, s.width, s.height
     soft = s.soft_shadow_samples > 1
     gi = s.indirect_lighting
     temporal = s.gi_temporal and sample_idx is not None
-    packed = prepped.vol
-    q, origin, coords, found, d = _hit_geometry(cam, idx, depth, n, w, h)
-    jitter_k = sample_idx % s.soft_shadow_samples if soft and temporal else None
     kw = dict(grid_size=n, width=w, height=h)
     if not gi or temporal or s.indirect_bounces == 1:
         # Every occlusion query of the frame (soft samples and GI slots)
-        # rides one K2 launch.
-        occl, gi_rgb = lighting_passes(
-            cam, q, origin, coords, found, prepped,
-            soft_k=s.soft_shadow_samples if soft else None, jitter_k=jitter_k,
-            gi=gi, gi_slot=sample_idx % 4 if gi and temporal else None, **kw,
+        # rides one K2 launch.  K1's rgb is unshadowed (but age-faded)
+        # direct light when soft; the quotient multiplies it.
+        light = Lighting(
+            soft_k=s.soft_shadow_samples if soft else None,
+            jitter_k=sample_idx % s.soft_shadow_samples if soft and temporal else None,
+            gi=gi, gi_slot=sample_idx % 4 if gi and temporal else None,
         )
-    else:
-        # Multi-bounce recursion: per-level passes.
-        occl = (
-            direct_occlusion(cam, q, coords, found, prepped,
-                             soft_k=s.soft_shadow_samples, **kw)
-            if soft else None
-        )
-        gi_rgb = indirect_bounce(
-            packed, cam, q, origin, coords, found, prepped,
-            bounces=s.indirect_bounces, **kw,
-        )
-    if occl is not None:
-        # K1's rgb is unshadowed (but age-faded) direct light when soft;
-        # occl multiplies it.
-        rgb = rgb * occl[..., None]
-    if gi_rgb is not None:
-        rgb = rgb + torch.where(found[..., None], gi_rgb, 0.0)
-    return rgb, d
+        return lighting_passes(cam, idx, depth, prepped, light, rgb=rgb, history=history, **kw)
+    # Multi-bounce recursion: the direct shadow as one pass, the GI per level.
+    geo = _hit_geometry(cam, idx, depth, n, w, h)
+    q, origin, coords, found, _ = geo
+    occl = (
+        direct_occlusion(cam, idx, depth, prepped, soft_k=s.soft_shadow_samples, **kw)
+        if soft else None
+    )
+    gi_rgb = indirect_bounce(
+        prepped.vol, cam, q, origin, coords, found, prepped,
+        bounces=s.indirect_bounces, **kw,
+    )
+    return _lighting_tail(cam, geo, idx, depth, occl, gi_rgb, grid_size=n, rgb=rgb,
+                          history=history)
 
 
-def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2):
-    """trace_shaded's (rgb, depth, idx) and, with K1's extended lighting,
-    the world ray direction d [H, W, 3] (else None)."""
-    d = None
+def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2,
+            history=None):
+    """trace_shaded's (rgb, depth, idx); with ``history`` (K1's extended
+    frames in the fused loop) (presentation, depth, idx, new history
+    color), composed by the shade kernel."""
     if _sliced(s):
-        rgb, depth, idx = raytrace_sliced(
+        return raytrace_sliced(
             packed, cam, ages, grid_size=s.grid_size, width=s.width,
             height=s.height, total_states=total_states,
             soft_shadow_samples=s.soft_shadow_samples,
             indirect=s.indirect_lighting, indirect_bounces=s.indirect_bounces,
             sample_idx=sample_idx if s.gi_temporal else None,
         )
-    else:
-        # The extended lighting's K2 clips to the mip's box, and K1's mip1
-        # descent reads the plane mip: the one launch of the occupancy
-        # rebuild writes what the frame reads.
-        extended = s.soft_shadow_samples > 1 or s.indirect_lighting
-        mip1, slicegate = descent_options()
-        occ = occupancy_rebuild(packed, box=extended, plane=mip1)
-        rgb, depth, idx = raytrace_tiles(
-            packed, occ.coarse, cam,
-            grid_size=s.grid_size, width=s.width, height=s.height,
-            shadow=s.soft_shadow_samples <= 1, ages=ages, total_states=total_states,
-            mip1=mip1, slicegate=slicegate, plane=occ.plane,
-        )
-        if extended:
-            prepped = Prepped(packed, occ.coarse, occ.box)
-            rgb, d = _extended_lighting(s, prepped, cam, rgb, depth, idx, sample_idx)
+    # The extended lighting's K2 clips to the mip's box, and K1's mip1
+    # descent reads the plane mip: the one launch of the occupancy
+    # rebuild writes what the frame reads.
+    extended = s.soft_shadow_samples > 1 or s.indirect_lighting
+    mip1, slicegate = descent_options()
+    occ = occupancy_rebuild(packed, box=extended, plane=mip1)
+    rgb, depth, idx = raytrace_tiles(
+        packed, occ.coarse, cam,
+        grid_size=s.grid_size, width=s.width, height=s.height,
+        shadow=s.soft_shadow_samples <= 1, ages=ages, total_states=total_states,
+        mip1=mip1, slicegate=slicegate, plane=occ.plane,
+    )
+    if extended:
+        prepped = Prepped(packed, occ.coarse, occ.box)
+        lit = _extended_lighting(s, prepped, cam, rgb, depth, idx, sample_idx, history)
+        if history is not None:
+            return lit[0], depth, idx, lit[1]
+        return lit, depth, idx
     emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], rgb.device)
     rgb = torch.where((idx >= 0)[..., None], rgb + emis, rgb)
-    return rgb, depth, idx, d
+    return rgb, depth, idx
 
 
 def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
@@ -204,7 +209,7 @@ def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
     is then its visibility plane).  ``sample_idx``: the frame counter of
     the temporally amortized mode (``s.gi_temporal``), an int or an int
     tensor; it rotates the soft-shadow sample and the GI slot."""
-    return _shaded(s, packed, cam, sample_idx, ages, total_states)[:3]
+    return _shaded(s, packed, cam, sample_idx, ages, total_states)
 
 
 def reproject_history(history: FastHistory, rgb: torch.Tensor,
@@ -377,34 +382,13 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
 
 def _ext_frame(s: RenderStatic, vis, cam, hist, ages, total_states, sample_idx):
     """One extended-lighting frame (soft shadows, one-bounce or temporal
-    GI) of the fused loop, composed in torch: trace_shaded (K1, one K2 and
-    one K3 launch, emissive light), the id-checked EMA against the f32 history,
-    the light cube, the depth overlay and gamma (_ext_frame_blocked,
-    renderer_fast.py:318-407, in image layout).  Returns (presentation,
-    new history (color f32, ids))."""
-    rgb, depth, idx, d = _shaded(s, vis, cam, sample_idx, ages, total_states)
-    dev = rgb.device
-    found = idx >= 0
-    prev, prev_idx = hist
-    same = (idx == prev_idx) & found
-    mixed = torch.clamp(prev + (rgb - prev) * float(cam[P_ALPHA]), 0.0, 1.0)
-    out = torch.where(same[..., None], mixed, rgb)
-    lt_near, lt_far = ray_cube_intersect(
-        device_vec(cam[P_O : P_O + 3], dev), d,
-        device_vec(cam[P_LIGHT : P_LIGHT + 3], dev), float(np.float32(0.005)),
-    )
-    light_hit = (lt_near <= lt_far) & (lt_far >= 0.0)
-    black = (out == 0.0).all(dim=-1)
-    out = torch.where((light_hit & black)[..., None], 1.0, out)
-    new_hist = (out, idx)
-
-    # Depth overlay before gamma, as render_frame_fast.
-    ux, _ = _pixel_uv(cam, s.width, s.height, dev)
-    overlay = (ux < 0.5) & bool(cam[P_OVERLAY] == 1.0)
-    overlay_rgb = torch.stack([depth, torch.zeros_like(depth), torch.zeros_like(depth)], dim=-1)
-    out = torch.where(overlay[..., None], overlay_rgb, out)
-    pres = torch.pow(out, float(np.float32(1.0) / cam[P_GAMMA]))
-    return pres, new_hist
+    GI) of the fused loop: K1, then the lighting passes whose shade kernel
+    also composes the frame -- the emissive light, the id-checked EMA
+    against the f32 history, the light cube, the depth overlay and gamma
+    (_ext_frame_blocked, renderer_fast.py:318-407, in image layout).
+    Returns (presentation, new history (color f32, ids))."""
+    pres, _, idx, color = _shaded(s, vis, cam, sample_idx, ages, total_states, history=hist)
+    return pres, (color, idx)
 
 
 def make_fused_loop(s: RenderStatic, spec, frames: int,

@@ -78,6 +78,8 @@ FAMILIES = {
                                 coarse_occupancy_plane_cuda, plane_occupancy_cuda),
     "reproject_kernel": (renderer_fast.reproject_history_cuda,),
     "prepass_kernel": (render_fast.prepass_cuda,),
+    "lighting_queries_kernel": (render_slab.lighting_queries_cuda,),
+    "lighting_shade_kernel": (render_slab.lighting_shade_cuda,),
 }
 
 

@@ -6,24 +6,30 @@ port's counterpart of ``tools/profile_gi.py`` and ``tools/profile_gi2.py``)::
 
 256³ gen-80 at 1920×1080 (``--small``: 32³, 64×32), full quality: soft
 shadows ×4, GI, light radius 0.08, as ``render_slab.lighting_passes`` runs
-it (one K2 launch for the 8 occlusion queries, one K3 launch for the 4
-lookups).  The parts, each called on the same inputs:
+it on K1's unshadowed frame (the queries kernel, one K2 launch for the 8
+occlusion queries, one K3 launch for the 4 lookups, the shade kernel).  The
+parts, each called on the same inputs:
 
 * ``primary``: K1 without its hard shadow (``render_fast.raytrace_tiles(...,
-  shadow=False)``, as the lighting frame calls it) and the hit geometry;
-* ``queries``: the 8 occlusion queries and the 4 slots' geometry
-  (``render_slab.lighting_queries``: the soft-shadow jitter, the neighbour
-  cells and their points);
-* ``lookups``: the 4 neighbour-state lookups (``render_slab.cell_state_batch``:
-  K3 with its operands);
-* ``occlusion``: the 8 queries' occlusion batch
-  (``render_slab.shadow_occlusion_batch``: K2 with
-  ``stack_occlusion_queries``), and ``occlusion_k5`` the same batch under
-  ``CA3D_OCC_SWEEP=0`` (K5, two launches of 4 queries read in place);
-* ``brdf``: the double BRDF of the 4 slots (the torch shading of
-  ``lighting_passes``: each slot's reflected light and its bounce to the
-  pixel);
-* ``lighting_passes``: the whole of it (queries, K2, K3, the BRDF).
+  shadow=False)``, as the lighting frame calls it);
+* ``queries``: the 8 occlusion queries and the 4 slots' geometry as K2's
+  stacked operands (``render_slab.lighting_queries_cuda``, the queries
+  kernel: the hit geometry, the soft-shadow jitter, the neighbour cells and
+  their points), and ``queries_plain`` its twin
+  (``lighting_queries_stacked``, eager torch);
+* ``lookups``: the 4 neighbour-state lookups (``render_slab.slot_states``:
+  K3 on the queries' slot rows in place);
+* ``occlusion``: the 8 queries' occlusion flags
+  (``render_slab.occlusion_flags``: K2 on the stacked operands), and
+  ``occlusion_k5`` the same under ``CA3D_OCC_SWEEP=0`` (K5, two launches
+  of 4 queries read in place);
+* ``brdf``: the shading (``render_slab.lighting_shade_cuda``, the shade
+  kernel: the soft occlusion quotient, each slot's reflected light and its
+  bounce to the pixel, on K1's rgb), and ``brdf_plain`` its twin
+  (``lighting_shade``, eager torch);
+* ``lighting_passes``: the whole of it (queries, K2, K3, shade).
+
+On the CPU (``--small``) the kernels' parts run their twins.
 
 Each part: its ms by CUDA events (median and spread over ``--reps``), its
 device ms (``cuda_time_fn(queued=True)``) and, from one ``torch.profiler``
@@ -48,8 +54,6 @@ from pathlib import Path
 import torch
 
 from ..render import render_fast, render_slab
-from ..render.render_fast import P_LIGHT, P_LMAG, P_O
-from ..render.intersect import device_vec
 from ..utils.profiling import profile_trace
 from . import common, trace_summary
 
@@ -76,54 +80,49 @@ def parts(run: common.Run, vol, cam, grid: int) -> dict:
     kw = dict(grid_size=grid, width=w, height=h)
     prepped = render_slab.prep_volume(vol)
     coarse = prepped.coarse
+    light = render_slab.Lighting(soft_k=SOFT, gi=True)
 
     def primary():
-        rgb, depth, idx = render_fast.raytrace_tiles(vol, coarse, cam, shadow=False, **kw)
-        return render_slab._hit_geometry(cam, idx, depth, grid, w, h)
+        return render_fast.raytrace_tiles(vol, coarse, cam, shadow=False, **kw)
 
-    q, origin, coords, found, _ = primary()
-    lq = dict(soft_k=SOFT, gi=True, **kw)
+    rgb, depth, idx = primary()
+    queries_fn = render_slab.lighting_queries_cuda if run.cuda else (
+        render_slab.lighting_queries_stacked)
+    shade_fn = render_slab.lighting_shade_cuda if run.cuda else render_slab.lighting_shade
 
     def queries():
-        return render_slab.lighting_queries(cam, q, origin, coords, found, **lq)
+        return queries_fn(cam, idx, depth, light, **kw)
 
-    qs, slots, _ = queries()
-    lookups_in = [(n_cl, ok) for n_cl, _, _, ok in slots]
+    def queries_plain():
+        return render_slab.lighting_queries_stacked(cam, idx, depth, light, **kw)
+
+    ops = queries()
 
     def lookups():
-        return render_slab.cell_state_batch(lookups_in, prepped, **kw)
+        return render_slab.slot_states(ops, SOFT, prepped, grid_size=grid)
 
     def occlusion():
-        return render_slab.shadow_occlusion_batch(cam, qs, prepped, **kw)
+        return render_slab.occlusion_flags(cam, ops, prepped, grid_size=grid)
 
     def occlusion_k5():
         with occ_sweep("0"):
-            return render_slab.shadow_occlusion_batch(cam, qs, prepped, **kw)
+            return render_slab.occlusion_flags(cam, ops, prepped, grid_size=grid)
 
     states = lookups()
-    occs = occlusion()
-    dev = q.device
-    light = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
-    o = device_vec(cam[P_O : P_O + 3], dev)
-    shade = render_slab._shader(cam, grid)
+    flags = occlusion()
 
     def brdf():
-        lmag3 = torch.full_like(q, float(cam[P_LMAG]))
-        total = torch.zeros_like(q)
-        for (n_cl, n_origin, n_point, ok_geo), st, occluded in zip(slots, states, occs[SOFT:]):
-            ok = ok_geo & (st == 1)
-            reflected = render_slab._occlusion_quotient(occluded)[..., None] * shade(
-                n_point, n_origin, n_cl, q, lmag3, light)
-            bounce = shade(q, origin, coords, o, reflected, n_point)
-            total = total + torch.where(ok[..., None], bounce, 0.0)
-        return total
+        return shade_fn(cam, idx, depth, flags, states, light, rgb=rgb, **kw)
+
+    def brdf_plain():
+        return render_slab.lighting_shade(cam, idx, depth, flags, states, light, rgb=rgb, **kw)
 
     def lighting_passes():
-        return render_slab.lighting_passes(cam, q, origin, coords, found, prepped, **lq)
+        return render_slab.lighting_passes(cam, idx, depth, prepped, light, rgb=rgb, **kw)
 
-    return {"primary": primary, "queries": queries, "lookups": lookups,
-            "occlusion": occlusion, "occlusion_k5": occlusion_k5, "brdf": brdf,
-            "lighting_passes": lighting_passes}
+    return {"primary": primary, "queries": queries, "queries_plain": queries_plain,
+            "lookups": lookups, "occlusion": occlusion, "occlusion_k5": occlusion_k5,
+            "brdf": brdf, "brdf_plain": brdf_plain, "lighting_passes": lighting_passes}
 
 
 def main(argv=None) -> list[dict]:

@@ -25,6 +25,10 @@ Prints one JSON line:
   ``record_function`` range launched, each device event going to the
   innermost range open at its launch.
 
+:func:`kernels_between` counts the device events that run between two
+kernels of a frame (by start time), e.g. what a lighting frame runs between
+K1 and the shade kernel.
+
 A device event finds its launch through its ``correlation`` (the runtime or
 driver call that carries the same one) or, failing that, its ``External
 id`` (the host op that carries it); one found neither way counts as
@@ -39,7 +43,7 @@ import bisect
 import json
 from collections import Counter, defaultdict
 
-__all__ = ["load", "summarize", "by_range", "main"]
+__all__ = ["load", "summarize", "by_range", "kernels_between", "main"]
 
 DEVICE_CATS = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
 HOST_OPS = frozenset({"cpu_op", "user_annotation"})
@@ -189,6 +193,23 @@ def summarize(trace, frames: int = 1, top: int = 20, gaps: int = 5) -> dict:
         "launches_by_name": {name: n for name, (_, n) in per.items()},
         "gaps": gap_rows,
     }
+
+
+def kernels_between(trace, first: str, last: str) -> Counter:
+    """The device events, by name, that start after a device event whose
+    name holds ``first`` and before the next one whose name holds ``last``
+    (the trace's order by start time)."""
+    inside, out = False, Counter()
+    for e in sorted((e for e in _events(trace) if e.get("cat") in DEVICE_CATS),
+                    key=lambda e: float(e["ts"])):
+        name = e.get("name", "")
+        if last in name:
+            inside = False
+        elif first in name:
+            inside = True
+        elif inside:
+            out[name] += 1
+    return out
 
 
 def by_range(trace) -> dict:

@@ -216,15 +216,21 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       tool's short form (``profile_trace`` in the ``moved``, headline and
       ``multistate --grid 1024`` modes, 3-5 frames; ``trace_summary`` on the
       headline trace; ``profile_gi``, ``profile_frame``, ``bench_dense``,
-      ``bench_scale``, ``bench_512_ablate``) in one child process of this
-      script (``--tools``: a torch.profiler trace in this process would make
-      the later phases' traces drop kernel events), each line's keys finite
-      and positive, and the trace summary's launches per frame equal to the
-      launch counters read around the traced frames (headline: one K1
-      compose launch, one CA step and one mip kernel a frame, and beside them
-      only the fused call's 3 torch launches; multi-state: one step and two
-      age-mask launches a generation and frame; moved: one mip a frame and
-      one reprojection kernel a moved frame).
+      ``bench_scale``, ``bench_512_ablate``) in child processes of this
+      script, ``profile_gi`` and ``profile_trace`` in the ``gi`` and
+      ``gi_temporal`` modes each in one of its own (``--tools 0`` to ``3``: a
+      torch.profiler trace late in a process drops kernel events, and one in
+      this process would make the later phases' traces drop them), each line's
+      keys finite and positive,
+      and the trace summary's launches per frame equal to the launch
+      counters read around the traced frames (headline: one K1 compose
+      launch, one CA step and one mip kernel a frame, and beside them only
+      the fused call's 3 torch launches; multi-state: one step and two
+      age-mask launches a generation and frame, K4, the queries kernel, K2
+      and the shade kernel; moved: one mip a frame and one reprojection
+      kernel a moved frame; the fused lighting frames: 7 kernels and at most
+      10 launches a frame, and between K1 (K4) and the shade kernel only
+      the queries kernel, K2 and K3).
 
   (o) the port's bench (``bench_torch.py``, run last): the script at its
       defaults in a child process (256³ / 1920×1080, 150 frames pinned and
@@ -269,6 +275,29 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       in turn, the mip with the plane mip alternated with the mip then the
       plane mip alone (a mip1 frame's rebuild before they shared a launch) at
       256³, 512³ and 1024³, with their bounds.
+  (r) the lighting passes' two kernels (run after (h)): the queries kernel
+      (``csrc/lighting_queries.cu``) and the shade kernel
+      (``csrc/lighting_shade.cu``) against their twins
+      (``lighting_queries_stacked``, ``lighting_shade``) on the card, frame by
+      frame at 1920 pixels a row: K1's frames at 256³ gen-80 (full quality with
+      and without the fused loop's composition, soft shadows alone, GI alone,
+      ``gi_temporal`` for sample indices 0-3 and one index held on the card,
+      rows 540..810 of the window as a mesh band, ``pyroclastic`` gen-160 with
+      ages) and the sliced frames (512³ gen-160 hard and ``gi_temporal``, full
+      quality, 1024³ gen-200 hard, ``pyroclastic`` 512³ with ages, hard and
+      full quality): the query masks bit for bit and the operands bit for
+      bit on the active lanes (the only ones the kernel writes), K2's flags
+      and K3's states downstream of them equal, the shade kernel's light (presentation and
+      history, or depth) within rtol 3e-3 / atol 3e-4 with NaN in the same
+      pixels and the pixels not bit-equal counted; both kernels alternated with
+      their twins by CUDA events, and by the device's time, at 256³ full quality
+      and ``gi_temporal`` and 512³ hard and ``gi_temporal``, with their bounds.
+      Their launch counters are read on every lighting path: (e)'s fused and
+      render() frames (one of each a one-bounce or temporal frame, the fused
+      frames' shade composing; two bounces the queries kernel alone, for
+      the direct shadow), (f)'s sliced, (h)'s
+      multi-state and (j)'s moved frames; and (n) traces the fused full-quality
+      and ``gi_temporal`` frames (7 kernels a frame, at most 10 launches).
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -546,7 +575,8 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
 
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda,
-               coarse_occupancy_cuda, coarse_occupancy_box_cuda)
+               coarse_occupancy_cuda, coarse_occupancy_box_cuda, rs.lighting_queries_cuda,
+               rs.lighting_shade_cuda)
     launches, engines = {}, {}
     for name, (cfg, steps, fused, frames) in SLICED_ENGINES.items():
         for fn in counted:
@@ -571,6 +601,9 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
              f"{name}: the box comes from the mip's launch, no box kernel: {counts}")
         need(counts["coarse_occupancy_box_cuda"] == counts["primary_sweep_cuda"],
              f"{name}: one mip launch (with its box) per sliced frame: {counts}")
+        need(counts["lighting_queries_cuda"] == counts["lighting_shade_cuda"]
+             == counts["primary_sweep_cuda"],
+             f"{name}: one queries and one shade launch per sliced frame: {counts}")
         hits = float((eng.history.hit_idx >= 0).float().mean())
         log(f"(f) {name}: step({steps}), render(), run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}; hit fraction {hits:.3f}")
@@ -578,6 +611,243 @@ def sliced_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occupancy
         engines[name] = (eng, frames)
     return dict(k4_max_abs_err=k4_err, plain_ms=plain_ms, launches=launches,
                 engines=engines, timed=timed_ops)
+
+
+# ------------------------------------------- (r) the lighting kernels ---
+# The work of the two lighting kernels for their bounds (operations counted
+# from csrc/shading.cuh, float32 operations of one pixel; the jitter's
+# double-precision sine counted as 20): the hit geometry (camera ray, hit
+# point, cell), a jittered sample's 3 hashes, a GI slot's geometry, one
+# calculate_lighting_at, and the fused loop's composition.
+OPS_LIGHT_HIT = 45
+OPS_LIGHT_JITTER = 100
+OPS_LIGHT_SLOT = 50
+OPS_LIGHT_BRDF = 140
+OPS_LIGHT_COMPOSE = 40
+QUERY_LANE_BYTES = 36  # an active lane's start, target and cell (3 x 12 B)
+
+
+def queries_work(light, h, w, hits, lanes):
+    """(bytes, ops) of the queries kernel: each pixel's id and t read and
+    its nq masks written (K2 reads them all); the start, target and cell
+    written on each of the ``lanes`` active lanes, the only ones K2, K5 and
+    K3 read; the hit geometry of every pixel, the jitter and the slots'
+    geometry of the ``hits`` hit pixels."""
+    px = h * w
+    ops = px * OPS_LIGHT_HIT + hits * (
+        light.n_slots * OPS_LIGHT_SLOT
+        + (light.n_soft * OPS_LIGHT_JITTER if light.jitter_mode else 0))
+    return px * (8 + light.nq) + lanes * QUERY_LANE_BYTES, ops
+
+
+def shade_work(light, h, w, hits, slot_lanes, ok_slots, sliced, compose, faded, matched):
+    """(bytes, ops) of the shade kernel: on every pixel the id and t and the
+    direct shadow's flags read, K1's rgb read (not on the sliced frame) and
+    the light written, with the new history or the depth; on the ``hits``
+    hit pixels the age read (when ``faded``) and the history's id (when
+    composing); the history's colour on the ``matched`` hits whose id it
+    holds; a slot's neighbour state on each of the ``slot_lanes`` slots
+    whose entry exists, and its flag on the ``ok_slots`` of them whose
+    neighbour is alive.  Ops: the geometry of every pixel, a slot's geometry
+    on hits, two BRDF evaluations a live slot, the direct light of the
+    sliced frame's hits."""
+    px = h * w
+    per_px = 8 + 4 * light.n_soft + 12 + (4 if sliced else 12 + (12 if compose else 0))
+    per_hit = (4 if sliced and faded else 0) + (4 if compose else 0)
+    nbytes = (px * per_px + hits * per_hit + matched * 12 + slot_lanes + ok_slots * 4)
+    ops = (px * (OPS_LIGHT_HIT + (OPS_LIGHT_COMPOSE if compose else 0))
+           + hits * light.n_slots * OPS_LIGHT_SLOT + ok_slots * 2 * OPS_LIGHT_BRDF
+           + (hits * OPS_LIGHT_BRDF if sliced else 0))
+    return nbytes, ops
+
+
+def same_values(torch, a, b):
+    """Elements of a and b that differ: by value (NaN equal to NaN)."""
+    if a.dtype.is_floating_point:
+        return ~((a == b) | (torch.isnan(a) & torch.isnan(b)))
+    return a != b
+
+
+def queries_differ(torch, got, want):
+    """Operands of the queries kernel that differ from the twin's: the masks
+    everywhere, the start, target and cell on the twin's active lanes (the
+    kernel writes no other lane, and K2, K5 and K3 read no other)."""
+    lanes = want[3][:, None].expand_as(want[0])
+    return int(same_values(torch, got[3], want[3]).sum()) + sum(
+        int(same_values(torch, g[lanes], w[lanes]).sum()) for g, w in zip(got[:3], want[:3]))
+
+
+def lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, views, sliced,
+                           ms) -> dict:
+    """Phase (r): the queries kernel and the shade kernel against their
+    twins on the card, frame by frame at full width; their launch counters
+    are read on every lighting path in (e), (f), (h) and (j).  Returns the
+    checks, times and bounds."""
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+
+    t_phase = time.perf_counter()
+    L = rs.Lighting
+    out = {"cases": {}, "timings": {}, "bounds": {}, "max_abs_err": 0.0}
+    cams = {}
+
+    def cam_for(w, fh, row0=0.0):
+        key = (w, fh, row0)
+        if key not in cams:
+            cams[key] = scene_cam(views["front"], w, fh, light_radius=LIGHTING["light_radius"],
+                                  elapsed_time=0.37, row0=row0)
+        return cams[key]
+
+    def hits_of(prepped, n, cam, h, ages, states, light):
+        """The primary hits the lighting passes take: K1's unshadowed (or,
+        with GI alone, shadowed) frame up to 256³, else K4's t and ids."""
+        kw = dict(grid_size=n, width=WIDTH, height=h)
+        if n > GRID:
+            t, idx, *age = rs.primary_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, cam,
+                                                 ages, **kw)
+            return None, t, idx, (age[0] if age else None)
+        shadow = light.soft_k is None or light.soft_k <= 1
+        rgb, t, idx = rf.raytrace_cuda(prepped.vol, prepped.coarse, cam, shadow=shadow,
+                                       ages=ages, total_states=states, **kw)
+        return rgb, t, idx, None
+
+    def check_case(tag, vol, n, light, h=HEIGHT, row0=0.0, ages=None, states=2, compose=False,
+                   timing=False):
+        cam = cam_for(WIDTH, HEIGHT, row0)
+        kw = dict(grid_size=n, width=WIDTH, height=h)
+        prepped = rs.prep_volume(vol)
+        rgb, t, idx, age = hits_of(prepped, n, cam, h, ages, states, light)
+        found = idx >= 0
+        ops_k = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+        ops_p = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+        q_bad = queries_differ(torch, ops_k, ops_p)
+        flags = rs.occlusion_flags(cam, ops_k, prepped, grid_size=n)
+        f_bad = int((flags != rs.occlusion_flags(cam, ops_p, prepped, grid_size=n)).sum())
+        states_k = states_p = None
+        s_bad = 0
+        if light.n_slots:
+            states_k = rs.slot_states(ops_k, light.n_soft, prepped, grid_size=n)
+            states_p = rs.slot_states(ops_p, light.n_soft, prepped, grid_size=n)
+            s_bad = int((states_k != states_p).sum())
+        hist = None
+        if compose:
+            keep = torch.rand(idx.shape, device=idx.device,
+                              generator=torch.Generator(idx.device).manual_seed(7)) < 0.7
+            hist = (torch.rand((h, WIDTH, 3), device=idx.device,
+                               generator=torch.Generator(idx.device).manual_seed(8)),
+                    torch.where(keep, idx, idx + 1).contiguous())
+        skw = dict(rgb=rgb, age=age, total_states=states, history=hist, **kw)
+        got = rs.lighting_shade_cuda(cam, idx, t, flags, states_k, light, **skw)
+        want = rs.lighting_shade(cam, idx, t, flags, states_k, light, **skw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        not_equal, nan_bad, err, ok = 0, 0, 0.0, True
+        for g, w_ in zip(got, want):
+            diff = same_values(torch, g, w_)
+            not_equal += int(diff.reshape(h, WIDTH, -1).any(dim=-1).sum())
+            nan_bad += int((torch.isnan(g) != torch.isnan(w_)).sum())
+            fin = torch.isfinite(w_) & torch.isfinite(g)
+            if bool(fin.any()):
+                err = max(err, float((g - w_)[fin].abs().max()))
+                ok = ok and bool(torch.all((g - w_).abs()[fin]
+                                           <= RGB_ATOL + RGB_RTOL * w_.abs()[fin]))
+        rec = dict(queries=light.nq, hits=int(found.sum()), active_lanes=int(ops_p[3].sum()),
+                   occluded=int(flags.sum()), alive=None if states_k is None else int(states_k.sum()),
+                   queries_not_equal=q_bad, flags_not_equal=f_bad, states_not_equal=s_bad,
+                   shade_px_not_bit_equal=not_equal, nan_px=int(sum(
+                       torch.isnan(w_).reshape(h, WIDTH, -1).any(dim=-1).sum() for w_ in want)),
+                   nan_mismatch=nan_bad, max_abs_err=err)
+        log(f"  (r) {tag}: {rec}")
+        need(q_bad == 0, f"(r) {tag}: {q_bad} query operands differ from the twin's")
+        need(f_bad == 0 and s_bad == 0, f"(r) {tag}: K2's flags or K3's states differ "
+             f"downstream of the queries kernel ({f_bad}, {s_bad})")
+        need(nan_bad == 0, f"(r) {tag}: NaN in other pixels than the twin's")
+        need(ok, f"(r) {tag}: the shade kernel outside rtol {RGB_RTOL} / atol {RGB_ATOL}")
+        need(rec["hits"] > 0, f"(r) {tag}: no pixel hit")
+        out["cases"][tag] = rec
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if timing:
+            tm = out["timings"]
+            fns = {
+                "queries": lambda: rs.lighting_queries_cuda(cam, idx, t, light, **kw),
+                "queries_plain": lambda: rs.lighting_queries_stacked(cam, idx, t, light, **kw),
+                "shade": lambda: rs.lighting_shade_cuda(cam, idx, t, flags, states_k, light,
+                                                        **skw),
+                "shade_plain": lambda: rs.lighting_shade(cam, idx, t, flags, states_k, light,
+                                                         **skw),
+            }
+            for part in ("queries", "shade"):
+                # Events: kernel, twin, twin, kernel; the kernel's device time
+                # queued (the twin launches more than the sleeping stream holds).
+                reads = [cuda_time_fn(fns[m], reps=r, warmup=2)
+                         for m, r in ((part, 50), (part + "_plain", 5), (part + "_plain", 5),
+                                      (part, 50))]
+                tm[f"{part}_{tag}_events_ms"] = (reads[0] + reads[3]) / 2
+                tm[f"{part}_plain_{tag}_events_ms"] = (reads[1] + reads[2]) / 2
+                tm[f"{part}_{tag}_reads_ms"] = reads
+                tm[f"{part}_{tag}_device_ms"] = cuda_time_fn(fns[part], reps=50, warmup=2,
+                                                             queued=True)
+            ok_slots = slot_lanes = 0
+            if light.n_slots:
+                slot_lanes = int(ops_k[3][light.n_soft:].sum())
+                ok_slots = int(((ops_k[3][light.n_soft:]) & (states_k == 1)).sum())
+            matched = int((found & (idx == hist[1])).sum()) if compose else 0
+            hits = rec["hits"]
+            out["bounds"][f"queries_{tag}"] = bound(*queries_work(light, h, WIDTH, hits,
+                                                                  rec["active_lanes"]))
+            out["bounds"][f"shade_{tag}"] = bound(*shade_work(
+                light, h, WIDTH, hits, slot_lanes, ok_slots, rgb is None, compose,
+                age is not None, matched))
+        return rec
+
+    # K1's frames at 256³ / 1080p (gen-80): full quality (the fused loop's
+    # composition and not), soft shadows alone, GI alone (K1's hard shadow),
+    # gi_temporal for 4 successive sample indices (and one read on the card),
+    # a row shard of the window (rows 540..810), and pyroclastic with ages.
+    vol = grown(GRID)
+    full, soft_only, gi_only = L(soft_k=4, gi=True), L(soft_k=4), L(gi=True)
+    check_case("256_full_quality", vol, GRID, full, timing=True)
+    check_case("256_full_quality_compose", vol, GRID, full, compose=True, timing=True)
+    check_case("256_soft", vol, GRID, soft_only)
+    check_case("256_gi", vol, GRID, gi_only)
+    for k in range(4):
+        check_case(f"256_gi_temporal_{k}", vol, GRID, L(soft_k=4, jitter_k=k, gi=True, gi_slot=k),
+                   compose=True, timing=k == 1)
+    k = torch.tensor(2, device=vol.device)
+    check_case("256_gi_temporal_tensor_2", vol, GRID, L(soft_k=4, jitter_k=k % 4, gi=True,
+                                                        gi_slot=k % 4))
+    # A band of a 4-shard mesh: rows 540..810 of the 1080-row window.
+    check_case("256_full_quality_rows_540_810", vol, GRID, full, h=HEIGHT // 4,
+               row0=float(2 * HEIGHT // 4), compose=True)
+    eng_ms = ms["engines"]["ms_256_full_quality"][0]
+    ms_vis = ca_step.visibility_plane(eng_ms.state, eng_ms.spec)
+    check_case("256_pyroclastic_full_quality", ms_vis, GRID, full, ages=eng_ms.state,
+               states=eng_ms.spec.total_states, compose=True)
+    del vol
+    # The sliced frames: 512³ gen-160 hard and gi_temporal, 1024³ gen-200
+    # hard, pyroclastic 512³ with ages (hard and full quality).
+    hard = L(soft_k=1)
+    vol_512 = sliced["timed"][512][0]
+    check_case("512_hard", vol_512, 512, hard, timing=True)
+    check_case("512_gi_temporal_1", vol_512, 512, L(soft_k=4, jitter_k=1, gi=True, gi_slot=1),
+               timing=True)
+    check_case("512_full_quality", vol_512, 512, full)
+    check_case("1024_hard", sliced["timed"][1024][0], 1024, hard)
+    eng_ms = ms["engines"]["ms_sliced_512"][0]
+    ms_vis = ca_step.visibility_plane(eng_ms.state, eng_ms.spec)
+    for tag, light in (("hard", hard), ("full_quality", full)):
+        check_case(f"512_pyroclastic_{tag}", ms_vis, 512, light, ages=eng_ms.state,
+                   states=eng_ms.spec.total_states)
+    cases = out["cases"]
+    out["shade_px_not_bit_equal"] = sum(c["shade_px_not_bit_equal"] for c in cases.values())
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"(r) the queries kernel == its twin bit for bit and the shade kernel within the "
+        f"contract on {len(cases)} frames ({out['shade_px_not_bit_equal']} pixels not bit-equal, "
+        f"max abs err {out['max_abs_err']:.3g}); {out['wall_s']:.1f} s")
+    for key, v in out["timings"].items():
+        if not key.endswith("reads_ms"):
+            log(f"  {key}: {v:.4f}")
+    return out
 
 
 # ---------------------------------------------- (i) the occupied box ---
@@ -1276,7 +1546,8 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
     counted = (ca_step.step_packed_multistate_cuda, ca_step.age_masks_cuda,
                ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.cell_state_cuda, rs.occupied_box_cuda,
-               occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda)
+               occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda,
+               rs.lighting_queries_cuda, rs.lighting_shade_cuda)
     out["launches"], out["engines"] = {}, {}
     for name, (cfg, fused, frames) in MS_ENGINES.items():
         for fn in counted:
@@ -1326,6 +1597,11 @@ def multistate_phase(torch, np, ct, rf, rs, ca_step, AutomatonSpec, coarse_occup
              and counts["occupied_box_cuda"] == 0,
              f"{name}: one {mips[0]} a frame, no box kernel: {counts}")
         need(all(counts[k] == 0 for k in unused), f"{name} launched {unused}: {counts}")
+        # The lighting passes' two kernels: one each a frame of the sliced
+        # path and of K1's extended frames (one bounce or temporal).
+        lit_frames = 2 + fused["frames"] if "shadow_sweep_cuda" in needed else 0
+        need(counts["lighting_queries_cuda"] == counts["lighting_shade_cuda"] == lit_frames,
+             f"{name}: {lit_frames} queries and shade launches, {counts}")
         log(f"(h) {name}: step({steps}), render() x2, run_fused({fused}) in "
             f"{time.perf_counter() - t0:.2f} s; launches {counts}")
         out["launches"][name] = counts
@@ -1511,7 +1787,7 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
                occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda,
-               rfast.reproject_history_cuda)
+               rfast.reproject_history_cuda, rs.lighting_queries_cuda, rs.lighting_shade_cuda)
     out = {"launches": {}, "valid_px": {}, "valid_share_of_hits": {}, "engines": {},
            "walls_s": {}}
     for name, (over, steps, ticks) in INTERACTIVE.items():
@@ -1544,6 +1820,8 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                 "primary_sweep_cuda": ticks if sliced else 0,
                 "shadow_sweep_cuda": ticks if sliced or lit else 0,
                 "cell_state_cuda": ticks if lit else 0,
+                "lighting_queries_cuda": ticks if sliced or lit else 0,
+                "lighting_shade_cuda": ticks if sliced or lit else 0,
                 # one occupancy rebuild a tick, with the box where K2 / K4
                 # clip to it, and no box kernel
                 "coarse_occupancy_cuda": 0 if sliced or lit else ticks,
@@ -2901,24 +3179,32 @@ def options_phase(torch, np, ct, rf, ca_step, occupancy, scene_cam, views, compa
 
 
 # ------------------------------------------------ (n) the attribution tools ---
-# Each tool's short form, run in one child process: (module, argv).  A
-# torch.profiler trace in this process would make later phases' traces drop
-# kernel events (phase (g)'s trace did after one in (m)), so the tools trace in
-# a process of their own.  The moved mode traces first: as the third trace of
-# the process it lost one of its 10 mip kernels on an H100, while first in a
-# process its families matched the counters in every run.
-TOOL_RUNS = (
+# Each tool's short form, (module, argv), in groups that each run in a child
+# process.  A torch.profiler trace in this process would make later phases'
+# traces drop kernel events (phase (g)'s trace did after one in (m)), and a
+# trace late in a child drops them too: the moved mode traces first (as the
+# third trace of a process it lost one of its 10 mip kernels on an H100), and
+# profile_gi and the fused lighting frames each trace first in a child of
+# their own (as the fourth trace of one, profile_gi lost its parts' only
+# kernels on an H100).
+TOOL_GROUPS = ((
     ("profile_trace", ["--mode", "moved", "--frames", "5", "--reps", "3"]),
     ("profile_trace", ["--mode", "headline", "--frames", "5", "--reps", "3"]),
     ("profile_trace", ["--mode", "multistate", "--grid", "1024", "--frames", "3", "--reps", "3"]),
     ("trace_summary", ["headline_256", "--frames", "5"]),
-    ("profile_gi", ["--reps", "3", "--calls", "2"]),
     ("profile_frame", ["--reps", "3", "--calls", "5"]),
     ("bench_dense", ["230", "5", "--reps", "3"]),
     ("bench_scale", ["--frames", "3", "--reps", "3"]),
     ("bench_512_ablate", ["3", "--reps", "3", "--calls", "10"]),
-)
-TOOLS_TIMEOUT_S = 420
+), (
+    ("profile_gi", ["--reps", "3", "--calls", "2"]),
+), (
+    ("profile_trace", ["--mode", "gi", "--frames", "5", "--reps", "3"]),
+), (
+    ("profile_trace", ["--mode", "gi_temporal", "--frames", "5", "--reps", "3"]),
+))
+TOOL_RUNS = tuple(run for group in TOOL_GROUPS for run in group)
+TOOLS_TIMEOUT_S = 420  # a child
 
 
 def not_positive(rec: dict, keys) -> list[str]:
@@ -2930,10 +3216,11 @@ def not_positive(rec: dict, keys) -> list[str]:
             or isinstance(rec.get(k), bool) or not (math.isfinite(rec[k]) and rec[k] > 0)]
 
 
-def tools_child() -> None:
-    """The child of phase (n): each tool's short form in turn, in this
-    process, its traces under build/traces/chip_smoke/; prints the tools'
-    JSON lines and, after each tool, ``{"tool_done": name, "s": wall}``."""
+def tools_child(group: int) -> None:
+    """A child of phase (n): each tool's short form of ``TOOL_GROUPS[group]``
+    in turn, in this process, its traces under build/traces/chip_smoke/;
+    prints the tools' JSON lines and, after each tool, ``{"tool_done": name,
+    "s": wall}``."""
     import importlib
 
     import torch
@@ -2942,7 +3229,7 @@ def tools_child() -> None:
         raise SmokeFailure("torch.cuda.is_available() is false")
     sys.path.insert(0, str(HERE))
     traces = HERE / "build" / "traces" / "chip_smoke"
-    for name, argv in TOOL_RUNS:
+    for name, argv in TOOL_GROUPS[group]:
         mod = importlib.import_module(f"cellularautomatons3d_tpu_torch.tools.{name}")
         if name == "profile_trace":
             argv = argv + ["--out", str(traces / argv[1])]
@@ -3029,15 +3316,17 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
         if not k.endswith("reads_ms"):
             log(f"  {k}: {v:.4f}")
 
-    # The tools, in a child process.
+    # The tools, in child processes.
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--tools"], cwd=HERE,
-                          capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+    lines = []
+    for group in range(len(TOOL_GROUPS)):
+        proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--tools", str(group)],
+                              cwd=HERE, capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+        need(proc.returncode == 0, f"(n) the tools' child {group} failed (exit "
+             f"{proc.returncode}): {proc.stderr[-3000:]}")
+        lines += [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
     out["tools_s"] = time.perf_counter() - t0
-    need(proc.returncode == 0, f"(n) the tools' child failed (exit {proc.returncode}): "
-         f"{proc.stderr[-3000:]}")
-    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
     (HERE / "chiprun_out").mkdir(exist_ok=True)
     (HERE / "chiprun_out" / "chip_smoke_tools.jsonl").write_text(
         "".join(json.dumps(x) + "\n" for x in lines))
@@ -3063,7 +3352,14 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
                      "occupied_box_kernel": 0},
         "multistate": {"ca_step_kernel": 1, "age_masks_kernel": 2, "primary_sweep_kernel": 1,
                        "shadow_sweep_kernel": 1, "occupied_box_kernel": 0,
-                       "coarse_occupancy_kernel": 1},
+                       "coarse_occupancy_kernel": 1, "lighting_queries_kernel": 1,
+                       "lighting_shade_kernel": 1},
+        # The fused extended-lighting frames at 256³: step, rebuild, K1, the
+        # queries kernel, K2, K3, the shade kernel composing.
+        **{mode: {"ca_step_kernel": 1, "coarse_occupancy_kernel": 1, "render_kernel": 1,
+                  "lighting_queries_kernel": 1, "shadow_sweep_kernel": 1,
+                  "cell_state_kernel": 1, "lighting_shade_kernel": 1,
+                  "occupied_box_kernel": 0} for mode in ("gi", "gi_temporal")},
         "moved": {"render_kernel": 1, "coarse_occupancy_kernel": 1, "reproject_kernel": 0.5,
                   "occupied_box_kernel": 0},
     }
@@ -3087,6 +3383,32 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
     need(-1e-6 < other < rec["frames"], f"(n) headline: {other:.2f} launches in a call of "
          f"{rec['frames']} frames beside the step, mip and K1 kernels")
     out["headline_other_launches_per_call"] = other
+    # The fused lighting frames: their 7 kernels and the fused call's few
+    # launches, at most 10 launches a frame (1,428.3 and 502.3 before the
+    # two lighting kernels, PERF.md).
+    for mode in ("gi", "gi_temporal"):
+        rec = by_mode[mode]
+        other = (rec["launches_per_frame"] - sum(expect[mode].values())) * rec["frames"]
+        need(rec["launches_per_frame"] <= 10 and -1e-6 < other < rec["frames"],
+             f"(n) {mode}: {rec['launches_per_frame']} launches a frame, {other:.2f} in a call "
+             f"of {rec['frames']} frames beside its 7 kernels")
+        out[f"{mode}_launches_per_frame"] = rec["launches_per_frame"]
+    # Between K1 (K4 on the sliced multi-state frames) and the shade kernel
+    # of every traced frame run the lighting passes' kernels and no torch
+    # kernel: the queries kernel, K2 (or K5) and K3.
+    from cellularautomatons3d_tpu_torch.tools import trace_summary
+
+    passes = ("lighting_queries_kernel", "shadow_sweep_kernel", "shadow_multi_kernel",
+              "cell_state_kernel")
+    for mode, first in (("gi", "render_kernel"), ("gi_temporal", "render_kernel"),
+                        ("multistate", "primary_sweep_kernel")):
+        between = trace_summary.kernels_between(
+            HERE / "build" / "traces" / "chip_smoke" / mode / "trace.json", first,
+            "lighting_shade_kernel")
+        stray = {k: v for k, v in between.items() if not any(p in k for p in passes)}
+        need(between and not stray, f"(n) {mode}: between {first} and the shade kernel ran "
+             f"{dict(between)}")
+        out[f"{mode}_between_frame_and_shade"] = dict(between)
     summary = [r for r in recs if r["tool"] == "trace_summary"][0]
     need(abs(summary["busy_ms"] - by_mode["headline"]["busy_ms"]) < 1e-9,
          "(n) trace_summary's busy ms != profile_trace's on the same trace")
@@ -3601,14 +3923,16 @@ def main() -> dict:
         the port builds them: 4 soft-shadow samples + 4 GI slots, 4 GI
         lookups; of the centre seed after ``steps`` generations, or of
         ``vol``.  Returns (vol, coarse, cam, geo, K2's stacked operands, the
-        plain K3's stacked operands, the queries, the lookups)."""
+        plain K3's stacked operands, the queries, the lookups); geo is (q,
+        origin, coords, found, idx, t, K1's unshadowed rgb or None)."""
         vol = grown(size, steps) if vol is None else vol
         coarse = coarse_occupancy(vol)
         cam = scene_cam(views["front"], w, h, light_radius=LIGHTING["light_radius"],
                         elapsed_time=0.37)
+        rgb = None
         if size <= GRID:
-            _, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=size,
-                                             width=w, height=h, shadow=False)
+            rgb, depth, idx = rf.raytrace_cuda(vol, coarse, cam, grid_size=size,
+                                               width=w, height=h, shadow=False)
         else:
             depth, idx = rs.primary_sweep_cuda(vol, coarse, box_of(coarse), cam, grid_size=size,
                                                width=w, height=h)
@@ -3620,7 +3944,8 @@ def main() -> dict:
         lookups = [(sl[0], sl[3]) for sl in slots]
         k2 = rs.stack_occlusion_queries(queries, w, h)
         k3 = rs.stack_cell_queries(lookups, w, h)
-        return vol, coarse, cam, (q, origin, coords, found), k2, k3, queries, lookups
+        return (vol, coarse, cam, (q, origin, coords, found, idx, depth, rgb), k2, k3, queries,
+                lookups)
 
     for size, w, h in ((64, 128, 64), (GRID, WIDTH, HEIGHT)):
         vol, coarse, cam, geo, k2, k3, _, lookups = lighting_operands(size, w, h)
@@ -3664,11 +3989,13 @@ def main() -> dict:
     # The three lighting configurations at real size.
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.shadow_sweep_cuda,
                rs.cell_state_cuda, occupancy.coarse_occupancy_box_cuda,
-               occupancy.coarse_occupancy_cuda, occupancy.occupied_box_cuda)
+               occupancy.coarse_occupancy_cuda, occupancy.occupied_box_cuda,
+               rs.lighting_queries_cuda, rs.lighting_shade_cuda)
     lighting_launches, lighting_engines = {}, {}
     for name, variant in LIGHTING_VARIANTS.items():
         for fn in counted:
             fn.launches = 0
+        rs.lighting_shade_cuda.compose_launches = 0
         t0 = time.perf_counter()
         eng_l = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda",
                           **LIGHTING, **variant)
@@ -3676,11 +4003,22 @@ def main() -> dict:
         fr = [eng_l.render(), eng_l.run_fused(50, reset_every=10)]
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in counted}
+        counts["lighting_shade_cuda_compose"] = rs.lighting_shade_cuda.compose_launches
         for i, f in enumerate(fr):
             need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
             need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
             need(float(f.max()) > 0.0, f"{name} frame {i} is black")
-        absent = ("coarse_occupancy_cuda", "occupied_box_cuda")
+        # One bounce and the temporal mode: the queries kernel and the shade
+        # kernel once a frame, the fused frames' shade composing; two bounces
+        # take their direct shadow from the queries kernel once a frame and
+        # recurse in torch around K2 and K3.
+        one_bounce = name != "two_bounces"
+        need(counts["lighting_queries_cuda"] == 51
+             and counts["lighting_shade_cuda"] == (51 if one_bounce else 0)
+             and counts["lighting_shade_cuda_compose"] == (50 if one_bounce else 0),
+             f"{name}: the lighting kernels' launches {counts}")
+        absent = ("coarse_occupancy_cuda", "occupied_box_cuda") + (
+            () if one_bounce else ("lighting_shade_cuda", "lighting_shade_cuda_compose"))
         need(all(v > 0 for k, v in counts.items() if k not in absent),
              f"{name} missed a kernel: {counts}")
         # One occupancy rebuild a frame, the mip with its box (K2 clips to
@@ -3712,6 +4050,11 @@ def main() -> dict:
                           scene_cam, views, lighting_operands, compare)
     report["multistate"] = {k: ms[k] for k in ("ms_cases", "k1_max_abs_err", "k1_id_mismatch",
                                                "k4_max_abs_err", "plain_ms", "launches")}
+
+    # ------------------------------------------------ (r) the lighting kernels ---
+    lk = lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, views, sliced, ms)
+    report["lighting_kernels"] = {k: lk[k] for k in ("cases", "timings", "bounds", "max_abs_err",
+                                                     "shade_px_not_bit_equal", "wall_s")}
 
     # ------------------------------------------------ (i) the occupied box ---
     # The whole-box scenes: gen-230 at 256³ (K2) and gen-260 at 512³ (K4),
@@ -3792,8 +4135,8 @@ def main() -> dict:
                          reps=50, warmup=2)
     k3_plain_ms = cuda_time_fn(lambda: rs.cell_state(vol, *k3, grid_size=GRID), reps=10, warmup=1)
     passes_ms = cuda_time_fn(lambda: rs.lighting_passes(
-        cam, *geo, prepped, grid_size=GRID, width=WIDTH,
-        height=HEIGHT, soft_k=LIGHTING["soft_shadow_samples"], gi=True), reps=5, warmup=1)
+        cam, geo[4], geo[5], prepped, rs.Lighting(soft_k=LIGHTING["soft_shadow_samples"], gi=True),
+        grid_size=GRID, width=WIDTH, height=HEIGHT, rgb=geo[6]), reps=20, warmup=2)
     lighting_ms = {
         f"{name}_step_plus_frame_ms": cuda_time_fn(
             lambda e=e: e.run_fused(20, reset_every=10), reps=1, warmup=0) / 20
@@ -4066,6 +4409,11 @@ def main() -> dict:
     bounds["coarse_occupancy"] = bounds[f"coarse_occupancy_{GRID}"]
     bounds["coarse_occupancy_box"] = bounds[f"coarse_occupancy_box_{GRID}"]
     bounds["reproject"] = bounds[f"reproject_{GRID}"]
+    # The lighting kernels from (r)'s timed frames; the kernels line's rows
+    # are full quality at 256³ (the shade kernel composing, as the fused loop).
+    bounds.update({f"lighting_{k}": v for k, v in lk["bounds"].items()})
+    bounds["lighting_queries"] = bounds[f"lighting_queries_{GRID}_full_quality"]
+    bounds["lighting_shade"] = bounds[f"lighting_shade_{GRID}_full_quality_compose"]
     report["bounds"] = bounds
 
     def entry(name, source, replaces, launches, err, ms, plain, bound_name=None):
@@ -4197,6 +4545,22 @@ def main() -> dict:
               total("step_slab_multistate_cuda", *mesh_launches), 0.0,
               mesh["timings"]["ca_step_slab_multistate_512_ms"],
               mesh["timings"]["ca_step_slab_multistate_plain_ms"]),
+        # The lighting passes' two kernels, the XLA geometry and shading that
+        # JAX fuses around its kernels in lighting_passes: launched on (e)'s
+        # one-bounce and temporal frames (the queries kernel on its two-bounce
+        # frames too), (f)'s sliced frames, (h)'s and (j)'s
+        # lighting and sliced frames; ms and plain at 256³ / 1080p full
+        # quality, the shade kernel composing as the fused loop runs it (r).
+        entry("lighting_queries", "lighting_queries.cu", "render/render_slab.py:1431",
+              total("lighting_queries_cuda", *lighting_launches.values(),
+                    *sliced_launches.values(), *ms_launches), 0.0,
+              lk["timings"][f"queries_{GRID}_full_quality_events_ms"],
+              lk["timings"][f"queries_plain_{GRID}_full_quality_events_ms"]),
+        entry("lighting_shade", "lighting_shade.cu", "render/renderer_fast.py:318",
+              total("lighting_shade_cuda", *lighting_launches.values(),
+                    *sliced_launches.values(), *ms_launches), lk["max_abs_err"],
+              lk["timings"][f"shade_{GRID}_full_quality_compose_events_ms"],
+              lk["timings"][f"shade_plain_{GRID}_full_quality_compose_events_ms"]),
     ]
     # ----------------------------------------------------------- (o) the bench ---
     report["bench"] = bench_phase(torch, rf, ca_step)
@@ -4217,9 +4581,9 @@ if __name__ == "__main__":
             print(f"chip_smoke --entry-trace FAILED: {e}", file=sys.stderr, flush=True)
             sys.exit(1)
         sys.exit(0)
-    if sys.argv[1:] == ["--tools"]:  # phase (n)'s child process
+    if sys.argv[1:2] == ["--tools"]:  # phase (n)'s child processes
         try:
-            tools_child()
+            tools_child(int(sys.argv[2]))
         except SmokeFailure as e:
             print(f"chip_smoke --tools FAILED: {e}", file=sys.stderr, flush=True)
             sys.exit(1)

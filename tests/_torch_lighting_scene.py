@@ -160,3 +160,36 @@ def jax_frame_queries():
                             rng.random((H, W)) < 0.7))
     return dict(words=words, cam=cam, depth=np.asarray(depth), idx=np.asarray(idx),
                 geo=geo, queries=queries, slot_coords=slot_coords)
+
+
+def twin_frame(vol, cam, light, *, n, width, height, ages=None, total_states=2, sliced=False):
+    """A frame's lighting passes through the plain twins of the two lighting
+    kernels, step by step on the CPU: the primary hits (plain K1, unshadowed
+    when the lighting has soft shadows, or plain K4 with ``sliced``), the
+    queries twin (``lighting_queries_stacked``), plain K2 and K3 on its
+    operands, the shade twin (``lighting_shade``).  ``light`` is a
+    ``render_slab.Lighting``.  Returns numpy (rgb, depth, idx)."""
+    from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+    from cellularautomatons3d_tpu_torch.render.render_fast import raytrace
+
+    kw = dict(grid_size=n, width=width, height=height)
+    if sliced:
+        t, idx, *age = rs.primary_sweep(vol, cam, ages, **kw)
+        rgb, age = None, (age[0] if age else None)
+    else:
+        soft = light.soft_k is not None and light.soft_k > 1
+        rgb, t, idx = raytrace(vol, coarse_occupancy(vol), cam, shadow=not soft, ages=ages,
+                               total_states=total_states, **kw)
+        age = None
+    prepped = rs.prep_volume(vol)
+    flags = states = None
+    if light.nq:
+        ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+        flags = rs.occlusion_flags(cam, ops, prepped, grid_size=n)
+        if light.n_slots:
+            states = rs.slot_states(ops, light.n_soft, prepped, grid_size=n)
+    out = rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, age=age,
+                            total_states=total_states, **kw)
+    rgb, depth = out if sliced else (out, t)
+    return rgb.numpy(), depth.numpy(), idx.numpy()

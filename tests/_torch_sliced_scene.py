@@ -55,18 +55,23 @@ def scene_cam(view_name="front", width=W, height=H, **kw) -> np.ndarray:
 
 def jax_sliced(words, cam, n=N, bricks=BRICKS, **kw):
     """JAX ``raytrace_sliced`` over 4 bricks (or ``bricks`` of an ``n``³
-    grid): numpy (rgb, depth, idx)."""
+    grid), with the emissive light on hits that JAX's ``trace_shaded`` adds
+    after it and the port's ``raytrace_sliced`` includes: numpy (rgb, depth,
+    idx)."""
     import jax
     import jax.numpy as jnp
 
     from cellularautomatons3d_tpu.render.render_slab import raytrace_sliced
+    from cellularautomatons3d_tpu_torch.render.render_fast import P_EMIS, P_EMISS
 
     with jax.disable_jit():
         out = raytrace_sliced(
             jnp.asarray(words), jnp.asarray(cam), grid_size=n, width=W,
             height=H, interpret=True, **bricks, **kw,
         )
-        return tuple(np.asarray(a) for a in out)
+        rgb, depth, idx = (np.asarray(a) for a in out)
+    emis = (cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS]).astype(np.float32)
+    return np.where((idx >= 0)[..., None], rgb + emis, rgb), depth, idx
 
 
 def torch_sliced(words, cam, n=N, **kw):

@@ -1586,3 +1586,242 @@ def test_mip1_frame_on_the_card_needs_the_plane_mip(cuda, monkeypatch):
     assert rf.raytrace_cuda.mip1_launches >= 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------- the lighting passes' kernels ---
+
+# The lighting modes of the queries and shade kernels (render_slab.Lighting).
+LIGHTINGS = {
+    "full_quality": dict(soft_k=4, gi=True),
+    "soft": dict(soft_k=4),
+    "gi": dict(gi=True),
+    "hard": dict(soft_k=1),
+    "hard_gi": dict(soft_k=1, gi=True),
+    "none": dict(),
+    **{f"temporal_{k}": dict(soft_k=4, jitter_k=k, gi=True, gi_slot=k) for k in range(4)},
+}
+
+
+def _lighting_hits(device, n, light, ages=None, total_states=2, row0=0.0, gamma=2.0, view="front"):
+    """A frame's primary hits as the lighting passes take them: (prepped,
+    cam, K1's rgb or None, t, idx, K4's age or None) -- K1 at n <= 256 (its
+    hard shadow only when the lighting has no soft shadows), K4 above, on a
+    sparse random volume (or ``ages``' visibility plane)."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    if ages is None:
+        rng = np.random.default_rng(n)
+        dense = (rng.random((n, n, n)) < (0.05 if n <= 64 else 0.003)).astype(np.uint8)
+        vol = ct.from_reference(ct.pack_grid(dense), device)
+    else:
+        vol = ca_step.visibility_plane(ages, ct.AutomatonSpec.from_rule_strings(
+            n, total_states=total_states))
+    prepped = rs.prep_volume(vol)
+    cam = rf.pack_cam(VIEWS[view], W, 4 * H if row0 else H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+                      (0.17, 0.2, 0.3), (0.0,) * 3, light_radius=0.08, elapsed_time=0.37,
+                      emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5, row0=row0,
+                      gamma=gamma, show_overlay=1.0)
+    kw = dict(grid_size=n, width=W, height=H)
+    if n > 256:
+        t, idx, *age = rs.primary_sweep_cuda(vol, prepped.coarse, prepped.box, cam, ages, **kw)
+        return prepped, cam, None, t, idx, (age[0] if age else None)
+    soft = light.soft_k is not None and light.soft_k > 1
+    rgb, t, idx = rf.raytrace_cuda(vol, prepped.coarse, cam, shadow=not soft, ages=ages,
+                                   total_states=total_states, **kw)
+    return prepped, cam, rgb, t, idx, None
+
+
+def _assert_equal_nan(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.dtype.is_floating_point:
+            assert bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+        else:
+            assert torch.equal(g, w)
+
+
+def _assert_queries_equal(got, want):
+    """The queries kernel's operands against the twin's: the masks equal,
+    the start, target and excluded cell equal (NaN where the twin's are) on
+    the active lanes, the only ones the kernel writes and K2, K5 and K3
+    read."""
+    active = want[3]
+    assert torch.equal(got[3], active)
+    lanes = active[:, None].expand_as(want[0])
+    _assert_equal_nan([g[lanes] for g in got[:3]], [w[lanes] for w in want[:3]])
+
+
+@pytest.mark.parametrize("name", [k for k, v in LIGHTINGS.items() if v])
+@pytest.mark.parametrize("n", [64, 320])
+def test_lighting_queries_kernel_matches_twin(cuda, n, name):
+    """The queries kernel's K2 operands equal the twin's bit for bit (NaN
+    where the twin's are) on the active lanes, its masks everywhere, and
+    K2's flags and K3's states downstream."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(**LIGHTINGS[name])
+    prepped, cam, _, t, idx, _ = _lighting_hits(cuda, n, light)
+    kw = dict(grid_size=n, width=W, height=H)
+    got = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    want = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+    _assert_queries_equal(got, want)
+    assert int((idx >= 0).sum()) > 0
+    assert torch.equal(rs.occlusion_flags(cam, got, prepped, grid_size=n),
+                       rs.occlusion_flags(cam, want, prepped, grid_size=n))
+    if light.n_slots:
+        assert torch.equal(rs.slot_states(got, light.n_soft, prepped, grid_size=n),
+                           rs.slot_states(want, light.n_soft, prepped, grid_size=n))
+
+
+# (grid, composed): K1's frames with and without the fused loop's composition,
+# the sliced frame (which does not compose).
+SHADE_FRAMES = [(64, False), (64, True), (320, False)]
+
+
+@pytest.mark.parametrize("name", list(LIGHTINGS))
+@pytest.mark.parametrize("n,compose", SHADE_FRAMES, ids=["k1", "k1_compose", "sliced"])
+def test_lighting_shade_kernel_matches_twin(cuda, n, compose, name):
+    """The shade kernel against its twin on the same flags and states: the
+    light (and the presentation and history, or the depth) within rtol
+    3e-3 / atol 3e-4, NaN in the same pixels."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(**LIGHTINGS[name])
+    prepped, cam, rgb, t, idx, _ = _lighting_hits(cuda, n, light, gamma=2.2 if compose else 2.0)
+    kw = dict(grid_size=n, width=W, height=H)
+    flags = states = None
+    if light.nq:
+        ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+        flags = rs.occlusion_flags(cam, ops, prepped, grid_size=n)
+        if light.n_slots:
+            states = rs.slot_states(ops, light.n_soft, prepped, grid_size=n)
+    hist = None
+    if compose:
+        g = torch.Generator(cuda).manual_seed(9)
+        hist = (torch.rand((H, W, 3), device=cuda, generator=g),
+                torch.where(torch.rand((H, W), device=cuda, generator=g) < 0.7, idx, -1))
+    skw = dict(rgb=rgb, history=hist, **kw)
+    got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light, **skw)
+    want = rs.lighting_shade(cam, idx, t, flags, states, light, **skw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=3e-4, rtol=3e-3, equal_nan=True)
+    assert float(torch.nan_to_num(want[0]).max()) > 0.0
+
+
+def test_lighting_kernels_read_a_sample_index_on_the_card(cuda):
+    """A temporal index held on the card gives the frame of the same index
+    given as an int, bit for bit, and launches no other kernel."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    base = rs.Lighting(soft_k=4, gi=True)
+    prepped, cam, rgb, t, idx, _ = _lighting_hits(cuda, N, base)
+    kw = dict(grid_size=N, width=W, height=H)
+    for k in range(4):
+        k_dev = torch.tensor(k, device=cuda)
+        by_int = rs.Lighting(soft_k=4, jitter_k=k, gi=True, gi_slot=k)
+        by_dev = rs.Lighting(soft_k=4, jitter_k=k_dev, gi=True, gi_slot=k_dev)
+        a = rs.lighting_passes(cam, idx, t, prepped, by_int, rgb=rgb, **kw)
+        b = rs.lighting_passes(cam, idx, t, prepped, by_dev, rgb=rgb, **kw)
+        _assert_equal_nan((a,), (b,))
+        _assert_queries_equal(rs.lighting_queries_cuda(cam, idx, t, by_dev, **kw),
+                          rs.lighting_queries_stacked(cam, idx, t, by_dev, **kw))
+
+
+@pytest.mark.parametrize("n", [64, 320])
+def test_lighting_kernels_with_ages(cuda, n):
+    """K1's faded frame (64³) and the sliced frame's fade of the direct
+    light by K4's ages (320³) through both kernels, against the twins."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    planes, _ = random_ages(cuda, n, 10, 23, p_dead=0.97)
+    light = rs.Lighting(soft_k=4, gi=True)
+    prepped, cam, rgb, t, idx, age = _lighting_hits(cuda, n, light, ages=planes,
+                                                    total_states=10)
+    kw = dict(grid_size=n, width=W, height=H)
+    got = rs.lighting_passes(cam, idx, t, prepped, light, rgb=rgb, age=age, total_states=10,
+                             **kw)
+    ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=n)
+    states = rs.slot_states(ops, light.n_soft, prepped, grid_size=n)
+    want = rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, age=age,
+                             total_states=10, **kw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=3e-4, rtol=3e-3, equal_nan=True)
+    assert int((idx >= 0).sum()) > 0
+
+
+def test_lighting_kernels_on_a_row_shard(cuda):
+    """Rows 128..191 of a 256-row window: the jitter hashes and the rays
+    are the window's."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(soft_k=4, gi=True)
+    prepped, cam, rgb, t, idx, _ = _lighting_hits(cuda, N, light, row0=float(2 * H))
+    kw = dict(grid_size=N, width=W, height=H)
+    _assert_queries_equal(rs.lighting_queries_cuda(cam, idx, t, light, **kw),
+                      rs.lighting_queries_stacked(cam, idx, t, light, **kw))
+    ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=N)
+    states = rs.slot_states(ops, 4, prepped, grid_size=N)
+    torch.testing.assert_close(
+        rs.lighting_shade_cuda(cam, idx, t, flags, states, light, rgb=rgb, **kw),
+        rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, **kw),
+        atol=3e-4, rtol=3e-3, equal_nan=True)
+
+
+def test_lighting_frames_launch_the_kernels(cuda):
+    """A fused full-quality frame is step, rebuild, K1, queries, K2, K3 and
+    shade (composing); render() the same with a non-compose shade; a sliced
+    frame K4, queries, K2 and shade; two bounces the queries kernel for the
+    direct shadow, once a frame, and no shade kernel."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    kernels = (rs.lighting_queries_cuda, rs.lighting_shade_cuda, rs.shadow_sweep_cuda,
+               rs.cell_state_cuda)
+    for cfg, frames, want in (
+        (dict(grid_size=N, **LIGHTING_320), 3, [4, 4, 4, 4]),
+        (dict(grid_size=N, **LIGHTING_320, gi_temporal=True), 3, [4, 4, 4, 4]),
+        (dict(grid_size=320), 2, [3, 3, 3, 0]),
+        (dict(grid_size=N, **LIGHTING_320, indirect_bounces=2), 1, [0, 0, 4, 4]),
+    ):
+        eng = ct.Engine(width=W, height=H, device="cuda", **cfg)
+        eng.step(20 if cfg["grid_size"] == N else 70)
+        for fn in kernels:
+            fn.launches = 0
+        rs.lighting_shade_cuda.compose_launches = 0
+        eng.render()
+        eng.run_fused(frames, reset_every=2)
+        torch.cuda.synchronize()
+        got = [fn.launches for fn in kernels]
+        if cfg.get("indirect_bounces", 1) == 1:
+            assert got == want, cfg
+            fused = frames if cfg["grid_size"] == N else 0
+            assert rs.lighting_shade_cuda.compose_launches == fused, cfg
+        else:
+            assert got[:2] == [1 + frames, 0] and got[2] > 0 and got[3] > 0, (cfg, got)
+
+
+def test_lighting_wrappers_refuse_bad_operands(cuda):
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(soft_k=4, gi=True)
+    prepped, cam, rgb, t, idx, _ = _lighting_hits(cuda, N, light)
+    kw = dict(grid_size=N, width=W, height=H)
+    with pytest.raises(ValueError, match="float32"):
+        rs.lighting_queries_cuda(cam, idx, t.double(), light, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        rs.lighting_queries_cuda(cam, idx[:-1], t[:-1], light, **kw)
+    ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=N)
+    states = rs.slot_states(ops, 4, prepped, grid_size=N)
+    with pytest.raises(ValueError, match="flags"):
+        rs.lighting_shade_cuda(cam, idx, t, flags[:5], states, light, rgb=rgb, **kw)
+    with pytest.raises(ValueError, match="states"):
+        rs.lighting_shade_cuda(cam, idx, t, flags, states.int(), light, rgb=rgb, **kw)
+    with pytest.raises(ValueError, match="age"):
+        rs.lighting_shade_cuda(cam, idx, t, flags, states, light, rgb=rgb,
+                               age=torch.ones_like(idx), **kw)
+    with pytest.raises(ValueError, match="gi_slot"):
+        rs.lighting_queries_cuda(cam, idx, t, rs.Lighting(gi=True, gi_slot=4), **kw)

@@ -29,10 +29,11 @@ from cellularautomatons3d_tpu_torch import engine as tengine
 from cellularautomatons3d_tpu_torch.ops.occupancy import coarse_occupancy
 from cellularautomatons3d_tpu_torch.render import brdf, intersect, render_slab
 from cellularautomatons3d_tpu_torch.render import renderer
-from cellularautomatons3d_tpu_torch.render.render_fast import raytrace_tiles
+from cellularautomatons3d_tpu_torch.render.render_fast import P_EMIS, P_EMISS, raytrace_tiles
 
 from _torch_lighting_scene import (
-    LIGHTING, N_RANDOM, H, N, W, jax_frame_queries, scene_cam, scene_words,
+    LIGHTING, MAX_FLIPPED_FRACTION, N_RANDOM, H, N, W, jax_frame_queries, scene_cam,
+    scene_words,
 )
 
 
@@ -296,3 +297,74 @@ def test_face_index_and_layers_match_jax():
     want = np.asarray(jren._face_index(jnp.asarray(normals)))
     np.testing.assert_array_equal(renderer._face_index(t(normals)).numpy(), want)
     np.testing.assert_array_equal(renderer._INDIRECT_LAYERS, jren._INDIRECT_LAYERS)
+
+
+# The lighting passes' modes against JAX's lighting_passes: (Lighting
+# arguments, the frame fixture's occlusion queries and GI lookups they take).
+PASSES = {
+    "full_quality": (dict(soft_k=4, gi=True), range(8), range(4)),
+    "soft": (dict(soft_k=4), range(4), ()),
+    "gi": (dict(gi=True), range(4, 8), range(4)),
+    **{f"gi_temporal_{k}": (dict(soft_k=4, jitter_k=k, gi=True, gi_slot=k), (k, 4 + k), (k,))
+       for k in range(4)},
+}
+
+
+@pytest.mark.parametrize("name", list(PASSES))
+def test_lighting_twins_match_jax_lighting_passes(frame, name, monkeypatch):
+    """The two lighting kernels' twins against JAX's ``lighting_passes`` on
+    the frame's hits, with the occlusion flags and neighbour states of the
+    JAX kernels from the module's frame (JAX's ``shadow_occlusion_batch`` and
+    ``cell_state_batch`` hand them back here, so no kernel runs again): the
+    queries twin's operands against the queries JAX forms (cells and masks
+    equal, points within 1e-6, the jittered targets on all but 2 % of
+    values), and the shade twin's light on a white frame (the quotient plus
+    the GI and the emissive light on hits) against JAX's quotient and GI on
+    all but the grazing pixels of tests/_torch_lighting_scene.py."""
+    kw_light, qi, si = PASSES[name]
+    seen = {}
+
+    def occlusion_batch(cam, queries, prepped, **kw):
+        seen["queries"] = queries
+        assert len(queries) == len(qi)
+        return [jnp.asarray(frame["occ"][i]) for i in qi]
+
+    def state_batch(queries, prepped, **kw):
+        assert len(queries) == len(si)
+        return [jnp.asarray(frame["states"][i]) for i in si]
+
+    monkeypatch.setattr(jrs, "shadow_occlusion_batch", occlusion_batch)
+    monkeypatch.setattr(jrs, "cell_state_batch", state_batch)
+    light = render_slab.Lighting(**kw_light)
+    q, origin, coords, found, _ = frame["geo"]
+    occl, gi = jrs.lighting_passes(
+        jnp.asarray(frame["cam"]), *(jnp.asarray(a) for a in (q, origin, coords, found)), None,
+        grid_size=N, width=W, height=H, soft_k=light.soft_k, jitter_k=light.jitter_k,
+        gi=light.gi, gi_slot=light.gi_slot)
+    kw = dict(grid_size=N, width=W, height=H)
+    idx, depth = t(frame["idx"]), t(frame["depth"])
+    start, target, excl, active = (a.numpy() for a in render_slab.lighting_queries_stacked(
+        frame["cam"], idx, depth, light, **kw))
+    for i, query in enumerate(seen["queries"]):
+        s_, tg, e, a = (np.asarray(x) for x in query)  # targets broadcast to [H, W, 3]
+        np.testing.assert_array_equal(active[i], a, err_msg=f"query {i}")
+        np.testing.assert_array_equal(excl[i], np.moveaxis(e, -1, 0), err_msg=f"query {i}")
+        on = a[None].repeat(3, 0)
+        np.testing.assert_allclose(start[i][on], np.moveaxis(s_, -1, 0)[on], atol=1e-6, rtol=0)
+        assert (target[i] != np.moveaxis(tg, -1, 0)).mean() <= 0.02, f"query {i}"
+    flags = t(np.stack([frame["occ"][i] for i in qi]).astype(np.int32))
+    states = t(np.stack([frame["states"][i] for i in si]).astype(np.uint8)) if si else None
+    got = render_slab.lighting_shade(frame["cam"], idx, depth, flags, states, light,
+                                     rgb=torch.ones((H, W, 3)), **kw).numpy()
+    want = np.ones((H, W, 3), np.float32)
+    if occl is not None:
+        want = want * np.asarray(occl)[..., None]
+    if gi is not None:
+        want = want + np.where(found[..., None], np.asarray(gi), 0.0)
+    cam = frame["cam"]
+    want = np.where(found[..., None], want + cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], want)
+    hits = found.sum()
+    far = ~np.isclose(got, want, rtol=3e-3, atol=3e-4).all(axis=-1)
+    assert far.sum() <= MAX_FLIPPED_FRACTION * hits, f"{far.sum()} of {hits} hit pixels"
+    assert not (far & ~found).any()
+    assert hits > 50 and (got != 1.0).any()

@@ -11,7 +11,10 @@ package's, one module-scoped JAX frame per lighting mode:
   soft-shadow frame allows a few penumbra pixels
   (tests/_torch_lighting_scene.py).
 
-Contract of tests/_torch_sliced_scene.py.
+Each frame also through the two lighting kernels' twins step by step (plain
+K4 with ages, ``lighting_queries_stacked``, plain K2 and K3,
+``lighting_shade`` fading the direct light).  Contract of
+tests/_torch_sliced_scene.py.
 """
 
 import numpy as np
@@ -56,3 +59,19 @@ def test_k4_age_image_equals_the_dense_ages_at_the_reference_hits(sliced_frame):
     np.testing.assert_array_equal(age.numpy(), hit_ages(ages, want[2]))
     assert set(np.unique(age.numpy()[hit])) == set(range(1, S_SLICED))
     np.testing.assert_allclose(t.numpy()[hit], want[1][hit], atol=3e-5, rtol=0)
+
+
+def test_lighting_twins_with_ages_match_jax(sliced_frame):
+    from cellularautomatons3d_tpu_torch.render.render_slab import Lighting
+
+    from _torch_lighting_scene import twin_frame
+    from _torch_sliced_scene import assert_frame_close
+
+    mode, (_, planes, vis, cam, want) = sliced_frame
+    kw, _, flipped, n, _, _ = MODES[mode]
+    light = Lighting(soft_k=1) if mode == "hard" else Lighting(
+        soft_k=4, jitter_k=kw["sample_idx"] % 4, gi=True, gi_slot=kw["sample_idx"] % 4)
+    got = twin_frame(ct.from_reference(vis, device="cpu"), cam, light, n=n, width=W, height=H,
+                     ages=ct.from_reference(planes, device="cpu"), total_states=S_SLICED,
+                     sliced=True)
+    assert_frame_close(got, want, max_flipped=flipped)

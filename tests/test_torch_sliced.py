@@ -3,7 +3,9 @@ the DDA oracle, on the CPU.
 
 * The plain K4 (``render_slab.primary_sweep``) and ``raytrace_sliced``
   with hard shadows against JAX's ``raytrace_sliced`` over 4 bricks (see
-  _torch_sliced_scene.py for the contract).
+  _torch_sliced_scene.py for the contract), and the same frame through the
+  two lighting kernels' twins step by step (``lighting_queries_stacked``,
+  plain K2, ``lighting_shade``).
 * K4 at 320³ (two coarse x-groups, the last one partial) against the
   per-pixel DDA oracle of tests/test_render_slab.py: ids equal.
 * ``coarse_occupancy`` at 320 and 544 (XG = 2 and 3, partial last groups),
@@ -26,6 +28,9 @@ from cellularautomatons3d_tpu_torch.render import render_fast, render_slab, rend
 from cellularautomatons3d_tpu_torch.utils import mat4
 
 from _torch_sliced_scene import (
+    H,
+    N,
+    W,
     assert_frame_close,
     assert_primary_close,
     jax_sliced,
@@ -47,6 +52,15 @@ def hard_frame():
 def test_primary_sweep_matches_jax(hard_frame):
     words, cam, want = hard_frame
     assert_primary_close(torch_primary(words, cam), want)
+
+
+def test_lighting_twins_match_jax_raytrace_sliced(hard_frame):
+    from _torch_lighting_scene import twin_frame
+
+    words, cam, want = hard_frame
+    got = twin_frame(ct.from_reference(words, device="cpu"), cam,
+                     render_slab.Lighting(soft_k=1), n=N, width=W, height=H, sliced=True)
+    assert_frame_close(got, want)
 
 
 def test_raytrace_sliced_hard_shadow_matches_jax(hard_frame):

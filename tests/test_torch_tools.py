@@ -74,6 +74,23 @@ HAND_TRACE = {"traceEvents": [
 ]}
 
 
+def test_kernels_between_counts_what_runs_between_two_kernels():
+    """The device events between each ``first`` kernel and the next ``last``
+    one, in start order: a lighting frame's kernels between K1 and the shade
+    kernel, a stray torch kernel counted, nothing outside the pairs."""
+    def kernel(name, ts):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": 1}
+
+    names = ["elementwise_a", "render_kernel", "lighting_queries_kernel", "shadow_sweep_kernel",
+             "elementwise_b", "cell_state_kernel", "lighting_shade_kernel", "elementwise_c",
+             "render_kernel", "lighting_queries_kernel", "lighting_shade_kernel"]
+    events = [kernel(n, 10 * i) for i, n in enumerate(names)][::-1]  # start order, not list order
+    events.append({"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 35, "dur": 1})
+    got = trace_summary.kernels_between(events, "render_kernel", "lighting_shade_kernel")
+    assert got == {"lighting_queries_kernel": 2, "shadow_sweep_kernel": 1, "elementwise_b": 1,
+                   "cell_state_kernel": 1}
+
+
 def test_trace_summary_hand_written(tmp_path):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps(HAND_TRACE))
@@ -137,7 +154,7 @@ def small_args(tool, tmp_path):
 MODULES = {"profile_trace": profile_trace, "trace_summary": trace_summary,
            "profile_gi": profile_gi, "profile_frame": profile_frame, "bench_dense": bench_dense,
            "bench_scale": bench_scale, "bench_512_ablate": bench_512_ablate}
-LINES = {"profile_trace": 1, "trace_summary": 1, "profile_gi": 7, "profile_frame": 5,
+LINES = {"profile_trace": 1, "trace_summary": 1, "profile_gi": 9, "profile_frame": 5,
          "bench_dense": 1, "bench_scale": 5, "bench_512_ablate": 3}
 
 

@@ -18,6 +18,8 @@ directory is the tree (so each imports, and builds at first use, its own
   camera move beside K static ones);
 * ``sliced``, ``sliced_1024``, ``gi``, ``gi_temporal``, ``two_bounces``:
   ``... --mode sliced`` at 512³ and 1024³, and the three lighting modes;
+* ``multistate``, ``multistate_1024``: ``... --mode multistate`` at 512³ and
+  1024³ (the ``pyroclastic`` preset's sliced frames);
 * ``bench``: ``python3 bench_torch.py`` (the pinned, dense and step lines);
 * ``mip``: this script with ``--mip-child`` (the tree first on ``sys.path``):
   the 8³ mip, the box and the plane mip at 256³ gen-80, 512³ gen-160 and
@@ -59,6 +61,8 @@ RUNS = {
     "gi": TRACE + ["gi"],
     "gi_temporal": TRACE + ["gi_temporal"],
     "two_bounces": TRACE + ["two_bounces"],
+    "multistate": TRACE + ["multistate", "--grid", "512"],
+    "multistate_1024": TRACE + ["multistate", "--grid", "1024"],
     "bench": ["bench_torch.py"],
     "mip": [str(Path(__file__).resolve()), "--mip-child"],
 }
@@ -74,7 +78,7 @@ METRICS = {
     "moved": ("frame_ms", "moved_extra_launches_per_frame", "moved_extra_device_ms_per_frame",
               "launches_per_frame", "busy_ms_per_frame"),
     "sliced": FRAME, "sliced_1024": FRAME, "gi": FRAME, "gi_temporal": FRAME,
-    "two_bounces": FRAME,
+    "two_bounces": FRAME, "multistate": FRAME, "multistate_1024": FRAME,
     "bench": ("value", "dense_scene_ms", "step_ms"),
     "mip": tuple(f"{c}_{g}_dev_ms" for g in MIP_GRIDS for c in MIP_CALLS),
 }
