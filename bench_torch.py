@@ -21,8 +21,9 @@ fresh history and from the scene (the loop never modifies the state it is
 handed), through ``tools/common.timed``.  A timed call is what a user
 gets: one pair of CUDA events around the whole host loop and one synchronise
 after it, none per frame.  Unlike the reference's single jitted dispatch, the
-port's loop is driven by the host (about 14 launches a frame), so the host's
-launch time is inside every number.  The lines are the medians; ``spread``
+port's loop is driven by the host (3.3 launches a frame: the CA step, the
+occupancy rebuild, K1 composing, and the call's few torch launches over its
+frames), so the host's launch time is inside every number.  The lines are the medians; ``spread``
 holds the least and the most read of each.  On the CPU the host's clock.
 One more call of each loop, untimed, checks that the pinned run's final
 state is the scene stepped ``frames % 10`` times (the scene itself at

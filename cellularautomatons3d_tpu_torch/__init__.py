@@ -35,9 +35,9 @@ colour reprojection in plain torch on the Engine's device, as the reference
 runs it in XLA (``render.raymarch``, ``render.intersect``, ``render.brdf``).
 
 The interactive path: a camera move between frames reprojects the temporal
-history (on the card one launch of ``csrc/reproject.cu``,
-``render.renderer_fast.reproject_history_cuda``; its plain twin
-``reproject_history`` on the CPU); :meth:`Engine.save` /
+history (on the card in the frame's one composition launch, ``csrc/compose.cu``,
+``render.renderer_fast.compose_frame_cuda``; its plain twin ``compose_frame``
+with ``reproject_history`` on the CPU); :meth:`Engine.save` /
 :meth:`Engine.load` read and write the JAX package's npz checkpoints; the
 viewer (``python -m cellularautomatons3d_tpu_torch.viewer``, its Engine on the
 card unless ``--device cpu``) streams PNG frames (``utils.image``,

@@ -28,6 +28,17 @@
 // excluded cells and the masks.  A temporal index the caller holds on the
 // card (sample_k, sample_slot: int64 scalars) is read here, never on the
 // host.  Every float expression is the twin's, in its order.
+// The level mode (lighting_level_kernel, ca3d_lighting_level) writes the
+// rows of one deeper level of a multi-bounce frame's GI tree (JAX's
+// indirect_bounce recursion, render_slab.py:1308): from the hit it walks
+// the levels above, each slot active where its parent is, its entry exists
+// and K3 found its neighbour alive (the states of those levels, K3's
+// output), and writes for each slot of the level the query from its entry
+// point toward the light excluding its clamped neighbour cell, active where
+// its parent is and its entry exists (the cell doubles as K3's lookup).  It
+// also gates the level above's masks by their states, so K2 traces no lane
+// of theirs whose neighbour is dead (the last level's stay ungated: nothing
+// reads their flags, and a gate would walk the whole tree again).
 // Bound: bytes.  It reads 8 B a pixel and writes 1 B a query (the mask) and
 // 36 B an active lane: 16 B a pixel for full quality's 8 queries plus 36 B
 // on each active lane, whose count is the frame's (about 6 % of a 1080p
@@ -103,6 +114,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+struct LevelArgs {
+  Cam cam;
+  LightConsts k;
+  int n, width, height;
+  int n_soft, bounces, level;
+};
+
+struct LevelOut {
+  const uint8_t* states;  // [gi_rows, H, W]
+  float* start;
+  float* target;
+  int* excl;
+  uint8_t* active;
+};
+
+// Visit a node of the GI tree at level k with index s (ok: its slot is
+// active, its entry exists and its neighbour lives), D levels above the
+// parents of the launch's level.  D = 0: the node is such a parent; its mask
+// is gated to ok and its 4 children's rows are written.
+template <int D>
+struct LevelWalk {
+  __device__ static void visit(const LevelArgs& a, const LevelOut& o, int pix, int npix,
+                               V3 light, const Node& node, bool ok, int k, int s) {
+    const int face = ok ? face_index(cube_face_normal(node.point, node.origin)) : 0;
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      Slot c{};
+      if (ok) c = node_slot(a.k, node, true, face, j);
+      else c.ok = false;
+      const int cs = 4 * s + j;
+      const bool c_ok =
+          c.ok && o.states[(size_t)(gi_level_start(k + 1) + cs) * npix + pix] == 1;
+      LevelWalk<D - 1>::visit(a, o, pix, npix, light, slot_node(c), c_ok, k + 1, cs);
+    }
+  }
+};
+
+template <>
+struct LevelWalk<0> {
+  __device__ static void visit(const LevelArgs& a, const LevelOut& o, int pix, int npix,
+                               V3 light, const Node& node, bool ok, int k, int s) {
+    o.active[(size_t)(a.n_soft + gi_level_start(k) + s) * npix + pix] = ok;
+    const int face = ok ? face_index(cube_face_normal(node.point, node.origin)) : 0;
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int q = a.n_soft + gi_level_start(k + 1) + 4 * s + j;
+      Slot c{};
+      if (ok) c = node_slot(a.k, node, true, face, j);
+      else c.ok = false;
+      o.active[(size_t)q * npix + pix] = c.ok;
+      if (!c.ok) continue;
+      const size_t b = (size_t)3 * q * npix + pix;
+      o.start[b] = c.point.x;
+      o.start[b + npix] = c.point.y;
+      o.start[b + 2 * (size_t)npix] = c.point.z;
+      o.target[b] = light.x;
+      o.target[b + npix] = light.y;
+      o.target[b + 2 * (size_t)npix] = light.z;
+      o.excl[b] = c.nx;
+      o.excl[b + npix] = c.ny;
+      o.excl[b + 2 * (size_t)npix] = c.nz;
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    lighting_level_kernel(const LevelArgs a, const int* __restrict__ idx,
+                          const float* __restrict__ t, const LevelOut o) {
+  const int npix = a.width * a.height;
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  if (pix >= npix) return;
+  const int id = idx[pix];
+  if (id < 0) {
+    // A miss: no slot of the two levels is active.
+    const int g0 = gi_level_start(a.level - 1), g2 = gi_level_start(a.level + 1);
+    for (int r = g0; r < g2; ++r) o.active[(size_t)(a.n_soft + r) * npix + pix] = 0;
+    return;
+  }
+  const float* P = a.cam.p;
+  const Hit h = hit_geometry(P, a.k, a.n, pix % a.width, pix / a.width, id, t[pix]);
+  const V3 light{P[P_LIGHT], P[P_LIGHT + 1], P[P_LIGHT + 2]};
+  LevelWalk<D>::visit(a, o, pix, npix, light, hit_node(h), true, 0, 0);
+}
+
+using LevelKernel = decltype(&lighting_level_kernel<1>);
+
 }  // namespace
 
 extern "C" {
@@ -149,6 +247,51 @@ int ca3d_lighting_queries(int device, const float* cam, const float* consts, int
       static_cast<const int64_t*>(sample_k), static_cast<const int64_t*>(sample_slot),
       static_cast<float*>(start), static_cast<float*>(target), static_cast<int*>(excl),
       static_cast<uint8_t*>(active));
+  return cudaGetLastError();
+}
+
+// The level mode: cam, consts, n, width, height, idx and t as above; the
+// frame has n_soft direct-shadow rows, then gi_rows(bounces) GI rows
+// (shading.cuh gi_level_start), bounces in [2, kMaxBounces], level in [2,
+// bounces].  It writes level `level`'s masks on every pixel and its operands
+// on the active lanes, reading states uint8[gi_rows, H, W] (K3's output) of
+// the levels above, and gates level `level` - 1's masks by their states.
+// start, target float[nq, 3, H,
+// W], excl int32[nq, 3, H, W] and active uint8[nq, H, W], nq = n_soft +
+// gi_rows(bounces), are the first launch's buffers.  Returns the launch's
+// cudaError_t.
+int ca3d_lighting_level(int device, const float* cam, const float* consts, int n, int width,
+                        int height, int n_soft, int bounces, int level, const void* idx,
+                        const void* t, const void* states, void* start, void* target,
+                        void* excl, void* active, void* stream) {
+  if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 || n_soft < 0 ||
+      bounces < 2 || bounces > kMaxBounces || level < 2 || level > bounces ||
+      n_soft + gi_rows(bounces) > kMaxQueries || (long long)width * height > INT32_MAX ||
+      states == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  LevelArgs a;
+  for (int i = 0; i < P_LEN; ++i) a.cam.p[i] = cam[i];
+  a.k = *reinterpret_cast<const LightConsts*>(consts);
+  a.n = n;
+  a.width = width;
+  a.height = height;
+  a.n_soft = n_soft;
+  a.bounces = bounces;
+  a.level = level;
+  const LevelOut o{static_cast<const uint8_t*>(states), static_cast<float*>(start),
+                   static_cast<float*>(target), static_cast<int*>(excl),
+                   static_cast<uint8_t*>(active)};
+  // The walk's depth from the hit to the parents of `level`.
+  static_assert(kMaxBounces == 4, "one instantiation per walk depth");
+  const LevelKernel kKernels[] = {lighting_level_kernel<1>, lighting_level_kernel<2>,
+                                  lighting_level_kernel<3>};
+  const int npix = width * height;
+  kKernels[level - 2]<<<(npix + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int*>(idx), static_cast<const float*>(t), o);
   return cudaGetLastError();
 }
 

@@ -21,6 +21,12 @@
 //     bounce = shade(q, ..., reflected, n_point), summed from 0 in slot order
 //     where the slot's entry exists and its neighbour is alive (evaluated
 //     only there: elsewhere the twin adds 0, whatever the bounce);
+//   * with B > 1 bounces, the GI tree of JAX's indirect_bounce recursion
+//     (render_slab.py:1308), depth first (gi_sum): a slot's reflected light
+//     also adds its own slots' sum (from 0, in order) before its bounce, its
+//     neighbour's direct term seen from its parent's point; a slot is
+//     evaluated where its parent is, its entry exists and its neighbour
+//     lives (states of every level from K3), its quotient from its flag;
 //   * K1's frame (SLICED = 0): K1's unshadowed, age-faded rgb times the
 //     quotient, plus the GI where the pixel hit; with COMPOSE the id-checked
 //     EMA against the f32 history, the light cube on black pixels, the new
@@ -61,7 +67,35 @@ struct ShadeArgs {
   int n_soft, n_slots, gi_slot, total_states;
 };
 
-template <bool SLICED, bool COMPOSE>
+// The GI that the cell of `node` (level k of the tree, index s, seen from
+// `viewer`) receives from its 4 slots, each slot's reflected light with its
+// own D - 1 levels below: the twin's indirect_from, depth first.
+template <int D>
+__device__ V3 gi_sum(const ShadeArgs& a, const int* __restrict__ flags,
+                     const uint8_t* __restrict__ states, int pix, int npix, const Node& node,
+                     V3 viewer, int k, int s, V3 lmag, V3 light) {
+  const LightConsts& K = a.k;
+  const int face = face_index(cube_face_normal(node.point, node.origin));
+  V3 total{0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+  for (int j = 0; j < 4; ++j) {
+    const Slot c = node_slot(K, node, true, face, j);
+    const int row = gi_level_start(k + 1) + 4 * s + j;
+    if (!(c.ok && states[(size_t)row * npix + pix] == 1)) continue;
+    const float quot = occlusion_quotient(flags[(size_t)(a.n_soft + row) * npix + pix] == 1);
+    const V3 sh = lighting_at(K, c.point, c.origin, c.nx, c.ny, node.point, lmag, light);
+    V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1], quot * sh.z + K.emis[2]};
+    if constexpr (D > 1) {
+      refl = refl + gi_sum<D - 1>(a, flags, states, pix, npix, slot_node(c), node.point, k + 1,
+                                  4 * s + j, lmag, light);
+    }
+    total = total + lighting_at(K, node.point, node.origin, node.cx, node.cy, viewer, refl,
+                                c.point);
+  }
+  return total;
+}
+
+template <bool SLICED, bool COMPOSE, int B>
 __global__ void __launch_bounds__(kThreads)
     lighting_shade_kernel(const ShadeArgs a, const int* __restrict__ idx,
                           const float* __restrict__ t,
@@ -100,24 +134,28 @@ __global__ void __launch_bounds__(kThreads)
   // alive (ok, which needs a hit), and 0 elsewhere: the twin's where(ok,
   // bounce, 0), so the bounce is evaluated only there.
   V3 gi{0.0f, 0.0f, 0.0f};
-  if (a.n_slots > 0 && h.found) {
-    const int face = face_index(cube_face_normal(h.q, h.origin));
-    const int gs = sample_slot != nullptr ? (int)*sample_slot : a.gi_slot;
-    for (int i = 0; i < a.n_slots; ++i) {
-      const Slot sl = slot_geometry(K, h, face, a.n_slots == 4 ? i : gs);
-      if (!(sl.ok && states[(size_t)i * npix + pix] == 1)) continue;
-      const float quot =
-          occlusion_quotient(flags[(size_t)(a.n_soft + i) * npix + pix] == 1);
-      const V3 sh = lighting_at(K, sl.point, sl.origin, sl.nx, sl.ny, h.q, lmag, light);
-      const V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1],
-                    quot * sh.z + K.emis[2]};
-      gi = gi + lighting_at(K, h.q, h.origin, h.cx, h.cy, h.o, refl, sl.point);
+  if constexpr (B == 1) {
+    if (a.n_slots > 0 && h.found) {
+      const int face = face_index(cube_face_normal(h.q, h.origin));
+      const int gs = sample_slot != nullptr ? (int)*sample_slot : a.gi_slot;
+      for (int i = 0; i < a.n_slots; ++i) {
+        const Slot sl = slot_geometry(K, h, face, a.n_slots == 4 ? i : gs);
+        if (!(sl.ok && states[(size_t)i * npix + pix] == 1)) continue;
+        const float quot =
+            occlusion_quotient(flags[(size_t)(a.n_soft + i) * npix + pix] == 1);
+        const V3 sh = lighting_at(K, sl.point, sl.origin, sl.nx, sl.ny, h.q, lmag, light);
+        const V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1],
+                      quot * sh.z + K.emis[2]};
+        gi = gi + lighting_at(K, h.q, h.origin, h.cx, h.cy, h.o, refl, sl.point);
+      }
+      if (a.n_slots == 1) {  // the unbiased 1-of-4 estimator
+        gi.x = gi.x * 4.0f;
+        gi.y = gi.y * 4.0f;
+        gi.z = gi.z * 4.0f;
+      }
     }
-    if (a.n_slots == 1) {  // the unbiased 1-of-4 estimator
-      gi.x = gi.x * 4.0f;
-      gi.y = gi.y * 4.0f;
-      gi.z = gi.z * 4.0f;
-    }
+  } else if (h.found) {
+    gi = gi_sum<B>(a, flags, states, pix, npix, hit_node(h), h.o, 0, 0, lmag, light);
   }
 
   V3 c;
@@ -176,7 +214,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-using ShadeKernel = decltype(&lighting_shade_kernel<false, false>);
+using ShadeKernel = decltype(&lighting_shade_kernel<false, false, 1>);
+
+// [sliced][bounces - 1]; K1's frame composes with one bounce only.
+static_assert(kMaxBounces == 4, "one instantiation per bounce count");
+const ShadeKernel kShade[2][kMaxBounces] = {
+    {lighting_shade_kernel<false, false, 1>, lighting_shade_kernel<false, false, 2>,
+     lighting_shade_kernel<false, false, 3>, lighting_shade_kernel<false, false, 4>},
+    {lighting_shade_kernel<true, false, 1>, lighting_shade_kernel<true, false, 2>,
+     lighting_shade_kernel<true, false, 3>, lighting_shade_kernel<true, false, 4>},
+};
 
 }  // namespace
 
@@ -187,14 +234,15 @@ extern "C" {
 // t).  flags: int32[n_soft + n_slots, H, W] (1 = occluded; null when both
 // counts are 0); states: uint8[n_slots, H, W] (null without slots); the
 // slot of a temporal frame (n_slots = 1) is *sample_slot when given, else
-// gi_slot.  sliced = 0: rgb_in float[H, W, 3] is K1's frame; with compose,
+// gi_slot.  bounces in [1, kMaxBounces]; above 1, n_slots = gi_rows(bounces)
+// (the GI tree's rows, shading.cuh) and no composition.  sliced = 0: rgb_in float[H, W, 3] is K1's frame; with compose,
 // hist_rgb float[H, W, 3] and hist_idx int32[H, W] are the history, out_rgb
 // the presentation and out_hist the new history.  sliced = 1: age (int32[H,
 // W] or null) fades the direct light by total_states; out_depth float[H, W]
 // is the frame's depth.  The light includes the emissive light on hits.
 // Returns the launch's cudaError_t.
 int ca3d_lighting_shade(int device, const float* cam, const float* consts, int n, int width,
-                        int height, int n_soft, int n_slots, int gi_slot,
+                        int height, int n_soft, int n_slots, int bounces, int gi_slot,
                         const void* sample_slot, int sliced, int compose, int total_states,
                         const void* idx, const void* t, const void* flags, const void* states,
                         const void* rgb_in, const void* age, const void* hist_rgb,
@@ -205,9 +253,13 @@ int ca3d_lighting_shade(int device, const float* cam, const float* consts, int n
              : (rgb_in == nullptr || age != nullptr ||
                 (compose && (hist_rgb == nullptr || hist_idx == nullptr ||
                              out_hist == nullptr)));
+  const bool bad_slots =
+      bounces < 1 || bounces > kMaxBounces ||
+      (bounces == 1 ? (n_slots != 0 && n_slots != 1 && n_slots != 4)
+                    : (n_slots != gi_rows(bounces) || compose));
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
-      (long long)width * height > INT32_MAX || n_soft < 0 ||
-      (n_slots != 0 && n_slots != 1 && n_slots != 4) || n_soft + n_slots > kMaxQueries ||
+      (long long)width * height > INT32_MAX || n_soft < 0 || bad_slots ||
+      n_soft + n_slots > kMaxQueries ||
       (n_soft + n_slots > 0 && flags == nullptr) || (n_slots > 0 && states == nullptr) ||
       gi_slot < 0 || gi_slot > 3 || bad_mode) {
     return cudaErrorInvalidValue;
@@ -225,9 +277,8 @@ int ca3d_lighting_shade(int device, const float* cam, const float* consts, int n
   a.gi_slot = gi_slot;
   a.total_states = total_states;
   // The sliced frame never composes.
-  const ShadeKernel kernel = sliced    ? lighting_shade_kernel<true, false>
-                             : compose ? lighting_shade_kernel<false, true>
-                                       : lighting_shade_kernel<false, false>;
+  const ShadeKernel kernel =
+      compose ? lighting_shade_kernel<false, true, 1> : kShade[sliced ? 1 : 0][bounces - 1];
   const int npix = width * height;
   kernel<<<(npix + kThreads - 1) / kThreads, kThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(

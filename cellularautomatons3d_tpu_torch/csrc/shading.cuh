@@ -1,6 +1,7 @@
 // The per-pixel geometry and shading of the extended-lighting frames, shared
 // by the queries kernel (lighting_queries.cu), the shade kernel
-// (lighting_shade.cu) and K1's composition (render_fast.cu).
+// (lighting_shade.cu), K1's composition (render_fast.cu) and the frame's
+// composition kernel (compose.cu).
 //
 // Device twins of the port's torch functions, each in its operations'
 // order and rounding (built with --fmad=false, IEEE division and sqrt):
@@ -9,7 +10,8 @@
 // norm) and cube_face_normal (x, then y, then z on exact ties);
 // render/renderer.py _face_index and _INDIRECT_LAYERS; render/render_slab.py
 // _hit_geometry, hit_geometry's miss depth, soft_shadow_jitter (sin in
-// float64, rounded once) and _slot_geometry; render/brdf.py
+// float64, rounded once), _slot_geometry at any node of the GI tree and
+// the tree's row layout; render/brdf.py
 // trowbridge_reitz_ggx, schlick_ggx, fresnel_schlick, surface_brdf and
 // calculate_lighting_at (the position rainbow when the material is all
 // zero); the frame composition of renderer_fast.py _ext_frame (K1's own).
@@ -21,8 +23,9 @@
 //
 // Replaces: the XLA shading of cellularautomatons3d_tpu/render/
 // render_slab.py lighting_passes (:1431), hit_geometry (:1661),
-// soft_shadow_jitter (:1221), brdf.py (:32-109) and renderer_fast.py
-// _ext_frame_blocked (:318), which JAX fuses under jit.
+// soft_shadow_jitter (:1221), indirect_bounce (:1308), brdf.py (:32-109)
+// and renderer_fast.py _ext_frame_blocked (:318) and render_frame_fast
+// (:208), which JAX fuses under jit.
 
 #pragma once
 
@@ -258,22 +261,33 @@ __device__ __forceinline__ V3 jitter_target(const float* P,
           P[P_LIGHT + 2] + jitter1(ux, uy, K.base, c3) * K.rad2};
 }
 
-// render_slab.py _slot_geometry: GI neighbour slot `slot` of the hit's face
-// (face_index of the hit's face normal): the clamped neighbour cell n_cl,
-// its centre, where the ray from q along the (unnormalised) offset enters
-// its visible cube, and whether it does (and the pixel hit).
+// A node of the GI tree: a surface point on a cell (the primary hit, or a
+// slot's entry point on its neighbour cell), the cell's centre and its
+// integer coordinates (the hit's cell, or the slot's clamped n_cl).
+struct Node {
+  V3 point, origin;
+  int cx, cy, cz;
+};
+
+__device__ __forceinline__ Node hit_node(const Hit& h) {
+  return {h.q, h.origin, h.cx, h.cy, h.cz};
+}
+
+// render_slab.py _slot_geometry: GI neighbour slot `slot` of a node's face
+// (face_index of its face normal): the clamped neighbour cell n_cl, its
+// centre, where the ray from the node's point along the (unnormalised)
+// offset enters its visible cube, and whether it does where `active`.
 struct Slot {
   int nx, ny, nz;  // n_cl
   V3 origin, point;
   bool ok;
 };
 
-__device__ __forceinline__ Slot slot_geometry(const LightConsts& K,
-                                              const Hit& h, int face,
-                                              int slot) {
+__device__ __forceinline__ Slot node_slot(const LightConsts& K, const Node& p, bool active,
+                                          int face, int slot) {
   int ox, oy, oz;
   layer_offset(face, slot, ox, oy, oz);
-  const int ncx = h.cx + ox, ncy = h.cy + oy, ncz = h.cz + oz;
+  const int ncx = p.cx + ox, ncy = p.cy + oy, ncz = p.cz + oz;
   Slot s;
   s.nx = max(ncx, 0);
   s.ny = max(ncy, 0);
@@ -283,10 +297,32 @@ __device__ __forceinline__ Slot slot_geometry(const LightConsts& K,
               ((float)ncz * K.cell + K.chalf) - 0.5f};
   const V3 dir{(float)ox, (float)oy, (float)oz};
   float tn, tf;
-  ray_cube_intersect(h.q, dir, s.origin, K.vis_half, tn, tf);
-  s.ok = h.found && tn <= tf && tf >= 0.0f;
-  s.point = {h.q.x + dir.x * tn, h.q.y + dir.y * tn, h.q.z + dir.z * tn};
+  ray_cube_intersect(p.point, dir, s.origin, K.vis_half, tn, tf);
+  s.ok = active && tn <= tf && tf >= 0.0f;
+  s.point = {p.point.x + dir.x * tn, p.point.y + dir.y * tn, p.point.z + dir.z * tn};
   return s;
+}
+
+// The slot of the primary hit's face (active where the pixel hit).
+__device__ __forceinline__ Slot slot_geometry(const LightConsts& K,
+                                              const Hit& h, int face,
+                                              int slot) {
+  return node_slot(K, hit_node(h), h.found, face, slot);
+}
+
+__device__ __forceinline__ Node slot_node(const Slot& s) {
+  return {s.point, s.origin, s.nx, s.ny, s.nz};
+}
+
+// The GI rows of a frame with b bounces: level k (1..b) holds 4^k slots,
+// the children of level k-1's slot p at 4 p .. 4 p + 3, its rows from
+// gi_level_start(k) on (render_slab.py Lighting.level_span).
+constexpr int kMaxBounces = 4;
+__host__ __device__ constexpr int gi_level_start(int k) {
+  return ((1 << (2 * k)) - 4) / 3;
+}
+__host__ __device__ constexpr int gi_rows(int bounces) {
+  return gi_level_start(bounces + 1);
 }
 
 // brdf.py calculate_lighting_at: the rendering-equation light at surface

@@ -29,8 +29,8 @@ full lighting.
 hand kernels.
 
 A camera move between frames reprojects the history through the previous
-view-projection (``renderer_fast.reproject_history_cuda`` on the card,
-its twin ``reproject_history`` on the CPU), as the JAX Engine
+view-projection (in the frame's composition, ``renderer_fast.compose_frame_cuda``
+on the card, its twin ``compose_frame`` on the CPU), as the JAX Engine
 does; :meth:`Engine.save` / :meth:`Engine.load` write and read the JAX
 package's npz checkpoints, so a file from either package loads in the other.
 

@@ -7,18 +7,21 @@ one shard of a sharded grid), ``csrc/render_fast.cu``
 ``csrc/prepass.cu`` (K6), ``csrc/occupied_box.cu`` (the occupied box of
 a given mip, alone), ``csrc/coarse_occupancy.cu`` (the 8³ mip every frame
 path rebuilds, with the occupied box K2, K4 and K5 clip to and the plane mip
-of K1's mip1 descent in the same launch), ``csrc/reproject.cu`` (the
-moving camera's history reprojection), ``csrc/lighting_queries.cu`` (an
+of K1's mip1 descent in the same launch), ``csrc/compose.cu`` (a fast
+frame's composition: the temporal EMA, static or with the moved camera's
+history reprojection, the light cube, the f16 history, the depth overlay
+and gamma), ``csrc/lighting_queries.cu`` (an
 extended-lighting frame's occlusion queries: its hit geometry, soft-shadow
-jitter and GI slot geometry as K2's operands) and
+jitter and GI slot geometry as K2's operands, and in its level mode a
+deeper level of the multi-bounce GI tree) and
 ``csrc/lighting_shade.cu`` (the frame's shading: the occlusion quotient,
-the one-bounce double BRDF, the sliced frame's direct light and the fused
-loop's composition); all but the CA step, K3 and the
-reprojection share the traversal and float helpers in ``csrc/sweep.cuh``
+the GI of one bounce or of the tree, the sliced frame's direct light and
+the fused loop's composition); all but the CA step and K3
+share the traversal and float helpers in ``csrc/sweep.cuh``
 (the occupancy rebuild its ``OccBox`` and ``make_box``), K6 and K1 the
 patch mask of ``csrc/prepass.cuh``, the rebuild above 256³ the block row of
-``csrc/block_mip.cuh``, the two lighting kernels and K1's composition the
-geometry and BRDF of ``csrc/shading.cuh``,
+``csrc/block_mip.cuh``, the two lighting kernels, K1's composition and the
+frame's composition the geometry and BRDF of ``csrc/shading.cuh``,
 and K5 and K3 read their per-query operands through the tables of
 ``csrc/queries.cuh``.
 At first use each source is compiled by its own ``nvcc``, all started
@@ -65,7 +68,7 @@ SOURCES = (
     PACKAGE_DIR / "csrc" / "prepass.cu",
     PACKAGE_DIR / "csrc" / "occupied_box.cu",
     PACKAGE_DIR / "csrc" / "coarse_occupancy.cu",
-    PACKAGE_DIR / "csrc" / "reproject.cu",
+    PACKAGE_DIR / "csrc" / "compose.cu",
     PACKAGE_DIR / "csrc" / "lighting_queries.cu",
     PACKAGE_DIR / "csrc" / "lighting_shade.cu",
 )
@@ -188,14 +191,20 @@ def library() -> ctypes.CDLL:
         lib.ca3d_coarse_occupancy.restype = _I
         lib.ca3d_coarse_occupancy_scratch_words.argtypes = []
         lib.ca3d_coarse_occupancy_scratch_words.restype = _I
-        lib.ca3d_reproject.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-        lib.ca3d_reproject.restype = _I
+        lib.ca3d_compose.argtypes = [
+            _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.ca3d_compose.restype = _I
         lib.ca3d_lighting_queries.argtypes = [
             _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ]
         lib.ca3d_lighting_queries.restype = _I
+        lib.ca3d_lighting_level.argtypes = [
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.ca3d_lighting_level.restype = _I
         lib.ca3d_lighting_shade.argtypes = [
-            _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ]
         lib.ca3d_lighting_shade.restype = _I

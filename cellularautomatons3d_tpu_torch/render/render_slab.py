@@ -5,7 +5,7 @@ Port of ``cellularautomatons3d_tpu.render.render_slab``: the primary pass
 of a frame (kernel K4), the hit geometry of a traced frame, the
 soft-shadow jitter, batched cell-exact occlusion (kernel K2), batched
 cell-state lookups (kernel K3), the direct-light occlusion quotient, the
-recursive indirect bounce, the one-launch lighting passes, and
+recursive indirect bounce, the lighting passes, and
 :func:`raytrace_sliced`, the whole frame of a grid that K1 does not take.
 
 On the card one launch traces the whole volume of any grid up to 1024³
@@ -41,17 +41,20 @@ runs for CPU tensors and is the kernel's reference:
   :func:`lighting_queries_cuda`, ``csrc/lighting_queries.cu``): from a
   frame's primary hits, its hit geometry, soft-shadow jitter and GI slot
   geometry as K2's stacked operands, whose slot rows K3 reads in place;
+  its level mode (:func:`lighting_level_stacked` /
+  :func:`lighting_level_cuda`) writes a deeper level of the GI tree from
+  the states of the levels above;
 * the shade kernel (:func:`lighting_shade` / :func:`lighting_shade_cuda`,
-  ``csrc/lighting_shade.cu``): the occlusion quotient, the one-bounce
-  double BRDF, the sliced frame's direct light and the fused loop's
-  composition.
+  ``csrc/lighting_shade.cu``): the occlusion quotient, the GI (one bounce,
+  or the tree of b bounces bottom up), the sliced frame's direct light and
+  the fused loop's composition.
 
-A one-bounce (or temporal) lighting frame is :func:`lighting_passes`:
-queries, K2 (or K5), K3, shade, four launches on the card, where JAX fuses
-the XLA geometry and shading around its kernels under ``jit``.  The
-multi-bounce frames take their direct shadow from the queries kernel and K2
-(:func:`direct_occlusion`); their GI recursion (:func:`indirect_bounce`)
-stays in torch around K2 and K3.
+Every lighting frame is :func:`lighting_passes`: queries, K3 on level 1
+(and for each deeper level a level-mode launch, then K3), K2 (or K5) on
+every query, shade -- four launches a one-bounce frame on the card, seven a
+two-bounce one -- where JAX fuses the XLA geometry and shading around its
+kernels under ``jit`` and recurses level by level (:func:`indirect_bounce`,
+which no frame path runs here: it is the tests' oracle of the tree).
 
 K4, K2 and K5 are clipped on the card to the box of occupied blocks,
 ``prepped.box`` (plain twin ``ops.occupancy.occupied_box``), which the
@@ -143,7 +146,6 @@ __all__ = [
     "cell_state_cuda",
     "stack_cell_queries",
     "cell_state_batch",
-    "direct_occlusion",
     "indirect_bounce",
     "lighting_queries",
     "Lighting",
@@ -152,6 +154,12 @@ __all__ = [
     "lighting_queries_cuda",
     "occlusion_flags",
     "slot_states",
+    "lighting_level_stacked",
+    "lighting_level_cuda",
+    "gi_states",
+    "MAX_CARD_BOUNCES",
+    "ema",
+    "finish_frame",
     "lighting_shade",
     "lighting_shade_cuda",
     "lighting_passes",
@@ -621,13 +629,14 @@ def cell_state(vol, coords, active, *, grid_size):
     return torch.where(active, (word >> (x & 31)) & 1, 0).to(torch.uint8)
 
 
-def cell_state_cuda(vol, coords, active, *, grid_size):
+def cell_state_cuda(vol, coords, active, *, grid_size, out=None):
     """K3 on the card (``csrc/cell_state.cu``): :func:`cell_state`'s states
     uint8 [nq, H, W] of 1 to 8 lookups given where the lighting passes leave
     them: ``coords`` and ``active`` are sequences of nq tensors (or tensors
     with nq rows), coords int32 or int64 [H, W, 3] with rows of W pixels,
     active bool [H, W]; all CUDA tensors (``vol`` and ``active``
-    contiguous)."""
+    contiguous).  ``out``: a contiguous uint8 [nq, H, W] tensor to write the
+    states into (rows of a larger one), or None for a new one."""
     n = grid_size
     nq = len(coords)
     if not 1 <= nq <= MAX_MULTI_QUERIES:
@@ -640,7 +649,9 @@ def cell_state_cuda(vol, coords, active, *, grid_size):
     for i in range(nq):
         rows += _pixel_operand(coords[i], f"coords[{i}]", h, w, _CELL_TYPES)
         rows += [coords[i].dtype == torch.int64, _mask_pointer(active[i], f"active[{i}]", h, w)]
-    out = torch.empty((nq, h, w), dtype=torch.uint8, device=vol.device)
+    if out is None:
+        out = torch.empty((nq, h, w), dtype=torch.uint8, device=vol.device)
+    kernels.require(out, "out", torch.uint8, (nq, h, w))
     err = kernels.library().ca3d_cell_state(
         vol.device.index or 0, vol.data_ptr(), n, w, h, nq, _query_table(rows),
         out.data_ptr(), kernels.stream_of(vol),
@@ -712,8 +723,10 @@ def _slot_geometry(cam, n, point, pcoords, off, active):
 
 
 def _gi_slots(cam, n, q, origin, coords, found, gi_slot=None):
-    """The GI slots' geometry of the hit (:func:`_slot_geometry` of the 4
-    slots of the hit's face, or of the temporal mode's one ``gi_slot``)."""
+    """The GI slots' geometry of a surface point ``q`` on the cell centred at
+    ``origin`` with coordinates ``coords`` (the hit, or a slot of the GI
+    tree), active where ``found``: :func:`_slot_geometry` of the 4 slots of
+    its face, or of the temporal mode's one ``gi_slot``."""
     layers = _layers(q.device)
     face = _face_index(cube_face_normal(q, origin))
     if gi_slot is None:
@@ -732,24 +745,6 @@ def _soft_occlusion(occs, div):
     return occ_sum / torch.full_like(occ_sum, float(div))
 
 
-def direct_occlusion(cam, idx, t, prepped, *, grid_size, width, height, soft_k=1,
-                     jitter_k=None):
-    """Direct-light occlusion quotient [H, W] of a frame's primary hits
-    (``idx``, ``t`` as :func:`lighting_queries_stacked` takes them): hard
-    (one ray per pixel) or soft (``soft_k`` jittered area-light samples
-    averaged, renderer.py:212-224), all samples in one launch.
-    ``jitter_k``: the temporally amortized mode's sample index in [0,
-    soft_k), one jittered sample per frame.  The direct-shadow half of the
-    lighting passes for the multi-bounce frames: the queries kernel, K2
-    (:func:`occlusion_flags`), then the quotient in torch; for CPU tensors
-    the queries twin."""
-    light = Lighting(soft_k=soft_k, jitter_k=jitter_k)
-    kw = dict(grid_size=grid_size, width=width, height=height)
-    flags = occlusion_flags(cam, _queries(cam, idx, t, light, **kw), prepped,
-                            grid_size=grid_size)
-    return _soft_occlusion(list(flags == 1), light.occ_div)
-
-
 def indirect_bounce(vol, cam, q, origin, coords, found, prepped, *, grid_size,
                     width, height, bounces=1, slot=None):
     """Indirect GI (wgsl:307-377; renderer._indirect_lighting with the
@@ -759,7 +754,9 @@ def indirect_bounce(vol, cam, q, origin, coords, found, prepped, *, grid_size,
     queries).  ``slot``: the temporally amortized mode's single slot (int
     or int tensor), scaled ×4, an unbiased estimate of the 4-slot sum;
     requires ``bounces == 1``.  Returns rgb [H, W, 3].  (``vol`` is unused,
-    as in the reference.)"""
+    as in the reference.)  No frame path runs it: every frame's GI is
+    :func:`lighting_passes`'s, whose level-mode twins the tests hold to this
+    recursion."""
     n = grid_size
     dev = q.device
     light = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
@@ -859,14 +856,18 @@ class Lighting(NamedTuple):
     the hard shadow toward the light, k > 1 for k jittered area-light
     samples averaged; ``jitter_k``: the temporally amortized mode's one
     rotating sample in [0, soft_k) (an int or an int tensor, read on the
-    card by the kernels), whose quotient is not divided.  ``gi``: one-bounce
-    GI over the hit face's 4 neighbour slots; ``gi_slot``: the temporal
-    mode's one slot (int or int tensor), scaled ×4."""
+    card by the kernels), whose quotient is not divided.  ``gi``: GI over
+    the hit face's 4 neighbour slots; ``gi_slot``: the temporal mode's one
+    slot (int or int tensor), scaled ×4; ``bounces``: the GI recursion's
+    depth b (JAX's ``indirect_bounce``): level k of the tree holds 4^k
+    slots, the children of level k − 1's slot p at 4p .. 4p + 3
+    (:meth:`level_span`), one query row each after the direct-shadow rows."""
 
     soft_k: int | None = None
     jitter_k: object = None
     gi: bool = False
     gi_slot: object = None
+    bounces: int = 1
 
     @property
     def n_soft(self) -> int:
@@ -876,13 +877,20 @@ class Lighting(NamedTuple):
 
     @property
     def n_slots(self) -> int:
+        """The GI rows: every level's slots, or the temporal mode's one."""
         if not self.gi:
             return 0
-        return 1 if self.gi_slot is not None else 4
+        return 1 if self.gi_slot is not None else self.level_span(self.bounces + 1)[0]
 
     @property
     def nq(self) -> int:
         return self.n_soft + self.n_slots
+
+    @staticmethod
+    def level_span(k: int) -> tuple[int, int]:
+        """(first row, rows) of the GI tree's level k among the GI rows:
+        (4^k − 4) / 3 and 4^k (``csrc/shading.cuh`` ``gi_level_start``)."""
+        return (4**k - 4) // 3, 4**k
 
     @property
     def jitter_mode(self) -> int:
@@ -895,6 +903,26 @@ class Lighting(NamedTuple):
     @property
     def occ_div(self) -> int:
         return 1 if self.jitter_k is not None else max(1, self.soft_k or 1)
+
+
+# The GI recursion's depth the card's kernels take (csrc/shading.cuh
+# kMaxBounces): 340 query rows a pixel at 4 bounces, ~25 GB of K2 operands
+# at 1920×1080; 5 would take ~100 GB.
+MAX_CARD_BOUNCES = 4
+
+
+def _check_bounces(light: Lighting) -> None:
+    if int(light.bounces) < 1:
+        raise ValueError(f"bounces must be >= 1, got {light.bounces}")
+    if light.gi and light.gi_slot is not None and light.bounces > 1:
+        raise ValueError("temporal slot sampling requires bounces == 1")
+
+
+def _check_card_bounces(light: Lighting) -> None:
+    _check_bounces(light)
+    if light.gi and light.bounces > MAX_CARD_BOUNCES:
+        raise ValueError(f"the lighting kernels take at most {MAX_CARD_BOUNCES} bounces, "
+                         f"got {light.bounces}")
 
 
 def _light_consts(cam, n: int, light: Lighting) -> np.ndarray:
@@ -944,13 +972,20 @@ def lighting_queries_stacked(cam, idx, t, light: Lighting, *, grid_size, width, 
     from its primary hits (``idx`` int32 [H, W], -1 = miss, and ``t``
     float32 [H, W], K1's depth or K4's t): :func:`_hit_geometry`,
     :func:`lighting_queries` and :func:`stack_occlusion_queries`.  The GI
-    slots' rows double as K3's lookups (cells and masks)."""
+    slots' rows double as K3's lookups (cells and masks).  With ``bounces``
+    > 1 it holds every level's rows, those below level 1 masked off until
+    :func:`lighting_level_stacked` writes them."""
+    _check_bounces(light)
     kw = dict(grid_size=grid_size, width=width, height=height)
     q, origin, coords, found, _ = _hit_geometry(cam, idx, t, grid_size, width, height)
     queries, _, _ = lighting_queries(
         cam, q, origin, coords, found, soft_k=light.soft_k, jitter_k=light.jitter_k,
         gi=light.gi, gi_slot=light.gi_slot, **kw)
-    return stack_occlusion_queries(queries, width, height)
+    ops = stack_occlusion_queries(queries, width, height)
+    deeper = light.nq - len(queries)  # the rows of GI levels 2..b, masks off
+    if deeper:
+        ops = tuple(torch.cat([op, op.new_zeros((deeper, *op.shape[1:]))]) for op in ops)
+    return ops
 
 
 def lighting_queries_cuda(cam, idx, t, light: Lighting, *, grid_size, width, height):
@@ -959,8 +994,11 @@ def lighting_queries_cuda(cam, idx, t, light: Lighting, *, grid_size, width, hei
     bit for bit and the start, target and excluded cell bit for bit on the
     active lanes, the only ones K2, K5 and K3 read (elsewhere they are left
     unwritten).  ``idx`` and ``t`` must be contiguous CUDA tensors; a
-    temporal index given as a tensor is read on the card."""
+    temporal index given as a tensor is read on the card.  With
+    ``bounces`` > 1 it allocates every level's rows and writes level 1's;
+    :func:`lighting_level_cuda` writes the others."""
     cam = _check_sliced(grid_size, width, height, cam)
+    _check_card_bounces(light)
     n, nq = grid_size, light.nq
     _check_hits(idx, t, width, height)
     if not 1 <= nq <= MAX_LIGHTING_QUERIES:
@@ -978,7 +1016,7 @@ def lighting_queries_cuda(cam, idx, t, light: Lighting, *, grid_size, width, hei
     consts = _light_consts(cam, n, light)
     err = kernels.library().ca3d_lighting_queries(
         dev.index or 0, cam.ctypes.data, consts.ctypes.data, n, width, height, light.n_soft,
-        light.jitter_mode, jk, light.n_slots, gs,
+        light.jitter_mode, jk, min(light.n_slots, 4), gs,
         None if sample_k is None else sample_k.data_ptr(),
         None if sample_slot is None else sample_slot.data_ptr(),
         idx.data_ptr(), t.data_ptr(), start.data_ptr(), target.data_ptr(), excl.data_ptr(),
@@ -1029,16 +1067,135 @@ def occlusion_flags(cam, ops, prepped: Prepped, *, grid_size):
     return torch.cat(parts) if cpu else out
 
 
-def slot_states(ops, n_soft, prepped: Prepped, *, grid_size):
+def slot_states(ops, n_soft, prepped: Prepped, *, grid_size, rows=None, out=None):
     """The GI slots' neighbour states uint8 [n_slots, H, W]: K3 on the
     slots' rows of the stacked queries (their excluded cells and masks,
-    after the ``n_soft`` direct-shadow rows), read in place on the card."""
+    after the ``n_soft`` direct-shadow rows), read in place on the card, 8
+    a launch.  ``rows``: a slice of the GI rows (one level of the tree),
+    every GI row by default; ``out``: the uint8 rows to write (on the
+    card)."""
     _, _, excl, active = ops
-    cells, masks = excl[n_soft:], active[n_soft:]
+    rows = slice(None) if rows is None else rows
+    cells, masks = excl[n_soft:][rows], active[n_soft:][rows]
     if cells.device.type == "cpu":
         return cell_state(prepped.vol, cells, masks, grid_size=grid_size)
-    return cell_state_cuda(prepped.vol, [c.movedim(0, -1) for c in cells], list(masks),
-                           grid_size=grid_size)
+    if out is None:
+        out = torch.empty(masks.shape, dtype=torch.uint8, device=masks.device)
+    for i in range(0, len(cells), MAX_MULTI_QUERIES):
+        j = i + MAX_MULTI_QUERIES
+        cell_state_cuda(prepped.vol, [c.movedim(0, -1) for c in cells[i:j]], list(masks[i:j]),
+                        grid_size=grid_size, out=out[i:j])
+    return out
+
+
+def _slot_tree(cam, n, geo, states, levels):
+    """The GI tree's slots of levels 1..``levels`` from the hit geometry
+    ``geo`` (:func:`_hit_geometry`'s q, origin, coords, found): a list per
+    level of its 4^k (n_cl, n_origin, n_point, ok), ok where the parent's
+    slot is, the entry exists and the neighbour lives (``states``: uint8
+    [n_slots, H, W], K3's states of those levels)."""
+    q, origin, coords, found = geo[:4]
+    tree = []
+    parents = [(coords, origin, q, found)]
+    for k in range(1, levels + 1):
+        r0, _ = Lighting.level_span(k)
+        level = []
+        for pcl, porigin, ppoint, pok in parents:
+            level += _gi_slots(cam, n, ppoint, porigin, pcl, pok)
+        level = [(cl, org, pt, ok & (states[r0 + s] == 1))
+                 for s, (cl, org, pt, ok) in enumerate(level)]
+        tree.append(level)
+        parents = level
+    return tree
+
+
+def lighting_level_stacked(cam, idx, t, ops, states, light: Lighting, level, *, grid_size,
+                           width, height):
+    """Plain twin of the queries kernel's level mode: into the stacked
+    queries ``ops`` of a ``light.bounces``-bounce frame (in place), the rows
+    of GI level ``level`` (2 ≤ level ≤ bounces) -- each slot's query from
+    its entry point toward the light, excluding its clamped neighbour cell,
+    active where its parent's slot is ok and its entry exists -- from the
+    states of the levels above (``states``, K3's); and level ``level`` − 1's
+    masks gated by their states (its slots' ok).  Returns ``ops``."""
+    n = grid_size
+    start, target, excl, active = ops
+    geo = _hit_geometry(cam, idx, t, n, width, height)
+    parents = _slot_tree(cam, n, geo, states, level - 1)[-1]
+    base = light.n_soft + Lighting.level_span(level - 1)[0]
+    for s, (_, _, _, ok) in enumerate(parents):
+        active[base + s] = ok
+    lpos = device_vec(cam[P_LIGHT : P_LIGHT + 3], idx.device)[:, None, None]
+    base = light.n_soft + Lighting.level_span(level)[0]
+    for s, (pcl, porigin, ppoint, pok) in enumerate(parents):
+        for j, (n_cl, _, n_point, ok_geo) in enumerate(
+                _gi_slots(cam, n, ppoint, porigin, pcl, pok)):
+            row = base + 4 * s + j
+            start[row] = n_point.movedim(-1, 0)
+            target[row] = lpos
+            excl[row] = n_cl.movedim(-1, 0)
+            active[row] = ok_geo
+    return ops
+
+
+def lighting_level_cuda(cam, idx, t, ops, states, light: Lighting, level, *, grid_size,
+                        width, height):
+    """The queries kernel's level mode on the card (``csrc/lighting_queries.cu``
+    ``lighting_level_kernel``): :func:`lighting_level_stacked` in one launch,
+    the masks bit for bit and the operands on the active lanes, into the
+    buffers :func:`lighting_queries_cuda` allocated; every tensor a
+    contiguous CUDA tensor."""
+    cam = _check_sliced(grid_size, width, height, cam)
+    _check_card_bounces(light)
+    if not (light.gi and light.gi_slot is None and 2 <= level <= light.bounces):
+        raise ValueError(f"level {level} is not a deeper level of {light}")
+    n, nq, h, w = grid_size, light.nq, height, width
+    _check_hits(idx, t, w, h)
+    start, target, excl, active = ops
+    kernels.require(start, "start", torch.float32, (nq, 3, h, w))
+    kernels.require(target, "target", torch.float32, (nq, 3, h, w))
+    kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
+    kernels.require(active, "active", torch.bool, (nq, h, w))
+    kernels.require(states, "states", torch.uint8, (light.n_slots, h, w))
+    consts = _light_consts(cam, n, light)
+    dev = idx.device
+    err = kernels.library().ca3d_lighting_level(
+        dev.index or 0, cam.ctypes.data, consts.ctypes.data, n, w, h, light.n_soft,
+        light.bounces, level, idx.data_ptr(), t.data_ptr(), states.data_ptr(),
+        start.data_ptr(), target.data_ptr(), excl.data_ptr(), active.data_ptr(),
+        kernels.stream_of(idx))
+    kernels.check(err, "lighting_level")
+    lighting_level_cuda.launches += 1
+    return ops
+
+
+lighting_level_cuda.launches = 0
+
+def gi_states(cam, idx, t, ops, prepped: Prepped, light: Lighting, *, grid_size, width, height):
+    """The GI tree's neighbour states uint8 [n_slots, H, W] of a frame's
+    stacked queries ``ops``, level by level: K3 on level k's rows (its
+    lookups: the neighbour cells and masks), then, below the last level, the
+    level-mode queries launch (:func:`lighting_level_cuda`, on the CPU its
+    twin) that writes level k + 1's rows from those states and gates level
+    k's masks by them.  The last level's masks stay ungated: K2 traces its
+    lanes of dead neighbours, whose flags nothing reads (a gate launch walks
+    the whole tree again and costs more than K2 saves, PERF.md).  One
+    bounce: K3 on the slots."""
+    kw = dict(grid_size=grid_size, width=width, height=height)
+    if light.bounces == 1:
+        return slot_states(ops, light.n_soft, prepped, grid_size=grid_size)
+    cpu = idx.device.type == "cpu"
+    level_pass = lighting_level_stacked if cpu else lighting_level_cuda
+    states = torch.empty((light.n_slots, height, width), dtype=torch.uint8, device=idx.device)
+    for k in range(1, light.bounces + 1):
+        r0, rows = Lighting.level_span(k)
+        got = slot_states(ops, light.n_soft, prepped, grid_size=grid_size,
+                          rows=slice(r0, r0 + rows), out=None if cpu else states[r0 : r0 + rows])
+        if cpu:
+            states[r0 : r0 + rows] = got
+        if k < light.bounces:
+            level_pass(cam, idx, t, ops, states, light, k + 1, **kw)
+    return states
 
 
 def _lighting_tail(cam, geo, idx, t, occl, gi_rgb, *, grid_size, rgb=None, age=None,
@@ -1078,26 +1235,40 @@ def _lighting_tail(cam, geo, idx, t, occl, gi_rgb, *, grid_size, rgb=None, age=N
         return out if rgb is not None else (out, depth)
 
     # The fused loop's composition (_ext_frame_blocked): the id-checked EMA
-    # against the f32 history, the light cube, the depth overlay, gamma.
+    # against the f32 history, then the light cube, the depth overlay, gamma.
     prev, prev_idx = history
-    width, height = d.shape[1], d.shape[0]
-    same = (idx == prev_idx) & found
-    mixed = torch.clamp(prev + (out - prev) * float(cam[P_ALPHA]), 0.0, 1.0)
-    out = torch.where(same[..., None], mixed, out)
+    out = ema(out, prev, (idx == prev_idx) & found, cam[P_ALPHA])
+    ux, _ = _pixel_uv(cam, d.shape[1], d.shape[0], dev)
+    return finish_frame(out, depth, cam[P_O : P_O + 3], d, cam[P_LIGHT : P_LIGHT + 3], ux,
+                        cam[P_OVERLAY], cam[P_GAMMA])
+
+
+def ema(rgb, prev, same, alpha):
+    """The temporal EMA (wgsl:429-471): ``clamp(prev + (rgb − prev) · α, 0,
+    1)`` where ``same`` (the history holds this pixel's cell), else ``rgb``."""
+    mixed = torch.clamp(prev + (rgb - prev) * float(np.float32(alpha)), 0.0, 1.0)
+    return torch.where(same[..., None], mixed, rgb)
+
+
+def finish_frame(out, depth, camera_pos, d, light_pos, ux, overlay, gamma):
+    """A frame's composition after its EMA, in both twins (the shade
+    kernel's compose form, the composition kernel's): the light-source cube
+    on black pixels that see it along ``d`` [H, W, 3] (wgsl:866-874), then
+    the depth overlay on the window's left half (``ux`` < 0.5, wgsl:880-883)
+    when ``overlay`` is 1, and gamma.  Returns (presentation, the history's
+    colour: the scene with the light cube, without the overlay)."""
+    dev = out.device
     lt_near, lt_far = ray_cube_intersect(
-        device_vec(cam[P_O : P_O + 3], dev), d,
-        device_vec(cam[P_LIGHT : P_LIGHT + 3], dev), float(np.float32(0.005)),
-    )
+        device_vec(camera_pos, dev), d, device_vec(light_pos, dev), float(np.float32(0.005)))
     light_hit = (lt_near <= lt_far) & (lt_far >= 0.0)
     black = (out == 0.0).all(dim=-1)
     out = torch.where((light_hit & black)[..., None], 1.0, out)
-    new_hist = out
-    ux, _ = _pixel_uv(cam, width, height, dev)
-    overlay = (ux < 0.5) & bool(cam[P_OVERLAY] == 1.0)
-    overlay_rgb = torch.stack([depth, torch.zeros_like(depth), torch.zeros_like(depth)], dim=-1)
-    out = torch.where(overlay[..., None], overlay_rgb, out)
-    pres = torch.pow(out, float(np.float32(1.0) / cam[P_GAMMA]))
-    return pres, new_hist
+    hist = out
+    if float(overlay) == 1.0:
+        overlay_rgb = torch.stack([depth, torch.zeros_like(depth), torch.zeros_like(depth)],
+                                  dim=-1)
+        out = torch.where((ux < 0.5)[..., None], overlay_rgb, out)
+    return torch.pow(out, float(np.float32(1.0) / np.float32(gamma))), hist
 
 
 def lighting_shade(cam, idx, t, flags, states, light: Lighting, *, grid_size, width,
@@ -1109,10 +1280,12 @@ def lighting_shade(cam, idx, t, flags, states, light: Lighting, *, grid_size, wi
     slots' neighbour states (uint8 [n_slots, H, W], or None).
 
     The soft occlusion quotient (the samples' quotients summed, divided by
-    ``soft_k``, or by 1 in the temporal mode) and the one-bounce GI (each
-    slot's reflected light ``quotient · shade(n_point, …) + emissive`` and
-    its bounce ``shade(q, …, reflected, n_point)``, summed where the slot's
-    entry exists and its neighbour is alive, ×4 for the temporal slot), then:
+    ``soft_k``, or by 1 in the temporal mode) and the GI (each slot's
+    reflected light ``quotient · shade(n_point, …) + emissive`` and its
+    bounce ``shade(q, …, reflected, n_point)``, summed where the slot's
+    entry exists and its neighbour is alive, ×4 for the temporal slot; with
+    ``bounces`` > 1 the tree of :func:`_gi_light`, the flags and states of
+    every level given), then:
 
     * with ``rgb`` (K1's unshadowed, age-faded frame [H, W, 3]): ``rgb ·
       occl`` plus the GI on hits; returns the light [H, W, 3], or with
@@ -1128,34 +1301,64 @@ def lighting_shade(cam, idx, t, flags, states, light: Lighting, *, grid_size, wi
     The light includes the emissive light on hits (added before the
     composition)."""
     n = grid_size
+    _check_bounces(light)
     geo = _hit_geometry(cam, idx, t, n, width, height)
-    q, origin, coords, found, _ = geo
     n_soft = light.n_soft
     occl = _soft_occlusion(list(flags[:n_soft] == 1), light.occ_div) if n_soft else None
-    gi_rgb = None
-    if light.gi:
-        dev = q.device
-        lpos = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
-        o = device_vec(cam[P_O : P_O + 3], dev)
-        lmag3 = torch.full_like(q, float(cam[P_LMAG]))
-        emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], dev)
-        shade = _shader(cam, n)
-        total = torch.zeros_like(q)
-        slots = _gi_slots(cam, n, q, origin, coords, found, light.gi_slot)
-        for (n_cl, n_origin, n_point, ok_geo), st, occluded in zip(
-            slots, states, flags[n_soft:] == 1
-        ):
-            ok = ok_geo & (st == 1)
-            reflected = _occlusion_quotient(occluded)[..., None] * shade(
-                n_point, n_origin, n_cl, q, lmag3, lpos
-            ) + emis
-            bounce = shade(q, origin, coords, o, reflected, n_point)
-            total = total + torch.where(ok[..., None], bounce, 0.0)
-        if light.gi_slot is not None:
-            total = total * 4.0  # unbiased 1-of-4 estimator
-        gi_rgb = total
+    gi_rgb = _gi_light(cam, n, geo, flags[n_soft:], states, light) if light.gi else None
     return _lighting_tail(cam, geo, idx, t, occl, gi_rgb, grid_size=n, rgb=rgb, age=age,
                           total_states=total_states, history=history)
+
+
+def _gi_light(cam, n, geo, gi_flags, states, light: Lighting):
+    """The GI [H, W, 3] of the shade twin from the GI rows' flags and
+    states: the temporal mode's one slot ×4, or the GI tree of
+    ``light.bounces`` levels evaluated bottom up, each slot's reflected light
+    ``quotient · shade(n_point, …, parent point) + emissive`` plus its own
+    slots' sum, its bounce ``shade(parent point, …, viewer, reflected,
+    n_point)`` summed from 0 in slot order where the slot is ok: the
+    arithmetic of :func:`indirect_bounce`, level by level."""
+    q, origin, coords, found = geo[:4]
+    dev = q.device
+    lpos = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
+    o = device_vec(cam[P_O : P_O + 3], dev)
+    lmag3 = torch.full_like(q, float(cam[P_LMAG]))
+    emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], dev)
+    shade = _shader(cam, n)
+    if light.gi_slot is not None:
+        (n_cl, n_origin, n_point, ok_geo), = _gi_slots(cam, n, q, origin, coords, found,
+                                                      light.gi_slot)
+        ok = ok_geo & (states[0] == 1)
+        reflected = _occlusion_quotient(gi_flags[0] == 1)[..., None] * shade(
+            n_point, n_origin, n_cl, q, lmag3, lpos) + emis
+        bounce = shade(q, origin, coords, o, reflected, n_point)
+        return (torch.zeros_like(q) + torch.where(ok[..., None], bounce, 0.0)) * 4.0
+    tree = _slot_tree(cam, n, geo, states, light.bounces)
+    # Each level's parents as (point, origin, coords, viewer): the hit, seen
+    # from the camera, then each slot seen from its parent's point.
+    parents = [[(q, origin, coords, o)]]
+    for k in range(1, light.bounces):
+        parents.append([(pt, org, cl, parents[k - 1][s // 4][0])
+                        for s, (cl, org, pt, _) in enumerate(tree[k - 1])])
+    sums = None
+    for k in range(light.bounces, 0, -1):
+        r0, _ = Lighting.level_span(k)
+        level_sums = []
+        for p, (ppoint, porigin, pcl, viewer) in enumerate(parents[k - 1]):
+            total = torch.zeros_like(q)
+            for j in range(4):
+                s = 4 * p + j
+                n_cl, n_origin, n_point, ok = tree[k - 1][s]
+                reflected = _occlusion_quotient(gi_flags[r0 + s] == 1)[..., None] * shade(
+                    n_point, n_origin, n_cl, ppoint, lmag3, lpos)
+                reflected = reflected + emis
+                if sums is not None:
+                    reflected = reflected + sums[s]
+                bounce = shade(ppoint, porigin, pcl, viewer, reflected, n_point)
+                total = total + torch.where(ok[..., None], bounce, 0.0)
+            level_sums.append(total)
+        sums = level_sums
+    return sums[0]
 
 
 def lighting_shade_cuda(cam, idx, t, flags, states, light: Lighting, *, grid_size, width,
@@ -1164,8 +1367,12 @@ def lighting_shade_cuda(cam, idx, t, flags, states, light: Lighting, *, grid_siz
     contract of :func:`lighting_shade` in one launch.  Every tensor must be
     a contiguous CUDA tensor of the frame's shape; a temporal slot given as
     a tensor is read on the card.  Compose-mode launches (with ``history``)
-    are also counted in ``lighting_shade_cuda.compose_launches``."""
+    are also counted in ``lighting_shade_cuda.compose_launches``; a frame
+    of more than one bounce does not compose."""
     cam = _check_sliced(grid_size, width, height, cam)
+    _check_card_bounces(light)
+    if history is not None and light.gi and light.bounces > 1:
+        raise ValueError("a multi-bounce frame does not compose: no history")
     n, nq, h, w = grid_size, light.nq, height, width
     _check_hits(idx, t, w, h)
     if nq > MAX_LIGHTING_QUERIES:
@@ -1205,7 +1412,8 @@ def lighting_shade_cuda(cam, idx, t, flags, states, light: Lighting, *, grid_siz
     consts = _light_consts(cam, n, light)
     err = kernels.library().ca3d_lighting_shade(
         dev.index or 0, cam.ctypes.data, consts.ctypes.data, n, w, h, light.n_soft,
-        light.n_slots, gs, ptr(sample_slot), int(sliced), int(history is not None), total_states,
+        light.n_slots, light.bounces if light.gi else 1, gs, ptr(sample_slot), int(sliced),
+        int(history is not None), total_states,
         idx.data_ptr(), t.data_ptr(), ptr(flags), ptr(states), ptr(rgb), ptr(age),
         ptr(None if history is None else history[0]),
         ptr(None if history is None else history[1]), out.data_ptr(), ptr(depth),
@@ -1224,26 +1432,34 @@ lighting_shade_cuda.compose_launches = 0
 
 def lighting_passes(cam, idx, t, prepped: Prepped, light: Lighting, *, grid_size, width,
                     height, rgb=None, age=None, total_states=2, history=None):
-    """Soft shadows (or the hard shadow) and one-bounce GI of a frame from
-    its primary hits: the queries (:func:`lighting_queries_cuda`, one
-    launch), every occlusion query of the frame in one K2 launch
-    (:func:`occlusion_flags`), the GI slots' states in one K3 launch
-    (:func:`slot_states`) and the shading (:func:`lighting_shade_cuda`, one
-    launch) -- four launches a frame on the card; for CPU tensors the plain
-    twins.  The GI slots' occlusion rays depend only on the hit geometry,
-    not on the neighbour's state, which only gates whether a slot
-    contributes, so the ``soft_k`` jittered samples and the 4 slots (1 with
-    ``gi_slot``) share the launch.  Covers ``bounces == 1`` and the
-    temporally amortized mode; deeper recursion is :func:`indirect_bounce`.
-    Arguments and results: :func:`lighting_shade`'s."""
+    """Soft shadows (or the hard shadow) and GI of a frame from its primary
+    hits: the queries (:func:`lighting_queries_cuda`, one launch), the GI
+    tree's states level by level (:func:`gi_states`: K3 on level 1's slots,
+    then for each deeper level a level-mode queries launch and K3 on its
+    slots), every occlusion query of the frame in one K2 launch
+    (:func:`occlusion_flags`) and the shading (:func:`lighting_shade_cuda`,
+    one launch) -- four launches a one-bounce frame on the card, seven a
+    two-bounce one; for CPU tensors the plain twins.  The GI slots'
+    occlusion rays depend only on the slot's geometry, not on its
+    neighbour's state, which only gates whether a slot contributes (and
+    whether its children exist), so the ``soft_k`` jittered samples and
+    every slot of every level share the K2 launch.  Arguments and results:
+    :func:`lighting_shade`'s; a frame of more than one bounce does not
+    compose (no ``history``)."""
     kw = dict(grid_size=grid_size, width=width, height=height)
     cpu = idx.device.type == "cpu"
     flags = states = None
     if light.nq:
         ops = _queries(cam, idx, t, light, **kw)
+        # K2 reads every level's queries, which the deeper levels' states
+        # gate; one bounce runs K3 after K2 (its lookups measured 10 %
+        # faster there than right after the queries kernel, PERF.md).
+        deep = light.n_slots > 0 and light.bounces > 1
+        if deep:
+            states = gi_states(cam, idx, t, ops, prepped, light, **kw)
         flags = occlusion_flags(cam, ops, prepped, grid_size=grid_size)
-        if light.n_slots:
-            states = slot_states(ops, light.n_soft, prepped, grid_size=grid_size)
+        if light.n_slots and not deep:
+            states = gi_states(cam, idx, t, ops, prepped, light, **kw)
     return (lighting_shade if cpu else lighting_shade_cuda)(
         cam, idx, t, flags, states, light, rgb=rgb, age=age, total_states=total_states,
         history=history, **kw)
@@ -1265,11 +1481,10 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
     (the occlusion quotient) and not the GI added after it.
 
     K4 finds the primary hits; the hard shadow (``soft_shadow_samples`` ≤
-    1), the soft-shadow samples and the GI slots ride one K2 launch and the
-    GI lookups one K3 launch between the queries kernel and the shade
-    kernel, which computes the direct light, the reference's Cook-Torrance
-    BRDF (:func:`lighting_passes`); for ``indirect_bounces`` > 1,
-    :func:`direct_occlusion` and :func:`indirect_bounce`.
+    1), the soft-shadow samples and every GI slot of every level ride one
+    K2 launch and the GI lookups K3 (level by level) between the queries
+    kernel and the shade kernel, which computes the direct light, the
+    reference's Cook-Torrance BRDF (:func:`lighting_passes`).
     ``sample_idx``: the frame counter of the temporally amortized mode,
     which evaluates one rotating soft-shadow sample and one GI slot per
     frame (one bounce)."""
@@ -1283,26 +1498,12 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
     age = age_img[0] if age_img else None
     tail = dict(age=age, total_states=total_states)
 
-    gi_slot, gi_bounces, jitter_k = None, indirect_bounces, None
-    if indirect and sample_idx is not None:
-        gi_slot, gi_bounces = sample_idx % 4, 1
-    if shadow and sample_idx is not None and soft_shadow_samples > 1:
-        jitter_k = sample_idx % soft_shadow_samples
-
-    if not indirect or gi_bounces == 1:
-        # Single-bounce configurations: every occlusion query in one launch.
-        light = Lighting(soft_k=soft_shadow_samples if shadow else None,
-                         jitter_k=jitter_k, gi=indirect, gi_slot=gi_slot)
-        rgb, depth = lighting_passes(cam, idx, t_img, prepped, light, **tail, **kw)
-    else:
-        geo = _hit_geometry(cam, idx, t_img, n, width, height)
-        q, origin, coords, found, _ = geo
-        occl = (
-            direct_occlusion(cam, idx, t_img, prepped, soft_k=soft_shadow_samples,
-                             jitter_k=jitter_k, **kw)
-            if shadow else None
-        )
-        gi_rgb = indirect_bounce(vol, cam, q, origin, coords, found, prepped,
-                                 bounces=gi_bounces, slot=gi_slot, **kw)
-        rgb, depth = _lighting_tail(cam, geo, idx, t_img, occl, gi_rgb, grid_size=n, **tail)
+    temporal = sample_idx is not None
+    light = Lighting(
+        soft_k=soft_shadow_samples if shadow else None,
+        jitter_k=sample_idx % soft_shadow_samples
+        if shadow and temporal and soft_shadow_samples > 1 else None,
+        gi=indirect, gi_slot=sample_idx % 4 if indirect and temporal else None,
+        bounces=max(1, int(indirect_bounces)) if indirect and not temporal else 1)
+    rgb, depth = lighting_passes(cam, idx, t_img, prepped, light, **tail, **kw)
     return rgb, depth, idx

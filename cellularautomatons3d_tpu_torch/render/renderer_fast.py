@@ -12,18 +12,18 @@ and counts as a GI neighbour like a live one:
 * :func:`trace_shaded` -- the traced and shaded scene.  Up to 256³: K1
   with the hard shadow, or K1 unshadowed followed by the extended lighting
   of ``render_slab`` (soft shadows through K2, one- or multi-bounce GI
-  through K2 and K3, the temporally amortized mode; one bounce and the
-  temporal mode as ``render_slab.lighting_passes``: the queries kernel, K2,
-  K3 and the shade kernel).  Above 256³, or with
+  through K2 and K3, the temporally amortized mode, all as
+  ``render_slab.lighting_passes``: the queries kernel, K3 and the
+  level-mode queries launches level by level, K2 and the shade kernel).  Above 256³, or with
   ``RenderStatic.force_sliced``: ``render_slab.raytrace_sliced`` (K4's
   primary hits, then the same passes, the shade kernel computing the direct
   light too).  Then emissive light (in the shade kernel where it runs).
-* :func:`render_frame_fast` -- one frame: trace_shaded, then the temporal
-  EMA (validated by the stored hit-cell id; after a camera move the history
-  is reprojected first: on the card :func:`reproject_history_cuda`, one
-  launch of ``csrc/reproject.cu``, on the CPU its plain twin
-  :func:`reproject_history`), the light cube, f16
-  history, the depth overlay and gamma in torch.
+* :func:`render_frame_fast` -- one frame: trace_shaded, then its
+  composition: the temporal EMA (validated by the stored hit-cell id; after
+  a camera move the history is reprojected first), the light cube, the f16
+  history, the depth overlay and gamma -- on the card
+  :func:`compose_frame_cuda`, one launch of ``csrc/compose.cu``, on the
+  CPU its plain twin :func:`compose_frame` (with :func:`reproject_history`).
 * :func:`make_fused_loop` -- the production loop (CA steps + one composed
   frame per iteration, static camera) with the reset period as a runtime
   argument (``run(..., reset_period)``, ``reset_every`` by default).  Up to
@@ -45,21 +45,13 @@ import torch
 from .. import kernels
 from ..ops.ca_step import step_packed, visibility_plane
 from ..ops.occupancy import occupancy_rebuild
-from .camera import COT_HALF_FOV, get_ray, pixel_uvs
-from .intersect import device_vec, ray_cube_intersect
+from .camera import COT_HALF_FOV, pixel_uvs
+from .intersect import device_vec
 from .render_fast import (
     MAX_GRID, P_EMIS, P_EMISS, P_LEN, descent_options, raytrace_tiles,
 )
 from .render_slab import (
-    Lighting,
-    Prepped,
-    _hit_geometry,
-    _lighting_tail,
-    direct_occlusion,
-    indirect_bounce,
-    lighting_passes,
-    raytrace_sliced,
-)
+    Lighting, Prepped, ema, finish_frame, lighting_passes, raytrace_sliced)
 from .renderer import RenderParams, RenderStatic, _get_reprojected_uv
 
 __all__ = [
@@ -68,6 +60,8 @@ __all__ = [
     "trace_shaded",
     "reproject_history",
     "reproject_history_cuda",
+    "compose_frame",
+    "compose_frame_cuda",
     "render_frame_fast",
     "make_fused_loop",
 ]
@@ -124,39 +118,23 @@ def _extended_lighting(s: RenderStatic, prepped, cam, rgb, depth, idx, sample_id
                        history=None):
     """Soft shadows and GI on top of K1's frame (renderer_fast.py:121-178),
     with the emissive light: the rgb [H, W, 3], or with ``history`` the
-    fused loop's (presentation, new history color).  One bounce and the
-    temporal mode are :func:`render_slab.lighting_passes` (queries, K2, K3,
-    shade: four launches on the card); two or more bounces take their direct
-    shadow from the queries kernel and K2 and run the GI recursion's
-    per-level passes in torch."""
-    n, w, h = s.grid_size, s.width, s.height
+    fused loop's (presentation, new history color).  Every configuration is
+    :func:`render_slab.lighting_passes` (the queries kernel, K3 level by
+    level with the level-mode queries launches between, K2 on every query of
+    the frame, the shade kernel); the temporal mode evaluates one bounce."""
     soft = s.soft_shadow_samples > 1
     gi = s.indirect_lighting
     temporal = s.gi_temporal and sample_idx is not None
-    kw = dict(grid_size=n, width=w, height=h)
-    if not gi or temporal or s.indirect_bounces == 1:
-        # Every occlusion query of the frame (soft samples and GI slots)
-        # rides one K2 launch.  K1's rgb is unshadowed (but age-faded)
-        # direct light when soft; the quotient multiplies it.
-        light = Lighting(
-            soft_k=s.soft_shadow_samples if soft else None,
-            jitter_k=sample_idx % s.soft_shadow_samples if soft and temporal else None,
-            gi=gi, gi_slot=sample_idx % 4 if gi and temporal else None,
-        )
-        return lighting_passes(cam, idx, depth, prepped, light, rgb=rgb, history=history, **kw)
-    # Multi-bounce recursion: the direct shadow as one pass, the GI per level.
-    geo = _hit_geometry(cam, idx, depth, n, w, h)
-    q, origin, coords, found, _ = geo
-    occl = (
-        direct_occlusion(cam, idx, depth, prepped, soft_k=s.soft_shadow_samples, **kw)
-        if soft else None
+    # K1's rgb is unshadowed (but age-faded) direct light when soft; the
+    # quotient multiplies it.
+    light = Lighting(
+        soft_k=s.soft_shadow_samples if soft else None,
+        jitter_k=sample_idx % s.soft_shadow_samples if soft and temporal else None,
+        gi=gi, gi_slot=sample_idx % 4 if gi and temporal else None,
+        bounces=max(1, int(s.indirect_bounces)) if gi and not temporal else 1,
     )
-    gi_rgb = indirect_bounce(
-        prepped.vol, cam, q, origin, coords, found, prepped,
-        bounces=s.indirect_bounces, **kw,
-    )
-    return _lighting_tail(cam, geo, idx, depth, occl, gi_rgb, grid_size=n, rgb=rgb,
-                          history=history)
+    return lighting_passes(cam, idx, depth, prepped, light, rgb=rgb, history=history,
+                           grid_size=s.grid_size, width=s.width, height=s.height)
 
 
 def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2,
@@ -212,6 +190,24 @@ def trace_shaded(s: RenderStatic, packed: torch.Tensor, cam: np.ndarray,
     return _shaded(s, packed, cam, sample_idx, ages, total_states)
 
 
+def _window_rays(w: int, h: int, fh: int, row0: int, view: np.ndarray, device):
+    """(ux [h, w], (dx, dy, dz) each [h, w]): the window's u of each pixel
+    (``pixel_uvs``) and its world ray, ``get_ray`` rotated by the view's
+    3×3, one component at a time: ``(rx·v0 + ry·v1) + rz·v2`` after a
+    division by the norm (the composition kernel's order; JAX writes the
+    rotation as a matrix product, whose summation order is its own)."""
+    uv = pixel_uvs(w, h, device=device, row0=row0, full_height=fh)
+    r = float(np.float32(w) / np.float32(fh))
+    rx = (uv[..., 0] - 0.5) * r
+    ry = uv[..., 1] - 0.5
+    rz = torch.full_like(rx, -float(np.float32(0.5) * COT_HALF_FOV))
+    norm = torch.sqrt(rx * rx + ry * ry + rz * rz)
+    rx, ry, rz = rx / norm, ry / norm, rz / norm
+    d = tuple(rx * float(view[i, 0]) + ry * float(view[i, 1]) + rz * float(view[i, 2])
+              for i in range(3))
+    return uv[..., 0], d
+
+
 def reproject_history(history: FastHistory, rgb: torch.Tensor,
                       depth: torch.Tensor, idx: torch.Tensor,
                       params: RenderParams, w: int, h: int,
@@ -232,21 +228,9 @@ def reproject_history(history: FastHistory, rgb: torch.Tensor,
     torch ops: elementwise products and sums, divisions by tensors and
     integer conversions, so the card and the CPU agree on the same inputs."""
     fh = h if full_height is None else full_height
-    dev = rgb.device
-    uv = pixel_uvs(w, h, device=dev, row0=row0, full_height=fh)
-    # get_ray (camera.py) and the view rotation, one component at a time.
-    r = float(np.float32(w) / np.float32(fh))
-    rx = (uv[..., 0] - 0.5) * r
-    ry = uv[..., 1] - 0.5
-    rz = torch.full_like(rx, -float(np.float32(0.5) * COT_HALF_FOV))
-    norm = torch.sqrt(rx * rx + ry * ry + rz * rz)
-    rx, ry, rz = rx / norm, ry / norm, rz / norm
     view = np.asarray(params.view_mat, np.float32)
-    hit = torch.stack([
-        float(view[i, 3])
-        + (rx * float(view[i, 0]) + ry * float(view[i, 1]) + rz * float(view[i, 2])) * depth
-        for i in range(3)
-    ], dim=-1)
+    _, d = _window_rays(w, h, fh, row0, view, rgb.device)
+    hit = torch.stack([float(view[i, 3]) + d[i] * depth for i in range(3)], dim=-1)
     uv_r = _get_reprojected_uv(params.prev_proj_view, hit)
     ux, uy = uv_r[..., 0], uv_r[..., 1]
     in_bounds = (ux >= 0.0) & (ux <= 1.0) & (uy >= 0.0) & (uy <= 1.0)
@@ -262,24 +246,40 @@ def reproject_history(history: FastHistory, rgb: torch.Tensor,
     prev = history.color.reshape(-1, 3)[flat].to(torch.float32)
     prev_idx = history.hit_idx.reshape(-1)[flat]
     valid = in_bounds & (idx >= 0) & (prev_idx == idx)
-    alpha = float(np.float32(params.temporal_alpha))
-    mixed = torch.clamp(prev + (rgb - prev) * alpha, 0.0, 1.0)
-    out = torch.where(valid[..., None], mixed, rgb)
-    return out, torch.where(in_bounds, flat, -1), valid
+    return ema(rgb, prev, valid, params.temporal_alpha), torch.where(in_bounds, flat, -1), valid
 
 
-def reproject_history_cuda(history: FastHistory, rgb: torch.Tensor,
-                           depth: torch.Tensor, idx: torch.Tensor,
-                           params: RenderParams, w: int, h: int,
-                           full_height: int | None = None, row0: int = 0, *,
-                           with_source: bool = False):
-    """:func:`reproject_history` on the card in one launch
-    (``csrc/reproject.cu``, a thread a pixel, the twin's operations in its
-    order).  Every operand must be a contiguous CUDA tensor of the frame's
-    shape: ``rgb`` f32 [h, w, 3], ``depth`` f32 [h, w], ``idx`` and
-    ``history.hit_idx`` int32 [h, w], ``history.color`` f16 [h, w, 3].
-    Returns the blended rgb; with ``with_source`` also the source pixel
-    (int64, -1 out of bounds) and the valid mask, as the twin does."""
+def compose_frame(history: FastHistory, rgb: torch.Tensor, depth: torch.Tensor,
+                  idx: torch.Tensor, params: RenderParams, w: int, h: int,
+                  full_height: int | None = None, row0: int = 0,
+                  camera_static: bool = True):
+    """Plain twin of the composition kernel: ``render_frame_fast`` after
+    ``trace_shaded`` (renderer_fast.py:250-315 of the JAX package) --
+    the temporal EMA (static: where the history's id is this pixel's hit;
+    moved: :func:`reproject_history`), the light-source cube on black pixels
+    (wgsl:866-874), the new history colour as f16, the depth overlay
+    (wgsl:880-883) and gamma.  ``row0`` / ``full_height``: as
+    :func:`reproject_history`'s.  Returns (presentation [h, w, 3] f32, new
+    history colour [h, w, 3] f16)."""
+    fh = h if full_height is None else full_height
+    view = np.asarray(params.view_mat, np.float32)
+    ux, d = _window_rays(w, h, fh, row0, view, rgb.device)
+    if camera_static:
+        prev = history.color.to(torch.float32)
+        out = ema(rgb, prev, (idx == history.hit_idx) & (idx >= 0), params.temporal_alpha)
+    else:
+        out, _, _ = reproject_history(history, rgb, depth, idx, params, w, h, fh, row0)
+    pres, color = finish_frame(out, depth, view[:3, 3], torch.stack(d, dim=-1), params.light_pos,
+                               ux, params.show_depth_overlay, params.gamma)
+    return pres, color.to(torch.float16)
+
+
+def _compose_launch(history, rgb, depth, idx, params, w, h, full_height, row0, moved, *,
+                    present=True, debug=False, with_source=False):
+    """One launch of ``csrc/compose.cu`` on the frame's operands, checked:
+    the presentation and the f16 history (``present``) and, moved only, the
+    debug outputs (the blended rgb, with ``with_source`` the source pixel and
+    the valid mask)."""
     fh = h if full_height is None else full_height
     for t, name, dtype, shape in (
         (history.color, "history.color", torch.float16, (h, w, 3)),
@@ -291,24 +291,63 @@ def reproject_history_cuda(history: FastHistory, rgb: torch.Tensor,
         kernels.require(t, name, dtype, shape, align=t.element_size())
     if not (0 <= row0 and row0 + h <= fh):
         raise ValueError(f"rows {row0}..{row0 + h} do not fit a window of {fh} rows")
-    view = np.asarray(params.view_mat, np.float32)
+    f32 = np.float32
     consts = np.concatenate([
-        view[:3, :].reshape(-1),
-        np.asarray(params.prev_proj_view, np.float32).reshape(-1),
-        np.float32([np.float32(w) / np.float32(fh), -(np.float32(0.5) * COT_HALF_FOV),
-                    params.temporal_alpha]),
-    ]).astype(np.float32)
+        np.asarray(params.view_mat, f32)[:3, :].reshape(-1),
+        np.asarray(params.prev_proj_view, f32).reshape(-1),
+        [f32(w) / f32(fh), -(f32(0.5) * COT_HALF_FOV), params.temporal_alpha],
+        np.asarray(params.light_pos, f32).reshape(3),
+        [f32(1.0) / f32(params.gamma), params.show_depth_overlay],
+    ]).astype(f32)
     dev = rgb.device
-    out = torch.empty_like(rgb)
-    src = torch.empty((h, w), dtype=torch.int64, device=dev) if with_source else None
-    valid = torch.empty((h, w), dtype=torch.bool, device=dev) if with_source else None
-    err = kernels.library().ca3d_reproject(
+    new = lambda dtype, *shape: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+    pres = new(torch.float32, h, w, 3) if present else None
+    color = new(torch.float16, h, w, 3) if present else None
+    blend = new(torch.float32, h, w, 3) if debug else None
+    src = new(torch.int64, h, w) if with_source else None
+    valid = new(torch.bool, h, w) if with_source else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = kernels.library().ca3d_compose(
         dev.index or 0, history.color.data_ptr(), history.hit_idx.data_ptr(),
-        rgb.data_ptr(), depth.data_ptr(), idx.data_ptr(), w, h, fh, int(row0),
-        consts.ctypes.data, out.data_ptr(),
-        None if src is None else src.data_ptr(), None if valid is None else valid.data_ptr(),
+        rgb.data_ptr(), depth.data_ptr(), idx.data_ptr(), w, h, fh, int(row0), int(moved),
+        consts.ctypes.data, ptr(pres), ptr(color), ptr(blend), ptr(src), ptr(valid),
         kernels.stream_of(rgb))
-    kernels.check(err, "reproject")
+    kernels.check(err, "compose")
+    return pres, color, blend, src, valid
+
+
+def compose_frame_cuda(history: FastHistory, rgb: torch.Tensor, depth: torch.Tensor,
+                       idx: torch.Tensor, params: RenderParams, w: int, h: int,
+                       full_height: int | None = None, row0: int = 0,
+                       camera_static: bool = True):
+    """:func:`compose_frame` on the card in one launch (``csrc/compose.cu``,
+    a thread a pixel, the twin's operations in its order).  Every operand
+    must be a contiguous CUDA tensor of the frame's shape: ``rgb`` f32 [h,
+    w, 3], ``depth`` f32 [h, w], ``idx`` and ``history.hit_idx`` int32 [h,
+    w], ``history.color`` f16 [h, w, 3].  Returns (presentation, new history
+    colour f16)."""
+    pres, color, *_ = _compose_launch(history, rgb, depth, idx, params, w, h, full_height,
+                                      row0, not camera_static)
+    compose_frame_cuda.launches += 1
+    return pres, color
+
+
+compose_frame_cuda.launches = 0
+
+
+def reproject_history_cuda(history: FastHistory, rgb: torch.Tensor,
+                           depth: torch.Tensor, idx: torch.Tensor,
+                           params: RenderParams, w: int, h: int,
+                           full_height: int | None = None, row0: int = 0, *,
+                           with_source: bool = False):
+    """:func:`reproject_history` on the card: the composition kernel's moved
+    mode writing only its debug outputs (no frame path calls it).  Operands
+    as :func:`compose_frame_cuda`'s.  Returns the blended rgb; with
+    ``with_source`` also the source pixel (int64, -1 out of bounds) and the
+    valid mask, as the twin does."""
+    *_, out, src, valid = _compose_launch(history, rgb, depth, idx, params, w, h, full_height,
+                                          row0, True, present=False, debug=True,
+                                          with_source=with_source)
     reproject_history_cuda.launches += 1
     return (out, src, valid) if with_source else out
 
@@ -331,53 +370,18 @@ def render_frame_fast(s: RenderStatic, packed: torch.Tensor,
     (:func:`reproject_history`).  ``row0`` / ``full_height``: this call
     renders the ``s.height`` rows from ``row0`` of a window of
     ``full_height`` rows (a row shard: UVs and the frustum are the whole
-    window's)."""
+    window's).  After :func:`trace_shaded` the frame is composed by
+    :func:`compose_frame_cuda` on the card (one launch), by its twin
+    :func:`compose_frame` on the CPU."""
     h, w = s.height, s.width
     fh = h if full_height is None else full_height
     cam = _cam_vec(params, w, fh, row0)
     rgb, depth, idx = trace_shaded(s, packed, cam, sample_idx, ages=ages,
                                    total_states=total_states)
-    dev = rgb.device
-
-    uv = pixel_uvs(w, h, device=dev, row0=row0, full_height=fh)
-    ray_cam = get_ray(uv, (w, fh))
-    rot = torch.from_numpy(np.asarray(params.view_mat, np.float32)[:3, :3]).to(dev)
-    view_ray = ray_cam @ rot.T
-    camera_pos = torch.from_numpy(np.asarray(params.view_mat, np.float32)[:3, 3]).to(dev)
-
-    # Temporal EMA (wgsl:429-471): same-cell history blended with alpha.
-    if camera_static:
-        prev = history.color.to(torch.float32)
-        same_cell = (idx == history.hit_idx) & (idx >= 0)
-        alpha = float(np.float32(params.temporal_alpha))
-        mixed = torch.clamp(prev + (rgb - prev) * alpha, 0.0, 1.0)
-        out = torch.where(same_cell[..., None], mixed, rgb)
-    elif dev.type == "cpu":
-        out, _, _ = reproject_history(history, rgb, depth, idx, params, w, h, fh, row0)
-    else:
-        out = reproject_history_cuda(history, rgb, depth, idx, params, w, h, fh, row0)
-
-    # Light-source cube (wgsl:866-874).
-    light_pos = torch.from_numpy(np.asarray(params.light_pos, np.float32)).to(dev)
-    lt_near, lt_far = ray_cube_intersect(
-        camera_pos, view_ray, light_pos, float(np.float32(0.005))
-    )
-    light_hit = (lt_near <= lt_far) & (lt_far >= 0.0)
-    black = (out == 0.0).all(dim=-1)
-    out = torch.where((light_hit & black)[..., None], 1.0, out)
-
-    # History snapshots the scene (incl. the light cube), not the overlay.
-    new_history = FastHistory(color=out.to(torch.float16), hit_idx=idx)
-
-    # Depth overlay (wgsl:880-883), then gamma.
-    if float(params.show_depth_overlay) == 1.0:
-        overlay = (uv[..., 0] < 0.5)[..., None]
-        overlay_rgb = torch.stack(
-            [depth, torch.zeros_like(depth), torch.zeros_like(depth)], dim=-1
-        )
-        out = torch.where(overlay, overlay_rgb, out)
-    presentation = torch.pow(out, float(np.float32(1.0) / np.float32(params.gamma)))
-    return presentation, depth, new_history
+    compose = compose_frame if rgb.device.type == "cpu" else compose_frame_cuda
+    presentation, color = compose(history, rgb, depth, idx, params, w, h, fh, row0,
+                                  camera_static)
+    return presentation, depth, FastHistory(color=color, hit_idx=idx)
 
 
 def _ext_frame(s: RenderStatic, vis, cam, hist, ages, total_states, sample_idx):

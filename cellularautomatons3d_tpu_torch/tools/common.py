@@ -76,9 +76,10 @@ FAMILIES = {
     "occupied_box_kernel": (occupied_box_cuda,),
     "coarse_occupancy_kernel": (coarse_occupancy_cuda, coarse_occupancy_box_cuda,
                                 coarse_occupancy_plane_cuda, plane_occupancy_cuda),
-    "reproject_kernel": (renderer_fast.reproject_history_cuda,),
+    "compose_kernel": (renderer_fast.compose_frame_cuda, renderer_fast.reproject_history_cuda),
     "prepass_kernel": (render_fast.prepass_cuda,),
     "lighting_queries_kernel": (render_slab.lighting_queries_cuda,),
+    "lighting_level_kernel": (render_slab.lighting_level_cuda,),
     "lighting_shade_kernel": (render_slab.lighting_shade_cuda,),
 }
 

@@ -25,11 +25,11 @@ are read around the traced frames.  Modes:
   (gen-560), ``run_fused(K, reset_every=min(K, 10))``;
 * ``moved``: 256³ gen-80 (``--grid 512``: gen-160), K ``render()`` calls each
   after a camera move (a translate, a rotate and a mouse look), beside K
-  static ones; the reprojection (``renderer_fast.reproject_history_cuda``
-  on the card, one kernel; its twin ``reproject_history`` on the CPU) runs
-  inside a ``record_function`` range of its own, ``reproject_history``, so
-  the trace splits what a moved frame adds by kernel: the reprojection
-  against the rest;
+  static ones; the moved frames' composition with its reprojection
+  (``renderer_fast.compose_frame_cuda`` on the card, one kernel; its twin
+  ``compose_frame`` on the CPU) runs inside a ``record_function`` range of
+  its own, ``moved compose``, so the trace splits what a moved frame adds by
+  kernel: the composition against the rest;
 * ``mesh``: ``Engine(mesh_devices=4, mesh_device_list=[cuda:0] * 4)`` at
   ``--grid 512`` (gen-160, the default) or ``256`` (gen-80),
   ``run_fused(K, reset_every=K)``.
@@ -149,13 +149,13 @@ def trace_frames(run: common.Run, eng: Engine, mode: str, k: int, out_dir) -> di
     call = frames_call(eng, mode, k)
     with common.counted() as launched, profile_trace(str(out_dir)):
         if mode == "moved":
-            reproject = "reproject_history_cuda" if run.cuda else "reproject_history"
-            with attributed(renderer_fast, reproject, "reproject_history"):
+            compose = "compose_frame_cuda" if run.cuda else "compose_frame"
+            with attributed(renderer_fast, compose, "moved compose"):
                 with torch.profiler.record_function("moved render"):
                     call()
-                with torch.profiler.record_function("static render"):
-                    for _ in range(k):
-                        eng.render()
+            with torch.profiler.record_function("static render"):
+                for _ in range(k):
+                    eng.render()
         else:
             call()
         run.sync()
@@ -199,7 +199,7 @@ def profile(run: common.Run, mode: str, grid: int, k: int, out_dir=None) -> dict
         rec["ranges"] = {name: dict(r, device_ms_per_frame=r["device_ms"] / k,
                                     launches_per_frame=r["launches"] / k)
                          for name, r in ranges.items() if name is not None}
-        moved = [rec["ranges"].get(n, {}) for n in ("moved render", "reproject_history")]
+        moved = [rec["ranges"].get(n, {}) for n in ("moved render", "moved compose")]
         static = rec["ranges"].get("static render", {})
         rec["moved_extra_launches_per_frame"] = (
             sum(r.get("launches", 0) for r in moved) - static.get("launches", 0)) / k

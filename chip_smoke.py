@@ -131,11 +131,13 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       counters read around them (one non-compose launch a frame, no compose
       launch); the same at 512³ (gen-160, K4 + K2, 5 ticks) and at 256³ with
       gi_temporal lighting (K1 + K2 + K3, camera off the GI 0/0 diagonal as
-      in (h)); for every moved frame ``reproject_history`` on the card
-      against the CPU on the same inputs (source pixel and valid mask equal
-      on 1 − 1e-4 of the pixels, rgb within the contract there, some
-      history kept), and the reprojection kernel against the twin on the
-      card, bit for bit; the Engine on the card vs the CPU over 10 moved ticks
+      in (h)), the composition's twins refusing to run; for every moved frame
+      ``reproject_history`` on the card against the CPU on the same inputs
+      (source pixel and valid mask equal on 1 − 1e-4 of the pixels, rgb
+      within the contract there, some history kept), the composition
+      kernel's reprojection mode against the twin on the card, bit for bit,
+      and the composition kernel against ``compose_frame`` (the f16 history
+      bit for bit and the Engine's own); the Engine on the card vs the CPU over 10 moved ticks
       at 64³ / 128×64; a checkpoint of the 256³ and 512³ engines saved,
       loaded on the card (state, history, camera and counters equal, the
       next moved frame bit for bit) and on the CPU, with save / load wall
@@ -227,8 +229,8 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       launch, one CA step and one mip kernel a frame, and beside them only
       the fused call's 3 torch launches; multi-state: one step and two
       age-mask launches a generation and frame, K4, the queries kernel, K2
-      and the shade kernel; moved: one mip a frame and one reprojection
-      kernel a moved frame; the fused lighting frames: 7 kernels and at most
+      and the shade kernel and one composition kernel; moved: one mip and one
+      composition kernel a frame; the fused lighting frames: 7 kernels and at most
       10 launches a frame, and between K1 (K4) and the shade kernel only
       the queries kernel, K2 and K3).
 
@@ -263,13 +265,14 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       480³, 512³ and 1024³, on the scenes (256³ gen-80 and gen-230, 512³
       gen-160 and gen-260, 1024³ gen-200, the ``pyroclastic`` visibility
       plane), on (i)'s box-edge volumes at 256³, 512³ and 1024³, and launched
-      on two streams at once; the reprojection (``csrc/reproject.cu``) against its twin
+      on two streams at once; the reprojection (the moved mode of
+      ``csrc/compose.cu``, its debug outputs) against its twin
       ``reproject_history`` on the card on moved 256³ and 512³ frames of (j)'s
       engines and on a row shard (rows 540..810 of 1080): rgb, source pixels
       and valid masks bit for bit (else counted, rgb within rtol 3e-3 / atol
       3e-4, the rest equal); the launch counters of 10 fused compose frames
       (10 CA step, 10 mip and 10 K1 launches) and of one moved render() (one
-      mip, one K1, one reprojection), no box launch in either; both kernels
+      mip, one K1, one composition), no box launch in either; both kernels
       alternated with their twins by CUDA events and by queued device time,
       the mip with its box alternated with the mip kernel and the box kernel
       in turn, the mip with the plane mip alternated with the mip then the
@@ -294,10 +297,35 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       and ``gi_temporal`` and 512³ hard and ``gi_temporal``, with their bounds.
       Their launch counters are read on every lighting path: (e)'s fused and
       render() frames (one of each a one-bounce or temporal frame, the fused
-      frames' shade composing; two bounces the queries kernel alone, for
-      the direct shadow), (f)'s sliced, (h)'s
+      frames' shade composing; two bounces also the level-mode launches and
+      K3 level by level, no composing shade, and every frame composed by the
+      composition kernel, with the GI recursion and the composition's twins
+      refusing to run), (f)'s sliced, (h)'s
       multi-state and (j)'s moved frames; and (n) traces the fused full-quality
       and ``gi_temporal`` frames (7 kernels a frame, at most 10 launches).
+  (s) the frame's composition and the GI tree's level mode (run after (q)):
+      the composition kernel (``csrc/compose.cu``) against its twin
+      ``compose_frame`` on the card on 1080p frames at 256³ gen-80, 512³
+      gen-160 and 1024³ gen-200: static, with the overlay and gamma 2, with
+      the light on a black pixel's ray, after a camera move, and rows
+      540..810 of the moved frame (the f16 history and the presentation
+      within rtol 3e-3 / atol 3e-4, the light cube's flips counted, at most
+      4); the queries kernel's level mode and K3 level by level against the
+      twins on two-bounce frames (soft shadows ×4) at 256³ and 512³: every
+      level's masks, operands on the active lanes and states bit for bit,
+      the shade kernel's tree within the contract with NaN in the same
+      pixels; K2 on the frame's masks and on them with the last level's
+      gated by its states too;
+      ``Engine(256 / 512, indirect_bounces=2)`` render() and
+      ``run_fused(3)``, each frame against the same frame with the twins on
+      the card, with exact launch counts (4 compositions, 4 queries, 4 level
+      launches, 12 K3, 4 K2, 4 shade) and the GI recursion and the
+      composition's twins refusing to run; the launches of a sliced 512³
+      fused frame and a moved render() (one composition a frame); the
+      composition, the level launch, the shade tree, K2 gated and not, and
+      the two-bounce lighting passes against the recursion they replace,
+      alternated with their twins, with their bounds; ptxas's registers and
+      spills of the 14 instantiations.
 
 The last two lines of standard output are the card (``nvidia-smi
 --query-gpu=name,power.limit``) and ``{"ok": true, "device": {...}}``; the
@@ -349,6 +377,27 @@ def env_var(name, value):
             os.environ.pop(name, None)
         else:
             os.environ[name] = saved
+
+
+@contextlib.contextmanager
+def twins_refused(rs, rfast):
+    """While open, the torch pieces that no frame path may run on the card
+    raise: the GI recursion (``indirect_bounce``) and the composition's twins
+    (``compose_frame``, ``reproject_history``)."""
+    names = ((rs, "indirect_bounce"), (rfast, "compose_frame"), (rfast, "reproject_history"))
+    saved = [getattr(m, n) for m, n in names]
+
+    def refuse(*args, **kw):
+        raise SmokeFailure("a frame path ran a torch twin (the GI recursion or the "
+                           "composition's) on the card")
+
+    for m, n in names:
+        setattr(m, n, refuse)
+    try:
+        yield
+    finally:
+        for (m, n), f in zip(names, saved):
+            setattr(m, n, f)
 
 
 def need(cond, msg):
@@ -847,6 +896,365 @@ def lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, vie
     for key, v in out["timings"].items():
         if not key.endswith("reads_ms"):
             log(f"  {key}: {v:.4f}")
+    return out
+
+
+# ------------------------------- (s) the composition and the GI level mode ---
+OPS_COMPOSE = 60   # a pixel's ray, EMA, light cube and three pow
+
+
+@contextlib.contextmanager
+def twins_in(rs, rfast):
+    """While open, the frame paths run the plain twins of the composition
+    kernel and of the lighting kernels on the card (K1 to K5 stay)."""
+    names = ((rs, "lighting_queries_cuda", rs.lighting_queries_stacked),
+             (rs, "lighting_level_cuda", rs.lighting_level_stacked),
+             (rs, "lighting_shade_cuda", rs.lighting_shade),
+             (rfast, "compose_frame_cuda", rfast.compose_frame))
+    saved = [getattr(m, n) for m, n, _ in names]
+    for m, n, f in names:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), f in zip(names, saved):
+            setattr(m, n, f)
+
+
+def level_twins(torch, rs, cam, idx, t, prepped, light, kw):
+    """The level mode's plain twins on the card: the stacked queries and every
+    level's states (the plain K3, the level twin, the last level's gate)."""
+    ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+    states = torch.zeros((light.n_slots, *idx.shape), dtype=torch.uint8, device=idx.device)
+    for k in range(1, light.bounces + 1):
+        r0, rows = rs.Lighting.level_span(k)
+        q = slice(light.n_soft + r0, light.n_soft + r0 + rows)
+        states[r0 : r0 + rows] = rs.cell_state(prepped.vol, ops[2][q], ops[3][q],
+                                               grid_size=kw["grid_size"])
+        if k < light.bounces:
+            rs.lighting_level_stacked(cam, idx, t, ops, states, light, k + 1, **kw)
+    return ops, states
+
+
+def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam, views,
+                         log_text) -> dict:
+    """Phase (s): the frame's composition kernel (``csrc/compose.cu``) and the
+    GI tree's level mode (the queries kernel's ``lighting_level_kernel``, the
+    shade kernel's tree), each against its plain twin on the card.
+
+    The composition on 1080p frames of (i)'s 256³ gen-80, 512³ gen-160 and
+    1024³ gen-200 volumes: static, with the overlay and gamma 2, with the light
+    on a black pixel's ray, after a camera move, and a row shard of the moved
+    frame (rows 540..810): the f16 history and the presentation, the light
+    cube's flips counted.  The level mode on two-bounce frames (soft shadows
+    ×4) at 256³ (K1's hits) and 512³ (K4's): every level's masks, operands on
+    the active lanes and states, the shade kernel's tree on the same flags and
+    states; K2 on the frame's masks and on them with the last level's gated
+    by its states as well.  The
+    Engine at two bounces, 256³ and sliced 512³: render() and the fused loop,
+    each frame against the same frame with the twins on the card.  Launch
+    counters (set to 0 just before, read just after) of a sliced 512³ frame,
+    a moved render() and two-bounce frames, with the composition's twins and
+    the GI recursion refusing to run.  Times (twin, kernel, kernel, twin)
+    and bounds from these inputs; ptxas's registers and spills."""
+    import dataclasses
+
+    from cellularautomatons3d_tpu_torch import engine as engine_mod
+    from cellularautomatons3d_tpu_torch.render.renderer import RenderStatic
+    from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
+    from _torch_compose_scene import light_on_pixel
+
+    t_phase = time.perf_counter()
+    dev = next(iter(scenes.values()))[0].device
+    out = {"compose": {}, "levels": {}, "engines": {}, "launches": {}, "timings": {},
+           "bounds": {}, "max_abs_err": 0.0, "light_cube_flips": 0, "registers": {}}
+    out["registers"] = {
+        **registers(log_text, r"compose_kernelILb(\d)E", "compose_kernel<%s>"),
+        **registers(log_text, r"lighting_level_kernelILi(\d)E", "lighting_level_kernel<%s>"),
+        **registers(log_text, r"lighting_shade_kernelILb(\d)ELb(\d)ELi(\d)E",
+                    "lighting_shade_kernel<%s,%s,%s>"),
+    }
+    need(len(out["registers"]) == 2 + 3 + 9,
+         f"(s) the build log names {sorted(out['registers'])}, not the 2 composition, 3 level "
+         "and 9 shade instantiations")
+    log(f"(s) ptxas: {out['registers']}")
+
+    # The cameras: a static one (the history's view), one moved from it.
+    e = ct.Engine(grid_size=32, width=WIDTH, height=HEIGHT, device="cpu")
+    e.camera.matrices(WIDTH, HEIGHT)
+    e.camera.end_frame()
+    p_static = e.render_params()
+    move_camera(e.camera, 0)
+    p_moved = e.render_params()
+    cube_px = (60, 40)
+    looks = {"static": p_static,
+             "overlay_gamma2": p_static._replace(show_depth_overlay=np.float32(1.0),
+                                                 gamma=np.float32(2.0)),
+             "light_cube": p_static._replace(light_pos=light_on_pixel(
+                 p_static.view_mat, *cube_px, WIDTH, HEIGHT))}
+
+    def check(tag, args, static):
+        got = rfast.compose_frame_cuda(*args, camera_static=static)
+        want = rfast.compose_frame(*args, camera_static=static)
+        cube = [(c == 1.0).all(-1) for c in (got[1], want[1])]
+        flips = cube[0] != cube[1]
+        keep = ~flips[..., None]
+        err = float(((got[0] - want[0]).abs() * keep).nan_to_num().max())
+        rec = dict(presentation_px_differ=int((got[0] != want[0]).any(-1).sum()),
+                   history_px_differ=int((got[1] != want[1]).any(-1).sum()),
+                   light_cube_flips=int(flips.sum()), light_cube_px=int(cube[1].sum()),
+                   max_abs_err=err, px=int(args[3].numel()))
+        out["compose"][tag] = rec
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["light_cube_flips"] += rec["light_cube_flips"]
+        log(f"  (s) composition {tag}: kernel vs twin {rec}")
+        for a, b in ((got[0], want[0]), (got[1].float(), want[1].float())):
+            close = ((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs()) | (a.isnan() & b.isnan())
+            need(bool(close[keep.expand_as(a)].all()),
+                 f"(s) composition {tag}: outside rtol {RGB_RTOL} / atol {RGB_ATOL}")
+        need(rec["light_cube_flips"] <= 4, f"(s) composition {tag}: the light cube flips on "
+             f"{rec['light_cube_flips']} px")
+        return got
+
+    timed = {}
+    for tag, size in ((f"{GRID}^3 gen-80", GRID), ("512^3 gen-160", 512),
+                      ("1024^3 gen-200", 1024)):
+        vol = scenes[tag][0]
+        s = RenderStatic(width=WIDTH, height=HEIGHT, grid_size=size)
+
+        def traced(params, static=s, row0=0):
+            return rfast.trace_shaded(static, vol, rfast._cam_vec(params, WIDTH, HEIGHT, row0))
+
+        rgb, depth, idx = traced(p_static)
+        h0 = rfast.init_fast_history(WIDTH, HEIGHT, dev)
+        hist = rfast.FastHistory(rfast.compose_frame_cuda(
+            h0, rgb, depth, idx, p_static, WIDTH, HEIGHT)[1], idx)
+        for look, params in looks.items():
+            got = check(f"{size} {look}", (hist, rgb, depth, idx, params, WIDTH, HEIGHT), True)
+            if look == "light_cube":
+                need(bool((got[1][cube_px[1], cube_px[0]] == 1.0).all()),
+                     f"(s) composition {size}: the light cube is not on pixel {cube_px}")
+        moved = (hist, *traced(p_moved), p_moved, WIDTH, HEIGHT)
+        check(f"{size} moved", moved, False)
+        h, row0 = HEIGHT // 4, HEIGHT // 2
+        band = (rfast.FastHistory(*(x[row0:row0 + h].contiguous() for x in hist)),
+                *traced(p_moved, dataclasses.replace(s, height=h), row0), p_moved, WIDTH, h,
+                HEIGHT, row0)
+        check(f"{size} moved rows {row0}..{row0 + h}", band, False)
+        if size == GRID:
+            timed = {"static": ((hist, rgb, depth, idx, p_static, WIDTH, HEIGHT), True),
+                     "moved": (moved, False)}
+
+    # The composition's times and bounds at 256³: each pixel's rgb and id
+    # read, the presentation and f16 history written; the history's id on
+    # hits (moved: in-bounds hits, and every pixel's depth), its colour on
+    # the pixels that blend.
+    tm = out["timings"]
+    for label_c, (args, static) in timed.items():
+        calls = {"kernel": lambda: rfast.compose_frame_cuda(*args, camera_static=static),
+                 "plain": lambda: rfast.compose_frame(*args, camera_static=static)}
+        for label, queued in (("events", False), ("device", True)):
+            reads = [cuda_time_fn(calls[m], reps=2 if m == "plain" else 30, warmup=2,
+                                  queued=queued) for m in ("plain", "kernel", "kernel", "plain")]
+            tm[f"compose_{label_c}_{label}_reads_ms"] = reads
+            tm[f"compose_{label_c}_{label}_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"compose_plain_{label_c}_{label}_ms"] = (reads[0] + reads[3]) / 2
+        hist, rgb, depth, idx = args[:4]
+        px, hits = idx.numel(), int((idx >= 0).sum())
+        if static:
+            blends = int(((idx >= 0) & (idx == hist.hit_idx)).sum())
+            nbytes, ops = px * 34 + hits * 4 + blends * 6, px * OPS_COMPOSE
+        else:
+            _, src, valid = rfast.reproject_history(*args)
+            in_hits = int(((src >= 0) & (idx >= 0)).sum())
+            nbytes = px * 38 + in_hits * 4 + int(valid.sum()) * 6
+            ops = px * (OPS_COMPOSE + OPS_REPROJECT)
+        out["bounds"][f"compose_{label_c}"] = bound(nbytes, ops)
+
+    # The level mode on two-bounce frames at 256³ (K1) and 512³ (K4).
+    light = rs.Lighting(soft_k=LIGHTING["soft_shadow_samples"], gi=True, bounces=2)
+    cam = scene_cam(views["front"], WIDTH, HEIGHT, light_radius=LIGHTING["light_radius"],
+                    elapsed_time=0.37)
+    for tag, size in ((f"{GRID}^3 gen-80", GRID), ("512^3 gen-160", 512)):
+        vol = scenes[tag][0]
+        prepped = rs.prep_volume(vol)
+        kw = dict(grid_size=size, width=WIDTH, height=HEIGHT)
+        if size <= GRID:
+            rgb, t, idx = rf.raytrace_cuda(vol, prepped.coarse, cam, shadow=False, **kw)
+        else:
+            t, idx = rs.primary_sweep_cuda(vol, prepped.coarse, prepped.box, cam, **kw)
+            rgb = None
+        ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+        states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw)
+        ops_p, states_p = level_twins(torch, rs, cam, idx, t, prepped, light, kw)
+        differ = queries_differ(torch, ops, ops_p)
+        st_differ = int((states != states_p).sum())
+        flags = rs.occlusion_flags(cam, ops, prepped, grid_size=size)
+        got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light, rgb=rgb, **kw)
+        want = rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        bits = sum(int(same_values(torch, g, w).any(-1).sum() if g.dim() == 3 else
+                       same_values(torch, g, w).sum()) for g, w in zip(got, want))
+        nan_differ = int((torch.isnan(got[0]) != torch.isnan(want[0])).sum())
+        err = max(float((g - w).abs().nan_to_num().max()) for g, w in zip(got, want))
+        # The last level's masks gated by their states as well (the slots'
+        # ok), for K2's time against the frame path's ungated ones.
+        last = slice(light.n_soft + 4, None)
+        ops_g = (*ops[:3], ops[3].clone())
+        ops_g[3][last] &= states[4:] == 1
+        flags_g = rs.occlusion_flags(cam, ops_g, prepped, grid_size=size)
+        ok = ops_g[3]
+        need(torch.equal(flags[ok], flags_g[ok]),
+             f"(s) levels {size}: K2's flags on the slots' lanes differ with the last gate")
+        hits = int((idx >= 0).sum())
+        lanes = {f"level_{k}": int(ok[light.n_soft + r0 : light.n_soft + r0 + n].sum())
+                 for k in (1, 2) for r0, n in [rs.Lighting.level_span(k)]}
+        lanes_u = int(ops[3][last].sum())
+        rec = dict(operands_differ=differ, states_differ=st_differ, shade_px_differ=bits,
+                   shade_nan_differ=nan_differ, max_abs_err=err, hits=hits, ok_lanes=lanes,
+                   level_2_lanes_without_gate=lanes_u, nan_px=int(torch.isnan(want[0]).any(-1).sum()))
+        out["levels"][tag] = rec
+        log(f"  (s) level mode {tag}: {rec}")
+        need(differ == 0 and st_differ == 0, f"(s) level mode {tag}: operands / states differ")
+        need(nan_differ == 0 and lanes["level_2"] > 0, f"(s) level mode {tag}: {rec}")
+        for g, w in zip(got, want):
+            ok_px = ~(torch.isnan(g) & torch.isnan(w))
+            need(bool(((g - w).abs() <= RGB_ATOL + RGB_RTOL * w.abs())[ok_px].all()),
+                 f"(s) level mode {tag}: the shade kernel's tree outside the contract ({err})")
+        # Times at this size: the level launch, the shade tree, K2 with and
+        # without the gate, the whole passes against the recursion.
+        geo = rs._hit_geometry(cam, idx, t, size, WIDTH, HEIGHT)
+        direct = rs.Lighting(soft_k=LIGHTING["soft_shadow_samples"])
+
+        def recursion():
+            """The frame's light as two bounces ran before the level mode:
+            the direct shadow from the queries kernel and K2, the GI
+            recursion in torch around K2 and K3, the torch tail."""
+            occl = rs._soft_occlusion(list(rs.occlusion_flags(
+                cam, rs.lighting_queries_cuda(cam, idx, t, direct, **kw), prepped,
+                grid_size=size) == 1), direct.occ_div)
+            gi = rs.indirect_bounce(vol, cam, *geo[:4], prepped, bounces=2, **kw)
+            return rs._lighting_tail(cam, geo, idx, t, occl, gi, grid_size=size, rgb=rgb)
+
+        parents_ok = int(ok[light.n_soft : light.n_soft + 4].sum())
+        rec_calls = {
+            "k2_gated": (lambda: rs.occlusion_flags(cam, ops_g, prepped, grid_size=size),
+                         lambda: rs.occlusion_flags(cam, ops, prepped, grid_size=size)),
+            "shade_tree": (lambda: rs.lighting_shade_cuda(cam, idx, t, flags, states, light,
+                                                          rgb=rgb, **kw),
+                           lambda: rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb,
+                                                     **kw)),
+            "level": (lambda: rs.lighting_level_cuda(cam, idx, t, ops, states, light, 2, **kw),
+                      lambda: rs.lighting_level_stacked(cam, idx, t, ops_p, states_p, light, 2,
+                                                        **kw)),
+            "passes": (lambda: rs.lighting_passes(cam, idx, t, prepped, light, rgb=rgb, **kw),
+                       recursion),
+        }
+        for name, (kernel, plain) in rec_calls.items():
+            reps = {"passes": 1, "shade_tree": 3}.get(name, 10)
+            reads = [cuda_time_fn(f, reps=reps if f is plain else 20, warmup=1)
+                     for f in (plain, kernel, kernel, plain)]
+            tm[f"{name}_{size}_events_reads_ms"] = reads
+            tm[f"{name}_{size}_events_ms"] = (reads[1] + reads[2]) / 2
+            tm[f"{name}_plain_{size}_events_ms"] = (reads[0] + reads[3]) / 2
+            # The device's time: the kernels' side (the twins' thousands of
+            # launches outgrow a queued read); K2 gated and not alternated.
+            sides = (plain, kernel, kernel, plain) if name == "k2_gated" else (kernel, kernel)
+            reads = [cuda_time_fn(f, reps=20, warmup=1, queued=True) for f in sides]
+            tm[f"{name}_{size}_device_reads_ms"] = reads
+            tm[f"{name}_{size}_device_ms"] = (reads[1] + reads[2]) / 2 if len(reads) == 4 else (
+                sum(reads) / 2)
+            if len(reads) == 4:
+                tm[f"{name}_plain_{size}_device_ms"] = (reads[0] + reads[3]) / 2
+        # Bounds.  The level launch: every pixel's id, a hit's t and level-1
+        # states read; level 1's masks (the gate) and level 2's written on
+        # every pixel, 36 B on each active level-2 lane; the slot geometry of
+        # 4 + 16 slots a hit.  The shade tree: shade_work's, with the slots
+        # of both levels (their states where the parent is ok, their flags
+        # where the slot is).
+        lanes_2 = lanes["level_2"]
+        out["bounds"][f"level_{size}"] = bound(
+            idx.numel() * (4 + 4 + 16) + hits * 8 + lanes_2 * QUERY_LANE_BYTES,
+            hits * 20 * OPS_LIGHT_SLOT)
+        slot_lanes = hits * 4 + parents_ok * 4
+        ok_slots = lanes["level_1"] + lanes_2
+        nbytes, nops = shade_work(light, HEIGHT, WIDTH, hits, slot_lanes, ok_slots, rgb is None,
+                                  False, False, 0)
+        out["bounds"][f"shade_tree_{size}"] = bound(nbytes, nops)
+        del ops, ops_p, ops_g, flags, flags_g, states, states_p
+
+    # The Engine at two bounces, 256³ and sliced 512³: render() and the fused
+    # loop, every frame against the same frame with the twins on the card.
+    for tag, (size, gens) in {f"two_bounces_{GRID}": (GRID, 80),
+                              "two_bounces_512": (512, 160)}.items():
+        eng = ct.Engine(grid_size=size, width=WIDTH, height=HEIGHT, device="cuda",
+                        indirect_bounces=2, **LIGHTING)
+        eng.camera.translate((1, 0, 0), 0.01)  # off the GI 0/0 diagonal, as in (h)
+        eng.step(gens)
+        eng.render()
+        counters = (rfast.compose_frame_cuda, rs.lighting_queries_cuda, rs.lighting_level_cuda,
+                    rs.cell_state_cuda, rs.shadow_sweep_cuda, rs.lighting_shade_cuda)
+        for fn in counters:
+            fn.launches = 0
+        with recorded_frames(engine_mod, rfast) as calls, twins_refused(rs, rfast):
+            eng.render()
+            eng.run_fused(3, reset_every=3)
+            torch.cuda.synchronize()
+        counts = out["launches"][tag] = {fn.__name__: fn.launches for fn in counters}
+        want_c = {"compose_frame_cuda": 4, "lighting_queries_cuda": 4,
+                  "lighting_level_cuda": 4, "cell_state_cuda": 12,
+                  "shadow_sweep_cuda": 4, "lighting_shade_cuda": 4}
+        need(counts == want_c, f"(s) {tag}: launches {counts}, expected {want_c}")
+        need(len(calls) == 4, f"(s) {tag}: {len(calls)} frames recorded, not 4")
+        worst, bits = 0.0, 0
+        for i, c in enumerate(calls):
+            with twins_in(rs, rfast):
+                pres, _, new = rfast.render_frame_fast(
+                    c["s"], c["packed"], c["params"], c["history"], c["camera_static"],
+                    c["sample_idx"], **c["kw"])
+            need(torch.equal(new.hit_idx, c["new"].hit_idx), f"(s) {tag} frame {i}: ids differ")
+            for a, b in ((c["pres"], pres), (c["new"].color.float(), new.color.float())):
+                ok_px = ~(torch.isnan(a) & torch.isnan(b))
+                need(bool(((a - b).abs() <= RGB_ATOL + RGB_RTOL * b.abs())[ok_px].all()),
+                     f"(s) {tag} frame {i}: the frame differs from the twins' frame")
+                worst = max(worst, float((a - b).abs().nan_to_num().max()))
+                bits += int(same_values(torch, a, b).any(-1).sum())
+            need(tuple(c["pres"].shape) == (HEIGHT, WIDTH, 3)
+                 and float(c["pres"].nan_to_num().max()) > 0,
+                 f"(s) {tag} frame {i}: black or misshapen")
+        out["engines"][tag] = dict(frames=len(calls), max_abs_err=worst, px_differ=bits)
+        log(f"(s) {tag}: render() and run_fused(3) launched {counts}; each frame (presentation "
+            f"and history) vs the twins' on the card: max err {worst:.3g}, {bits} px not "
+            "bit-equal")
+        del eng, calls
+
+    # The launch counters of a sliced 512³ frame and a moved render(), the
+    # twins refusing to run.
+    for tag, (eng, call, want_c) in {
+        "sliced_512": (inter["engines"]["moved_512"],
+                       lambda e: e.run_fused(2, reset_every=2),
+                       {"compose_frame_cuda": 2, "lighting_shade_cuda": 2,
+                        "lighting_level_cuda": 0}),
+        "moved_256": (inter["engines"]["moved_256"],
+                      lambda e: (move_camera(e.camera, 3), e.render()),
+                      {"compose_frame_cuda": 1, "lighting_shade_cuda": 0,
+                       "lighting_level_cuda": 0}),
+    }.items():
+        counters = (rfast.compose_frame_cuda, rs.lighting_shade_cuda, rs.lighting_level_cuda)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        with twins_refused(rs, rfast):
+            call(eng)
+            torch.cuda.synchronize()
+        counts = out["launches"][tag] = {fn.__name__: fn.launches for fn in counters}
+        need(counts == want_c, f"(s) {tag}: launches {counts}, expected {want_c}")
+    log(f"(s) launches with the twins refused: {out['launches']}")
+    for k, v in tm.items():
+        if not k.endswith("reads_ms"):
+            log(f"  (s) {k}: {v:.5f}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"(s) phase {out['wall_s']:.1f} s")
     return out
 
 
@@ -1739,24 +2147,28 @@ def move_camera(cam, i):
 
 
 @contextlib.contextmanager
-def recorded_frames(engine_mod):
-    """Record each ``render_frame_fast`` call the Engine makes: its
-    arguments and the history it returned (the calls are the Engine's own)."""
-    real = engine_mod.render_frame_fast
+def recorded_frames(*modules):
+    """Record each ``render_frame_fast`` call made through the modules'
+    attribute (the Engine's module; the fast renderer's, for the fused
+    loop's frames): its arguments, the presentation and the history it
+    returned (the calls are the frame paths' own)."""
+    real = modules[0].render_frame_fast
     calls = []
 
     def spy(s, packed, params, history, camera_static, sample_idx=None, **kw):
         out = real(s, packed, params, history, camera_static, sample_idx, **kw)
         calls.append(dict(s=s, packed=packed, params=params, history=history,
                           camera_static=camera_static, sample_idx=sample_idx, kw=kw,
-                          new=out[2]))
+                          pres=out[0], new=out[2]))
         return out
 
-    engine_mod.render_frame_fast = spy
+    for m in modules:
+        m.render_frame_fast = spy
     try:
         yield calls
     finally:
-        engine_mod.render_frame_fast = real
+        for m in modules:
+            m.render_frame_fast = real
 
 
 def reprojection_inputs(rfast, call):
@@ -1771,9 +2183,12 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     """Phase (j): the interactive path on the card.  Engines at 1080p whose
     camera moves before every tick (K1 non-compose at 256³, K4 + K2 at 512³,
     K1 + K2 + K3 with gi_temporal), their launch counters read around the
-    moved ticks, and ``reproject_history`` of every moved frame on the card
-    against the CPU on the same inputs, and the reprojection kernel against it
-    on the card, bit for bit; the Engine on the card against the
+    moved ticks (no torch twin of the composition runs), and
+    ``reproject_history`` of every moved frame on the card against the CPU on
+    the same inputs, the composition kernel's reprojection mode against it on
+    the card, bit for bit, and the composition kernel against its twin
+    ``compose_frame`` (the history bit for bit, the Engine's own); the Engine
+    on the card against the
     CPU at 64³; a checkpoint saved and loaded on the card and on the CPU; the
     viewer over the 256³ engine, with one HTTP request of each kind.
     Returns what (d) times and the report keeps."""
@@ -1787,9 +2202,10 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
                occupancy.coarse_occupancy_cuda, occupancy.coarse_occupancy_box_cuda,
-               rfast.reproject_history_cuda, rs.lighting_queries_cuda, rs.lighting_shade_cuda)
+               rfast.compose_frame_cuda, rfast.reproject_history_cuda, rs.lighting_queries_cuda,
+               rs.lighting_shade_cuda)
     out = {"launches": {}, "valid_px": {}, "valid_share_of_hits": {}, "engines": {},
-           "walls_s": {}}
+           "walls_s": {}, "compose_bits_differ": {}}
     for name, (over, steps, ticks) in INTERACTIVE.items():
         t0 = time.perf_counter()
         eng = ct.Engine(width=WIDTH, height=HEIGHT, device="cuda", **over)
@@ -1800,7 +2216,7 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
         for fn in counted:
             fn.launches = 0
         rf.raytrace_cuda.compose_launches = 0
-        with recorded_frames(engine_mod) as calls:
+        with recorded_frames(engine_mod) as calls, twins_refused(rs, rfast):
             frames = []
             for i in range(ticks):
                 move_camera(eng.camera, i)
@@ -1826,7 +2242,8 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                 # clip to it, and no box kernel
                 "coarse_occupancy_cuda": 0 if sliced or lit else ticks,
                 "coarse_occupancy_box_cuda": ticks if sliced or lit else 0,
-                "occupied_box_cuda": 0, "reproject_history_cuda": ticks,
+                "occupied_box_cuda": 0, "compose_frame_cuda": ticks,
+                "reproject_history_cuda": 0,
                 "fires_plane_cuda": eng.simulation_step - steps}
         need(all(counts[k] == v for k, v in want.items()),
              f"(j) {name}: launches {counts}, expected {want}")
@@ -1843,6 +2260,17 @@ def interactive_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                                                   s.width, s.height, with_source=True)
             need(all(torch.equal(a, b) for a, b in zip(kernel, got)),
                  f"(j) {name} frame {i}: the reprojection kernel != its twin on the card")
+            # The frame's composition: the Engine's (the kernel's) history, and
+            # the kernel again, against the twin on the card.
+            args = (c["history"], rgb, depth, idx, params, s.width, s.height)
+            comp = rfast.compose_frame_cuda(*args, camera_static=False)
+            twin = rfast.compose_frame(*args, camera_static=False)
+            need(torch.equal(comp[1], c["new"].color) and torch.equal(comp[1], twin[1]),
+                 f"(j) {name} frame {i}: the composition's history != the Engine's / twin's")
+            need(bool(torch.all((comp[0] - twin[0]).abs() <= RGB_ATOL + RGB_RTOL * twin[0].abs())),
+                 f"(j) {name} frame {i}: the composition kernel's frame != its twin's")
+            out["compose_bits_differ"][name] = out["compose_bits_differ"].get(name, 0) + int(
+                (comp[0] != twin[0]).any(-1).sum())
             hist = rfast.FastHistory(c["history"].color.cpu(), c["history"].hit_idx.cpu())
             ref = rfast.reproject_history(hist, rgb.cpu(), depth.cpu(), idx.cpu(), params,
                                           s.width, s.height)
@@ -2059,14 +2487,15 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
     ``coarse_occupancy`` and ``occupied_box``, bit for bit, on random, empty
     and full volumes at every size of ``MIP_SIZES``, on the scenes of (i), the
     ``pyroclastic`` visibility plane and (i)'s box-edge volumes at 256³, 512³
-    and 1024³, and launched on two streams at once; the reprojection kernel
-    (``csrc/reproject.cu``) against its twin ``reproject_history`` on the same
+    and 1024³, and launched on two streams at once; the composition kernel's
+    reprojection mode (``csrc/compose.cu`` through ``reproject_history_cuda``)
+    against its twin ``reproject_history`` on the same
     inputs, on moved 256³ and 512³ frames of (j)'s engines and on a row shard
     (row0 > 0): blended rgb, source pixels and valid masks bit for bit, or, if
     not, their counts reported and rgb held to rtol 3e-3 / atol 3e-4 with the
     source pixels and masks equal; the launch counters, set to 0 just before
     and read just after, of 10 fused compose frames (10 CA step, 10 mip, 10 K1
-    launches) and of one moved render() (one mip, one K1, one reprojection),
+    launches) and of one moved render() (one mip, one K1, one composition),
     no box launch in either; both kernels' times beside their twins'
     (alternated twin, kernel, kernel, twin; CUDA events and queued device
     time), the mip with its box beside the mip and the box kernel in turn
@@ -2223,7 +2652,7 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
 
     # The launch counters of the main path's frames.
     counters = (ca_step.fires_plane_cuda, mip, fused, occupancy.occupied_box_cuda,
-                rf.raytrace_cuda, rfast.reproject_history_cuda)
+                rf.raytrace_cuda, rfast.compose_frame_cuda)
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -2236,7 +2665,7 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
     c = out["launches"]["fused_10"] = counted(lambda: eng.run_fused(10, reset_every=10))
     need(c == {"fires_plane_cuda": 10, "coarse_occupancy_cuda": 10,
                "coarse_occupancy_box_cuda": 0, "occupied_box_cuda": 0, "raytrace_cuda": 10,
-               "reproject_history_cuda": 0}, f"(q) 10 fused compose frames launched {c}")
+               "compose_frame_cuda": 0}, f"(q) 10 fused compose frames launched {c}")
     e256 = inter["engines"]["moved_256"]
 
     def moved():
@@ -2246,7 +2675,7 @@ def mip_reproject_phase(torch, ct, rf, ca_step, occupancy, scenes, eng, inter) -
     c = out["launches"]["moved_render"] = counted(moved)
     need(c == {"fires_plane_cuda": 0, "coarse_occupancy_cuda": 1,
                "coarse_occupancy_box_cuda": 0, "occupied_box_cuda": 0, "raytrace_cuda": 1,
-               "reproject_history_cuda": 1}, f"(q) one moved render() launched {c}")
+               "compose_frame_cuda": 1}, f"(q) one moved render() launched {c}")
     log(f"(q) launches: 10 fused compose frames {out['launches']['fused_10']}; one moved "
         f"render() {out['launches']['moved_render']}")
 
@@ -2422,7 +2851,7 @@ def reference_phase(torch, np, ct, rf, rs, ca_step, occupancy) -> dict:
                ca_step.age_masks_cuda, rf.raytrace_cuda, rs.primary_sweep_cuda,
                rs.shadow_sweep_cuda, rs.shadow_sweep_multi_cuda, rs.cell_state_cuda,
                occupancy.occupied_box_cuda, occupancy.coarse_occupancy_cuda,
-               occupancy.coarse_occupancy_box_cuda, rfast.reproject_history_cuda)
+               occupancy.coarse_occupancy_box_cuda, rfast.compose_frame_cuda)
     ca_kernels = ("fires_plane_cuda", "step_packed_multistate_cuda", "age_masks_cuda")
     for name, (over, gens, static, moved, timed_frames) in reference_configs(ct).items():
         cfg = {"width": WIDTH, "height": HEIGHT, "pipeline": "reference", **over}
@@ -3353,14 +3782,14 @@ def tools_phase(torch, np, rs, sliced, noskip) -> dict:
         "multistate": {"ca_step_kernel": 1, "age_masks_kernel": 2, "primary_sweep_kernel": 1,
                        "shadow_sweep_kernel": 1, "occupied_box_kernel": 0,
                        "coarse_occupancy_kernel": 1, "lighting_queries_kernel": 1,
-                       "lighting_shade_kernel": 1},
+                       "lighting_shade_kernel": 1, "compose_kernel": 1},
         # The fused extended-lighting frames at 256³: step, rebuild, K1, the
         # queries kernel, K2, K3, the shade kernel composing.
         **{mode: {"ca_step_kernel": 1, "coarse_occupancy_kernel": 1, "render_kernel": 1,
                   "lighting_queries_kernel": 1, "shadow_sweep_kernel": 1,
                   "cell_state_kernel": 1, "lighting_shade_kernel": 1,
                   "occupied_box_kernel": 0} for mode in ("gi", "gi_temporal")},
-        "moved": {"render_kernel": 1, "coarse_occupancy_kernel": 1, "reproject_kernel": 0.5,
+        "moved": {"render_kernel": 1, "coarse_occupancy_kernel": 1, "compose_kernel": 1,
                   "occupied_box_kernel": 0},
     }
     for mode, fams in expect.items():
@@ -3990,7 +4419,8 @@ def main() -> dict:
     counted = (ca_step.fires_plane_cuda, rf.raytrace_cuda, rs.shadow_sweep_cuda,
                rs.cell_state_cuda, occupancy.coarse_occupancy_box_cuda,
                occupancy.coarse_occupancy_cuda, occupancy.occupied_box_cuda,
-               rs.lighting_queries_cuda, rs.lighting_shade_cuda)
+               rs.lighting_queries_cuda, rs.lighting_shade_cuda, rs.lighting_level_cuda,
+               rfast.compose_frame_cuda)
     lighting_launches, lighting_engines = {}, {}
     for name, variant in LIGHTING_VARIANTS.items():
         for fn in counted:
@@ -4000,25 +4430,31 @@ def main() -> dict:
         eng_l = ct.Engine(grid_size=GRID, width=WIDTH, height=HEIGHT, device="cuda",
                           **LIGHTING, **variant)
         eng_l.step(80)
-        fr = [eng_l.render(), eng_l.run_fused(50, reset_every=10)]
-        torch.cuda.synchronize()
+        with twins_refused(rs, rfast):
+            fr = [eng_l.render(), eng_l.run_fused(50, reset_every=10)]
+            torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in counted}
         counts["lighting_shade_cuda_compose"] = rs.lighting_shade_cuda.compose_launches
         for i, f in enumerate(fr):
             need(tuple(f.shape) == (HEIGHT, WIDTH, 3), f"{name} frame {i} shape {tuple(f.shape)}")
             need(bool(torch.isfinite(f).all()), f"{name} frame {i} has non-finite values")
             need(float(f.max()) > 0.0, f"{name} frame {i} is black")
-        # One bounce and the temporal mode: the queries kernel and the shade
-        # kernel once a frame, the fused frames' shade composing; two bounces
-        # take their direct shadow from the queries kernel once a frame and
-        # recurse in torch around K2 and K3.
+        # The queries kernel and the shade kernel once a frame; one bounce and
+        # the temporal mode: the fused frames' shade composing; two bounces:
+        # the level-mode launch (level 2) and K3 on 4 + 16 lookups (3
+        # launches) a frame, the shade kernel's tree,
+        # and every frame composed by the composition kernel (render_frame_fast
+        # per iteration); render() composes there too.
         one_bounce = name != "two_bounces"
-        need(counts["lighting_queries_cuda"] == 51
-             and counts["lighting_shade_cuda"] == (51 if one_bounce else 0)
-             and counts["lighting_shade_cuda_compose"] == (50 if one_bounce else 0),
+        levels = 0 if one_bounce else 51
+        need(counts["lighting_queries_cuda"] == 51 and counts["lighting_shade_cuda"] == 51
+             and counts["lighting_shade_cuda_compose"] == (50 if one_bounce else 0)
+             and counts["lighting_level_cuda"] == levels
+             and counts["compose_frame_cuda"] == (1 if one_bounce else 51)
+             and counts["cell_state_cuda"] == (51 if one_bounce else 3 * 51),
              f"{name}: the lighting kernels' launches {counts}")
         absent = ("coarse_occupancy_cuda", "occupied_box_cuda") + (
-            () if one_bounce else ("lighting_shade_cuda", "lighting_shade_cuda_compose"))
+            ("lighting_level_cuda",) if one_bounce else ("lighting_shade_cuda_compose",))
         need(all(v > 0 for k, v in counts.items() if k not in absent),
              f"{name} missed a kernel: {counts}")
         # One occupancy rebuild a frame, the mip with its box (K2 clips to
@@ -4093,6 +4529,13 @@ def main() -> dict:
     report["mip_reproject"] = {k: mipq[k] for k in ("mip_cases", "reproject", "launches",
                                                     "timings", "max_abs_err", "wall_s")}
 
+    # ----------------------------- (s) the composition and the GI level mode ---
+    cl = compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam, views,
+                              lib_path.with_suffix(".log").read_text())
+    report["compose_levels"] = {k: cl[k] for k in (
+        "compose", "levels", "engines", "launches", "timings", "registers", "max_abs_err",
+        "light_cube_flips", "wall_s")}
+
     # ------------------------------------- (k) the reference pipeline ---
     refp = reference_phase(torch, np, ct, rf, rs, ca_step, occupancy)
     report["reference"] = refp
@@ -4109,7 +4552,8 @@ def main() -> dict:
                rs.shadow_sweep_multi_cuda, rs.cell_state_cuda, occupancy.occupied_box_cuda,
                occupancy.plane_occupancy_cuda, occupancy.coarse_occupancy_cuda,
                occupancy.coarse_occupancy_box_cuda, occupancy.coarse_occupancy_plane_cuda,
-               rfast.reproject_history_cuda)
+               rfast.compose_frame_cuda, rs.lighting_queries_cuda, rs.lighting_level_cuda,
+               rs.lighting_shade_cuda)
     report["entry"] = entry_phase(torch, np, counted)
 
     # -------------------------------------------------- (d) timings ---
@@ -4409,6 +4853,11 @@ def main() -> dict:
     bounds["coarse_occupancy"] = bounds[f"coarse_occupancy_{GRID}"]
     bounds["coarse_occupancy_box"] = bounds[f"coarse_occupancy_box_{GRID}"]
     bounds["reproject"] = bounds[f"reproject_{GRID}"]
+    # The composition (a static 256³ frame) and the level launch (256³, two
+    # bounces) from (s)'s inputs.
+    bounds.update(cl["bounds"])
+    bounds["compose"] = bounds["compose_static"]
+    bounds["lighting_level"] = bounds[f"level_{GRID}"]
     # The lighting kernels from (r)'s timed frames; the kernels line's rows
     # are full quality at 256³ (the shade kernel composing, as the fused loop).
     bounds.update({f"lighting_{k}": v for k, v in lk["bounds"].items()})
@@ -4491,11 +4940,23 @@ def main() -> dict:
                     *multi["launches"].values()),
               0.0, mipq["timings"][f"coarse_occupancy_box_{GRID}_events_ms"],
               mipq["timings"][f"coarse_occupancy_box_plain_{GRID}_events_ms"]),
-        entry("reproject", "reproject.cu", "render/renderer_fast.py:265",
-              total("reproject_history_cuda", *inter["launches"].values(),
-                    *mipq["launches"].values()),
-              mipq["max_abs_err"], mipq["timings"][f"reproject_{GRID}_events_ms"],
-              mipq["timings"][f"reproject_plain_{GRID}_events_ms"]),
+        # The frame's composition (the reprojection is its moved mode): (e)'s
+        # render() and two-bounce frames, (j)'s moved ticks, (q)'s moved
+        # render(), (s)'s runs; ms and plain a static 256³ frame.
+        entry("compose", "compose.cu", "render/renderer_fast.py:208",
+              total("compose_frame_cuda", *lighting_launches.values(),
+                    *inter["launches"].values(), *mipq["launches"].values(),
+                    *cl["launches"].values()),
+              max(cl["max_abs_err"], mipq["max_abs_err"]),
+              cl["timings"]["compose_static_events_ms"],
+              cl["timings"]["compose_plain_static_events_ms"]),
+        # The GI tree's level mode of the queries kernel: (e)'s and (s)'s
+        # two-bounce frames; ms and plain the level-2 launch at 256³.
+        entry("lighting_level", "lighting_queries.cu", "render/render_slab.py:1308",
+              total("lighting_level_cuda", *lighting_launches.values(),
+                    *cl["launches"].values()), 0.0,
+              cl["timings"][f"level_{GRID}_events_ms"],
+              cl["timings"][f"level_plain_{GRID}_events_ms"]),
         entry("shadow_sweep", "shadow_sweep.cu", "render/render_slab.py:354",
               total("shadow_sweep_cuda", *lighting_launches.values(),
                     *sliced_launches.values(), *ms_launches),

@@ -20,6 +20,7 @@ from cellularautomatons3d_tpu_torch.render import render_fast as rf
 from cellularautomatons3d_tpu_torch.utils import mat4
 
 from _torch_box_scene import BOX_CASES, box_edge_volume
+from _torch_compose_scene import light_on_pixel
 from _torch_query_scene import cell_queries, cell_states_oracle, occlusion_queries
 
 pytestmark = pytest.mark.cuda
@@ -1395,8 +1396,9 @@ def test_frames_launch_one_occupancy_rebuild_and_no_box_kernel(cuda, config):
 @pytest.mark.parametrize("rows", [(H, 0, H), (16, 24, H), (H, 0, 2 * H)],
                          ids=["window", "shard", "top_half"])
 def test_reproject_kernel_matches_plain(cuda, rows):
-    """The reprojection kernel (csrc/reproject.cu) against its plain twin
-    on the card on the same operands, bit for bit: blended rgb, source
+    """The reprojection (csrc/compose.cu's moved mode, its debug outputs)
+    against its plain twin on the card on the same operands, bit for bit:
+    blended rgb, source
     pixels and valid mask; a moved camera's parameters, random depths and
     ids from a small set, so that some pixels blend; a row shard at row0 >
     0 of its window."""
@@ -1427,24 +1429,25 @@ def test_reproject_kernel_matches_plain(cuda, rows):
 
 
 def test_frames_launch_the_mip_and_reprojection_kernels(cuda):
-    """A moved render() launches one reprojection kernel and one mip
-    kernel; a fused compose frame one mip kernel, and no frame path runs
-    the twins on the card."""
+    """A moved render() launches one composition kernel (its reprojection
+    inside) and one mip kernel; a fused compose frame one mip kernel, and no
+    frame path runs the twins on the card."""
     from cellularautomatons3d_tpu_torch.ops import occupancy
     from cellularautomatons3d_tpu_torch.render import renderer_fast
 
     eng = ct.Engine(device=cuda, grid_size=N, width=W, height=H)
     eng.step(20)
     eng.render()
-    counters = (occupancy.coarse_occupancy_cuda, renderer_fast.reproject_history_cuda)
+    counters = (occupancy.coarse_occupancy_cuda, renderer_fast.compose_frame_cuda,
+                renderer_fast.reproject_history_cuda)
     for fn in counters:
         fn.launches = 0
     eng.camera.translate((1, 0, -1), 0.02)
     eng.render()
-    assert [fn.launches for fn in counters] == [1, 1]
+    assert [fn.launches for fn in counters] == [1, 1, 0]
     eng.run_fused(4, reset_every=2)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in counters] == [5, 1]
+    assert [fn.launches for fn in counters] == [5, 1, 0]
 
 
 # ------------------------------------------ the plane mip in the rebuild ---
@@ -1774,8 +1777,9 @@ def test_lighting_kernels_on_a_row_shard(cuda):
 def test_lighting_frames_launch_the_kernels(cuda):
     """A fused full-quality frame is step, rebuild, K1, queries, K2, K3 and
     shade (composing); render() the same with a non-compose shade; a sliced
-    frame K4, queries, K2 and shade; two bounces the queries kernel for the
-    direct shadow, once a frame, and no shade kernel."""
+    frame K4, queries, K2 and shade; a two-bounce frame queries, K3 on level
+    1, the level-mode launch, K3 twice on level 2, K2 and shade, not
+    composing (render_frame_fast composes it)."""
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 
     kernels = (rs.lighting_queries_cuda, rs.lighting_shade_cuda, rs.shadow_sweep_cuda,
@@ -1784,7 +1788,7 @@ def test_lighting_frames_launch_the_kernels(cuda):
         (dict(grid_size=N, **LIGHTING_320), 3, [4, 4, 4, 4]),
         (dict(grid_size=N, **LIGHTING_320, gi_temporal=True), 3, [4, 4, 4, 4]),
         (dict(grid_size=320), 2, [3, 3, 3, 0]),
-        (dict(grid_size=N, **LIGHTING_320, indirect_bounces=2), 1, [0, 0, 4, 4]),
+        (dict(grid_size=N, **LIGHTING_320, indirect_bounces=2), 1, [2, 2, 2, 6]),
     ):
         eng = ct.Engine(width=W, height=H, device="cuda", **cfg)
         eng.step(20 if cfg["grid_size"] == N else 70)
@@ -1795,12 +1799,9 @@ def test_lighting_frames_launch_the_kernels(cuda):
         eng.run_fused(frames, reset_every=2)
         torch.cuda.synchronize()
         got = [fn.launches for fn in kernels]
-        if cfg.get("indirect_bounces", 1) == 1:
-            assert got == want, cfg
-            fused = frames if cfg["grid_size"] == N else 0
-            assert rs.lighting_shade_cuda.compose_launches == fused, cfg
-        else:
-            assert got[:2] == [1 + frames, 0] and got[2] > 0 and got[3] > 0, (cfg, got)
+        assert got == want, cfg
+        fused = frames if cfg["grid_size"] == N and "indirect_bounces" not in cfg else 0
+        assert rs.lighting_shade_cuda.compose_launches == fused, cfg
 
 
 def test_lighting_wrappers_refuse_bad_operands(cuda):
@@ -1825,3 +1826,124 @@ def test_lighting_wrappers_refuse_bad_operands(cuda):
                                age=torch.ones_like(idx), **kw)
     with pytest.raises(ValueError, match="gi_slot"):
         rs.lighting_queries_cuda(cam, idx, t, rs.Lighting(gi=True, gi_slot=4), **kw)
+
+
+# ---------------------------- the frame's composition and the GI level mode ---
+
+@pytest.mark.parametrize("look", ["default", "overlay_gamma2"])
+@pytest.mark.parametrize("rows", [(H, 0, H), (16, 24, H)], ids=["window", "shard"])
+@pytest.mark.parametrize("moved", [False, True], ids=["static", "moved"])
+def test_compose_kernel_matches_plain(cuda, moved, rows, look):
+    """The composition kernel (csrc/compose.cu) against its twin
+    compose_frame on the card on the same operands: the f16 history bit for
+    bit, the presentation within rtol 3e-3 / atol 3e-4; a black pixel on the
+    light cube in both; one launch a call."""
+    from cellularautomatons3d_tpu_torch.render import renderer_fast
+
+    h, row0, fh = rows
+    eng = ct.Engine(device="cpu", grid_size=N, width=W, height=fh)
+    eng.render()
+    if moved:
+        eng.camera.translate((1, 0, -1), 0.05)
+        eng.camera.mouse_look(7.0, -3.0)
+    px, py = 5, 3
+    params = eng.render_params()._replace(
+        light_pos=light_on_pixel(eng.camera.view_mat, px, py, W, fh, row0))
+    if look != "default":
+        params = params._replace(show_depth_overlay=np.float32(1.0), gamma=np.float32(2.0))
+    g = torch.Generator(cuda).manual_seed(h + row0 + moved)
+    idx = torch.randint(-1, 4, (h, W), dtype=torch.int32, device=cuda, generator=g)
+    idx[py, px] = -1
+    rgb = torch.where((idx >= 0)[..., None],
+                      torch.rand((h, W, 3), device=cuda, generator=g) * 1.2, 0.0)
+    hist = renderer_fast.FastHistory(
+        torch.rand((h, W, 3), device=cuda, generator=g).to(torch.float16),
+        torch.randint(-1, 4, (h, W), dtype=torch.int32, device=cuda, generator=g))
+    depth = torch.rand((h, W), device=cuda, generator=g) * 1.5
+    args = (hist, rgb, depth, idx, params, W, h, fh, row0, not moved)
+    before = renderer_fast.compose_frame_cuda.launches
+    got = renderer_fast.compose_frame_cuda(*args)
+    assert renderer_fast.compose_frame_cuda.launches == before + 1
+    want = renderer_fast.compose_frame(*args)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=3e-3, atol=3e-4)
+    assert bool((got[1][py, px] == 1.0).all()) and bool((want[1][py, px] == 1.0).all())
+
+
+def _level_twins(rs, cam, idx, t, prepped, light, kw):
+    """The level mode's plain twins on the card: the stacked queries and the
+    states of every level (the plain K3, the level twin)."""
+    ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+    states = torch.zeros((light.n_slots, *idx.shape), dtype=torch.uint8, device=idx.device)
+    for k in range(1, light.bounces + 1):
+        r0, rows = rs.Lighting.level_span(k)
+        q = slice(light.n_soft + r0, light.n_soft + r0 + rows)
+        states[r0 : r0 + rows] = rs.cell_state(prepped.vol, ops[2][q], ops[3][q],
+                                               grid_size=kw["grid_size"])
+        if k < light.bounces:
+            rs.lighting_level_stacked(cam, idx, t, ops, states, light, k + 1, **kw)
+    return ops, states
+
+
+@pytest.mark.parametrize("bounces", [2, 3])
+@pytest.mark.parametrize("n", [64, 320], ids=["k1", "sliced"])
+def test_lighting_level_mode_matches_twin(cuda, n, bounces):
+    """The queries kernel's level mode and K3 level by level against the
+    twins on the card: the masks of every level bit for bit, the operands on
+    the active lanes, the states; the shade kernel's tree on the same flags
+    and states within rtol 3e-3 / atol 3e-4, NaN in the same pixels."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(soft_k=4, gi=True, bounces=bounces)
+    prepped, cam, rgb, t, idx, _ = _lighting_hits(cuda, n, light)
+    kw = dict(grid_size=n, width=W, height=H)
+    before = rs.lighting_level_cuda.launches
+    ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw)
+    assert rs.lighting_level_cuda.launches == before + bounces - 1  # levels 2..b
+    ops_p, states_p = _level_twins(rs, cam, idx, t, prepped, light, kw)
+    _assert_queries_equal(ops, ops_p)
+    assert torch.equal(states, states_p)
+    if n == N:
+        r0, rows = rs.Lighting.level_span(2)
+        assert int(ops[3][4 + r0 : 4 + r0 + rows].sum()) > 0
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=n)
+    got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light, rgb=rgb, **kw)
+    want = rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, **kw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=3e-4, rtol=3e-3, equal_nan=True)
+
+
+def test_frames_run_no_torch_tail(cuda, monkeypatch):
+    """A sliced frame, a moved render() and a two-bounce frame compose in
+    the composition kernel and run neither the composition's twin nor the
+    GI recursion (indirect_bounce) on the card."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+    from cellularautomatons3d_tpu_torch.render import renderer_fast
+
+    def refuse(*args, **kw):
+        raise AssertionError("a frame path ran a torch twin on the card")
+
+    for mod, name in ((rs, "indirect_bounce"), (renderer_fast, "compose_frame"),
+                      (renderer_fast, "reproject_history")):
+        monkeypatch.setattr(mod, name, refuse)
+    counters = (renderer_fast.compose_frame_cuda, rs.lighting_level_cuda,
+                rs.lighting_shade_cuda)
+    for cfg, gens, moved, want in (
+        (dict(grid_size=320), 70, False, [3, 0, 3]),
+        (dict(grid_size=N), 20, True, [2, 0, 0]),  # run_fused: K1 composes
+        (dict(grid_size=N, **LIGHTING_320, indirect_bounces=2), 20, False, [3, 3, 3]),
+    ):
+        eng = ct.Engine(width=W, height=H, device="cuda", **cfg)
+        eng.step(gens)
+        eng.render()
+        for fn in counters:
+            fn.launches = 0
+        for _ in range(2):
+            if moved:
+                eng.camera.translate((1, 0, -1), 0.02)
+            eng.render()
+        eng.run_fused(1)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in counters] == want, cfg

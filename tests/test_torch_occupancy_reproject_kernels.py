@@ -1,7 +1,8 @@
 """The frame paths' two small kernels from the CPU's side: the 8³ mip
 (``ops.occupancy.occupancy_mip`` → ``coarse_occupancy_cuda``,
 ``csrc/coarse_occupancy.cu``) and the moved frame's reprojection
-(``renderer_fast.reproject_history_cuda``, ``csrc/reproject.cu``).
+(``renderer_fast.reproject_history_cuda``, the moved mode of
+``csrc/compose.cu``).
 
 On the CPU the frame paths take the plain twins; the wrappers refuse a CPU,
 wrong-dtype, wrong-shape or misaligned operand with ``ValueError`` before the
