@@ -6,35 +6,58 @@
 // render_slab.py lighting_passes (:1431; the occlusion quotient and the
 // one-bounce double BRDF of brdf.py :32-109), raytrace_sliced's direct light
 // and composition (:1714), renderer_fast.py's lighting on K1's frame
-// (:84-206) and the fused loop's frame composition _ext_frame_blocked
-// (:318), which JAX fuses under jit.  The port's torch twin,
-// render_slab.py lighting_shade, runs a full-quality frame's as ~1,000 eager
-// launches.
+// (:84-206), the fused loop's frame composition _ext_frame_blocked (:318)
+// and the GI recursion indirect_bounce (:1308), which JAX fuses under jit.
+// The port's torch twin, render_slab.py lighting_shade, runs a full-quality
+// frame's as ~1,000 eager launches.
 //
-// One thread a pixel, each step the twin's, in its order (shading.cuh):
-//   * the hit geometry again from the id, t and camera (hit_geometry);
+// Each step is the twin's, in its order (shading.cuh), a thread a pixel:
+//   * the pixel's loads first, before any geometry: its id and t and the
+//     direct shadow's flags, then on hits the slots' states and flags (and
+//     the age); K1's rgb and the history follow the GI;
+//   * the hit geometry from the id, t and camera (hit_geometry), and at once
+//     what the frame's tail needs of the ray (the light cube on it, the
+//     overlay's half, the volume's exit), so that the ray is not live
+//     across the GI;
 //   * the soft occlusion quotient: the samples' quotients (0.0095 where
 //     occluded, else 1) summed from 0 in order, then one IEEE division by
 //     occ_div (soft_k, or 1 in the temporal mode);
-//   * each GI slot (4, or the temporal one, then x4): its geometry again
-//     (slot_geometry), reflected = quotient * shade(n_point, ...) + emissive,
-//     bounce = shade(q, ..., reflected, n_point), summed from 0 in slot order
-//     where the slot's entry exists and its neighbour is alive (evaluated
-//     only there: elsewhere the twin adds 0, whatever the bounce);
-//   * with B > 1 bounces, the GI tree of JAX's indirect_bounce recursion
-//     (render_slab.py:1308), depth first (gi_sum): a slot's reflected light
-//     also adds its own slots' sum (from 0, in order) before its bounce, its
-//     neighbour's direct term seen from its parent's point; a slot is
-//     evaluated where its parent is, its entry exists and its neighbour
-//     lives (states of every level from K3), its quotient from its flag;
+//   * the GI, each slot's reflected = quotient * shade(n_point, ...) +
+//     emissive and bounce = shade(q, ..., reflected, n_point), added where
+//     the slot's entry exists and its neighbour is alive (live; the twin's
+//     where(ok, bounce, 0): elsewhere it adds 0, which changes no sum from
+//     +0), summed from 0 in slot order.  One bounce, 4 slots: each lane
+//     finds its live slots, and the warp's live slots run one a lane
+//     (shading.cuh warp_scan, warp_item: a lane's hit read from shared
+//     memory, the bounces summed back on its lane in slot order), so a warp
+//     runs ceil(live / 32) rounds of BRDFs, not the union of its lanes'
+//     slots.  The temporal mode's one slot (then x4) runs on its lane.  B >
+//     1 bounces, the tree of JAX's indirect_bounce recursion
+//     (render_slab.py:1308), on the block's pixels as a tile (shade_tree):
+//     the tile's hits are compacted by a block scan (shading.cuh
+//     block_scan), their geometry taken one a thread; then, a chunk of hits
+//     at a time, the tree's levels top down, one slot a thread (shading.cuh
+//     expand_level: a slot lives where its entry exists and K3 found its
+//     neighbour alive), each level's live slots compacted after the last in
+//     shared memory; then bottom up, one live slot a thread, as the twin's
+//     _gi_light: reflected = quotient * shade(point, ..., parent point) +
+//     emissive plus its own live slots' bounces summed from 0 in slot
+//     order, then its bounce shade(parent point, ..., viewer, reflected,
+//     point) (the viewer: the camera at level 1, else the grandparent's
+//     point); a hit's GI is its live slots' bounces summed from 0 in slot
+//     order.  The levels roll, their bounds in shared memory, so the
+//     registers do not grow with B; a chunk is as many hits as the node
+//     store holds with their live slots (where a level would pass it, the
+//     chunk halves and starts again; one hit's 341-node tree fits at four
+//     bounces);
 //   * K1's frame (SLICED = 0): K1's unshadowed, age-faded rgb times the
 //     quotient, plus the GI where the pixel hit; with COMPOSE the id-checked
 //     EMA against the f32 history, the light cube on black pixels, the new
 //     history, the depth overlay and gamma (K1's composition);
 //   * the sliced frame (SLICED = 1): the direct light clamp(shade(q, origin,
-//     coords, o, lmag, light), 0) times the quotient and the age fade
-//     (occl * fade, then shaded * occl), plus the GI, black on misses, and
-//     the depth: t on hits, the volume's exit (hit_geometry's miss depth)
+//     coords, o, lmag, light), 0) times the quotient and the age fade (occl *
+//     fade, then shaded * occl), plus the GI, black on misses, and the
+//     depth: t on hits, the volume's exit (hit_geometry's miss depth)
 //     elsewhere;
 //   * the emissive light on hits.
 // Every min, max and clamp propagates NaN, so a 0/0 of the BRDF comes out
@@ -44,9 +67,15 @@
 // (12 B) and the new history (12 B) or the depth (4 B); the slots' states
 // and flags, the age and the history's id and colour it reads on hit pixels
 // only: ~60 B a pixel at full quality in the fused loop (~0.04 ms at 1080p
-// on 3.35 TB/s).  The arithmetic (up to 9 BRDF evaluations a hit pixel,
-// ~1,300 flops with 30 divisions and 27 square roots) runs on hit pixels
-// only, a few percent of a 1080p frame.
+// on 3.35 TB/s).  The arithmetic (two BRDF evaluations a live slot, ~280
+// flops with 46 divisions and 8 square roots, IEEE) runs on hits only, a
+// few percent of a 1080p frame's pixels; what holds the one-bounce forms
+// from their bound is the latency of a hit warp's BRDF chain and the bytes a
+// pass keeps in flight (2.2-3.2x the bound at 1080p on an H100; the trees,
+// whose deeper levels' states and flags are read on live slots only,
+// 4.8-6.3x at two bounces; PERF.md).  Registers (ptxas, sm_90a): K1's frame
+// 60, composing 64, sliced 64, the trees 62 (K1's) and 64 (sliced) at every
+// B; no spill.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,8 +86,13 @@ namespace {
 
 using namespace ca3d;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // a thread a pixel, both forms
 constexpr int kMaxQueries = 65535;  // K2's limit (gridDim.z)
+// The tree's node store: a tile's hits, then a chunk of them with their
+// trees' live slots; one hit's whole tree fits beside a tile of hits at 4
+// bounces.
+constexpr int kNodes = 1024;
+static_assert(kNodes >= kThreads + 1 + gi_rows(kMaxBounces), "a hit's tree fits");
 
 struct ShadeArgs {
   Cam cam;
@@ -67,32 +101,370 @@ struct ShadeArgs {
   int n_soft, n_slots, gi_slot, total_states;
 };
 
-// The GI that the cell of `node` (level k of the tree, index s, seen from
-// `viewer`) receives from its 4 slots, each slot's reflected light with its
-// own D - 1 levels below: the twin's indirect_from, depth first.
-template <int D>
-__device__ V3 gi_sum(const ShadeArgs& a, const int* __restrict__ flags,
-                     const uint8_t* __restrict__ states, int pix, int npix, const Node& node,
-                     V3 viewer, int k, int s, V3 lmag, V3 light) {
+struct ShadeTile {
+  TileNodes<kNodes> T;
+  // A slot's own slots' sum, then its bounce; a hit's GI, then on the
+  // sliced frame its light.
+  float ax[kNodes], ay[kNodes], az[kNodes];
+  int id[kThreads];
+  float t[kThreads], occl[kThreads];
+  int sums[kThreads / 32];
+  int end[kMaxBounces + 1];  // the tree's levels' ends in the node store
+};
+
+__device__ __forceinline__ V3 acc_of(const ShadeTile& S, int i) {
+  return {S.ax[i], S.ay[i], S.az[i]};
+}
+__device__ __forceinline__ void set_acc(ShadeTile& S, int i, V3 v) {
+  S.ax[i] = v.x, S.ay[i] = v.y, S.az[i] = v.z;
+}
+
+// The bounce of live node i at level k of a B-bounce tree (its own slots'
+// sum stored where k < B).  The light, its magnitude and the camera come
+// from the launch's parameters, the nodes from shared memory as each BRDF
+// needs them, so that little stays live across the two.
+template <int B>
+__device__ __forceinline__ void shade_node(const ShadeArgs& a, ShadeTile& S,
+                                           const int* __restrict__ flags, int npix, int tile,
+                                           int k, int i) {
   const LightConsts& K = a.k;
-  const int face = face_index(cube_face_normal(node.point, node.origin));
-  V3 total{0.0f, 0.0f, 0.0f};
-#pragma unroll 1
-  for (int j = 0; j < 4; ++j) {
-    const Slot c = node_slot(K, node, true, face, j);
-    const int row = gi_level_start(k + 1) + 4 * s + j;
-    if (!(c.ok && states[(size_t)row * npix + pix] == 1)) continue;
-    const float quot = occlusion_quotient(flags[(size_t)(a.n_soft + row) * npix + pix] == 1);
-    const V3 sh = lighting_at(K, c.point, c.origin, c.nx, c.ny, node.point, lmag, light);
-    V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1], quot * sh.z + K.emis[2]};
-    if constexpr (D > 1) {
-      refl = refl + gi_sum<D - 1>(a, flags, states, pix, npix, slot_node(c), node.point, k + 1,
-                                  4 * s + j, lmag, light);
-    }
-    total = total + lighting_at(K, node.point, node.origin, node.cx, node.cy, viewer, refl,
-                                c.point);
+  const float* P = a.cam.p;
+  const TileNodes<kNodes>& T = S.T;
+  const int par = T.parent[i];
+  const int row = gi_level_start(k) + T.s[i];
+  const float quot =
+      occlusion_quotient(flags[(size_t)(a.n_soft + row) * npix + tile + T.lp[i]] == 1);
+  V3 refl;
+  {
+    const Node nd = T.node(K, i);
+    const float lm = P[P_LMAG];
+    const V3 sh = lighting_at(K, nd.point, nd.origin, nd.cx, nd.cy, T.point(par), V3{lm, lm, lm},
+                              V3{P[P_LIGHT], P[P_LIGHT + 1], P[P_LIGHT + 2]});
+    refl = {quot * sh.x + K.emis[0], quot * sh.y + K.emis[1], quot * sh.z + K.emis[2]};
   }
-  return total;
+  if (k < B) {
+    V3 sum{0.0f, 0.0f, 0.0f};
+    for (int c = T.cs[i]; c < T.ce[i]; ++c) sum = sum + acc_of(S, c);
+    refl = refl + sum;
+  }
+  const V3 viewer = k == 1 ? V3{P[P_O], P[P_O + 1], P[P_O + 2]} : T.point(T.parent[par]);
+  const Node pn = T.node(K, par);
+  set_acc(S, i, lighting_at(K, pn.point, pn.origin, pn.cx, pn.cy, viewer, refl, T.point(i)));
+}
+
+// One bounce (B = 1), a thread a pixel, the GI's live slots one a lane of
+// the warp.
+template <bool SLICED, bool COMPOSE>
+__device__ __forceinline__ void shade_pixel(const ShadeArgs& a, const int* __restrict__ idx,
+                                            const float* __restrict__ t,
+                                            const int* __restrict__ flags,
+                                            const uint8_t* __restrict__ states,
+                                            const int64_t* __restrict__ sample_slot,
+                                            const float* __restrict__ rgb_in,
+                                            const int* __restrict__ age,
+                                            const float* __restrict__ hist_rgb,
+                                            const int* __restrict__ hist_idx,
+                                            float* __restrict__ out_rgb,
+                                            float* __restrict__ out_depth,
+                                            float* __restrict__ out_hist) {
+  // A warp's bounces, by item (at most 4 a lane), and each lane's hit: its
+  // point, cell, face and slot flags, which its items read there (not
+  // live in registers across them).
+  __shared__ float bounce[kThreads / 32][3][4 * 32];
+  __shared__ float own_q[3][kThreads];
+  __shared__ int own_c[4][kThreads];
+  const int npix = a.width * a.height;
+  const int pix = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp0 = threadIdx.x & ~31;  // the warp's first thread
+  float(*res)[4 * 32] = bounce[threadIdx.x >> 5];
+  const bool in = pix < npix;  // lanes past the frame take part in the warp's items
+  const float* P = a.cam.p;
+  const LightConsts& K = a.k;
+
+  // The loads of the pixel's inputs, before any geometry: its id and t and
+  // the direct shadow's flags (up to 4 at once), then on hits the slots'
+  // states and flags and the age.  K1's rgb and the history wait until after
+  // the GI: holding them across it cost more registers (and blocks) than
+  // their latency.
+  const int id = in ? idx[pix] : -1;
+  const float tt = in ? t[pix] : 0.0f;
+  int f[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) f[s] = in && s < a.n_soft ? flags[(size_t)s * npix + pix] : 0;
+  const bool found = id >= 0;
+  uint32_t alive = 0, occluded = 0;  // the slots' states == 1, flags == 1
+  if (found) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < a.n_slots) {
+        alive |= (uint32_t)(states[(size_t)i * npix + pix] == 1) << i;
+        occluded |= (uint32_t)(flags[(size_t)(a.n_soft + i) * npix + pix] == 1) << i;
+      }
+    }
+  }
+  const int ag = SLICED && found && age != nullptr ? age[pix] : 0;
+
+  const Hit h = hit_geometry(P, K, a.n, pix % a.width, pix / a.width, id, tt);
+  // What the frame's tail needs of the ray, now, so that the ray is not live
+  // across the GI: the light cube on the pixel's ray, the depth overlay's
+  // half, the volume's exit.
+  const bool cube = COMPOSE && light_cube_hit(P, h.o, h.d);
+  const bool overlay = COMPOSE && P[P_OVERLAY] == 1.0f && h.ux < 0.5f;
+  const float depth = SLICED && !found ? miss_depth(P, h.d) : tt;
+  const V3 light{P[P_LIGHT], P[P_LIGHT + 1], P[P_LIGHT + 2]};
+  const float lm = P[P_LMAG];
+  const V3 lmag{lm, lm, lm};
+
+  float occl = 1.0f;
+  if (a.n_soft > 0) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s < a.n_soft) sum = sum + occlusion_quotient(f[s] == 1);
+    }
+    for (int s = 4; s < a.n_soft; ++s) {
+      sum = sum + occlusion_quotient(in && flags[(size_t)s * npix + pix] == 1);
+    }
+    occl = sum / K.occ_div;
+  }
+
+  // The GI.  A slot adds its bounce where its entry exists and its
+  // neighbour is alive (live, which needs a hit), and 0 elsewhere: the
+  // twin's where(ok, bounce, 0), so the bounce is evaluated only there, one
+  // live slot a lane, and summed from 0 in slot order (0 + x is x).
+  V3 gi{0.0f, 0.0f, 0.0f};
+  if (a.n_slots == 1 && found) {
+    // The temporal mode's one slot, on its lane: a warp has no more live
+    // slots than lanes.
+    const int gs = sample_slot != nullptr ? (int)*sample_slot : a.gi_slot;
+    const Slot sl = slot_geometry(K, h, face_index(cube_face_normal(h.q, h.origin)), gs);
+    if (sl.ok && alive) {
+      const float quot = occlusion_quotient(occluded);
+      const V3 sh = lighting_at(K, sl.point, sl.origin, sl.nx, sl.ny, h.q, lmag, light);
+      const V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1], quot * sh.z + K.emis[2]};
+      gi = gi + lighting_at(K, h.q, h.origin, h.cx, h.cy, V3{P[P_O], P[P_O + 1], P[P_O + 2]},
+                            refl, sl.point);
+    }
+    gi = {gi.x * 4.0f, gi.y * 4.0f, gi.z * 4.0f};  // the unbiased 1-of-4 estimator
+  } else if (a.n_slots == 4) {
+    // Four slots: the warp's live ones, one a lane.
+    const int face = found ? face_index(cube_face_normal(h.q, h.origin)) : 0;
+    uint32_t live = 0;
+    if (found) {
+      for (int i = 0; i < 4; ++i) {
+        if ((alive >> i & 1u) && slot_geometry(K, h, face, i).ok) live |= 1u << i;
+      }
+    }
+    own_q[0][threadIdx.x] = h.q.x, own_q[1][threadIdx.x] = h.q.y, own_q[2][threadIdx.x] = h.q.z;
+    own_c[0][threadIdx.x] = h.cx, own_c[1][threadIdx.x] = h.cy, own_c[2][threadIdx.x] = h.cz;
+    own_c[3][threadIdx.x] = face | (int)occluded << 8;
+    __syncwarp();
+    const int count = __popc(live);
+    int total;
+    const int first = warp_scan(count, total);
+    for (int k0 = 0; k0 < total; k0 += 32) {
+      int o, slot;
+      warp_item(k0 + lane, first, live, o, slot);
+      if (k0 + lane < total) {
+        // The owner's hit.
+        o += warp0;
+        const V3 q{own_q[0][o], own_q[1][o], own_q[2][o]};
+        const int ox = own_c[0][o], oy = own_c[1][o], oz = own_c[2][o], of = own_c[3][o];
+        const Node hn{q, cell_origin(K, ox, oy, oz), ox, oy, oz};
+        const Slot sl = node_slot(K, hn, true, of & 0xff, slot);
+        const float quot = occlusion_quotient(of >> (8 + slot) & 1);
+        const V3 sh = lighting_at(K, sl.point, sl.origin, sl.nx, sl.ny, q, lmag, light);
+        const V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1],
+                      quot * sh.z + K.emis[2]};
+        const V3 b = lighting_at(K, q, hn.origin, ox, oy, V3{P[P_O], P[P_O + 1], P[P_O + 2]},
+                                 refl, sl.point);
+        res[0][k0 + lane] = b.x, res[1][k0 + lane] = b.y, res[2][k0 + lane] = b.z;
+      }
+    }
+    __syncwarp();
+    for (int k = first; k < first + count; ++k) gi = gi + V3{res[0][k], res[1][k], res[2][k]};
+  }
+  if (!in) return;
+
+  V3 c{0.0f, 0.0f, 0.0f};
+  if constexpr (SLICED) {
+    // Black on a miss; the direct light, faded and shadowed, plus the GI on
+    // a hit.
+    if (found) {
+      const V3 dl = lighting_at(K, h.q, h.origin, h.cx, h.cy, V3{P[P_O], P[P_O + 1], P[P_O + 2]},
+                                lmag, light);
+      c = {clamp_min0(dl.x), clamp_min0(dl.y), clamp_min0(dl.z)};
+      const bool faded = age != nullptr;
+      if (faded) {
+        const float fade = age_fade(a.total_states, ag);
+        occl = a.n_soft > 0 ? occl * fade : fade;
+      }
+      if (a.n_soft > 0 || faded) {
+        c = {c.x * occl, c.y * occl, c.z * occl};
+      }
+      if (a.n_slots > 0) c = c + gi;
+    }
+    out_depth[pix] = depth;
+  } else {
+    c = {rgb_in[3 * (size_t)pix], rgb_in[3 * (size_t)pix + 1], rgb_in[3 * (size_t)pix + 2]};
+    if (a.n_soft > 0) c = {c.x * occl, c.y * occl, c.z * occl};
+    if (a.n_slots > 0) {
+      c = c + (found ? gi : V3{0.0f, 0.0f, 0.0f});
+    }
+  }
+  if (found) c = c + V3{K.emis[0], K.emis[1], K.emis[2]};
+  if constexpr (!COMPOSE) {
+    out_rgb[3 * (size_t)pix] = c.x;
+    out_rgb[3 * (size_t)pix + 1] = c.y;
+    out_rgb[3 * (size_t)pix + 2] = c.z;
+  } else {
+    // _ext_frame: the EMA where the history's cell is this pixel's hit.
+    if (found && id == hist_idx[pix]) {
+      const float alpha = P[P_ALPHA];
+      const float pr = hist_rgb[3 * (size_t)pix];
+      const float pg = hist_rgb[3 * (size_t)pix + 1];
+      const float pb = hist_rgb[3 * (size_t)pix + 2];
+      c = {clamp01(pr + (c.x - pr) * alpha), clamp01(pg + (c.y - pg) * alpha),
+           clamp01(pb + (c.z - pb) * alpha)};
+    }
+    if (c.x == 0.0f && c.y == 0.0f && c.z == 0.0f && cube) c = {1.0f, 1.0f, 1.0f};
+    out_hist[3 * (size_t)pix] = c.x;
+    out_hist[3 * (size_t)pix + 1] = c.y;
+    out_hist[3 * (size_t)pix + 2] = c.z;
+    if (overlay) c = {depth, 0.0f, 0.0f};
+    out_rgb[3 * (size_t)pix] = torch_pow(c.x, K.inv_g);
+    out_rgb[3 * (size_t)pix + 1] = torch_pow(c.y, K.inv_g);
+    out_rgb[3 * (size_t)pix + 2] = torch_pow(c.z, K.inv_g);
+  }
+}
+
+// B > 1 bounces: the block's pixels (a tile, a thread a pixel), their hits
+// and their trees' live slots compacted, one item a thread.
+template <bool SLICED, int B>
+__device__ __forceinline__ void shade_tree(const ShadeArgs& a, const int* __restrict__ idx,
+                                           const float* __restrict__ t,
+                                           const int* __restrict__ flags,
+                                           const uint8_t* __restrict__ states,
+                                           const float* __restrict__ rgb_in,
+                                           const int* __restrict__ age,
+                                           float* __restrict__ out_rgb,
+                                           float* __restrict__ out_depth) {
+  __shared__ ShadeTile S;
+  TileNodes<kNodes>& T = S.T;
+  const int npix = a.width * a.height;
+  const int tile = blockIdx.x * kThreads;
+  const int lp0 = threadIdx.x;  // the thread's pixel in the tile
+  const int pix = tile + lp0;
+  const float* P = a.cam.p;
+  const LightConsts& K = a.k;
+
+  // The pixel: its id and t, K1's rgb, the direct shadow's quotient, all
+  // loaded before any geometry.
+  const bool in = pix < npix;
+  const int id = in ? idx[pix] : -1;
+  const float tt = in ? t[pix] : 0.0f;
+  V3 c{0.0f, 0.0f, 0.0f};
+  if (!SLICED && in) {
+    c = {rgb_in[3 * (size_t)pix], rgb_in[3 * (size_t)pix + 1], rgb_in[3 * (size_t)pix + 2]};
+  }
+  float occl = 1.0f;
+  if (a.n_soft > 0 && in) {
+    float sum = 0.0f;
+    for (int s = 0; s < a.n_soft; ++s) {
+      sum = sum + occlusion_quotient(flags[(size_t)s * npix + pix] == 1);
+    }
+    occl = sum / K.occ_div;
+  }
+  S.id[lp0] = id;
+  S.t[lp0] = tt;
+  S.occl[lp0] = occl;
+  const bool found = id >= 0;
+
+  // The tile's hits, compacted in pixel order, and their geometry.
+  int nh;
+  const int hit = block_scan<kThreads>(found ? 1 : 0, S.sums, nh);
+  if (found) T.lp[hit] = (uint16_t)lp0;
+  __syncthreads();
+  for (int h = threadIdx.x; h < nh; h += kThreads) {
+    const int lp = T.lp[h], p = tile + lp;
+    T.set_hit(h, hit_geometry(P, K, a.n, p % a.width, p / a.width, S.id[lp], S.t[lp]), lp);
+  }
+  __syncthreads();
+
+  // The GI: chunks of hits, each with its tree's live slots, one a thread:
+  // top down, then bottom up.  Level k's nodes are [S.end[k - 1], S.end[k])
+  // (S.end[0] = nh: the chunk's hits are nodes h0 .. h0 + g - 1); the levels
+  // roll, and their bounds live in shared memory, so that the registers do
+  // not grow with B.
+  int chunk = max(1, (kNodes - nh) / 4);
+  for (int h0 = 0; h0 < nh;) {
+    const int g = min(chunk, nh - h0);
+    int lo = h0, hi = h0 + g, end = nh;
+    bool fit = true;
+#pragma unroll 1
+    for (int k = 1; k <= B && fit; ++k) {
+      if (threadIdx.x == 0) S.end[k - 1] = end;
+      const int next = end;
+      fit = expand_level<kThreads>(T, K, states, npix, tile, k, lo, hi, k < B, end, S.sums);
+      lo = next;
+      hi = end;
+    }
+    if (!fit) {
+      chunk = max(1, g / 2);
+      continue;
+    }
+    if (threadIdx.x == 0) S.end[B] = end;
+    __syncthreads();
+#pragma unroll 1
+    for (int k = B; k >= 1; --k) {
+      for (int i = S.end[k - 1] + threadIdx.x; i < S.end[k]; i += kThreads) {
+        shade_node<B>(a, S, flags, npix, tile, k, i);
+      }
+      __syncthreads();
+    }
+    for (int h = h0 + threadIdx.x; h < h0 + g; h += kThreads) {
+      V3 gi{0.0f, 0.0f, 0.0f};
+      for (int n = T.cs[h]; n < T.ce[h]; ++n) gi = gi + acc_of(S, n);
+      set_acc(S, h, gi);
+    }
+    __syncthreads();
+    h0 += g;
+  }
+
+  // The pixel's light.
+  if (!in) return;
+  if constexpr (SLICED) {
+    // On a hit the direct light, faded and shadowed, plus the GI; black on
+    // a miss, with the volume's exit as its depth.
+    if (found) {
+      const Node hn = T.node(K, hit);
+      const float lm = P[P_LMAG];
+      const V3 dl = lighting_at(K, hn.point, hn.origin, hn.cx, hn.cy,
+                                V3{P[P_O], P[P_O + 1], P[P_O + 2]}, V3{lm, lm, lm},
+                                V3{P[P_LIGHT], P[P_LIGHT + 1], P[P_LIGHT + 2]});
+      c = {clamp_min0(dl.x), clamp_min0(dl.y), clamp_min0(dl.z)};
+      const bool faded = age != nullptr;
+      if (faded) {
+        const float fade = age_fade(a.total_states, age[pix]);
+        occl = a.n_soft > 0 ? occl * fade : fade;
+      }
+      if (a.n_soft > 0 || faded) c = {c.x * occl, c.y * occl, c.z * occl};
+      c = c + acc_of(S, hit);
+      out_depth[pix] = tt;
+    } else {
+      float ux;
+      const Ray r = camera_ray(P, pix % a.width, pix / a.width, ux);
+      out_depth[pix] = miss_depth(P, V3{r.dx, r.dy, r.dz});
+    }
+  } else {
+    if (a.n_soft > 0) c = {c.x * occl, c.y * occl, c.z * occl};
+    c = c + (found ? acc_of(S, hit) : V3{0.0f, 0.0f, 0.0f});
+  }
+  if (found) c = c + V3{K.emis[0], K.emis[1], K.emis[2]};
+  out_rgb[3 * (size_t)pix] = c.x;
+  out_rgb[3 * (size_t)pix + 1] = c.y;
+  out_rgb[3 * (size_t)pix + 2] = c.z;
 }
 
 template <bool SLICED, bool COMPOSE, int B>
@@ -108,109 +480,12 @@ __global__ void __launch_bounds__(kThreads)
                           const int* __restrict__ hist_idx,
                           float* __restrict__ out_rgb, float* __restrict__ out_depth,
                           float* __restrict__ out_hist) {
-  const int npix = a.width * a.height;
-  const int pix = blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= npix) return;
-  const int px = pix % a.width, py = pix / a.width;
-  const float* P = a.cam.p;
-  const LightConsts& K = a.k;
-  const int id = idx[pix];
-  const float tt = t[pix];
-  const Hit h = hit_geometry(P, K, a.n, px, py, id, tt);
-  const V3 light{P[P_LIGHT], P[P_LIGHT + 1], P[P_LIGHT + 2]};
-  const float lm = P[P_LMAG];
-  const V3 lmag{lm, lm, lm};
-
-  float occl = 1.0f;
-  if (a.n_soft > 0) {
-    float sum = 0.0f;
-    for (int s = 0; s < a.n_soft; ++s) {
-      sum = sum + occlusion_quotient(flags[(size_t)s * npix + pix] == 1);
-    }
-    occl = sum / K.occ_div;
-  }
-
-  // A slot adds its bounce where its entry exists and its neighbour is
-  // alive (ok, which needs a hit), and 0 elsewhere: the twin's where(ok,
-  // bounce, 0), so the bounce is evaluated only there.
-  V3 gi{0.0f, 0.0f, 0.0f};
   if constexpr (B == 1) {
-    if (a.n_slots > 0 && h.found) {
-      const int face = face_index(cube_face_normal(h.q, h.origin));
-      const int gs = sample_slot != nullptr ? (int)*sample_slot : a.gi_slot;
-      for (int i = 0; i < a.n_slots; ++i) {
-        const Slot sl = slot_geometry(K, h, face, a.n_slots == 4 ? i : gs);
-        if (!(sl.ok && states[(size_t)i * npix + pix] == 1)) continue;
-        const float quot =
-            occlusion_quotient(flags[(size_t)(a.n_soft + i) * npix + pix] == 1);
-        const V3 sh = lighting_at(K, sl.point, sl.origin, sl.nx, sl.ny, h.q, lmag, light);
-        const V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1],
-                      quot * sh.z + K.emis[2]};
-        gi = gi + lighting_at(K, h.q, h.origin, h.cx, h.cy, h.o, refl, sl.point);
-      }
-      if (a.n_slots == 1) {  // the unbiased 1-of-4 estimator
-        gi.x = gi.x * 4.0f;
-        gi.y = gi.y * 4.0f;
-        gi.z = gi.z * 4.0f;
-      }
-    }
-  } else if (h.found) {
-    gi = gi_sum<B>(a, flags, states, pix, npix, hit_node(h), h.o, 0, 0, lmag, light);
-  }
-
-  V3 c;
-  float depth = tt;
-  if constexpr (SLICED) {
-    // Black on a miss; the direct light, faded and shadowed, plus the GI on
-    // a hit.
-    c = {0.0f, 0.0f, 0.0f};
-    if (h.found) {
-      const V3 dl = lighting_at(K, h.q, h.origin, h.cx, h.cy, h.o, lmag, light);
-      c = {clamp_min0(dl.x), clamp_min0(dl.y), clamp_min0(dl.z)};
-      const bool faded = age != nullptr;
-      if (faded) {
-        const float fade = age_fade(a.total_states, age[pix]);
-        occl = a.n_soft > 0 ? occl * fade : fade;
-      }
-      if (a.n_soft > 0 || faded) {
-        c = {c.x * occl, c.y * occl, c.z * occl};
-      }
-      if (a.n_slots > 0) c = c + gi;
-    }
-    depth = h.found ? tt : miss_depth(P, h.d);
-    out_depth[pix] = depth;
+    shade_pixel<SLICED, COMPOSE>(a, idx, t, flags, states, sample_slot, rgb_in, age, hist_rgb,
+                                 hist_idx, out_rgb, out_depth, out_hist);
   } else {
-    c = {rgb_in[3 * (size_t)pix], rgb_in[3 * (size_t)pix + 1], rgb_in[3 * (size_t)pix + 2]};
-    if (a.n_soft > 0) c = {c.x * occl, c.y * occl, c.z * occl};
-    if (a.n_slots > 0) {
-      c = c + (h.found ? gi : V3{0.0f, 0.0f, 0.0f});
-    }
-  }
-  if (h.found) c = c + V3{K.emis[0], K.emis[1], K.emis[2]};
-  if constexpr (!COMPOSE) {
-    out_rgb[3 * (size_t)pix] = c.x;
-    out_rgb[3 * (size_t)pix + 1] = c.y;
-    out_rgb[3 * (size_t)pix + 2] = c.z;
-  } else {
-    // _ext_frame: the EMA where the history's cell is this pixel's hit.
-    if (h.found && id == hist_idx[pix]) {
-      const float alpha = P[P_ALPHA];
-      const float pr = hist_rgb[3 * (size_t)pix];
-      const float pg = hist_rgb[3 * (size_t)pix + 1];
-      const float pb = hist_rgb[3 * (size_t)pix + 2];
-      c = {clamp01(pr + (c.x - pr) * alpha), clamp01(pg + (c.y - pg) * alpha),
-           clamp01(pb + (c.z - pb) * alpha)};
-    }
-    if (c.x == 0.0f && c.y == 0.0f && c.z == 0.0f && light_cube_hit(P, h.o, h.d)) {
-      c = {1.0f, 1.0f, 1.0f};
-    }
-    out_hist[3 * (size_t)pix] = c.x;
-    out_hist[3 * (size_t)pix + 1] = c.y;
-    out_hist[3 * (size_t)pix + 2] = c.z;
-    if (P[P_OVERLAY] == 1.0f && h.ux < 0.5f) c = {depth, 0.0f, 0.0f};
-    out_rgb[3 * (size_t)pix] = torch_pow(c.x, K.inv_g);
-    out_rgb[3 * (size_t)pix + 1] = torch_pow(c.y, K.inv_g);
-    out_rgb[3 * (size_t)pix + 2] = torch_pow(c.z, K.inv_g);
+    static_assert(!COMPOSE, "a multi-bounce frame does not compose");
+    shade_tree<SLICED, B>(a, idx, t, flags, states, rgb_in, age, out_rgb, out_depth);
   }
 }
 

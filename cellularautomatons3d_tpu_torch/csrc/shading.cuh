@@ -1,7 +1,9 @@
 // The per-pixel geometry and shading of the extended-lighting frames, shared
 // by the queries kernel (lighting_queries.cu), the shade kernel
 // (lighting_shade.cu), K1's composition (render_fast.cu) and the frame's
-// composition kernel (compose.cu).
+// composition kernel (compose.cu); and the tiled lighting kernels' blocks:
+// a tile's pixels, their compacted hits and the GI tree's live nodes in
+// shared memory (block_scan, TileNodes, expand_level).
 //
 // Device twins of the port's torch functions, each in its operations'
 // order and rounding (built with --fmad=false, IEEE division and sqrt):
@@ -196,6 +198,13 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
   return r < 0 ? r + b : r;
 }
 
+// The centre of cell (x, y, z), which may lie one cell outside the grid
+// (a GI slot's unclamped neighbour).
+__device__ __forceinline__ V3 cell_origin(const LightConsts& K, int x, int y, int z) {
+  return {((float)x * K.cell + K.chalf) - 0.5f, ((float)y * K.cell + K.chalf) - 0.5f,
+          ((float)z * K.cell + K.chalf) - 0.5f};
+}
+
 // render_slab.py _hit_geometry at one pixel: the camera ray (d, and the
 // window's ux, uy), the surface point q = o + d * t, the cell coordinates
 // decoded from the id (a miss, -1, gives (n-1, n-1, -1)), the cell centre
@@ -219,9 +228,7 @@ __device__ __forceinline__ Hit hit_geometry(const float* P,
   h.cx = floor_mod(id, n);
   h.cy = floor_mod(floor_div(id, n), n);
   h.cz = floor_div(id, n * n);
-  h.origin = {((float)h.cx * K.cell + K.chalf) - 0.5f,
-              ((float)h.cy * K.cell + K.chalf) - 0.5f,
-              ((float)h.cz * K.cell + K.chalf) - 0.5f};
+  h.origin = cell_origin(K, h.cx, h.cy, h.cz);
   h.found = id >= 0;
   return h;
 }
@@ -279,6 +286,7 @@ __device__ __forceinline__ Node hit_node(const Hit& h) {
 // offset enters its visible cube, and whether it does where `active`.
 struct Slot {
   int nx, ny, nz;  // n_cl
+  int ux, uy, uz;  // the neighbour cell unclamped (its centre's)
   V3 origin, point;
   bool ok;
 };
@@ -292,9 +300,10 @@ __device__ __forceinline__ Slot node_slot(const LightConsts& K, const Node& p, b
   s.nx = max(ncx, 0);
   s.ny = max(ncy, 0);
   s.nz = max(ncz, 0);
-  s.origin = {((float)ncx * K.cell + K.chalf) - 0.5f,
-              ((float)ncy * K.cell + K.chalf) - 0.5f,
-              ((float)ncz * K.cell + K.chalf) - 0.5f};
+  s.ux = ncx;
+  s.uy = ncy;
+  s.uz = ncz;
+  s.origin = cell_origin(K, ncx, ncy, ncz);
   const V3 dir{(float)ox, (float)oy, (float)oz};
   float tn, tf;
   ray_cube_intersect(p.point, dir, s.origin, K.vis_half, tn, tf);
@@ -387,6 +396,152 @@ __device__ __forceinline__ float torch_pow(float x, float e) {
   if (e == 2.0f) return x * x;
   if (e == 3.0f) return x * x * x;
   return powf(x, e);
+}
+
+// ------------------------------------------ the lighting kernels' tiles ---
+// A block of the tiled lighting kernels (the shade kernel's GI tree, the
+// queries kernel's one- and two-query forms) takes a tile of consecutive
+// pixels of the frame.  The tile's hits, and below them the live nodes of
+// its GI tree, are compacted in shared memory (block_scan, TileNodes,
+// expand_level), so that the per-hit and per-slot work runs one item a
+// lane, whatever share of the tile's pixels hit and of their slots live; no
+// list leaves the block, so no counter needs a reset and no sum an atomic.
+
+// The block's exclusive prefix sum of v in thread order, and its total
+// (`total`, the same on every thread): each warp's by shuffles, the warps'
+// through `sums` (THREADS / 32 ints of shared memory).  Every thread calls
+// it; it holds two barriers, the last after its reads of `sums`.
+template <int THREADS>
+__device__ __forceinline__ int block_scan(int v, int* sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const int s = sums[w];
+    before += w < warp ? s : 0;
+    all += s;
+  }
+  __syncthreads();
+  total = all;
+  return before + x - v;
+}
+
+// A warp's items, one a lane: lane L's live slots (the bits of `live`) are
+// items first .. first + popc(live) - 1 (`first` its exclusive prefix over
+// the lanes).  Item k's lane and slot; every lane calls it.
+__device__ __forceinline__ void warp_item(int k, int first, uint32_t live, int& lane,
+                                          int& slot) {
+  int o = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    const int e = __shfl_sync(0xffffffffu, first, (o + step) & 31);
+    if (o + step < 32 && e <= k) o += step;
+  }
+  const int r = k - __shfl_sync(0xffffffffu, first, o);
+  uint32_t bits = __shfl_sync(0xffffffffu, live, o);
+  for (int i = 0; i < r; ++i) bits &= bits - 1;
+  lane = o;
+  slot = __ffs(bits) - 1;
+}
+
+// The exclusive prefix sum of `count` over the warp's lanes, and its total.
+__device__ __forceinline__ int warp_scan(int count, int& total) {
+  const int lane = threadIdx.x & 31;
+  int x = count;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  total = __shfl_sync(0xffffffffu, x, 31);
+  return x - count;
+}
+
+// A tile's compacted hits (nodes 0 .. nh - 1), then the live nodes of a
+// chunk of them, level after level, in shared memory: structures of arrays.
+// A node is a surface point on a cell (the hit's, or a live GI slot's entry
+// point on its neighbour): its cell unclamped (the centre's coordinates; the
+// cell, n_cl, clamped at 0), its pixel, its index s in its level (the GI row
+// gi_level_start(k) + s), its parent and its live slots' range [cs, ce).
+template <int CAP>
+struct TileNodes {
+  float x[CAP], y[CAP], z[CAP];
+  int16_t cx[CAP], cy[CAP], cz[CAP];
+  uint16_t lp[CAP], s[CAP], parent[CAP], cs[CAP], ce[CAP];
+  uint8_t face[CAP];
+
+  __device__ __forceinline__ V3 point(int i) const { return {x[i], y[i], z[i]}; }
+  __device__ __forceinline__ Node node(const LightConsts& K, int i) const {
+    const int ux = cx[i], uy = cy[i], uz = cz[i];
+    return {point(i), cell_origin(K, ux, uy, uz), max(ux, 0), max(uy, 0), max(uz, 0)};
+  }
+  // Node i is the hit of tile pixel `pixel` (hit_geometry's q and cell).
+  __device__ __forceinline__ void set_hit(int i, const Hit& h, int pixel) {
+    x[i] = h.q.x, y[i] = h.q.y, z[i] = h.q.z;
+    cx[i] = (int16_t)h.cx, cy[i] = (int16_t)h.cy, cz[i] = (int16_t)h.cz;
+    lp[i] = (uint16_t)pixel;
+    s[i] = 0;
+    face[i] = (uint8_t)face_index(cube_face_normal(h.q, h.origin));
+  }
+};
+
+// Level k of the GI tree below the live nodes [a, b) of level k - 1 (the
+// hits for k = 1), one slot a thread, each node's 4 slots in parent order.
+// A slot is live where K3 found its neighbour alive (states row
+// gi_level_start(k) + s) and its entry exists (node_slot's ok at a live
+// parent): _slot_tree's ok.  The live slots are appended at `end` in that
+// order and each parent's [cs, ce) is set; `with_face`: their faces too (for
+// their own slots).  Returns false, having appended nothing, where they
+// would pass CAP (the same on every thread).  Every thread calls it; it ends
+// with a barrier.
+template <int THREADS, int CAP>
+__device__ bool expand_level(TileNodes<CAP>& T, const LightConsts& K,
+                             const uint8_t* __restrict__ states, int npix, int tile, int k,
+                             int a, int b, bool with_face, int& end, int* sums) {
+  const int m = (b - a) * 4;
+  int base = end;
+  for (int r = 0; r < m; r += THREADS) {
+    const int c = r + (int)threadIdx.x;
+    int par = a, j = 0, s = 0;
+    Slot sl;
+    sl.ok = false;
+    if (c < m) {
+      par = a + (c >> 2);
+      j = c & 3;
+      s = k == 1 ? j : 4 * T.s[par] + j;
+      if (states[(size_t)(gi_level_start(k) + s) * npix + tile + T.lp[par]] == 1) {
+        sl = node_slot(K, T.node(K, par), true, T.face[par], j);
+      }
+    }
+    int total;
+    const int off = block_scan<THREADS>(sl.ok ? 1 : 0, sums, total);
+    if (base + total > CAP) return false;
+    if (c < m) {
+      const int i = base + off;
+      if (sl.ok) {
+        T.x[i] = sl.point.x, T.y[i] = sl.point.y, T.z[i] = sl.point.z;
+        T.cx[i] = (int16_t)sl.ux, T.cy[i] = (int16_t)sl.uy, T.cz[i] = (int16_t)sl.uz;
+        T.lp[i] = T.lp[par];
+        T.s[i] = (uint16_t)s;
+        T.parent[i] = (uint16_t)par;
+        if (with_face) T.face[i] = (uint8_t)face_index(cube_face_normal(sl.point, sl.origin));
+      }
+      if (j == 0) T.cs[par] = (uint16_t)i;
+      if (j == 3) T.ce[par] = (uint16_t)(i + (sl.ok ? 1 : 0));
+    }
+    base += total;
+  }
+  __syncthreads();
+  end = base;
+  return true;
 }
 
 }  // namespace ca3d

@@ -286,15 +286,17 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       and without the fused loop's composition, soft shadows alone, GI alone,
       ``gi_temporal`` for sample indices 0-3 and one index held on the card,
       rows 540..810 of the window as a mesh band, ``pyroclastic`` gen-160 with
-      ages) and the sliced frames (512³ gen-160 hard and ``gi_temporal``, full
-      quality, 1024³ gen-200 hard, ``pyroclastic`` 512³ with ages, hard and
-      full quality): the query masks bit for bit and the operands bit for
-      bit on the active lanes (the only ones the kernel writes), K2's flags
-      and K3's states downstream of them equal, the shade kernel's light (presentation and
-      history, or depth) within rtol 3e-3 / atol 3e-4 with NaN in the same
-      pixels and the pixels not bit-equal counted; both kernels alternated with
-      their twins by CUDA events, and by the device's time, at 256³ full quality
-      and ``gi_temporal`` and 512³ hard and ``gi_temporal``, with their bounds.
+      ages, the whole box at gen-230) and the sliced frames (512³ gen-160
+      hard and ``gi_temporal``, full quality, 1024³ gen-200 hard, the whole
+      box of 512³ gen-260, ``pyroclastic`` 512³ with ages, hard and full
+      quality): the query masks bit for bit and the operands bit for bit on
+      the active lanes (the only ones the kernel writes), K2's flags and K3's
+      states downstream of them equal, the shade kernel's light (presentation
+      and history, or depth) bit for bit on every pixel with NaN in the same
+      pixels; both kernels alternated with their twins by CUDA events, and by
+      the device's time, at 256³ full quality (gen-80 and the whole box) and
+      ``gi_temporal`` and 512³ hard, ``gi_temporal`` and the whole box, with
+      their bounds.
       Their launch counters are read on every lighting path: (e)'s fused and
       render() frames (one of each a one-bounce or temporal frame, the fused
       frames' shade composing; two bounces also the level-mode launches and
@@ -313,9 +315,10 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       4); the queries kernel's level mode and K3 level by level against the
       twins on two-bounce frames (soft shadows ×4) at 256³ and 512³: every
       level's masks, operands on the active lanes and states bit for bit,
-      the shade kernel's tree within the contract with NaN in the same
-      pixels; K2 on the frame's masks and on them with the last level's
-      gated by its states too;
+      the shade kernel's tree bit for bit with NaN in the same pixels; K2 on
+      the frame's masks and on them with the last level's gated by its
+      states too; three bounces at 256³ the same, the level launches and the
+      tree timed;
       ``Engine(256 / 512, indirect_bounces=2)`` render() and
       ``run_fused(3)``, each frame against the same frame with the twins on
       the card, with exact launch counts (4 compositions, 4 queries, 4 level
@@ -727,11 +730,14 @@ def queries_differ(torch, got, want):
 
 
 def lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, views, sliced,
-                           ms) -> dict:
+                           ms, whole) -> dict:
     """Phase (r): the queries kernel and the shade kernel against their
-    twins on the card, frame by frame at full width; their launch counters
-    are read on every lighting path in (e), (f), (h) and (j).  Returns the
-    checks, times and bounds."""
+    twins on the card, frame by frame at full width, bit for bit (the masks
+    and active-lane operands, every pixel of the light, NaN in the same
+    pixels), also on the whole-box scenes ``whole`` (256³ gen-230, 512³
+    gen-260: most pixels hit); their launch counters are read on every
+    lighting path in (e), (f), (h) and (j).  Returns the checks, times and
+    bounds."""
     from cellularautomatons3d_tpu_torch.utils.metrics import cuda_time_fn
 
     t_phase = time.perf_counter()
@@ -812,6 +818,8 @@ def lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, vie
              f"downstream of the queries kernel ({f_bad}, {s_bad})")
         need(nan_bad == 0, f"(r) {tag}: NaN in other pixels than the twin's")
         need(ok, f"(r) {tag}: the shade kernel outside rtol {RGB_RTOL} / atol {RGB_ATOL}")
+        need(not_equal == 0, f"(r) {tag}: {not_equal} pixels of the shade kernel not bit-equal "
+             "to the twin's")
         need(rec["hits"] > 0, f"(r) {tag}: no pixel hit")
         out["cases"][tag] = rec
         out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -872,6 +880,9 @@ def lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, vie
     ms_vis = ca_step.visibility_plane(eng_ms.state, eng_ms.spec)
     check_case("256_pyroclastic_full_quality", ms_vis, GRID, full, ages=eng_ms.state,
                states=eng_ms.spec.total_states, compose=True)
+    # The whole box at 256³ (gen-230): most pixels hit.
+    check_case("256_gen230_full_quality_compose", whole[GRID], GRID, full, compose=True,
+               timing=True)
     del vol
     # The sliced frames: 512³ gen-160 hard and gi_temporal, 1024³ gen-200
     # hard, pyroclastic 512³ with ages (hard and full quality).
@@ -882,6 +893,7 @@ def lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, vie
                timing=True)
     check_case("512_full_quality", vol_512, 512, full)
     check_case("1024_hard", sliced["timed"][1024][0], 1024, hard)
+    check_case("512_gen260_full_quality", whole[512], 512, full, timing=True)
     eng_ms = ms["engines"]["ms_sliced_512"][0]
     ms_vis = ca_step.visibility_plane(eng_ms.state, eng_ms.spec)
     for tag, light in (("hard", hard), ("full_quality", full)):
@@ -970,13 +982,14 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
            "bounds": {}, "max_abs_err": 0.0, "light_cube_flips": 0, "registers": {}}
     out["registers"] = {
         **registers(log_text, r"compose_kernelILb(\d)E", "compose_kernel<%s>"),
+        **registers(log_text, r"lighting_queries_kernelILb(\d)E", "lighting_queries_kernel<%s>"),
         **registers(log_text, r"lighting_level_kernelILi(\d)E", "lighting_level_kernel<%s>"),
         **registers(log_text, r"lighting_shade_kernelILb(\d)ELb(\d)ELi(\d)E",
                     "lighting_shade_kernel<%s,%s,%s>"),
     }
-    need(len(out["registers"]) == 2 + 3 + 9,
-         f"(s) the build log names {sorted(out['registers'])}, not the 2 composition, 3 level "
-         "and 9 shade instantiations")
+    need(len(out["registers"]) == 2 + 2 + 3 + 9,
+         f"(s) the build log names {sorted(out['registers'])}, not the 2 composition, 2 queries, "
+         "3 level and 9 shade instantiations")
     log(f"(s) ptxas: {out['registers']}")
 
     # The cameras: a static one (the history's view), one moved from it.
@@ -1115,7 +1128,8 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
                    level_2_lanes_without_gate=lanes_u, nan_px=int(torch.isnan(want[0]).any(-1).sum()))
         out["levels"][tag] = rec
         log(f"  (s) level mode {tag}: {rec}")
-        need(differ == 0 and st_differ == 0, f"(s) level mode {tag}: operands / states differ")
+        need(differ == 0 and st_differ == 0 and bits == 0,
+             f"(s) level mode {tag}: operands, states or the tree's light differ")
         need(nan_differ == 0 and lanes["level_2"] > 0, f"(s) level mode {tag}: {rec}")
         for g, w in zip(got, want):
             ok_px = ~(torch.isnan(g) & torch.isnan(w))
@@ -1182,6 +1196,48 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
                                   False, False, 0)
         out["bounds"][f"shade_tree_{size}"] = bound(nbytes, nops)
         del ops, ops_p, ops_g, flags, flags_g, states, states_p
+
+    # Three bounces at 256³ (K1's hits): every level's masks, operands and
+    # states and the shade kernel's tree bit for bit against the twins; the
+    # level launches (levels 2 and 3) and the tree timed, queued.
+    light3 = rs.Lighting(soft_k=LIGHTING["soft_shadow_samples"], gi=True, bounces=3)
+    vol = scenes[f"{GRID}^3 gen-80"][0]
+    prepped = rs.prep_volume(vol)
+    kw = dict(grid_size=GRID, width=WIDTH, height=HEIGHT)
+    rgb, t, idx = rf.raytrace_cuda(vol, prepped.coarse, cam, shadow=False, **kw)
+    ops = rs.lighting_queries_cuda(cam, idx, t, light3, **kw)
+    states = rs.gi_states(cam, idx, t, ops, prepped, light3, **kw)
+    ops_p, states_p = level_twins(torch, rs, cam, idx, t, prepped, light3, kw)
+    differ, st_differ = queries_differ(torch, ops, ops_p), int((states != states_p).sum())
+    del ops_p, states_p
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=GRID)
+    got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light3, rgb=rgb, **kw)
+    want = rs.lighting_shade(cam, idx, t, flags, states, light3, rgb=rgb, **kw)
+    bits = int(same_values(torch, got, want).any(-1).sum())
+    lanes3 = {f"level_{k}": int(ops[3][light3.n_soft + r0 : light3.n_soft + r0 + n].sum())
+              for k in (1, 2, 3) for r0, n in [rs.Lighting.level_span(k)]}
+    rec = dict(operands_differ=differ, states_differ=st_differ, shade_px_differ=bits,
+               ok_lanes=lanes3, nan_px=int(torch.isnan(want).any(-1).sum()))
+    out["levels"][f"{GRID}^3 gen-80 three bounces"] = rec
+    log(f"  (s) level mode, three bounces, {GRID}^3 gen-80: {rec}")
+    need(differ == 0 and st_differ == 0 and bits == 0 and lanes3["level_3"] > 0,
+         f"(s) three bounces: the level mode or the tree differs from the twins: {rec}")
+    # The tree's bound: shade_work's, with every level's slots (a state read
+    # where its mask is set, a flag where its neighbour lives).
+    gi_masks = ops[3][light3.n_soft:]
+    out["bounds"][f"shade_tree_3_{GRID}"] = bound(*shade_work(
+        light3, HEIGHT, WIDTH, int((idx >= 0).sum()), int(gi_masks.sum()),
+        int((gi_masks & (states == 1)).sum()), False, False, False, 0))
+    for name, fn in (("level_2_of_3", lambda: rs.lighting_level_cuda(cam, idx, t, ops, states,
+                                                                     light3, 2, **kw)),
+                     ("level_3_of_3", lambda: rs.lighting_level_cuda(cam, idx, t, ops, states,
+                                                                     light3, 3, **kw)),
+                     ("shade_tree_3", lambda: rs.lighting_shade_cuda(cam, idx, t, flags, states,
+                                                                     light3, rgb=rgb, **kw))):
+        reads = [cuda_time_fn(fn, reps=20, warmup=1, queued=True) for _ in range(2)]
+        tm[f"{name}_{GRID}_device_reads_ms"] = reads
+        tm[f"{name}_{GRID}_device_ms"] = sum(reads) / 2
+    del ops, states, flags, got, want
 
     # The Engine at two bounces, 256³ and sliced 512³: render() and the fused
     # loop, every frame against the same frame with the twins on the card.
@@ -4488,14 +4544,15 @@ def main() -> dict:
                                                "k4_max_abs_err", "plain_ms", "launches")}
 
     # ------------------------------------------------ (r) the lighting kernels ---
-    lk = lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, views, sliced, ms)
+    # The whole-box scenes: gen-230 at 256³ (K2) and gen-260 at 512³ (K4),
+    # where the structure reaches every face of the volume.
+    full_512 = grown(512, 260)
+    lk = lighting_kernels_phase(torch, np, ct, rf, rs, ca_step, grown, scene_cam, views, sliced, ms,
+                                {GRID: multi["k1_timed"][230][0], 512: full_512})
     report["lighting_kernels"] = {k: lk[k] for k in ("cases", "timings", "bounds", "max_abs_err",
                                                      "shade_px_not_bit_equal", "wall_s")}
 
     # ------------------------------------------------ (i) the occupied box ---
-    # The whole-box scenes: gen-230 at 256³ (K2) and gen-260 at 512³ (K4),
-    # where the structure reaches every face of the volume.
-    full_512 = grown(512, 260)
     scenes = {
         f"{GRID}^3 gen-80": (timed_k1[0], timed_k1[1], GRID),
         f"{GRID}^3 gen-230": (multi["k1_timed"][230][0], multi["k1_timed"][230][1], GRID),

@@ -1605,26 +1605,30 @@ LIGHTINGS = {
 }
 
 
-def _lighting_hits(device, n, light, ages=None, total_states=2, row0=0.0, gamma=2.0, view="front"):
+def _lighting_hits(device, n, light, ages=None, total_states=2, row0=0.0, gamma=2.0, view="front",
+                   w=W, h=H, density=None, cell_size=0.85):
     """A frame's primary hits as the lighting passes take them: (prepped,
     cam, K1's rgb or None, t, idx, K4's age or None) -- K1 at n <= 256 (its
     hard shadow only when the lighting has no soft shadows), K4 above, on a
-    sparse random volume (or ``ages``' visibility plane)."""
+    random volume, sparse by default (or ``ages``' visibility plane), in a
+    ``w`` × ``h`` window."""
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 
     if ages is None:
         rng = np.random.default_rng(n)
-        dense = (rng.random((n, n, n)) < (0.05 if n <= 64 else 0.003)).astype(np.uint8)
+        if density is None:
+            density = 0.05 if n <= 64 else 0.003
+        dense = (rng.random((n, n, n)) < density).astype(np.uint8)
         vol = ct.from_reference(ct.pack_grid(dense), device)
     else:
         vol = ca_step.visibility_plane(ages, ct.AutomatonSpec.from_rule_strings(
             n, total_states=total_states))
     prepped = rs.prep_volume(vol)
-    cam = rf.pack_cam(VIEWS[view], W, 4 * H if row0 else H, (0.721, 1.0, 1.0), 5.0, 0.85, 0.29,
+    cam = rf.pack_cam(VIEWS[view], w, 4 * h if row0 else h, (0.721, 1.0, 1.0), 5.0, cell_size, 0.29,
                       (0.17, 0.2, 0.3), (0.0,) * 3, light_radius=0.08, elapsed_time=0.37,
                       emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5, row0=row0,
                       gamma=gamma, show_overlay=1.0)
-    kw = dict(grid_size=n, width=W, height=H)
+    kw = dict(grid_size=n, width=w, height=h)
     if n > 256:
         t, idx, *age = rs.primary_sweep_cuda(vol, prepped.coarse, prepped.box, cam, ages, **kw)
         return prepped, cam, None, t, idx, (age[0] if age else None)
@@ -1826,6 +1830,95 @@ def test_lighting_wrappers_refuse_bad_operands(cuda):
                                age=torch.ones_like(idx), **kw)
     with pytest.raises(ValueError, match="gi_slot"):
         rs.lighting_queries_cuda(cam, idx, t, rs.Lighting(gi=True, gi_slot=4), **kw)
+
+
+# The edges of the kernels' compaction of hits and live slots: (grid, width,
+# height, volume density) -- every pixel a hit (a full 64³ volume of whole
+# cells, whose front face fills the initial view) and none (an empty
+# one), and windows that are no multiple of a tile or of 4 pixels with K1's
+# (64³) and K4's (320³) hits.
+EDGE_FRAMES = {
+    "all_hit": (N, W, H, 1.0),
+    "no_hit": (N, W, H, 0.0),
+    "ragged_k1": (N, 100, 37, None),
+    "ragged_sliced": (320, 101, 37, None),
+}
+
+
+def _edge_frame(device, frame, light):
+    """(prepped, cam, rgb or None, t, idx, kw) of an EDGE_FRAMES frame."""
+    n, w, h, density = EDGE_FRAMES[frame]
+    prepped, cam, rgb, t, idx, _ = _lighting_hits(device, n, light, w=w, h=h, density=density,
+                                                  cell_size=1.0 if density == 1.0 else 0.85)
+    return prepped, cam, rgb, t, idx, dict(grid_size=n, width=w, height=h)
+
+
+def _assert_hits(frame, idx):
+    hits = int((idx >= 0).sum())
+    assert {"all_hit": hits == idx.numel(), "no_hit": hits == 0}.get(frame, 0 < hits < idx.numel())
+
+
+@pytest.mark.parametrize("name", ["full_quality", "soft", "hard_gi", "temporal_1"])
+@pytest.mark.parametrize("frame", list(EDGE_FRAMES))
+def test_lighting_kernels_on_edge_frames(cuda, frame, name):
+    """Both kernels on a frame where every pixel hits, where none does, and
+    on ragged windows, bit for bit against the twins: the masks, the
+    operands on the active lanes, K2's flags and K3's states downstream, the
+    light (and on K1's frames the fused loop's presentation and history;
+    the sliced frame's depth), NaN in the same pixels."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(**LIGHTINGS[name])
+    prepped, cam, rgb, t, idx, kw = _edge_frame(cuda, frame, light)
+    _assert_hits(frame, idx)
+    n, h, w = kw["grid_size"], kw["height"], kw["width"]
+    ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    want = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+    _assert_queries_equal(ops, want)
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=n)
+    assert torch.equal(flags, rs.occlusion_flags(cam, want, prepped, grid_size=n))
+    states = None
+    if light.n_slots:
+        states = rs.slot_states(ops, light.n_soft, prepped, grid_size=n)
+        assert torch.equal(states, rs.slot_states(want, light.n_soft, prepped, grid_size=n))
+    hist = None
+    if rgb is not None:
+        g = torch.Generator(cuda).manual_seed(11)
+        hist = (torch.rand((h, w, 3), device=cuda, generator=g),
+                torch.where(torch.rand((h, w), device=cuda, generator=g) < 0.7, idx, -1))
+    for history in (None, hist) if rgb is not None else (None,):
+        skw = dict(rgb=rgb, history=history, **kw)
+        got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light, **skw)
+        want_s = rs.lighting_shade(cam, idx, t, flags, states, light, **skw)
+        got, want_s = (got, want_s) if isinstance(got, tuple) else ((got,), (want_s,))
+        _assert_equal_nan(got, want_s)
+
+
+@pytest.mark.parametrize("bounces", [2, 3, 4])
+@pytest.mark.parametrize("frame", ["all_hit", "ragged_k1", "ragged_sliced"])
+def test_lighting_tree_on_edge_frames(cuda, frame, bounces):
+    """The level mode and the shade kernel's tree up to MAX_CARD_BOUNCES on
+    the edge frames, bit for bit against the twins: every level's masks,
+    operands on the active lanes and states, the light, NaN in the same
+    pixels."""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    light = rs.Lighting(soft_k=1, gi=True, bounces=bounces)
+    prepped, cam, rgb, t, idx, kw = _edge_frame(cuda, frame, light)
+    _assert_hits(frame, idx)
+    ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw)
+    ops_p, states_p = _level_twins(rs, cam, idx, t, prepped, light, kw)
+    _assert_queries_equal(ops, ops_p)
+    assert torch.equal(states, states_p)
+    if kw["grid_size"] == N:
+        r0, rows = rs.Lighting.level_span(2)
+        assert int(ops[3][1 + r0 : 1 + r0 + rows].sum()) > 0
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=kw["grid_size"])
+    got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light, rgb=rgb, **kw)
+    want = rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, **kw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    _assert_equal_nan(got, want)
 
 
 # ---------------------------- the frame's composition and the GI level mode ---

@@ -72,8 +72,9 @@ def cam_of(**kw):
                 material_color=(0.0, 0.0, 0.0), light_radius=0.08, elapsed_time=0.37,
                 emissive_color=(0.02, 0.03, 0.04), emissive_strength=0.5, gamma=2.2,
                 show_overlay=1.0)
+    base = dict(width=W, height=H, **base)
     base.update(kw)
-    return pack_cam(mat4.initial_view_matrix(), width=W, height=H, **base)
+    return pack_cam(mat4.initial_view_matrix(), **base)
 
 
 @pytest.fixture(scope="module")
@@ -94,21 +95,31 @@ def equal_nan(a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def chain_frame(vol, cam, light, *, sliced, ages=None, total_states=2):
+def primary(vol, cam, light, *, sliced, ages=None, total_states=2, w=W, h=H):
+    """A frame's primary hits as the lighting passes take them: (K1's rgb or
+    None, t, idx, K4's age or None)."""
+    kw = dict(grid_size=N, width=w, height=h)
+    if sliced:
+        t, idx, *age = rs.primary_sweep(vol, cam, ages, **kw)
+        return None, t, idx, (age[0] if age else None)
+    soft = light.soft_k is not None and light.soft_k > 1
+    rgb, t, idx = raytrace(vol, coarse_occupancy(vol), cam, shadow=not soft, ages=ages,
+                           total_states=total_states, **kw)
+    return rgb, t, idx, None
+
+
+def chain_frame(vol, cam, light, *, sliced, ages=None, total_states=2, hits=None, w=W, h=H):
     """The torch chain the twins recast: the direct-shadow quotient of
     ``lighting_queries`` and ``shadow_occlusion_batch``, the GI of ``indirect_bounce(bounces=1)`` and the
     frame's tail as renderer_fast's ``_extended_lighting`` and ``_shaded``
-    (K1) or ``raytrace_sliced`` composed it, with the emissive light.
-    Returns (rgb, depth, idx, the ray directions)."""
-    kw = dict(grid_size=N, width=W, height=H)
+    (K1) or ``raytrace_sliced`` composed it, with the emissive light, on
+    the frame's own hits or on ``hits`` (:func:`primary`'s).  Returns (rgb,
+    depth, idx, the ray directions)."""
+    kw = dict(grid_size=N, width=w, height=h)
     prepped = rs.prep_volume(vol)
-    if sliced:
-        t, idx, *age = rs.primary_sweep(vol, cam, ages, **kw)
-    else:
-        soft = light.soft_k is not None and light.soft_k > 1
-        rgb, t, idx = raytrace(vol, coarse_occupancy(vol), cam, shadow=not soft, ages=ages,
-                               total_states=total_states, **kw)
-    q, origin, coords, found, d = rs._hit_geometry(cam, idx, t, N, W, H)
+    rgb, t, idx, age = hits or primary(vol, cam, light, sliced=sliced, ages=ages,
+                                       total_states=total_states, w=w, h=h)
+    q, origin, coords, found, d = rs._hit_geometry(cam, idx, t, N, w, h)
     occl = gi = None
     if light.soft_k is not None:
         queries, _, _ = rs.lighting_queries(cam, q, None, coords, found, soft_k=light.soft_k,
@@ -124,8 +135,8 @@ def chain_frame(vol, cam, light, *, sliced, ages=None, total_states=2):
         color = rs._shader(cam, N)(q, origin, coords, o, torch.full_like(q, float(cam[P_LMAG])),
                                    lpos)
         out = torch.clamp(color, min=0.0)
-        if age:
-            num = (total_states - age[0]).to(torch.float32)
+        if age is not None:
+            num = (total_states - age).to(torch.float32)
             fade = torch.clamp(num / torch.full_like(num, float(total_states - 1)), 0.0, 1.0)
             occl = fade if occl is None else occl * fade
         if occl is not None:
@@ -145,7 +156,7 @@ def chain_frame(vol, cam, light, *, sliced, ages=None, total_states=2):
     return out, depth, idx, d
 
 
-def chain_compose(cam, rgb, depth, idx, d, hist):
+def chain_compose(cam, rgb, depth, idx, d, hist, w=W, h=H):
     """The fused loop's composition as renderer_fast's ``_ext_frame``
     composed it."""
     found = idx >= 0
@@ -159,7 +170,7 @@ def chain_compose(cam, rgb, depth, idx, d, hist):
     black = (out == 0.0).all(dim=-1)
     out = torch.where(((lt_near <= lt_far) & (lt_far >= 0.0) & black)[..., None], 1.0, out)
     new_hist = out
-    ux, _ = rs._pixel_uv(cam, W, H, "cpu")
+    ux, _ = rs._pixel_uv(cam, w, h, "cpu")
     overlay = (ux < 0.5) & bool(cam[P_OVERLAY] == 1.0)
     overlay_rgb = torch.stack([depth, torch.zeros_like(depth), torch.zeros_like(depth)], dim=-1)
     out = torch.where(overlay[..., None], overlay_rgb, out)
@@ -168,21 +179,18 @@ def chain_compose(cam, rgb, depth, idx, d, hist):
 
 def history_for(idx):
     g = torch.Generator().manual_seed(5)
-    return (torch.rand((H, W, 3), generator=g),
-            torch.where(torch.rand((H, W), generator=g) < 0.7, idx, -1))
+    h, w = idx.shape
+    return (torch.rand((h, w, 3), generator=g),
+            torch.where(torch.rand((h, w), generator=g) < 0.7, idx, -1))
 
 
-def passes(vol, cam, light, *, sliced, ages=None, total_states=2, history=None):
-    """``render_slab.lighting_passes`` on the CPU: the twins."""
-    kw = dict(grid_size=N, width=W, height=H)
-    if sliced:
-        t, idx, *age = rs.primary_sweep(vol, cam, ages, **kw)
-        rgb, age = None, (age[0] if age else None)
-    else:
-        soft = light.soft_k is not None and light.soft_k > 1
-        rgb, t, idx = raytrace(vol, coarse_occupancy(vol), cam, shadow=not soft, ages=ages,
-                               total_states=total_states, **kw)
-        age = None
+def passes(vol, cam, light, *, sliced, ages=None, total_states=2, history=None, hits=None, w=W,
+           h=H):
+    """``render_slab.lighting_passes`` on the CPU: the twins, on the frame's
+    own hits or on ``hits``."""
+    kw = dict(grid_size=N, width=w, height=h)
+    rgb, t, idx, age = hits or primary(vol, cam, light, sliced=sliced, ages=ages,
+                                       total_states=total_states, w=w, h=h)
     return rs.lighting_passes(cam, idx, t, rs.prep_volume(vol), light, rgb=rgb, age=age,
                               total_states=total_states, history=history, **kw)
 
@@ -230,6 +238,48 @@ def test_twins_equal_the_torch_chain_with_ages(pyroclastic, sliced):
     got = got if sliced else (got, depth)
     assert equal_nan(got[0], rgb) and equal_nan(got[1], depth)
     assert int((idx >= 0).sum()) > 20
+
+
+# The edges of the kernels' compaction: (width, height, volume) -- every
+# pixel a hit (a full 32³ volume of whole cells, whose front face fills
+# the initial view), none (an empty volume), and a window that is no
+# multiple of the kernels' tile or of 4 pixels (the scene).
+EDGE_FRAMES = {"all_hit": (W, H, 1.0), "no_hit": (W, H, 0.0), "ragged": (101, 37, None)}
+
+
+def edge_volume(scene, density):
+    if density is None:
+        return scene
+    rng = np.random.default_rng(7)
+    return ct.from_reference(ct.pack_grid((rng.random((N, N, N)) < density).astype(np.uint8)),
+                             device="cpu")
+
+
+@pytest.mark.parametrize("name", ["full_quality", "gi_temporal_1"])
+@pytest.mark.parametrize("sliced", [False, True], ids=["k1", "sliced"])
+@pytest.mark.parametrize("frame", list(EDGE_FRAMES))
+def test_twins_equal_the_torch_chain_on_edge_frames(vol, frame, sliced, name):
+    """The twins against the chain, bit for bit, where every pixel hits,
+    where none does and on a ragged window: the light (K1's frame also
+    composed; the sliced frame's depth)."""
+    w, h, density = EDGE_FRAMES[frame]
+    vol = edge_volume(vol, density)
+    light = L(**CASES[name])
+    cam = cam_of(width=w, height=h, **({"cell_size": 1.0} if frame == "all_hit" else {}))
+    hits = primary(vol, cam, light, sliced=sliced, w=w, h=h)
+    idx = hits[2]
+    n_hit = int((idx >= 0).sum())
+    assert {"all_hit": n_hit == w * h, "no_hit": n_hit == 0}.get(frame, 0 < n_hit < w * h)
+    rgb, depth, _, d = chain_frame(vol, cam, light, sliced=sliced, hits=hits, w=w, h=h)
+    got = passes(vol, cam, light, sliced=sliced, hits=hits, w=w, h=h)
+    if sliced:
+        assert equal_nan(got[0], rgb) and equal_nan(got[1], depth)
+        return
+    assert equal_nan(got, rgb)
+    hist = history_for(idx)
+    pres, new_hist = passes(vol, cam, light, sliced=False, history=hist, hits=hits, w=w, h=h)
+    want_pres, want_hist = chain_compose(cam, rgb, depth, idx, d, hist, w=w, h=h)
+    assert equal_nan(pres, want_pres) and equal_nan(new_hist, want_hist)
 
 
 @pytest.mark.parametrize("name", ["full_quality", "gi_temporal_1", "gi_temporal_3"])
