@@ -48,7 +48,12 @@ shards the state along Z (or Z and Y) over a mesh of devices and the frame
 by pixel rows (``parallel.sharded``: halo exchange by copies between the
 shards' devices, the slab mode of ``csrc/ca_step.cu`` stepping each shard);
 ``parallel.dryrun_multichip`` runs every mesh path once.  ``utils.metrics``
-and ``utils.profiling`` time and trace (CUDA events, ``torch.profiler``); the
+times (CUDA events) and ``utils.profiling`` traces (``torch.profiler``): while
+a profiler records, the port's layers are named spans of the trace
+(``ca3d.frame``, ``ca3d.step``, ``ca3d.occupancy``, ``ca3d.k1``,
+``ca3d.lighting``, ``ca3d.compose``) and the occlusion and shade kernels count
+their lanes (``profiling.work_counts``), and with none a span costs one
+attribute test; the
 attribution tools of ``tools`` (``python -m
 cellularautomatons3d_tpu_torch.tools.<name>``: ``profile_trace``,
 ``trace_summary``, ``profile_gi``, ``profile_frame``, ``bench_dense``,

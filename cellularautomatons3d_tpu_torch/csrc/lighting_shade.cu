@@ -76,6 +76,11 @@
 // 4.8-6.3x at two bounces; PERF.md).  Registers (ptxas, sm_90a): K1's frame
 // 60, composing 64, sliced 64, the trees 62 (K1's) and 64 (sliced) at every
 // B; no spill.
+// COUNT = true (a launch while a profiler records, utils/profiling.py
+// work_counts) also adds the lanes whose flag the launch read to the
+// device's occlusion_lanes_read counter: on each hit its direct-shadow lanes
+// and every GI slot it evaluates live, one atomicAdd a warp (and a tree's
+// slots one a chunk of hits); COUNT = false is the kernel without it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,6 +98,10 @@ constexpr int kMaxQueries = 65535;  // K2's limit (gridDim.z)
 // bounces.
 constexpr int kNodes = 1024;
 static_assert(kNodes >= kThreads + 1 + gi_rows(kMaxBounces), "a hit's tree fits");
+
+// The lanes read, summed over every counting launch on the device (the
+// module's copy of it is per device, zero when it loads).
+__device__ unsigned long long g_occlusion_lanes_read;
 
 struct ShadeArgs {
   Cam cam;
@@ -154,7 +163,7 @@ __device__ __forceinline__ void shade_node(const ShadeArgs& a, ShadeTile& S,
 
 // One bounce (B = 1), a thread a pixel, the GI's live slots one a lane of
 // the warp.
-template <bool SLICED, bool COMPOSE>
+template <bool SLICED, bool COMPOSE, bool COUNT>
 __device__ __forceinline__ void shade_pixel(const ShadeArgs& a, const int* __restrict__ idx,
                                             const float* __restrict__ t,
                                             const int* __restrict__ flags,
@@ -234,12 +243,14 @@ __device__ __forceinline__ void shade_pixel(const ShadeArgs& a, const int* __res
   // twin's where(ok, bounce, 0), so the bounce is evaluated only there, one
   // live slot a lane, and summed from 0 in slot order (0 + x is x).
   V3 gi{0.0f, 0.0f, 0.0f};
+  int live_slots = 0;  // counted with COUNT
   if (a.n_slots == 1 && found) {
     // The temporal mode's one slot, on its lane: a warp has no more live
     // slots than lanes.
     const int gs = sample_slot != nullptr ? (int)*sample_slot : a.gi_slot;
     const Slot sl = slot_geometry(K, h, face_index(cube_face_normal(h.q, h.origin)), gs);
     if (sl.ok && alive) {
+      live_slots = 1;
       const float quot = occlusion_quotient(occluded);
       const V3 sh = lighting_at(K, sl.point, sl.origin, sl.nx, sl.ny, h.q, lmag, light);
       const V3 refl{quot * sh.x + K.emis[0], quot * sh.y + K.emis[1], quot * sh.z + K.emis[2]};
@@ -261,6 +272,7 @@ __device__ __forceinline__ void shade_pixel(const ShadeArgs& a, const int* __res
     own_c[3][threadIdx.x] = face | (int)occluded << 8;
     __syncwarp();
     const int count = __popc(live);
+    live_slots = count;
     int total;
     const int first = warp_scan(count, total);
     for (int k0 = 0; k0 < total; k0 += 32) {
@@ -284,6 +296,11 @@ __device__ __forceinline__ void shade_pixel(const ShadeArgs& a, const int* __res
     }
     __syncwarp();
     for (int k = first; k < first + count; ++k) gi = gi + V3{res[0][k], res[1][k], res[2][k]};
+  }
+  if constexpr (COUNT) {
+    // Every lane of the warp is here (lanes past the frame read nothing).
+    const int read = __reduce_add_sync(0xffffffffu, (found ? a.n_soft : 0) + live_slots);
+    if (read && lane == 0) atomicAdd(&g_occlusion_lanes_read, (unsigned long long)read);
   }
   if (!in) return;
 
@@ -341,7 +358,7 @@ __device__ __forceinline__ void shade_pixel(const ShadeArgs& a, const int* __res
 
 // B > 1 bounces: the block's pixels (a tile, a thread a pixel), their hits
 // and their trees' live slots compacted, one item a thread.
-template <bool SLICED, int B>
+template <bool SLICED, int B, bool COUNT>
 __device__ __forceinline__ void shade_tree(const ShadeArgs& a, const int* __restrict__ idx,
                                            const float* __restrict__ t,
                                            const int* __restrict__ flags,
@@ -380,6 +397,13 @@ __device__ __forceinline__ void shade_tree(const ShadeArgs& a, const int* __rest
   S.t[lp0] = tt;
   S.occl[lp0] = occl;
   const bool found = id >= 0;
+  if constexpr (COUNT) {
+    // The hits' direct-shadow lanes, a warp's at once; the GI's below.
+    const int hits = __popc(__ballot_sync(0xffffffffu, found));
+    if (hits && a.n_soft > 0 && (threadIdx.x & 31) == 0) {
+      atomicAdd(&g_occlusion_lanes_read, (unsigned long long)hits * a.n_soft);
+    }
+  }
 
   // The tile's hits, compacted in pixel order, and their geometry.
   int nh;
@@ -415,6 +439,12 @@ __device__ __forceinline__ void shade_tree(const ShadeArgs& a, const int* __rest
       continue;
     }
     if (threadIdx.x == 0) S.end[B] = end;
+    if constexpr (COUNT) {
+      // The chunk's live slots, nodes nh .. end - 1: each reads its flag.
+      if (threadIdx.x == 0 && end > nh) {
+        atomicAdd(&g_occlusion_lanes_read, (unsigned long long)(end - nh));
+      }
+    }
     __syncthreads();
 #pragma unroll 1
     for (int k = B; k >= 1; --k) {
@@ -467,7 +497,7 @@ __device__ __forceinline__ void shade_tree(const ShadeArgs& a, const int* __rest
   out_rgb[3 * (size_t)pix + 2] = c.z;
 }
 
-template <bool SLICED, bool COMPOSE, int B>
+template <bool SLICED, bool COMPOSE, int B, bool COUNT = false>
 __global__ void __launch_bounds__(kThreads)
     lighting_shade_kernel(const ShadeArgs a, const int* __restrict__ idx,
                           const float* __restrict__ t,
@@ -481,24 +511,30 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ out_rgb, float* __restrict__ out_depth,
                           float* __restrict__ out_hist) {
   if constexpr (B == 1) {
-    shade_pixel<SLICED, COMPOSE>(a, idx, t, flags, states, sample_slot, rgb_in, age, hist_rgb,
-                                 hist_idx, out_rgb, out_depth, out_hist);
+    shade_pixel<SLICED, COMPOSE, COUNT>(a, idx, t, flags, states, sample_slot, rgb_in, age,
+                                        hist_rgb, hist_idx, out_rgb, out_depth, out_hist);
   } else {
     static_assert(!COMPOSE, "a multi-bounce frame does not compose");
-    shade_tree<SLICED, B>(a, idx, t, flags, states, rgb_in, age, out_rgb, out_depth);
+    shade_tree<SLICED, B, COUNT>(a, idx, t, flags, states, rgb_in, age, out_rgb, out_depth);
   }
 }
 
 using ShadeKernel = decltype(&lighting_shade_kernel<false, false, 1>);
 
-// [sliced][bounces - 1]; K1's frame composes with one bounce only.
+// [count][sliced][bounces - 1]; K1's frame composes with one bounce only.
 static_assert(kMaxBounces == 4, "one instantiation per bounce count");
-const ShadeKernel kShade[2][kMaxBounces] = {
-    {lighting_shade_kernel<false, false, 1>, lighting_shade_kernel<false, false, 2>,
-     lighting_shade_kernel<false, false, 3>, lighting_shade_kernel<false, false, 4>},
-    {lighting_shade_kernel<true, false, 1>, lighting_shade_kernel<true, false, 2>,
-     lighting_shade_kernel<true, false, 3>, lighting_shade_kernel<true, false, 4>},
+const ShadeKernel kShade[2][2][kMaxBounces] = {
+    {{lighting_shade_kernel<false, false, 1>, lighting_shade_kernel<false, false, 2>,
+      lighting_shade_kernel<false, false, 3>, lighting_shade_kernel<false, false, 4>},
+     {lighting_shade_kernel<true, false, 1>, lighting_shade_kernel<true, false, 2>,
+      lighting_shade_kernel<true, false, 3>, lighting_shade_kernel<true, false, 4>}},
+    {{lighting_shade_kernel<false, false, 1, true>, lighting_shade_kernel<false, false, 2, true>,
+      lighting_shade_kernel<false, false, 3, true>, lighting_shade_kernel<false, false, 4, true>},
+     {lighting_shade_kernel<true, false, 1, true>, lighting_shade_kernel<true, false, 2, true>,
+      lighting_shade_kernel<true, false, 3, true>, lighting_shade_kernel<true, false, 4, true>}},
 };
+const ShadeKernel kCompose[2] = {lighting_shade_kernel<false, true, 1>,
+                                 lighting_shade_kernel<false, true, 1, true>};
 
 }  // namespace
 
@@ -515,14 +551,15 @@ extern "C" {
 // the presentation and out_hist the new history.  sliced = 1: age (int32[H,
 // W] or null) fades the direct light by total_states; out_depth float[H, W]
 // is the frame's depth.  The light includes the emissive light on hits.
-// Returns the launch's cudaError_t.
+// count = 1 adds the lanes read to the device's occlusion_lanes_read
+// (COUNT = true).  Returns the launch's cudaError_t.
 int ca3d_lighting_shade(int device, const float* cam, const float* consts, int n, int width,
                         int height, int n_soft, int n_slots, int bounces, int gi_slot,
                         const void* sample_slot, int sliced, int compose, int total_states,
                         const void* idx, const void* t, const void* flags, const void* states,
                         const void* rgb_in, const void* age, const void* hist_rgb,
                         const void* hist_idx, void* out_rgb, void* out_depth, void* out_hist,
-                        void* stream) {
+                        int count, void* stream) {
   const bool bad_mode =
       sliced ? (compose || out_depth == nullptr || total_states < 2)
              : (rgb_in == nullptr || age != nullptr ||
@@ -552,8 +589,8 @@ int ca3d_lighting_shade(int device, const float* cam, const float* consts, int n
   a.gi_slot = gi_slot;
   a.total_states = total_states;
   // The sliced frame never composes.
-  const ShadeKernel kernel =
-      compose ? lighting_shade_kernel<false, true, 1> : kShade[sliced ? 1 : 0][bounces - 1];
+  const int c = count ? 1 : 0;
+  const ShadeKernel kernel = compose ? kCompose[c] : kShade[c][sliced ? 1 : 0][bounces - 1];
   const int npix = width * height;
   kernel<<<(npix + kThreads - 1) / kThreads, kThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
@@ -564,6 +601,14 @@ int ca3d_lighting_shade(int device, const float* cam, const float* consts, int n
       static_cast<const int*>(hist_idx), static_cast<float*>(out_rgb),
       static_cast<float*>(out_depth), static_cast<float*>(out_hist));
   return cudaGetLastError();
+}
+
+// *out = the device's occlusion_lanes_read, copied after the work queued
+// before.
+int ca3d_lighting_shade_lanes(int device, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cudaMemcpyFromSymbol(out, g_occlusion_lanes_read, sizeof(*out));
 }
 
 }  // extern "C"

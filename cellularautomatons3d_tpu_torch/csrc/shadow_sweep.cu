@@ -46,6 +46,11 @@
 // compacting the active lanes.  SKIP = false (column_skip = 0, the column
 // skip's attribution run; no frame path sets it) descends every column of
 // the box (AllColumns) and stages no mip: the flags are the same.
+// COUNT = true (a launch while a profiler records, utils/profiling.py
+// work_counts) also adds the launch's active lanes to the device's
+// occlusion_lanes counter: the block's count comes from the barrier it takes
+// anyway (__syncthreads_count in place of __syncthreads_or), added by one
+// atomicAdd a block with any; COUNT = false is the kernel without it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,7 +64,11 @@ using namespace ca3d;
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 
-template <bool STAGED, bool SKIP = true>
+// The lanes launched active, summed over every counting launch on the
+// device (the module's copy of it is per device, zero when it loads).
+__device__ unsigned long long g_occlusion_lanes;
+
+template <bool STAGED, bool SKIP = true, bool COUNT = false>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
     shadow_sweep_kernel(const uint32_t* __restrict__ vol,
                         const uint32_t* __restrict__ coarse,
@@ -81,9 +90,12 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   const size_t i1 = q * npix + pix;      // [nq, H, W]
   const size_t i3 = 3 * q * npix + pix;  // [nq, 3, H, W], component 0
   const bool lane_active = inside && active[i1] != 0;
-  load_box(occ, &box, threadIdx.y * blockDim.x + threadIdx.x);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  load_box(occ, &box, tid);
   // The barrier also publishes the box; both tests are block-uniform.
-  if (!__syncthreads_or(lane_active) || box.empty) {
+  const int any = COUNT ? __syncthreads_count(lane_active) : __syncthreads_or(lane_active);
+  if (COUNT && any && tid == 0) atomicAdd(&g_occlusion_lanes, (unsigned long long)any);
+  if (!any || box.empty) {
     if (inside) out[i1] = 0;
     return;
   }
@@ -124,12 +136,13 @@ extern "C" {
 // i32 [nq, H, W] (1 = occluded).  cell_half is the visible cube's half
 // size, (1/n) * cell_size * 0.5 in f32.  box: int32[8], the OccBox of
 // coarse (ops/occupancy.py occupied_box).  column_skip = 0 descends every
-// column of the box (SKIP = false).  Returns the launch's cudaError_t.
+// column of the box (SKIP = false).  count = 1 adds the active lanes to the
+// device's occlusion_lanes (COUNT = true).  Returns the launch's cudaError_t.
 int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
                       float cell_half, int width, int height, int nq,
                       const void* start, const void* target, const void* excl,
                       const void* active, void* out, int column_skip,
-                      const void* box, void* stream) {
+                      const void* box, int count, void* stream) {
   if (n < 32 || n > kMaxGrid || n % 32 != 0 || width < 1 || height < 1 ||
       nq < 1 || nq > 65535 || box == nullptr) {
     return cudaErrorInvalidValue;
@@ -140,9 +153,13 @@ int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY, nq);
-  auto kernel = !column_skip            ? shadow_sweep_kernel<false, false>
-                : n <= kMaxStagedGrid ? shadow_sweep_kernel<true>
-                                      : shadow_sweep_kernel<false>;
+  // [count][column_skip ? staged or not : every column]
+  using Kernel = decltype(&shadow_sweep_kernel<true>);
+  static const Kernel kernels[2][3] = {
+      {shadow_sweep_kernel<true>, shadow_sweep_kernel<false>, shadow_sweep_kernel<false, false>},
+      {shadow_sweep_kernel<true, true, true>, shadow_sweep_kernel<false, true, true>,
+       shadow_sweep_kernel<false, false, true>}};
+  const Kernel kernel = kernels[count ? 1 : 0][!column_skip ? 2 : n <= kMaxStagedGrid ? 0 : 1];
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(vol), static_cast<const uint32_t*>(coarse),
       static_cast<const OccBox*>(box), n, inv_n, cell_half, width, height,
@@ -150,6 +167,13 @@ int ca3d_shadow_sweep(int device, const void* vol, const void* coarse, int n,
       static_cast<const int*>(excl), static_cast<const uint8_t*>(active),
       static_cast<int*>(out));
   return cudaGetLastError();
+}
+
+// *out = the device's occlusion_lanes, copied after the work queued before.
+int ca3d_shadow_sweep_lanes(int device, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cudaMemcpyFromSymbol(out, g_occlusion_lanes, sizeof(*out));
 }
 
 }  // extern "C"

@@ -82,6 +82,7 @@ from .render.renderer_fast import (
     render_frame_fast,
 )
 from .utils.config import EngineConfig
+from .utils.profiling import span
 
 __all__ = ["Engine"]
 
@@ -218,10 +219,11 @@ class Engine:
     def step(self, n: int = 1):
         """Advance the CA ``n`` generations."""
         for _ in range(n):
-            if self._sharded_step is not None:
-                self.state = self._sharded_step(self.state)
-            else:
-                self.state = step_packed(self.state, self.spec)
+            with span("ca3d.step"):
+                if self._sharded_step is not None:
+                    self.state = self._sharded_step(self.state)
+                else:
+                    self.state = step_packed(self.state, self.spec)
             self.simulation_step += 1
         return self
 
@@ -337,12 +339,13 @@ class Engine:
         """One frame-loop iteration with the reference's cadence: render
         first, then step the CA if the sim timer fired
         (main_pathtraced.js:1833-1850)."""
-        self._frame_duration += dt_ms
-        frame = self.render(dt_ms)
-        if self._frame_duration >= self.config.compute_step_duration_ms:
-            self.step()
-            self._frame_duration = 0.0
-        return frame
+        with span("ca3d.tick"), span("ca3d.frame"):
+            self._frame_duration += dt_ms
+            frame = self.render(dt_ms)
+            if self._frame_duration >= self.config.compute_step_duration_ms:
+                self.step()
+                self._frame_duration = 0.0
+            return frame
 
     def run(self, frames: int, dt_ms: float = 16.667, sink=None):
         """Run the frame loop for ``frames`` iterations; optionally feed
@@ -364,20 +367,21 @@ class Engine:
         Returns the last frame."""
         if self.config.pipeline != "fast":
             raise ValueError("run_fused requires the fast pipeline")
-        if self.mesh is not None:
-            frame = self._run_fused_mesh(frames, steps_per_frame, reset_every)
-        else:
-            run = make_fused_loop(
-                self.render_static, self.spec, frames, steps_per_frame, reset_every
-            )
-            self.state, self.history, frame = run(
-                self.state, self.render_params(), self.history
-            )
-        standing = frames % reset_every if reset_every > 0 else frames
-        self.simulation_step += standing * steps_per_frame
-        self._time_ms += frames * 16.667
-        self.camera.end_frame()
-        return frame
+        with span("ca3d.run_fused"):
+            if self.mesh is not None:
+                frame = self._run_fused_mesh(frames, steps_per_frame, reset_every)
+            else:
+                run = make_fused_loop(
+                    self.render_static, self.spec, frames, steps_per_frame, reset_every
+                )
+                self.state, self.history, frame = run(
+                    self.state, self.render_params(), self.history
+                )
+            standing = frames % reset_every if reset_every > 0 else frames
+            self.simulation_step += standing * steps_per_frame
+            self._time_ms += frames * 16.667
+            self.camera.end_frame()
+            return frame
 
     def _run_fused_mesh(self, frames: int, steps_per_frame: int, reset_every: int):
         """The mesh's fused loop (the JAX Engine's ``_build_mesh_fused_loop``):
@@ -389,12 +393,13 @@ class Engine:
         start = st = self.state
         frame = None
         for i in range(frames):
-            for _ in range(steps_per_frame):
-                st = self._sharded_step(st)
-            frame = self._mesh_frame(st, params, True,
-                                     i if self.render_static.gi_temporal else None)
-            if reset_every > 0 and (i + 1) % reset_every == 0:
-                st = start
+            with span("ca3d.frame"):
+                for _ in range(steps_per_frame):
+                    st = self._sharded_step(st)
+                frame = self._mesh_frame(st, params, True,
+                                         i if self.render_static.gi_temporal else None)
+                if reset_every > 0 and (i + 1) % reset_every == 0:
+                    st = start
         self.state = st
         return frame
 

@@ -54,7 +54,7 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "BUILD_DIR", "SOURCES", "HEADERS",
-    "build", "library", "require", "stream_of", "check",
+    "build", "library", "loaded", "require", "stream_of", "check", "work_counts",
 ]
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -168,7 +168,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.ca3d_render_fast.restype = _I
         lib.ca3d_shadow_sweep.argtypes = [
-            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+            _I, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
         ]
         lib.ca3d_shadow_sweep.restype = _I
         lib.ca3d_cell_state.argtypes = [_I, _P, _I, _I, _I, _I, _P, _P, _P]
@@ -205,11 +205,40 @@ def library() -> ctypes.CDLL:
         lib.ca3d_lighting_level.restype = _I
         lib.ca3d_lighting_shade.argtypes = [
             _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I,
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
         ]
         lib.ca3d_lighting_shade.restype = _I
+        for name, _ in _COUNTERS:
+            getattr(lib, name).argtypes = [_I, ctypes.POINTER(ctypes.c_ulonglong)]
+            getattr(lib, name).restype = _I
         _lib = lib
     return _lib
+
+
+def loaded() -> bool:
+    """Whether :func:`library` has loaded the kernels (no kernel ran before)."""
+    return _lib is not None
+
+
+# The work counters (utils.profiling.work_counts): the C function that
+# copies each out, and the counter's name.
+_COUNTERS = (("ca3d_shadow_sweep_lanes", "occlusion_lanes"),
+             ("ca3d_lighting_shade_lanes", "occlusion_lanes_read"))
+
+
+def work_counts(device: int) -> dict[str, int]:
+    """The kernels' work counters on CUDA device ``device``, each copied
+    from the device once (after the work queued before it)."""
+    lib = library()
+    out = {}
+    for fn, name in _COUNTERS:
+        v = ctypes.c_ulonglong()
+        err = getattr(lib, fn)(device, ctypes.byref(v))
+        if err != 0:
+            msg = lib.ca3d_error_string(err).decode()
+            raise RuntimeError(f"reading {name} failed: CUDA error {err} ({msg})")
+        out[name] = v.value
+    return out
 
 
 def require(t, name: str, dtype, shape, align: int = 0) -> None:

@@ -87,6 +87,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import profiling
+from ..utils.profiling import span
 from ..ops.occupancy import (
     BOX_WORDS, coarse_shape, occupancy_mip_box, occupied_box, occupied_box_cuda)
 from . import brdf
@@ -391,7 +393,11 @@ def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
     """Plain torch K2: occluded flags int32 [nq, H, W] of the shadow rays
     from ``start`` toward ``target`` (f32 [nq, 3, H, W]) over t in [0,
     volume exit], skipping the cell ``excl`` (int32 [nq, 3, H, W]) component
-    by component; inactive lanes (``active`` bool [nq, H, W]) give 0."""
+    by component; inactive lanes (``active`` bool [nq, H, W]) give 0.  While
+    a profiler records it counts the active lanes, as the kernel does
+    (``utils.profiling.work_counts``)."""
+    if profiling.recording():
+        profiling.count("occlusion_lanes", active.sum())
     return _occlusion(vol, start, target, active, tuple(excl.unbind(1)),
                       grid_size, cell_half)
 
@@ -404,7 +410,9 @@ def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_siz
     16-byte aligned).  One launch.  ``column_skip=False`` descends every
     column of the occupied box (the same flags; the attribution run of the
     coarse column skip, which no frame path makes), also counted in
-    ``shadow_sweep_cuda.noskip_launches``."""
+    ``shadow_sweep_cuda.noskip_launches``.  While a profiler records the
+    launch adds its active lanes to the device's ``occlusion_lanes``
+    (``utils.profiling.work_counts``)."""
     n = grid_size
     nq, _, h, w = start.shape
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
@@ -419,7 +427,7 @@ def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_siz
         start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
         excl.data_ptr(), active.data_ptr(), out.data_ptr(), int(bool(column_skip)),
-        box.data_ptr(), kernels.stream_of(start),
+        box.data_ptr(), int(profiling.recording()), kernels.stream_of(start),
     )
     kernels.check(err, "shadow_sweep")
     shadow_sweep_cuda.launches += 1
@@ -1299,15 +1307,34 @@ def lighting_shade(cam, idx, t, flags, states, light: Lighting, *, grid_size, wi
       elsewhere.
 
     The light includes the emissive light on hits (added before the
-    composition)."""
+    composition).  While a profiler records it counts the lanes whose flag
+    it reads, as the kernel does (:func:`_lanes_read`)."""
     n = grid_size
     _check_bounces(light)
     geo = _hit_geometry(cam, idx, t, n, width, height)
+    if profiling.recording():
+        profiling.count("occlusion_lanes_read", _lanes_read(cam, n, geo, states, light))
     n_soft = light.n_soft
     occl = _soft_occlusion(list(flags[:n_soft] == 1), light.occ_div) if n_soft else None
     gi_rgb = _gi_light(cam, n, geo, flags[n_soft:], states, light) if light.gi else None
     return _lighting_tail(cam, geo, idx, t, occl, gi_rgb, grid_size=n, rgb=rgb, age=age,
                           total_states=total_states, history=history)
+
+
+def _lanes_read(cam, n, geo, states, light: Lighting):
+    """The occlusion lanes whose flag the shade kernel reads, where its
+    light depends on the flag: each hit's ``n_soft`` direct-shadow lanes,
+    and each GI slot it evaluates as live (its entry exists, its neighbour
+    is alive and, below level 1, so is its parent)."""
+    q, origin, coords, found = geo[:4]
+    lanes = light.n_soft * found.sum()
+    if light.gi_slot is not None:
+        (_, _, _, ok), = _gi_slots(cam, n, q, origin, coords, found, light.gi_slot)
+        lanes = lanes + (ok & (states[0] == 1)).sum()
+    elif light.gi:
+        for level in _slot_tree(cam, n, geo, states, light.bounces):
+            lanes = lanes + sum(ok.sum() for *_, ok in level)
+    return lanes
 
 
 def _gi_light(cam, n, geo, gi_flags, states, light: Lighting):
@@ -1368,7 +1395,9 @@ def lighting_shade_cuda(cam, idx, t, flags, states, light: Lighting, *, grid_siz
     a contiguous CUDA tensor of the frame's shape; a temporal slot given as
     a tensor is read on the card.  Compose-mode launches (with ``history``)
     are also counted in ``lighting_shade_cuda.compose_launches``; a frame
-    of more than one bounce does not compose."""
+    of more than one bounce does not compose.  While a profiler records the
+    launch adds the lanes whose flag it reads to the device's
+    ``occlusion_lanes_read`` (``utils.profiling.work_counts``)."""
     cam = _check_sliced(grid_size, width, height, cam)
     _check_card_bounces(light)
     if history is not None and light.gi and light.bounces > 1:
@@ -1417,7 +1446,7 @@ def lighting_shade_cuda(cam, idx, t, flags, states, light: Lighting, *, grid_siz
         idx.data_ptr(), t.data_ptr(), ptr(flags), ptr(states), ptr(rgb), ptr(age),
         ptr(None if history is None else history[0]),
         ptr(None if history is None else history[1]), out.data_ptr(), ptr(depth),
-        ptr(new_hist), kernels.stream_of(idx))
+        ptr(new_hist), int(profiling.recording()), kernels.stream_of(idx))
     kernels.check(err, "lighting_shade")
     lighting_shade_cuda.launches += 1
     lighting_shade_cuda.compose_launches += int(history is not None)
@@ -1449,20 +1478,26 @@ def lighting_passes(cam, idx, t, prepped: Prepped, light: Lighting, *, grid_size
     kw = dict(grid_size=grid_size, width=width, height=height)
     cpu = idx.device.type == "cpu"
     flags = states = None
-    if light.nq:
-        ops = _queries(cam, idx, t, light, **kw)
-        # K2 reads every level's queries, which the deeper levels' states
-        # gate; one bounce runs K3 after K2 (its lookups measured 10 %
-        # faster there than right after the queries kernel, PERF.md).
-        deep = light.n_slots > 0 and light.bounces > 1
-        if deep:
-            states = gi_states(cam, idx, t, ops, prepped, light, **kw)
-        flags = occlusion_flags(cam, ops, prepped, grid_size=grid_size)
-        if light.n_slots and not deep:
-            states = gi_states(cam, idx, t, ops, prepped, light, **kw)
-    return (lighting_shade if cpu else lighting_shade_cuda)(
-        cam, idx, t, flags, states, light, rgb=rgb, age=age, total_states=total_states,
-        history=history, **kw)
+    with span("ca3d.lighting"):
+        if light.nq:
+            with span("ca3d.lighting.queries"):
+                ops = _queries(cam, idx, t, light, **kw)
+            # K2 reads every level's queries, which the deeper levels' states
+            # gate; one bounce runs K3 after K2 (its lookups measured 10 %
+            # faster there than right after the queries kernel, PERF.md).
+            deep = light.n_slots > 0 and light.bounces > 1
+            if deep:
+                with span("ca3d.lighting.states"):
+                    states = gi_states(cam, idx, t, ops, prepped, light, **kw)
+            with span("ca3d.lighting.occlusion"):
+                flags = occlusion_flags(cam, ops, prepped, grid_size=grid_size)
+            if light.n_slots and not deep:
+                with span("ca3d.lighting.states"):
+                    states = gi_states(cam, idx, t, ops, prepped, light, **kw)
+        with span("ca3d.lighting.shade"):
+            return (lighting_shade if cpu else lighting_shade_cuda)(
+                cam, idx, t, flags, states, light, rgb=rgb, age=age,
+                total_states=total_states, history=history, **kw)
 
 
 # ------------------------------------------------------- sliced frame ---
@@ -1491,7 +1526,8 @@ def raytrace_sliced(vol, cam, ages=None, *, grid_size, width, height,
     n = grid_size
     cam = _check_sliced(n, width, height, cam)
     kw = dict(grid_size=n, width=width, height=height)
-    prepped = prep_volume(vol)
+    with span("ca3d.occupancy"):
+        prepped = prep_volume(vol)
     if ages is not None:
         _check_ages(ages, vol, total_states)
     t_img, idx, *age_img = primary_hits(cam, prepped, ages, **kw)

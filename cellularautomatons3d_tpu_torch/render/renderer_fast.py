@@ -45,6 +45,7 @@ import torch
 from .. import kernels
 from ..ops.ca_step import step_packed, visibility_plane
 from ..ops.occupancy import occupancy_rebuild
+from ..utils.profiling import span
 from .camera import COT_HALF_FOV, pixel_uvs
 from .intersect import device_vec
 from .render_fast import (
@@ -155,13 +156,15 @@ def _shaded(s: RenderStatic, packed, cam, sample_idx, ages=None, total_states=2,
     # rebuild writes what the frame reads.
     extended = s.soft_shadow_samples > 1 or s.indirect_lighting
     mip1, slicegate = descent_options()
-    occ = occupancy_rebuild(packed, box=extended, plane=mip1)
-    rgb, depth, idx = raytrace_tiles(
-        packed, occ.coarse, cam,
-        grid_size=s.grid_size, width=s.width, height=s.height,
-        shadow=s.soft_shadow_samples <= 1, ages=ages, total_states=total_states,
-        mip1=mip1, slicegate=slicegate, plane=occ.plane,
-    )
+    with span("ca3d.occupancy"):
+        occ = occupancy_rebuild(packed, box=extended, plane=mip1)
+    with span("ca3d.k1"):
+        rgb, depth, idx = raytrace_tiles(
+            packed, occ.coarse, cam,
+            grid_size=s.grid_size, width=s.width, height=s.height,
+            shadow=s.soft_shadow_samples <= 1, ages=ages, total_states=total_states,
+            mip1=mip1, slicegate=slicegate, plane=occ.plane,
+        )
     if extended:
         prepped = Prepped(packed, occ.coarse, occ.box)
         lit = _extended_lighting(s, prepped, cam, rgb, depth, idx, sample_idx, history)
@@ -261,17 +264,18 @@ def compose_frame(history: FastHistory, rgb: torch.Tensor, depth: torch.Tensor,
     (wgsl:880-883) and gamma.  ``row0`` / ``full_height``: as
     :func:`reproject_history`'s.  Returns (presentation [h, w, 3] f32, new
     history colour [h, w, 3] f16)."""
-    fh = h if full_height is None else full_height
-    view = np.asarray(params.view_mat, np.float32)
-    ux, d = _window_rays(w, h, fh, row0, view, rgb.device)
-    if camera_static:
-        prev = history.color.to(torch.float32)
-        out = ema(rgb, prev, (idx == history.hit_idx) & (idx >= 0), params.temporal_alpha)
-    else:
-        out, _, _ = reproject_history(history, rgb, depth, idx, params, w, h, fh, row0)
-    pres, color = finish_frame(out, depth, view[:3, 3], torch.stack(d, dim=-1), params.light_pos,
-                               ux, params.show_depth_overlay, params.gamma)
-    return pres, color.to(torch.float16)
+    with span("ca3d.compose"):
+        fh = h if full_height is None else full_height
+        view = np.asarray(params.view_mat, np.float32)
+        ux, d = _window_rays(w, h, fh, row0, view, rgb.device)
+        if camera_static:
+            prev = history.color.to(torch.float32)
+            out = ema(rgb, prev, (idx == history.hit_idx) & (idx >= 0), params.temporal_alpha)
+        else:
+            out, _, _ = reproject_history(history, rgb, depth, idx, params, w, h, fh, row0)
+        pres, color = finish_frame(out, depth, view[:3, 3], torch.stack(d, dim=-1),
+                                   params.light_pos, ux, params.show_depth_overlay, params.gamma)
+        return pres, color.to(torch.float16)
 
 
 def _compose_launch(history, rgb, depth, idx, params, w, h, full_height, row0, moved, *,
@@ -326,8 +330,9 @@ def compose_frame_cuda(history: FastHistory, rgb: torch.Tensor, depth: torch.Ten
     w, 3], ``depth`` f32 [h, w], ``idx`` and ``history.hit_idx`` int32 [h,
     w], ``history.color`` f16 [h, w, 3].  Returns (presentation, new history
     colour f16)."""
-    pres, color, *_ = _compose_launch(history, rgb, depth, idx, params, w, h, full_height,
-                                      row0, not camera_static)
+    with span("ca3d.compose"):
+        pres, color, *_ = _compose_launch(history, rgb, depth, idx, params, w, h, full_height,
+                                          row0, not camera_static)
     compose_frame_cuda.launches += 1
     return pres, color
 
@@ -443,35 +448,37 @@ def make_fused_loop(s: RenderStatic, spec, frames: int,
         if not use_compose and not use_ext:
             hist = history
             for i in range(frames):
-                st = steps(st)
-                frame, _, hist = render_frame_fast(
-                    s, visibility_plane(st, spec), params, hist, True,
-                    i if s.gi_temporal else None,
-                    ages=st if multistate else None, total_states=total_states,
-                )
-                st = reset(i, st)
+                with span("ca3d.frame"):
+                    st = steps(st)
+                    frame, _, hist = render_frame_fast(
+                        s, visibility_plane(st, spec), params, hist, True,
+                        i if s.gi_temporal else None,
+                        ages=st if multistate else None, total_states=total_states,
+                    )
+                    st = reset(i, st)
             return st, hist, frame
         hist = (history.color.to(torch.float32), history.hit_idx)
         for i in range(frames):
-            st = steps(st)
-            vis = visibility_plane(st, spec)
-            ages = st if multistate else None
-            if use_compose:
-                mip1, slicegate = descent_options()
-                occ = occupancy_rebuild(vis, plane=mip1)
-                frame, _, idx, color = raytrace_tiles(
-                    vis, occ.coarse, cam, hist,
-                    grid_size=n, width=w, height=h, shadow=True, ages=ages,
-                    total_states=total_states, mip1=mip1, slicegate=slicegate,
-                    plane=occ.plane,
-                )
-                hist = (color, idx)
-            else:
-                frame, hist = _ext_frame(
-                    s, vis, cam, hist, ages, total_states,
-                    i if s.gi_temporal else None,
-                )
-            st = reset(i, st)
+            with span("ca3d.frame"):
+                st = steps(st)
+                vis = visibility_plane(st, spec)
+                ages = st if multistate else None
+                if use_compose:
+                    mip1, slicegate = descent_options()
+                    occ = occupancy_rebuild(vis, plane=mip1)
+                    frame, _, idx, color = raytrace_tiles(
+                        vis, occ.coarse, cam, hist,
+                        grid_size=n, width=w, height=h, shadow=True, ages=ages,
+                        total_states=total_states, mip1=mip1, slicegate=slicegate,
+                        plane=occ.plane,
+                    )
+                    hist = (color, idx)
+                else:
+                    frame, hist = _ext_frame(
+                        s, vis, cam, hist, ages, total_states,
+                        i if s.gi_temporal else None,
+                    )
+                st = reset(i, st)
         new_history = FastHistory(color=hist[0].to(torch.float16), hit_idx=hist[1])
         return st, new_history, frame
 

@@ -13,7 +13,7 @@ import time
 
 import torch
 
-__all__ = ["device_sync", "time_fn", "cuda_time_fn", "Timer"]
+__all__ = ["device_sync", "time_fn", "cuda_time_fn"]
 
 
 def _devices(x) -> set:
@@ -92,24 +92,3 @@ def cuda_time_fn(fn, *args, reps: int = 10, warmup: int = 2, device=None,
 
 _SLEEP_CYCLES = 1 << 22       # ~2 ms at the H100's 1.98 GHz
 _MAX_SLEEP_CYCLES = 1 << 31   # ~1 s
-
-
-class Timer:
-    """Accumulating section timer (host clock)."""
-
-    def __init__(self):
-        self.sections: dict[str, float] = {}
-
-    def section(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                timer.sections[name] = timer.sections.get(name, 0.0) + (
-                    time.perf_counter() - self.t0
-                )
-
-        return _Ctx()

@@ -1,26 +1,58 @@
-"""Profiling hooks on ``torch.profiler``.
+"""Profiling hooks on ``torch.profiler``: traces, the port's spans and its
+work counters.
 
 Port of ``cellularautomatons3d_tpu.utils.profiling`` (a ``jax.profiler``
-trace and section timing there)::
+trace there)::
 
     with profile_trace("trace_dir") as prof:   # a Chrome trace in trace_dir
-        engine.step(100)
+        engine.run_fused(150)
     print(prof.key_averages().table(sort_by="cuda_time_total"))
 
-    stats = profile_engine(engine, steps=50, frames=10)
+The port marks its layers with :func:`span`: while a profiler records, each
+is a ``record_function`` range in the trace, on the clock of the device's
+events and of every ``cudaLaunchKernel``, so an idle stretch of the device
+can be set against the layer the host was in:
+
+=========================  ==================================================
+``ca3d.run_fused``         ``Engine.run_fused``
+``ca3d.tick``              ``Engine.tick``
+``ca3d.frame``             one frame of the fused loop (its steps and its
+                           frame); the whole of a tick
+``ca3d.step``              ``Engine.step``
+``ca3d.occupancy``         a rendered frame's occupancy rebuild
+                           (``render.renderer_fast``, ``render.render_slab``)
+``ca3d.k1``                a rendered frame's ``raytrace_tiles``
+``ca3d.lighting``          ``render.render_slab.lighting_passes``, with
+                           ``.queries``, ``.states``, ``.occlusion`` and
+                           ``.shade`` for its four steps
+``ca3d.compose``           ``render.renderer_fast.compose_frame(_cuda)``
+=========================  ==================================================
+
+Inside the fused loop's frames of K1 alone only ``ca3d.frame`` opens: with a
+profiler recording, the step, rebuild and K1 spans of every frame cost the
+host more than that loop's headroom over the card (``PERF.md``).
+
+Under the same test the occlusion kernel and the shade kernel count lanes
+(:func:`work_counts`).  With no profiler recording a span is one attribute
+test and a shared no-op context, and nothing counts.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
 
-from .metrics import device_sync
+__all__ = ["profile_trace", "span", "recording", "count", "work_counts", "WORK_COUNTS"]
 
-__all__ = ["profile_trace", "profile_engine"]
+# The work counters: the lanes the occlusion kernel (K2) traced, and the
+# lanes whose flag the shade kernel read.
+WORK_COUNTS = ("occlusion_lanes", "occlusion_lanes_read")
+
+_profiler = torch.autograd.profiler   # its _is_profiler_enabled is rebound, so read it here
+_NO_SPAN = contextlib.nullcontext()
+_twin_counts = dict.fromkeys(WORK_COUNTS, 0)
 
 
 @contextlib.contextmanager
@@ -41,31 +73,48 @@ def profile_trace(log_dir: str | None = None):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def profile_engine(engine, steps: int = 50, frames: int = 5) -> dict:
-    """Wall-clock Engine stats, each timed window ended by a synchronise of
-    the devices that hold the state or the frame."""
-    engine.step(1)
-    device_sync(engine.state)
-    t0 = time.perf_counter()
-    engine.step(steps)
-    device_sync(engine.state)
-    step_s = (time.perf_counter() - t0) / steps
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records: the test of every span and of
+    the work counters."""
+    return _profiler._is_profiler_enabled
 
-    frame = engine.render()
-    device_sync(frame)
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        frame = engine.render()
-    device_sync(frame)
-    frame_s = (time.perf_counter() - t0) / frames
 
-    return {
-        "steps_per_sec": 1.0 / step_s,
-        "step_ms": step_s * 1e3,
-        "frame_ms": frame_s * 1e3,
-        "fps": 1.0 / frame_s,
-        "grid_size": engine.config.grid_size,
-        "resolution": (engine.config.width, engine.config.height),
-        "pipeline": engine.config.pipeline,
-        "device": str(engine.device if engine.mesh is None else engine.mesh),
-    }
+def span(name: str):
+    """A named range of the host's work: ``torch.profiler.record_function``
+    while a profiler records, else a shared no-op context (no torch call,
+    no allocation)."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` (an int or a tensor) to a plain twin's work counter; the
+    twins call it only while a profiler records."""
+    _twin_counts[name] += int(n)
+
+
+def work_counts(device=None) -> dict[str, int]:
+    """The work counters, cumulative, of the lanes counted while a profiler
+    recorded: ``occlusion_lanes``, the lanes the occlusion kernel K2
+    (``csrc/shadow_sweep.cu``) traced, i.e. active at its launch, and
+    ``occlusion_lanes_read``, the lanes whose flag the shade kernel
+    (``csrc/lighting_shade.cu``, every form) read: a hit's direct-shadow
+    lanes and each GI slot it evaluated as live.  On a CUDA device (the
+    current one by default, where there is one) the kernels' counters, one
+    pair a device, zero when the kernels' library loads: the call
+    synchronises the device and copies them once, so no frame path calls
+    it.  On ``"cpu"`` the plain twins' counts, wherever the twins ran.  K5
+    (``CA3D_OCC_SWEEP=0``) counts nothing."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cpu":
+        return dict(_twin_counts)
+    from .. import kernels
+
+    if not kernels.loaded():
+        return dict.fromkeys(WORK_COUNTS, 0)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    torch.cuda.synchronize(index)
+    return kernels.work_counts(index)

@@ -277,14 +277,8 @@ def test_metrics_and_profiling_on_the_cpu():
     t = metrics.time_fn(lambda: calls.append(1) or eng.step(1).state, reps=3, warmup=1)
     assert t > 0 and len(calls) == 4
     metrics.device_sync([eng.state, {"x": torch.zeros(1)}])
-    timer = metrics.Timer()
-    for _ in range(2):
-        with timer.section("step"):
-            eng.step(1)
-    assert set(timer.sections) == {"step"} and timer.sections["step"] > 0
-    stats = profiling.profile_engine(eng, steps=2, frames=1)
-    assert stats["grid_size"] == 32 and stats["step_ms"] > 0 and stats["fps"] > 0
-    assert "Mesh" in stats["device"]
     with profiling.profile_trace() as prof:
         eng.step(1)
-    assert any("cat" in e.key or "copy" in e.key for e in prof.key_averages())
+    keys = {e.key for e in prof.key_averages()}
+    assert any("cat" in k or "copy" in k for k in keys)
+    assert "ca3d.step" in keys  # the mesh's sharded step in its span
