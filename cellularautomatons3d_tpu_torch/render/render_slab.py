@@ -137,6 +137,7 @@ __all__ = [
     "raytrace_sliced",
     "hit_geometry",
     "soft_shadow_jitter",
+    "gated_lanes",
     "shadow_sweep",
     "shadow_sweep_cuda",
     "shadow_sweep_multi",
@@ -389,13 +390,50 @@ def _occlusion(vol, start, target, active, exclude, grid_size, cell_half):
     return occluded.to(torch.int32)
 
 
-def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
+def _check_gate(states, q_gate, nq, h, w):
+    """Refuse a last-level gate K2 does not take: ``states`` uint8 [n_slots,
+    H, W] with 1 ≤ n_slots ≤ nq (query q ≥ n_soft = nq − n_slots reads row
+    q − n_soft) and ``q_gate`` in [n_soft, nq], both or neither given.
+    Reads shapes and dtypes only, so it raises before any kernel loads."""
+    if states is None and q_gate is None:
+        return
+    if states is None or q_gate is None:
+        raise ValueError("states and q_gate go together")
+    if states.dtype != torch.uint8:
+        raise ValueError(f"states must be torch.uint8, got {states.dtype}")
+    if states.dim() != 3 or tuple(states.shape[1:]) != (h, w) or not 1 <= states.shape[0] <= nq:
+        raise ValueError(f"states must have shape [n_slots, {h}, {w}] with 1 <= n_slots <= "
+                         f"{nq}, got {tuple(states.shape)}")
+    n_soft = nq - states.shape[0]
+    if not n_soft <= q_gate <= nq:
+        raise ValueError(f"q_gate must be in [{n_soft}, {nq}], got {q_gate}")
+
+
+def gated_lanes(active, states=None, q_gate=None):
+    """K2's traced lanes: ``active`` (bool [nq, H, W]), from row ``q_gate``
+    on only where the GI state of the row's slot (``states`` row q − n_soft)
+    is 1 -- the shade kernel's test before it reads a slot's flag; without
+    ``states``, ``active`` itself."""
+    if states is None:
+        return active
+    n_soft = active.shape[0] - states.shape[0]
+    gated = active.clone()
+    gated[q_gate:] &= states[q_gate - n_soft:] == 1
+    return gated
+
+
+def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half, states=None,
+                 q_gate=None):
     """Plain torch K2: occluded flags int32 [nq, H, W] of the shadow rays
     from ``start`` toward ``target`` (f32 [nq, 3, H, W]) over t in [0,
     volume exit], skipping the cell ``excl`` (int32 [nq, 3, H, W]) component
-    by component; inactive lanes (``active`` bool [nq, H, W]) give 0.  While
-    a profiler records it counts the active lanes, as the kernel does
-    (``utils.profiling.work_counts``)."""
+    by component; untraced lanes give 0: inactive lanes (``active`` bool
+    [nq, H, W]) and, with ``states`` and ``q_gate`` (a multi-bounce frame's
+    GI states, :func:`gated_lanes`), the last level's lanes of dead
+    neighbours.  While a profiler records it counts the traced lanes, as
+    the kernel does (``utils.profiling.work_counts``)."""
+    _check_gate(states, q_gate, *active.shape)
+    active = gated_lanes(active, states, q_gate)
     if profiling.recording():
         profiling.count("occlusion_lanes", active.sum())
     return _occlusion(vol, start, target, active, tuple(excl.unbind(1)),
@@ -403,18 +441,31 @@ def shadow_sweep(vol, start, target, excl, active, *, grid_size, cell_half):
 
 
 def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_size,
-                      cell_half, column_skip=True, out=None):
+                      cell_half, states=None, q_gate=None, column_skip=True, out=None,
+                      _tiles=0):
     """K2 on the card (``csrc/shadow_sweep.cu``): same contract as
     :func:`shadow_sweep`; every tensor, ``box`` (the mip's occupied box,
     ``Prepped.box``) too, must be a contiguous CUDA tensor (``coarse``
     16-byte aligned).  One launch.  ``column_skip=False`` descends every
     column of the occupied box (the same flags; the attribution run of the
     coarse column skip, which no frame path makes), also counted in
-    ``shadow_sweep_cuda.noskip_launches``.  While a profiler records the
-    launch adds its active lanes to the device's ``occlusion_lanes``
+    ``shadow_sweep_cuda.noskip_launches``.  A gate (``states``) runs in the
+    strip kernel, 8 16×8 tiles a block, which always skips columns; an
+    ungated launch takes it where its tile count fills the card, else the
+    tile kernel, a block a tile.  ``_tiles``, a hook for tests and the
+    tools' attribution that no frame path sets: 1 or 8 asks for the tile or
+    the strip kernel.  While a profiler records the launch adds its traced
+    lanes to the device's ``occlusion_lanes``
     (``utils.profiling.work_counts``)."""
     n = grid_size
     nq, _, h, w = start.shape
+    _check_gate(states, q_gate, nq, h, w)
+    if _tiles not in (0, 1, 8):
+        raise ValueError(f"_tiles must be 0, 1 or 8, got {_tiles}")
+    if (states is not None and (_tiles == 1 or not column_skip)) or (
+            _tiles == 8 and not column_skip):
+        raise ValueError("the gate and _tiles=8 run in the strip kernel, which skips columns; "
+                         "_tiles=1 and column_skip=False in the tile kernel, which takes no gate")
     kernels.require(vol, "vol", torch.int32, (n // 32, n, n))
     kernels.require(coarse, "coarse", torch.int32, coarse_shape(n), align=16)
     _require_box(box, vol)
@@ -422,12 +473,16 @@ def shadow_sweep_cuda(vol, coarse, box, start, target, excl, active, *, grid_siz
     kernels.require(target, "target", torch.float32, (nq, 3, h, w))
     kernels.require(excl, "excl", torch.int32, (nq, 3, h, w))
     kernels.require(active, "active", torch.bool, (nq, h, w))
+    if states is not None:
+        kernels.require(states, "states", torch.uint8, tuple(states.shape))
     out = _flags_out(out, nq, h, w, start.device)
     err = kernels.library().ca3d_shadow_sweep(
         start.device.index or 0, vol.data_ptr(), coarse.data_ptr(), n,
         float(cell_half), w, h, nq, start.data_ptr(), target.data_ptr(),
-        excl.data_ptr(), active.data_ptr(), out.data_ptr(), int(bool(column_skip)),
-        box.data_ptr(), int(profiling.recording()), kernels.stream_of(start),
+        excl.data_ptr(), active.data_ptr(), None if states is None else states.data_ptr(),
+        0 if q_gate is None else int(q_gate), nq - (0 if states is None else states.shape[0]),
+        out.data_ptr(), int(bool(column_skip)), box.data_ptr(), int(_tiles),
+        int(profiling.recording()), kernels.stream_of(start),
     )
     kernels.check(err, "shadow_sweep")
     shadow_sweep_cuda.launches += 1
@@ -569,10 +624,14 @@ def stack_occlusion_queries(queries, width, height):
     )
 
 
-def _occlusion_k2(prepped, ops, kw, out=None):
+def _occlusion_k2(prepped, ops, kw, out=None, states=None, q_gate=None):
+    """K2's flags of stacked queries ``ops``, gated by ``states`` from row
+    ``q_gate`` on where given: the kernel, or for CPU tensors the plain K2."""
+    gate = dict(states=states, q_gate=q_gate)
     if ops[0].device.type == "cpu":
-        return shadow_sweep(prepped.vol, *ops, **kw)
-    return shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, out=out, **kw)
+        return shadow_sweep(prepped.vol, *ops, **kw, **gate)
+    return shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, out=out, **kw,
+                             **gate)
 
 
 def _occlusion_k5(prepped, queries, kw, width, height):
@@ -1043,18 +1102,21 @@ def _queries(cam, idx, t, light: Lighting, **kw):
     return (lighting_queries_stacked if cpu else lighting_queries_cuda)(cam, idx, t, light, **kw)
 
 
-def occlusion_flags(cam, ops, prepped: Prepped, *, grid_size):
+def occlusion_flags(cam, ops, prepped: Prepped, *, grid_size, states=None, q_gate=None):
     """The occluded flags int32 [nq, H, W] of stacked queries ``ops`` (K2's
     operands), with :func:`shadow_occlusion_batch`'s backends: K2 on the
     whole batch, or with ``CA3D_OCC_SWEEP`` other than ``1`` chunks of
     ``CA3D_OCC_NQ`` queries, each to K5 on the batch's [3, H, W] rows in
     place (or K2, for a chunk of one under ``CA3D_OCC_NQ1_SWEEP``), written
-    into one flags tensor."""
+    into one flags tensor.  ``states`` and ``q_gate``: K2's last-level gate
+    (:func:`gated_lanes`), which a multi-bounce frame gives once its states
+    exist; the chunked backends trace those lanes ungated (the flags the
+    shade reads are the same)."""
     n = grid_size
     kw = dict(grid_size=n, cell_half=_cell_half(cam, n))
     all_k2, nq_max, nq1_sweep = _occlusion_backend()
     if all_k2:
-        return _occlusion_k2(prepped, ops, kw)
+        return _occlusion_k2(prepped, ops, kw, states=states, q_gate=q_gate)
     nq, _, h, w = ops[0].shape
     cpu = ops[0].device.type == "cpu"
     out = None if cpu else torch.empty((nq, h, w), dtype=torch.int32, device=ops[0].device)
@@ -1185,10 +1247,11 @@ def gi_states(cam, idx, t, ops, prepped: Prepped, light: Lighting, *, grid_size,
     lookups: the neighbour cells and masks), then, below the last level, the
     level-mode queries launch (:func:`lighting_level_cuda`, on the CPU its
     twin) that writes level k + 1's rows from those states and gates level
-    k's masks by them.  The last level's masks stay ungated: K2 traces its
-    lanes of dead neighbours, whose flags nothing reads (a gate launch walks
-    the whole tree again and costs more than K2 saves, PERF.md).  One
-    bounce: K3 on the slots."""
+    k's masks by them.  The last level's masks stay ungated: K2 gates them
+    itself by these states (:func:`occlusion_flags`' ``states``), a byte a
+    lane inside its launch, where a gate launch would walk the whole tree
+    again and cost more than K2 saves (PERF.md).  One bounce: K3 on the
+    slots."""
     kw = dict(grid_size=grid_size, width=width, height=height)
     if light.bounces == 1:
         return slot_states(ops, light.n_soft, prepped, grid_size=grid_size)
@@ -1483,14 +1546,19 @@ def lighting_passes(cam, idx, t, prepped: Prepped, light: Lighting, *, grid_size
             with span("ca3d.lighting.queries"):
                 ops = _queries(cam, idx, t, light, **kw)
             # K2 reads every level's queries, which the deeper levels' states
-            # gate; one bounce runs K3 after K2 (its lookups measured 10 %
+            # gate: the level launches those above the last, K2 the last
+            # level's lanes itself, so it traces only the lanes the shade
+            # reads.  One bounce runs K3 after K2 (its lookups measured 10 %
             # faster there than right after the queries kernel, PERF.md).
             deep = light.n_slots > 0 and light.bounces > 1
+            gate = {}
             if deep:
                 with span("ca3d.lighting.states"):
                     states = gi_states(cam, idx, t, ops, prepped, light, **kw)
+                gate = dict(states=states,
+                            q_gate=light.n_soft + Lighting.level_span(light.bounces)[0])
             with span("ca3d.lighting.occlusion"):
-                flags = occlusion_flags(cam, ops, prepped, grid_size=grid_size)
+                flags = occlusion_flags(cam, ops, prepped, grid_size=grid_size, **gate)
             if light.n_slots and not deep:
                 with span("ca3d.lighting.states"):
                     states = gi_states(cam, idx, t, ops, prepped, light, **kw)

@@ -149,7 +149,7 @@ def main(argv=None) -> list[dict]:
         for name, fn in calls.items():
             with torch.profiler.record_function(name):
                 fn()
-    ranges = trace_summary.by_range(str(out_dir / "trace.json"))
+    ranges = trace_summary.by_range(str(out_dir / "trace.json"), names=set(calls))
     out = []
     for name, fn in calls.items():
         ms = common.timed(run, fn, calls=args.calls)

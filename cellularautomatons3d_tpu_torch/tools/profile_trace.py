@@ -195,7 +195,8 @@ def profile(run: common.Run, mode: str, grid: int, k: int, out_dir=None) -> dict
                launches=launches,
                launches_match=all(v["trace"] == v["counters"] for v in launches.values()))
     if mode == "moved":
-        ranges = trace_summary.by_range(str(path))
+        ranges = trace_summary.by_range(str(path), names=("moved render", "moved compose",
+                                                          "static render"))
         rec["ranges"] = {name: dict(r, device_ms_per_frame=r["device_ms"] / k,
                                     launches_per_frame=r["launches"] / k)
                          for name, r in ranges.items() if name is not None}

@@ -22,8 +22,8 @@ Prints one JSON line:
   start, and the stack of host events open there (runtime calls included),
   outermost first;
 * ``ranges`` (:func:`by_range`): the device time and kernels that each
-  ``record_function`` range launched, each device event going to the
-  innermost range open at its launch.
+  ``record_function`` range (or each of the ranges named) launched, each
+  device event going to the innermost such range open at its launch.
 
 :func:`kernels_between` counts the device events that run between two
 kernels of a frame (by start time), e.g. what a lighting frame runs between
@@ -212,13 +212,15 @@ def kernels_between(trace, first: str, last: str) -> Counter:
     return out
 
 
-def by_range(trace) -> dict:
+def by_range(trace, names=None) -> dict:
     """Device ms, launches and kernels by name that each
     ``record_function`` range launched: each device event goes to the
     innermost range open on its launching thread at its launch (``None``:
     launched outside every range; ``"unattributed"``: its launch is not in
-    the trace).  Each range also has its host wall ms (summed over its
-    occurrences) and occurrences."""
+    the trace).  With ``names``, only ranges of those names take device
+    events, so a caller's ranges keep what the program's own spans
+    (``ca3d.*``) inside them launch.  Each range also has its host wall ms
+    (summed over its occurrences) and occurrences."""
     events = _events(trace)
     host = _Host(events)
     out = {}
@@ -239,7 +241,8 @@ def by_range(trace) -> dict:
         if src is None:
             name = "unattributed"
         else:
-            ranges = host.open_at(host.ranges, src[0], src[1])
+            ranges = [r for r in host.open_at(host.ranges, src[0], src[1])
+                      if names is None or r["name"] in names]
             name = ranges[-1]["name"] if ranges else None
         r = row(name)
         a, b = _span(e)

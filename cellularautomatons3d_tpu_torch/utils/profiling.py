@@ -97,7 +97,8 @@ def count(name: str, n) -> None:
 def work_counts(device=None) -> dict[str, int]:
     """The work counters, cumulative, of the lanes counted while a profiler
     recorded: ``occlusion_lanes``, the lanes the occlusion kernel K2
-    (``csrc/shadow_sweep.cu``) traced, i.e. active at its launch, and
+    (``csrc/shadow_sweep.cu``) traced: active at its launch and, in a
+    multi-bounce frame, alive by its gate of the last GI level's states, and
     ``occlusion_lanes_read``, the lanes whose flag the shade kernel
     (``csrc/lighting_shade.cu``, every form) read: a hit's direct-shadow
     lanes and each GI slot it evaluated as live.  On a CUDA device (the

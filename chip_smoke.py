@@ -315,9 +315,11 @@ Builds the hand-written kernels from ``cellularautomatons3d_tpu_torch/csrc``
       4); the queries kernel's level mode and K3 level by level against the
       twins on two-bounce frames (soft shadows ×4) at 256³ and 512³: every
       level's masks, operands on the active lanes and states bit for bit,
-      the shade kernel's tree bit for bit with NaN in the same pixels; K2 on
-      the frame's masks and on them with the last level's gated by its
-      states too; three bounces at 256³ the same, the level launches and the
+      the shade kernel's tree bit for bit with NaN in the same pixels; K2
+      with the last level gated by its states (as lighting_passes launches
+      it) bit for bit against the gated twin and against its ungated flags
+      on the lanes the shade reads, also on the whole box (256³ gen-230,
+      24 queries at 1080p); three bounces at 256³ the same, the level launches and the
       tree timed;
       ``Engine(256 / 512, indirect_bounces=2)`` render() and
       ``run_fused(3)``, each frame against the same frame with the twins on
@@ -961,8 +963,9 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
     cube's flips counted.  The level mode on two-bounce frames (soft shadows
     ×4) at 256³ (K1's hits) and 512³ (K4's): every level's masks, operands on
     the active lanes and states, the shade kernel's tree on the same flags and
-    states; K2 on the frame's masks and on them with the last level's gated
-    by its states as well.  The
+    states; K2 with the last level gated by its states (as lighting_passes
+    launches it) against the gated twin and, on the lanes it traces, against
+    its ungated flags, also on 256³ gen-230 (24 queries).  The
     Engine at two bounces, 256³ and sliced 512³: render() and the fused loop,
     each frame against the same frame with the twins on the card.  Launch
     counters (set to 0 just before, read just after) of a sliced 512³ frame,
@@ -1102,7 +1105,14 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
         ops_p, states_p = level_twins(torch, rs, cam, idx, t, prepped, light, kw)
         differ = queries_differ(torch, ops, ops_p)
         st_differ = int((states != states_p).sum())
-        flags = rs.occlusion_flags(cam, ops, prepped, grid_size=size)
+        # K2 as lighting_passes launches it, its last level gated by the
+        # states, against the gated twin on the card; and ungated.
+        gate = dict(states=states, q_gate=light.n_soft + rs.Lighting.level_span(2)[0])
+        flags = rs.occlusion_flags(cam, ops, prepped, grid_size=size, **gate)
+        need(torch.equal(flags, rs.shadow_sweep(prepped.vol, *ops, grid_size=size,
+                                                cell_half=rs._cell_half(cam, size), **gate)),
+             f"(s) levels {size}: the gated K2 differs from the gated twin")
+        flags_u = rs.occlusion_flags(cam, ops, prepped, grid_size=size)
         got = rs.lighting_shade_cuda(cam, idx, t, flags, states, light, rgb=rgb, **kw)
         want = rs.lighting_shade(cam, idx, t, flags, states, light, rgb=rgb, **kw)
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -1110,15 +1120,13 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
                        same_values(torch, g, w).sum()) for g, w in zip(got, want))
         nan_differ = int((torch.isnan(got[0]) != torch.isnan(want[0])).sum())
         err = max(float((g - w).abs().nan_to_num().max()) for g, w in zip(got, want))
-        # The last level's masks gated by their states as well (the slots'
-        # ok), for K2's time against the frame path's ungated ones.
-        last = slice(light.n_soft + 4, None)
-        ops_g = (*ops[:3], ops[3].clone())
-        ops_g[3][last] &= states[4:] == 1
-        flags_g = rs.occlusion_flags(cam, ops_g, prepped, grid_size=size)
-        ok = ops_g[3]
-        need(torch.equal(flags[ok], flags_g[ok]),
-             f"(s) levels {size}: K2's flags on the slots' lanes differ with the last gate")
+        # The traced lanes (the slots' ok): the ungated flags there, 0 on
+        # the last level's lanes of dead neighbours.
+        last = slice(gate["q_gate"], None)
+        ok = rs.gated_lanes(ops[3], **gate)
+        need(torch.equal(flags[ok], flags_u[ok]) and not bool(flags[~ok].any()),
+             f"(s) levels {size}: K2's gated flags differ from the ungated ones on the slots' "
+             "lanes, or are set on an untraced lane")
         hits = int((idx >= 0).sum())
         lanes = {f"level_{k}": int(ok[light.n_soft + r0 : light.n_soft + r0 + n].sum())
                  for k in (1, 2) for r0, n in [rs.Lighting.level_span(k)]}
@@ -1152,7 +1160,7 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
 
         parents_ok = int(ok[light.n_soft : light.n_soft + 4].sum())
         rec_calls = {
-            "k2_gated": (lambda: rs.occlusion_flags(cam, ops_g, prepped, grid_size=size),
+            "k2_gated": (lambda: rs.occlusion_flags(cam, ops, prepped, grid_size=size, **gate),
                          lambda: rs.occlusion_flags(cam, ops, prepped, grid_size=size)),
             "shade_tree": (lambda: rs.lighting_shade_cuda(cam, idx, t, flags, states, light,
                                                           rgb=rgb, **kw),
@@ -1195,7 +1203,32 @@ def compose_levels_phase(torch, np, ct, rf, rs, rfast, scenes, inter, scene_cam,
         nbytes, nops = shade_work(light, HEIGHT, WIDTH, hits, slot_lanes, ok_slots, rgb is None,
                                   False, False, 0)
         out["bounds"][f"shade_tree_{size}"] = bound(nbytes, nops)
-        del ops, ops_p, ops_g, flags, flags_g, states, states_p
+        del ops, ops_p, flags, flags_u, states, states_p, gate
+
+    # The two-bounce batch of the whole box, 256³ gen-230 at 1080p (24
+    # queries; rows of 16 flags, the strip kernel's 16-byte loads and
+    # stores): K2 gated as lighting_passes launches it, flag for flag
+    # against the gated twin on the card.
+    vol = scenes[f"{GRID}^3 gen-230"][0]
+    prepped = rs.prep_volume(vol)
+    kw = dict(grid_size=GRID, width=WIDTH, height=HEIGHT)
+    _, t, idx = rf.raytrace_cuda(vol, prepped.coarse, cam, shadow=False, **kw)
+    ops = rs.lighting_queries_cuda(cam, idx, t, light, **kw)
+    states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw)
+    gate = dict(states=states, q_gate=light.n_soft + rs.Lighting.level_span(2)[0])
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=GRID, **gate)
+    want = rs.shadow_sweep(prepped.vol, *ops, grid_size=GRID,
+                           cell_half=rs._cell_half(cam, GRID), **gate)
+    rec = dict(queries=int(ops[0].shape[0]), flags_differ=int((flags != want).sum()),
+               active_lanes=int(ops[3].sum()),
+               traced_lanes=int(rs.gated_lanes(ops[3], **gate).sum()),
+               occluded=int(flags.sum()))
+    out["levels"][f"{GRID}^3 gen-230 K2 gated"] = rec
+    log(f"  (s) K2 gated, two bounces, {GRID}^3 gen-230 at {WIDTH}x{HEIGHT}: {rec}")
+    need(rec["queries"] == 24 and WIDTH % 16 == 0 and rec["flags_differ"] == 0
+         and 0 < rec["traced_lanes"] < rec["active_lanes"] and rec["occluded"] > 0,
+         f"(s) K2 gated at {GRID}^3 gen-230: the kernel differs from the twin: {rec}")
+    del ops, states, flags, want, gate
 
     # Three bounces at 256³ (K1's hits): every level's masks, operands and
     # states and the shade kernel's tree bit for bit against the twins; the

@@ -137,6 +137,40 @@ def test_k2_kernel_matches_plain(cuda):
     assert not want[-1][target == start].any()
 
 
+@pytest.mark.parametrize("window", ["ragged", "whole"])
+@pytest.mark.parametrize("tiles", [0, 1, 8])
+def test_k2_tiles_and_gate_match_plain(cuda, tiles, window):
+    """K2 in the tile kernel (a block a tile), the strip kernel (8 tiles a
+    block) or the launch's choice, on the frame's operands (whole: 16-byte
+    rows, the strip kernel's vector loads and stores) and on a ragged 100×37
+    window of them: the plain K2's flags.  Its last rows gated by random
+    states (the strip kernel; the tile kernel refuses a gate): the gated
+    plain K2's flags, 0 on every gated lane and the ungated flags elsewhere.
+    (``tests/test_torch_cuda_spans.py`` holds its counts.)"""
+    from cellularautomatons3d_tpu_torch.render import render_slab as rs
+
+    vol, coarse, ops, _, cell_half = _lighting_operands(cuda)
+    if window == "ragged":
+        ops = tuple(op[..., :37, :100].contiguous() for op in ops)
+    nq, _, h, w = ops[0].shape
+    g = torch.Generator(cuda).manual_seed(7)
+    states = (torch.rand((nq - 4, h, w), device=cuda, generator=g) * 3).to(torch.uint8)
+    kw = dict(grid_size=N, cell_half=cell_half)
+    ungated = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *ops, _tiles=tiles, **kw)
+    assert torch.equal(ungated, rs.shadow_sweep(vol, *ops, **kw))
+    gate = dict(states=states, q_gate=6)
+    if tiles == 1:
+        with pytest.raises(ValueError, match="gate"):
+            rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *ops, _tiles=1, **kw, **gate)
+        return
+    gated = rs.shadow_sweep_cuda(vol, coarse, box_of(coarse), *ops, _tiles=tiles, **kw, **gate)
+    assert torch.equal(gated, rs.shadow_sweep(vol, *ops, **kw, **gate))
+    dead = torch.zeros_like(ops[3])
+    dead[6:] = states[2:] != 1
+    assert int(ungated[dead].sum()) > 0 and int(gated[dead].sum()) == 0
+    assert torch.equal(ungated[~dead], gated[~dead])
+
+
 def test_k3_kernel_matches_plain(cuda):
     from cellularautomatons3d_tpu_torch.render import render_slab as rs
 

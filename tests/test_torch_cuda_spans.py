@@ -6,15 +6,23 @@ Marked ``cuda`` and skipped without a CUDA device; imports no JAX:
 
 * The occlusion kernel's and the shade kernel's counters, read around one
   lighting frame traced by ``torch.profiler``, equal the plain twins' counts
-  on the same frame and the counts taken from its masks and states, for the
+  on the same frame and the counts taken from its masks and states (a
+  deeper frame's K2 traces only the lanes the shade reads), for the
   forms the frames run: K1's one-bounce frame, composed and not, the
   temporal mode, two bounces, the sliced frame's.  Untraced, nothing counts.
+* K2's count, in either of its kernels, is the lanes it traces (after its
+  gate of the last GI level in the strip kernel).
 * Every launch of a traced tick with two-bounce lighting lies inside the
   span of its layer, and every launch of a traced fused call inside its
-  frame's ``ca3d.frame``, the only span the fused loop's frames open.
+  frame's ``ca3d.frame``, the only span the fused loop's frames open (each
+  loop traced in a process of its own).
 """
 
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +36,7 @@ from cellularautomatons3d_tpu_torch.utils import mat4, profiling
 pytestmark = pytest.mark.cuda
 
 W, H = 128, 64
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -97,9 +106,13 @@ def test_the_kernels_count_as_the_twins(cuda, name):
     # nothing), the plain K2 and the plain shade.
     ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
     states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw) if light.n_slots else None
+    deep = light.bounces > 1
+    gate = dict(states=states, q_gate=light.n_soft + rs.Lighting.level_span(light.bounces)[0]
+                ) if deep else {}
 
     def twins():
-        flags = rs.shadow_sweep(prepped.vol, *ops, grid_size=n, cell_half=rs._cell_half(cam, n))
+        flags = rs.shadow_sweep(prepped.vol, *ops, grid_size=n, cell_half=rs._cell_half(cam, n),
+                                **gate)
         rs.lighting_shade(cam, idx, t, flags, states, light, **skw)
 
     twin = _delta("cpu", twins)
@@ -107,8 +120,11 @@ def test_the_kernels_count_as_the_twins(cuda, name):
     read = int(active[:n_soft].sum())
     if states is not None:
         read += int((active[n_soft:] & (states == 1)).sum())
-    assert card == twin == {"occlusion_lanes": int(active.sum()), "occlusion_lanes_read": read}
+    traced = int(rs.gated_lanes(active, **gate).sum())
+    assert card == twin == {"occlusion_lanes": traced, "occlusion_lanes_read": read}
     assert 0 < card["occlusion_lanes_read"] <= card["occlusion_lanes"]
+    if deep:
+        assert card["occlusion_lanes_read"] == card["occlusion_lanes"]  # K2 traces what is read
     # Untraced, the same frame counts nothing.
     before = profiling.work_counts(cuda)
     rs.lighting_passes(cam, idx, t, prepped, light, **skw)
@@ -135,14 +151,27 @@ LOOPS = {
 }
 
 
-@pytest.mark.parametrize("loop", list(LOOPS))
-def test_every_launch_lies_in_its_layers_span(cuda, loop, tmp_path):
-    config, run, layers = LOOPS[loop]
-    eng = ct.Engine(grid_size=64, width=W, height=H, device=cuda, **config)
+def _trace_loop(loop, out_dir):
+    """Run the loop once, then trace its second run to ``out_dir/trace.json``."""
+    config, run, _ = LOOPS[loop]
+    eng = ct.Engine(grid_size=64, width=W, height=H, device=torch.device("cuda", 0), **config)
     eng.step(20)
     run(eng)
-    with profiling.profile_trace(str(tmp_path)):
+    with profiling.profile_trace(str(out_dir)):
         run(eng)
+
+
+@pytest.mark.parametrize("loop", list(LOOPS))
+def test_every_launch_lies_in_its_layers_span(cuda, loop, tmp_path):
+    # A fresh process makes the trace: the profiler sessions that earlier
+    # tests opened in this one can leave a later trace short of a kernel
+    # family's events.
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, __file__, loop, str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    _, _, layers = LOOPS[loop]
     with open(tmp_path / "trace.json") as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     launch = {e["args"]["correlation"]: e for e in events
@@ -169,3 +198,35 @@ def test_every_launch_lies_in_its_layers_span(cuda, loop, tmp_path):
         want |= {"lighting_queries_kernel", "lighting_level_kernel", "cell_state_kernel",
                  "shadow_sweep_kernel", "lighting_shade_kernel", "compose_kernel"}
     assert seen == want
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("tiles", [1, 8])
+def test_k2_counts_its_traced_lanes_in_either_form(cuda, tiles, ragged):
+    """K2 adds the lanes it traces to ``occlusion_lanes`` as the twin counts
+    them: the tile kernel (a block a tile) its active lanes, the strip
+    kernel (8 tiles a block) with the last query rows gated by states the
+    lanes left after the gate; on the whole frame (16-byte rows) and on a
+    ragged 100×37 window of it."""
+    light = rs.Lighting(soft_k=4, gi=True, bounces=2)
+    prepped, cam, rgb, t, idx, kw = _hits(cuda, 64, light)
+    ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
+    states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw)
+    h, w = (37, 100) if ragged else (H, W)
+    window = tuple(op[..., :h, :w].contiguous() for op in (*ops, states))
+    gate = {}
+    if tiles == 8:
+        gate = dict(states=window[4], q_gate=light.n_soft + rs.Lighting.level_span(2)[0])
+    k2 = dict(grid_size=64, cell_half=rs._cell_half(cam, 64), **gate)
+    card = _delta(cuda, lambda: rs.shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box,
+                                                     *window[:4], _tiles=tiles, **k2))
+    twin = _delta("cpu", lambda: rs.shadow_sweep(prepped.vol, *window[:4], **k2))
+    traced = int(rs.gated_lanes(window[3], **gate).sum())
+    assert card["occlusion_lanes"] == twin["occlusion_lanes"] == traced
+    assert 0 < traced <= int(window[3].sum())
+    if gate:
+        assert traced < int(window[3].sum())  # the gate took dead neighbours' lanes
+
+
+if __name__ == "__main__":
+    _trace_loop(*sys.argv[1:])

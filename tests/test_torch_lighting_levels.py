@@ -5,15 +5,19 @@ tree evaluation of ``lighting_shade``) against the port's recursion
 no frame path runs any more), bit for bit at 1, 2 and 3 bounces; the
 frames of ``lighting_passes`` (K1's and the sliced one) against the same
 frames composed from the recursion; the masks' gating by the neighbours'
-states; and the wrappers' refusals before the kernel library loads.
+states, and K2's gate of the last level by them (the flags the shade
+reads and the frames unchanged); and the wrappers' refusals before the
+kernel library loads.
 ``tests/test_torch_lighting_bounces.py`` holds the two-bounce
 ``trace_shaded`` to JAX's.
 
 The plain K2 sweeps every plane for every lane (~30 s for a two-bounce
 frame's 20 rows at 64×32 here), so most cases stand a cheap occlusion in
 for it (:func:`hashed_occlusion`: a fixed function of each lane's start
-and excluded cell, 0 on inactive lanes), which both sides take through
-``render_slab.shadow_sweep``; one case runs the plain K2 on a 32×16 window.
+and excluded cell, 0 on untraced lanes), which both sides take through
+``render_slab.shadow_sweep`` (the gate's cases through its sweep,
+``render_slab._occlusion``, so the twin's own gate runs); one case runs
+the plain K2 on a 32×16 window.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from cellularautomatons3d_tpu_torch import kernels
 from cellularautomatons3d_tpu_torch.ops.occupancy import occupancy_rebuild
 from cellularautomatons3d_tpu_torch.render import render_slab as rs
 from cellularautomatons3d_tpu_torch.render.render_fast import raytrace_tiles
+from cellularautomatons3d_tpu_torch.utils import profiling
 
 from _torch_lighting_scene import H, N, W, scene_cam
 
@@ -53,18 +58,31 @@ def frame():
     return scene()
 
 
-def hashed_occlusion(vol, start, target, excl, active, *, grid_size, cell_half):
+def hashed_occlusion(vol, start, target, excl, active, *, grid_size, cell_half, states=None,
+                     q_gate=None):
     """A stand-in for the plain K2 with its contract: flags int32 [nq, H, W],
-    1 on about a third of the active lanes, as a fixed function of the
-    lane's start and excluded cell; 0 on inactive lanes."""
+    1 on about a third of the traced lanes, as a fixed function of the
+    lane's start and excluded cell; 0 on untraced lanes (inactive, or gated
+    by ``states`` from row ``q_gate`` on)."""
     key = (start * torch.tensor([97.0, 57.0, 31.0])[:, None, None]).sum(1) * 1000.0
     hashed = (key.floor().to(torch.int64) + excl.sum(1)) % 3 == 0
-    return (hashed & active).to(torch.int32)
+    return (hashed & rs.gated_lanes(active, states, q_gate)).to(torch.int32)
 
 
 @pytest.fixture
 def cheap_k2(monkeypatch):
     monkeypatch.setattr(rs, "shadow_sweep", hashed_occlusion)
+
+
+@pytest.fixture
+def cheap_sweep(monkeypatch):
+    """The plain K2 with :func:`hashed_occlusion`'s flags in place of its
+    sweep (``render_slab._occlusion``): its gate and counts its own."""
+    def sweep(vol, start, target, active, exclude, grid_size, cell_half):
+        return hashed_occlusion(vol, start, target, torch.stack(exclude, 1), active,
+                                grid_size=grid_size, cell_half=cell_half)
+
+    monkeypatch.setattr(rs, "_occlusion", sweep)
 
 
 def same(a, b):
@@ -163,6 +181,69 @@ def test_level_masks_are_gated_by_the_states(frame, cheap_k2):
     assert same(a, b)
 
 
+def _hits(frame, sliced):
+    """(cam, prepped, K1's rgb or None, depth, idx): K1's hits, or the
+    sliced frame's (K4's, no rgb)."""
+    cam, prepped, rgb, depth, idx = frame
+    if not sliced:
+        return frame
+    depth, idx = rs.primary_hits(cam, prepped, None, **KW)
+    return cam, prepped, None, depth, idx
+
+
+def _read_lanes(cam, idx, depth, ops, states, light):
+    """The lanes whose flag the shade reads: each hit's direct-shadow rows,
+    and each GI slot its tree evaluates (parent ok, entry, live neighbour)."""
+    geo = rs._hit_geometry(cam, idx, depth, N, W, H)
+    tree = rs._slot_tree(cam, N, geo, states, light.bounces)
+    return torch.cat([ops[3][:light.n_soft], torch.stack([s[3] for lv in tree for s in lv])])
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("bounces", [2, 3])
+def test_k2_gates_the_last_level_by_the_states(frame, cheap_sweep, bounces, sliced):
+    """Gated by the states (as lighting_passes gives them), K2's flags equal
+    the ungated ones on every lane the shade reads and everywhere but the
+    last level's lanes whose state is not 1, which are 0; those lanes are
+    the only ones the gate takes, and the traced lanes are the lanes read."""
+    cam, prepped, _, depth, idx = _hits(frame, sliced)
+    light = rs.Lighting(soft_k=4, gi=True, bounces=bounces)
+    ops = rs.lighting_queries_stacked(cam, idx, depth, light, **KW)
+    states = rs.gi_states(cam, idx, depth, ops, prepped, light, **KW)
+    q_gate = light.n_soft + rs.Lighting.level_span(bounces)[0]
+    ungated = rs.occlusion_flags(cam, ops, prepped, grid_size=N)
+    before = profiling.work_counts("cpu")["occlusion_lanes"]
+    with profiling.profile_trace():
+        gated = rs.occlusion_flags(cam, ops, prepped, grid_size=N, states=states, q_gate=q_gate)
+    traced = profiling.work_counts("cpu")["occlusion_lanes"] - before
+    read = _read_lanes(cam, idx, depth, ops, states, light)
+    dead = torch.zeros_like(read)
+    dead[q_gate:] = states[q_gate - light.n_soft:] != 1
+    assert torch.equal(gated[read], ungated[read])
+    assert torch.equal(gated[~dead], ungated[~dead]) and int(gated[dead].sum()) == 0
+    assert int(ungated[dead].sum()) > 0  # the gate took lanes the ungated K2 flagged
+    assert traced == int(read.sum()) == int(rs.gated_lanes(ops[3], states, q_gate).sum())
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("bounces", [2, 3])
+def test_lighting_passes_frames_are_the_same_with_the_gate(frame, cheap_sweep, bounces,
+                                                           sliced):
+    """lighting_passes' frame, whose K2 gates the last level, equals the
+    frame shaded from the same queries' ungated flags, bit for bit."""
+    cam, prepped, rgb, depth, idx = _hits(frame, sliced)
+    light = rs.Lighting(soft_k=4, gi=True, bounces=bounces)
+    got = rs.lighting_passes(cam, idx, depth, prepped, light, rgb=rgb, **KW)
+    ops = rs.lighting_queries_stacked(cam, idx, depth, light, **KW)
+    states = rs.gi_states(cam, idx, depth, ops, prepped, light, **KW)
+    flags = rs.occlusion_flags(cam, ops, prepped, grid_size=N)
+    want = rs.lighting_shade(cam, idx, depth, flags, states, light, rgb=rgb, **KW)
+    if sliced:
+        assert same(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert same(got, want)
+
+
 def test_level_span_is_the_kernels_layout():
     assert [rs.Lighting.level_span(k) for k in (1, 2, 3, 4)] == [(0, 4), (4, 16), (20, 64),
                                                                    (84, 256)]
@@ -202,3 +283,57 @@ def test_level_wrappers_reject(no_library, frame):
                                history=(rgb, idx), **KW)
     with pytest.raises(ValueError, match="requires bounces == 1"):
         rs.lighting_queries_stacked(cam, idx, depth, light._replace(gi_slot=1), **KW)
+
+
+# (states, q_gate) of a 24-query frame (4 direct-shadow rows, 20 slots)
+# that K2 refuses, and the refusal.
+GATE_REFUSALS = {
+    "states_dtype": (lambda: torch.zeros((20, H, W), dtype=torch.int32), 8, "torch.uint8"),
+    "states_width": (lambda: torch.zeros((20, H, W + 1), dtype=torch.uint8), 8, "shape"),
+    "states_rows": (lambda: torch.zeros((25, H, W), dtype=torch.uint8), 8, "shape"),
+    "q_gate_below": (lambda: torch.zeros((20, H, W), dtype=torch.uint8), 3, "q_gate"),
+    "q_gate_above": (lambda: torch.zeros((20, H, W), dtype=torch.uint8), 25, "q_gate"),
+    "states_alone": (lambda: torch.zeros((20, H, W), dtype=torch.uint8), None, "together"),
+}
+
+
+@pytest.mark.parametrize("case", list(GATE_REFUSALS))
+def test_k2_refuses_a_gate_it_does_not_take(no_library, frame, case):
+    """K2's wrapper refuses states of the wrong dtype or shape and a q_gate
+    outside [n_soft, nq] before the library loads, and the twin refuses
+    them too."""
+    cam, prepped, rgb, depth, idx = frame
+    light = rs.Lighting(soft_k=4, gi=True, bounces=2)
+    ops = rs.lighting_queries_stacked(cam, idx, depth, light, **KW)
+    make, q_gate, match = GATE_REFUSALS[case]
+    kw = dict(grid_size=N, cell_half=0.01, states=make(), q_gate=q_gate)
+    with pytest.raises(ValueError, match=match):
+        rs.shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, **kw)
+    with pytest.raises(ValueError, match=match):
+        rs.shadow_sweep(prepped.vol, *ops, **kw)
+
+
+# K2's wrapper arguments that ask a kernel for what it does not do: the tile
+# kernel (``_tiles=1``, ``column_skip=False``) takes no gate, the strip
+# kernel (a gate, ``_tiles=8``) always skips columns; and the refusal.
+FORM_REFUSALS = {
+    "gate_in_the_tile_kernel": (dict(gate=True, _tiles=1), "gate"),
+    "gate_without_column_skip": (dict(gate=True, column_skip=False), "gate"),
+    "strip_without_column_skip": (dict(_tiles=8, column_skip=False), "skips columns"),
+    "tiles_9": (dict(_tiles=9), "_tiles must be"),
+}
+
+
+@pytest.mark.parametrize("case", list(FORM_REFUSALS))
+def test_k2_refuses_a_form_it_does_not_have(no_library, frame, case):
+    """K2's wrapper refuses a gate or a column option its kernel lacks, and a
+    ``_tiles`` other than 0, 1 and 8, before the library loads."""
+    cam, prepped, rgb, depth, idx = frame
+    light = rs.Lighting(soft_k=4, gi=True, bounces=2)
+    ops = rs.lighting_queries_stacked(cam, idx, depth, light, **KW)
+    kw, match = dict(FORM_REFUSALS[case][0]), FORM_REFUSALS[case][1]
+    if kw.pop("gate", False):
+        kw.update(states=torch.zeros((20, H, W), dtype=torch.uint8), q_gate=8)
+    with pytest.raises(ValueError, match=match):
+        rs.shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops, grid_size=N,
+                             cell_half=0.01, **kw)

@@ -8,8 +8,9 @@
   patched to raise) and :func:`profiling.span` is one shared no-op context.
 * The plain twins' counters (``work_counts("cpu")``) on small lighting frames
   equal the counts taken directly from the queries' masks and the GI states:
-  K2's lanes are the active lanes, the shade's the hits' direct-shadow lanes
-  and the live GI slots; lanes read ≤ lanes traced.
+  K2's lanes are the active lanes (a deeper frame's last level gated by
+  its states), the shade's the hits' direct-shadow lanes and the live GI
+  slots; lanes read ≤ lanes traced, and equal in a deeper frame.
 
 tests/test_torch_cuda_spans.py holds the kernels' counters to these twins and
 the launches to their spans on the card.
@@ -145,18 +146,26 @@ def test_the_twins_count_the_lanes_of_their_masks_and_states(name):
     after = profiling.work_counts("cpu")
     got = {k: after[k] - before[k] for k in after}
 
-    # The same frame's masks and states, outside a profiler: the active
-    # lanes at K2 (after the states gate a deeper frame's level 1), and the
-    # lanes the shade reads, each hit's direct-shadow lanes and the live slots.
+    # The same frame's masks and states, outside a profiler: the lanes K2
+    # traces (the active lanes, after the states gate a deeper frame's level
+    # 1 and, inside K2, its last level), and the lanes the shade reads, each
+    # hit's direct-shadow lanes and the live slots.
     ops = rs.lighting_queries_stacked(cam, idx, t, light, **kw)
     states = rs.gi_states(cam, idx, t, ops, prepped, light, **kw)
     active, n_soft = ops[3], light.n_soft
     hits = int((idx >= 0).sum())
     assert hits > 0 and int(active[:n_soft].sum()) == n_soft * hits
-    want = {"occlusion_lanes": int(active.sum()),
+    deep = light.bounces > 1
+    traced = active
+    if deep:
+        traced = rs.gated_lanes(active, states, n_soft + rs.Lighting.level_span(light.bounces)[0])
+        assert int(traced.sum()) < int(active.sum())  # the gate took dead neighbours' lanes
+    want = {"occlusion_lanes": int(traced.sum()),
             "occlusion_lanes_read": int(active[:n_soft].sum())
             + int((active[n_soft:] & (states == 1)).sum())}
     assert got == want
     assert 0 < got["occlusion_lanes_read"] <= got["occlusion_lanes"]
-    if light.n_slots > 1:
+    if deep:
+        assert got["occlusion_lanes_read"] == got["occlusion_lanes"]  # K2 traces what is read
+    elif light.n_slots > 1:
         assert got["occlusion_lanes_read"] < got["occlusion_lanes"]  # dead neighbours' lanes

@@ -120,6 +120,12 @@ def test_trace_summary_hand_written(tmp_path):
     assert ranges["part"]["kernels"] == {"k2": [pytest.approx(0.03), 1],
                                          "k3": [pytest.approx(0.015), 1]}
     assert ranges["part"]["wall_ms"] == pytest.approx(0.04)
+    # Named ranges alone: "part"'s kernels go to "frame", open around it.
+    ranges = trace_summary.by_range(str(path), names={"frame"})
+    assert ranges["frame"]["kernels"] == {"k1": [pytest.approx(0.01), 1],
+                                          "k2": [pytest.approx(0.03), 1],
+                                          "k3": [pytest.approx(0.015), 1]}
+    assert ranges["part"]["kernels"] == {}
     assert trace_summary.main([str(path), "--frames", "3"])["busy_ms"] == pytest.approx(0.055)
 
 

@@ -35,8 +35,10 @@ directory is the tree (so each imports, and builds at first use, its own
   held to the twins bit for bit first) and a one-element ``fill_`` (the
   launch floor).
 
-Each JSON line is written to FILE (default ``chiprun_out/ab_frames.jsonl``)
-with its tree's label and pass; then one summary line a tree and metric:
+A traced run's line also gives K2's device ms a frame (``k2_ms_per_frame``,
+from its trace's ``shadow_sweep_kernel`` launches).  Each JSON line is
+written to FILE (default ``chiprun_out/ab_frames.jsonl``) with its tree's
+label and pass; then one summary line a tree and metric:
 the reads of every pass, their median and min-max.  The card's name and power
 limit (``nvidia-smi --query-gpu=name,power.limit``) stand on the first line.
 """
@@ -67,7 +69,8 @@ RUNS = {
     "mip": [str(Path(__file__).resolve()), "--mip-child"],
 }
 ENV = {"mip1": {"CA3D_MIP1": "1"}}   # run: the variables it sets
-FRAME = ("frame_ms", "busy_ms_per_frame", "launches_per_frame", "events_busy_share")
+FRAME = ("frame_ms", "busy_ms_per_frame", "launches_per_frame", "events_busy_share",
+         "k2_ms_per_frame")
 MIP_GRIDS = {256: 80, 512: 160, 1024: 200}   # grid: generations of the scene
 MIP_CALLS = ("mip", "box", "mip_then_box", "mip_box", "plane", "mip_then_plane", "mip_plane",
              "mip_plane_box", "fill")
@@ -152,7 +155,11 @@ def run_one(tree: Path, argv, frames: int, env=None) -> dict:
         raise RuntimeError(f"{' '.join(args)} in {tree} failed ({proc.returncode}):\n"
                            f"{proc.stderr[-3000:]}")
     lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
-    return json.loads(lines[-1])
+    rec = json.loads(lines[-1])
+    if "kernels" in rec:
+        rec["k2_ms_per_frame"] = sum(k["device_ms_per_frame"] for k in rec["kernels"]
+                                     if "shadow_sweep_kernel" in k["name"])
+    return rec
 
 
 def main(argv=None) -> list[dict]:

@@ -17,18 +17,31 @@ back-to-back calls) of:
   frame against a history that holds every hit's id) at full quality (soft
   shadows ×4, GI), ``gi_temporal`` (sample 1) and the hard shadow;
 * at two bounces, the queries kernel, the shade kernel's tree and the level
-  launch of level 2 (``lighting_level_cuda``).
+  launch of level 2 (``lighting_level_cuda``), and the same at three;
+* K2 (``render_slab.shadow_sweep_cuda``) on every form's queries (at two
+  bounces the orbit's batch: 24 queries, 256³ gen-230 from the centre
+  start), ``k2``; on the multi-bounce forms also with the last level gated
+  by the states, as ``lighting_passes`` launches it (``k2gate``, the strip
+  kernel), where the tree's K2 takes states; where it takes ``_tiles``,
+  the ungated launch in the tile kernel too (``k2tile1``: the grid before
+  the floor cut); and once a scene the floor of 8 and 24 queries with
+  every lane inactive (``k2floor``, ``k2floortile1``; forms ``q8`` and
+  ``q24``).  A tree that gates has its gated flags checked first against
+  its ungated ones: equal but on the last level's lanes of dead
+  neighbours, 0 there.
 
 Each JSON line (the tree's label and pass, then ``<kernel>_<grid>_<gens>_
 <form>`` ms) goes to FILE (default ``build/ab_lighting.jsonl``); then
-one summary line a key: each tree's mean of its two passes and its ratio to
-the first tree's.  The card's name and power limit (``nvidia-smi``) stand
-on the first line.
+one summary line a key: each tree's mean of its two passes (of the trees
+that have the key) and its ratio to the first tree's.  The card's name and
+power limit (``nvidia-smi``) stand on the first line.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import inspect
 import json
 import os
 import subprocess
@@ -54,7 +67,10 @@ def child() -> None:
     forms = {"full": rs.Lighting(soft_k=4, gi=True),
              "temporal": rs.Lighting(soft_k=4, jitter_k=1, gi=True, gi_slot=1),
              "hard": rs.Lighting(soft_k=1),
-             "b2": rs.Lighting(soft_k=4, gi=True, bounces=2)}
+             "b2": rs.Lighting(soft_k=4, gi=True, bounces=2),
+             "b3": rs.Lighting(soft_k=4, gi=True, bounces=3)}
+    params = inspect.signature(rs.shadow_sweep_cuda).parameters
+    gates, tiled = "states" in params, "_tiles" in params
     rec = {"device": torch.cuda.get_device_name(dev)}
     for grid, gens in SCENES:
         vol = common.scene(grid, gens, dev)
@@ -80,12 +96,55 @@ def child() -> None:
             if light.bounces > 1:
                 calls["level"] = lambda: rs.lighting_level_cuda(cam, idx, t, ops, states, light,
                                                                 2, **kw)
+            k2 = {"k2": {}}
+            if gates and light.bounces > 1:
+                gate = dict(states=states,
+                            q_gate=light.n_soft + rs.Lighting.level_span(light.bounces)[0])
+                check_gate(rs, cam, ops, prepped, grid, gate, flags)
+                k2["k2gate"] = gate
+            if tiled:
+                k2["k2tile1"] = {"_tiles": 1}
+            for key, extra in k2.items():
+                calls[key] = functools.partial(k2_call, rs, cam, ops, prepped, grid, extra)
             for kernel, fn in calls.items():
                 rec[f"{kernel}_{grid}_{gens}_{name}"] = min(
                     cuda_time_fn(fn, reps=30, warmup=3, queued=True) for _ in range(3))
             del ops, states, flags
+        for nq in (8, 24):
+            idle = (torch.zeros((nq, 3, h, w), device=dev),) * 2 + (
+                torch.zeros((nq, 3, h, w), dtype=torch.int32, device=dev),
+                torch.zeros((nq, h, w), dtype=torch.bool, device=dev))
+            for key, extra in {"k2floor": {}, "k2floortile1": {"_tiles": 1}}.items():
+                if extra and not tiled:
+                    continue
+                fn = functools.partial(k2_call, rs, cam, idle, prepped, grid, extra)
+                rec[f"{key}_{grid}_{gens}_q{nq}"] = min(
+                    cuda_time_fn(fn, reps=30, warmup=3, queued=True) for _ in range(3))
+            del idle
         del vol, prepped
     print(json.dumps(rec), flush=True)
+
+
+def k2_call(rs, cam, ops, prepped, grid, extra):
+    """One K2 launch on stacked queries ``ops``, with the wrapper's
+    ``extra`` arguments (the gate, ``_tiles``)."""
+    return rs.shadow_sweep_cuda(prepped.vol, prepped.coarse, prepped.box, *ops,
+                                grid_size=grid, cell_half=rs._cell_half(cam, grid), **extra)
+
+
+def check_gate(rs, cam, ops, prepped, grid, gate, ungated) -> None:
+    """The gated flags (the launch's choice and the strip kernel asked
+    for) equal the ungated ones but on the gated rows' lanes whose state is
+    not 1, where they are 0."""
+    import torch
+
+    q_gate, states = gate["q_gate"], gate["states"]
+    dead = torch.zeros_like(ops[3])
+    dead[q_gate:] = states[q_gate - (len(ops[3]) - len(states)):] != 1
+    for tiles in (0, 8):
+        got = k2_call(rs, cam, ops, prepped, grid, dict(gate, _tiles=tiles))
+        if not (bool((got[dead] == 0).all()) and torch.equal(got[~dead], ungated[~dead])):
+            raise AssertionError(f"gated K2 (tiles={tiles}) != the ungated flags at {grid}^3")
 
 
 def card() -> str:
@@ -119,11 +178,17 @@ def main(argv=None) -> None:
         recs.append(rec)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text("".join(json.dumps(r) + "\n" for r in recs))
-    keys = [k for k in recs[0] if k.endswith(("_full", "_temporal", "_hard", "_b2"))]
+    ends = ("_full", "_temporal", "_hard", "_b2", "_b3", "_q8", "_q24")
+    keys = dict.fromkeys(k for r in recs for k in r if k.endswith(ends))
     for key in keys:
-        means = [sum(r[key] for r in recs if r["ab_tree"] == str(t)) / 2 for t in args.trees]
-        print(json.dumps({"key": key, **{str(t): m for t, m in zip(args.trees, means)},
-                          "ratios": [m / means[0] for m in means[1:]]}), flush=True)
+        means = {}
+        for t in args.trees:
+            reads = [r[key] for r in recs if r["ab_tree"] == str(t) and key in r]
+            if reads:
+                means[str(t)] = sum(reads) / len(reads)
+        first = means.get(str(args.trees[0]))
+        ratios = {t: m / first for t, m in means.items()} if first else {}
+        print(json.dumps({"key": key, **means, "ratios": ratios}), flush=True)
 
 
 if __name__ == "__main__":
