@@ -400,14 +400,58 @@ def traced_stretch(loop, units: int, cell: Cell, engine: dict, cuda: bool):
 # --------------------------------------------------------- the check ---
 
 
-def _lighting(e: dict):
+class NotInReference(NotImplementedError):
+    """A configuration whose frames take a path the reference does not
+    replay: raised by :func:`frame_path` when the run starts, before the
+    Engine is built."""
+
+
+K1_MAX_GRID = 256   # render_fast.MAX_GRID: above it every frame takes the sliced path
+
+
+def frame_path(e: dict, loop: str) -> str:
+    """The frame path a configuration's timed loop runs, as
+    ``renderer_fast.make_fused_loop`` (``fused``) and ``render_frame_fast``
+    (``tick``) choose it from the settings: ``k1`` (the fused loop's K1
+    compose branch), ``k1_lit`` (K1, then the lighting passes where the
+    configuration has them, then the composition) or ``sliced`` (K4 and the
+    lighting passes, then the composition).  Raises :class:`NotInReference`
+    for what the reference leaves out: the temporal lighting mode, the fused
+    loop's extended frame (soft shadows or one-bounce GI at ≤ 256³, composed
+    in the shade kernel), an animated light, and the rules
+    :func:`reference.ca.rule_of` does not hold."""
+    if e["gi_temporal"]:
+        raise NotInReference("the temporal lighting mode (gi_temporal) is not in the reference")
+    if e["light"].get("animate"):
+        raise NotInReference("an animated light is not in the reference")
+    try:
+        ca.rule_of(e)
+    except NotImplementedError as err:
+        raise NotInReference(str(err)) from err
+    if int(e["grid_size"]) > K1_MAX_GRID:
+        return "sliced"
+    soft, gi = int(e["soft_shadow_samples"]) > 1, bool(e["indirect_lighting"])
+    if loop == "tick":
+        return "k1_lit"
+    if not soft and not gi:
+        return "k1"
+    if gi and int(e["indirect_bounces"]) > 1:
+        return "k1_lit"
+    raise NotInReference("the fused loop's extended frame (renderer_fast._ext_frame: soft "
+                         "shadows or one-bounce GI at 256^3 and below) is not in the reference")
+
+
+def _lighting(e: dict, sliced: bool = False):
     """The lighting passes a configuration's frames run, or None for K1's
-    hard-shadowed frame alone."""
+    hard-shadowed frame alone.  The sliced frame always runs them, with the
+    hard shadow as its one direct-shadow query where there are no soft
+    shadows."""
     soft = int(e["soft_shadow_samples"])
+    if sliced:
+        return frozen.Lighting(soft_k=soft, gi=bool(e["indirect_lighting"]),
+                               bounces=max(1, int(e["indirect_bounces"])))
     if soft <= 1 and not e["indirect_lighting"]:
         return None
-    if e["gi_temporal"]:
-        raise ValueError("the temporal lighting mode is not in the reference")
     return frozen.Lighting(soft_k=soft if soft > 1 else None, gi=bool(e["indirect_lighting"]),
                            bounces=max(1, int(e["indirect_bounces"])))
 
@@ -424,12 +468,19 @@ class Reference:
     def __init__(self, engine: dict, mix: dict, seed: int, device):
         self.e, self.mix, self.dev = engine, mix, device
         self.rule = ca.rule_of(engine)
+        self.path = frame_path(engine, mix["loop"])
         period = int(mix.get("reset_every") or mix.get("restore_every"))
         start = ca.seed_block(engine["grid_size"], seed) if engine["random_initial_state"] \
             else ca.seed_centre(engine["grid_size"])
         self.states = ca.scenes(start, self.rule, int(mix["start_generation"]), period, device)
-        self.light = _lighting(engine)
+        self.light = _lighting(engine, self.path == "sliced")
         self._traced = {}
+        self._shaded = {}
+
+    def _scene(self, gen: int):
+        """(visibility plane, age planes or None) of generation ``gen``."""
+        state = self.states[gen]
+        return ca.visible(state), (state if self.rule["states"] > 2 else None)
 
     def _trace(self, gen: int, cam):
         # K1's traced frame does not read the clock: frames of one pose share it.
@@ -438,21 +489,59 @@ class Reference:
         key = (gen, untimed.tobytes(), frozen.FLOAT)
         if key not in self._traced:
             e = self.e
+            vol, ages = self._scene(gen)
             self._traced[key] = frozen.k1_trace(
-                self.states[gen], cam, grid_size=e["grid_size"], width=e["width"],
-                height=e["height"], shadow=int(e["soft_shadow_samples"]) <= 1)
+                vol, cam, grid_size=e["grid_size"], width=e["width"],
+                height=e["height"], shadow=int(e["soft_shadow_samples"]) <= 1, ages=ages,
+                total_states=self.rule["states"])
         return self._traced[key]
+
+    def _frame(self, gen: int, cam):
+        """trace_shaded's (light, depth, ids) of generation ``gen``: K1 with
+        the emissive light or the lighting passes, or the sliced frame."""
+        keyed = cam.copy()
+        if self.light is None or (self.light.soft_k or 0) <= 1:
+            keyed[frozen.P_TIME] = 0.0     # only soft-shadow samples read the clock
+        key = (gen, keyed.tobytes(), frozen.FLOAT)
+        if key in self._shaded:
+            return self._shaded[key]
+        e = self.e
+        kw = dict(grid_size=e["grid_size"], width=e["width"], height=e["height"])
+        vol, ages = self._scene(gen)
+        if self.path == "sliced":
+            out = frozen.sliced_trace(vol, cam, self.light, ages, total_states=self.rule["states"],
+                                      **kw)
+        else:
+            tr = self._trace(gen, cam)
+            if self.light is None:
+                rgb = frozen.with_emissive(cam, tr)
+            else:
+                rgb = frozen.lighting_passes(cam, tr.idx, tr.depth, vol, self.light, tr.rgb, **kw)
+            out = (rgb, tr.depth, tr.idx)
+        self._shaded[key] = out
+        return out
 
     def fused(self, s: Sample):
         """(state before, state after, frame, history colour, ids) of a
-        fused call."""
+        fused call: K1's compose branch, or ``render_frame_fast`` a frame
+        (the sliced path, multi-bounce GI) with the history in float16
+        between frames.  The camera and the clock are fixed within a
+        call."""
         e, mix = self.e, self.mix
         f, r = int(mix["frames_per_call"]), int(mix["reset_every"])
         p = render_params(e, s.view, s.view, s.t_ms)
         cam = frozen.cam_vec(p, e["width"], e["height"])
         hist = s.history_before or _zero_history(e, self.dev)
-        prev, prev_idx = hist[0].to(frozen.FLOAT), hist[1]
         pres = None
+        if self.path != "k1":
+            color, ids = hist
+            for i in range(f):
+                rgb, depth, idx = self._frame(i % r + 1, cam)
+                pres, color = frozen.compose_frame(color, ids, rgb, depth, idx, p, e["width"],
+                                                   e["height"], True)
+                ids = idx
+            return self.states[0], self.states[f % r], pres, color, ids
+        prev, prev_idx = hist[0].to(frozen.FLOAT), hist[1]
         for i in range(f):
             tr = self._trace(i % r + 1, cam)
             pres, prev = frozen.k1_compose(cam, tr, prev, prev_idx)
@@ -461,27 +550,23 @@ class Reference:
 
     def tick(self, s: Sample):
         """(state before, state after, frame, history colour, ids) of a
-        tick: K1, the lighting passes where the configuration has them, the
-        composition over the history before it."""
+        tick: K1 and the lighting passes where the configuration has them,
+        or the sliced frame, then the composition over the history before
+        it."""
         e, mix = self.e, self.mix
         gen, stepped = tick_generation(s.index, float(mix["dt_ms"]),
                                        float(e["compute_step_duration_ms"]),
                                        int(mix["restore_every"]))
         p = render_params(e, s.view, s.prev_view, s.t_ms)
         cam = frozen.cam_vec(p, e["width"], e["height"])
-        tr = self._trace(gen, cam)
-        if self.light is None:
-            rgb = frozen.with_emissive(cam, tr)
-        else:
-            rgb = frozen.lighting_passes(cam, tr.idx, tr.depth, self.states[gen], self.light,
-                                         tr.rgb, grid_size=e["grid_size"], width=e["width"],
-                                         height=e["height"])
+        rgb, depth, idx = self._frame(gen, cam)
         hist = s.history_before or _zero_history(e, self.dev)
         static = s.prev_view is not None and np.array_equal(s.view, s.prev_view)
-        pres, color = frozen.compose_frame(hist[0], hist[1], rgb, tr.depth, tr.idx, p,
+        pres, color = frozen.compose_frame(hist[0], hist[1], rgb, depth, idx, p,
                                            e["width"], e["height"], static)
         self._traced.clear()
-        return self.states[gen], self.states[gen + stepped], pres, color, tr.idx
+        self._shaded.clear()
+        return self.states[gen], self.states[gen + stepped], pres, color, idx
 
 
 def tick_generation(j: int, dt: float, step_ms: float, restore: int) -> tuple[int, int]:
@@ -589,6 +674,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t0: float, *,
 
     stages = [("imports", time.perf_counter() - t0)]
     e = engine_settings(cell.config, cell.mix, seed, small)
+    frame_path(e, cell.mix["loop"])   # raises for a path the check cannot replay
     dev = torch.device(device)
     eng = Engine(EngineConfig(**e), device=dev)
     sync()

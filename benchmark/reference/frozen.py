@@ -4,22 +4,37 @@ twins, in one file that imports nothing of the port.
 What is copied, and from where (``cellularautomatons3d_tpu_torch/``):
 
 * K1's plain traversal and shading, ``render/render_fast.py`` ``raytrace``
-  (``_pixel_rays``, ``_sweep``, ``_shade``): here :func:`k1_trace` (the
-  hard-shadowed or unshadowed light, depth and hit ids) and
-  :func:`k1_compose` (the fused loop's in-kernel composition), split so that
-  a replay of many frames of one scene traces each scene once;
+  (``_pixel_rays``, ``_sweep``, ``_primary``, ``_shade``, and for a
+  multi-state rule ``_hit_ages`` and ``_age_fade``, the hit's age fading the
+  direct term): here :func:`k1_trace` (the hard-shadowed or unshadowed
+  light, depth and hit ids) and :func:`k1_compose` (the fused loop's
+  in-kernel composition), split so that a replay of many frames of one scene
+  traces each scene once;
+* the sliced frame, ``render/render_slab.py`` ``raytrace_sliced`` with the
+  plain K4 ``primary_sweep`` (K1's primary sweep with the hit's age):
+  :func:`sliced_trace`, whose lighting passes take the hard shadow as their
+  one query (or the soft-shadow samples, and GI, where configured), compute
+  the direct light (``_lighting_tail`` without K1's
+  frame: the age fade, black on misses, the volume's exit as a miss's depth,
+  ``_miss_depth``) and add the emissive light on hits;
 * the lighting passes' plain twins, ``render/render_slab.py``
   (``lighting_queries_stacked``, ``gi_states`` with ``lighting_level_stacked``
   and ``cell_state``, the plain K2 ``shadow_sweep``, ``lighting_shade`` with
-  ``_gi_light``): :func:`lighting_passes`, and ``render/brdf.py``'s
-  ``calculate_lighting_at``;
+  ``_gi_light`` and ``_lighting_tail``): :func:`lighting_passes`, and
+  ``render/brdf.py``'s ``calculate_lighting_at``;
 * the composition's twin, ``render/renderer_fast.py`` ``compose_frame``
-  with ``reproject_history``, and ``utils/mat4.py``'s projection.
+  with ``reproject_history``, and ``utils/mat4.py``'s projection: with a
+  traced frame, ``render_frame_fast``'s frame, which the fused loop runs
+  every frame on the sliced path and with multi-bounce GI, the history
+  float16 between frames.
 
-Only the paths the benchmark's cells run are kept: binary rules (no ages),
-no prepass mask, no descents, every soft-shadow sample and GI slot per frame
-(no temporal sample index).  Every float expression keeps the twins'
-operation order, so on the same inputs this file gives the twins' frames.
+Only the paths the benchmark's cells can run are kept: no prepass mask, no
+descents, every soft-shadow sample and GI slot per frame.  Left out: the
+fused loop's extended frame (``renderer_fast._ext_frame``: soft shadows or
+one-bounce GI at ≤ 256³, composed in the shade kernel against an f32
+history) and the temporally amortized lighting (``gi_temporal``, its sample
+index).  Every float expression keeps the twins' operation order, so on the
+same inputs this file gives the twins' frames.
 
 The compute dtype is :data:`FLOAT` (float32).  :func:`precision` switches it
 for the control, which runs the same code one precision below (bfloat16).
@@ -249,8 +264,10 @@ def _sweep(vol_flat, n, half, o, d, t_start, t_end, active, exclude=None):
         tm = 0.5 * (lo + hi)
         cxf = torch.clamp(torch.floor((ox + tm * dx + 0.5) * n), 0, n - 1)
         cyf = torch.clamp(torch.floor((oy + tm * dy + 0.5) * n), 0, n - 1)
-        cx = torch.where(seg_ok, cxf, 0.0).to(torch.int32)
-        cy = torch.where(seg_ok, cyf, 0.0).to(torch.int32)
+        # The integer clamps change nothing in float32; below it (the
+        # control) the float clamp's bound n − 1 may round up to n.
+        cx = torch.where(seg_ok, cxf, 0.0).to(torch.int32).clamp(0, n - 1)
+        cy = torch.where(seg_ok, cyf, 0.0).to(torch.int32).clamp(0, n - 1)
         word = vol_flat[((cx >> 5) * (n * n) + kk * n + cy).long()]
         cand = seg_ok & (((word >> (cx & 31)) & 1) == 1)
         if exclude is not None:
@@ -331,8 +348,44 @@ class Traced(NamedTuple):
     rays: tuple
 
 
-def k1_trace(vol, cam, *, grid_size, width, height, shadow=True) -> Traced:
-    """render_fast.raytrace without a history: the traced frame."""
+def _hit_ages(ages, n, found, hx, hy, hz):
+    """render_fast._hit_ages: the age int32 [H, W] of each pixel's hit cell
+    from the age bit-planes [B, n/32, n, n]; 1 where nothing was hit."""
+    planes = ages.reshape(ages.shape[0], -1)
+    word = ((hx >> 5) * (n * n) + hz * n + hy).long()
+    age = torch.zeros_like(hx)
+    for b in range(planes.shape[0]):
+        age = age | (((planes[b][word] >> (hx & 31)) & 1) << b)
+    return torch.where(found, age, 1).to(torch.int32)
+
+
+def age_fade(age, total_states):
+    """render_fast._age_fade: ``clip((S − age)/(S − 1), 0, 1)``."""
+    num = (total_states - age).to(FLOAT)
+    return torch.clamp(num / torch.full_like(num, float(total_states - 1)), 0.0, 1.0)
+
+
+def _primary(vol_flat, cam, n, half, width, height, device):
+    """render_fast._primary without a mask or a mip: (ux, o, d, active, tf,
+    (found, t, hx, hy, hz)) of every pixel's camera ray."""
+    f = lambda i: float(cam[i])  # noqa: E731
+    ux, dx, dy, dz = _pixel_rays(cam, width, height, device)
+    ox, oy, oz = (torch.full_like(dx, f(P_O + i)) for i in range(3))
+    slabs = [_vol_slab(oi, di) for oi, di in zip((ox, oy, oz), (dx, dy, dz))]
+    tn = torch.maximum(torch.maximum(slabs[0][0], slabs[1][0]), slabs[2][0])
+    tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
+    active = (tn <= tf) & (tf >= 0.0)
+    t_start = torch.clamp(tn, min=0.0)
+    hits = _sweep(vol_flat, n, half, (ox, oy, oz), (dx, dy, dz), t_start, tf, active)
+    return ux, (ox, oy, oz), (dx, dy, dz), active, tf, hits
+
+
+def k1_trace(vol, cam, *, grid_size, width, height, shadow=True, ages=None,
+             total_states=2) -> Traced:
+    """render_fast.raytrace without a history: the traced frame.  ``ages``:
+    the age bit-planes of a multi-state rule with ``total_states``, of which
+    ``vol`` is the visibility plane; the hit's age then fades the direct
+    term."""
     cam = np.ascontiguousarray(cam, dtype=np.float32)
     n = grid_size
     dev = vol.device
@@ -340,15 +393,8 @@ def k1_trace(vol, cam, *, grid_size, width, height, shadow=True) -> Traced:
     vol_flat = vol.reshape(-1)
     inv_n = float(np.float32(1.0 / n))
     half = float(np.float32(inv_n) * cam[P_CELLMUL] * np.float32(0.5))
-    ux, dx, dy, dz = _pixel_rays(cam, width, height, dev)
-    ox, oy, oz = (torch.full_like(dx, f(P_O + i)) for i in range(3))
-    slabs = [_vol_slab(oi, di) for oi, di in zip((ox, oy, oz), (dx, dy, dz))]
-    tn = torch.maximum(torch.maximum(slabs[0][0], slabs[1][0]), slabs[2][0])
-    tf = torch.minimum(torch.minimum(slabs[0][1], slabs[1][1]), slabs[2][1])
-    active = (tn <= tf) & (tf >= 0.0)
-    t_start = torch.clamp(tn, min=0.0)
-    found, t_hit, hx, hy, hz = _sweep(vol_flat, n, half, (ox, oy, oz), (dx, dy, dz),
-                                      t_start, tf, active)
+    ux, (ox, oy, oz), (dx, dy, dz), active, tf, (found, t_hit, hx, hy, hz) = _primary(
+        vol_flat, cam, n, half, width, height, dev)
     depth = torch.where(found, t_hit, torch.where(active, tf, 0.0))
     idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
     qx, qy, qz = ox + t_hit * dx, oy + t_hit * dy, oz + t_hit * dz
@@ -367,6 +413,8 @@ def k1_trace(vol, cam, *, grid_size, width, height, shadow=True) -> Traced:
         cxn = hx.to(FLOAT) * inv_n
         albedo = [cxn, hy.to(FLOAT) * inv_n, 1.0 - cxn]
     lit = _shade(cam, (qx, qy, qz), co, albedo, (ox, oy, oz))
+    if ages is not None:
+        occl = occl * age_fade(_hit_ages(ages, n, found, hx, hy, hz), total_states)
     rgb = torch.stack([torch.where(found, c * occl, 0.0) for c in lit], dim=-1)
     return Traced(rgb, depth, idx, found, ux, ((ox, dx), (oy, dy), (oz, dz)))
 
@@ -709,10 +757,29 @@ def _gi_light(cam, n, geo, gi_flags, states, light: Lighting):
     return sums[0]
 
 
-def lighting_passes(cam, idx, t, vol, light: Lighting, rgb, *, grid_size, width, height):
-    """render_slab.lighting_passes on K1's frame ``rgb`` (unshadowed):
-    queries, the GI tree's states, the plain K2 on every query, the shade
-    twin.  Returns the frame's light [H, W, 3] with the emissive light."""
+def _miss_depth(cam, d):
+    """render_slab._miss_depth: the volume exit depth [H, W] of the rays
+    along ``d`` that cross the volume, 0 elsewhere."""
+    o = np.asarray(cam[P_O : P_O + 3], np.float32)
+    t1 = torch.stack([torch.full_like(d[..., i], float(np.float32(-0.5) - o[i])) / d[..., i]
+                      for i in range(3)], dim=-1)
+    t2 = torch.stack([torch.full_like(d[..., i], float(np.float32(0.5) - o[i])) / d[..., i]
+                      for i in range(3)], dim=-1)
+    tf = torch.amin(torch.maximum(t1, t2), dim=-1)
+    tn = torch.amax(torch.minimum(t1, t2), dim=-1)
+    crossed = (tn <= tf) & (tf >= 0.0)
+    return torch.where(crossed, tf, 0.0)
+
+
+def lighting_passes(cam, idx, t, vol, light: Lighting, rgb, *, grid_size, width, height,
+                    age=None, total_states=2):
+    """render_slab.lighting_passes: queries, the GI tree's states, the plain
+    K2 on every query, the shade twin.  On K1's frame ``rgb`` (unshadowed,
+    or hard-shadowed under GI alone) returns the frame's light [H, W, 3]
+    with the emissive light.  With ``rgb`` None (the sliced frame, ``t``
+    K4's) the direct light is computed here, faded by the hit's ``age``
+    where given, black on misses: returns (light, depth), the depth t on
+    hits and the volume's exit elsewhere."""
     n = grid_size
     ops = lighting_queries_stacked(cam, idx, t, light, grid_size=n, width=width, height=height)
     kw = dict(grid_size=n, width=width, height=height)
@@ -728,14 +795,49 @@ def lighting_passes(cam, idx, t, vol, light: Lighting, rgb, *, grid_size, width,
     n_soft = light.n_soft
     occl = _soft_occlusion(list(flags[:n_soft] == 1), light.occ_div) if n_soft else None
     gi_rgb = _gi_light(cam, n, geo, flags[n_soft:], states, light) if light.gi else None
-    found = geo[3]
-    out = rgb
-    if occl is not None:
-        out = out * occl[..., None]
-    if gi_rgb is not None:
-        out = out + torch.where(found[..., None], gi_rgb, 0.0)
-    emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], rgb.device)
-    return torch.where(found[..., None], out + emis, out)
+    q, origin, coords, found, d = geo
+    if rgb is None:
+        dev = q.device
+        lpos = device_vec(cam[P_LIGHT : P_LIGHT + 3], dev)
+        o = device_vec(cam[P_O : P_O + 3], dev)
+        color = _shader(cam, n)(q, origin, coords, o, torch.full_like(q, float(cam[P_LMAG])),
+                                lpos)
+        out = torch.clamp(color, min=0.0)
+        if age is not None:
+            fade = age_fade(age, total_states)
+            occl = fade if occl is None else occl * fade
+        if occl is not None:
+            out = out * occl[..., None]
+        if gi_rgb is not None:
+            out = out + gi_rgb
+        out = torch.where(found[..., None], out, 0.0)
+        depth = torch.where(found, t, _miss_depth(cam, d))
+    else:
+        out = rgb
+        if occl is not None:
+            out = out * occl[..., None]
+        if gi_rgb is not None:
+            out = out + torch.where(found[..., None], gi_rgb, 0.0)
+    emis = device_vec(cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS], q.device)
+    out = torch.where(found[..., None], out + emis, out)
+    return out if rgb is not None else (out, depth)
+
+
+def sliced_trace(vol, cam, light: Lighting, ages=None, *, grid_size, width, height,
+                 total_states=2):
+    """render_slab.raytrace_sliced: the plain K4 (every pixel's primary hit:
+    the visible cube's entry t, 0 on a miss, the id, with ``ages`` the hit's
+    age), then :func:`lighting_passes` without K1's frame.  Returns (light
+    [H, W, 3] with the emissive light, depth, ids)."""
+    cam = np.ascontiguousarray(cam, dtype=np.float32)
+    n = grid_size
+    *_, (found, t_hit, hx, hy, hz) = _primary(vol.reshape(-1), cam, n, cell_half(cam, n), width,
+                                              height, vol.device)
+    idx = torch.where(found, hx + hy * n + hz * (n * n), -1).to(torch.int32)
+    age = None if ages is None else _hit_ages(ages, n, found, hx, hy, hz)
+    rgb, depth = lighting_passes(cam, idx, t_hit, vol, light, None, grid_size=n, width=width,
+                                 height=height, age=age, total_states=total_states)
+    return rgb, depth, idx
 
 
 # ------------------------------------------------------- composition ---

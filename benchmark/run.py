@@ -11,7 +11,9 @@ stretch), ``device``, with ``--trace 1`` ``breakdown``, and last ``checks``:
 each number compared with the reference beside its limit, which also end
 standard error.  Exits non-zero with nothing on standard output without the
 CUDA devices the cell needs, when a module of JAX or of the JAX package is
-loaded once the window has closed, or when the trace lost kernel launches.
+loaded once the window has closed, when the trace lost kernel launches, or,
+before the Engine is built, for a configuration whose frames take a path the
+check cannot replay.
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ def main(argv=None) -> int:
     except harness.HarnessError as err:
         print(f"benchmark: {err}", file=sys.stderr, flush=True)
         return err.code
+    except harness.NotInReference as err:
+        print(f"benchmark: {type(err).__name__}: {err}", file=sys.stderr, flush=True)
+        return 5
     found = harness.forbidden_modules()
     if found:
         print(f"benchmark: modules of {', '.join(found)} are loaded", file=sys.stderr, flush=True)
